@@ -1,0 +1,194 @@
+"""Decoder-only LM, dense family: parameters, the attention block and
+its modes, and the full-sequence forward.
+
+Port of ``repro/models/transformer.py`` (``attn_params``,
+``mlp_params``, ``build_params``, ``attn_apply``, ``attn_block``,
+``forward_features``, ``forward``). The stacked layer
+parameters (leading ``L`` dim, as the JAX package stores them) are
+driven by a Python loop over layers; ``layer_params`` splits them once
+per call into per-layer views. Attention modes:
+
+- ``full``: causal attention over the sequence (``chunked_attention``);
+- ``prefill``: write the prompt's K/V into the cache view, then attend
+  over the prompt itself;
+- ``chunk``: write a prompt chunk's K/V at per-row offsets, then attend
+  against the cache (``prefill_attention``: the flash-prefill kernel
+  through the block table under ``attn_impl="cuda"`` and a paged view);
+- ``decode``: append one token's K/V at ``cur_len - 1``, then attend
+  against the cache (``decode_attention``: the paged-attention kernel
+  under ``attn_impl="cuda"`` and a paged view).
+
+Cache views are written in place (the JAX package returns new ones).
+Mode ``full`` has no kernel yet in the port: the JAX package's
+``flash_attention`` kernel is still to be ported (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from . import attention as attn_lib
+from . import layers
+
+
+# =========================== parameters ====================================
+# Structure functions over a parameter source ``b`` whose ``b.p(shape,
+# init=..., scale=..., fan_in=...)`` draws one tensor
+# (``bridge.init_params``), as the JAX package's ``build_params`` runs
+# over the parameter factory of its ``models/params.py``.
+
+def attn_params(b, cfg, d_model: int):
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    # fan_in=d_model: the JAX package's default (shape[-2], the head
+    # count here) makes random full-width attention an argmax
+    # (bridge.init_params)
+    p = {"wq": b.p((d_model, H, hd), fan_in=d_model),
+         "wk": b.p((d_model, KV, hd), fan_in=d_model),
+         "wv": b.p((d_model, KV, hd), fan_in=d_model),
+         "wo": b.p((H, hd, d_model), fan_in=H * hd)}
+    if cfg.qkv_bias:
+        p["bq"] = b.p((H, hd), init="zeros")
+        p["bk"] = b.p((KV, hd), init="zeros")
+        p["bv"] = b.p((KV, hd), init="zeros")
+    return p
+
+
+def mlp_params(b, cfg, d_model: int, d_ff: int):
+    return {"w_gate": b.p((d_model, d_ff)), "w_up": b.p((d_model, d_ff)),
+            "w_down": b.p((d_ff, d_model), fan_in=d_ff)}
+
+
+def _norm_params(b, kind: str, d: int, name: str):
+    if kind == "rmsnorm":
+        return {name: b.p((d,), init="ones")}
+    if kind == "nonparametric_ln":
+        return {}
+    raise NotImplementedError(f"norm {kind!r} is not ported yet")
+
+
+class _Stacked:
+    """Wrap a parameter source so every param gains a leading
+    (layers,) dim."""
+
+    def __init__(self, b, n: int):
+        self._b, self._n = b, n
+
+    def p(self, shape, **kw):
+        return self._b.p((self._n, *shape), **kw)
+
+
+def build_params(cfg, b):
+    """The dense family's parameter tree (the JAX package's names and
+    layouts; layer leaves stacked on a leading L dim)."""
+    D = cfg.d_model
+    lb = _Stacked(b, cfg.n_layers)
+    layers_p = {**_norm_params(lb, cfg.norm, D, "ln_attn"),
+                "attn": attn_params(lb, cfg, D),
+                **_norm_params(lb, cfg.norm, D, "ln_mlp"),
+                "mlp": mlp_params(lb, cfg, D, cfg.d_ff)}
+    p = {"embed": b.p((cfg.padded_vocab, D), init="normal", scale=0.02),
+         "layers": layers_p, **_norm_params(b, cfg.norm, D, "ln_final")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = b.p((D, cfg.padded_vocab), init="normal",
+                           scale=0.02)
+    return p
+
+
+def layer_params(stacked: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Per-layer views of the stacked layer tree (one ``unbind`` per
+    leaf, no copies)."""
+    def unbind(t):
+        if isinstance(t, dict):
+            return {k: unbind(v) for k, v in t.items()}
+        return t.unbind(0)
+
+    def pick(t, i):
+        if isinstance(t, dict):
+            return {k: pick(v, i) for k, v in t.items()}
+        return t[i]
+
+    flat = unbind(stacked)
+    n = len(next(iter(_leaves(flat))))
+    return [pick(flat, i) for i in range(n)]
+
+
+def _leaves(t):
+    if isinstance(t, dict):
+        for v in t.values():
+            yield from _leaves(v)
+    else:
+        yield t
+
+
+def attn_apply(p, x, cfg, *, positions, mode: str = "full",
+               kv_cache=None, cur_len=None, chunk_off=None):
+    """One attention sublayer; returns its output (B, S, d_model) in
+    x's dtype. ``kv_cache`` is a cache layer view (``serve.kv_cache``)
+    in the prefill, chunk and decode modes."""
+    cdt = cfg.dtype("compute")
+    xc = x.to(cdt)
+    B, S, D = xc.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (xc @ p["wq"].reshape(D, H * hd)).reshape(B, S, H, hd)
+    k = (xc @ p["wk"].reshape(D, KV * hd)).reshape(B, S, KV, hd)
+    v = (xc @ p["wv"].reshape(D, KV * hd)).reshape(B, S, KV, hd)
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = layers.rope(q, positions, cfg.rope_theta)
+    k = layers.rope(k, positions, cfg.rope_theta)
+
+    if mode in ("full", "prefill"):
+        if mode == "prefill":
+            kv_cache.write_prompt(k, v)
+        out = attn_lib.chunked_attention(
+            q, k, v, causal=True, q_chunk=cfg.attn_q_chunk,
+            k_chunk=cfg.attn_k_chunk,
+            skip_masked_blocks=cfg.attn_skip_masked_blocks)
+    elif mode == "chunk":
+        kv_cache.write_chunk(k, v, chunk_off)
+        out = attn_lib.prefill_attention(q, kv_cache, q_off=chunk_off,
+                                         attn_impl=cfg.attn_impl,
+                                         k_chunk=cfg.attn_k_chunk)
+    elif mode == "decode":
+        kv_cache.append(k, v, cur_len)
+        out = attn_lib.decode_attention(q, kv_cache, cur_len=cur_len,
+                                        attn_impl=cfg.attn_impl)
+    else:
+        raise ValueError(mode)
+    out = out.to(cdt).reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
+    return out.to(x.dtype)
+
+
+def attn_block(p, x, cfg, *, positions, mode="full", kv_cache=None,
+               cur_len=None, chunk_off=None):
+    """Pre-norm attention + SwiGLU MLP block; returns the new x."""
+    h = layers.apply_norm(cfg.norm, x, p, "ln_attn")
+    x = x + attn_apply(p["attn"], h, cfg, positions=positions, mode=mode,
+                       kv_cache=kv_cache, cur_len=cur_len,
+                       chunk_off=chunk_off)
+    h = layers.apply_norm(cfg.norm, x, p, "ln_mlp")
+    m = layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                      p["mlp"]["w_down"], cfg.dtype("compute"))
+    return x + m.to(x.dtype)
+
+
+def unembed_weight(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def forward_features(params, cfg, tokens):
+    """Backbone + final norm, no unembed. tokens: (B, S) int."""
+    x = params["embed"][tokens]
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    for lp in layer_params(params["layers"]):
+        x = attn_block(lp, x, cfg, positions=positions, mode="full")
+    return layers.apply_norm(cfg.norm, x, params, "ln_final")
+
+
+def forward(params, cfg, tokens):
+    """Full-sequence logits (B, S, padded_vocab)."""
+    x = forward_features(params, cfg, tokens)
+    cdt = cfg.dtype("compute")
+    return x.to(cdt) @ unembed_weight(params, cfg)

@@ -1,0 +1,426 @@
+"""Slot-based continuous-batching decode scheduler with chunked prefill.
+
+Port of the chunked-prefill core of ``repro/serve/scheduler.py``. The
+engine owns a fixed pool of ``n_slots`` decode slots, each one row of a
+shared KV cache plus per-slot registers on the device (``cur_len``,
+``n_emitted``, ``budget``, ``active``, ``done``, ``prefilling``,
+``pf_pos`` ...). Slot lifecycle: FREE -> PREFILLING (assigned at
+admission: registers and block tables, no model forward) -> RUNNING ->
+DONE (retired on EOS or budget, its cache blocks freed on the device)
+-> FREE (host harvest).
+
+Every iteration of a segment advances each prefilling slot by at most
+``chunk_tokens`` prompt positions (``engine.prefill_chunk``, through the
+flash-prefill kernel when the cache is paged and ``cfg.attn_impl ==
+"cuda"``) and decodes every running slot one token
+(``engine.decode_step``, through the paged-attention kernel). A slot
+whose chunk covers its last prompt position samples its first token
+and decodes in the same iteration.
+
+The JAX package runs a segment as one ``core.while_loop`` whose
+predicate and two ``lax.cond`` branches stay on the device. Eager
+PyTorch has no such loop, so here each iteration starts with ONE host
+read of three small flag vectors (``active``, ``prefilling`` and the
+slots whose prefill finishes this iteration), which decides the
+predicate and both branches. That sync is the known cost of this
+slice (PERF.md); capturing segments in CUDA graphs is its remedy
+(ROADMAP.md).
+
+Per-request greedy outputs equal ``engine.generate_batch_sync``'s, and
+are identical between ``kv="dense"`` and ``kv="paged"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from . import engine, kv_cache as kvc
+from . import sampling as sampling_lib
+
+
+@dataclasses.dataclass
+class SlotPool:
+    """Device-resident scheduler state, one entry per slot."""
+
+    cache: Dict[str, Any]    # engine.make_cache(cfg, n_slots, max_len, ...)
+    next_token: torch.Tensor  # (n,) int32 — token to feed the next step
+    cur_len: torch.Tensor    # (n,) int32 — valid cache positions + 1
+    n_emitted: torch.Tensor  # (n,) int32
+    budget: torch.Tensor     # (n,) int32 — per-request max_new
+    active: torch.Tensor     # (n,) bool — RUNNING
+    done: torch.Tensor       # (n,) bool — retired, awaiting harvest
+    request_id: torch.Tensor  # (n,) int32
+    out: torch.Tensor        # (n, max_new_cap) int32 — emissions
+    prompt: torch.Tensor     # (n, prompt_len) int32 — resident prompts
+    plen: torch.Tensor       # (n,) int32 — true prompt length
+    pf_pos: torch.Tensor     # (n,) int32 — prompt positions written
+    prefilling: torch.Tensor  # (n,) bool
+
+
+@dataclasses.dataclass
+class FinishedRequest:
+    request_id: int
+    tokens: np.ndarray       # (length,) — EOS included when hit
+    length: int              # emitted tokens, EOS included
+    text_length: int         # tokens before EOS
+    hit_eos: bool
+
+
+@dataclasses.dataclass
+class _Queued:
+    request_id: int
+    prompt: np.ndarray       # (1, L) int32, 1 <= L <= prompt_len
+    max_new: int
+
+
+class DecodeScheduler:
+    """Continuous-batching host loop over a slot pool.
+
+    Args:
+      params / cfg: the port's parameters (``bridge``) and config; the
+        pool lives on the parameters' device, and ``cfg.attn_impl``
+        selects the attention path.
+      n_slots: decode slots (rows of the KV cache).
+      prompt_len: longest prompt accepted.
+      max_new_cap: largest per-request ``max_new``.
+      kv: "dense" or "paged" KV cache; ``kv_block``/``kv_blocks`` size
+        the paged pool (default: dense-equivalent capacity).
+      prefill: "chunked" (the only admission mode ported so far).
+      chunk_tokens: prompt positions each prefilling slot advances per
+        iteration.
+    """
+
+    def __init__(self, params, cfg, *, n_slots: int, prompt_len: int,
+                 max_new_cap: int, eos_id: int = 1,
+                 sampling: sampling_lib.SamplingParams =
+                 sampling_lib.SamplingParams(),
+                 kv: str = "dense", kv_block: int = 16,
+                 kv_blocks: Optional[int] = None,
+                 prefill: str = "chunked", chunk_tokens: int = 16):
+        if n_slots < 1 or max_new_cap < 1:
+            raise ValueError("need n_slots >= 1 and max_new_cap >= 1")
+        if kv not in ("dense", "paged"):
+            raise ValueError(f"kv must be 'dense' or 'paged'; got {kv!r}")
+        if prefill != "chunked":
+            raise NotImplementedError(
+                f"prefill={prefill!r}: only chunked admission is ported; "
+                f"one-shot bucketed admission is queued in ROADMAP.md")
+        if chunk_tokens < 1:
+            raise ValueError("chunk_tokens must be >= 1")
+        self.cfg, self.params = cfg, params
+        self.device = params["embed"].device
+        self.n_slots, self.prompt_len = n_slots, prompt_len
+        self.max_new_cap = max_new_cap
+        self.eos_id = int(eos_id)
+        self.sampling = sampling
+        self.max_len = prompt_len + max_new_cap + 1
+        self.prefill = prefill
+        self.chunk_tokens = int(chunk_tokens)
+        self.kv, self.kv_block = kv, kv_block
+        self.kv_blocks = (n_slots * kvc.blocks_needed(self.max_len, kv_block)
+                          if kv_blocks is None else int(kv_blocks))
+        self._next_rid = 0
+        self.queue: List[_Queued] = []
+        # host mirrors of slot occupancy and (paged) free blocks, kept
+        # in step with the device so admission never reads the device
+        self._busy = np.zeros(n_slots, bool)
+        self._slot_blocks = np.zeros(n_slots, np.int64)
+        self._free_blocks = self.kv_blocks
+        self.total_steps = 0       # loop iterations
+        self.busy_slot_steps = 0   # sum over iterations of decoding slots
+        self.tokens_emitted = 0
+        self.pool = self._init_pool()
+
+    # ---------------- pool construction ----------------
+
+    def _init_pool(self) -> SlotPool:
+        n, dev = self.n_slots, self.device
+
+        def z(*shape, dtype=torch.int32, fill=0):
+            return torch.full(shape, fill, dtype=dtype, device=dev)
+
+        return SlotPool(
+            cache=engine.make_cache(self.cfg, n, self.max_len,
+                                    kv_impl=self.kv, kv_block=self.kv_block,
+                                    kv_blocks=self.kv_blocks, device=dev),
+            next_token=z(n), cur_len=z(n, fill=1), n_emitted=z(n),
+            budget=z(n), active=z(n, dtype=torch.bool),
+            done=z(n, dtype=torch.bool), request_id=z(n, fill=-1),
+            out=z(n, self.max_new_cap), prompt=z(n, self.prompt_len),
+            plen=z(n), pf_pos=z(n), prefilling=z(n, dtype=torch.bool))
+
+    # ---------------- device-side steps -------------------------------
+
+    def _assign(self, prompts, plens, slots, rids, max_news, mask) -> None:
+        """Admission: free + alloc the slots' blocks, register the
+        requests as PREFILLING. ``slots`` is a permutation of the slot
+        ids whose masked entries are the free slots being filled; the
+        other entries rewrite their own values."""
+        p = self.pool
+        node = p.cache["attn"]
+        node.free(slots, mask=mask)
+        node.alloc(slots, plens + max_news + 1, mask=mask)
+        idx = slots.long()
+
+        def sreg(vec, new):
+            m = mask.reshape((-1,) + (1,) * (vec.dim() - 1))
+            vec[idx] = torch.where(m, new.to(vec.dtype), vec[idx])
+
+        zeros = torch.zeros_like(rids)
+        sreg(p.next_token, zeros)
+        sreg(p.cur_len, zeros + 1)
+        sreg(p.n_emitted, zeros)
+        sreg(p.budget, max_news)
+        sreg(p.active, zeros.bool())
+        sreg(p.done, zeros.bool())
+        sreg(p.request_id, rids)
+        sreg(p.out, torch.zeros_like(p.out))
+        sreg(p.prompt, prompts)
+        sreg(p.plen, plens)
+        sreg(p.pf_pos, zeros)
+        sreg(p.prefilling, torch.ones_like(mask))
+
+    def _chunk(self) -> None:
+        """Advance every PREFILLING slot by one chunk; a slot whose
+        chunk covers its last prompt position samples its first token
+        there and turns RUNNING."""
+        p, C, n = self.pool, self.chunk_tokens, self.n_slots
+        logits = engine.prefill_chunk(self.params, self.cfg, p.prompt,
+                                      p.cache, p.pf_pos, chunk=C,
+                                      mask=p.prefilling)
+        fin = p.prefilling & (p.pf_pos + C >= p.plen)
+        last = (p.plen - 1 - p.pf_pos).clamp(0, C - 1).long()
+        rows = torch.arange(n, device=self.device)
+        t0 = sampling_lib.sample_slots(logits[rows, last], self.sampling)
+        p.next_token = torch.where(fin, t0, p.next_token)
+        p.cur_len = torch.where(fin, p.plen + 1, p.cur_len)
+        p.pf_pos = torch.where(p.prefilling, p.pf_pos + C, p.pf_pos)
+        p.prefilling = p.prefilling & ~fin
+        p.active = p.active | fin
+
+    def _decode(self) -> None:
+        """Emit each RUNNING slot's pending token, retire slots that hit
+        EOS or their budget (freeing their blocks on the device), and
+        decode every slot one token. Appends are gated to emitting rows:
+        a mid-prefill slot's stale ``cur_len`` points into its prompt."""
+        p, n = self.pool, self.n_slots
+        tok, emit = p.next_token, p.active
+        rows = torch.arange(n, device=self.device)
+        idx = p.n_emitted.clamp(0, self.max_new_cap - 1).long()
+        p.out[rows, idx] = torch.where(emit, tok, p.out[rows, idx])
+        n_emitted = p.n_emitted + emit.int()
+        finished = emit & ((tok == self.eos_id) | (n_emitted >= p.budget))
+        active = emit & ~finished
+        p.cache["attn"].free(mask=finished)
+        logits = engine.decode_step(self.params, self.cfg, tok[:, None],
+                                    p.cache, p.cur_len, write_mask=emit)
+        nxt = sampling_lib.sample_slots(logits[:, 0], self.sampling)
+        p.next_token = torch.where(active, nxt, tok)
+        p.cur_len = p.cur_len + active.int()
+        p.n_emitted = n_emitted
+        p.active = active
+        p.done = p.done | finished
+
+    def _read_flags(self):
+        """The per-iteration host sync: (active, prefilling, finishing)
+        as numpy bool vectors, where ``finishing`` marks the prefilling
+        slots whose chunk this iteration covers their last position."""
+        p = self.pool
+        fin = p.prefilling & (p.pf_pos + self.chunk_tokens >= p.plen)
+        flags = torch.stack([p.active, p.prefilling, fin]).cpu().numpy()
+        return flags[0], flags[1], flags[2]
+
+    def _iterate(self, any_prefilling: bool, running) -> None:
+        """One loop iteration: a chunk for the prefilling slots, then a
+        decode for the running ones (including those finishing their
+        prefill now)."""
+        if any_prefilling:
+            self._chunk()
+        if running.any():
+            self._decode()
+        self.total_steps += 1
+        self.busy_slot_steps += int(running.sum())
+
+    def _segment(self, want: int) -> None:
+        """Iterate while some slot is busy and fewer than ``want`` slots
+        are idle (the JAX package's segment predicate)."""
+        self.pool.done.zero_()
+        while True:
+            active, prefilling, finishing = self._read_flags()
+            busy = active | prefilling
+            if not busy.any() or self.n_slots - int(busy.sum()) >= want:
+                return
+            self._iterate(bool(prefilling.any()), active | finishing)
+
+    # ---------------- host side ---------------------------------------
+
+    @property
+    def free_slots(self) -> int:
+        return int(self.n_slots - self._busy.sum())
+
+    @property
+    def free_blocks(self) -> int:
+        """Host mirror of the paged free-list (pool capacity for dense)."""
+        return int(self._free_blocks)
+
+    @property
+    def active_count(self) -> int:
+        return int(self._busy.sum())
+
+    @property
+    def pending(self) -> int:
+        """Requests not yet finished (queued + in slots)."""
+        return len(self.queue) + int(self._busy.sum())
+
+    def blocks_for(self, true_len: int, max_new: int) -> int:
+        """Blocks a request holds while resident (0 for dense); agrees
+        with the device-side alloc of ``true_len + max_new + 1``."""
+        if self.kv != "paged":
+            return 0
+        return int(kvc.blocks_needed(true_len + max_new + 1, self.kv_block))
+
+    def submit(self, prompt, *, max_new: int,
+               request_id: Optional[int] = None) -> int:
+        """Queue one request. prompt: (1, L) int, 1 <= L <= prompt_len."""
+        prompt = np.asarray(prompt)
+        if prompt.ndim != 2 or prompt.shape[0] != 1 or \
+                not 1 <= prompt.shape[1] <= self.prompt_len:
+            raise ValueError(f"prompt must be (1, L) with 1 <= L <= "
+                             f"{self.prompt_len}; got {prompt.shape}")
+        if not 1 <= max_new <= self.max_new_cap:
+            raise ValueError(f"max_new must be in [1, {self.max_new_cap}]")
+        need = self.blocks_for(prompt.shape[1], max_new)
+        if need > self.kv_blocks:
+            raise ValueError(
+                f"request needs {need} cache blocks but the paged pool "
+                f"only has kv_blocks={self.kv_blocks}")
+        rid = self._next_rid if request_id is None else int(request_id)
+        self._next_rid = max(self._next_rid, rid) + 1
+        self.queue.append(_Queued(rid, prompt.astype(np.int32),
+                                  int(max_new)))
+        return rid
+
+    def _admit_queued(self) -> int:
+        """Fill free slots from the queue, FIFO, while each request's
+        blocks fit the free-list (head-of-line blocking keeps order)."""
+        if not self.queue or self.free_slots == 0:
+            return 0
+        batch: List[_Queued] = []
+        blocks_free = self._free_blocks
+        while self.queue and len(batch) < self.free_slots:
+            q = self.queue[0]
+            need = self.blocks_for(q.prompt.shape[1], q.max_new)
+            if need > blocks_free:
+                break
+            blocks_free -= need
+            batch.append(self.queue.pop(0))
+        k = len(batch)
+        if k == 0:
+            return 0
+        n, L = self.n_slots, self.prompt_len
+        free = np.nonzero(~self._busy)[0]
+        slots = np.concatenate([free, np.nonzero(self._busy)[0]])
+        mask = np.zeros(n, bool)
+        mask[:k] = True
+        prompts = np.zeros((n, L), np.int32)
+        plens = np.full(n, L, np.int32)
+        rids = np.full(n, -1, np.int32)
+        max_news = np.zeros(n, np.int32)
+        for i, q in enumerate(batch):
+            tl = q.prompt.shape[1]
+            prompts[i, :tl] = q.prompt[0]
+            plens[i] = tl
+            rids[i] = q.request_id
+            max_news[i] = q.max_new
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+
+        self._assign(dev(prompts), dev(plens), dev(slots.astype(np.int32)),
+                     dev(rids), dev(max_news), dev(mask))
+        for i, q in enumerate(batch):
+            slot = int(free[i])
+            need = self.blocks_for(q.prompt.shape[1], q.max_new)
+            self._busy[slot] = True
+            self._slot_blocks[slot] = need
+            self._free_blocks -= need
+        return k
+
+    def _harvest(self) -> List[FinishedRequest]:
+        p = self.pool
+        done = p.done.cpu().numpy()
+        if not done.any():
+            return []
+        out = p.out.cpu().numpy()
+        n_emitted = p.n_emitted.cpu().numpy()
+        rids = p.request_id.cpu().numpy()
+        got = []
+        for slot in np.nonzero(done)[0]:
+            length = int(n_emitted[slot])
+            toks = out[slot, :length].copy()
+            hit_eos = length > 0 and int(toks[-1]) == self.eos_id
+            got.append(FinishedRequest(
+                request_id=int(rids[slot]), tokens=toks, length=length,
+                text_length=length - int(hit_eos), hit_eos=hit_eos))
+            self.tokens_emitted += length
+            self._busy[slot] = False
+            # the device freed these blocks at retirement; the host
+            # mirror learns here, before the next admission
+            self._free_blocks += int(self._slot_blocks[slot])
+            self._slot_blocks[slot] = 0
+        return got
+
+    def step(self, expect_arrivals: bool = False) -> List[FinishedRequest]:
+        """One scheduling round: admit -> segment -> harvest. With an
+        empty queue the segment drains (retirements do not pause it)
+        unless ``expect_arrivals``: then it returns as soon as a slot
+        frees, so a request arriving mid-drain is admitted promptly."""
+        self._admit_queued()
+        if self.active_count == 0:
+            return []
+        if not self.queue and not expect_arrivals:
+            want = self.n_slots + 1
+        else:
+            want = self.free_slots + 1
+        self._segment(want)
+        return self._harvest()
+
+    def run_until_drained(self) -> List[FinishedRequest]:
+        """Drive until queue and pool are empty; returns all finished."""
+        results: List[FinishedRequest] = []
+        while self.pending:
+            before = self.pending
+            results.extend(self.step())
+            if self.pending == before:
+                raise RuntimeError("scheduler made no progress")
+        return results
+
+    def reset_stats(self) -> None:
+        """Zero the run counters. Callers reset between runs (after a
+        warm-up, say); the JAX package's scheduler resets itself when
+        work reaches an idle pool, which splits an open-loop run at every
+        gap between arrivals."""
+        self.total_steps = 0
+        self.busy_slot_steps = 0
+        self.tokens_emitted = 0
+
+    @property
+    def occupancy(self) -> float:
+        """Mean fraction of slots decoding over all loop iterations
+        (prefill-only iterations count as idle decode capacity)."""
+        if self.total_steps == 0:
+            return 0.0
+        return self.busy_slot_steps / (self.total_steps * self.n_slots)
+
+    @property
+    def attn_impl(self) -> str:
+        return engine.resolved_attn_impl(self.cfg, self.kv, self.device)
+
+    @property
+    def prefill_impl(self) -> str:
+        return engine.resolved_prefill_impl(self.cfg, self.kv, self.prefill,
+                                            self.device)

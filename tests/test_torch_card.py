@@ -1,0 +1,133 @@
+"""The port's CUDA kernels on the card. Every test here is marked
+``cuda`` and skips where there is no NVIDIA GPU (the kernels have no CPU
+mode). The file imports neither ``jax`` nor ``repro``, so it runs on a
+machine with only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_card.py
+
+Tolerances: the kernel and its plain version compute the same fp32 math
+in another order: fp32 1e-4; bf16 outputs are rounded on both sides,
+2e-2 (about two bf16 ulps at magnitude 1).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_prefill import kernel as fp_kernel
+from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.kernels.paged_attention import kernel as pa_kernel
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.serve import kv_cache as kvc
+from repro_torch.serve import scheduler as sched_lib
+
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+def _case(kind, B, H, KV, hd, block, bpr, C, dtype, device, seed=0):
+    """Shuffled table, -1 past each row's need, ragged lengths with a
+    cur_len = 0 row (decode) or a chunk running off the table
+    (prefill)."""
+    rng = np.random.default_rng(seed)
+    n_blocks, T = B * bpr + 3, block * bpr
+    if kind == "decode":
+        lens = rng.integers(1, T + 1, B)
+        lens[0], lens[1], lens[-1] = 0, 1, T
+        need = -(-lens // block)
+        q = rng.standard_normal((B, 1, H, hd))
+    else:
+        lens = rng.integers(0, T - C, B)
+        lens[-1] = T - C // 2
+        need = -(-np.minimum(lens + C, T) // block)
+        q = rng.standard_normal((B, C, H, hd))
+    table = rng.permutation(n_blocks)[:B * bpr].reshape(B, bpr)
+    table = np.where(np.arange(bpr)[None] < need[:, None], table, -1)
+    pools = rng.standard_normal((2, n_blocks, block, KV, hd))
+    dt = getattr(torch, dtype)
+    return (torch.tensor(q, dtype=dt, device=device),
+            torch.tensor(pools[0], dtype=dt, device=device),
+            torch.tensor(pools[1], dtype=dt, device=device),
+            torch.tensor(table, dtype=torch.int32, device=device),
+            torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 64), (28, 4, 128),
+                                     (16, 16, 128), (9, 3, 64),
+                                     (48, 2, 64)])
+def test_kernel_matches_plain_version(cuda_device, kind, dtype, H, KV, hd):
+    """G = 4, 7, 1, 3 (the four dense configs) and G = 24 (query tiles
+    split over the grid)."""
+    args = _case(kind, 5, H, KV, hd, 16, 9, 40, dtype, cuda_device)
+    kern, plain = ((pa_kernel.paged_attention, paged_attention_ref)
+                   if kind == "decode"
+                   else (fp_kernel.flash_prefill, flash_prefill_ref))
+    before = kern.launches
+    out = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    torch.testing.assert_close(out.float(), plain(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    if kind == "decode":
+        assert torch.count_nonzero(out[0]) == 0          # cur_len == 0
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_cannot_take(cuda_device):
+    q, kp, vp, table, lens = _case("decode", 2, 8, 2, 32, 16, 2, 1,
+                                   "float32", cuda_device)
+    with pytest.raises(ValueError, match="hd"):
+        pa_kernel.paged_attention(q, kp, vp, table, lens)
+    q, kp, vp, table, lens = _case("decode", 2, 8, 2, 64, 16, 2, 1,
+                                   "float32", cuda_device)
+    with pytest.raises(TypeError):
+        pa_kernel.paged_attention(q.half(), kp.half(), vp.half(), table,
+                                  lens)
+    with pytest.raises(TypeError):
+        pa_kernel.paged_attention(q, kp, vp, table.long(), lens)
+
+
+@pytest.mark.cuda
+def test_scheduler_kernel_path_equals_gather_path_on_card(cuda_device):
+    """A smoke model through the chunked paged scheduler on the card:
+    the kernel path's greedy streams equal the gather path's in fp32,
+    and the kernel path never gathers."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                              compute_dtype="float32", head_dim=64,
+                              n_heads=8, n_kv_heads=2, d_model=128)
+    params = bridge.init_params(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(2, cfg.vocab, (1, n)).astype(np.int32), m)
+            for n, m in ((30, 9), (7, 12), (25, 5), (1, 8), (18, 10))]
+    streams = {}
+    for impl in ("cuda", "gather"):
+        sched = sched_lib.DecodeScheduler(
+            params, dataclasses.replace(cfg, attn_impl=impl), n_slots=2,
+            prompt_len=32, max_new_cap=12, eos_id=-1, kv="paged",
+            kv_block=16, chunk_tokens=8)
+        for rid, (p, m) in enumerate(reqs):
+            sched.submit(p, max_new=m, request_id=rid)
+        gathers = kvc.PagedView.gather_calls
+        streams[impl] = {f.request_id: f.tokens
+                         for f in sched.run_until_drained()}
+        if impl == "cuda":
+            assert kvc.PagedView.gather_calls == gathers
+            assert sched.attn_impl == "cuda-paged:sm_90a"
+    for rid, (_, m) in enumerate(reqs):
+        assert len(streams["cuda"][rid]) == m
+        np.testing.assert_array_equal(streams["cuda"][rid],
+                                      streams["gather"][rid])

@@ -1,0 +1,121 @@
+"""The port's block-table attention kernels against the JAX package's.
+
+On the CPU the port's wrappers run their plain PyTorch versions; they
+are held to the JAX package's Pallas kernels (interpret mode, as its own
+tests run them) and to its jnp oracles, on the same inputs made with
+numpy. The CUDA kernels themselves are tested on the card by
+``tests/test_torch_card.py``.
+
+Tolerances: fp32 2e-5 (the JAX package's own kernel-vs-oracle bound:
+the same fp32 math summed in another order); bf16 2e-2 (both sides
+round an fp32 result to bf16, one ulp at magnitude 1 is 7.8e-3).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.flash_prefill.ops import flash_prefill as jax_fp
+from repro.kernels.flash_prefill.ops import flash_prefill_ref as jax_fp_ref
+from repro.kernels.paged_attention.ops import paged_attention as jax_pa
+from repro.kernels.paged_attention.ops import \
+    paged_attention_ref as jax_pa_ref
+from repro_torch.kernels.flash_prefill.ops import flash_prefill
+from repro_torch.kernels.paged_attention.ops import paged_attention
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# (B, H, KV, hd, block, bpr): G = H / KV in {1, 3, 4, 7}
+GEOMS = [(3, 4, 4, 16, 4, 5),
+         (3, 6, 2, 16, 4, 4),
+         (2, 8, 2, 32, 8, 3),
+         (3, 7, 1, 16, 4, 5)]
+
+
+def _case(kind, B, H, KV, hd, block, bpr, seed, C=5):
+    """Shuffled table with -1 entries past each row's need; decode rows
+    include cur_len 1 and a full row, prefill rows include a chunk that
+    runs past the table's end."""
+    rng = np.random.default_rng(seed)
+    n_blocks = B * bpr + 3
+    T = block * bpr
+    kp = rng.standard_normal((n_blocks, block, KV, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_blocks, block, KV, hd)).astype(np.float32)
+    if kind == "decode":
+        q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+        lens = rng.integers(1, T + 1, B)
+        lens[0], lens[-1] = 1, T
+        need = -(-lens // block)
+    else:
+        q = rng.standard_normal((B, C, H, hd)).astype(np.float32)
+        lens = rng.integers(0, T - C, B)
+        lens[0], lens[-1] = 0, T - 2           # last row runs off the table
+        need = -(-np.minimum(lens + C, T) // block)
+    table = rng.permutation(n_blocks)[:B * bpr].reshape(B, bpr)
+    table = np.where(np.arange(bpr)[None] < need[:, None], table, -1)
+    return q, kp, vp, table.astype(np.int32), lens.astype(np.int32)
+
+
+def _both(args, dtype):
+    """(jax operands, torch operands) in ``dtype`` (both frameworks
+    round the same fp32 values to bf16 the same way)."""
+    q, kp, vp, table, lens = args
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    td = getattr(torch, dtype)
+    j = [jnp.asarray(a).astype(jd) for a in (q, kp, vp)] + \
+        [jnp.asarray(table), jnp.asarray(lens)]
+    t = [torch.from_numpy(a).to(td) for a in (q, kp, vp)] + \
+        [torch.from_numpy(table), torch.from_numpy(lens)]
+    return j, t
+
+
+def _close(ours, theirs, dtype, rows=slice(None)):
+    np.testing.assert_allclose(
+        ours.float().numpy()[rows],
+        np.asarray(theirs.astype(jnp.float32))[rows],
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=lambda g: f"G{g[1] // g[2]}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_matches_jax(geom, dtype):
+    j, t = _both(_case("decode", *geom, seed=1), dtype)
+    ours = paged_attention(*t)
+    _close(ours, jax_pa(*j), dtype)          # Pallas kernel, every row
+    _close(ours, jax_pa_ref(*j), dtype)      # oracle (cur_len >= 1 here)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_zero_length_row(dtype):
+    """cur_len == 0 (a free slot): the kernel contract is 0, which the
+    JAX package's Pallas kernel also returns; its jnp oracle returns the
+    mean of the masked lanes there, so the oracle is held on the other
+    rows only."""
+    args = list(_case("decode", *GEOMS[1], seed=2))
+    args[4][1] = 0
+    j, t = _both(args, dtype)
+    ours = paged_attention(*t)
+    assert torch.count_nonzero(ours[1]) == 0
+    _close(ours, jax_pa(*j), dtype)
+    keep = np.arange(len(args[4])) != 1
+    _close(ours, jax_pa_ref(*j), dtype, rows=keep)
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=lambda g: f"G{g[1] // g[2]}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_prefill_matches_jax(geom, dtype):
+    j, t = _both(_case("prefill", *geom, seed=3), dtype)
+    ours = flash_prefill(*t)
+    _close(ours, jax_fp(*j), dtype)
+    _close(ours, jax_fp_ref(*j), dtype)
+
+
+def test_flash_prefill_single_position_chunk_is_decode():
+    """A one-token chunk at q_off = cur_len - 1 is exactly decode."""
+    q, kp, vp, table, lens = [torch.from_numpy(a) for a in
+                              _case("decode", *GEOMS[2], seed=4)]
+    dec = paged_attention(q, kp, vp, table, lens)
+    pre = flash_prefill(q, kp, vp, table, lens - 1)
+    torch.testing.assert_close(pre, dec, rtol=1e-6, atol=1e-6)
