@@ -7,9 +7,9 @@ Phases, each printing its own lines:
 
 1. the card: its name and power limit as ``nvidia-smi`` reports them;
    TF32 is switched off for matmuls and cuDNN;
-2. the build: both kernels compiled from ``src/repro_torch/kernels/csrc``
-   with ``nvcc``, one process each, with ptxas's register and shared
-   memory report;
+2. the build: the three kernels compiled from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc``, one process each, all
+   started together, with ptxas's register and shared memory report;
 3. each kernel against its plain PyTorch version on the card, at the
    llama3.2-1b, qwen2-7b, olmo-1b and smollm-135m attention geometries
    (G = 4, 7, 1, 3; hd = 64, 128), in bf16 and
@@ -23,9 +23,20 @@ Phases, each printing its own lines:
    chunked prefill and both kernels: every request must finish, both
    kernels must have launched and the gather path must not have run;
 5. the same requests in fp32 through the kernel path and the gather
-   path: the greedy streams must be identical.
+   path: the greedy streams must be identical;
+6. the selective-scan kernel against its plain version on the card at
+   the falcon-mamba-7b chunk (B=8, Q=128, Di=8192, N=16), one row, an
+   odd Q, and the smoke width (N=8), every case with a non-zero
+   incoming state; then timed at the serving chunk beside the plain
+   version and the bound;
+7. serving falcon-mamba-7b at full width and depth (random weights
+   from a seed, bf16, ``scan_impl="cuda"``) through one-shot admission:
+   every request must finish and the kernel must have launched;
+8. 8 of those requests in fp32 through the kernel's scan and the plain
+   blocked scan: the greedy streams must be identical.
 
-Then one JSON line of kernel records and, last, the device line. Any
+The llama3.2-1b weights are freed before falcon-mamba's are made. Then
+one JSON line of kernel records and, last, the device line. Any
 failed check raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA device is present.
 """
@@ -44,6 +55,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # fp32 outside the tensor cores
+SMS = 132                          # H100 SXM streaming multiprocessors
+SFU_PER_CLOCK = 16                 # ex2 results per clock per SM (sm_90)
 TOL = {"bfloat16": 1.6e-2,  # two bf16 ulps at magnitude 1: the output
        #                     is rounded to bf16 on both sides
        "float32": 1e-4}     # fp32 sums in another order over up to
@@ -55,7 +68,11 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/paged_attention/kernel.py:51"),
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill/kernel.py:50"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan/kernel.py:27"),
 }
+SCAN_TOL = 1e-4     # fp32: N-term sums in another order, fused
+#                     multiply-adds, states of magnitude up to ~10
 
 
 def log(msg: str) -> None:
@@ -287,6 +304,224 @@ def serving_requests(cfg, n=16, prompt_len=512):
              32 if i % 2 == 0 else 64) for i in range(n)]
 
 
+def scan_case(seed, B, Q, Di, N):
+    """Operands of one selective-scan chunk on the card, as
+    mamba1_forward makes them (softplus'd steps, A = -exp(A_log)), with
+    a non-zero incoming state."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    dt = torch.nn.functional.softplus(randn(B, Q, Di) - 1.0)
+    A = -torch.exp(0.5 * randn(Di, N))
+    return [t.cuda() for t in (dt, A, randn(B, Q, N), randn(B, Q, N),
+                               randn(B, Q, Di), randn(B, Di, N))]
+
+
+def scan_bound(dt, A, B_, C_, x, h0):
+    """(bound_ms, bound_by) of one chunk: bytes (dt, x, B_, C_, A, h0
+    read once; y, h_out written once) over HBM bandwidth, against the
+    B*Q*Di*N exponentials at the SFU's rate at the card's top SM clock
+    (the multiply-adds beside them need less time at the fp32 rate)."""
+    Bn, Q, Di = x.shape
+    N = A.shape[1]
+    nbytes = 4 * (3 * Bn * Q * Di + 2 * Bn * Di * N + Di * N
+                  + 2 * Bn * Q * N)
+    clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    exps = Bn * Q * Di * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(exps / (SMS * SFU_PER_CLOCK * clock_hz),
+                4 * exps / PEAK_FLOPS["float32"]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_scan_kernel():
+    """The selective-scan kernel against its plain version, then timed
+    at the falcon-mamba serving chunk. Returns its record (launches 0:
+    the serving phase fills them in)."""
+    import torch
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    kern = ss_kernel.selective_scan
+    cases = (("falcon-mamba-7b chunk", 8, 128, 8192, 16),
+             ("one row", 1, 128, 8192, 16),
+             ("odd Q, full width", 3, 77, 8192, 16),
+             ("smoke width, odd Q", 3, 13, 128, 8),
+             ("smoke chunk", 8, 8, 128, 8))
+    for seed, (what, *shape) in enumerate(cases):
+        args = scan_case(seed, *shape)
+        y, h = kern(*args)
+        torch.cuda.synchronize()
+        y_ref, h_ref = selective_scan_ref(*args)
+        err_y = (y - y_ref).abs().max().item()
+        err_h = (h - h_ref).abs().max().item()
+        ok = all(torch.allclose(a, b, rtol=SCAN_TOL, atol=SCAN_TOL)
+                 for a, b in ((y, y_ref), (h, h_ref)))
+        log(f"[scan] check {what:22s} B,Q,Di,N={tuple(shape)}: max |kernel "
+            f"- plain| y {err_y:.3e}, h_out {err_h:.3e} (tol {SCAN_TOL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("selective_scan disagrees with its plain "
+                                 "version")
+    copies = [scan_case(100 + i, 8, 128, 8192, 16) for i in range(4)]
+    y, h = kern(*copies[0])
+    y_ref, h_ref = selective_scan_ref(*copies[0])
+    err = max((y - y_ref).abs().max().item(), (h - h_ref).abs().max().item())
+    ms = time_ms(lambda i: kern(*copies[i]), len(copies))
+    plain_ms = time_ms(lambda i: selective_scan_ref(*copies[i]),
+                       len(copies), iters=5)
+    b_ms, b_by = scan_bound(*copies[0])
+    log(f"[scan] time selective_scan at the serving chunk B,Q,Di,N=(8, "
+        f"128, 8192, 16) fp32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), library: none (no single PyTorch "
+        f"call computes this recurrence), max |kernel - plain| {err:.3e}")
+    src, replaces = KERNEL_SOURCES["selective_scan"]
+    return {"name": "selective_scan", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def free_device_memory(what):
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[memory] before {what}: {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated")
+
+
+def make_ssm_scheduler(params, cfg):
+    from repro_torch.serve import scheduler as sched_lib
+    return sched_lib.DecodeScheduler(
+        params, cfg, n_slots=8, prompt_len=512, max_new_cap=64, eos_id=-1,
+        prefill="oneshot")
+
+
+def time_admissions(sched):
+    """Wall time of each one-shot admission (prefill + splice),
+    synchronised on both sides: the flag read that follows waits for
+    the device anyway, and before it the device is idle."""
+    import torch
+    spans = []
+    admit = sched._admit
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        admit(*args)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+
+    sched._admit = timed
+    return spans
+
+
+def phase_ssm_serve():
+    """falcon-mamba-7b at full width through one-shot admission with
+    the selective-scan kernel; returns its launch count."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+
+    base = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(base, ssm=dataclasses.replace(
+        base.ssm, scan_impl="cuda"))
+    t0 = time.perf_counter()
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[ssm-serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, d_state {cfg.ssm.d_state}, "
+        f"vocab {cfg.vocab}; bf16 weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = serving_requests(cfg)
+    sched = make_ssm_scheduler(params, cfg)
+    sched.submit(reqs[0][0], max_new=2)          # warm-up, not measured
+    sched.run_until_drained()
+    torch.cuda.synchronize()
+    share = instrument_sync(sched)
+    admissions = time_admissions(sched)
+
+    ss_kernel.selective_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    streams = drive(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ss_kernel.selective_scan.launches
+    sync_share, sync_ms, n_iter = share()
+
+    if sorted(streams) != list(range(len(reqs))):
+        raise AssertionError(f"finished {sorted(streams)} of {len(reqs)}")
+    for rid, (_, max_new) in enumerate(reqs):
+        toks = streams[rid]
+        if len(toks) != max_new or toks.min() < 0 or \
+                toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"request {rid}: bad stream {toks}")
+    if launches == 0 or sched.attn_impl != "attention-free":
+        raise AssertionError(f"kernel path not taken: launches {launches}, "
+                             f"attention path {sched.attn_impl}")
+    log(f"[ssm-serve] {cfg.name} bf16, {sched.attn_impl}, scan_impl "
+        f"{cfg.ssm.scan_impl} (selective_scan kernel), one-shot, 8 slots: "
+        f"{len(reqs)} requests, {sched.tokens_emitted} tokens in {wall:.3f}"
+        f" s -> {sched.tokens_emitted / wall:.1f} tok/s, "
+        f"{sched.total_steps} iterations, occupancy {sched.occupancy:.3f}")
+    log(f"[ssm-serve] admissions: {len(admissions)} one-shot prefills of "
+        f"8 x 512 tokens, {sum(admissions):.3f} s of the wall "
+        f"({', '.join(f'{a:.3f}' for a in admissions)} s)")
+    log(f"[ssm-serve] per-iteration host sync: device idle {sync_ms:.4f} ms "
+        f"per iteration over {n_iter} iterations = {sync_share:.4f} of the "
+        f"device span; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[ssm-serve] launches: selective_scan {launches} "
+        f"({cfg.n_layers} layers x {512 // cfg.ssm.chunk} chunks per "
+        f"admission)")
+    profile_serving(sched, reqs[:8])
+    return launches
+
+
+def phase_ssm_parity():
+    """8 of the serving requests in fp32 through the kernel's scan and
+    the plain blocked scan: greedy streams must be identical."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config("falcon-mamba-7b"),
+                               compute_dtype="float32")
+    params = bridge.init_params(base, seed=0, device="cuda")
+    reqs = serving_requests(base)[:8]
+    runs = {}
+    for impl in ("cuda", "blocked"):
+        cfg = dataclasses.replace(base, ssm=dataclasses.replace(
+            base.ssm, scan_impl=impl))
+        sched = make_ssm_scheduler(params, cfg)
+        t0 = time.perf_counter()
+        runs[impl] = drive(sched, reqs)
+        torch.cuda.synchronize()
+        log(f"[ssm-parity] fp32 scan {impl}, {cfg.n_layers} layers: "
+            f"{sched.tokens_emitted} tokens in "
+            f"{time.perf_counter() - t0:.2f} s")
+    same = [len(runs["cuda"][r]) == len(runs["blocked"][r])
+            and bool((runs["cuda"][r] == runs["blocked"][r]).all())
+            for r in range(len(reqs))]
+    log(f"[ssm-parity] greedy streams identical for {sum(same)}/{len(reqs)}"
+        f" requests")
+    if not all(same):
+        raise AssertionError("selective-scan kernel path and blocked path "
+                             "disagree in fp32")
+
+
 def make_scheduler(params, cfg):
     from repro_torch.serve import scheduler as sched_lib
     # eos_id -1 is never sampled: every request runs to its max_new, so
@@ -463,13 +698,25 @@ def main() -> int:
     from repro_torch import kernels  # noqa: F401  (fails outside the repo)
 
     t0 = time.perf_counter()
-    phase_card()
-    phase_build()
-    records = phase_kernels()
-    launches = phase_serve()
+
+    def timed(phase, *args):
+        start = time.perf_counter()
+        out = phase(*args)
+        log(f"[time] {phase.__name__}: {time.perf_counter() - start:.1f} s")
+        return out
+
+    timed(phase_card)
+    timed(phase_build)
+    records = timed(phase_kernels)
+    launches = timed(phase_serve)
+    timed(phase_parity)
+    records.append(timed(phase_scan_kernel))
+    free_device_memory("falcon-mamba-7b")
+    launches["selective_scan"] = timed(phase_ssm_serve)
+    free_device_memory("the fp32 parity run")
+    timed(phase_ssm_parity)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
-    phase_parity()
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

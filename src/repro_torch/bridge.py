@@ -4,12 +4,14 @@ The port keeps the JAX package's parameter names and layouts (a dict
 tree whose ``layers`` leaves carry the layer dim in front, ``wq`` as
 ``(L, d_model, H, hd)`` and so on), so one tree converts leaf for leaf.
 
-Weight matrices (embeddings, projections, biases) are cast to
-``cfg.compute_dtype`` ONCE, here. The JAX package casts them at every
-use (``transformer.attn_apply``, ``layers.swiglu``, the engine's
+Weight matrices (embeddings, projections, biases, the mamba conv) are
+cast to ``cfg.compute_dtype`` ONCE, here. The JAX package casts them at
+every use (``transformer.attn_apply``, ``layers.swiglu``, the engine's
 embedding lookups), which in eager PyTorch would copy every weight on
-every step. Norm weights stay in ``cfg.param_dtype``, because the norms
-multiply them in fp32.
+every step. Leaves the JAX package reads in fp32 stay in
+``cfg.param_dtype``: the norm weights (``ln``, ``ln_*``) and the mamba
+recurrence's ``A_log``, ``dt_bias`` and ``D_skip``. Cast to bf16,
+``A_log`` would change every channel's decay ``exp(dt * A)``.
 """
 
 from __future__ import annotations
@@ -22,18 +24,19 @@ import torch
 
 from . import resolve_device
 from .configs import ModelConfig, require_ported
-from .models import transformer
+from .models import ssm, transformer
 
 
-def _is_norm(name: str) -> bool:
-    return name.startswith("ln_")
+def _keeps_param_dtype(name: str) -> bool:
+    return name == "ln" or name.startswith("ln_") or \
+        name in ssm.PARAM_DTYPE_LEAVES
 
 
-def _convert(tree, cfg, device, norm=False):
+def _convert(tree, cfg, device, keep=False):
     if isinstance(tree, dict):
-        return {k: _convert(v, cfg, device, _is_norm(k))
+        return {k: _convert(v, cfg, device, _keeps_param_dtype(k))
                 for k, v in tree.items()}
-    dt = cfg.dtype("param" if norm else "compute")
+    dt = cfg.dtype("param" if keep else "compute")
     return torch.from_numpy(np.array(tree)).to(device, dt)
 
 
@@ -50,26 +53,30 @@ class _ParamSource:
     """Draws one tensor per ``p`` call, following the parameter
     factory of the JAX package's ``models/params.py``: fan-in normal
     (fan-in defaults to ``shape[-2]``), ones, zeros, or a plain normal.
-    Matrices land in the compute dtype; norm weights (ones) stay in the
-    param dtype."""
+    Tensors land in the compute dtype, except norm weights (ones) and
+    those drawn with ``param_dtype=True``, which stay in the param
+    dtype."""
 
     def __init__(self, cfg, gen, device):
         self.gen, self.device = gen, device
         self.pdt, self.cdt = cfg.dtype("param"), cfg.dtype("compute")
 
-    def p(self, shape, *, init="fan_in", scale=1.0, fan_in=0):
+    def p(self, shape, *, init="fan_in", scale=1.0, fan_in=0,
+          param_dtype=False):
         shape = tuple(shape)
+        dt = self.pdt if param_dtype or init == "ones" else self.cdt
         if init == "ones":
-            return torch.ones(shape, dtype=self.pdt, device=self.device)
+            return torch.ones(shape, dtype=dt, device=self.device)
         if init == "zeros":
-            return torch.zeros(shape, dtype=self.cdt, device=self.device)
+            return torch.zeros(shape, dtype=dt, device=self.device)
         if init == "fan_in":
             fi = fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
             scale = scale / math.sqrt(max(fi, 1))
         elif init != "normal":
             raise ValueError(init)
-        return (torch.randn(shape, generator=self.gen, device=self.device,
-                            dtype=self.pdt) * scale).to(self.cdt)
+        t = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=self.pdt)
+        return t.mul_(scale).to(dt)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,

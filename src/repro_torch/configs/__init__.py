@@ -1,18 +1,21 @@
 """Architecture configs for the PyTorch port.
 
 A copy of ``repro.configs`` (the JAX package's dataclasses, same fields
-and defaults) so that this package imports nothing of ``repro``. Two
-differences, both forced by the framework:
+and defaults) so that this package imports nothing of ``repro``. Three
+differences, all forced by the framework:
 
 - ``ModelConfig.dtype`` returns ``torch`` dtypes;
 - ``attn_impl`` names the port's paths: ``"gather"`` (the JAX
   ``"xla"`` path: attention over the dense K/V layout) and ``"cuda"``
   (the JAX ``"pallas"`` path: hand-written kernels reading K/V through
-  the block table).
+  the block table);
+- ``SSMConfig.scan_impl`` likewise: ``"cuda"`` is the JAX ``"kernel"``
+  path (the hand-written selective-scan kernel); ``"assoc"`` and
+  ``"blocked"`` keep their names.
 
-Only the dense family is ported so far: smollm-135m, llama3.2-1b,
-olmo-1b and qwen2-7b. The other architectures wait for their
-families' slices (ROADMAP.md).
+Ported so far: the dense family (smollm-135m, llama3.2-1b, olmo-1b,
+qwen2-7b) and the pure-SSM mamba1 family (falcon-mamba-7b). The other
+architectures wait for their families' slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ class SSMConfig:
     head_dim: int = 64
     chunk: int = 128
     scan_dtype: str = "float32"
-    scan_impl: str = "assoc"
+    scan_impl: str = "assoc"       # assoc|blocked|cuda (mamba1 scan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,28 +105,40 @@ class ModelConfig:
         logits have the same width in both packages."""
         return _round_up(self.vocab, 256)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm.expand * self.d_model if self.ssm else 0
+
     def dtype(self, which: str) -> torch.dtype:
         return getattr(torch, getattr(self, which + "_dtype"))
 
 
-ARCH_IDS = ("olmo-1b", "smollm-135m", "qwen2-7b", "llama3.2-1b")
+ARCH_IDS = ("olmo-1b", "smollm-135m", "qwen2-7b", "llama3.2-1b",
+            "falcon-mamba-7b")
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
     "smollm-135m": "smollm_135m",
     "qwen2-7b": "qwen2_7b",
     "llama3.2-1b": "llama3p2_1b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 _NOT_PORTED = ("dbrx-132b", "qwen2-moe-a2.7b", "zamba2-1.2b",
-               "falcon-mamba-7b", "whisper-small", "internvl2-1b")
+               "whisper-small", "internvl2-1b")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a config whose model family the port does not run."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; see ROADMAP.md")
+    """Raise for a config whose model family the port does not run:
+    anything but dense and pure-SSM mamba1 (hybrid and mamba2 wait for
+    the hybrid slice)."""
+    if cfg.family == "dense":
+        return
+    if cfg.family == "ssm" and cfg.ssm is not None and \
+            cfg.ssm.kind == "mamba1":
+        return
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet; see ROADMAP.md")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -18,7 +18,8 @@ with ``ctypes``. Every C entry returns ``cudaGetLastError()`` after its
 launch; ``check`` turns a non-zero code into an exception.
 
 Packages: paged_attention (single-token GQA decode through the block
-table), flash_prefill (causal chunk attention through the block table).
+table), flash_prefill (causal chunk attention through the block table),
+selective_scan (one chunk of the mamba1 recurrence).
 """
 
 from __future__ import annotations

@@ -4,11 +4,23 @@ Port of the continuous path of ``repro/launch/serve.py``. Drives
 ``serve.scheduler.DecodeScheduler`` against a Poisson arrival process
 (alternating short/long ``max_new``) and reports aggregate tokens/s,
 p50/p99 request latency and slot occupancy, with the decode and
-prefill attention paths that actually ran:
+prefill attention paths that actually ran ("attention-free" for a
+pure-SSM model):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --slots 8 --prompt-len 512 --requests 16 --kv paged \
         --attn-impl cuda --prefill chunked --chunk-tokens 128
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --slots 8 --prompt-len 512 --requests 16 \
+        --prefill oneshot
+
+``--prefill oneshot`` (the default) admits prompts through one prefill
+per admission round; a pure-SSM model takes only this mode, with
+prompts of exactly ``--prompt-len`` tokens. The selective scan's path
+comes from the config's ``ssm.scan_impl`` (falcon-mamba-7b ships
+``"assoc"``; ``"cuda"`` runs the hand-written kernel), as in the JAX
+package, which has no flag for it either.
 
 Weights are random, drawn from a seed (``bridge.init_params``). Runs on
 the card; ``--device cpu`` runs the plain versions of the kernels.
@@ -121,10 +133,13 @@ def main(argv=None):
                     help="attention path: 'cuda' + --kv paged runs the "
                          "block-table kernels; default keeps the "
                          "config's setting (gather)")
-    ap.add_argument("--prefill", choices=("chunked",), default="chunked",
-                    help="admission mode: prompts prefill inside the "
-                         "decode loop, <= --chunk-tokens positions per "
-                         "step (the only mode ported so far)")
+    ap.add_argument("--prefill", choices=("oneshot", "chunked"),
+                    default="oneshot",
+                    help="admission mode: 'oneshot' prefills each "
+                         "admission round's prompts in one forward; "
+                         "'chunked' (dense models) prefills them inside "
+                         "the decode loop, <= --chunk-tokens positions "
+                         "per step")
     ap.add_argument("--chunk-tokens", type=int, default=16,
                     help="chunked-prefill chunk size")
     ap.add_argument("--device", default="cuda",

@@ -1,9 +1,11 @@
-"""Decoder-only LM, dense family: parameters, the attention block and
-its modes, and the full-sequence forward.
+"""Decoder-only LM, dense and pure-SSM families: parameters, the
+attention block and its modes, the mamba block, and the full-sequence
+forward.
 
 Port of ``repro/models/transformer.py`` (``attn_params``,
-``mlp_params``, ``build_params``, ``attn_apply``, ``attn_block``,
-``forward_features``, ``forward``). The stacked layer
+``mlp_params``, ``_ssm_block_params``, ``build_params``,
+``attn_apply``, ``attn_block``, ``ssm_block``, ``forward_features``,
+``forward``). The stacked layer
 parameters (leading ``L`` dim, as the JAX package stores them) are
 driven by a Python loop over layers; ``layer_params`` splits them once
 per call into per-layer views. Attention modes:
@@ -18,7 +20,8 @@ per call into per-layer views. Attention modes:
   against the cache (``decode_attention``: the paged-attention kernel
   under ``attn_impl="cuda"`` and a paged view).
 
-Cache views are written in place (the JAX package returns new ones).
+Cache views, and the SSM state in decode, are written in place (the
+JAX package returns new ones).
 Mode ``full`` has no kernel yet in the port: the JAX package's
 ``flash_attention`` kernel is still to be ported (ROADMAP.md).
 """
@@ -31,6 +34,7 @@ import torch
 
 from . import attention as attn_lib
 from . import layers
+from . import ssm as ssm_lib
 
 
 # =========================== parameters ====================================
@@ -79,15 +83,23 @@ class _Stacked:
         return self._b.p((self._n, *shape), **kw)
 
 
+def _ssm_block_params(b, cfg):
+    return {**_norm_params(b, cfg.norm, cfg.d_model, "ln"),
+            "ssm": ssm_lib.mamba1_params(b, cfg)}
+
+
 def build_params(cfg, b):
-    """The dense family's parameter tree (the JAX package's names and
-    layouts; layer leaves stacked on a leading L dim)."""
+    """The dense or pure-SSM family's parameter tree (the JAX package's
+    names and layouts; layer leaves stacked on a leading L dim)."""
     D = cfg.d_model
     lb = _Stacked(b, cfg.n_layers)
-    layers_p = {**_norm_params(lb, cfg.norm, D, "ln_attn"),
-                "attn": attn_params(lb, cfg, D),
-                **_norm_params(lb, cfg.norm, D, "ln_mlp"),
-                "mlp": mlp_params(lb, cfg, D, cfg.d_ff)}
+    if cfg.family == "ssm":
+        layers_p = _ssm_block_params(lb, cfg)
+    else:
+        layers_p = {**_norm_params(lb, cfg.norm, D, "ln_attn"),
+                    "attn": attn_params(lb, cfg, D),
+                    **_norm_params(lb, cfg.norm, D, "ln_mlp"),
+                    "mlp": mlp_params(lb, cfg, D, cfg.d_ff)}
     p = {"embed": b.p((cfg.padded_vocab, D), init="normal", scale=0.02),
          "layers": layers_p, **_norm_params(b, cfg.norm, D, "ln_final")}
     if not cfg.tie_embeddings:
@@ -174,6 +186,24 @@ def attn_block(p, x, cfg, *, positions, mode="full", kv_cache=None,
     return x + m.to(x.dtype)
 
 
+def ssm_block(p, x, cfg, *, mode="full", state=None):
+    """Pre-norm mamba block; returns the new x. Mode ``full`` runs the
+    mixer over the sequence; mode ``decode`` takes one token (x: (B, 1,
+    D)) and updates this layer's ``state`` (``{"conv", "h"}`` views into
+    the cache) in place."""
+    h = layers.apply_norm(cfg.norm, x, p, "ln")
+    if mode == "full":
+        y = ssm_lib.mamba1_forward(p["ssm"], h, cfg)
+    elif mode == "decode":
+        y, new = ssm_lib.mamba1_step(p["ssm"], h[:, 0], state, cfg)
+        state["conv"].copy_(new["conv"])
+        state["h"].copy_(new["h"])
+        y = y[:, None]
+    else:
+        raise ValueError(mode)
+    return x + y
+
+
 def unembed_weight(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
 
@@ -183,7 +213,10 @@ def forward_features(params, cfg, tokens):
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None]
     for lp in layer_params(params["layers"]):
-        x = attn_block(lp, x, cfg, positions=positions, mode="full")
+        if cfg.family == "ssm":
+            x = ssm_block(lp, x, cfg, mode="full")
+        else:
+            x = attn_block(lp, x, cfg, positions=positions, mode="full")
     return layers.apply_norm(cfg.norm, x, params, "ln_final")
 
 

@@ -1,11 +1,16 @@
-"""Serving engine, dense family: caches, prefill, chunked prefill,
-single-token decode, and the batch-synchronous generation loop.
+"""Serving engine, dense and pure-SSM families: caches, prefill,
+chunked prefill, single-token decode, and the batch-synchronous
+generation loop.
 
 Port of ``repro/serve/engine.py``. Self-attention K/V lives behind the
 ``serve.kv_cache`` API: ``make_cache`` builds ``{"attn": KVCache}`` and
 every layer reads and writes its slice through a view, so the dense and
-paged layouts share every line of attention math. The caches are
-updated in place, so the steps return logits only.
+paged layouts share every line of attention math. A pure-SSM model's
+cache is ``{"ssm": {"conv", "h"}}``: plain per-row state with the layer
+dim first and the batch dim at axis 1 of every leaf, the invariant the
+scheduler's admission splice relies on. The caches are updated in
+place, so the decode and chunk steps return logits only; ``prefill``
+also returns the SSM state it computed, fresh, for the caller to splice.
 
 ``decode_step`` accepts an int ``cur_len`` (whole batch in lockstep) or
 a per-row ``(B,)`` int32 tensor (slot pool at mixed depths).
@@ -18,21 +23,41 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import resolve_device
 from ..configs import ModelConfig, require_ported
 from ..kernels import ARCH_TAG
-from ..models import layers, transformer
+from ..models import layers, ssm as ssm_lib, transformer
 from . import kv_cache as kvc
 from . import sampling as sampling_lib
+
+
+def _ssm_struct(cfg: ModelConfig, batch: int, device) -> Dict[str, Any]:
+    """Zeroed mamba1 state: conv (L, batch, K-1, Di) in the compute
+    dtype, h (L, batch, Di, N) fp32."""
+    s, L, di = cfg.ssm, cfg.n_layers, cfg.d_inner
+    return {"conv": torch.zeros((L, batch, s.d_conv - 1, di),
+                                dtype=cfg.dtype("compute"), device=device),
+            "h": torch.zeros((L, batch, di, s.d_state), dtype=torch.float32,
+                             device=device)}
+
+
+def kv_key(cfg: ModelConfig) -> Optional[str]:
+    """Cache-dict key of the family's self-attention ``KVCache`` (None
+    for pure-SSM families, which have no attention K/V)."""
+    return {"dense": "attn", "ssm": None}[cfg.family]
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                kv_impl: str = "dense", kv_block: int = 16,
                kv_blocks: Optional[int] = None,
                device="cuda") -> Dict[str, Any]:
-    """``{"attn": KVCache}``; ``kv_impl`` selects the layout ("dense" |
+    """``{"attn": KVCache}`` for the dense family, ``{"ssm": {"conv",
+    "h"}}`` for pure SSM. ``kv_impl`` selects the K/V layout ("dense" |
     "paged"), ``kv_block``/``kv_blocks`` size the paged pool
     (``kv_blocks=None``: dense-equivalent capacity)."""
     require_ported(cfg)
+    if cfg.family == "ssm":
+        return {"ssm": _ssm_struct(cfg, batch, resolve_device(device))}
     return {"attn": kvc.make_kv_cache(cfg, cfg.n_layers, batch, max_len,
                                       impl=kv_impl, block=kv_block,
                                       n_blocks=kv_blocks, device=device)}
@@ -67,26 +92,60 @@ def _decode_attn_families(params, cfg, x, cache, cur_len, write_mask):
     return x
 
 
+def _decode_ssm(params, cfg, x, cache):
+    """The layer loop of a pure-SSM decode step; each layer updates its
+    slice of the cache's conv and h state in place."""
+    st = cache["ssm"]
+    for i, lp in enumerate(transformer.layer_params(params["layers"])):
+        x = transformer.ssm_block(lp, x, cfg, mode="decode",
+                                  state={"conv": st["conv"][i],
+                                         "h": st["h"][i]})
+    return x
+
+
 def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
                 write_mask=None):
     """One new token against a cache of ``cur_len - 1`` positions.
 
     token: (B, 1) int. Returns logits (B, 1, padded_vocab); the cache is
-    updated in place. ``write_mask`` (B,) bool gates which rows' K/V
-    append lands: the chunked-prefill scheduler decodes the whole pool
-    while some slots are mid-prefill, whose stale ``cur_len`` points
-    into their own prompt."""
+    updated in place. ``write_mask`` (B,) bool (attention families only)
+    gates which rows' K/V append lands: the chunked-prefill scheduler
+    decodes the whole pool while some slots are mid-prefill, whose stale
+    ``cur_len`` points into their own prompt."""
+    if write_mask is not None and cfg.family != "dense":
+        raise ValueError(f"write_mask is only supported for attention "
+                         f"families; got family {cfg.family!r}")
     x = params["embed"][token]
-    x = _decode_attn_families(params, cfg, x, cache, cur_len, write_mask)
+    if cfg.family == "ssm":
+        x = _decode_ssm(params, cfg, x, cache)
+    else:
+        x = _decode_attn_families(params, cfg, x, cache, cur_len,
+                                  write_mask)
     return _logits_head(params, cfg, x)
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
             mask=None):
-    """Prime the cache with a full prompt (one-shot); returns logits
-    (B, S, padded_vocab). ``rows``/``mask`` bind prompt row ``i`` to
-    cache row ``rows[i]``, writing only masked rows."""
+    """Prime the cache with a full prompt (one-shot).
+
+    Returns ``(logits (B, S, padded_vocab), fresh)``. ``rows``/``mask``
+    bind prompt row ``i`` to cache row ``rows[i]``: attention K/V is
+    written in place at those rows, masked rows only. SSM state comes
+    back FRESH and prompt-batch-wide in ``fresh = {"ssm": {"conv": (L, B,
+    K-1, Di), "h": (L, B, Di, N)}}`` for the caller to splice along axis
+    1 (``fresh`` is ``{}`` for the dense family)."""
     x = params["embed"][tokens]
+    if cfg.family == "ssm":
+        convs, hs = [], []
+        for lp in transformer.layer_params(params["layers"]):
+            h = layers.apply_norm(cfg.norm, x, lp, "ln")
+            y, st = ssm_lib.mamba1_forward(lp["ssm"], h, cfg,
+                                           return_state=True)
+            x = x + y
+            convs.append(st["conv"])
+            hs.append(st["h"])
+        fresh = {"ssm": {"conv": torch.stack(convs), "h": torch.stack(hs)}}
+        return _logits_head(params, cfg, x), fresh
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None]
     node = cache["attn"].ensure_private(rows, start=0, width=S, mask=mask)
@@ -94,7 +153,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
         x = transformer.attn_block(
             lp, x, cfg, positions=positions, mode="prefill",
             kv_cache=node.view(i, rows=rows, mask=mask))
-    return _logits_head(params, cfg, x)
+    return _logits_head(params, cfg, x), {}
 
 
 def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
@@ -134,8 +193,11 @@ def _kernel_path(cfg, kv_impl) -> bool:
 def resolved_attn_impl(cfg: ModelConfig, kv_impl: str, device) -> str:
     """Which decode-attention path a (cfg, kv_impl, device) triple
     runs: "cuda-paged:sm_90a" (the paged-attention kernel on the card),
-    "torch-plain-paged:cpu" (its plain version, for CPU tensors), or
-    "gather:dense" / "gather:paged"."""
+    "torch-plain-paged:cpu" (its plain version, for CPU tensors),
+    "gather:dense" / "gather:paged", or "attention-free" (pure SSM: no
+    K/V and no attention, whatever the knobs say)."""
+    if kv_key(cfg) is None:
+        return "attention-free"
     dev = torch.device(device)
     if _kernel_path(cfg, kv_impl):
         return ("cuda-paged:" + ARCH_TAG if dev.type == "cuda"
@@ -145,12 +207,15 @@ def resolved_attn_impl(cfg: ModelConfig, kv_impl: str, device) -> str:
 
 def resolved_prefill_impl(cfg: ModelConfig, kv_impl: str, prefill: str,
                           device) -> str:
-    """Which prefill-attention path runs: "dense-oneshot" (one forward
-    over the whole prompt), or for chunked prefill "cuda-flash-paged:
-    sm_90a" (the flash-prefill kernel), "torch-plain-flash-paged:cpu"
-    (its plain version) or "gather-chunked"."""
+    """Which prefill-attention path runs: "dense-bucketed" (one-shot:
+    one forward over the right-padded, bucketed prompt), or for chunked
+    prefill "cuda-flash-paged:sm_90a" (the flash-prefill kernel),
+    "torch-plain-flash-paged:cpu" (its plain version) or
+    "gather-chunked"; "attention-free" for pure SSM."""
+    if kv_key(cfg) is None:
+        return "attention-free"
     if prefill != "chunked":
-        return "dense-oneshot"
+        return "dense-bucketed"
     dev = torch.device(device)
     if _kernel_path(cfg, kv_impl):
         return ("cuda-flash-paged:" + ARCH_TAG if dev.type == "cuda"
@@ -200,10 +265,12 @@ def generate_batch_sync(params, cfg: ModelConfig, prompt, *, max_new: int,
     max_len = S + max_new + 1
     cache = make_cache(cfg, B, max_len, kv_impl=kv_impl, kv_block=kv_block,
                        device=dev)
-    cache["attn"].alloc(torch.arange(B, device=dev),
-                        torch.full((B,), max_len, device=dev))
+    if kv_key(cfg) is not None:
+        cache[kv_key(cfg)].alloc(torch.arange(B, device=dev),
+                                 torch.full((B,), max_len, device=dev))
     sp = sampling_lib.SamplingParams()
-    logits = prefill(params, cfg, prompt, cache)
+    logits, fresh = prefill(params, cfg, prompt, cache)
+    cache.update(fresh)
     token = sampling_lib.sample_slots(logits[:, -1], sp)[:, None]
     out = torch.zeros((max_new, B), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)

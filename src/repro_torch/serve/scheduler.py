@@ -1,30 +1,44 @@
-"""Slot-based continuous-batching decode scheduler with chunked prefill.
+"""Slot-based continuous-batching decode scheduler: one-shot or
+chunked admission.
 
-Port of the chunked-prefill core of ``repro/serve/scheduler.py``. The
-engine owns a fixed pool of ``n_slots`` decode slots, each one row of a
-shared KV cache plus per-slot registers on the device (``cur_len``,
-``n_emitted``, ``budget``, ``active``, ``done``, ``prefilling``,
-``pf_pos`` ...). Slot lifecycle: FREE -> PREFILLING (assigned at
-admission: registers and block tables, no model forward) -> RUNNING ->
-DONE (retired on EOS or budget, its cache blocks freed on the device)
--> FREE (host harvest).
+Port of ``repro/serve/scheduler.py`` (admission, the decode segment,
+harvest). The engine owns a fixed pool of ``n_slots`` decode slots,
+each one row of a shared cache (attention K/V, or a pure-SSM model's
+conv and h state) plus per-slot registers on the device (``cur_len``,
+``n_emitted``, ``budget``, ``active``, ``done`` ...).
 
-Every iteration of a segment advances each prefilling slot by at most
-``chunk_tokens`` prompt positions (``engine.prefill_chunk``, through the
-flash-prefill kernel when the cache is paged and ``cfg.attn_impl ==
-"cuda"``) and decodes every running slot one token
-(``engine.decode_step``, through the paged-attention kernel). A slot
-whose chunk covers its last prompt position samples its first token
-and decodes in the same iteration.
+Two admission modes:
+
+- ``prefill="oneshot"`` (the default, as in the JAX package): FREE ->
+  RUNNING in one admission call, which prefills every admitted prompt
+  in ONE ``engine.prefill`` over the ``n_slots``-wide permuted batch
+  and samples each first token at the row's last real position. Dense
+  prompts are right-padded to a power-of-two bucket; SSM prompts must
+  be exactly ``prompt_len`` long (a recurrence keeps folding pad lanes
+  into its state). SSM state comes back fresh from the prefill and is
+  spliced into the pool along the slot axis.
+- ``prefill="chunked"`` (dense family only): FREE -> PREFILLING
+  (assigned at admission: registers and block tables, no model forward)
+  -> RUNNING. Every iteration of a segment advances each prefilling slot
+  by at most ``chunk_tokens`` prompt positions (``engine.prefill_chunk``,
+  through the flash-prefill kernel when the cache is paged and
+  ``cfg.attn_impl == "cuda"``); a slot whose chunk covers its last
+  prompt position samples its first token and decodes in the same
+  iteration.
+
+In both modes each iteration decodes every running slot one token
+(``engine.decode_step``, through the paged-attention kernel for a paged
+cache under ``attn_impl="cuda"``), and a slot retires to DONE on EOS or
+its budget (its cache blocks freed on the device) until the host
+harvests it.
 
 The JAX package runs a segment as one ``core.while_loop`` whose
-predicate and two ``lax.cond`` branches stay on the device. Eager
-PyTorch has no such loop, so here each iteration starts with ONE host
-read of three small flag vectors (``active``, ``prefilling`` and the
-slots whose prefill finishes this iteration), which decides the
-predicate and both branches. That sync is the known cost of this
-slice (PERF.md); capturing segments in CUDA graphs is its remedy
-(ROADMAP.md).
+predicate (and, chunked, two ``lax.cond`` branches) stay on the device.
+Eager PyTorch has no such loop, so here each iteration starts with ONE
+host read of small flag vectors: ``active`` in one-shot mode; in
+chunked mode also ``prefilling`` and the slots whose prefill finishes
+this iteration. That sync is the known cost of this port (PERF.md);
+capturing segments in CUDA graphs is its remedy (ROADMAP.md).
 
 Per-request greedy outputs equal ``engine.generate_batch_sync``'s, and
 are identical between ``kv="dense"`` and ``kv="paged"``.
@@ -55,6 +69,7 @@ class SlotPool:
     done: torch.Tensor       # (n,) bool — retired, awaiting harvest
     request_id: torch.Tensor  # (n,) int32
     out: torch.Tensor        # (n, max_new_cap) int32 — emissions
+    # chunked mode only (the prompt buffer is (n, 0) in one-shot mode)
     prompt: torch.Tensor     # (n, prompt_len) int32 — resident prompts
     plen: torch.Tensor       # (n,) int32 — true prompt length
     pf_pos: torch.Tensor     # (n,) int32 — prompt positions written
@@ -82,47 +97,66 @@ class DecodeScheduler:
 
     Args:
       params / cfg: the port's parameters (``bridge``) and config; the
-        pool lives on the parameters' device, and ``cfg.attn_impl``
-        selects the attention path.
-      n_slots: decode slots (rows of the KV cache).
-      prompt_len: longest prompt accepted.
+        pool lives on the parameters' device, ``cfg.attn_impl`` selects
+        the attention path and ``cfg.ssm.scan_impl`` the scan.
+      n_slots: decode slots (rows of the cache).
+      prompt_len: longest prompt accepted (the only length accepted for
+        a pure-SSM model in one-shot mode).
       max_new_cap: largest per-request ``max_new``.
+      admit_threshold: one-shot coalescing: while some slot is busy,
+        wait until this many requests (or the whole queue) can be
+        admitted in one prefill.
       kv: "dense" or "paged" KV cache; ``kv_block``/``kv_blocks`` size
         the paged pool (default: dense-equivalent capacity).
-      prefill: "chunked" (the only admission mode ported so far).
-      chunk_tokens: prompt positions each prefilling slot advances per
-        iteration.
+      prefill: "oneshot" (default) or "chunked" (dense family only).
+      chunk_tokens: chunked mode: prompt positions each prefilling slot
+        advances per iteration.
     """
 
     def __init__(self, params, cfg, *, n_slots: int, prompt_len: int,
                  max_new_cap: int, eos_id: int = 1,
                  sampling: sampling_lib.SamplingParams =
                  sampling_lib.SamplingParams(),
-                 kv: str = "dense", kv_block: int = 16,
-                 kv_blocks: Optional[int] = None,
-                 prefill: str = "chunked", chunk_tokens: int = 16):
+                 admit_threshold: int = 1, kv: str = "dense",
+                 kv_block: int = 16, kv_blocks: Optional[int] = None,
+                 prefill: str = "oneshot", chunk_tokens: int = 16):
         if n_slots < 1 or max_new_cap < 1:
             raise ValueError("need n_slots >= 1 and max_new_cap >= 1")
+        if not 1 <= admit_threshold <= n_slots:
+            raise ValueError("admit_threshold must be in [1, n_slots]")
         if kv not in ("dense", "paged"):
             raise ValueError(f"kv must be 'dense' or 'paged'; got {kv!r}")
-        if prefill != "chunked":
-            raise NotImplementedError(
-                f"prefill={prefill!r}: only chunked admission is ported; "
-                f"one-shot bucketed admission is queued in ROADMAP.md")
-        if chunk_tokens < 1:
-            raise ValueError("chunk_tokens must be >= 1")
+        if prefill not in ("oneshot", "chunked"):
+            raise ValueError(f"prefill must be 'oneshot' or 'chunked'; "
+                             f"got {prefill!r}")
+        if prefill == "chunked":
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"prefill='chunked' requires an attention-decoder "
+                    f"family; family {cfg.family!r} prefills through a "
+                    f"full-prompt forward")
+            if chunk_tokens < 1:
+                raise ValueError("chunk_tokens must be >= 1")
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         self.n_slots, self.prompt_len = n_slots, prompt_len
         self.max_new_cap = max_new_cap
         self.eos_id = int(eos_id)
         self.sampling = sampling
+        self.admit_threshold = admit_threshold
         self.max_len = prompt_len + max_new_cap + 1
         self.prefill = prefill
+        self._chunked = prefill == "chunked"
         self.chunk_tokens = int(chunk_tokens)
         self.kv, self.kv_block = kv, kv_block
         self.kv_blocks = (n_slots * kvc.blocks_needed(self.max_len, kv_block)
                           if kv_blocks is None else int(kv_blocks))
+        self._kv_key = engine.kv_key(cfg)
+        # Right padding is exact only for attention prefills (causal
+        # masking keeps real tokens blind to pad lanes); an SSM
+        # recurrence folds the pad tail into its state, so pure-SSM
+        # prompts must have exactly prompt_len tokens.
+        self._bucketed = cfg.family == "dense"
         self._next_rid = 0
         self.queue: List[_Queued] = []
         # host mirrors of slot occupancy and (paged) free blocks, kept
@@ -150,39 +184,74 @@ class DecodeScheduler:
             next_token=z(n), cur_len=z(n, fill=1), n_emitted=z(n),
             budget=z(n), active=z(n, dtype=torch.bool),
             done=z(n, dtype=torch.bool), request_id=z(n, fill=-1),
-            out=z(n, self.max_new_cap), prompt=z(n, self.prompt_len),
+            out=z(n, self.max_new_cap),
+            prompt=z(n, self.prompt_len if self._chunked else 0),
             plen=z(n), pf_pos=z(n), prefilling=z(n, dtype=torch.bool))
 
     # ---------------- device-side steps -------------------------------
 
-    def _assign(self, prompts, plens, slots, rids, max_news, mask) -> None:
-        """Admission: free + alloc the slots' blocks, register the
-        requests as PREFILLING. ``slots`` is a permutation of the slot
-        ids whose masked entries are the free slots being filled; the
-        other entries rewrite their own values."""
-        p = self.pool
-        node = p.cache["attn"]
-        node.free(slots, mask=mask)
-        node.alloc(slots, plens + max_news + 1, mask=mask)
-        idx = slots.long()
+    # Both admissions take ``slots``, a permutation of the slot ids
+    # whose ``mask``ed entries are the free slots being filled; the other
+    # entries rewrite their own values.
 
-        def sreg(vec, new):
+    def _reserve(self, slots, budget, mask) -> None:
+        """Release whatever the freed slots last held, then reserve each
+        admitted request's budget of positions (nothing to do without a
+        K/V cache)."""
+        if self._kv_key is not None:
+            node = self.pool.cache[self._kv_key]
+            node.free(slots, mask=mask)
+            node.alloc(slots, budget, mask=mask)
+
+    def _register(self, slots, mask, **regs) -> None:
+        """Write each ``SlotPool`` register named in ``regs`` at the
+        admitted slots."""
+        idx = slots.long()
+        for name, new in regs.items():
+            vec = getattr(self.pool, name)
             m = mask.reshape((-1,) + (1,) * (vec.dim() - 1))
             vec[idx] = torch.where(m, new.to(vec.dtype), vec[idx])
 
+    def _admit(self, prompts, true_lens, slots, rids, max_news,
+               mask) -> None:
+        """One-shot admission: up to n requests in ONE prefill. prompts
+        (n, Sb) right-padded to the bucket width Sb; true_lens (n,) real
+        prompt lengths. Unmasked rows keep their slot: no K/V write
+        (masked in the prefill) and their own state spliced back."""
+        p, n = self.pool, self.n_slots
+        self._reserve(slots, true_lens + max_news + 1, mask)
+        logits, fresh = engine.prefill(self.params, self.cfg, prompts,
+                                       p.cache, rows=slots, mask=mask)
+        # the first token comes from each row's LAST REAL position
+        # (bucketed rows are right-padded)
+        rows = torch.arange(n, device=self.device)
+        tok0 = sampling_lib.sample_slots(
+            logits[rows, (true_lens - 1).long()], self.sampling)
+        idx = slots.long()
+        for key, state in fresh.items():
+            for leaf, new in state.items():
+                # spliced leaves carry the slot dim at axis 1
+                full = p.cache[key][leaf]
+                m = mask.reshape((1, n) + (1,) * (full.dim() - 2))
+                full[:, idx] = torch.where(m, new.to(full.dtype),
+                                           full[:, idx])
         zeros = torch.zeros_like(rids)
-        sreg(p.next_token, zeros)
-        sreg(p.cur_len, zeros + 1)
-        sreg(p.n_emitted, zeros)
-        sreg(p.budget, max_news)
-        sreg(p.active, zeros.bool())
-        sreg(p.done, zeros.bool())
-        sreg(p.request_id, rids)
-        sreg(p.out, torch.zeros_like(p.out))
-        sreg(p.prompt, prompts)
-        sreg(p.plen, plens)
-        sreg(p.pf_pos, zeros)
-        sreg(p.prefilling, torch.ones_like(mask))
+        self._register(slots, mask, next_token=tok0, cur_len=true_lens + 1,
+                       n_emitted=zeros, budget=max_news,
+                       active=torch.ones_like(mask), done=zeros.bool(),
+                       request_id=rids, out=torch.zeros_like(p.out))
+
+    def _assign(self, prompts, plens, slots, rids, max_news, mask) -> None:
+        """Chunked admission: reserve the slots' blocks and register the
+        requests as PREFILLING; no model forward."""
+        self._reserve(slots, plens + max_news + 1, mask)
+        zeros = torch.zeros_like(rids)
+        self._register(slots, mask, next_token=zeros, cur_len=zeros + 1,
+                       n_emitted=zeros, budget=max_news,
+                       active=zeros.bool(), done=zeros.bool(),
+                       request_id=rids, out=torch.zeros_like(self.pool.out),
+                       prompt=prompts, plen=plens, pf_pos=zeros,
+                       prefilling=torch.ones_like(mask))
 
     def _chunk(self) -> None:
         """Advance every PREFILLING slot by one chunk; a slot whose
@@ -205,8 +274,10 @@ class DecodeScheduler:
     def _decode(self) -> None:
         """Emit each RUNNING slot's pending token, retire slots that hit
         EOS or their budget (freeing their blocks on the device), and
-        decode every slot one token. Appends are gated to emitting rows:
-        a mid-prefill slot's stale ``cur_len`` points into its prompt."""
+        decode every slot one token. In chunked mode appends are gated
+        to emitting rows: a mid-prefill slot's stale ``cur_len`` points
+        into its prompt. In one-shot mode idle rows may write garbage:
+        admission rewrites a row's cache before it is read again."""
         p, n = self.pool, self.n_slots
         tok, emit = p.next_token, p.active
         rows = torch.arange(n, device=self.device)
@@ -215,9 +286,12 @@ class DecodeScheduler:
         n_emitted = p.n_emitted + emit.int()
         finished = emit & ((tok == self.eos_id) | (n_emitted >= p.budget))
         active = emit & ~finished
-        p.cache["attn"].free(mask=finished)
+        if self._kv_key is not None:
+            p.cache[self._kv_key].free(mask=finished)
         logits = engine.decode_step(self.params, self.cfg, tok[:, None],
-                                    p.cache, p.cur_len, write_mask=emit)
+                                    p.cache, p.cur_len,
+                                    write_mask=emit if self._chunked
+                                    else None)
         nxt = sampling_lib.sample_slots(logits[:, 0], self.sampling)
         p.next_token = torch.where(active, nxt, tok)
         p.cur_len = p.cur_len + active.int()
@@ -228,8 +302,13 @@ class DecodeScheduler:
     def _read_flags(self):
         """The per-iteration host sync: (active, prefilling, finishing)
         as numpy bool vectors, where ``finishing`` marks the prefilling
-        slots whose chunk this iteration covers their last position."""
+        slots whose chunk this iteration covers their last position. In
+        one-shot mode nothing prefills, and only ``active`` is read."""
         p = self.pool
+        if not self._chunked:
+            active = p.active.cpu().numpy()
+            none = np.zeros_like(active)
+            return active, none, none
         fin = p.prefilling & (p.pf_pos + self.chunk_tokens >= p.plen)
         flags = torch.stack([p.active, p.prefilling, fin]).cpu().numpy()
         return flags[0], flags[1], flags[2]
@@ -285,12 +364,18 @@ class DecodeScheduler:
 
     def submit(self, prompt, *, max_new: int,
                request_id: Optional[int] = None) -> int:
-        """Queue one request. prompt: (1, L) int, 1 <= L <= prompt_len."""
+        """Queue one request. prompt: (1, L) int, 1 <= L <= prompt_len
+        (L == prompt_len for a pure-SSM model)."""
         prompt = np.asarray(prompt)
         if prompt.ndim != 2 or prompt.shape[0] != 1 or \
                 not 1 <= prompt.shape[1] <= self.prompt_len:
             raise ValueError(f"prompt must be (1, L) with 1 <= L <= "
                              f"{self.prompt_len}; got {prompt.shape}")
+        if not self._bucketed and prompt.shape[1] != self.prompt_len:
+            raise ValueError(
+                f"family {self.cfg.family!r} requires exact-length "
+                f"prompts (1, {self.prompt_len}): right-padding is not "
+                f"exact for SSM state; got {prompt.shape}")
         if not 1 <= max_new <= self.max_new_cap:
             raise ValueError(f"max_new must be in [1, {self.max_new_cap}]")
         need = self.blocks_for(prompt.shape[1], max_new)
@@ -298,15 +383,31 @@ class DecodeScheduler:
             raise ValueError(
                 f"request needs {need} cache blocks but the paged pool "
                 f"only has kv_blocks={self.kv_blocks}")
+        if not self.queue and not self._busy.any():
+            # first submission of a fresh run on a drained scheduler:
+            # counters describe runs, not scheduler lifetimes
+            self.reset_stats()
         rid = self._next_rid if request_id is None else int(request_id)
         self._next_rid = max(self._next_rid, rid) + 1
         self.queue.append(_Queued(rid, prompt.astype(np.int32),
                                   int(max_new)))
         return rid
 
+    def _bucket(self, length: int) -> int:
+        """Power-of-two prefill bucket for a prompt length (one-shot)."""
+        if not self._bucketed:
+            return self.prompt_len
+        b = 1
+        while b < length:
+            b <<= 1
+        return min(b, self.prompt_len)
+
     def _admit_queued(self) -> int:
         """Fill free slots from the queue, FIFO, while each request's
-        blocks fit the free-list (head-of-line blocking keeps order)."""
+        blocks fit the free-list (head-of-line blocking keeps order).
+        ``admit_threshold > 1`` coalesces: while some slot is busy, a
+        batch smaller than the threshold (and than what the queue
+        holds) waits for a later round."""
         if not self.queue or self.free_slots == 0:
             return 0
         batch: List[_Queued] = []
@@ -321,7 +422,13 @@ class DecodeScheduler:
         k = len(batch)
         if k == 0:
             return 0
-        n, L = self.n_slots, self.prompt_len
+        if k < min(self.admit_threshold, k + len(self.queue)) \
+                and self._busy.any():
+            self.queue[:0] = batch     # coalesce: admit on a later round
+            return 0
+        n = self.n_slots
+        L = (self.prompt_len if self._chunked
+             else max(self._bucket(q.prompt.shape[1]) for q in batch))
         free = np.nonzero(~self._busy)[0]
         slots = np.concatenate([free, np.nonzero(self._busy)[0]])
         mask = np.zeros(n, bool)
@@ -340,8 +447,9 @@ class DecodeScheduler:
         def dev(a):
             return torch.from_numpy(a).to(self.device)
 
-        self._assign(dev(prompts), dev(plens), dev(slots.astype(np.int32)),
-                     dev(rids), dev(max_news), dev(mask))
+        admit = self._assign if self._chunked else self._admit
+        admit(dev(prompts), dev(plens), dev(slots.astype(np.int32)),
+              dev(rids), dev(max_news), dev(mask))
         for i, q in enumerate(batch):
             slot = int(free[i])
             need = self.blocks_for(q.prompt.shape[1], q.max_new)
@@ -383,9 +491,13 @@ class DecodeScheduler:
         if self.active_count == 0:
             return []
         if not self.queue and not expect_arrivals:
-            want = self.n_slots + 1
+            want = self.n_slots + 1          # drain: never pause
         else:
-            want = self.free_slots + 1
+            # return once enough slots have freed beyond those idle at
+            # entry (idle slots the queue could not fill do not count)
+            fresh = (min(self.admit_threshold, len(self.queue))
+                     if self.queue else self.admit_threshold)
+            want = self.free_slots + fresh
         self._segment(want)
         return self._harvest()
 
@@ -400,10 +512,11 @@ class DecodeScheduler:
         return results
 
     def reset_stats(self) -> None:
-        """Zero the run counters. Callers reset between runs (after a
-        warm-up, say); the JAX package's scheduler resets itself when
-        work reaches an idle pool, which splits an open-loop run at every
-        gap between arrivals."""
+        """Zero the run counters. Called automatically when work is
+        submitted to a fully idle, fully drained scheduler, i.e. at the
+        start of each new run, so back-to-back ``run_until_drained``
+        calls each report their own counters. Manual ``step()`` driving
+        mid-run is unaffected: the scheduler is not idle then."""
         self.total_steps = 0
         self.busy_slot_steps = 0
         self.tokens_emitted = 0

@@ -1,4 +1,5 @@
-"""The port's block-table attention kernels against the JAX package's.
+"""The port's kernels against the JAX package's: the block-table
+attention kernels and the selective scan.
 
 On the CPU the port's wrappers run their plain PyTorch versions; they
 are held to the JAX package's Pallas kernels (interpret mode, as its own
@@ -8,7 +9,9 @@ numpy. The CUDA kernels themselves are tested on the card by
 
 Tolerances: fp32 2e-5 (the JAX package's own kernel-vs-oracle bound:
 the same fp32 math summed in another order); bf16 2e-2 (both sides
-round an fp32 result to bf16, one ulp at magnitude 1 is 7.8e-3).
+round an fp32 result to bf16, one ulp at magnitude 1 is 7.8e-3). The
+selective scan is fp32 only: 1e-5 relative and absolute (the same
+recurrence, its N-term dot products summed in another order).
 """
 
 import numpy as np
@@ -22,8 +25,12 @@ from repro.kernels.flash_prefill.ops import flash_prefill_ref as jax_fp_ref
 from repro.kernels.paged_attention.ops import paged_attention as jax_pa
 from repro.kernels.paged_attention.ops import \
     paged_attention_ref as jax_pa_ref
+from repro.kernels.selective_scan.ops import selective_scan as jax_ss
+from repro.kernels.selective_scan.ops import \
+    selective_scan_ref as jax_ss_ref
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.selective_scan.ops import selective_scan
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -119,3 +126,45 @@ def test_flash_prefill_single_position_chunk_is_decode():
     dec = paged_attention(q, kp, vp, table, lens)
     pre = flash_prefill(q, kp, vp, table, lens - 1)
     torch.testing.assert_close(pre, dec, rtol=1e-6, atol=1e-6)
+
+
+def _scan_case(B, Q, Di, N, seed):
+    """One selective-scan chunk as mamba1_forward feeds it: softplus'd
+    steps, A = -exp(A_log) and a non-zero incoming state."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, Q, Di)) - 1.0))
+    A = -np.exp(0.5 * rng.standard_normal((Di, N)))
+    arrays = (dt, A, rng.standard_normal((B, Q, N)),
+              rng.standard_normal((B, Q, N)),
+              rng.standard_normal((B, Q, Di)),
+              rng.standard_normal((B, Di, N)))
+    return [a.astype(np.float32) for a in arrays]
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("Q", [8, 13])
+def test_selective_scan_matches_jax(B, Q, N):
+    args = _scan_case(B, Q, 64, N, seed=10 * Q + N + B)
+    y, h = selective_scan(*[torch.from_numpy(a) for a in args])
+    assert y.dtype == h.dtype == torch.float32
+    for ref in (jax_ss(*[jnp.asarray(a) for a in args]),   # Pallas
+                jax_ss_ref(*[jnp.asarray(a) for a in args])):
+        np.testing.assert_allclose(y.numpy(), np.asarray(ref[0]),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(h.numpy(), np.asarray(ref[1]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_selective_scan_carries_state_across_chunks():
+    """Two chunks with the state carried equal one chunk of both."""
+    args = _scan_case(2, 12, 16, 8, seed=7)
+    t = [torch.from_numpy(a) for a in args]
+    dt, A, B_, C_, x, h0 = t
+    y, h = selective_scan(*t)
+    y1, h1 = selective_scan(dt[:, :5].contiguous(), A, B_[:, :5].contiguous(),
+                            C_[:, :5].contiguous(), x[:, :5].contiguous(), h0)
+    y2, h2 = selective_scan(dt[:, 5:].contiguous(), A, B_[:, 5:].contiguous(),
+                            C_[:, 5:].contiguous(), x[:, 5:].contiguous(), h1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=0, atol=0)
+    torch.testing.assert_close(h2, h, rtol=0, atol=0)

@@ -3,6 +3,7 @@ device its entry points run on by default."""
 
 import ast
 import dataclasses
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -18,8 +19,10 @@ from repro_torch import bridge
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels.flash_prefill import kernel as fp_kernel
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
+from repro_torch.kernels.selective_scan import kernel as ss_kernel
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve import engine, kv_cache as kvc
+from repro_torch.serve import scheduler as sched_lib
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -72,7 +75,7 @@ def test_port_import_loads_no_jax_or_repro_module():
 def test_ops_dispatch_has_no_fallback():
     """ops.py picks the kernel for a CUDA tensor and the plain version
     only for a CPU one: no try/except that could fall back."""
-    for name in ("paged_attention", "flash_prefill"):
+    for name in ("paged_attention", "flash_prefill", "selective_scan"):
         tree = ast.parse((PORT / "kernels" / name / "ops.py").read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
@@ -83,6 +86,9 @@ def test_configs_equal_jax_field_for_field(arch, smoke):
     ours = dataclasses.asdict(get_config(arch, smoke=smoke))
     ref = dataclasses.asdict(jax_get_config(arch, smoke=smoke))
     ref["attn_impl"] = {"xla": "gather", "pallas": "cuda"}[ref["attn_impl"]]
+    if ref["ssm"] is not None:
+        ref["ssm"]["scan_impl"] = {"kernel": "cuda"}.get(
+            ref["ssm"]["scan_impl"], ref["ssm"]["scan_impl"])
     assert ours == ref
     cfg = get_config(arch, smoke=smoke)
     assert cfg.padded_vocab == jax_get_config(arch, smoke).padded_vocab
@@ -98,7 +104,8 @@ def test_unported_families_are_refused():
 
 
 @pytest.mark.parametrize("call", [
-    "init_params", "from_numpy", "make_cache", "make_kv_cache", "serve"])
+    "init_params", "from_numpy", "make_cache", "make_kv_cache", "serve",
+    "make_ssm_cache"])
 def test_entry_points_default_to_cuda(call):
     """Omitting the device means the card: without one, the call raises
     instead of running on the CPU."""
@@ -112,6 +119,8 @@ def test_entry_points_default_to_cuda(call):
         "make_cache": lambda: engine.make_cache(cfg, 2, 8)["attn"].k,
         "make_kv_cache": lambda: kvc.make_kv_cache(
             cfg, 1, 2, 8, impl="paged").k_pool,
+        "make_ssm_cache": lambda: engine.make_cache(
+            get_config("falcon-mamba-7b", smoke=True), 2, 8)["ssm"]["h"],
         "serve": lambda: launch_serve.main(
             ["--arch", "llama3.2-1b", "--smoke", "--requests", "1"]),
     }
@@ -125,14 +134,38 @@ def test_entry_points_default_to_cuda(call):
 
 
 @pytest.mark.parametrize("fn", [pa_kernel.paged_attention,
-                                fp_kernel.flash_prefill])
+                                fp_kernel.flash_prefill,
+                                ss_kernel.selective_scan])
 def test_kernel_wrappers_refuse_cpu_tensors(fn):
     """The kernel wrappers never compute on the CPU: only ops.py picks
     the plain version, and only for CPU tensors."""
-    q = torch.zeros(1, 1, 4, 64)
-    pool = torch.zeros(3, 4, 1, 64)
-    table = torch.zeros(1, 2, dtype=torch.int32)
+    if fn is ss_kernel.selective_scan:
+        seq, state = torch.zeros(1, 4, 128), torch.zeros(1, 4, 8)
+        args = (seq, torch.zeros(128, 8), state, state, seq,
+                torch.zeros(1, 128, 8))
+    else:
+        q = torch.zeros(1, 1, 4, 64)
+        pool = torch.zeros(3, 4, 1, 64)
+        args = (q, pool, pool, torch.zeros(1, 2, dtype=torch.int32),
+                torch.ones(1, dtype=torch.int32))
     before = fn.launches
     with pytest.raises(ValueError, match="CUDA"):
-        fn(q, pool, pool, table, torch.ones(1, dtype=torch.int32))
+        fn(*args)
     assert fn.launches == before
+
+
+def test_ssm_family_is_ported_but_hybrid_is_not():
+    cfg = get_config("falcon-mamba-7b")
+    assert (cfg.family, cfg.ssm.kind, cfg.d_inner) == ("ssm", "mamba1", 8192)
+    for arch in ("zamba2-1.2b", "qwen2-moe-a2.7b", "whisper-small",
+                 "internvl2-1b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
+
+
+def test_one_shot_admission_is_the_default():
+    """As in the JAX package, DecodeScheduler admits one-shot unless
+    asked for chunked prefill (the launcher's default is run in
+    tests/test_torch_oneshot.py)."""
+    sig = inspect.signature(sched_lib.DecodeScheduler)
+    assert sig.parameters["prefill"].default == "oneshot"

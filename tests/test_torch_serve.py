@@ -167,7 +167,7 @@ def test_generate_batch_sync_matches_jax(kv):
                                   np.asarray(ref.text_lengths))
     assert ours.steps == int(ref.steps)
     assert ours.attn_impl == f"gather:{kv}"
-    assert ours.prefill_impl == "dense-oneshot"
+    assert ours.prefill_impl == "dense-bucketed"
 
 
 REQS = [(9, 7), (4, 3), (12, 8), (1, 5), (7, 6)]   # (prompt len, max_new)
@@ -181,7 +181,8 @@ def _prompts(cfg):
 
 def _run_port(tp, cfg, reqs, **kw):
     kw = {"n_slots": 2, "prompt_len": 12, "max_new_cap": 8, "eos_id": 1,
-          "kv": "paged", "kv_block": 4, "chunk_tokens": 5, **kw}
+          "kv": "paged", "kv_block": 4, "prefill": "chunked",
+          "chunk_tokens": 5, **kw}
     sched = sched_lib.DecodeScheduler(tp, cfg, **kw)
     for rid, (p, m) in enumerate(reqs):
         sched.submit(p, max_new=m, request_id=rid)
@@ -312,6 +313,15 @@ def test_resolved_paths_name_what_runs():
                                         "cuda") == "cuda-flash-paged:sm_90a"
     assert engine.resolved_prefill_impl(cfg, "paged", "chunked",
                                         "cpu") == "gather-chunked"
+    assert engine.resolved_prefill_impl(kcfg, "paged", "oneshot",
+                                        "cuda") == "dense-bucketed"
+    scfg = get_config("falcon-mamba-7b", smoke=True)
+    for kv in ("dense", "paged"):
+        assert engine.resolved_attn_impl(scfg, kv, "cuda") == \
+            "attention-free"
+        for mode in ("oneshot", "chunked"):
+            assert engine.resolved_prefill_impl(scfg, kv, mode, "cpu") == \
+                "attention-free"
 
 
 def test_scheduler_rejects_what_it_cannot_serve():
@@ -325,17 +335,24 @@ def test_scheduler_rejects_what_it_cannot_serve():
         sched.submit(np.ones((1, 4), np.int32), max_new=5)
     with pytest.raises(ValueError, match="kv_blocks"):
         sched.submit(np.ones((1, 4), np.int32), max_new=4)   # 3 blocks
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="oneshot"):
         sched_lib.DecodeScheduler(tp, cfg, n_slots=1, prompt_len=4,
-                                  max_new_cap=4, prefill="oneshot")
+                                  max_new_cap=4, prefill="streamed")
+    with pytest.raises(ValueError, match="admit_threshold"):
+        sched_lib.DecodeScheduler(tp, cfg, n_slots=2, prompt_len=4,
+                                  max_new_cap=4, admit_threshold=3)
 
 
 def test_launcher_runs_on_cpu_when_asked():
+    # every arrival lands before the first step: the scheduler resets its
+    # counters whenever work reaches a drained pool, so a gap between
+    # arrivals would split the count
     out = launch_serve.main(
         ["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--slots",
-         "2", "--prompt-len", "8", "--requests", "3", "--rate", "1000",
+         "2", "--prompt-len", "8", "--requests", "3", "--rate", "1e9",
          "--max-new-short", "3", "--max-new-long", "5", "--kv", "paged",
-         "--attn-impl", "cuda", "--chunk-tokens", "4", "--eos-id", "-1"])
+         "--attn-impl", "cuda", "--prefill", "chunked", "--chunk-tokens",
+         "4", "--eos-id", "-1"])
     assert out["tokens"] == 3 + 5 + 3
     assert out["attn_impl"] == "torch-plain-paged:cpu"
     assert out["prefill_impl"] == "torch-plain-flash-paged:cpu"
