@@ -7,7 +7,7 @@ Phases, each printing its own lines:
 
 1. the card: its name and power limit as ``nvidia-smi`` reports them;
    TF32 is switched off for matmuls and cuDNN;
-2. the build: the three kernels compiled from
+2. the build: the four kernels compiled from
    ``src/repro_torch/kernels/csrc`` with ``nvcc``, one process each, all
    started together, with ptxas's register and shared memory report;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -33,9 +33,32 @@ Phases, each printing its own lines:
    from a seed, bf16, ``scan_impl="cuda"``) through one-shot admission:
    every request must finish and the kernel must have launched;
 8. 8 of those requests in fp32 through the kernel's scan and the plain
-   blocked scan: the greedy streams must be identical.
+   blocked scan: the greedy streams must be identical;
+9. the fused LSTM-cell kernel against its plain version on the card at
+   B=512, D=H=512, one row, B=37 with H=48, and the NMT encoder and
+   decoder shapes, in fp32 and bf16 with a non-zero incoming state; its
+   refusal of operands that require grad; then timed at B=512, D=H=512
+   fp32 beside the plain version, ``torch.lstm_cell`` (a yardstick the
+   port never calls) and the bound;
+10. ``dynamic_rnn`` inference through the kernel cell at B=512, D=H=512,
+    S=1000 with ragged lengths in [500, 1000]: outputs and final state
+    equal the unfused cell's, the kernel launches once per step up to
+    max(lens), and the loop's predicate reads and the device idle at
+    them are printed; then dynamic (counted, and with seq_lens) vs static
+    forward time at B = 8, 32, 128, 512 (the paper's Fig. 14; printed,
+    not a gate);
+11. Table 1: training through the loop (gradients of ``mean(y**2)``
+    through ``dynamic_rnn`` with the unfused cell) at B=512, D=H=512,
+    S = 100 and 500 under the four save policies: every policy's
+    gradients equal ``all``'s, and at S=500 the peak device memory above
+    the weights is lower under ``offload`` and ``carry`` than under
+    ``all``; time per loop iteration, peak memory and host bytes are
+    printed;
+12. the NMT example (``repro_torch.examples.dynamic_rnn_nmt``) trains
+    250 steps on the card to a loss below 0.5.
 
-The llama3.2-1b weights are freed before falcon-mamba's are made. Then
+The llama3.2-1b weights are freed before falcon-mamba's are made, and
+falcon-mamba's before the LSTM phases. Then
 one JSON line of kernel records and, last, the device line. Any
 failed check raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA device is present.
@@ -70,9 +93,16 @@ KERNEL_SOURCES = {
                       "src/repro/kernels/flash_prefill/kernel.py:50"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan/kernel.py:27"),
+    "lstm_cell": ("src/repro_torch/kernels/csrc/lstm_cell.cu",
+                  "src/repro/kernels/lstm_cell/kernel.py:25"),
 }
 SCAN_TOL = 1e-4     # fp32: N-term sums in another order, fused
 #                     multiply-adds, states of magnitude up to ~10
+LSTM_TOL = {"float32": 1e-5,    # K <= 1024 fp32 products summed in
+            #                     another order
+            "bfloat16": 1.6e-2}  # c', h' rounded to bf16 on both sides
+RNN_TOL = 1e-4      # fp32: per-step differences of ~1e-6 carried through
+#                     up to 1000 steps of the recurrence
 
 
 def log(msg: str) -> None:
@@ -689,6 +719,332 @@ def phase_parity():
         raise AssertionError("kernel path and gather path disagree in fp32")
 
 
+def lstm_case(seed, B, D, H, dtype):
+    """Operands of one LSTM step on the card at lstm_init's weight scale,
+    with a non-zero bias and incoming state."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
+
+    return [randn(D + H, 4 * H, scale=(D + H) ** -0.5), randn(4 * H,
+                                                              scale=0.1),
+            randn(B, D), randn(B, H), randn(B, H, scale=0.5)]
+
+
+def lstm_bound(w, b, x, c, h):
+    """(bound_ms, bound_by) of one step: every operand read once and c', h'
+    written once over HBM bandwidth, against the 2*B*(D+H)*4H FLOPs of
+    the product at the fp32 (or bf16 tensor-core) peak."""
+    B, D = x.shape
+    H = c.shape[1]
+    isz = x.element_size()
+    nbytes = isz * (w.numel() + b.numel() + x.numel() + 4 * c.numel())
+    flops = 2 * B * (D + H) * 4 * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def aten_lstm_operands(w, b, x, c, h):
+    """The same step for ``torch.lstm_cell``: its weights as (4H, D) and
+    (4H, H), the forget gate's +1 folded into the input bias."""
+    import torch
+    D = x.shape[1]
+    H = c.shape[1]
+    b_ih = b.clone()
+    b_ih[H:2 * H] += 1.0
+    return (x, (h, c), w[:D].t().contiguous(), w[D:].t().contiguous(), b_ih,
+            torch.zeros_like(b))
+
+
+def phase_lstm_kernel():
+    """The fused LSTM-cell kernel against its plain version, its autograd
+    refusal, then its time at B=512, D=H=512 fp32. Returns its record
+    (launches 0: the dynamic_rnn phase fills them in)."""
+    import torch
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+
+    kern = lstm_kernel.lstm_cell
+    cases = (("dynamic_rnn step", 512, 512, 512), ("one row", 1, 512, 512),
+             ("B=37, H=48", 37, 20, 48), ("NMT encoder", 32, 24, 48),
+             ("NMT decoder", 32, 72, 48))
+    seed = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        tol = LSTM_TOL[dname]
+        for what, B, D, H in cases:
+            seed += 1
+            args = lstm_case(seed, B, D, H, dtype)
+            c, h = kern(*args)
+            torch.cuda.synchronize()
+            c_ref, h_ref = lstm_cell_ref(*args)
+            err = max((c.float() - c_ref.float()).abs().max().item(),
+                      (h.float() - h_ref.float()).abs().max().item())
+            ok = all(torch.allclose(a.float(), r.float(), rtol=tol, atol=tol)
+                     for a, r in ((c, c_ref), (h, h_ref)))
+            log(f"[lstm] check {what:16s} B,D,H=({B}, {D}, {H}) {dname:8s}: "
+                f"max |kernel - plain| {err:.3e} (tol {tol:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("lstm_cell disagrees with its plain "
+                                     "version")
+    w, b, x, c, h = lstm_case(99, 8, 16, 32, torch.float32)
+    before = kern.launches
+    try:
+        kern(w.requires_grad_(), b, x, c, h)
+    except RuntimeError as e:
+        log(f"[lstm] refuses an operand that requires grad: {e}")
+    else:
+        raise AssertionError("lstm_cell accepted an operand that requires "
+                             "grad")
+    if kern.launches != before:
+        raise AssertionError("the refused call launched")
+
+    copies = [lstm_case(200 + i, 512, 512, 512, torch.float32)
+              for i in range(8)]
+    c, h = kern(*copies[0])
+    c_ref, h_ref = lstm_cell_ref(*copies[0])
+    err = max((c - c_ref).abs().max().item(), (h - h_ref).abs().max().item())
+    aten = [aten_lstm_operands(*a) for a in copies]
+    h_lib, c_lib = torch.lstm_cell(*aten[0])
+    lib_err = max((c_lib - c_ref).abs().max().item(),
+                  (h_lib - h_ref).abs().max().item())
+    if lib_err > LSTM_TOL["float32"]:
+        raise AssertionError(f"torch.lstm_cell yardstick computes another "
+                             f"function: {lib_err:.3e}")
+    ms = time_ms(lambda i: kern(*copies[i]), len(copies), iters=50)
+    plain_ms = time_ms(lambda i: lstm_cell_ref(*copies[i]), len(copies),
+                       iters=50)
+    lib_ms = time_ms(lambda i: torch.lstm_cell(*aten[i]), len(aten),
+                     iters=50)
+    b_ms, b_by = lstm_bound(*copies[0])
+    log(f"[lstm] time lstm_cell at B,D,H=(512, 512, 512) fp32: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.lstm_cell {lib_ms:.4f}"
+        f" ms, bound {b_ms:.4f} ms ({b_by}), max |kernel - plain| "
+        f"{err:.3e}, |torch.lstm_cell - plain| {lib_err:.3e}")
+    src, replaces = KERNEL_SOURCES["lstm_cell"]
+    return {"name": "lstm_cell", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def instrument_predicate_reads():
+    """CUDA events around while_loop's predicate read: event A just
+    before the read (the device reaches it when the iteration's work is
+    done), event B just after the host has the answer, before it
+    enqueues the next iteration. The device is idle from A to B."""
+    import importlib
+    import torch
+    wl = importlib.import_module("repro_torch.core.while_loop")
+    holds = wl._holds
+    gaps = []
+
+    def timed(pred):
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = holds(pred)
+        b = torch.cuda.Event(enable_timing=True)
+        b.record()
+        gaps.append((a, b))
+        return out
+
+    wl._holds = timed
+
+    def finish():
+        wl._holds = holds
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in gaps]
+        span = gaps[0][0].elapsed_time(gaps[-1][1]) if gaps else 0.0
+        return sum(ms), span, len(ms)
+
+    return finish
+
+
+def phase_dynamic_rnn():
+    """dynamic_rnn inference through the fused cell against the unfused
+    cell at B=512, D=H=512, S=1000 (ragged lengths); returns the kernel's
+    launches in the fused pass. Then dynamic vs static (Fig. 14)."""
+    import functools
+    import torch
+    from repro_torch import bridge, core
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.models import rnn
+
+    B, S, D, H = 512, 1000, 512, 512
+    params = bridge.init_lstm_params(D, H, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(B, S, D, generator=gen, device="cuda")
+    lens = torch.randint(500, S + 1, (B,), generator=gen, device="cuda")
+    max_len = int(lens.max())
+    fused = functools.partial(rnn.lstm_cell, kernel=lstm_ops.lstm_cell)
+    with torch.no_grad():
+        # warm-up at full size, so the caching allocator holds the
+        # pass's memory before the measured runs
+        rnn.dynamic_rnn(params, x, lens, hidden=H, cell=fused)
+        torch.cuda.synchronize()
+        reads0 = core.while_loop.host_reads
+        finish = instrument_predicate_reads()
+        lstm_kernel.lstm_cell.launches = 0
+        t0 = time.perf_counter()
+        out_k, (c_k, h_k) = rnn.dynamic_rnn(params, x, lens, hidden=H,
+                                            cell=fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lstm_kernel.lstm_cell.launches
+        idle_ms, span_ms, n_reads = finish()
+        reads = core.while_loop.host_reads - reads0
+        t0 = time.perf_counter()
+        out, (c, h) = rnn.dynamic_rnn(params, x, lens, hidden=H)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+    if launches != max_len:
+        raise AssertionError(f"lstm_cell launched {launches} times for "
+                             f"max(lens) = {max_len}")
+    err = max((a - r).abs().max().item()
+              for a, r in ((out_k, out), (c_k, c), (h_k, h)))
+    ok = all(torch.allclose(a, r, rtol=RNN_TOL, atol=RNN_TOL)
+             for a, r in ((out_k, out), (c_k, c), (h_k, h)))
+    log(f"[rnn] dynamic_rnn B={B} S={S} D=H={H} fp32, lens in [500, {S}], "
+        f"max {max_len}: fused cell {wall:.3f} s ({wall / max_len * 1e3:.4f}"
+        f" ms/step), unfused cell {wall_plain:.3f} s "
+        f"({wall_plain / max_len * 1e3:.4f} ms/step); lstm_cell launches "
+        f"{launches}; max |fused - unfused| {err:.3e} (tol {RNN_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"[rnn] while_loop host reads: {reads} for {max_len} steps "
+        f"({reads / max_len:.3f} per step); device idle at the reads "
+        f"{idle_ms / max(n_reads, 1):.4f} ms per read = "
+        f"{idle_ms / max(span_ms, 1e-9):.4f} of the loop's device span")
+    if not ok:
+        raise AssertionError("dynamic_rnn through the fused cell disagrees "
+                             "with the unfused cell")
+    if out_k[lens.argmin(), max_len - 1].abs().max().item() != 0:
+        raise AssertionError("output past a sequence's length is not zero")
+    del out, out_k, c, h, c_k, h_k
+
+    # Fig. 14: dynamic_rnn (a counted while_loop; then with full-length
+    # seq_lens, which adds the masking and one predicate read per step)
+    # against static unrolling, all through the fused cell
+    Sf = 500
+    for Bf in (8, 32, 128, 512):
+        xf = x[:Bf, :Sf].contiguous()
+        lf = torch.full((Bf,), Sf, device="cuda")
+        runs = {"dynamic": lambda: rnn.dynamic_rnn(params, xf, hidden=H,
+                                                   cell=fused),
+                "dynamic+lens": lambda: rnn.dynamic_rnn(
+                    params, xf, lf, hidden=H, cell=fused),
+                "static": lambda: rnn.static_rnn(params, xf, hidden=H,
+                                                 cell=fused)}
+        times = {}
+        with torch.no_grad():
+            for name, run in runs.items():
+                run()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times[name] = (time.perf_counter() - t0) / Sf * 1e3
+        log(f"[rnn] Fig. 14 B={Bf:3d} S={Sf}: ms/step dynamic "
+            f"{times['dynamic']:.4f}, dynamic with seq_lens "
+            f"{times['dynamic+lens']:.4f}, static {times['static']:.4f} "
+            f"(dynamic / static {times['dynamic'] / times['static']:.3f})")
+    return launches
+
+
+def profile_pass(fn, label, iters):
+    """Where one training pass's time goes: the device's busy share of
+    the wall time and the top device entries (kernels and copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(r.self_device_time_total for r in rows)
+    log(f"[profile] {label}: device busy {dev_us / 1e3:.1f} ms of "
+        f"{wall_us / 1e3:.1f} ms wall ({dev_us / wall_us:.3f}), "
+        f"{dev_us / iters / 1e3:.4f} ms device time per iteration")
+    for r in sorted(rows, key=lambda r: -r.self_device_time_total)[:6]:
+        log(f"[profile]   {r.self_device_time_total / 1e3:9.2f} ms "
+            f"{r.count:6d}x  {r.key[:70]}")
+
+
+def phase_policies():
+    """Table 1: gradients through dynamic_rnn (unfused cell) under the
+    four save policies at B=512, D=H=512, S = 100 and 500."""
+    import torch
+    from repro_torch import bridge, core
+    from repro_torch.core.while_loop import SAVE_POLICIES
+    from repro_torch.models import rnn
+
+    B, D, H = 512, 512, 512
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for S in (100, 500):
+        # full-length sequences, as Table 1 and the JAX package's
+        # benchmarks/bench_memory_swap.py run them: a counted loop
+        x = torch.randn(B, S, D, generator=gen, device="cuda")
+        grads, peaks = {}, {}
+        for policy in SAVE_POLICIES:
+            params = bridge.init_lstm_params(D, H, seed=3, device="cuda")
+            for p in params.values():
+                p.requires_grad_()
+
+            def run():
+                out, _ = rnn.dynamic_rnn(params, x, hidden=H,
+                                         save_policy=policy)
+                host = core.while_loop.last_stack.host_bytes
+                return torch.autograd.grad((out ** 2).mean(),
+                                           [params["w"], params["b"]]), host
+
+            run()                                 # warm-up (pins memory)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            g, host = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peaks[policy] = torch.cuda.max_memory_allocated() - base
+            grads[policy] = g
+            log(f"[policy] S={S} {policy:13s}: {secs / S * 1e3:.4f} ms "
+                f"per loop iteration (forward + backward, {S} "
+                f"iterations), peak {peaks[policy] / 2**30:.3f} GiB above "
+                f"weights and inputs, {host / 2**30:.3f} GiB saved to host")
+            if S == 100 and policy in ("all", "offload"):
+                profile_pass(run, f"S={S} {policy}", S)
+        for policy in SAVE_POLICIES:
+            err = max((a - r).abs().max().item()
+                      for a, r in zip(grads[policy], grads["all"]))
+            ok = all(torch.allclose(a, r, rtol=1e-6, atol=1e-9)
+                     for a, r in zip(grads[policy], grads["all"]))
+            log(f"[policy] S={S} {policy:13s} gradients vs all: max |diff| "
+                f"{err:.3e} (tol rtol 1e-6) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{policy} gradients differ from all's")
+        if S == 500 and not (peaks["offload"] < peaks["all"]
+                             and peaks["carry"] < peaks["all"]):
+            raise AssertionError(f"peak memory order wrong at S=500: "
+                                 f"{peaks}")
+        del x, grads
+
+
+def phase_nmt():
+    """The NMT example's entry point, 250 steps on the card; it raises if
+    the loss does not fall below 0.5."""
+    from repro_torch.examples import dynamic_rnn_nmt as nmt
+    loss = nmt.main(["--steps", str(nmt.STEPS)])
+    log(f"[nmt] {nmt.STEPS} steps on the card: final masked NLL {loss:.4f}"
+        f" (bar {nmt.LOSS_BAR})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -715,6 +1071,11 @@ def main() -> int:
     launches["selective_scan"] = timed(phase_ssm_serve)
     free_device_memory("the fp32 parity run")
     timed(phase_ssm_parity)
+    free_device_memory("the LSTM phases")
+    records.append(timed(phase_lstm_kernel))
+    launches["lstm_cell"] = timed(phase_dynamic_rnn)
+    timed(phase_policies)
+    timed(phase_nmt)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

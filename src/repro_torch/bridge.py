@@ -24,7 +24,7 @@ import torch
 
 from . import resolve_device
 from .configs import ModelConfig, require_ported
-from .models import ssm, transformer
+from .models import rnn, ssm, transformer
 
 
 def _keeps_param_dtype(name: str) -> bool:
@@ -100,3 +100,30 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return transformer.build_params(cfg, _ParamSource(cfg, gen, device))
+
+
+def lstm_params_from_numpy(tree, device="cuda"):
+    """An LSTM parameter tree of the JAX package, its leaves as numpy
+    arrays, as the port's tree on ``device``: ``lstm_init``'s
+    ``{"w", "b"}``, ``multilayer_lstm_params``' list of them, or the NMT
+    example's ``{"embed", "enc", "dec", "out"}``. Dicts and lists keep
+    their structure; every array keeps its dtype."""
+    device = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(conv(v) for v in t)
+        return torch.from_numpy(np.array(t)).to(device)
+
+    return conv(tree)
+
+
+def init_lstm_params(input_dim: int, hidden: int, seed: int = 0,
+                     device="cuda", dtype=torch.float32) -> Dict[str, Any]:
+    """Random LSTM weights at full width by ``rnn.lstm_init``'s rule,
+    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return rnn.lstm_init(gen, input_dim, hidden, dtype)

@@ -10,23 +10,30 @@ in another order: fp32 1e-4; bf16 outputs are rounded on both sides,
 2e-2 (about two bf16 ulps at magnitude 1). The selective scan (fp32
 only) is held to 1e-4 as well: its N-term dot products are summed in
 another order and its multiply-adds fused, over states of magnitude up
-to about 10.
+to about 10. The LSTM cell: fp32 1e-5 (K <= 1024 products summed in
+another order), bf16 2e-2; dynamic_rnn and policy gradients as stated
+at each test.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import bridge
+from repro_torch import bridge, core
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_prefill import kernel as fp_kernel
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+from repro_torch.kernels.lstm_cell import ops as lstm_ops
+from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.selective_scan import kernel as ss_kernel
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.models import rnn
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import scheduler as sched_lib
 
@@ -215,3 +222,108 @@ def test_ssm_scheduler_kernel_path_equals_blocked_path_on_card(cuda_device):
         assert len(streams["cuda"][rid]) == m
         np.testing.assert_array_equal(streams["cuda"][rid],
                                       streams["blocked"][rid])
+
+
+LSTM_TOL = {"float32": 1e-5,   # K <= 1024 fp32 FMAs summed in another order
+            "bfloat16": 2e-2}  # c', h' rounded to bf16 on both sides
+
+
+def _lstm_case(B, D, H, dtype, device, seed=0):
+    """Operands of one LSTM step at lstm_init's weight scale, with a
+    non-zero incoming state and bias."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=dt,
+                            device=device)
+
+    return (t(D + H, 4 * H, scale=(D + H) ** -0.5), t(4 * H, scale=0.1),
+            t(B, D), t(B, H), t(B, H, scale=0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,D,H", [
+    (512, 512, 512),     # the dynamic_rnn phase of chip_smoke.py
+    (1, 512, 512),       # one row
+    (37, 20, 48),        # row, unit and K tails
+    (32, 24, 48),        # NMT encoder
+    (32, 72, 48),        # NMT decoder: x/h crossing inside a K tile
+    (70, 0, 33)])        # no input, odd units
+def test_lstm_cell_matches_plain_version(cuda_device, dtype, B, D, H):
+    args = _lstm_case(B, D, H, dtype, cuda_device)
+    before = lstm_kernel.lstm_cell.launches
+    c, h = lstm_kernel.lstm_cell(*args)
+    torch.cuda.synchronize()
+    assert lstm_kernel.lstm_cell.launches == before + 1
+    c_ref, h_ref = lstm_cell_ref(*args)
+    assert c.dtype == h.dtype == getattr(torch, dtype)
+    for got, ref in ((c, c_ref), (h, h_ref)):
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   rtol=LSTM_TOL[dtype],
+                                   atol=LSTM_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_lstm_cell_refuses_autograd_and_bad_operands(cuda_device):
+    w, b, x, c, h = _lstm_case(8, 16, 32, "float32", cuda_device)
+    w.requires_grad_()
+    with pytest.raises(RuntimeError, match="unfused"):
+        lstm_kernel.lstm_cell(w, b, x, c, h)
+    with torch.no_grad():
+        lstm_kernel.lstm_cell(w, b, x, c, h)
+    w = w.detach()
+    with pytest.raises(TypeError):
+        lstm_kernel.lstm_cell(w, b, x.bfloat16(), c, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_kernel.lstm_cell(w, b, x.t().contiguous().t(), c, h)
+    with pytest.raises(ValueError, match="shapes"):
+        lstm_kernel.lstm_cell(w[1:], b, x, c, h)
+
+
+@pytest.mark.cuda
+def test_dynamic_rnn_kernel_cell_equals_unfused_cell_on_card(cuda_device):
+    """Inference through the fused cell: outputs and final state equal the
+    unfused cell's, one launch per step up to max(lens)."""
+    B, S, D, H = 64, 40, 96, 80
+    params = bridge.init_lstm_params(D, H, seed=3, device=cuda_device)
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.standard_normal((B, S, D)), dtype=torch.float32,
+                     device=cuda_device)
+    lens = torch.tensor(rng.integers(1, S - 5, B), device=cuda_device)
+    fused = functools.partial(rnn.lstm_cell, kernel=lstm_ops.lstm_cell)
+    with torch.no_grad():
+        before = lstm_kernel.lstm_cell.launches
+        out_k, (c_k, h_k) = rnn.dynamic_rnn(params, x, lens, hidden=H,
+                                            cell=fused)
+        assert lstm_kernel.lstm_cell.launches - before == int(lens.max())
+        out, (c, h) = rnn.dynamic_rnn(params, x, lens, hidden=H)
+    for got, ref in ((out_k, out), (c_k, c), (h_k, h)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_offload_gradients_equal_all_on_card(cuda_device):
+    """Saved values swapped to pinned host memory and back give the same
+    gradients as keeping them on the device, and they do go to the
+    host."""
+    B, S, D, H = 32, 24, 40, 48
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((B, S, D)), dtype=torch.float32,
+                     device=cuda_device)
+    lens = torch.tensor(rng.integers(1, S + 1, B), device=cuda_device)
+    grads = {}
+    for policy in ("all", "offload", "carry_offload"):
+        params = bridge.init_lstm_params(D, H, seed=6, device=cuda_device)
+        for p in params.values():
+            p.requires_grad_()
+        out, _ = rnn.dynamic_rnn(params, x, lens, hidden=H,
+                                 save_policy=policy)
+        stack = core.while_loop.last_stack
+        assert (stack.host_bytes > 0) == (policy != "all")
+        grads[policy] = torch.autograd.grad((out ** 2).mean(),
+                                            [params["w"], params["b"]])
+    for policy in ("offload", "carry_offload"):
+        for got, ref in zip(grads[policy], grads["all"]):
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7)

@@ -17,7 +17,9 @@ from repro.configs import get_config as jax_get_config
 from repro.models import model_zoo
 from repro_torch import bridge
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.examples import dynamic_rnn_nmt
 from repro_torch.kernels.flash_prefill import kernel as fp_kernel
+from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.selective_scan import kernel as ss_kernel
 from repro_torch.launch import serve as launch_serve
@@ -75,7 +77,8 @@ def test_port_import_loads_no_jax_or_repro_module():
 def test_ops_dispatch_has_no_fallback():
     """ops.py picks the kernel for a CUDA tensor and the plain version
     only for a CPU one: no try/except that could fall back."""
-    for name in ("paged_attention", "flash_prefill", "selective_scan"):
+    for name in ("paged_attention", "flash_prefill", "selective_scan",
+                 "lstm_cell"):
         tree = ast.parse((PORT / "kernels" / name / "ops.py").read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
@@ -105,7 +108,7 @@ def test_unported_families_are_refused():
 
 @pytest.mark.parametrize("call", [
     "init_params", "from_numpy", "make_cache", "make_kv_cache", "serve",
-    "make_ssm_cache"])
+    "make_ssm_cache", "init_lstm_params", "lstm_params_from_numpy", "nmt"])
 def test_entry_points_default_to_cuda(call):
     """Omitting the device means the card: without one, the call raises
     instead of running on the CPU."""
@@ -123,6 +126,10 @@ def test_entry_points_default_to_cuda(call):
             get_config("falcon-mamba-7b", smoke=True), 2, 8)["ssm"]["h"],
         "serve": lambda: launch_serve.main(
             ["--arch", "llama3.2-1b", "--smoke", "--requests", "1"]),
+        "init_lstm_params": lambda: bridge.init_lstm_params(4, 8)["w"],
+        "lstm_params_from_numpy": lambda: bridge.lstm_params_from_numpy(
+            {"w": np.zeros((12, 32), np.float32)})["w"],
+        "nmt": lambda: dynamic_rnn_nmt.main(["--steps", "1"]),
     }
     if torch.cuda.is_available():
         out = calls[call]()
@@ -135,11 +142,16 @@ def test_entry_points_default_to_cuda(call):
 
 @pytest.mark.parametrize("fn", [pa_kernel.paged_attention,
                                 fp_kernel.flash_prefill,
-                                ss_kernel.selective_scan])
+                                ss_kernel.selective_scan,
+                                lstm_kernel.lstm_cell])
 def test_kernel_wrappers_refuse_cpu_tensors(fn):
     """The kernel wrappers never compute on the CPU: only ops.py picks
     the plain version, and only for CPU tensors."""
-    if fn is ss_kernel.selective_scan:
+    if fn is lstm_kernel.lstm_cell:
+        state = torch.zeros(2, 8)
+        args = (torch.zeros(12, 32), torch.zeros(32), torch.zeros(2, 4),
+                state, state)
+    elif fn is ss_kernel.selective_scan:
         seq, state = torch.zeros(1, 4, 128), torch.zeros(1, 4, 8)
         args = (seq, torch.zeros(128, 8), state, state, seq,
                 torch.zeros(1, 128, 8))
@@ -169,3 +181,20 @@ def test_one_shot_admission_is_the_default():
     tests/test_torch_oneshot.py)."""
     sig = inspect.signature(sched_lib.DecodeScheduler)
     assert sig.parameters["prefill"].default == "oneshot"
+
+
+def test_core_is_checked_and_imports_no_jax():
+    """The control-flow core is part of the port the import rules cover:
+    every module of ``repro_torch.core`` is among the checked files, and
+    importing the package alone loads no jax (a fresh interpreter)."""
+    names = {p.stem for p in (PORT / "core").glob("*.py")}
+    assert {"tensor_array", "stacks", "while_loop", "cond", "higher_order",
+            "frames", "primitives", "dataflow_ref"} <= names
+    assert all(p in _port_files() for p in (PORT / "core").glob("*.py"))
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, repro_torch.core; print("
+         "sorted(m for m in sys.modules if m.split('.')[0] in "
+         f"{FORBIDDEN!r}))"], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
