@@ -7,7 +7,7 @@ Phases, each printing its own lines:
 
 1. the card: its name and power limit as ``nvidia-smi`` reports them;
    TF32 is switched off for matmuls and cuDNN;
-2. the build: the four kernels compiled from
+2. the build: the five kernels compiled from
    ``src/repro_torch/kernels/csrc`` with ``nvcc``, one process each, all
    started together, with ptxas's register and shared memory report;
 3. each kernel against its plain PyTorch version on the card, at the
@@ -55,10 +55,37 @@ Phases, each printing its own lines:
     ``all``; time per loop iteration, peak memory and host bytes are
     printed;
 12. the NMT example (``repro_torch.examples.dynamic_rnn_nmt``) trains
-    250 steps on the card to a loss below 0.5.
+    250 steps on the card to a loss below 0.5;
+13. the flash-attention kernel against its plain version on the card at
+    the JAX kernel sweep's shapes (MHA, GQA 4:1 and 2:1, MQA; D = 16,
+    32, 64, 128; S = 64-256), at D=8 (the smoke llama's head dim) and
+    at the llama3.2-1b forward's (B=4, S=2048, H=32, KV=8, D=64), fp32
+    and bf16, causal and not; its refusal of operands that require
+    grad; then timed at the forward's shape beside the plain version,
+    ``scaled_dot_product_attention`` (a yardstick the port never calls)
+    and the bound;
+14. ``model_zoo.forward`` and ``loss_fn`` of llama3.2-1b at full width
+    (random weights from a seed, B=4, S=2048 tokens from ``SyntheticLM``)
+    under ``no_grad`` with ``attn_impl="cuda"`` (the kernel launches
+    once per layer) and ``"gather"`` (chunked attention, no launch), in
+    bf16 and in fp32 compute on the same weights: the fp32 logits must
+    agree within 1e-3; in bf16 each layer's kernel call must agree with
+    the plain version on its own operands within the kernel's tolerance,
+    and the logits must lie within ``FWD_BF16_TOL`` of the forward with
+    mode ``full`` routed to the plain version, which a 1% attention error
+    must not; greedy agreement and ms per forward are printed;
+15. training: ``launch.train.main`` at llama3.2-1b full width (fp32
+    masters, bf16 compute, ``remat="full"``, B=4, S=2048) for a few
+    steps into a temporary checkpoint directory: the loss must be
+    finite and fall, the checkpoint must restore bit for bit and a
+    second launch must resume from it; one step under
+    ``layer_loop="paper_while"`` with ``save_policy="offload"`` must
+    give ``scan``'s loss, and a step under ``attn_impl="cuda"`` must
+    stop at the kernel's refusal.
 
 The llama3.2-1b weights are freed before falcon-mamba's are made, and
-falcon-mamba's before the LSTM phases. Then
+falcon-mamba's before the LSTM phases, and each of the last three
+phases frees what it made. Then
 one JSON line of kernel records and, last, the device line. Any
 failed check raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA device is present.
@@ -86,16 +113,13 @@ TOL = {"bfloat16": 1.6e-2,  # two bf16 ulps at magnitude 1: the output
 #                             2048 positions
 GEOMETRIES = (("llama3.2-1b", 32, 8, 64), ("qwen2-7b", 28, 4, 128),
               ("olmo-1b", 16, 16, 128), ("smollm-135m", 9, 3, 64))
-KERNEL_SOURCES = {
-    "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
-                        "src/repro/kernels/paged_attention/kernel.py:51"),
-    "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
-                      "src/repro/kernels/flash_prefill/kernel.py:50"),
-    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
-                       "src/repro/kernels/selective_scan/kernel.py:27"),
-    "lstm_cell": ("src/repro_torch/kernels/csrc/lstm_cell.cu",
-                  "src/repro/kernels/lstm_cell/kernel.py:25"),
-}
+# the TPU kernel that each of kernels.KERNELS replaces
+REPLACES = {
+    "paged_attention": "src/repro/kernels/paged_attention/kernel.py:51",
+    "flash_prefill": "src/repro/kernels/flash_prefill/kernel.py:50",
+    "selective_scan": "src/repro/kernels/selective_scan/kernel.py:27",
+    "lstm_cell": "src/repro/kernels/lstm_cell/kernel.py:25",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:29"}
 SCAN_TOL = 1e-4     # fp32: N-term sums in another order, fused
 #                     multiply-adds, states of magnitude up to ~10
 LSTM_TOL = {"float32": 1e-5,    # K <= 1024 fp32 products summed in
@@ -103,10 +127,43 @@ LSTM_TOL = {"float32": 1e-5,    # K <= 1024 fp32 products summed in
             "bfloat16": 1.6e-2}  # c', h' rounded to bf16 on both sides
 RNN_TOL = 1e-4      # fp32: per-step differences of ~1e-6 carried through
 #                     up to 1000 steps of the recurrence
+FA_TOL = {  # (rtol, atol) of |kernel - plain| <= atol + rtol |plain|
+    "float32": (1e-5, 1e-5),     # the same fp32 math summed in another order
+    "bfloat16": (2**-7, 2**-8)}  # rtol: one bf16 ulp, as the output is
+#                                  rounded to bf16 on both sides; atol: the
+#                                  tensor-core route rounds p to bf16 for
+#                                  PV, at most 2^-8 of sum_j p_j |v_j|, and
+#                                  |v| is of order 1 (the H100 readings
+#                                  need at most 2.8e-3)
+FA_SWEEP = ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 64, 6, 3, 128),
+            (2, 128, 2, 1, 16),          # (B, S, H, KV, D): the JAX sweep,
+            (2, 128, 8, 2, 8))           # and the smoke llama's head dim
+FA_FORWARD = (4, 2048, 32, 8, 64)        # the llama3.2-1b forward's shape
+LOGIT_TOL = 1e-3   # fp32 compute: 16 layers of fp32 sums in another order
+FWD_BF16_TOL = {"max": 0.125, "mean": 1.5e-2}  # bf16 logits against the
+#   forward routed through the kernel's plain version: 16 random bf16 layers
+#   carry any rounding difference to a mean of about 1.2e-2 (the chunked
+#   path, which rounds elsewhere, reads max 9.4e-2, mean 1.2e-2 on the H100);
+#   a 1% error on every layer's attention output reads 1.6e-1 and 1.9e-2,
+#   and the script checks that it falls outside. The kernel itself is held
+#   to FA_TOL on each layer's own operands.
+FWD_PERTURB = 1.01  # a 1% error on every layer's attention output
+TRAIN_STEPS = 16                 # enough for the loss to fall reliably
+STEP_LOSS_RTOL = 1e-6            # paper_while+offload vs scan: the same ops
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_record(name, err, ms, plain_ms, b_ms, b_by, lib_ms):
+    """A kernel's entry of the ``kernels`` line; ``main`` fills in its
+    launches from the main path's run."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
 
 
 # ------------------------------------------------------------------ cases
@@ -229,7 +286,7 @@ def phase_card():
 def phase_build():
     from repro_torch import kernels
     t0 = time.perf_counter()
-    report = kernels.build_all(list(KERNEL_SOURCES))
+    report = kernels.build_all()
     log(f"[build] {len(report)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc, "
         f"{kernels.ARCH_TAG})")
@@ -239,7 +296,7 @@ def phase_build():
         log(f"[build] {name}: {secs:.1f} s")
         for ln in lines:
             log(f"[build]   {ln}")
-    for name in KERNEL_SOURCES:
+    for name in kernels.KERNELS:
         kernels.library(name)
 
 
@@ -316,12 +373,8 @@ def phase_kernels():
             f"q {tuple(copies[0][0].shape)} bf16: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), max |kernel - plain| {err:.3e}")
-        src, replaces = KERNEL_SOURCES[name]
-        records.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": 0,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib_ms})
+        records.append(kernel_record(name, err, ms, plain_ms, b_ms, b_by,
+                                     lib_ms))
     return records
 
 
@@ -411,11 +464,8 @@ def phase_scan_kernel():
         f"128, 8192, 16) fp32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), library: none (no single PyTorch "
         f"call computes this recurrence), max |kernel - plain| {err:.3e}")
-    src, replaces = KERNEL_SOURCES["selective_scan"]
-    return {"name": "selective_scan", "route": "cuda", "source": src,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    return kernel_record("selective_scan", err, ms, plain_ms, b_ms, b_by,
+                         None)
 
 
 def free_device_memory(what):
@@ -825,11 +875,7 @@ def phase_lstm_kernel():
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.lstm_cell {lib_ms:.4f}"
         f" ms, bound {b_ms:.4f} ms ({b_by}), max |kernel - plain| "
         f"{err:.3e}, |torch.lstm_cell - plain| {lib_err:.3e}")
-    src, replaces = KERNEL_SOURCES["lstm_cell"]
-    return {"name": "lstm_cell", "route": "cuda", "source": src,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+    return kernel_record("lstm_cell", err, ms, plain_ms, b_ms, b_by, lib_ms)
 
 
 def instrument_predicate_reads():
@@ -1045,6 +1091,412 @@ def phase_nmt():
         f" (bar {nmt.LOSS_BAR})")
 
 
+def fa_case(seed, B, S, H, KV, D, dtype, T=None):
+    """q (B, S, H, D), k and v (B, T, KV, D) drawn on the card."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    T = S if T is None else T
+    return [torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+
+
+def fa_bound(q, k, v, causal=True):
+    """(bound_ms, bound_by): q, k, v read once and o written once over
+    HBM bandwidth, against the QK and PV FLOPs of the visible (query,
+    key) pairs at the peak rate for the dtype."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    pairs = (sum(min(s + 1, T) for s in range(S)) if causal else S * T)
+    flops = 4 * D * H * B * pairs
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fa_check(out, ref):
+    """(max |kernel - plain|, the atol that FA_TOL's rtol leaves this
+    case needing, whether it is within FA_TOL)."""
+    rtol, atol = FA_TOL[str(ref.dtype).split(".")[1]]
+    diff = (out.float() - ref.float()).abs()
+    need = (diff - rtol * ref.float().abs()).max().item()
+    return diff.max().item(), need, need <= atol
+
+
+def phase_flash_kernel():
+    """The flash-attention kernel against its plain version over the
+    JAX sweep and the forward's shape, its autograd refusal, then its
+    time at the forward's shape. Returns its record (launches 0: the
+    forward phase fills them in)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    kern = fa_kernel.flash_attention
+    seed = 0
+    for shape in FA_SWEEP + (FA_FORWARD,):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            for causal in (True, False):
+                seed += 1
+                args = fa_case(seed, *shape, dtype)
+                out = kern(*args, causal=causal)
+                torch.cuda.synchronize()
+                err, need, ok = fa_check(out, attention_ref(*args,
+                                                            causal=causal))
+                log(f"[flash] check B,S,H,KV,D={shape} {dname:8s} causal="
+                    f"{causal!s:5s}: max |kernel - plain| {err:.3e}, atol "
+                    f"needed at rtol {FA_TOL[dname][0]:g}: {need:.3e} (tol "
+                    f"{FA_TOL[dname][1]:g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("flash_attention disagrees with its "
+                                         "plain version")
+                del args, out
+    q, k, v = fa_case(99, 1, 128, 4, 2, 64, torch.float32)
+    before = kern.launches
+    try:
+        kern(q.requires_grad_(), k, v)
+    except RuntimeError as e:
+        log(f"[flash] refuses an operand that requires grad: {e}")
+    else:
+        raise AssertionError("flash_attention accepted an operand that "
+                             "requires grad")
+    if kern.launches != before:
+        raise AssertionError("the refused call launched")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype in (torch.float32, torch.bfloat16):
+        copies = [fa_case(200 + i, *FA_FORWARD, dtype) for i in range(4)]
+        out = kern(*copies[0])
+        ref = attention_ref(*copies[0])
+        err, need, ok = fa_check(out, ref)
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version on the timing copies: {need:.3e}")
+        ms = time_ms(lambda i: kern(*copies[i]), len(copies), iters=20)
+        if dtype == torch.float32:
+            log(f"[flash] time flash_attention at {FA_FORWARD} fp32: kernel "
+                f"{ms:.4f} ms, bound {fa_bound(*copies[0])[0]:.4f} ms, max "
+                f"|kernel - plain| {err:.3e}")
+            continue
+        heads = [[t.transpose(1, 2) for t in c] for c in copies]
+        lib = sdpa(*heads[0], is_causal=True, enable_gqa=True).transpose(1, 2)
+        lib_err, lib_need, lib_ok = fa_check(lib, ref)
+        if not lib_ok:
+            raise AssertionError(f"the SDPA yardstick computes another "
+                                 f"function: {lib_need:.3e}")
+        plain_ms = time_ms(lambda i: attention_ref(*copies[i]), len(copies),
+                           iters=5)
+        lib_ms = time_ms(lambda i: sdpa(*heads[i], is_causal=True,
+                                        enable_gqa=True), len(copies),
+                         iters=20)
+        b_ms, b_by = fa_bound(*copies[0])
+        log(f"[flash] time flash_attention at B,S,H,KV,D={FA_FORWARD} bf16 "
+            f"causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max |kernel - "
+            f"plain| {err:.3e} (atol needed {need:.3e}), |sdpa - plain| "
+            f"{lib_err:.3e} (atol needed {lib_need:.3e})")
+        record = kernel_record("flash_attention", err, ms, plain_ms, b_ms,
+                               b_by, lib_ms)
+        del copies, heads, out, ref, lib
+    return record
+
+
+def forward_batch(cfg):
+    """B=4, S=2048 tokens and labels from ``SyntheticLM`` (seed 0), as
+    int64 tensors on the card."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    b = SyntheticLM(cfg.vocab, FA_FORWARD[1], FA_FORWARD[0],
+                    seed=0).batch_at(0)
+    return {k: torch.from_numpy(v).to("cuda", torch.int64)
+            for k, v in b.items()}
+
+
+def timed_forward(params, cfg, batch):
+    """(logits, loss, ms of the forward, kernel launches in it)"""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import model_zoo
+    with torch.no_grad():
+        model_zoo.forward(params, cfg, batch)          # warm-up
+        torch.cuda.synchronize()
+        fa_kernel.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        logits, _ = model_zoo.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = fa_kernel.flash_attention.launches
+        loss, _ = model_zoo.loss_fn(params, cfg, batch)
+    return logits, loss.item(), ms, launches
+
+
+def route_full(fn):
+    """Mode ``full``'s flash path through ``fn(q, k, v, causal=)`` in
+    place of ``ops.flash_attention``."""
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return mock.patch.object(fa_ops, "flash_attention", fn)
+
+
+def phase_full_forward():
+    """llama3.2-1b's full-sequence forward at full width through the
+    flash kernel and through chunked attention, in bf16 and in fp32
+    compute on the same (bf16-drawn) weights; in bf16 also with each
+    layer's kernel call held against the plain version on the same
+    operands, and with mode ``full`` routed to the plain version (the
+    kernel's rounding points except p's). Returns the kernel's launches
+    in the bf16 forward."""
+    import dataclasses
+    import gc
+    import math
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import model_zoo, transformer
+
+    base = get_config("llama3.2-1b")
+    batch = forward_batch(base)
+    params = bridge.init_params(base, seed=0, device="cuda")
+    logits, launches, layer_checks = {}, None, []
+
+    def checked(q, k, v, *, causal=True):
+        out = fa_kernel.flash_attention(q, k, v, causal=causal)
+        layer_checks.append(fa_check(out, attention_ref(q, k, v,
+                                                        causal=causal))
+                            + (v.abs().max().item(),))
+        return out
+
+    def plain(scale):
+        return lambda q, k, v, *, causal=True: (attention_ref(
+            q, k, v, causal=causal).float() * scale).to(q.dtype)
+
+    for cdt in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, compute_dtype=cdt)
+        if cdt == "float32":     # the same weights, upcast
+            params = pytree.tree_map(lambda t: t.float(), params)
+        for impl in ("cuda", "gather"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+            path = transformer.resolved_full_attn_impl(c, FA_FORWARD[1],
+                                                       "cuda")
+            out, loss, ms, n = timed_forward(params, c, batch)
+            want = base.n_layers if impl == "cuda" else 0
+            log(f"[forward] {cfg.name} {cdt} B,S={FA_FORWARD[:2]} attention "
+                f"{path}: {ms:.1f} ms per forward, loss_fn {loss:.4f}, "
+                f"flash_attention launches {n} (want {want})")
+            if n != want:
+                raise AssertionError(f"{path}: {n} kernel launches, want "
+                                     f"{want}")
+            if not math.isfinite(loss) or out.shape != (
+                    *FA_FORWARD[:2], base.padded_vocab):
+                raise AssertionError(f"bad loss or logits on {path}")
+            if cdt == "bfloat16" and impl == "cuda":
+                launches = n
+            logits[cdt, impl] = out.float()
+            del out
+            if cdt == "bfloat16":
+                with torch.no_grad():
+                    profile_pass(lambda: model_zoo.forward(params, c, batch),
+                                 f"one bf16 forward, attention {path}", 1)
+        if cdt == "bfloat16":
+            c = dataclasses.replace(cfg, attn_impl="cuda")
+            for key, fn in (("checked", checked), (1.0, plain(1.0)),
+                            (FWD_PERTURB, plain(FWD_PERTURB))):
+                with route_full(fn), torch.no_grad():
+                    logits[cdt, key] = model_zoo.forward(params, c,
+                                                         batch)[0].float()
+
+    err, need, _, vmax = map(max, zip(*layer_checks))
+    ok_layers = (len(layer_checks) == base.n_layers
+                 and all(r[2] for r in layer_checks))
+    log(f"[forward] bf16, each layer's kernel call against the plain version "
+        f"on its operands ({len(layer_checks)} layers, max |v| {vmax:.3f}): "
+        f"max |kernel - plain| {err:.3e}, atol needed at rtol "
+        f"{FA_TOL['bfloat16'][0]:g}: {need:.3e} (tol "
+        f"{FA_TOL['bfloat16'][1]:g}) {'ok' if ok_layers else 'FAIL'}")
+
+    def cmp(a, b):
+        d = (a - b).abs()
+        return (d.max().item(), d.mean().item(),
+                (a.argmax(-1) == b.argmax(-1)).float().mean().item())
+
+    err32, _, agree32 = cmp(logits["float32", "cuda"],
+                            logits["float32", "gather"])
+    ok32 = err32 <= LOGIT_TOL
+    log(f"[forward] fp32 logits: max |flash - chunked| {err32:.3e} (tol "
+        f"{LOGIT_TOL:g}) {'ok' if ok32 else 'FAIL'}; greedy agreement "
+        f"{agree32:.6f}")
+    plain16 = logits["bfloat16", 1.0]
+    readings = {"flash": cmp(logits["bfloat16", "cuda"], plain16),
+                f"plain x{FWD_PERTURB:g}": cmp(logits["bfloat16", FWD_PERTURB],
+                                               plain16),
+                "chunked": cmp(logits["bfloat16", "gather"], plain16)}
+    within = {k: r[0] <= FWD_BF16_TOL["max"] and r[1] <= FWD_BF16_TOL["mean"]
+              for k, r in readings.items()}
+    for k, (mx, mean, agree) in readings.items():
+        log(f"[forward] bf16 logits, {k} against the plain-routed forward: "
+            f"max |diff| {mx:.3e}, mean {mean:.3e}, greedy agreement "
+            f"{agree:.6f}: {'within' if within[k] else 'outside'} max "
+            f"{FWD_BF16_TOL['max']:g}, mean {FWD_BF16_TOL['mean']:g}")
+    if not (ok_layers and ok32 and within["flash"]):
+        raise AssertionError("the flash path disagrees with its plain "
+                             "version in the forward")
+    if within[f"plain x{FWD_PERTURB:g}"]:
+        raise AssertionError("the bf16 forward gate misses a "
+                             f"{FWD_PERTURB - 1:.0%} attention error")
+    del params, logits, plain16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def checkpoint_root(need_bytes):
+    """A fresh directory under TMPDIR for the training checkpoints."""
+    import shutil
+    import tempfile
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    log(f"[train] {tempfile.gettempdir()}: {free / 2**30:.1f} GiB free; a "
+        f"checkpoint takes {need_bytes / 2**30:.1f} GiB")
+    if free < 1.2 * need_bytes:
+        raise AssertionError("TMPDIR has no room for the checkpoint")
+    return tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+
+def phase_train():
+    """The training launcher at llama3.2-1b full width: falling loss,
+    an exact checkpoint, a resume; paper_while + offload against scan;
+    the kernel's refusal of training."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+    import statistics
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import bridge, core
+    from repro_torch.checkpointing import checkpoint as ck
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+
+    cfg = get_config("llama3.2-1b")
+    B, S = FA_FORWARD[:2]
+    n_params = model_zoo.count_params(cfg)
+    root = checkpoint_root(3 * 4 * n_params)
+    argv = ["--arch", cfg.name, "--batch", str(B), "--seq", str(S),
+            "--ckpt-dir", root, "--ckpt-every", str(TRAIN_STEPS)]
+    try:
+        fa_kernel.flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = launch_train.main(argv + ["--steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        hist = res["trainer"].history
+        losses = [h[1] for h in hist]
+        step_ms = [h[2] * 1e3 for h in hist]
+        k = TRAIN_STEPS // 4
+        first, last = statistics.mean(losses[:k]), statistics.mean(losses[-k:])
+        log(f"[train] {cfg.name} ({n_params / 1e9:.3f}B params) fp32 masters, "
+            f"{cfg.compute_dtype} compute, remat {cfg.remat}, B={B} S={S}: "
+            f"{TRAIN_STEPS} steps in {wall:.1f} s; ms per step median "
+            f"{statistics.median(step_ms[1:]):.1f} (first {step_ms[0]:.1f}); "
+            f"peak memory {peak / 2**30:.2f} GiB; flash_attention launches "
+            f"{fa_kernel.flash_attention.launches}")
+        log(f"[train] losses " + " ".join(f"{x:.4f}" for x in losses))
+        log(f"[train] mean of the first {k} {first:.4f}, of the last {k} "
+            f"{last:.4f}")
+        if not all(math.isfinite(x) for x in losses) or not last < first:
+            raise AssertionError("the loss is not finite or does not fall")
+        if fa_kernel.flash_attention.launches != 0:
+            raise AssertionError("training launched the forward-only kernel")
+
+        like = {"params": res["params"], "opt": res["opt"]}
+        t0 = time.perf_counter()
+        step, state = ck.restore_latest(root, like)
+        secs = time.perf_counter() - t0
+        same = all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                   for a, b in zip(pytree.tree_leaves(state),
+                                   pytree.tree_leaves(like)))
+        log(f"[train] checkpoint step {step} restored in {secs:.1f} s: "
+            f"{'bit-equal' if same else 'DIFFERS'} to the final state "
+            f"({len(pytree.tree_leaves(like))} leaves)")
+        if step != TRAIN_STEPS or not same:
+            raise AssertionError("the checkpoint does not restore exactly")
+        del res, like, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        again = launch_train.main(argv + ["--steps", str(TRAIN_STEPS + 2)])
+        resumed = [h[0] for h in again["trainer"].history]
+        log(f"[train] second launch resumed at step {again['start']}, ran "
+            f"steps {resumed}, losses "
+            f"{[round(h[1], 4) for h in again['trainer'].history]}")
+        if again["start"] != TRAIN_STEPS or resumed != [TRAIN_STEPS,
+                                                         TRAIN_STEPS + 1]:
+            raise AssertionError("the second launch did not resume")
+        del again
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = bridge.init_params(cfg, seed=0, device="cuda",
+                                keep_param_dtype=True)
+    opt = adamw.init(params)
+    batch = SyntheticLM(cfg.vocab, S, B, seed=0).batch_at(0)
+    opt_cfg = adamw.AdamWConfig()
+    out = {}
+    for name, c in (("scan", cfg),
+                    ("paper_while+offload", dataclasses.replace(
+                        cfg, layer_loop="paper_while",
+                        save_policy="offload"))):
+        step_fn = train_loop.make_train_step(c, opt_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt, batch)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        ms = (time.perf_counter() - t0) * 1e3
+        stack = core.while_loop.last_stack
+        host = stack.host_bytes if stack is not None and name != "scan" else 0
+        out[name] = (loss, gnorm)
+        log(f"[train] one step, layer loop {name}: loss {loss:.6f}, grad norm "
+            f"{gnorm:.6f}, {ms:.1f} ms, {host / 2**20:.1f} MiB saved to host")
+        if name == "scan":
+            profile_pass(lambda: step_fn(params, opt, batch),
+                         "one train step (scan, remat full)", 1)
+        gc.collect()
+    (l0, g0), (l1, g1) = out["scan"], out["paper_while+offload"]
+    ok = abs(l1 - l0) <= STEP_LOSS_RTOL * abs(l0)
+    log(f"[train] paper_while+offload vs scan: |loss diff| {abs(l1 - l0):.3e}"
+        f" (rtol {STEP_LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}, |grad norm "
+        f"diff| {abs(g1 - g0):.3e}")
+    if not ok:
+        raise AssertionError("paper_while+offload and scan disagree")
+
+    step_fn = train_loop.make_train_step(
+        dataclasses.replace(cfg, attn_impl="cuda"), opt_cfg)
+    try:
+        step_fn(params, opt, batch)
+    except RuntimeError as e:
+        if 'attn_impl="gather"' not in str(e):
+            raise
+        log(f"[train] a step under attn_impl=\"cuda\" stops at the kernel's"
+            f" refusal: {e}")
+    else:
+        raise AssertionError("a train step ran through the forward-only "
+                             "kernel")
+    del params, opt
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1076,6 +1528,11 @@ def main() -> int:
     launches["lstm_cell"] = timed(phase_dynamic_rnn)
     timed(phase_policies)
     timed(phase_nmt)
+    free_device_memory("the flash-attention phases")
+    records.append(timed(phase_flash_kernel))
+    launches["flash_attention"] = timed(phase_full_forward)
+    free_device_memory("the training phase")
+    timed(phase_train)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

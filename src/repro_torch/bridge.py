@@ -4,14 +4,28 @@ The port keeps the JAX package's parameter names and layouts (a dict
 tree whose ``layers`` leaves carry the layer dim in front, ``wq`` as
 ``(L, d_model, H, hd)`` and so on), so one tree converts leaf for leaf.
 
-Weight matrices (embeddings, projections, biases, the mamba conv) are
-cast to ``cfg.compute_dtype`` ONCE, here. The JAX package casts them at
-every use (``transformer.attn_apply``, ``layers.swiglu``, the engine's
-embedding lookups), which in eager PyTorch would copy every weight on
-every step. Leaves the JAX package reads in fp32 stay in
-``cfg.param_dtype``: the norm weights (``ln``, ``ln_*``) and the mamba
-recurrence's ``A_log``, ``dt_bias`` and ``D_skip``. Cast to bf16,
-``A_log`` would change every channel's decay ``exp(dt * A)``.
+For serving, weight matrices (embeddings, projections, biases, the
+mamba conv) are cast to ``cfg.compute_dtype`` ONCE, here. The JAX
+package casts them at every use (``transformer.attn_apply``,
+``layers.swiglu``, the engine's embedding lookups), which in eager
+PyTorch would copy every weight on every step. Leaves the JAX package
+reads in fp32 stay in ``cfg.param_dtype``: the norm weights (``ln``,
+``ln_*``) and the mamba recurrence's ``A_log``, ``dt_bias`` and
+``D_skip``. Cast to bf16, ``A_log`` would change every channel's decay
+``exp(dt * A)``.
+
+For training, ``keep_param_dtype=True`` keeps EVERY leaf in
+``cfg.param_dtype`` (the fp32 masters that AdamW updates), and the
+train step casts the whole tree to the compute dtype once per step
+with ``compute_params``, a differentiable cast whose gradients come
+back in fp32. The model then runs unchanged. This matches the JAX
+package's cast-at-use in the forward. One difference in the backward:
+the tied embedding is cast once, so its two bf16 cotangents (the
+lookup's and the unembedding's) add in bf16 before the cast back to
+fp32, where the JAX package casts at both uses and adds them in fp32.
+In fp32 compute the cast is the identity and nothing differs.
+``opt_state_from_numpy`` carries the JAX package's ``AdamWState``
+across.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ import torch
 from . import resolve_device
 from .configs import ModelConfig, require_ported
 from .models import rnn, ssm, transformer
+from .optim import adamw
 
 
 def _keeps_param_dtype(name: str) -> bool:
@@ -34,19 +49,52 @@ def _keeps_param_dtype(name: str) -> bool:
 
 def _convert(tree, cfg, device, keep=False):
     if isinstance(tree, dict):
-        return {k: _convert(v, cfg, device, _keeps_param_dtype(k))
+        return {k: _convert(v, cfg, device, keep or _keeps_param_dtype(k))
                 for k, v in tree.items()}
     dt = cfg.dtype("param" if keep else "compute")
     return torch.from_numpy(np.array(tree)).to(device, dt)
 
 
 def from_numpy(params_np: Dict[str, Any], cfg: ModelConfig,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", keep_param_dtype: bool = False
+               ) -> Dict[str, Any]:
     """The JAX package's parameter tree, its leaves as numpy arrays
     (``jax.tree.map(np.asarray, init_params(...))``), as the port's
-    parameter tree on ``device``."""
+    parameter tree on ``device``: weight matrices in the compute dtype,
+    or every leaf in the param dtype with ``keep_param_dtype``."""
     require_ported(cfg)
-    return _convert(params_np, cfg, resolve_device(device))
+    return _convert(params_np, cfg, resolve_device(device),
+                    keep=keep_param_dtype)
+
+
+def compute_params(params: Dict[str, Any], cfg: ModelConfig
+                   ) -> Dict[str, Any]:
+    """The master tree (``keep_param_dtype=True``) as the model runs
+    it: every leaf cast to the compute dtype except those the model
+    reads in the param dtype (``_keeps_param_dtype``). The cast is
+    differentiable; in fp32 compute it returns the leaves themselves."""
+    def cast(tree, keep=False):
+        if isinstance(tree, dict):
+            return {k: cast(v, keep or _keeps_param_dtype(k))
+                    for k, v in tree.items()}
+        return tree if keep else tree.to(cfg.dtype("compute"))
+    return cast(params)
+
+
+def opt_state_from_numpy(state_np, device="cuda") -> adamw.AdamWState:
+    """The JAX package's ``AdamWState`` (step, mu, nu), its leaves as
+    numpy arrays, as the port's: the step a Python int, the moments
+    fp32 trees on ``device``."""
+    device = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return torch.from_numpy(np.array(t, np.float32)).to(device)
+
+    step, mu, nu = state_np
+    return adamw.AdamWState(step=int(np.asarray(step)), mu=conv(mu),
+                            nu=conv(nu))
 
 
 class _ParamSource:
@@ -57,9 +105,10 @@ class _ParamSource:
     those drawn with ``param_dtype=True``, which stay in the param
     dtype."""
 
-    def __init__(self, cfg, gen, device):
+    def __init__(self, cfg, gen, device, keep_param_dtype=False):
         self.gen, self.device = gen, device
-        self.pdt, self.cdt = cfg.dtype("param"), cfg.dtype("compute")
+        self.pdt = cfg.dtype("param")
+        self.cdt = self.pdt if keep_param_dtype else cfg.dtype("compute")
 
     def p(self, shape, *, init="fan_in", scale=1.0, fan_in=0,
           param_dtype=False):
@@ -79,8 +128,8 @@ class _ParamSource:
         return t.mul_(scale).to(dt)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device="cuda") -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                keep_param_dtype: bool = False) -> Dict[str, Any]:
     """Random parameters of the JAX package's shapes and init rules
     (``transformer.build_params`` over a source that follows
     ``models/params.py``), drawn from a ``torch.Generator`` seeded with
@@ -95,11 +144,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     argmax, so a last-bit difference in any sum flips which key wins,
     and random-weight runs of two correct implementations diverge
     within one prompt chunk. With the true fan-in the scores have unit
-    scale, as in a trained model."""
+    scale, as in a trained model.
+
+    ``keep_param_dtype=True`` keeps every leaf in the param dtype (the
+    training masters); the draws are the same numbers before the cast."""
     require_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return transformer.build_params(cfg, _ParamSource(cfg, gen, device))
+    return transformer.build_params(
+        cfg, _ParamSource(cfg, gen, device, keep_param_dtype))
 
 
 def lstm_params_from_numpy(tree, device="cuda"):

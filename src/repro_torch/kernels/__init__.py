@@ -20,7 +20,8 @@ launch; ``check`` turns a non-zero code into an exception.
 Packages: paged_attention (single-token GQA decode through the block
 table), flash_prefill (causal chunk attention through the block table),
 selective_scan (one chunk of the mamba1 recurrence), lstm_cell (one
-fused LSTM step of ``dynamic_rnn``: the GEMM and the gates).
+fused LSTM step of ``dynamic_rnn``: the GEMM and the gates),
+flash_attention (the full-sequence GQA forward of mode ``full``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 ARCH_TAG = "sm_90a"
+
+# every kernel of the port, one csrc/<name>.cu each
+KERNELS = ("paged_attention", "flash_prefill", "selective_scan", "lstm_cell",
+           "flash_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -76,8 +81,10 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
-def build_all(names: Iterable[str]) -> Dict[str, Tuple[float, str]]:
-    """Compile ``csrc/<name>.cu`` for every name not built yet, one
+def build_all(names: Iterable[str] = KERNELS
+              ) -> Dict[str, Tuple[float, str]]:
+    """Compile ``csrc/<name>.cu`` for every name not built yet (all the
+    port's kernels by default), one
     ``nvcc`` process each, all started together. Returns
     ``{name: (seconds, ptxas report)}`` for the sources compiled by this
     call (a library already on disk with the same source digest is

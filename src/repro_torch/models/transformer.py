@@ -10,7 +10,10 @@ parameters (leading ``L`` dim, as the JAX package stores them) are
 driven by a Python loop over layers; ``layer_params`` splits them once
 per call into per-layer views. Attention modes:
 
-- ``full``: causal attention over the sequence (``chunked_attention``);
+- ``full``: causal attention over the sequence: the flash-attention
+  kernel under ``attn_impl="cuda"`` when S and T are multiples of 128
+  (forward only, as in the JAX package), ``chunked_attention``
+  otherwise (``resolved_full_attn_impl`` names the path);
 - ``prefill``: write the prompt's K/V into the cache view, then attend
   over the prompt itself;
 - ``chunk``: write a prompt chunk's K/V at per-row offsets, then attend
@@ -22,16 +25,30 @@ per call into per-layer views. Attention modes:
 
 Cache views, and the SSM state in decode, are written in place (the
 JAX package returns new ones).
-Mode ``full`` has no kernel yet in the port: the JAX package's
-``flash_attention`` kernel is still to be ported (ROADMAP.md).
+
+The full-sequence forward drives the layer stack per
+``cfg.layer_loop`` (``_run_layers``): ``scan`` and ``unroll`` are one
+Python loop over the layers; ``paper_while`` is ``core.fori_loop``, the
+paper's dynamic loop hosting the production model, whose save policy
+(``cfg.save_policy``, §5.3 swapping under ``offload``) applies to the
+layer activations. ``cfg.remat`` wraps each layer step: ``full`` in a
+non-reentrant ``torch.utils.checkpoint`` (only the step's inputs are
+saved), ``dots`` in selective activation checkpointing that saves the
+matmul outputs, ``none`` in nothing; ``attn_out`` is refused
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from .. import core
+from ..kernels import ARCH_TAG
 from . import attention as attn_lib
 from . import layers
 from . import ssm as ssm_lib
@@ -134,6 +151,25 @@ def _leaves(t):
         yield t
 
 
+def _flash_path(cfg, S: int, T: int) -> bool:
+    """Mode ``full`` takes the flash-attention kernel exactly when the
+    JAX package takes its Pallas kernel: the kernel path is asked for
+    and both lengths are multiples of 128."""
+    return cfg.attn_impl == "cuda" and S % 128 == 0 and T % 128 == 0
+
+
+def resolved_full_attn_impl(cfg, seq_len: int, device) -> str:
+    """Which attention mode ``full`` runs at this length:
+    "cuda-flash:sm_90a" (the flash-attention kernel on the card),
+    "torch-plain-flash:cpu" (its plain version, for CPU tensors) or
+    "chunked" (``chunked_attention``)."""
+    if not _flash_path(cfg, seq_len, seq_len):
+        return "chunked"
+    dev = torch.device(device)
+    return ("cuda-flash:" + ARCH_TAG if dev.type == "cuda"
+            else "torch-plain-flash:" + dev.type)
+
+
 def attn_apply(p, x, cfg, *, positions, mode: str = "full",
                kv_cache=None, cur_len=None, chunk_off=None):
     """One attention sublayer; returns its output (B, S, d_model) in
@@ -151,7 +187,10 @@ def attn_apply(p, x, cfg, *, positions, mode: str = "full",
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
 
-    if mode in ("full", "prefill"):
+    if mode == "full" and _flash_path(cfg, S, S):
+        from ..kernels.flash_attention.ops import flash_attention
+        out = flash_attention(q, k, v, causal=True)
+    elif mode in ("full", "prefill"):
         if mode == "prefill":
             kv_cache.write_prompt(k, v)
         out = attn_lib.chunked_attention(
@@ -208,15 +247,64 @@ def unembed_weight(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
 
 
+# =========================== layer loops ====================================
+
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpointing policy of ``remat="dots"``: keep every
+    matmul output, recompute the rest (``jax.checkpoint_policies.
+    checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """Wrap one layer step ``fn(lp, x) -> x`` per ``cfg.remat``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":       # save only the step's inputs
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
+    if cfg.remat == "attn_out":
+        raise NotImplementedError(
+            "remat='attn_out' (save only the tagged attention outputs) is "
+            "not ported yet; see ROADMAP.md")
+    raise ValueError(cfg.remat)
+
+
+def _run_layers(stacked, x, cfg, block_fn):
+    """Drive the homogeneous layer stack per ``cfg.layer_loop``;
+    ``block_fn(lp, x) -> x`` runs one layer."""
+    step = _remat(block_fn, cfg)
+    lps = layer_params(stacked)
+    if cfg.layer_loop in ("scan", "unroll"):
+        for lp in lps:
+            x = step(lp, x)
+        return x
+    if cfg.layer_loop == "paper_while":
+        return core.fori_loop(0, len(lps), lambda i, xx: step(lps[i], xx),
+                              x, save_policy=cfg.save_policy)
+    raise ValueError(cfg.layer_loop)
+
+
 def forward_features(params, cfg, tokens):
     """Backbone + final norm, no unembed. tokens: (B, S) int."""
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    for lp in layer_params(params["layers"]):
-        if cfg.family == "ssm":
-            x = ssm_block(lp, x, cfg, mode="full")
-        else:
-            x = attn_block(lp, x, cfg, positions=positions, mode="full")
+    if cfg.family == "ssm":
+        def block_fn(lp, xx):
+            return ssm_block(lp, xx, cfg, mode="full")
+    else:
+        def block_fn(lp, xx):
+            return attn_block(lp, xx, cfg, positions=positions, mode="full")
+    x = _run_layers(params["layers"], x, cfg, block_fn)
     return layers.apply_norm(cfg.norm, x, params, "ln_final")
 
 

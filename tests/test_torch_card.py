@@ -12,7 +12,10 @@ only) is held to 1e-4 as well: its N-term dot products are summed in
 another order and its multiply-adds fused, over states of magnitude up
 to about 10. The LSTM cell: fp32 1e-5 (K <= 1024 products summed in
 another order), bf16 2e-2; dynamic_rnn and policy gradients as stated
-at each test.
+at each test. Flash attention: fp32 1e-5; bf16 rtol 2^-7 (one bf16
+ulp: the output is rounded on both sides) with atol 2^-8 (the
+tensor-core route rounds p to bf16 for PV, at most 2^-8 of
+sum_j p_j |v_j|).
 """
 
 import dataclasses
@@ -24,6 +27,8 @@ import torch
 
 from repro_torch import bridge, core
 from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_prefill import kernel as fp_kernel
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
@@ -33,7 +38,7 @@ from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.selective_scan import kernel as ss_kernel
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
-from repro_torch.models import rnn
+from repro_torch.models import model_zoo, rnn, transformer
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import scheduler as sched_lib
 
@@ -327,3 +332,74 @@ def test_offload_gradients_equal_all_on_card(cuda_device):
     for policy in ("offload", "carry_offload"):
         for got, ref in zip(grads[policy], grads["all"]):
             torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7)
+
+
+def _fa_case(B, S, T, H, KV, D, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(*shape, generator=gen).to(device, dtype)
+            for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,T,H,KV,D", [
+    (1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64), (1, 64, 64, 6, 3, 128),
+    (2, 128, 128, 2, 1, 16), (1, 100, 137, 4, 2, 64), (2, 96, 70, 4, 1, 128),
+    (2, 128, 128, 8, 2, 8), (1, 100, 137, 8, 2, 8)])
+def test_flash_attention_matches_plain_version(cuda_device, dtype, causal, B,
+                                               S, T, H, KV, D):
+    """The JAX sweep's shapes, the smoke llama's head dim 8, and ragged
+    S and T (top-left mask).
+    fp32 1e-5: the same fp32 math summed in another order over at most
+    256 keys; bf16 rtol 2^-7, atol 2^-8 (module docstring)."""
+    args = _fa_case(B, S, T, H, KV, D, getattr(torch, dtype), cuda_device)
+    before = fa_kernel.flash_attention.launches
+    out = fa_kernel.flash_attention(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    rtol, atol = (1e-5, 1e-5) if dtype == "float32" else (2**-7, 2**-8)
+    torch.testing.assert_close(out.float(),
+                               attention_ref(*args, causal=causal).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_autograd_and_bad_operands(cuda_device):
+    q, k, v = _fa_case(1, 128, 128, 4, 2, 64, torch.float32, cuda_device)
+    before = fa_kernel.flash_attention.launches
+    with pytest.raises(RuntimeError, match='attn_impl="gather"'):
+        fa_kernel.flash_attention(q.requires_grad_(), k, v)
+    q = q.detach()
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention(q, k.double(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention(q[..., :48].contiguous(), k[..., :48]
+                                  .contiguous(), v[..., :48].contiguous())
+    assert fa_kernel.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_forward_flash_path_equals_chunked_path_on_card(cuda_device):
+    """Mode full at S=128 under attn_impl="cuda" launches the kernel once
+    per layer; fp32 logits match the chunked path's within 1e-4."""
+    base = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                               compute_dtype="float32")
+    params = bridge.init_params(base, seed=0, device="cuda")
+    toks = torch.randint(0, base.vocab, (2, 128), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    logits = {}
+    for impl in ("cuda", "gather"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        before = fa_kernel.flash_attention.launches
+        with torch.no_grad():
+            logits[impl], _ = model_zoo.forward(params, cfg, {"tokens": toks})
+        launched = fa_kernel.flash_attention.launches - before
+        assert launched == (base.n_layers if impl == "cuda" else 0)
+    assert transformer.resolved_full_attn_impl(
+        dataclasses.replace(base, attn_impl="cuda"), 128,
+        "cuda") == "cuda-flash:sm_90a"
+    torch.testing.assert_close(logits["cuda"], logits["gather"], rtol=1e-4,
+                               atol=1e-4)

@@ -18,11 +18,13 @@ from repro.models import model_zoo
 from repro_torch import bridge
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.examples import dynamic_rnn_nmt
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_prefill import kernel as fp_kernel
 from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.selective_scan import kernel as ss_kernel
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.serve import engine, kv_cache as kvc
 from repro_torch.serve import scheduler as sched_lib
 
@@ -78,7 +80,7 @@ def test_ops_dispatch_has_no_fallback():
     """ops.py picks the kernel for a CUDA tensor and the plain version
     only for a CPU one: no try/except that could fall back."""
     for name in ("paged_attention", "flash_prefill", "selective_scan",
-                 "lstm_cell"):
+                 "lstm_cell", "flash_attention"):
         tree = ast.parse((PORT / "kernels" / name / "ops.py").read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
@@ -108,7 +110,8 @@ def test_unported_families_are_refused():
 
 @pytest.mark.parametrize("call", [
     "init_params", "from_numpy", "make_cache", "make_kv_cache", "serve",
-    "make_ssm_cache", "init_lstm_params", "lstm_params_from_numpy", "nmt"])
+    "make_ssm_cache", "init_lstm_params", "lstm_params_from_numpy", "nmt",
+    "launch_train", "init_params_keep_param_dtype", "opt_state_from_numpy"])
 def test_entry_points_default_to_cuda(call):
     """Omitting the device means the card: without one, the call raises
     instead of running on the CPU."""
@@ -130,6 +133,13 @@ def test_entry_points_default_to_cuda(call):
         "lstm_params_from_numpy": lambda: bridge.lstm_params_from_numpy(
             {"w": np.zeros((12, 32), np.float32)})["w"],
         "nmt": lambda: dynamic_rnn_nmt.main(["--steps", "1"]),
+        "launch_train": lambda: launch_train.main(
+            ["--arch", "llama3.2-1b", "--smoke", "--steps", "1"]),
+        "init_params_keep_param_dtype": lambda: bridge.init_params(
+            cfg, seed=0, keep_param_dtype=True)["embed"],
+        "opt_state_from_numpy": lambda: bridge.opt_state_from_numpy(
+            (np.int32(0), {"w": np.zeros(2, np.float32)},
+             {"w": np.zeros(2, np.float32)})).mu["w"],
     }
     if torch.cuda.is_available():
         out = calls[call]()
@@ -143,7 +153,8 @@ def test_entry_points_default_to_cuda(call):
 @pytest.mark.parametrize("fn", [pa_kernel.paged_attention,
                                 fp_kernel.flash_prefill,
                                 ss_kernel.selective_scan,
-                                lstm_kernel.lstm_cell])
+                                lstm_kernel.lstm_cell,
+                                fa_kernel.flash_attention])
 def test_kernel_wrappers_refuse_cpu_tensors(fn):
     """The kernel wrappers never compute on the CPU: only ops.py picks
     the plain version, and only for CPU tensors."""
@@ -151,6 +162,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn):
         state = torch.zeros(2, 8)
         args = (torch.zeros(12, 32), torch.zeros(32), torch.zeros(2, 4),
                 state, state)
+    elif fn is fa_kernel.flash_attention:
+        kv = torch.zeros(1, 128, 1, 16)
+        args = (torch.zeros(1, 128, 2, 16), kv, kv)
     elif fn is ss_kernel.selective_scan:
         seq, state = torch.zeros(1, 4, 128), torch.zeros(1, 4, 8)
         args = (seq, torch.zeros(128, 8), state, state, seq,
@@ -193,6 +207,28 @@ def test_core_is_checked_and_imports_no_jax():
     assert all(p in _port_files() for p in (PORT / "core").glob("*.py"))
     out = subprocess.run(
         [sys.executable, "-c", "import sys, repro_torch.core; print("
+         "sorted(m for m in sys.modules if m.split('.')[0] in "
+         f"{FORBIDDEN!r}))"], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_training_modules_are_checked_and_import_no_jax():
+    """The fourth slice's modules (the flash-attention kernel, model_zoo,
+    the schedules, the data pipeline, checkpoints, the train loop and
+    the launcher) are among the checked files, and importing the
+    launcher loads no jax (a fresh interpreter)."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
+            "kernels/flash_attention/kernel.py", "models/model_zoo.py",
+            "optim/schedule.py", "data/pipeline.py",
+            "checkpointing/checkpoint.py", "train/train_loop.py",
+            "launch/train.py"} <= files
+    assert (PORT / "kernels" / "csrc" / "flash_attention.cu").exists()
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, repro_torch.launch.train; print("
          "sorted(m for m in sys.modules if m.split('.')[0] in "
          f"{FORBIDDEN!r}))"], cwd=ROOT, capture_output=True, text=True,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
