@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --kernels-only   # phases 1-3 only
+
+``--kernels-only`` runs the card, build and block-table kernel phases
+and prints their two records: copied into a checkout of another commit,
+it times that commit's block-table kernels the same way. Every kernel's
+time is taken twice over the same operand copies: as device time (the
+calls captured once in a CUDA graph and replayed) and as eager calls
+(the caller's time, the wrapper's host work included).
 
 Phases, each printing its own lines:
 
@@ -10,14 +18,16 @@ Phases, each printing its own lines:
 2. the build: the five kernels compiled from
    ``src/repro_torch/kernels/csrc`` with ``nvcc``, one process each, all
    started together, with ptxas's register and shared memory report;
-3. each kernel against its plain PyTorch version on the card, at the
-   llama3.2-1b, qwen2-7b, olmo-1b and smollm-135m attention geometries
-   (G = 4, 7, 1, 3; hd = 64, 128), in bf16 and
-   fp32, with shuffled tables, ``-1`` entries, ragged lengths, a
-   ``cur_len = 0`` row and a chunk running past the table; then each
-   kernel timed at the serving phase's shapes with CUDA events, beside
-   the plain version, ``scaled_dot_product_attention`` on the gathered
-   dense layout (a yardstick the port never calls) and the bound;
+3. each block-table kernel against its plain PyTorch version on the
+   card, at the llama3.2-1b, qwen2-7b, olmo-1b and smollm-135m attention
+   geometries (G = 4, 7, 1, 3; hd = 64, 128), in bf16 and fp32, with
+   blocks of 16 and 8, shuffled tables, ``-1`` entries, ragged lengths,
+   a ``cur_len = 0`` row (exactly 0), cur_len on the decode kernel's
+   partition edges and a chunk running past the table; then each kernel
+   timed at the serving phase's shapes (llama3.2-1b, and qwen2-7b for
+   hd 128) beside the plain version, ``scaled_dot_product_attention``
+   on the gathered dense layout (a yardstick the port never calls) and
+   the bound;
 4. serving llama3.2-1b at full width (random weights from a seed, bf16)
    through the continuous-batching scheduler with the paged cache,
    chunked prefill and both kernels: every request must finish, both
@@ -94,6 +104,8 @@ it also exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -156,14 +168,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def kernel_record(name, err, ms, plain_ms, b_ms, b_by, lib_ms):
+def kernel_record(name, err, times, plain_ms, b_ms, b_by):
     """A kernel's entry of the ``kernels`` line; ``main`` fills in its
-    launches from the main path's run."""
+    launches from the main path's run. ``times`` is ``call_times``'s:
+    ``ms`` and ``library_ms`` are device times (CUDA-graph replays) for
+    every kernel, ``eager_ms`` and ``library_eager_ms`` the same calls
+    made eagerly (the caller's time, the wrapper's host work included);
+    ``plain_ms`` is the plain version's eager time."""
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+            "ms": times["ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": times["library_ms"],
+            "eager_ms": times["eager_ms"],
+            "library_eager_ms": times["library_eager_ms"]}
 
 
 # ------------------------------------------------------------------ cases
@@ -246,6 +264,55 @@ def time_ms(fn, n_args, iters=30):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n_args, reps=10):
+    """Device ms per call, with no host work between launches: the
+    ``n_args`` calls captured once in a CUDA graph (after a warm-up
+    outside it), the graph replayed ``reps`` times between two events.
+    The calls cycle through operand copies as in ``time_ms``."""
+    import torch
+    for i in range(n_args):
+        fn(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n_args):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * n_args)
+
+
+def call_times(kernel_call, n_args, library_call=None, iters=30):
+    """The kernel's and, where there is one, the library call's time per
+    call over ``n_args`` operand copies: device time (``graph_ms``) and
+    eager (``time_ms``), as ``kernel_record`` takes them."""
+    times = {"ms": graph_ms(kernel_call, n_args),
+             "eager_ms": time_ms(kernel_call, n_args, iters),
+             "library_ms": None, "library_eager_ms": None}
+    if library_call is not None:
+        times["library_ms"] = graph_ms(library_call, n_args)
+        times["library_eager_ms"] = time_ms(library_call, n_args, iters)
+    return times
+
+
+def fmt_times(times, library="sdpa"):
+    """``call_times``'s readings for a log line."""
+    text = (f"device time (CUDA graph replay): kernel {times['ms']:.4f} ms"
+            + (f", {library} {times['library_ms']:.4f} ms"
+               if times["library_ms"] is not None else "")
+            + f"; eager calls: kernel {times['eager_ms']:.4f} ms")
+    if times["library_eager_ms"] is not None:
+        text += f", {library} {times['library_eager_ms']:.4f} ms"
+    return text
+
+
 def sdpa_operands(kind, q, kp, vp, table, pos):
     """Dense layout for the library yardstick: K/V gathered through the
     table and repeated to H heads, with the boolean visibility mask."""
@@ -283,6 +350,38 @@ def phase_card():
     return smi
 
 
+def demangle(names):
+    """``names`` through the CUDA toolkit's ``cu++filt`` (or binutils'
+    ``c++filt``) without parameter lists; unchanged where neither is
+    installed."""
+    from repro_torch import kernels
+    tools = (Path(kernels._nvcc()).with_name("cu++filt"),
+             shutil.which("c++filt"))
+    tool = next((str(t) for t in tools if t and Path(t).exists()), None)
+    if tool is None or not names:
+        return names
+    out = subprocess.run([tool, "-p"], input="\n".join(names),
+                         capture_output=True, text=True, check=True).stdout
+    return [ln.replace("(anonymous namespace)::", "")
+            for ln in out.splitlines()]
+
+
+def ptxas_report(out):
+    """One line per kernel instance from ``nvcc -Xptxas -v``: its
+    registers, shared memory and spills."""
+    rows, name, spill = [], "?", ""
+    for ln in out.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            rows.append((name, ln.split(":", 1)[1].strip(), spill))
+    names = demangle([name for name, _, _ in rows])
+    return [f"{name}: {used}; {spill}"
+            for name, (_, used, spill) in zip(names, rows)]
+
+
 def phase_build():
     from repro_torch import kernels
     t0 = time.perf_counter()
@@ -291,19 +390,62 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc, "
         f"{kernels.ARCH_TAG})")
     for name, (secs, out) in report.items():
-        lines = [ln.strip() for ln in out.splitlines()
-                 if "Used" in ln or "spill" in ln]
         log(f"[build] {name}: {secs:.1f} s")
-        for ln in lines:
+        for ln in ptxas_report(out):
             log(f"[build]   {ln}")
     for name in kernels.KERNELS:
         kernels.library(name)
 
 
+def time_block_table(kind, name, geom, fns):
+    """One block-table kernel at the serving phase's shapes for the
+    attention geometry ``geom``: 8 slots, 512-token prompts, block 16,
+    37 blocks per row; decode rows mid-generation, prefill rows at the
+    four chunk offsets of a 512-token prompt with 128-token chunks. Times
+    the kernel and SDPA on the gathered dense layout over 8 operand
+    copies (``call_times``: device and eager), and the plain version
+    eagerly. Returns its record (launches 0)."""
+    import torch
+    arch, H, KV, hd = geom
+    main_lens = {"decode": [513 + 8 * i for i in range(8)],
+                 "prefill": [0, 128, 256, 384] * 2}
+    kern, plain = fns[kind]
+    copies = [make_case(kind, 100 + i, H, KV, hd, torch.bfloat16,
+                        main_lens[kind], max_len=577)
+              for i in range(8)]
+    out = kern(*copies[0])
+    ref = plain(*copies[0])
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(),
+                          atol=TOL["bfloat16"], rtol=TOL["bfloat16"]):
+        raise AssertionError(f"{name} disagrees at serving shapes ({arch})")
+    dense = [sdpa_operands(kind, *c) for c in copies]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kernel_call(i):
+        return kern(*copies[i])
+
+    def sdpa_call(i):
+        return sdpa(dense[i][0], dense[i][1], dense[i][2],
+                    attn_mask=dense[i][3])
+
+    times = call_times(kernel_call, len(copies), sdpa_call)
+    plain_ms = time_ms(lambda i: plain(*copies[i]), len(copies), iters=10)
+    b_ms, b_by = bound(kind, *copies[0])
+    log(f"[kernels] time {name} at serving shapes ({arch}) "
+        f"q {tuple(copies[0][0].shape)} bf16, {fmt_times(times)}, plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); device "
+        f"kernel/sdpa {times['ms'] / times['library_ms']:.2f}, "
+        f"kernel/bound {times['ms'] / b_ms:.1f}; max |kernel - plain| "
+        f"{err:.3e}")
+    return kernel_record(name, err, times, plain_ms, b_ms, b_by)
+
+
 def phase_kernels():
-    """Kernel against plain version at the three geometries, then the
-    timing at the serving phase's shapes. Returns the kernel records
-    (without launches)."""
+    """Kernel against plain version at the four geometries, both dtypes
+    and blocks of 16 and 8, then the timing at the serving phase's shapes
+    (llama3.2-1b for the records, and qwen2-7b's hd 128). Returns the
+    kernel records (without launches)."""
     import torch
     from repro_torch.kernels.flash_prefill import kernel as fp_kernel
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
@@ -313,9 +455,12 @@ def phase_kernels():
     fns = {"decode": (pa_kernel.paged_attention, paged_attention_ref),
            "prefill": (fp_kernel.flash_prefill, flash_prefill_ref)}
     check_lens = {
-        # cur_len: the 0-row, a single position, a full row, ragged rest
-        "decode": [0, 1, 2048, 17, 500, 1023, 1999, 64],
-        # q_off: ragged, incl. a chunk that runs past the table's end
+        # cur_len: the 0-row, a single position, a full row, the decode
+        # kernel's partition edges (63, 64, 65: 64 positions a partition),
+        # ragged rest
+        "decode": [0, 1, 2048, 17, 63, 64, 65, 500, 1023, 1999],
+        # q_off: ragged, incl. a chunk that runs past the table's end and
+        # chunks whose rows end inside a 64-key tile (5, 300, 1000)
         "prefill": [0, 1, 5, 300, 1000, 1900, 2048 - 64, 128],
     }
     seed = 0
@@ -323,58 +468,33 @@ def phase_kernels():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             for kind in ("decode", "prefill"):
-                seed += 1
-                args = make_case(kind, seed, H, KV, hd, dtype,
-                                 check_lens[kind])
-                kern, plain = fns[kind]
-                out = kern(*args)
-                torch.cuda.synchronize()
-                ref = plain(*args)
-                err = (out.float() - ref.float()).abs().max().item()
-                ok = torch.allclose(out.float(), ref.float(),
-                                    atol=TOL[dname], rtol=TOL[dname])
-                log(f"[kernels] check {kind:7s} {arch:11s} H={H} KV={KV} "
-                    f"hd={hd} {dname:8s}: max |kernel - plain| = {err:.3e}"
-                    f" (tol {TOL[dname]:g}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"{kind} kernel disagrees with "
-                                         f"its plain version")
+                for block in (16, 8):
+                    seed += 1
+                    args = make_case(kind, seed, H, KV, hd, dtype,
+                                     check_lens[kind], block=block)
+                    kern, plain = fns[kind]
+                    out = kern(*args)
+                    torch.cuda.synchronize()
+                    ref = plain(*args)
+                    err = (out.float() - ref.float()).abs().max().item()
+                    ok = torch.allclose(out.float(), ref.float(),
+                                        atol=TOL[dname], rtol=TOL[dname])
+                    if kind == "decode":
+                        ok = ok and torch.count_nonzero(out[0]).item() == 0
+                    log(f"[kernels] check {kind:7s} {arch:11s} H={H} KV={KV}"
+                        f" hd={hd} block={block:2d} {dname:8s}: max |kernel "
+                        f"- plain| = {err:.3e} (tol {TOL[dname]:g}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{kind} kernel disagrees with "
+                                             f"its plain version")
 
-    # The serving phase's shapes: 8 slots, 512-token prompts, block 16,
-    # 37 blocks per row; decode rows mid-generation, prefill rows at the
-    # four chunk offsets of a 512-token prompt with 128-token chunks.
-    _, H, KV, hd = GEOMETRIES[0]
-    main_lens = {"decode": [513 + 8 * i for i in range(8)],
-                 "prefill": [0, 128, 256, 384] * 2}
-    records = []
+    records = [time_block_table(kind, name, GEOMETRIES[0], fns)
+               for kind, name in (("decode", "paged_attention"),
+                                  ("prefill", "flash_prefill"))]
     for kind, name in (("decode", "paged_attention"),
                        ("prefill", "flash_prefill")):
-        kern, plain = fns[kind]
-        copies = [make_case(kind, 100 + i, H, KV, hd, torch.bfloat16,
-                            main_lens[kind], max_len=577)
-                  for i in range(8)]
-        out = kern(*copies[0])
-        ref = plain(*copies[0])
-        err = (out.float() - ref.float()).abs().max().item()
-        if not torch.allclose(out.float(), ref.float(),
-                              atol=TOL["bfloat16"], rtol=TOL["bfloat16"]):
-            raise AssertionError(f"{name} disagrees at serving shapes")
-        dense = [sdpa_operands(kind, *c) for c in copies]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        ms = time_ms(lambda i: kern(*copies[i]), len(copies))
-        plain_ms = time_ms(lambda i: plain(*copies[i]), len(copies),
-                           iters=10)
-        lib_ms = time_ms(lambda i: sdpa(dense[i][0], dense[i][1],
-                                        dense[i][2],
-                                        attn_mask=dense[i][3]),
-                         len(copies))
-        b_ms, b_by = bound(kind, *copies[0])
-        log(f"[kernels] time {name} at serving shapes "
-            f"q {tuple(copies[0][0].shape)} bf16: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), max |kernel - plain| {err:.3e}")
-        records.append(kernel_record(name, err, ms, plain_ms, b_ms, b_by,
-                                     lib_ms))
+        time_block_table(kind, name, GEOMETRIES[1], fns)
     return records
 
 
@@ -456,16 +576,16 @@ def phase_scan_kernel():
     y, h = kern(*copies[0])
     y_ref, h_ref = selective_scan_ref(*copies[0])
     err = max((y - y_ref).abs().max().item(), (h - h_ref).abs().max().item())
-    ms = time_ms(lambda i: kern(*copies[i]), len(copies))
+    times = call_times(lambda i: kern(*copies[i]), len(copies))
     plain_ms = time_ms(lambda i: selective_scan_ref(*copies[i]),
                        len(copies), iters=5)
     b_ms, b_by = scan_bound(*copies[0])
     log(f"[scan] time selective_scan at the serving chunk B,Q,Di,N=(8, "
-        f"128, 8192, 16) fp32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), library: none (no single PyTorch "
-        f"call computes this recurrence), max |kernel - plain| {err:.3e}")
-    return kernel_record("selective_scan", err, ms, plain_ms, b_ms, b_by,
-                         None)
+        f"128, 8192, 16) fp32: {fmt_times(times)}, plain {plain_ms:.4f} "
+        f"ms; bound {b_ms:.4f} ms ({b_by}), library: none (no single "
+        f"PyTorch call computes this recurrence), max |kernel - plain| "
+        f"{err:.3e}")
+    return kernel_record("selective_scan", err, times, plain_ms, b_ms, b_by)
 
 
 def free_device_memory(what):
@@ -736,6 +856,11 @@ def profile_serving(sched, reqs):
     for r in top:
         log(f"[profile]   {r.self_device_time_total / 1e3:9.2f} ms "
             f"{r.count:6d}x  {r.key[:70]}")
+    for r in sorted(kernels, key=lambda r: -r.self_device_time_total):
+        if "repro::" in r.key:       # the port's own kernels
+            m = re.search(r"(\w+<[^()]*>)\(", r.key)
+            log(f"[profile]   port kernel {r.self_device_time_total / 1e3:9.3f}"
+                f" ms {r.count:6d}x  {m.group(1) if m else r.key[:70]}")
 
 
 def phase_parity():
@@ -865,17 +990,16 @@ def phase_lstm_kernel():
     if lib_err > LSTM_TOL["float32"]:
         raise AssertionError(f"torch.lstm_cell yardstick computes another "
                              f"function: {lib_err:.3e}")
-    ms = time_ms(lambda i: kern(*copies[i]), len(copies), iters=50)
+    times = call_times(lambda i: kern(*copies[i]), len(copies),
+                       lambda i: torch.lstm_cell(*aten[i]), iters=50)
     plain_ms = time_ms(lambda i: lstm_cell_ref(*copies[i]), len(copies),
                        iters=50)
-    lib_ms = time_ms(lambda i: torch.lstm_cell(*aten[i]), len(aten),
-                     iters=50)
     b_ms, b_by = lstm_bound(*copies[0])
-    log(f"[lstm] time lstm_cell at B,D,H=(512, 512, 512) fp32: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.lstm_cell {lib_ms:.4f}"
-        f" ms, bound {b_ms:.4f} ms ({b_by}), max |kernel - plain| "
-        f"{err:.3e}, |torch.lstm_cell - plain| {lib_err:.3e}")
-    return kernel_record("lstm_cell", err, ms, plain_ms, b_ms, b_by, lib_ms)
+    log(f"[lstm] time lstm_cell at B,D,H=(512, 512, 512) fp32: "
+        f"{fmt_times(times, 'torch.lstm_cell')}, plain {plain_ms:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by}), max |kernel - plain| {err:.3e}, "
+        f"|torch.lstm_cell - plain| {lib_err:.3e}")
+    return kernel_record("lstm_cell", err, times, plain_ms, b_ms, b_by)
 
 
 def instrument_predicate_reads():
@@ -1173,11 +1297,13 @@ def phase_flash_kernel():
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version on the timing copies: {need:.3e}")
-        ms = time_ms(lambda i: kern(*copies[i]), len(copies), iters=20)
         if dtype == torch.float32:
-            log(f"[flash] time flash_attention at {FA_FORWARD} fp32: kernel "
-                f"{ms:.4f} ms, bound {fa_bound(*copies[0])[0]:.4f} ms, max "
-                f"|kernel - plain| {err:.3e}")
+            times = call_times(lambda i: kern(*copies[i]), len(copies),
+                               iters=20)
+            log(f"[flash] time flash_attention at {FA_FORWARD} fp32: "
+                f"{fmt_times(times)}, bound "
+                f"{fa_bound(*copies[0])[0]:.4f} ms, max |kernel - plain| "
+                f"{err:.3e}")
             continue
         heads = [[t.transpose(1, 2) for t in c] for c in copies]
         lib = sdpa(*heads[0], is_causal=True, enable_gqa=True).transpose(1, 2)
@@ -1185,19 +1311,19 @@ def phase_flash_kernel():
         if not lib_ok:
             raise AssertionError(f"the SDPA yardstick computes another "
                                  f"function: {lib_need:.3e}")
+        times = call_times(lambda i: kern(*copies[i]), len(copies),
+                           lambda i: sdpa(*heads[i], is_causal=True,
+                                          enable_gqa=True), iters=20)
         plain_ms = time_ms(lambda i: attention_ref(*copies[i]), len(copies),
                            iters=5)
-        lib_ms = time_ms(lambda i: sdpa(*heads[i], is_causal=True,
-                                        enable_gqa=True), len(copies),
-                         iters=20)
         b_ms, b_by = fa_bound(*copies[0])
         log(f"[flash] time flash_attention at B,S,H,KV,D={FA_FORWARD} bf16 "
-            f"causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max |kernel - "
-            f"plain| {err:.3e} (atol needed {need:.3e}), |sdpa - plain| "
-            f"{lib_err:.3e} (atol needed {lib_need:.3e})")
-        record = kernel_record("flash_attention", err, ms, plain_ms, b_ms,
-                               b_by, lib_ms)
+            f"causal: {fmt_times(times)}, plain {plain_ms:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}), max |kernel - plain| {err:.3e} (atol "
+            f"needed {need:.3e}), |sdpa - plain| {lib_err:.3e} (atol needed "
+            f"{lib_need:.3e})")
+        record = kernel_record("flash_attention", err, times, plain_ms,
+                               b_ms, b_by)
         del copies, heads, out, ref, lib
     return record
 
@@ -1498,6 +1624,10 @@ def phase_train():
 
 
 def main() -> int:
+    if sys.argv[1:] not in ([], ["--kernels-only"]):
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1516,6 +1646,10 @@ def main() -> int:
     timed(phase_card)
     timed(phase_build)
     records = timed(phase_kernels)
+    if sys.argv[1:] == ["--kernels-only"]:
+        log(json.dumps({"kernels": records}))
+        log(f"[done] phases 1-3 passed in {time.perf_counter() - t0:.1f} s")
+        return 0
     launches = timed(phase_serve)
     timed(phase_parity)
     records.append(timed(phase_scan_kernel))

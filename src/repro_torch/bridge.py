@@ -16,14 +16,15 @@ reads in fp32 stay in ``cfg.param_dtype``: the norm weights (``ln``,
 
 For training, ``keep_param_dtype=True`` keeps EVERY leaf in
 ``cfg.param_dtype`` (the fp32 masters that AdamW updates), and the
-train step casts the whole tree to the compute dtype once per step
-with ``compute_params``, a differentiable cast whose gradients come
-back in fp32. The model then runs unchanged. This matches the JAX
-package's cast-at-use in the forward. One difference in the backward:
-the tied embedding is cast once, so its two bf16 cotangents (the
-lookup's and the unembedding's) add in bf16 before the cast back to
-fp32, where the JAX package casts at both uses and adds them in fp32.
-In fp32 compute the cast is the identity and nothing differs.
+train step casts the tree to the compute dtype once per step with
+``compute_params``, a differentiable cast whose gradients come back in
+fp32. The model then runs unchanged. This matches the JAX package's
+cast-at-use in the forward, and in the backward too: ``embed`` and
+``unembed`` stay in the param dtype in that tree, and the model casts
+them at each use (the lookup casts the table, the unembedding each CE
+chunk's weight), as the JAX package does. So the two bf16 cotangents
+of a tied embedding, and the CE chunks' cotangents of the unembedding,
+add in fp32. In fp32 compute every cast is the identity.
 ``opt_state_from_numpy`` carries the JAX package's ``AdamWState``
 across.
 """
@@ -67,18 +68,26 @@ def from_numpy(params_np: Dict[str, Any], cfg: ModelConfig,
                     keep=keep_param_dtype)
 
 
+# Leaves the model casts at each use (the embedding lookup, the
+# unembedding), so that each use has its own cast, as in the JAX package.
+CAST_AT_USE = ("embed", "unembed")
+
+
 def compute_params(params: Dict[str, Any], cfg: ModelConfig
                    ) -> Dict[str, Any]:
     """The master tree (``keep_param_dtype=True``) as the model runs
     it: every leaf cast to the compute dtype except those the model
-    reads in the param dtype (``_keeps_param_dtype``). The cast is
-    differentiable; in fp32 compute it returns the leaves themselves."""
+    reads in the param dtype (``_keeps_param_dtype``) and those it casts
+    at each use (``CAST_AT_USE``). The cast is differentiable; in fp32
+    compute it returns the leaves themselves."""
     def cast(tree, keep=False):
         if isinstance(tree, dict):
             return {k: cast(v, keep or _keeps_param_dtype(k))
                     for k, v in tree.items()}
         return tree if keep else tree.to(cfg.dtype("compute"))
-    return cast(params)
+    out = cast(params)
+    out.update({k: params[k] for k in CAST_AT_USE if k in params})
+    return out
 
 
 def opt_state_from_numpy(state_np, device="cuda") -> adamw.AdamWState:

@@ -33,7 +33,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
@@ -47,6 +47,7 @@ KERNELS = ("paged_attention", "flash_prefill", "selective_scan", "lstm_cell",
            "flash_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -126,6 +127,19 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str, symbol: str, argtypes) -> Callable[..., int]:
+    """The C entry ``symbol`` of ``csrc/<name>.cu``, its ``argtypes``
+    and ``restype`` (``cudaError_t`` as int) bound once, when the
+    library is loaded, not on every launch."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
 def check(code: int, what: str) -> None:
     """Raise if a C entry returned a non-zero ``cudaError_t``."""
     if code != 0:
@@ -149,9 +163,14 @@ def dtype_code(t: torch.Tensor) -> int:
     raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
 
 
-def validate_block_table_call(q, k_pool, v_pool, table, pos, what):
-    """Checks shared by both block-table kernels; returns
-    (block, KV, bpr)."""
+def validate_block_table_call(q, k_pool, v_pool, table, pos, what,
+                              align=16):
+    """Checks shared by both block-table kernels (one CUDA device, the
+    dtypes, contiguity, alignment, hd in (64, 128), the shapes); returns
+    (block, KV, bpr). q and the pools must be ``align``-byte aligned, the
+    width of the kernel's copies of them (16 for ``cp.async`` and 16-byte
+    loads); the int32 table and lengths, which the kernels read one int
+    at a time, 4-byte aligned."""
     tensors = (q, k_pool, v_pool, table, pos)
     if any(t.device != q.device or t.device.type != "cuda"
            for t in tensors):
@@ -164,6 +183,12 @@ def validate_block_table_call(q, k_pool, v_pool, table, pos, what):
         raise TypeError(f"{what}: table and lengths must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what}: operands must be contiguous")
+    if any(t.data_ptr() % align for t in (q, k_pool, v_pool)) or \
+            any(t.data_ptr() % 4 for t in (table, pos)):
+        raise ValueError(f"{what}: q and the pools must be {align}-byte "
+                         f"aligned (the kernel's copies of them are up to "
+                         f"{align} bytes wide), the table and lengths "
+                         f"4-byte aligned")
     B, _, H, hd = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"{what}: pools must both be (n_blocks, block, "

@@ -7,7 +7,7 @@ import ctypes
 
 import torch
 
-from .. import check, dtype_code, library, ptr, stream_ptr
+from .. import check, dtype_code, entry, ptr, stream_ptr
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -57,9 +57,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    fn = library("flash_attention").flash_attention_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = entry("flash_attention", "flash_attention_launch", _ARGTYPES)
     err = fn(ptr(q), ptr(k), ptr(v), ptr(out), B, S, T, H, KV, D,
              int(causal), code, stream_ptr())
     check(err, "flash_attention")

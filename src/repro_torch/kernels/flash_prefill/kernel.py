@@ -7,7 +7,7 @@ import ctypes
 
 import torch
 
-from .. import (check, dtype_code, library, ptr, stream_ptr,
+from .. import (check, dtype_code, entry, ptr, stream_ptr,
                 validate_block_table_call)
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -20,13 +20,14 @@ def flash_prefill(q, k_pool, v_pool, table, q_off):
     if q.dim() != 4:
         raise ValueError(f"flash_prefill: q must be (B, C, H, hd); got "
                          f"{tuple(q.shape)}")
+    # the bf16 route copies K/V with 16-byte cp.async; the fp32 route
+    # reads one element at a time
     block, KV, bpr = validate_block_table_call(
-        q, k_pool, v_pool, table, q_off, "flash_prefill")
+        q, k_pool, v_pool, table, q_off, "flash_prefill",
+        align=16 if q.dtype == torch.bfloat16 else 4)
     B, C, H, hd = q.shape
     out = torch.empty_like(q)
-    fn = library("flash_prefill").flash_prefill_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = entry("flash_prefill", "flash_prefill_launch", _ARGTYPES)
     code = fn(ptr(q), ptr(k_pool), ptr(v_pool), ptr(table), ptr(q_off),
               ptr(out), B, C, H, KV, hd, block, bpr, dtype_code(q),
               stream_ptr())

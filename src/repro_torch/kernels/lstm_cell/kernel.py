@@ -7,7 +7,7 @@ import ctypes
 
 import torch
 
-from .. import check, dtype_code, library, ptr, stream_ptr
+from .. import check, dtype_code, entry, ptr, stream_ptr
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -54,9 +54,7 @@ def lstm_cell(w, b, x, c, h):
             f"h {tuple(h.shape)}")
     c_new = torch.empty_like(c)
     h_new = torch.empty_like(h)
-    fn = library("lstm_cell").lstm_cell_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = entry("lstm_cell", "lstm_cell_launch", _ARGTYPES)
     err = fn(ptr(w), ptr(b), ptr(x), ptr(c), ptr(h), ptr(c_new), ptr(h_new),
              B, D, H, code, stream_ptr())
     check(err, "lstm_cell")

@@ -7,7 +7,7 @@ import ctypes
 
 import torch
 
-from .. import check, library, ptr, stream_ptr
+from .. import check, entry, ptr, stream_ptr
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 STATE_WIDTHS = (8, 16)      # N values the kernel is instantiated for
@@ -45,9 +45,7 @@ def selective_scan(dt, A, B_, C_, x, h0):
             f"{tuple(C_.shape)}, x {tuple(x.shape)}, h0 {tuple(h0.shape)}")
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
-    fn = library("selective_scan").selective_scan_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = entry("selective_scan", "selective_scan_launch", _ARGTYPES)
     code = fn(ptr(dt), ptr(A), ptr(B_), ptr(C_), ptr(x), ptr(h0), ptr(y),
               ptr(h_out), B, Q, Di, N, stream_ptr())
     check(code, "selective_scan")

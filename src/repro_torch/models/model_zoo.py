@@ -66,10 +66,11 @@ def _chunked_ce(x, labels, w, cfg: ModelConfig, chunk: int = CE_CHUNK):
     B, S, _ = x.shape
     chunk = min(chunk, S)
     cdt = cfg.dtype("compute")
-    wc = w.to(cdt)
 
     def one(xi, li):
-        per_tok, valid = _token_nll(xi.to(cdt) @ wc, li, cfg.vocab)
+        # each chunk casts the weight, as the JAX package does, so the
+        # chunks' cotangents of fp32 masters add in fp32
+        per_tok, valid = _token_nll(xi.to(cdt) @ w.to(cdt), li, cfg.vocab)
         return per_tok.sum(), valid.sum().float()
 
     sums, counts = [], []

@@ -295,8 +295,9 @@ def _run_layers(stacked, x, cfg, block_fn):
 
 
 def forward_features(params, cfg, tokens):
-    """Backbone + final norm, no unembed. tokens: (B, S) int."""
-    x = params["embed"][tokens]
+    """Backbone + final norm, no unembed. tokens: (B, S) int. The table
+    is cast at this use (a no-op on serving weights, already cast)."""
+    x = params["embed"].to(cfg.dtype("compute"))[tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None]
     if cfg.family == "ssm":
         def block_fn(lp, xx):
@@ -312,4 +313,4 @@ def forward(params, cfg, tokens):
     """Full-sequence logits (B, S, padded_vocab)."""
     x = forward_features(params, cfg, tokens)
     cdt = cfg.dtype("compute")
-    return x.to(cdt) @ unembed_weight(params, cfg)
+    return x.to(cdt) @ unembed_weight(params, cfg).to(cdt)

@@ -7,7 +7,9 @@ machine with only PyTorch:
 
 Tolerances: the kernel and its plain version compute the same fp32 math
 in another order: fp32 1e-4; bf16 outputs are rounded on both sides,
-2e-2 (about two bf16 ulps at magnitude 1). The selective scan (fp32
+2e-2 (about two bf16 ulps at magnitude 1), which also covers the bf16
+chunk kernel's rounding of p for its tensor-core PV product (at most
+2^-8 of sum_j p_j |v_j|). The selective scan (fp32
 only) is held to 1e-4 as well: its N-term dot products are summed in
 another order and its multiply-adds fused, over states of magnitude up
 to about 10. The LSTM cell: fp32 1e-5 (K <= 1024 products summed in
@@ -54,19 +56,23 @@ def cuda_device():
 
 
 def _case(kind, B, H, KV, hd, block, bpr, C, dtype, device, seed=0):
-    """Shuffled table, -1 past each row's need, ragged lengths with a
-    cur_len = 0 row (decode) or a chunk running off the table
-    (prefill)."""
+    """Shuffled table, -1 past each row's need, ragged lengths. Decode:
+    a cur_len = 0 row, one position, the split edges P - 1, P, P + 1
+    (the kernel's partitions hold P = 64 positions) and a full row.
+    Prefill: a chunk at offset 0, one whose rows end inside a 64-key
+    tile, and one running off the table."""
     rng = np.random.default_rng(seed)
     n_blocks, T = B * bpr + 3, block * bpr
     if kind == "decode":
         lens = rng.integers(1, T + 1, B)
-        lens[0], lens[1], lens[-1] = 0, 1, T
+        edges = [0, 1, 63, 64, 65][:B - 1]
+        lens[:len(edges)] = np.minimum(edges, T)
+        lens[-1] = T
         need = -(-lens // block)
         q = rng.standard_normal((B, 1, H, hd))
     else:
         lens = rng.integers(0, T - C, B)
-        lens[-1] = T - C // 2
+        lens[0], lens[1], lens[-1] = 0, 64 - C // 2 - 1, T - C // 2
         need = -(-np.minimum(lens + C, T) // block)
         q = rng.standard_normal((B, C, H, hd))
     table = rng.permutation(n_blocks)[:B * bpr].reshape(B, bpr)
@@ -83,13 +89,17 @@ def _case(kind, B, H, KV, hd, block, bpr, C, dtype, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["decode", "prefill"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,KV,hd", [(32, 8, 64), (28, 4, 128),
-                                     (16, 16, 128), (9, 3, 64),
-                                     (48, 2, 64)])
-def test_kernel_matches_plain_version(cuda_device, kind, dtype, H, KV, hd):
-    """G = 4, 7, 1, 3 (the four dense configs) and G = 24 (query tiles
-    split over the grid)."""
-    args = _case(kind, 5, H, KV, hd, 16, 9, 40, dtype, cuda_device)
+@pytest.mark.parametrize("H,KV", [(32, 8), (28, 4), (16, 16), (9, 3),
+                                  (48, 2)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("block", [8, 16, 32])
+def test_kernel_matches_plain_version(cuda_device, kind, dtype, H, KV, hd,
+                                      block):
+    """G = 4, 7, 1, 3 (the four dense configs) and G = 24 (query rows
+    split over the grid), both head widths, block sizes 8 to 32 over 160
+    positions a row (three partitions of decode's 64), chunks of 40."""
+    args = _case(kind, 8, H, KV, hd, block, 160 // block, 40, dtype,
+                 cuda_device)
     kern, plain = ((pa_kernel.paged_attention, paged_attention_ref)
                    if kind == "decode"
                    else (fp_kernel.flash_prefill, flash_prefill_ref))
@@ -116,6 +126,64 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
                                   lens)
     with pytest.raises(TypeError):
         pa_kernel.paged_attention(q, kp, vp, table.long(), lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_kernel_rejects_misaligned_operand(cuda_device, kind):
+    """A contiguous view that starts 2 bytes into its buffer: the
+    kernels read with 16-byte copies, so the wrapper refuses it."""
+    args = list(_case(kind, 3, 8, 2, 64, 16, 6, 8, "bfloat16",
+                      cuda_device))
+    kern = (pa_kernel.paged_attention if kind == "decode"
+            else fp_kernel.flash_prefill)
+    for i in (0, 1):                                    # q, then k_pool
+        buf = torch.empty(args[i].numel() + 1, dtype=args[i].dtype,
+                          device=cuda_device)
+        bad = buf[1:].view(args[i].shape)
+        bad.copy_(args[i])
+        assert bad.is_contiguous() and bad.data_ptr() % 16
+        before = kern.launches
+        with pytest.raises(ValueError, match="aligned"):
+            kern(*args[:i], bad, *args[i + 1:])
+        assert kern.launches == before
+
+
+def _offset_view(t, elems):
+    """A contiguous copy of ``t`` that starts ``elems`` elements into its
+    buffer."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = buf[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype,i", [
+    ("decode", "bfloat16", 4),       # cur_len at an odd int offset
+    ("decode", "float32", 3),        # the table at an odd int offset
+    ("prefill", "bfloat16", 4),      # q_off at an odd int offset
+    ("prefill", "float32", 0),       # fp32 q 4 bytes in: read per element
+    ("prefill", "float32", 1),       # fp32 k_pool 4 bytes in
+])
+def test_kernel_takes_operands_it_reads_narrowly(cuda_device, kind, dtype,
+                                                 i):
+    """The int32 operands are read one int at a time and the fp32 chunk
+    route reads q and the pools one element at a time, so a contiguous
+    view at a 4-byte offset is taken, launched and right."""
+    args = list(_case(kind, 6, 8, 2, 64, 16, 6, 8, dtype, cuda_device,
+                      seed=5))
+    args[i] = _offset_view(args[i], 1)
+    assert args[i].data_ptr() % 16
+    kern, plain = ((pa_kernel.paged_attention, paged_attention_ref)
+                   if kind == "decode"
+                   else (fp_kernel.flash_prefill, flash_prefill_ref))
+    before = kern.launches
+    out = kern(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    torch.testing.assert_close(out.float(), plain(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.cuda

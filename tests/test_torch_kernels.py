@@ -1,5 +1,6 @@
 """The port's kernels against the JAX package's: the block-table
-attention kernels and the selective scan.
+attention kernels and the selective scan; and the decode kernel's launch
+plan and split arithmetic, which need no card.
 
 On the CPU the port's wrappers run their plain PyTorch versions; they
 are held to the JAX package's Pallas kernels (interpret mode, as its own
@@ -13,6 +14,8 @@ round an fp32 result to bf16, one ulp at magnitude 1 is 7.8e-3). The
 selective scan is fp32 only: 1e-5 relative and absolute (the same
 recurrence, its N-term dot products summed in another order).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -28,8 +31,12 @@ from repro.kernels.paged_attention.ops import \
 from repro.kernels.selective_scan.ops import selective_scan as jax_ss
 from repro.kernels.selective_scan.ops import \
     selective_scan_ref as jax_ss_ref
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
+from repro_torch.kernels.paged_attention.kernel import SPLIT, split_plan
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ref import (NEG_INF, gather_kv,
+                                                     paged_attention_ref)
 from repro_torch.kernels.selective_scan.ops import selective_scan
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -126,6 +133,107 @@ def test_flash_prefill_single_position_chunk_is_decode():
     dec = paged_attention(q, kp, vp, table, lens)
     pre = flash_prefill(q, kp, vp, table, lens - 1)
     torch.testing.assert_close(pre, dec, rtol=1e-6, atol=1e-6)
+
+
+def _dense_geometries():
+    """(arch, H, KV, hd) of every dense config of the port: the attention
+    shapes the decode kernel serves (``chip_smoke.py`` checks it on the
+    card at the same four)."""
+    cfgs = [(arch, get_config(arch)) for arch in ARCH_IDS]
+    return [(arch, c.n_heads, c.n_kv_heads, c.resolved_head_dim)
+            for arch, c in cfgs if c.family == "dense"]
+
+
+def _partitions(plan, width):
+    """[start, stop) of each partition, as the kernel derives them from
+    the plan: partition s starts at s * split and holds at most split
+    positions below the table's width."""
+    return [(s * plan.split, min((s + 1) * plan.split, width))
+            for s in range(plan.n_splits)]
+
+
+@pytest.mark.parametrize("geom", _dense_geometries(), ids=lambda g: g[0])
+@pytest.mark.parametrize("block", [4, 8, 16, 32])
+@pytest.mark.parametrize("max_len", [577, 2048])
+def test_split_plan_covers_every_position_once(geom, block, max_len):
+    """The decode kernel's launch plan: partitions of at most SPLIT
+    positions tile [0, bpr * block) exactly once, the row tiles cover G
+    with no CTA left without a real row, and the scratch holds one
+    (acc, m, l) partial per (row, query head, partition)."""
+    _, H, KV, hd = geom
+    B, G, bpr = 8, H // KV, -(-max_len // block)
+    plan = split_plan(B, KV, G, bpr, block, hd)
+    seen = np.zeros(bpr * block, np.int64)
+    for lo, hi in _partitions(plan, bpr * block):
+        assert 0 < hi - lo <= SPLIT == plan.split
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert plan.n_splits == -(-bpr * block // SPLIT)
+    assert plan.rows in (1, 2, 4, 8) and plan.rows >= min(G, 8)
+    assert plan.rows * (plan.row_tiles - 1) < G <= plan.rows * plan.row_tiles
+    assert plan.grid == (B, KV, plan.n_splits * plan.row_tiles)
+    assert plan.scratch == (B * H * plan.n_splits * (hd + 2),)
+
+
+def _partitioned_decode(q, kp, vp, table, lens, plan):
+    """Decode as the split kernel computes it, in plain fp32: per
+    partition of the plan a partial (m, l, unnormalised acc) over the
+    positions below cur_len (an empty one: m = -1e30, l = 0, acc = 0),
+    then out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s over the
+    partials with l_s > 0."""
+    B, _, H, hd = q.shape
+    KV = kp.shape[2]
+    kg, vg = gather_kv(kp, vp, table)
+    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, kg.float())
+    out = torch.zeros(B, KV, H // KV, hd)
+    for b in range(B):
+        ms, ls, accs = [], [], []
+        for lo, hi in _partitions(plan, table.shape[1] * kp.shape[1]):
+            hi = min(hi, int(lens[b]))
+            if hi <= lo:
+                ms.append(torch.full(s.shape[1:3], NEG_INF))
+                ls.append(torch.zeros(s.shape[1:3]))
+                accs.append(torch.zeros(s.shape[1:3] + (hd,)))
+                continue
+            sb = s[b, :, :, lo:hi]
+            m = sb.amax(-1)
+            p = torch.exp(sb - m[..., None])
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append(torch.einsum("kgt,tkd->kgd", p, vg[b, lo:hi].float()))
+        m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+        M = torch.where(l > 0, m, NEG_INF).amax(0)
+        w = torch.where(l > 0, torch.exp(m - M), 0.0)
+        out[b] = (w[..., None] * acc).sum(0) / torch.clamp(
+            (w * l).sum(0), min=1e-30)[..., None]
+    return out.reshape(B, 1, H, hd)
+
+
+@pytest.mark.parametrize("block", [4, 8, 16, 32])
+def test_split_decode_arithmetic_equals_plain(block):
+    """The partials and their combine, through the plan's boundaries,
+    equal ``paged_attention_ref`` in fp32 (2e-5) with cur_len on the
+    split edges (0, 1, P - 1, P, P + 1) and at the table's width, and the
+    cur_len == 0 row is exactly 0."""
+    rng = np.random.default_rng(20 + block)
+    H, KV, hd, bpr = 8, 2, 16, -(-160 // block)
+    width = bpr * block
+    lens = np.array([0, 1, SPLIT - 1, SPLIT, SPLIT + 1, width], np.int32)
+    B, n_blocks = len(lens), len(lens) * bpr + 3
+    need = -(-lens // block)
+    table = rng.permutation(n_blocks)[:B * bpr].reshape(B, bpr)
+    table = np.where(np.arange(bpr)[None] < need[:, None], table, -1)
+    q, kp, vp = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+                 for shape in ((B, 1, H, hd), (n_blocks, block, KV, hd),
+                               (n_blocks, block, KV, hd)))
+    table = torch.tensor(table, dtype=torch.int32)
+    cur = torch.tensor(lens)
+    plan = split_plan(B, KV, H // KV, bpr, block, hd)
+    ours = _partitioned_decode(q, kp, vp, table, cur, plan)
+    ref = paged_attention_ref(q, kp, vp, table, cur)
+    torch.testing.assert_close(ours, ref, rtol=2e-5, atol=2e-5)
+    assert torch.count_nonzero(ours[0]) == 0
 
 
 def _scan_case(B, Q, Di, N, seed):

@@ -153,11 +153,46 @@ def test_masters_stay_fp32_and_cast_once():
                for t in torch.utils._pytree.tree_leaves(masters))
     cast = bridge.compute_params(masters, cfg)
     for k, v in _flat(cast).items():
-        torch.testing.assert_close(torch.tensor(v), torch.tensor(
-            _flat(served)[k]), rtol=0, atol=0)
-    assert cast["embed"].dtype == torch.bfloat16
+        if k != "['embed']":
+            torch.testing.assert_close(torch.tensor(v), torch.tensor(
+                _flat(served)[k]), rtol=0, atol=0)
+    assert cast["layers"]["attn"]["wq"].dtype == torch.bfloat16
+    # the embedding is cast at each use (the lookup, the unembedding)
+    assert cast["embed"] is masters["embed"]
+    torch.testing.assert_close(cast["embed"].to(torch.bfloat16),
+                               served["embed"], rtol=0, atol=0)
     assert cast["ln_final"] is masters["ln_final"]
     assert cast["layers"]["ln_attn"] is masters["layers"]["ln_attn"]
+
+
+def test_tied_embedding_cotangents_meet_in_fp32():
+    """bf16 compute on fp32 masters: the tied embedding's two uses (the
+    lookup and the unembedding) each take their own cast, as the JAX
+    package casts at each use, so their bf16 cotangents add in fp32. The
+    masters' gradient equals, bit for bit, the fp32 sum of the two
+    cotangents taken on separate bf16 leaves, and differs from their
+    bf16 sum (what one shared cast would give)."""
+    cfg = get_config(ARCH, smoke=True)
+    assert cfg.tie_embeddings and cfg.dtype("compute") == torch.bfloat16
+    masters = bridge.init_params(cfg, seed=0, device="cpu",
+                                 keep_param_dtype=True)
+    batch = _t_batch(_batch(cfg))
+    embed = masters["embed"].detach().requires_grad_()
+    loss, _ = model_zoo.loss_fn(
+        bridge.compute_params({**masters, "embed": embed}, cfg), cfg, batch)
+    (grad,) = torch.autograd.grad(loss, [embed])
+
+    lookup = masters["embed"].to(torch.bfloat16).requires_grad_()
+    unembed = masters["embed"].to(torch.bfloat16).requires_grad_()
+    cast = bridge.compute_params(masters, cfg)
+    x, _ = model_zoo.features({**cast, "embed": lookup}, cfg, batch)
+    ce = model_zoo._chunked_ce(x, batch["labels"], unembed.T, cfg)
+    g_lookup, g_unembed = torch.autograd.grad(ce, [lookup, unembed])
+    assert ce.item() == loss.item()
+    assert grad.dtype == torch.float32
+    torch.testing.assert_close(grad, g_lookup.float() + g_unembed.float(),
+                               rtol=0, atol=0)
+    assert not torch.equal(grad, (g_lookup + g_unembed).float())
 
 
 # --------------------------------------------------------------- train step
