@@ -2,11 +2,13 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --kernels-only   # phases 1-3 only
+    python3 chip_smoke.py --kernels-only   # phases 1-3, 6, 9 and 13 only
 
-``--kernels-only`` runs the card, build and block-table kernel phases
-and prints their two records: copied into a checkout of another commit,
-it times that commit's block-table kernels the same way. Every kernel's
+``--kernels-only`` runs the card and build phases and the phases that
+check and time a kernel alone, all five kernels (the block-table
+kernels, the selective scan, the LSTM cell, flash attention), and
+prints their records with launches 0: copied into a checkout of another
+commit, it times that commit's kernels the same way. Every kernel's
 time is taken twice over the same operand copies: as device time (the
 calls captured once in a CUDA graph and replayed) and as eager calls
 (the caller's time, the wrapper's host work included).
@@ -70,10 +72,13 @@ Phases, each printing its own lines:
     the JAX kernel sweep's shapes (MHA, GQA 4:1 and 2:1, MQA; D = 16,
     32, 64, 128; S = 64-256), at D=8 (the smoke llama's head dim) and
     at the llama3.2-1b forward's (B=4, S=2048, H=32, KV=8, D=64), fp32
-    and bf16, causal and not; its refusal of operands that require
-    grad; then timed at the forward's shape beside the plain version,
+    and bf16, causal and not, and at the wgmma route's edges (S and T
+    off multiples of 128, T != S both ways, one 128-row tile, D=128 at
+    G=7, B > 1); its refusal of operands that require grad; then timed
+    at the forward's shape beside the plain version,
     ``scaled_dot_product_attention`` (a yardstick the port never calls)
-    and the bound;
+    and the bound, and at qwen2-7b's (B=4, S=2048, H=28, KV=4, D=128)
+    beside SDPA;
 14. ``model_zoo.forward`` and ``loss_fn`` of llama3.2-1b at full width
     (random weights from a seed, B=4, S=2048 tokens from ``SyntheticLM``)
     under ``no_grad`` with ``attn_impl="cuda"`` (the kernel launches
@@ -90,8 +95,11 @@ Phases, each printing its own lines:
     finite and fall, the checkpoint must restore bit for bit and a
     second launch must resume from it; one step under
     ``layer_loop="paper_while"`` with ``save_policy="offload"`` must
-    give ``scan``'s loss, and a step under ``attn_impl="cuda"`` must
-    stop at the kernel's refusal.
+    give ``scan``'s loss; one step at B=1 under each of ``remat="full"``,
+    ``"attn_out"`` and ``"none"`` must give one loss, and the memory
+    held for the backward after the forward must rise in that order;
+    and a step under ``attn_impl="cuda"`` must stop at the kernel's
+    refusal.
 
 The llama3.2-1b weights are freed before falcon-mamba's are made, and
 falcon-mamba's before the LSTM phases, and each of the last three
@@ -151,6 +159,12 @@ FA_SWEEP = ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 64, 6, 3, 128),
             (2, 128, 2, 1, 16),          # (B, S, H, KV, D): the JAX sweep,
             (2, 128, 8, 2, 8))           # and the smoke llama's head dim
 FA_FORWARD = (4, 2048, 32, 8, 64)        # the llama3.2-1b forward's shape
+FA_QWEN = (4, 2048, 28, 4, 128)          # qwen2-7b's geometry, timed beside
+FA_EDGES = (  # (B, S, H, KV, D, T): the wgmma route's edges (D = 64, 128):
+    (2, 200, 8, 2, 64, 200),     # S, T off multiples of 128, B > 1 (TMA's
+    (2, 130, 8, 2, 64, 300),     # zero fill past T in each batch row); T > S
+    (3, 300, 28, 4, 128, 130),   # T < S, D = 128 at G = 7
+    (1, 128, 4, 1, 64, 128))     # a single 128-row tile
 LOGIT_TOL = 1e-3   # fp32 compute: 16 layers of fp32 sums in another order
 FWD_BF16_TOL = {"max": 0.125, "mean": 1.5e-2}  # bf16 logits against the
 #   forward routed through the kernel's plain version: 16 random bf16 layers
@@ -1258,17 +1272,19 @@ def phase_flash_kernel():
 
     kern = fa_kernel.flash_attention
     seed = 0
-    for shape in FA_SWEEP + (FA_FORWARD,):
+    for shape in FA_SWEEP + FA_EDGES + (FA_FORWARD,):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
             for causal in (True, False):
                 seed += 1
-                args = fa_case(seed, *shape, dtype)
+                args = fa_case(seed, *shape[:5], dtype,
+                               T=shape[5] if len(shape) > 5 else None)
                 out = kern(*args, causal=causal)
                 torch.cuda.synchronize()
                 err, need, ok = fa_check(out, attention_ref(*args,
                                                             causal=causal))
-                log(f"[flash] check B,S,H,KV,D={shape} {dname:8s} causal="
+                log(f"[flash] check B,S,H,KV,D{',T' * (len(shape) > 5)}="
+                    f"{shape} {dname:8s} causal="
                     f"{causal!s:5s}: max |kernel - plain| {err:.3e}, atol "
                     f"needed at rtol {FA_TOL[dname][0]:g}: {need:.3e} (tol "
                     f"{FA_TOL[dname][1]:g}) {'ok' if ok else 'FAIL'}")
@@ -1325,6 +1341,22 @@ def phase_flash_kernel():
         record = kernel_record("flash_attention", err, times, plain_ms,
                                b_ms, b_by)
         del copies, heads, out, ref, lib
+
+    copies = [fa_case(300 + i, *FA_QWEN, torch.bfloat16) for i in range(4)]
+    err, need, ok = fa_check(kern(*copies[0]), attention_ref(*copies[0]))
+    if not ok:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {FA_QWEN}: {need:.3e}")
+    heads = [[t.transpose(1, 2) for t in c] for c in copies]
+    times = call_times(lambda i: kern(*copies[i]), len(copies),
+                       lambda i: sdpa(*heads[i], is_causal=True,
+                                      enable_gqa=True), iters=20)
+    b_ms, b_by = fa_bound(*copies[0])
+    log(f"[flash] time flash_attention at qwen2-7b's B,S,H,KV,D={FA_QWEN} "
+        f"bf16 causal: {fmt_times(times)}; bound {b_ms:.4f} ms ({b_by}), "
+        f"device kernel/sdpa {times['ms'] / times['library_ms']:.2f}, max "
+        f"|kernel - plain| {err:.3e} (atol needed {need:.3e})")
+    del copies, heads
     return record
 
 
@@ -1608,6 +1640,59 @@ def phase_train():
     if not ok:
         raise AssertionError("paper_while+offload and scan disagree")
 
+    # remat at one sequence of the batch (full width; `none` keeps every
+    # layer's activations, so B=4 would not leave the 80 GB card room).
+    # The step's peak comes in AdamW's update, after the activations are
+    # freed, so what remat decides is read after the forward: the bytes
+    # the backward holds (the bf16 compute copy included, alike in all).
+    one = {k: v[:1] for k, v in batch.items()}
+    one_dev = train_loop.batch_to_device(one, "cuda")
+    held = {}
+    for remat in ("full", "attn_out", "none"):
+        c = dataclasses.replace(cfg, remat=remat)
+        step_fn = train_loop.make_train_step(c, opt_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new_params, new_opt, m = step_fn(params, opt, one)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        del new_params, new_opt, m
+        gc.collect()
+        leaves, spec = pytree.tree_flatten(params)
+        live = [p.detach().requires_grad_() for p in leaves]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        with torch.enable_grad():
+            fwd, metrics = model_zoo.loss_fn(bridge.compute_params(
+                pytree.tree_unflatten(live, spec), c), c, one_dev)
+            torch.cuda.synchronize()
+            held[remat] = (torch.cuda.memory_allocated() - base, loss,
+                           fwd.item())
+            torch.autograd.grad(fwd, live)
+        del fwd, metrics, live
+        log(f"[train] one step at B=1, remat {remat}: loss {loss:.6f}, grad "
+            f"norm {gnorm:.6f}, {ms:.1f} ms, step peak {peak / 2**30:.3f} "
+            f"GiB; held for the backward after the forward "
+            f"{held[remat][0] / 2**30:.3f} GiB")
+    (h_full, l_full, f_full), (h_attn, l_attn, _), (h_none, l_none, _) = (
+        held["full"], held["attn_out"], held["none"])
+    ok = (h_full < h_attn < h_none and
+          max(abs(l_attn - l_full), abs(l_none - l_full), abs(f_full - l_full))
+          <= STEP_LOSS_RTOL * abs(l_full))
+    log(f"[train] remat attn_out holds between full and none after the "
+        f"forward: {h_full / 2**30:.3f} < {h_attn / 2**30:.3f} < "
+        f"{h_none / 2**30:.3f} GiB, one loss: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("remat attn_out: held memory out of order or "
+                             "another loss")
+    del one, one_dev
+    gc.collect()
+
     step_fn = train_loop.make_train_step(
         dataclasses.replace(cfg, attn_impl="cuda"), opt_cfg)
     try:
@@ -1647,8 +1732,12 @@ def main() -> int:
     timed(phase_build)
     records = timed(phase_kernels)
     if sys.argv[1:] == ["--kernels-only"]:
+        for phase in (phase_scan_kernel, phase_lstm_kernel,
+                      phase_flash_kernel):
+            records.append(timed(phase))
         log(json.dumps({"kernels": records}))
-        log(f"[done] phases 1-3 passed in {time.perf_counter() - t0:.1f} s")
+        log(f"[done] phases 1-3, 6, 9 and 13 passed in "
+            f"{time.perf_counter() - t0:.1f} s")
         return 0
     launches = timed(phase_serve)
     timed(phase_parity)

@@ -8,32 +8,65 @@
 //
 // What bounds it on the H100: operations. At the llama3.2-1b forward's
 // shapes (B=4, S=T=2048, H=32, KV=8, D=64, causal) the two products are
-// 4*D*H*B*S*(S+1)/2 = 68.7 GFLOP: 0.069 ms at the 989 TFLOP/s of bf16
+// 4*D*H*B*S*(S+1)/2 = 68.7 GFLOP: 0.0695 ms at the 989 TFLOP/s of bf16
 // tensor cores, 1.03 ms at the 67 TFLOP/s of fp32 FMAs, against 84 MB of
-// bf16 operands and result (0.025 ms at 3.35 TB/s). Two routes, one per
-// operand type:
+// bf16 operands and result (0.025 ms at 3.35 TB/s). Three routes:
 //
-// - bf16 (the model's compute type): QK^T and PV on the tensor cores,
-//   mma.sync m16n8k16 with fp32 accumulation; scores, the online softmax
-//   and the accumulator stay fp32, and p is rounded to bf16 for the PV
-//   product (the TPU kernel keeps p in fp32: at most 2^-8 relative on
-//   each weight, the size of the bf16 output's own rounding). wgmma and
-//   TMA are later work.
+// - bf16 at D = 64 and 128 (every full-width configuration): wgmma with
+//   operands loaded by TMA, warp-specialised (below);
+// - bf16 at D = 8, 16, 32 (the smoke widths): mma.sync m16n8k16 with
+//   fp32 accumulation, K and V staged through registers (the first
+//   port's tensor-core body);
 // - fp32: every multiply-add on the fp32 pipes (no TF32), bounded by the
 //   1.03 ms.
+// Every route keeps scores, the online softmax and the accumulator in
+// fp32; the bf16 routes round p to bf16 for the PV product (the TPU
+// kernel keeps p in fp32: at most 2^-8 relative on each weight, the size
+// of the bf16 output's own rounding).
 //
-// bf16 design. One CTA of four warps per (query tile of 64 rows, head,
-// batch row); warp w owns rows 16w..16w+15, holds its q rows as mma A
-// fragments in registers for the whole key loop, and keeps its scores,
-// row max, row sum and 16 x D fp32 accumulator in mma C fragments (each
-// thread: two rows, two columns per 8-wide tile; row statistics are
-// combined across the 4 threads of a row with shuffles). Per key tile
-// of 64, K is staged in shared memory row-major (a B fragment of QK^T is
-// one 32-bit load) and V transposed (a B fragment of PV is one 32-bit
-// load); both rows are padded by 16 bytes, so the fragment loads of a
-// warp hit 32 different banks. The score fragments become the A
-// fragments of PV in registers. Scale and masks are applied to the fp32
-// scores, as the TPU kernel applies them.
+// bf16 design at D = 64, 128 (what the first port's mma.sync body lost
+// to, and what this one does about it):
+// - Rate: QK^T is wgmma m64n128k16 with Q and K K-major in shared memory
+//   (128-byte swizzle); PV is wgmma m64n64k16 per 64 columns of D with P
+//   in registers (the S accumulators packed to bf16 pairs are the A
+//   fragments) and V read N-major with the transpose bit, so V is never
+//   transposed.
+// - Loads: one CTA of three warpgroups for 128 query rows of one (head,
+//   batch row). One producer thread keeps a ring of K/V stages (3 at
+//   D = 64, 2 at D = 128; 128 keys each) in flight with TMA
+//   (cp.async.bulk.tensor over 4-D maps (D, heads, seq, B), boxes of 64
+//   columns, so a D = 128 row is two boxes); each stage completes on a
+//   full mbarrier, and the two consumer warpgroups (64 rows each) release
+//   it on an empty one. Keys past T inside a batch row come back as
+//   zeros (TMA's fill) and are masked to probability 0. setmaxnreg gives
+//   the consumers 240 registers and the producer 24 (the CTA holds 168 a
+//   thread at launch; the launch checks that).
+// - Overlap: the two consumer warpgroups take turns to issue QK^T
+//   (named barriers), so one's softmax runs while the other's products
+//   do. (Issuing tile t's QK^T with tile t-1's PV inside a warpgroup, as
+//   FlashAttention-3 also does, measured slower here.)
+// - Masking: only tiles that cross the diagonal or the T edge evaluate
+//   the mask; tiles below the diagonal run without it. A CTA's 128 rows
+//   span one 128-key tile, so every key tile it loads reaches both
+//   warpgroups' rows and both take the same turns.
+// - Softmax: the row max of the raw scores, scaled once; each p is
+//   exp2f of one FMA, s * scale * log2(e) - m.
+// - Scheduling: blockIdx.z walks the query tiles from the last one, so
+//   the CTAs with the most key tiles start in the first wave.
+// - Epilogue: acc / max(l, 1e-30), written as bf16 pairs.
+// The tensor maps are encoded on the host at each call
+// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the
+// library needs no -lcuda) and passed as __grid_constant__ parameters,
+// which a CUDA graph captures by value. q, k and v must be 16-byte
+// aligned (TMA); the wrapper checks.
+//
+// bf16 design at D <= 32. One CTA of four warps per (query tile of 64
+// rows, head, batch row); warp w owns rows 16w..16w+15, holds its q rows
+// as mma A fragments in registers for the whole key loop, and keeps its
+// scores, row max, row sum and 16 x D fp32 accumulator in mma C
+// fragments. Per key tile of 64, K is staged in shared memory row-major
+// and V transposed, rows padded by 16 bytes; the score fragments become
+// the A fragments of PV in registers.
 //
 // fp32 design. One CTA per (query tile of 64 rows, head, batch row): the TPU
 // grid's sequential key axis becomes a loop inside the CTA, which keeps
@@ -48,17 +81,21 @@
 // 16-byte granularity, so the TPR threads of a row read TPR neighbouring
 // 16-byte words (no bank conflicts).
 //
-// Both routes: causal attention stops the key loop after the tile
+// Every route: causal attention stops the key loop after the tile
 // holding the CTA's last query (the TPU kernel's skip of whole blocks
 // above the diagonal) and masks inside it with -1e30, as the TPU kernel
 // does. Ragged S and T edges are masked (keys past T get probability 0;
 // rows past S are computed and not stored), though the model only sends
-// multiples of 128. Precise expf; the result is acc / max(l, 1e-30),
-// written in the operands' type.
+// multiples of 128. The result is acc / max(l, 1e-30), written in the
+// operands' type.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -390,6 +427,263 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ------------------------------------------- bf16 route, D in {64, 128}
+
+// One CTA: 128 query rows of one (head, batch row). Warpgroups 0 and 1
+// consume (64 rows each), warpgroup 2 produces (one thread issues TMA).
+constexpr int kWgRows = 64;
+constexpr int kCtaRows = 2 * kWgRows;
+constexpr int kWgKeys = 128;               // keys per tile (BK)
+constexpr int kWgThreads = 384;
+constexpr int kConsumerRegs = 240;         // setmaxnreg: 2 x 128 x 240 +
+constexpr int kProducerRegs = 24;          // 128 x 24 = 384 x 168
+constexpr int kLaunchRegs = 168;           // 65536 / 384, rounded to 8
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WgPlan {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kChunks = D / 64;                 // 128-byte columns
+  static constexpr int kQChunk = kCtaRows * 128;         // bytes per column
+  static constexpr int kKvChunk = kWgKeys * 128;
+  static constexpr int kQBytes = kChunks * kQChunk;
+  static constexpr int kStageBytes = 2 * kChunks * kKvChunk;   // K and V
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  // + the barriers, + 1024 to align the base to the swizzle atom
+  static constexpr int kSmemBytes = kBarOffset + 8 * (2 * kStages + 1) +
+                                    1024;
+};
+
+static_assert(kCtaRows == kWgKeys,
+              "a CTA's rows must span one key tile (the warpgroups' turns)");
+constexpr int kSmemLimit = 232448;         // a block's most, H100
+static_assert(WgPlan<64>::kSmemBytes <= kSmemLimit &&
+                  WgPlan<128>::kSmemBytes <= kSmemLimit,
+              "the K/V ring must fit one block's shared memory");
+
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::named_arrive;
+using repro::named_sync;
+using repro::sw128_desc;
+using repro::tma_load_4d;
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ o, int S, int T_len,
+                             int H, int KV, int causal, float scale_log2) {
+  using P = WgPlan<D>;
+  constexpr int BK = kWgKeys;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* q_s = smem;
+  auto k_s = [&](int stage, int c) {
+    return smem + P::kQBytes + stage * P::kStageBytes + c * P::kKvChunk;
+  };
+  auto v_s = [&](int stage, int c) {
+    return k_s(stage, c) + P::kChunks * P::kKvChunk;
+  };
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBarOffset);
+  uint64_t* empty = full + P::kStages;
+  uint64_t* q_full = empty + P::kStages;
+
+  // longest first: blockIdx.z walks the query tiles from the last one
+  const int n_qt = (S + kCtaRows - 1) / kCtaRows;
+  const int q0 = (n_qt - 1 - blockIdx.z) * kCtaRows;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int n_kt = (T_len + BK - 1) / BK;
+  const int n_tiles =
+      causal ? min(n_kt, (min(q0 + kCtaRows, S) - 1) / BK + 1) : n_kt;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);           // lane 0 of each consumer warp
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    repro::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 256) {
+      mbar_expect_tx(q_full, P::kQBytes);
+      for (int c = 0; c < P::kChunks; ++c)
+        tma_load_4d(q_s + c * P::kQChunk, &tq, q_full, 64 * c, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int stage = t % P::kStages, round = t / P::kStages;
+        if (round > 0) mbar_wait(&empty[stage], (round - 1) & 1);
+        mbar_expect_tx(&full[stage], P::kStageBytes);
+        for (int c = 0; c < P::kChunks; ++c) {
+          tma_load_4d(k_s(stage, c), &tk, &full[stage], 64 * c, kvh, t * BK,
+                      b);
+          tma_load_4d(v_s(stage, c), &tv, &full[stage], 64 * c, kvh, t * BK,
+                      b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    repro::setmaxnreg_inc<kConsumerRegs>();
+    const int lane = tid % 32, warp = (tid / 32) % 4;
+    const int g = lane / 4, t4 = lane % 4;
+    const int r_lo = q0 + kWgRows * wg;          // this warpgroup's rows
+    const int r0 = r_lo + 16 * warp + g, r1 = r0 + 8;   // this thread's
+    // tiles below n_full see every key of every row of this warpgroup
+    const int n_full = (causal ? min(r_lo + 1, T_len) : T_len) / BK;
+
+    float acc[P::kChunks][32];
+#pragma unroll
+    for (int c = 0; c < P::kChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    mbar_wait(q_full, 0);
+
+    // The two warpgroups take turns to issue QK^T (named barriers 1 and
+    // 2), so one's softmax runs while the other's products do.
+    if (wg == 1) named_arrive(1);        // warpgroup 0 issues first
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stage = t % P::kStages, round = t / P::kStages;
+      mbar_wait(&full[stage], round & 1);
+      // S = Q K^T over D in k16 steps, 4 per 128-byte column
+      float s[BK / 2];
+      named_sync(1 + wg);
+      repro::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        const int c = k / 4, kk = k % 4;
+        repro::wgmma_ss_n128(
+            s, sw128_desc(q_s + c * P::kQChunk + wg * kWgRows * 128 +
+                          32 * kk),
+            sw128_desc(k_s(stage, c) + 32 * kk), k > 0);
+      }
+      repro::wgmma_commit();
+      named_arrive(2 - wg);
+      repro::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) repro::reg_fence(s[i]);
+
+      // the mask only where a tile crosses the diagonal or the T edge
+      if (t >= n_full) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = t * BK + 8 * (i / 4) + 2 * t4 + (i & 1);
+          const int row = (i & 2) ? r1 : r0;
+          if (key >= T_len) {
+            s[i] = __int_as_float(0xff800000);   // -inf: probability 0
+          } else if (causal && key > row) {
+            s[i] = kNegInf;
+          }
+        }
+      }
+      // the online softmax in the log2 domain: the row max of the raw
+      // scores, scaled once; p = 2^(s * scale - m) as one FMA and ex2
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 4) {
+        mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      mx0 = fmaxf(m0, mx0 * scale_log2);
+      mx1 = fmaxf(m1, mx1 * scale_log2);
+      const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 4) {
+        s[i] = exp2f(fmaf(s[i], scale_log2, -mx0));
+        s[i + 1] = exp2f(fmaf(s[i + 1], scale_log2, -mx0));
+        s[i + 2] = exp2f(fmaf(s[i + 2], scale_log2, -mx1));
+        s[i + 3] = exp2f(fmaf(s[i + 3], scale_log2, -mx1));
+        ps0 += s[i] + s[i + 1];
+        ps1 += s[i + 2] + s[i + 3];
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+#pragma unroll
+      for (int c = 0; c < P::kChunks; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; i += 4) {
+          acc[c][i] *= c0; acc[c][i + 1] *= c0;
+          acc[c][i + 2] *= c1; acc[c][i + 3] *= c1;
+        }
+
+      // O += P V: p packed to bf16 A fragments (16 keys each), V read
+      // N-major (keys are rows, D contiguous) with the transpose bit
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) {
+        pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
+        pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+        pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+        pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+      }
+      repro::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+        for (int c = 0; c < P::kChunks; ++c)
+          repro::wgmma_rs_n64_tn(acc[c], pa[kc],
+                                 sw128_desc(v_s(stage, c) + kc * 2048));
+      repro::wgmma_commit();
+      repro::wgmma_wait<0>();
+      // the A registers are read asynchronously: keep them live to here
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" :: "r"(pa[kc][e]));
+#pragma unroll
+      for (int c = 0; c < P::kChunks; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) repro::reg_fence(acc[c][i]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    const size_t qs = static_cast<size_t>(H) * D;
+    __nv_bfloat16* o_r0 = o + (static_cast<size_t>(b) * S + r0) * qs +
+                          static_cast<size_t>(h) * D;
+    __nv_bfloat16* o_r1 = o_r0 + 8 * qs;
+#pragma unroll
+    for (int c = 0; c < P::kChunks; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 64 * c + 8 * j + 2 * t4;
+        if (r0 < S)
+          *reinterpret_cast<uint32_t*>(o_r0 + d) =
+              pack_bf16(acc[c][4 * j] / d0, acc[c][4 * j + 1] / d0);
+        if (r1 < S)
+          *reinterpret_cast<uint32_t*>(o_r1 + d) =
+              pack_bf16(acc[c][4 * j + 2] / d1, acc[c][4 * j + 3] / d1);
+      }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 template <int D>
@@ -402,6 +696,73 @@ void launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       S, T_len, H, KV, causal, 1.f / sqrtf(static_cast<float>(D)));
+}
+
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links against the runtime alone (no -lcuda).
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 (B, L, heads, D) tensor, innermost
+// first (D, heads, L, B), with boxes of 64 columns (128 bytes) x `rows`
+// positions of one head and batch row, 128-byte swizzled. Positions past
+// L inside a batch row come back as zeros.
+bool encode_map(CUtensorMap* map, const void* base, int B, int L, int heads,
+                int D, int rows) {
+  auto fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads),
+                              cuuint64_t(L), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2,
+                                 cuuint64_t(heads) * D * 2,
+                                 cuuint64_t(L) * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 int B, int S, int T_len, int H, int KV, int causal,
+                 cudaStream_t stream) {
+  auto kernel = flash_attention_wgmma_kernel<D>;
+  static int ready = 0;   // 1: attributes set and checked; -1: refused
+  if (ready == 0) {
+    cudaFuncAttributes attr;
+    ready = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 WgPlan<D>::kSmemBytes) == cudaSuccess &&
+                    cudaFuncGetAttributes(&attr, kernel) == cudaSuccess &&
+                    attr.numRegs == kLaunchRegs
+                ? 1 : -1;
+    // setmaxnreg moves registers inside the CTA's allocation: the
+    // consumers' 240 fit only if the launch holds 168 a thread
+  }
+  if (ready < 0) return cudaErrorInvalidConfiguration;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, B, S, H, D, kCtaRows) ||
+      !encode_map(&tk, k, B, T_len, KV, D, kWgKeys) ||
+      !encode_map(&tv, v, B, T_len, KV, D, kWgKeys))
+    return cudaErrorInvalidValue;
+  const dim3 grid(H, B, (S + kCtaRows - 1) / kCtaRows);
+  kernel<<<grid, kWgThreads, WgPlan<D>::kSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, T_len, H, KV, causal,
+      kLog2e / sqrtf(static_cast<float>(D)));
+  return cudaSuccess;
 }
 
 template <int D>
@@ -440,9 +801,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     case 8: launch_mma<8>(q, k, v, o, B, S, T_len, H, KV, causal, s); break;
     case 16: launch_mma<16>(q, k, v, o, B, S, T_len, H, KV, causal, s); break;
     case 32: launch_mma<32>(q, k, v, o, B, S, T_len, H, KV, causal, s); break;
-    case 64: launch_mma<64>(q, k, v, o, B, S, T_len, H, KV, causal, s); break;
-    case 128: launch_mma<128>(q, k, v, o, B, S, T_len, H, KV, causal, s);
-      break;
+    case 64: return launch_wgmma<64>(q, k, v, o, B, S, T_len, H, KV, causal,
+                                     s);
+    case 128: return launch_wgmma<128>(q, k, v, o, B, S, T_len, H, KV,
+                                       causal, s);
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;

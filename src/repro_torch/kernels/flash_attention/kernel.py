@@ -11,6 +11,16 @@ from .. import check, dtype_code, entry, ptr, stream_ptr
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 HEAD_DIMS = (8, 16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def route(D: int, dtype: torch.dtype) -> str:
+    """The body of ``csrc/flash_attention.cu`` that a call takes: bf16 at
+    D in WGMMA_HEAD_DIMS runs wgmma on TMA-loaded tiles, bf16 at the
+    smoke widths mma.sync, fp32 the fp32 pipes."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if D in WGMMA_HEAD_DIMS else "mma.sync"
+    return "fp32"
 
 
 def refuse_autograd(tensors) -> None:
@@ -26,7 +36,8 @@ def refuse_autograd(tensors) -> None:
 def flash_attention(q, k, v, *, causal: bool = True):
     """Full-sequence GQA attention. q: (B, S, H, D); k, v: (B, T, KV, D)
     with H % KV == 0 and D in HEAD_DIMS; every operand float32
-    or bfloat16 (one type for all), contiguous, on one CUDA device.
+    or bfloat16 (one type for all), contiguous, 16-byte aligned, on one
+    CUDA device (``route`` says which kernel body runs).
     Returns (B, S, H, D) in q's type; the math is fp32. Causal masking
     is top-left aligned. Launches on the current stream. Forward only:
     with grad mode on, an operand that requires grad is refused
@@ -43,6 +54,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
                         f"got {[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash_attention: operands must be 16-byte aligned "
+                         "(TMA boxes and 16-byte loads)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q must be (B, S, H, D) and k, v "
                          f"(B, T, KV, D); got {tuple(q.shape)}, "

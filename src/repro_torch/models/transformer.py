@@ -34,8 +34,9 @@ paper's dynamic loop hosting the production model, whose save policy
 layer activations. ``cfg.remat`` wraps each layer step: ``full`` in a
 non-reentrant ``torch.utils.checkpoint`` (only the step's inputs are
 saved), ``dots`` in selective activation checkpointing that saves the
-matmul outputs, ``none`` in nothing; ``attn_out`` is refused
-(ROADMAP.md).
+matmul outputs, ``attn_out`` in selective checkpointing that saves
+only the attention outputs (tagged by ``tag_attn_out``, as the JAX
+package's ``checkpoint_name(a, "attn_out")``), ``none`` in nothing.
 """
 
 from __future__ import annotations
@@ -212,13 +213,32 @@ def attn_apply(p, x, cfg, *, positions, mode: str = "full",
     return out.to(x.dtype)
 
 
+@torch.library.custom_op("repro_torch::attn_out", mutates_args=())
+def tag_attn_out(a: torch.Tensor) -> torch.Tensor:
+    """The attention output's tag for ``remat="attn_out"``: an identity
+    that returns a copy (a custom op must not alias its input), one
+    (B, S, d_model) tensor per layer. ``_save_attn_out`` saves what it
+    returns; its gradient passes the cotangent through."""
+    return a.clone()
+
+
+@tag_attn_out.register_fake
+def _(a):
+    return torch.empty_like(a)
+
+
+tag_attn_out.register_autograd(lambda ctx, grad: grad)
+
+
 def attn_block(p, x, cfg, *, positions, mode="full", kv_cache=None,
                cur_len=None, chunk_off=None):
     """Pre-norm attention + SwiGLU MLP block; returns the new x."""
     h = layers.apply_norm(cfg.norm, x, p, "ln_attn")
-    x = x + attn_apply(p["attn"], h, cfg, positions=positions, mode=mode,
-                       kv_cache=kv_cache, cur_len=cur_len,
-                       chunk_off=chunk_off)
+    a = attn_apply(p["attn"], h, cfg, positions=positions, mode=mode,
+                   kv_cache=kv_cache, cur_len=cur_len, chunk_off=chunk_off)
+    if cfg.remat == "attn_out":   # only there: other modes' graphs unchanged
+        a = tag_attn_out(a)
+    x = x + a
     h = layers.apply_norm(cfg.norm, x, p, "ln_mlp")
     m = layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                       p["mlp"]["w_down"], cfg.dtype("compute"))
@@ -261,21 +281,27 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _save_attn_out(ctx, op, *args, **kwargs):
+    """Selective checkpointing policy of ``remat="attn_out"``: keep only
+    the tagged attention outputs, recompute the rest
+    (``jax.checkpoint_policies.save_only_these_names("attn_out")``)."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.repro_torch.attn_out.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _remat(fn, cfg):
     """Wrap one layer step ``fn(lp, x) -> x`` per ``cfg.remat``."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":       # save only the step's inputs
         return functools.partial(checkpoint, fn, use_reentrant=False)
-    if cfg.remat == "dots":
+    policies = {"dots": _save_dots, "attn_out": _save_attn_out}
+    if cfg.remat in policies:
         return functools.partial(
             checkpoint, fn, use_reentrant=False,
             context_fn=functools.partial(
-                create_selective_checkpoint_contexts, _save_dots))
-    if cfg.remat == "attn_out":
-        raise NotImplementedError(
-            "remat='attn_out' (save only the tagged attention outputs) is "
-            "not ported yet; see ROADMAP.md")
+                create_selective_checkpoint_contexts, policies[cfg.remat]))
     raise ValueError(cfg.remat)
 
 

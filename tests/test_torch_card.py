@@ -323,7 +323,10 @@ def _lstm_case(B, D, H, dtype, device, seed=0):
     (37, 20, 48),        # row, unit and K tails
     (32, 24, 48),        # NMT encoder
     (32, 72, 48),        # NMT decoder: x/h crossing inside a K tile
-    (70, 0, 33)])        # no input, odd units
+    (70, 0, 33),         # no input, odd units
+    (1, 500, 300),       # one row; 50 K tiles over a cluster of 8
+    (130, 36, 20),       # rows past one tile, units below one
+    (3, 514, 262)])      # 4-byte copies (D % 4 == 2); 49 K tiles over 4
 def test_lstm_cell_matches_plain_version(cuda_device, dtype, B, D, H):
     args = _lstm_case(B, D, H, dtype, cuda_device)
     before = lstm_kernel.lstm_cell.launches
@@ -414,11 +417,17 @@ def _fa_case(B, S, T, H, KV, D, dtype, device, seed=0):
 @pytest.mark.parametrize("B,S,T,H,KV,D", [
     (1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64), (1, 64, 64, 6, 3, 128),
     (2, 128, 128, 2, 1, 16), (1, 100, 137, 4, 2, 64), (2, 96, 70, 4, 1, 128),
-    (2, 128, 128, 8, 2, 8), (1, 100, 137, 8, 2, 8)])
+    (2, 128, 128, 8, 2, 8), (1, 100, 137, 8, 2, 8),
+    # the wgmma route's edges: S, T off multiples of 128 with B > 1 (TMA
+    # zero-fills past T inside each batch row), T != S both ways, one
+    # 128-row tile, D = 128 at G = 7
+    (2, 200, 200, 8, 2, 64), (2, 130, 300, 8, 2, 64),
+    (3, 300, 130, 28, 4, 128), (1, 128, 128, 4, 1, 64),
+    (2, 256, 256, 14, 2, 128)])
 def test_flash_attention_matches_plain_version(cuda_device, dtype, causal, B,
                                                S, T, H, KV, D):
-    """The JAX sweep's shapes, the smoke llama's head dim 8, and ragged
-    S and T (top-left mask).
+    """The JAX sweep's shapes, the smoke llama's head dim 8, ragged S and
+    T (top-left mask), and the wgmma route's edges.
     fp32 1e-5: the same fp32 math summed in another order over at most
     256 keys; bf16 rtol 2^-7, atol 2^-8 (module docstring)."""
     args = _fa_case(B, S, T, H, KV, D, getattr(torch, dtype), cuda_device)

@@ -1,6 +1,7 @@
 """The port's kernels against the JAX package's: the block-table
-attention kernels and the selective scan; and the decode kernel's launch
-plan and split arithmetic, which need no card.
+attention kernels and the selective scan; and the launch plans (the
+decode kernel's split, the flash kernel's route and shared memory, the
+LSTM cell's cluster split) and split arithmetic, which need no card.
 
 On the CPU the port's wrappers run their plain PyTorch versions; they
 are held to the JAX package's Pallas kernels (interpret mode, as its own
@@ -32,6 +33,8 @@ from repro.kernels.selective_scan.ops import selective_scan as jax_ss
 from repro.kernels.selective_scan.ops import \
     selective_scan_ref as jax_ss_ref
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.paged_attention.kernel import SPLIT, split_plan
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -276,3 +279,55 @@ def test_selective_scan_carries_state_across_chunks():
                             C_[:, 5:].contiguous(), x[:, 5:].contiguous(), h1)
     torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=0, atol=0)
     torch.testing.assert_close(h2, h, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if get_config(a).family == "dense"])
+@pytest.mark.parametrize("smoke", [False, True])
+def test_flash_route_for_every_config_head_dim(arch, smoke):
+    """Full-width head dims take the wgmma route in bf16, the smoke
+    widths mma.sync, fp32 the fp32 pipes; every head dim is one the
+    kernel takes (a wgmma CTA's shared memory is held to the block limit
+    by a static_assert in csrc/flash_attention.cu)."""
+    D = get_config(arch, smoke=smoke).head_dim
+    assert D in fa_kernel.HEAD_DIMS
+    assert fa_kernel.route(D, torch.bfloat16) == ("mma.sync" if smoke
+                                                  else "wgmma")
+    assert fa_kernel.route(D, torch.float32) == "fp32"
+
+
+@pytest.mark.parametrize("B,D,H", [
+    (512, 512, 512), (1, 512, 512), (37, 20, 48), (32, 24, 48),
+    (32, 72, 48), (70, 0, 33), (1, 500, 300), (130, 36, 20),
+    (3, 514, 262), (4096, 1024, 1024), (2, 3, 1)])
+def test_lstm_launch_plan_covers_k_once(B, D, H):
+    """The fp32 LSTM cell's launch plan: the cluster's K ranges tile
+    [0, D + H) exactly once in whole K tiles, the split is a legal
+    cluster size that keeps each CTA a pipeline's depth of tiles (or is
+    1), and the grid covers every row and unit. (Its shared memory is
+    held to the block limit by a static_assert in csrc/lstm_cell.cu.)"""
+    plan = lstm_kernel.launch_plan(B, D, H)
+    K = D + H
+    assert plan.split in lstm_kernel.SPLITS
+    assert plan.k_per_split % lstm_kernel.K_TILE == 0
+    seen = np.zeros(K, np.int64)
+    for r in range(plan.split):
+        seen[r * plan.k_per_split:min(K, (r + 1) * plan.k_per_split)] += 1
+    assert (seen == 1).all()
+    assert (plan.split - 1) * plan.k_per_split < K
+    k_tiles = -(-K // lstm_kernel.K_TILE)
+    assert plan.split == 1 or \
+        plan.k_per_split // lstm_kernel.K_TILE >= lstm_kernel.STAGES
+    assert plan.k_per_split // lstm_kernel.K_TILE <= k_tiles
+    ux, ry, sz = plan.grid
+    assert sz == plan.split
+    assert (ux - 1) * lstm_kernel.UNITS < H <= ux * lstm_kernel.UNITS
+    assert (ry - 1) * lstm_kernel.ROWS < B <= ry * lstm_kernel.ROWS
+    assert lstm_kernel.ROWS % plan.split == 0   # rows of the gate epilogue
+
+
+def test_lstm_launch_plan_fills_the_card_at_the_rnn_step():
+    """At the dynamic_rnn step (B=512, D=H=512) the 64 tiles take a
+    cluster of 2: 128 CTAs, one wave on 132 SMs."""
+    plan = lstm_kernel.launch_plan(512, 512, 512)
+    assert plan.split == 2 and plan.grid == (16, 4, 2)

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 from repro.checkpointing import checkpoint as jck
 from repro.configs import get_config as jax_get_config
@@ -39,7 +40,7 @@ from repro_torch.checkpointing import checkpoint as ck
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.pipeline import MemmapCorpus, Prefetcher, SyntheticLM
 from repro_torch.launch import train as launch_train
-from repro_torch.models import model_zoo
+from repro_torch.models import model_zoo, transformer
 from repro_torch.optim import adamw, schedule
 from repro_torch.train import train_loop
 
@@ -92,7 +93,8 @@ def _t_batch(batch):
     ("scan", "none", "all"), ("scan", "full", "all"),
     ("unroll", "none", "all"), ("unroll", "full", "all"),
     ("paper_while", "none", "all"), ("paper_while", "full", "all"),
-    ("paper_while", "none", "offload"), ("scan", "dots", "all")])
+    ("paper_while", "none", "offload"), ("scan", "dots", "all"),
+    ("scan", "attn_out", "all"), ("paper_while", "attn_out", "all")])
 def test_loss_and_grads_match_jax(layer_loop, remat, policy):
     jcfg, cfg = _cfgs(compute_dtype="float32", layer_loop=layer_loop,
                       remat=remat, save_policy=policy)
@@ -117,6 +119,34 @@ def test_loss_and_grads_match_jax(layer_loop, remat, policy):
         floor = 1e-4 * np.abs(theirs_g[k]).max()
         np.testing.assert_allclose(ours_g[k], theirs_g[k], rtol=1e-4,
                                    atol=floor, err_msg=k)
+
+
+@pytest.mark.parametrize("layer_loop", ["scan", "paper_while"])
+def test_attn_out_remat_gives_no_remat_gradients(layer_loop):
+    """remat="attn_out" saves only the tagged attention outputs and
+    recomputes the rest: the same loss and gradients as remat="none" (the
+    same fp32 ops, run again), and the policy saves exactly the tag."""
+    out = {}
+    for remat in ("none", "attn_out"):
+        _, cfg = _cfgs(compute_dtype="float32", layer_loop=layer_loop,
+                       remat=remat)
+        params = bridge.init_params(cfg, seed=0, device="cpu",
+                                    keep_param_dtype=True)
+        leaves, _ = torch.utils._pytree.tree_flatten(params)
+        for p in leaves:
+            p.requires_grad_()
+        loss, _ = model_zoo.loss_fn(bridge.compute_params(params, cfg), cfg,
+                                    _t_batch(_batch(cfg)))
+        out[remat] = (loss, torch.autograd.grad(loss, leaves))
+    torch.testing.assert_close(out["attn_out"][0], out["none"][0],
+                               rtol=1e-6, atol=0)
+    for got, ref in zip(out["attn_out"][1], out["none"][1]):
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7)
+    policy = transformer._save_attn_out
+    assert policy(None, torch.ops.repro_torch.attn_out.default) == \
+        CheckpointPolicy.MUST_SAVE
+    assert policy(None, torch.ops.aten.mm.default) == \
+        CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def test_cross_entropy_and_chunked_ce_match_jax():
