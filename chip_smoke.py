@@ -38,12 +38,17 @@ Phases, each printing its own lines:
    path: the greedy streams must be identical;
 6. the selective-scan kernel against its plain version on the card at
    the falcon-mamba-7b chunk (B=8, Q=128, Di=8192, N=16), one row, an
-   odd Q, and the smoke width (N=8), every case with a non-zero
-   incoming state; then timed at the serving chunk beside the plain
-   version and the bound;
+   odd Q, the smoke width (N=8), one layer of a 512-token admission
+   (Q=512) and Q=1 at a ragged Di, every case with a non-zero incoming
+   state; one launch over 512 steps must equal four chained 128-step
+   launches bit for bit; then timed at the serving chunk beside the
+   plain version and the bound, and at the per-layer call (Q=512)
+   beside the chunk chain the call site made before and its bound;
 7. serving falcon-mamba-7b at full width and depth (random weights
    from a seed, bf16, ``scan_impl="cuda"``) through one-shot admission:
-   every request must finish and the kernel must have launched;
+   every request must finish and the kernel must have launched once per
+   layer per admission; one admission's prefill is profiled for the
+   kernel's device time and the copy kernels';
 8. 8 of those requests in fp32 through the kernel's scan and the plain
    blocked scan: the greedy streams must be identical;
 9. the fused LSTM-cell kernel against its plain version on the card at
@@ -142,6 +147,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:29"}
 SCAN_TOL = 1e-4     # fp32: N-term sums in another order, fused
 #                     multiply-adds, states of magnitude up to ~10
+SCAN_CHUNK = 128    # falcon-mamba-7b's cfg.ssm.chunk: the TPU kernel's chunk
+SCAN_LAYER = 512    # one layer's call in a one-shot admission of 512 tokens
 LSTM_TOL = {"float32": 1e-5,    # K <= 1024 fp32 products summed in
             #                     another order
             "bfloat16": 1.6e-2}  # c', h' rounded to bf16 on both sides
@@ -557,20 +564,91 @@ def scan_bound(dt, A, B_, C_, x, h0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def scan_chain(chunk, kern):
+    """The call site before the one-call scan, written out: ``kern``
+    over ``chunk``-step slices, each copied contiguous, h carried."""
+    import torch
+
+    def chain(dt, A, B_, C_, x, h0):
+        ys, h = [], h0
+        for c in range(0, x.shape[1], chunk):
+            sl = slice(c, c + chunk)
+            y, h = kern(dt[:, sl].contiguous(), A, B_[:, sl].contiguous(),
+                        C_[:, sl].contiguous(), x[:, sl].contiguous(), h)
+            ys.append(y)
+        return torch.cat(ys, dim=1), h
+    return chain
+
+
+def sass_counts(name, opcodes):
+    """How often each of ``opcodes`` appears in the SASS of the built
+    library of ``csrc/<name>.cu`` (``cuobjdump -sass``)."""
+    from repro_torch import kernels
+    kernels.library(name)                        # built, if it is not yet
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    # its exit code is 1 on a shared library (the host part holds no device
+    # code) though it dumps the device code it finds
+    sass = subprocess.run([str(tool), "-sass", str(kernels._lib_path(name))],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True).stdout
+    if "Function :" not in sass:
+        raise RuntimeError(f"cuobjdump found no kernels in {name}'s "
+                           f"library: {sass[:500]}")
+    return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+            for op in opcodes}
+
+
+def resource_usage(name):
+    """``{kernel: (registers, stack bytes, local bytes)}`` for each kernel
+    instance in the built library of ``csrc/<name>.cu`` (``cuobjdump
+    -res-usage``). A stack frame of 0 bytes means ptxas spilled
+    nothing."""
+    from repro_torch import kernels
+    kernels.library(name)
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-res-usage",
+                          str(kernels._lib_path(name))],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True).stdout
+    rows = re.findall(r"Function (\S+):\s+REG:(\d+) STACK:(\d+) "
+                      r"SHARED:\d+ LOCAL:(\d+)", out)
+    if not rows:
+        raise RuntimeError(f"cuobjdump -res-usage found no kernels in "
+                           f"{name}'s library: {out[:500]}")
+    names = demangle([r[0] for r in rows])
+    return {n: tuple(map(int, r[1:])) for n, r in zip(names, rows)}
+
+
 def phase_scan_kernel():
-    """The selective-scan kernel against its plain version, then timed
-    at the falcon-mamba serving chunk. Returns its record (launches 0:
-    the serving phase fills them in)."""
+    """The selective-scan kernel against its plain version; one launch
+    over a 512-step layer against four chained 128-step launches (bit for
+    bit); then timed at the serving chunk and at the per-layer call.
+    Returns its record (launches 0: the serving phase fills them in)."""
     import torch
     from repro_torch.kernels.selective_scan import kernel as ss_kernel
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
     kern = ss_kernel.selective_scan
+    # the design's exponential (ex2.approx) and its TMA loads and stores
+    sass = sass_counts("selective_scan", ("MUFU.EX2", "UTMALDG", "UTMASTG"))
+    log(f"[scan] SASS of the built kernel: {sass}")
+    if not all(sass.values()):
+        raise AssertionError(f"the built scan lacks an opcode of its design: "
+                             f"{sass}")
+    usage = {k: u for k, u in resource_usage("selective_scan").items()
+             if "selective_scan_kernel" in k}
+    log(f"[scan] registers, stack and local bytes: {usage}")
+    if len(usage) != 2 or any(stack or local
+                              for _, stack, local in usage.values()):
+        raise AssertionError("want the two scan instances (N = 8, 16) with "
+                             f"no stack frame (no spill): {usage}")
     cases = (("falcon-mamba-7b chunk", 8, 128, 8192, 16),
              ("one row", 1, 128, 8192, 16),
              ("odd Q, full width", 3, 77, 8192, 16),
              ("smoke width, odd Q", 3, 13, 128, 8),
-             ("smoke chunk", 8, 8, 128, 8))
+             ("smoke chunk", 8, 8, 128, 8),
+             ("falcon-mamba-7b layer", 8, SCAN_LAYER, 8192, 16),
+             ("Q = 1, ragged Di", 3, 1, 324, 16))
     for seed, (what, *shape) in enumerate(cases):
         args = scan_case(seed, *shape)
         y, h = kern(*args)
@@ -586,7 +664,18 @@ def phase_scan_kernel():
         if not ok:
             raise AssertionError("selective_scan disagrees with its plain "
                                  "version")
-    copies = [scan_case(100 + i, 8, 128, 8192, 16) for i in range(4)]
+    args = scan_case(50, 8, SCAN_LAYER, 8192, 16)
+    y, h = kern(*args)
+    y_c, h_c = scan_chain(SCAN_CHUNK, kern)(*args)
+    same = torch.equal(y, y_c) and torch.equal(h, h_c)
+    log(f"[scan] one launch over {SCAN_LAYER} steps vs "
+        f"{SCAN_LAYER // SCAN_CHUNK} chained {SCAN_CHUNK}-step launches: y "
+        f"and h_out {'identical' if same else 'DIFFER'} (torch.equal)")
+    if not same:
+        raise AssertionError("one scan launch differs from the chunk chain")
+    del args, y, h, y_c, h_c
+
+    copies = [scan_case(100 + i, 8, SCAN_CHUNK, 8192, 16) for i in range(4)]
     y, h = kern(*copies[0])
     y_ref, h_ref = selective_scan_ref(*copies[0])
     err = max((y - y_ref).abs().max().item(), (h - h_ref).abs().max().item())
@@ -595,11 +684,28 @@ def phase_scan_kernel():
                        len(copies), iters=5)
     b_ms, b_by = scan_bound(*copies[0])
     log(f"[scan] time selective_scan at the serving chunk B,Q,Di,N=(8, "
-        f"128, 8192, 16) fp32: {fmt_times(times)}, plain {plain_ms:.4f} "
-        f"ms; bound {b_ms:.4f} ms ({b_by}), library: none (no single "
-        f"PyTorch call computes this recurrence), max |kernel - plain| "
-        f"{err:.3e}")
-    return kernel_record("selective_scan", err, times, plain_ms, b_ms, b_by)
+        f"{SCAN_CHUNK}, 8192, 16) fp32: {fmt_times(times)}, plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), library: none "
+        f"(no single PyTorch call computes this recurrence), max |kernel - "
+        f"plain| {err:.3e}")
+    record = kernel_record("selective_scan", err, times, plain_ms, b_ms,
+                           b_by)
+    del copies, y, h, y_ref, h_ref
+
+    copies = [scan_case(110 + i, 8, SCAN_LAYER, 8192, 16) for i in range(4)]
+    layer = call_times(lambda i: kern(*copies[i]), len(copies))
+    chain = scan_chain(SCAN_CHUNK, kern)
+    chain_ms = graph_ms(lambda i: chain(*copies[i]), len(copies))
+    l_ms, l_by = scan_bound(*copies[0])
+    n_chunks = SCAN_LAYER // SCAN_CHUNK
+    log(f"[scan] time the per-layer call B,Q,Di,N=(8, {SCAN_LAYER}, 8192, "
+        f"16) fp32: one launch: {fmt_times(layer)}; the chunk chain "
+        f"({n_chunks} launches of {SCAN_CHUNK} steps and their contiguous "
+        f"copies) {chain_ms:.4f} ms device; bound {l_ms:.4f} ms ({l_by})")
+    record.update(layer_ms=layer["ms"], layer_eager_ms=layer["eager_ms"],
+                  layer_chain_ms=chain_ms, layer_bound_ms=l_ms,
+                  layer_bound_by=l_by)
+    return record
 
 
 def free_device_memory(what):
@@ -681,9 +787,12 @@ def phase_ssm_serve():
         if len(toks) != max_new or toks.min() < 0 or \
                 toks.max() >= cfg.padded_vocab:
             raise AssertionError(f"request {rid}: bad stream {toks}")
-    if launches == 0 or sched.attn_impl != "attention-free":
-        raise AssertionError(f"kernel path not taken: launches {launches}, "
-                             f"attention path {sched.attn_impl}")
+    if launches != cfg.n_layers * len(admissions) or \
+            sched.attn_impl != "attention-free":
+        raise AssertionError(
+            f"kernel path not taken once per layer per admission: launches "
+            f"{launches} for {len(admissions)} admissions of {cfg.n_layers} "
+            f"layers, attention path {sched.attn_impl}")
     log(f"[ssm-serve] {cfg.name} bf16, {sched.attn_impl}, scan_impl "
         f"{cfg.ssm.scan_impl} (selective_scan kernel), one-shot, 8 slots: "
         f"{len(reqs)} requests, {sched.tokens_emitted} tokens in {wall:.3f}"
@@ -696,11 +805,44 @@ def phase_ssm_serve():
         f"per iteration over {n_iter} iterations = {sync_share:.4f} of the "
         f"device span; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[ssm-serve] launches: selective_scan {launches} "
-        f"({cfg.n_layers} layers x {512 // cfg.ssm.chunk} chunks per "
-        f"admission)")
+    log(f"[ssm-serve] launches: selective_scan {launches} (one call per "
+        f"layer per admission: {cfg.n_layers} layers x {len(admissions)} "
+        f"admissions)")
+    profile_admission(params, cfg, reqs[:8])
     profile_serving(sched, reqs[:8])
     return launches
+
+
+def profile_admission(params, cfg, reqs):
+    """One one-shot prefill of ``reqs`` (8 x 512 tokens, what an
+    admission runs) under the profiler: the selective-scan kernel's device
+    ms and launches, and the copy kernels' (casts and contiguous copies)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import engine
+    tokens = torch.from_numpy(np.concatenate([p for p, _ in reqs])).to(
+        "cuda", torch.long)
+    engine.prefill(params, cfg, tokens, None)        # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.prefill(params, cfg, tokens, None)
+        torch.cuda.synchronize()
+    kernels = [r for r in prof.key_averages()
+               if r.device_type == torch.autograd.DeviceType.CUDA]
+
+    def total(pick):
+        rows = [r for r in kernels if pick(r.key)]
+        return (sum(r.self_device_time_total for r in rows) / 1e3,
+                sum(r.count for r in rows))
+    scan_ms, scan_n = total(lambda k: "selective_scan" in k)
+    copy_ms, copy_n = total(lambda k: "copy" in k.lower())
+    busy_ms, _ = total(lambda k: True)
+    log(f"[ssm-serve] profiled admission ({tokens.shape[0]} x "
+        f"{tokens.shape[1]} tokens): device {busy_ms:.2f} ms; selective_scan "
+        f"{scan_ms:.3f} ms in {scan_n} launches; copy kernels (casts and "
+        f"contiguous copies) {copy_ms:.3f} ms in {copy_n}")
 
 
 def phase_ssm_parity():

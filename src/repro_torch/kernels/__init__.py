@@ -19,7 +19,7 @@ launch; ``check`` turns a non-zero code into an exception.
 
 Packages: paged_attention (single-token GQA decode through the block
 table), flash_prefill (causal chunk attention through the block table),
-selective_scan (one chunk of the mamba1 recurrence), lstm_cell (one
+selective_scan (the mamba1 recurrence, over a whole prompt), lstm_cell (one
 fused LSTM step of ``dynamic_rnn``: the GEMM and the gates),
 flash_attention (the full-sequence GQA forward of mode ``full``).
 """

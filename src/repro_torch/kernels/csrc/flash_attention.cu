@@ -699,28 +699,13 @@ void launch_mma(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links against the runtime alone (no -lcuda).
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // A 4-D map over a contiguous bf16 (B, L, heads, D) tensor, innermost
 // first (D, heads, L, B), with boxes of 64 columns (128 bytes) x `rows`
 // positions of one head and batch row, 128-byte swizzled. Positions past
 // L inside a batch row come back as zeros.
 bool encode_map(CUtensorMap* map, const void* base, int B, int L, int heads,
                 int D, int rows) {
-  auto fn = encode_fn();
+  auto fn = repro::tensor_map_encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads),
                               cuuint64_t(L), cuuint64_t(B)};

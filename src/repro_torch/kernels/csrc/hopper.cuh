@@ -1,4 +1,5 @@
-// Hopper building blocks in PTX: mbarriers, TMA tensor loads, wgmma
+// Hopper building blocks in PTX: mbarriers, TMA tensor loads and stores,
+// the host's tensor-map encoder, wgmma
 // shared-memory descriptors and the wgmma shapes that flash_attention.cu
 // uses. Each wgmma wrapper lists its N/2 accumulator registers in full;
 // the layouts they assume:
@@ -15,6 +16,8 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 namespace repro {
@@ -79,6 +82,69 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of a 3-D tensor map into shared memory; completes on `bar`, as
+// tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box of shared memory out to a 3-D tensor map, in the issuing
+// thread's current bulk group; elements past the tensor's edge are not
+// written. The threads that wrote `src` fence it first (fence_async_smem)
+// and then synchronise with the issuing thread.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+// Make this thread's shared-memory writes visible to the TMA (the async
+// proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared
+// memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so a
+// library links against the runtime alone (no -lcuda); null if the
+// driver lacks it.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
 }
 
 // ---------------------------------------------------------------- wgmma

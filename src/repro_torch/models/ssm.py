@@ -8,13 +8,13 @@ causal conv run in the compute dtype, the recurrence in fp32 with
 ``A_log``, ``dt_bias`` and ``D_skip`` kept in fp32 (``bridge`` leaves
 these three in the param dtype).
 
-``mamba1_forward`` walks the sequence in chunks of ``cfg.ssm.chunk``
-steps (one chunk of the whole sequence when its length is not a
-multiple), carrying the (B, d_inner, N) state from chunk to chunk in a
-Python loop. ``cfg.ssm.scan_impl`` picks the chunk's recurrence:
+``cfg.ssm.scan_impl`` picks the recurrence:
 
 - ``"cuda"``: ``kernels.selective_scan`` (the hand-written kernel for a
-  CUDA tensor, its plain sequential version for a CPU one);
+  CUDA tensor, its plain sequential version for a CPU one), called once
+  over the whole sequence: the recurrence is sequential per state, so
+  the state crosses what were chunk boundaries in registers, and the
+  result equals a chain of chunk calls bit for bit;
 - ``"blocked"``: the JAX package's three-pass scheme over sub-blocks of
   8 steps, in plain PyTorch;
 - ``"assoc"``: an inclusive scan of the affine maps
@@ -22,6 +22,12 @@ Python loop. ``cfg.ssm.scan_impl`` picks the chunk's recurrence:
   in plain PyTorch. It computes the same recurrence exactly, with the
   products associated in another order than the JAX package's
   ``lax.associative_scan``.
+
+``"blocked"`` and ``"assoc"`` build (B, Q, d_inner, N) intermediates,
+so each walks the sequence in chunks of ``cfg.ssm.chunk`` steps (one
+chunk of the whole sequence when its length is not a multiple),
+carrying the (B, d_inner, N) state from chunk to chunk in a Python loop
+(``_chunked``), as the JAX package does for the same reason.
 
 Decode (``mamba1_step``) is one state update per token.
 """
@@ -151,14 +157,34 @@ def _scan_blocked(dt, A, B_, C_, x, h, cfg):
     return y, a_cum[:, -1].float() * h + b_cum[:, -1].float()
 
 
+def _chunked(scan):
+    """``scan`` run over the sequence in chunks of ``cfg.ssm.chunk``
+    steps, the state carried from chunk to chunk."""
+    def run(dt, A, B_, C_, x, h, cfg):
+        S = x.shape[1]
+        Q = min(cfg.ssm.chunk, S)
+        if S % Q != 0:
+            Q = S      # odd lengths (tests, short prompts): a single chunk
+        ys = []
+        for c in range(0, S, Q):
+            sl = slice(c, c + Q)
+            y_c, h = scan(dt[:, sl], A, B_[:, sl], C_[:, sl], x[:, sl], h,
+                          cfg)
+            ys.append(y_c)
+        return torch.cat(ys, dim=1), h
+    return run
+
+
 def _scan_cuda(dt, A, B_, C_, x, h, cfg):
-    # a chunk sliced out of a (B, S, ...) tensor is strided when B > 1;
-    # the kernel takes contiguous operands (each chunk copied once)
-    return selective_scan(dt.contiguous(), A, B_.contiguous(),
-                          C_.contiguous(), x.contiguous(), h)
+    # dt and x are fresh contiguous (B, S, Di) tensors; B_ and C_ are
+    # column slices of one projection, so each is copied (small: (B, S,
+    # N)) into a fresh tensor, aligned as the kernel's TMA reads need
+    B_, C_ = (t.clone(memory_format=torch.contiguous_format)
+              for t in (B_, C_))
+    return selective_scan(dt, A, B_, C_, x, h)
 
 
-_SCANS = {"assoc": _scan_assoc, "blocked": _scan_blocked,
+_SCANS = {"assoc": _chunked(_scan_assoc), "blocked": _chunked(_scan_blocked),
           "cuda": _scan_cuda}
 
 
@@ -167,12 +193,8 @@ def mamba1_forward(p: Dict, x, cfg, return_state: bool = False):
     ``return_state`` also the state after the last position,
     ``{"conv": (B, K-1, Di) compute dtype, "h": (B, Di, N) fp32}``."""
     s = cfg.ssm
-    Bn, S, _ = x.shape
+    Bn = x.shape[0]
     cdt = cfg.dtype("compute")
-    Q = min(s.chunk, S)
-    if S % Q != 0:
-        Q = S      # odd lengths (tests, short prompts): a single chunk
-    scan = _SCANS[s.scan_impl]
 
     xz = x.to(cdt) @ p["in_proj"].to(cdt)
     xs_pre, z = xz.chunk(2, dim=-1)
@@ -184,12 +206,7 @@ def mamba1_forward(p: Dict, x, cfg, return_state: bool = False):
 
     h = torch.zeros((Bn,) + tuple(A.shape), dtype=torch.float32,
                     device=x.device)
-    ys = []
-    for c in range(0, S, Q):
-        sl = slice(c, c + Q)
-        y_c, h = scan(dt[:, sl], A, B_[:, sl], C_[:, sl], xf[:, sl], h, cfg)
-        ys.append(y_c)
-    y = torch.cat(ys, dim=1)
+    y, h = _SCANS[s.scan_impl](dt, A, B_, C_, xf, h, cfg)
     y = y + p["D_skip"].float() * xf
     y = y.to(cdt) * F.silu(z)
     out = (y @ p["out_proj"].to(cdt)).to(x.dtype)

@@ -239,8 +239,10 @@ def _scan_case(B, Q, Di, N, device, seed=0):
     (8, 128, 8192, 16),      # falcon-mamba-7b serving chunk
     (1, 128, 8192, 16),      # one row
     (3, 13, 128, 8),         # smoke width, odd Q
-    (2, 200, 320, 16),       # Q past the 64-step staging tile, ragged Di
-    (1, 1, 128, 8)])
+    (2, 200, 320, 16),       # 25 stages of 8 steps; 5 CTAs of 64 channels
+    (1, 1, 128, 8),
+    (8, 512, 8192, 16),      # one layer of a 512-token admission, one call
+    (3, 1, 324, 16)])        # Q = 1; Di ragged in a CTA and in a warp
 def test_selective_scan_matches_plain_version(cuda_device, B, Q, Di, N):
     args = _scan_case(B, Q, Di, N, cuda_device)
     before = ss_kernel.selective_scan.launches
@@ -263,6 +265,43 @@ def test_selective_scan_rejects_what_it_cannot_take(cuda_device):
     strided = args[:4] + [args[4].transpose(0, 1)] + args[5:]
     with pytest.raises(ValueError):
         ss_kernel.selective_scan(*strided)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Di,N,Q", [
+    (8, 512, 8192, 16, 128),   # a 512-token admission's layer, 4 chunks
+    (2, 200, 324, 8, 50),      # chunks off the kernel's 8-step stages
+    (3, 45, 128, 16, 1)])      # one step a launch
+def test_selective_scan_one_launch_equals_chunk_chain(cuda_device, B, S, Di,
+                                                      N, Q):
+    """One launch over S steps equals, bit for bit, the chain of S / Q
+    launches carrying h_out to the next h0."""
+    dt, A, B_, C_, x, h0 = _scan_case(B, S, Di, N, cuda_device, seed=3)
+    y, h = ss_kernel.selective_scan(dt, A, B_, C_, x, h0)
+    ys, hc = [], h0
+    for c in range(0, S, Q):
+        sl = slice(c, c + Q)
+        yc, hc = ss_kernel.selective_scan(
+            dt[:, sl].contiguous(), A, B_[:, sl].contiguous(),
+            C_[:, sl].contiguous(), x[:, sl].contiguous(), hc)
+        ys.append(yc)
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.cat(ys, dim=1))
+    assert torch.equal(h, hc)
+
+
+@pytest.mark.cuda
+def test_selective_scan_rejects_unsupported_di_and_alignment(cuda_device):
+    """The TMA maps need Di % 4 == 0 and 16-byte-aligned dt, x, B_, C_:
+    anything else is refused with the reason, never run another way."""
+    with pytest.raises(ValueError, match="Di % 4"):
+        ss_kernel.selective_scan(*_scan_case(2, 8, 130, 8, cuda_device))
+    dt, A, B_, C_, x, h0 = _scan_case(2, 9, 128, 8, cuda_device)
+    shifted = torch.empty(x.numel() + 1, device=cuda_device)[1:]
+    shifted = shifted.view(x.shape).copy_(x)      # contiguous, 4 bytes off
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        ss_kernel.selective_scan(dt, A, B_, C_, shifted, h0)
 
 
 @pytest.mark.cuda

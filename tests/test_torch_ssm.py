@@ -30,6 +30,7 @@ from repro.models import transformer as jtransformer
 from repro.serve import engine as jengine
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.models import ssm, transformer
 from repro_torch.serve import engine
 
@@ -147,6 +148,81 @@ def test_ssm_block_matches_jax(mode):
     if mode == "decode":      # the state was updated in place
         _close(ours_st["conv"], jnew["conv"], 2e-5)
         _close(ours_st["h"], jnew["h"], 2e-5)
+
+
+def _counting_scan(monkeypatch, fn):
+    """Route ``ssm.selective_scan`` through ``fn``, counting its calls."""
+    calls = []
+
+    def counted(*args):
+        calls.append(tuple(args[4].shape))          # x: (B, Q, Di)
+        return fn(*args)
+
+    monkeypatch.setattr(ssm, "selective_scan", counted)
+    return calls
+
+
+def _chunk_chain(chunk):
+    """The parent's call site, written out: the chunk loop of
+    ``selective_scan_ref`` over contiguous copies of each chunk."""
+    def chain(dt, A, B_, C_, x, h0):
+        ys, h = [], h0
+        for c in range(0, x.shape[1], chunk):
+            sl = slice(c, c + chunk)
+            y, h = selective_scan_ref(dt[:, sl].contiguous(), A,
+                                      B_[:, sl].contiguous(),
+                                      C_[:, sl].contiguous(),
+                                      x[:, sl].contiguous(), h)
+            ys.append(y)
+        return torch.cat(ys, dim=1), h
+    return chain
+
+
+@pytest.mark.parametrize("S,chunk", [(16, 8), (64, 16), (13, 8)])
+def test_mamba1_forward_cuda_scan_is_one_call(monkeypatch, S, chunk):
+    """With ``scan_impl="cuda"`` the mixer makes one scan call over the
+    whole sequence, whatever ``cfg.ssm.chunk``; the blocked scan keeps
+    its chunk loop."""
+    _, _, cfg, tp = _pair("cuda", chunk=chunk)
+    tl = transformer.layer_params(tp["layers"])[0]
+    x = _t((0.5 * RNG.standard_normal((2, S, cfg.d_model))
+            ).astype(np.float32))
+    calls = _counting_scan(monkeypatch, selective_scan_ref)
+    ssm.mamba1_forward(tl["ssm"], x, cfg, return_state=True)
+    assert calls == [(2, S, cfg.d_inner)]
+    blocked = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, scan_impl="blocked"))
+    ssm.mamba1_forward(tl["ssm"], x, blocked)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("S,chunk", [(16, 8), (64, 16), (24, 8)])
+def test_mamba1_forward_cuda_scan_equals_chunk_chain(monkeypatch, S, chunk):
+    """The one call over S equals, under ``torch.equal``, the chain of
+    ``selective_scan_ref`` over S / chunk contiguous chunks that the call
+    site made before: output, conv state and h."""
+    _, _, cfg, tp = _pair("cuda", chunk=chunk)
+    tl = transformer.layer_params(tp["layers"])[1]
+    x = _t((0.5 * RNG.standard_normal((3, S, cfg.d_model))
+            ).astype(np.float32))
+    out, st = ssm.mamba1_forward(tl["ssm"], x, cfg, return_state=True)
+    calls = _counting_scan(monkeypatch, _chunk_chain(chunk))
+    ref, ref_st = ssm.mamba1_forward(tl["ssm"], x, cfg, return_state=True)
+    assert len(calls) == 1
+    assert torch.equal(out, ref)
+    assert torch.equal(st["h"], ref_st["h"])
+    assert torch.equal(st["conv"], ref_st["conv"])
+
+
+def test_prefill_makes_one_scan_call_per_layer(monkeypatch):
+    """One-shot prefill of a 16-token prompt (two chunks of 8): one scan
+    call per layer, each over all 16 steps."""
+    _, _, cfg, tp = _pair("cuda")
+    calls = _counting_scan(monkeypatch, selective_scan_ref)
+    prompts = _t(RNG.integers(2, cfg.vocab, (2, 16)).astype(np.int32))
+    engine.prefill(tp, cfg, prompts, engine.make_cache(cfg, 2, 20,
+                                                       device="cpu"))
+    assert calls == [(2, 16, cfg.d_inner)] * cfg.n_layers
 
 
 def test_bridge_keeps_recurrence_leaves_in_param_dtype():
