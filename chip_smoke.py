@@ -17,7 +17,8 @@ Phases, each printing its own lines:
 
 1. the card: its name and power limit as ``nvidia-smi`` reports them;
    TF32 is switched off for matmuls and cuDNN;
-2. the build: the five kernels compiled from
+2. the build: the five kernels and ``graph_loop.cu`` (the graph
+   lowering's conditional nodes) compiled from
    ``src/repro_torch/kernels/csrc`` with ``nvcc``, one process each, all
    started together, with ptxas's register and shared memory report;
 3. each block-table kernel against its plain PyTorch version on the
@@ -32,10 +33,23 @@ Phases, each printing its own lines:
    the bound;
 4. serving llama3.2-1b at full width (random weights from a seed, bf16)
    through the continuous-batching scheduler with the paged cache,
-   chunked prefill and both kernels: every request must finish, both
-   kernels must have launched and the gather path must not have run;
-5. the same requests in fp32 through the kernel path and the gather
-   path: the greedy streams must be identical;
+   chunked prefill and both kernels, once with the segment as a
+   captured CUDA graph (WHILE and IF nodes; ``loop_impl``
+   ``cuda-graph:while``) and once with the host-read segment, in turns
+   (graph, host, host, graph): every request must finish, both kernels
+   must have launched, the gather path must not have run; a graph run
+   must make one host read per segment and none in a body; each
+   kernel's launches (counted on the device inside the graph) must equal
+   the host-read run's (counted in Python at each eager launch) and its
+   count at capture times the device's runs of its branch; tok/s,
+   segments, host reads, the device idle at the per-segment read, host
+   launches per iteration and each path's device-busy share from its own
+   run (graph: CUDA events around the segments over the run's wall;
+   host-read: a profiled run's kernel time over its wall) are printed,
+   and how many bf16 streams the two paths share;
+5. the same requests in fp32 through the kernel path in graph segments,
+   in host-read segments, and the gather path: the greedy streams must
+   be identical;
 6. the selective-scan kernel against its plain version on the card at
    the falcon-mamba-7b chunk (B=8, Q=128, Di=8192, N=16), one row, an
    odd Q, the smoke width (N=8), one layer of a 512-token admission
@@ -45,12 +59,15 @@ Phases, each printing its own lines:
    plain version and the bound, and at the per-layer call (Q=512)
    beside the chunk chain the call site made before and its bound;
 7. serving falcon-mamba-7b at full width and depth (random weights
-   from a seed, bf16, ``scan_impl="cuda"``) through one-shot admission:
-   every request must finish and the kernel must have launched once per
-   layer per admission; one admission's prefill is profiled for the
-   kernel's device time and the copy kernels';
-8. 8 of those requests in fp32 through the kernel's scan and the plain
-   blocked scan: the greedy streams must be identical;
+   from a seed, bf16, ``scan_impl="cuda"``) through one-shot admission,
+   graph segments against host-read ones in turns as in phase 4 (the
+   admissions stay eager between segments): every request must finish
+   and the kernel must have launched once per layer per admission; one
+   admission's prefill is profiled for the kernel's device time and the
+   copy kernels';
+8. 8 of those requests in fp32 through the kernel's scan in graph
+   segments, in host-read segments, and the plain blocked scan: the
+   greedy streams must be identical;
 9. the fused LSTM-cell kernel against its plain version on the card at
    B=512, D=H=512, one row, B=37 with H=48, and the NMT encoder and
    decoder shapes, in fp32 and bf16 with a non-zero incoming state; its
@@ -104,7 +121,12 @@ Phases, each printing its own lines:
     ``"attn_out"`` and ``"none"`` must give one loss, and the memory
     held for the backward after the forward must rise in that order;
     and a step under ``attn_impl="cuda"`` must stop at the kernel's
-    refusal.
+    refusal;
+16. (run after phase 3) the paper's §6.1 loop: 200 iterations of
+    ``tanh(x @ w)``, x (8, 128), w (128, 128), fp32, as a Python loop,
+    as ``core.while_loop`` with the host-read predicate and as
+    ``core.while_loop(impl="graph")`` (capture timed apart from
+    replay): iterations per second each way; the three must agree.
 
 The llama3.2-1b weights are freed before falcon-mamba's are made, and
 falcon-mamba's before the LSTM phases, and each of the last three
@@ -407,14 +429,14 @@ def phase_build():
     from repro_torch import kernels
     t0 = time.perf_counter()
     report = kernels.build_all()
-    log(f"[build] {len(report)} kernels built in "
+    log(f"[build] {len(report)} sources built in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc, "
         f"{kernels.ARCH_TAG})")
     for name, (secs, out) in report.items():
         log(f"[build] {name}: {secs:.1f} s")
         for ln in ptxas_report(out):
             log(f"[build]   {ln}")
-    for name in kernels.KERNELS:
+    for name in kernels.SOURCES:
         kernels.library(name)
 
 
@@ -517,6 +539,118 @@ def phase_kernels():
                        ("prefill", "flash_prefill")):
         time_block_table(kind, name, GEOMETRIES[1], fns)
     return records
+
+
+LOOP_ITERS = 200    # §6.1: 200 iterations of x = tanh(x @ w)
+LOOP_TOL = 1e-6     # the same fp32 kernels; cuBLAS may pick another
+#                     algorithm under capture
+
+
+def phase_loop_overhead():
+    """The paper's §6.1 measurement (the JAX package's
+    ``benchmarks/bench_loop_overhead.py``): 200 iterations of
+    ``x = tanh(x @ w)``, x (8, 128), w (128, 128), fp32, as a Python
+    loop of eager steps, as ``core.while_loop`` with the host-read
+    predicate, and as ``core.while_loop(impl="graph")`` (captured once,
+    timed apart, then replayed: one graph launch a loop). Prints the
+    route the graph lowering takes, iterations per second each way, and
+    the device time per iteration by kernel; the three results must
+    agree within LOOP_TOL."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import core
+    from repro_torch.core import device_loop
+    n = LOOP_ITERS
+    has_if = hasattr(torch.cuda.CUDAGraph, "get_currently_capturing_graph")
+    log(f"[loop] graph lowering: WHILE node around child graphs, IF nodes "
+        f"built by graph_loop.cu (torch {torch.__version__} exposes "
+        f"begin_capture_to_if_node: {has_if})")
+    gen = torch.Generator().manual_seed(0)
+    w = (torch.randn(128, 128, generator=gen) / 128 ** 0.5).to("cuda")
+    x0 = torch.randn(8, 128, generator=gen).to("cuda")
+    carry = (x0.clone(), torch.zeros((), dtype=torch.int32, device="cuda"))
+
+    def cond_fn(c):
+        return c[1] < n
+
+    def body_fn(c):
+        return torch.tanh(c[0] @ w), c[1] + 1
+
+    def restart(c):
+        c[0].copy_(x0)
+        c[1].zero_()
+
+    def python_loop():
+        x = x0
+        for _ in range(n):
+            x = torch.tanh(x @ w)
+        return x
+
+    def host_loop():
+        return core.while_loop(cond_fn, body_fn, (
+            x0, torch.zeros((), dtype=torch.int32, device="cuda")))[0]
+
+    def graph_loop():
+        return core.while_loop(cond_fn, body_fn, carry, impl="graph",
+                               prologue=restart)[0]
+
+    def per_call(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps, out
+
+    with torch.no_grad():
+        py_s, py_x = per_call(python_loop)
+        reads = core.while_loop.host_reads
+        host_s, host_x = per_call(host_loop)
+        host_reads = (core.while_loop.host_reads - reads) // 21
+        captures = device_loop.DeviceLoop.captures
+        t0 = time.perf_counter()
+        graph_loop()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        reads = core.while_loop.host_reads
+        graph_s, graph_x = per_call(graph_loop)
+        if device_loop.DeviceLoop.captures != captures + 1 or \
+                core.while_loop.host_reads != reads:
+            raise AssertionError("the graph loop recaptured or read the "
+                                 "host")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            graph_loop()
+        end.record()
+        end.synchronize()
+        graph_dev_ms = start.elapsed_time(end) / 20
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            python_loop()
+            torch.cuda.synchronize()
+    err = max(float((a - py_x).abs().max()) for a in (host_x, graph_x))
+    rate = {k: n / v for k, v in (("python", py_s), ("host-read", host_s),
+                                  ("graph", graph_s))}
+    log(f"[loop] {n} iterations of tanh(x @ w), x (8, 128), w (128, 128) "
+        f"fp32: Python loop {py_s * 1e3:.3f} ms ({rate['python']:.0f} it/s)"
+        f"; while_loop host-read {host_s * 1e3:.3f} ms "
+        f"({rate['host-read']:.0f} it/s, {host_reads} predicate reads); "
+        f"while_loop graph {graph_s * 1e3:.3f} ms ({rate['graph']:.0f} "
+        f"it/s; device {graph_dev_ms:.3f} ms a loop); graph / host-read "
+        f"{rate['graph'] / rate['host-read']:.2f}x, graph / Python "
+        f"{rate['graph'] / rate['python']:.2f}x; capture and first replay "
+        f"{first_s * 1e3:.1f} ms; max |difference| {err:.2e}")
+    for r in sorted(prof.key_averages(),
+                    key=lambda r: -r.self_device_time_total)[:4]:
+        if r.self_device_time_total:
+            log(f"[loop]   Python loop's device time by kernel: "
+                f"{r.self_device_time_total / n:8.2f} us an iteration, "
+                f"{r.count // n}x  {r.key[:70]}")
+    if err > LOOP_TOL:
+        raise AssertionError(f"loop lowerings disagree: {err:.2e}")
+    device_loop.release(body_fn)
 
 
 def serving_requests(cfg, n=16, prompt_len=512):
@@ -717,17 +851,17 @@ def free_device_memory(what):
         f" GiB allocated")
 
 
-def make_ssm_scheduler(params, cfg):
+def make_ssm_scheduler(params, cfg, loop=None):
     from repro_torch.serve import scheduler as sched_lib
     return sched_lib.DecodeScheduler(
         params, cfg, n_slots=8, prompt_len=512, max_new_cap=64, eos_id=-1,
-        prefill="oneshot")
+        prefill="oneshot", loop=loop)
 
 
 def time_admissions(sched):
     """Wall time of each one-shot admission (prefill + splice),
-    synchronised on both sides: the flag read that follows waits for
-    the device anyway, and before it the device is idle."""
+    synchronised on both sides: the segment that follows waits for the
+    admission anyway, and before it the device is idle."""
     import torch
     spans = []
     admit = sched._admit
@@ -743,14 +877,218 @@ def time_admissions(sched):
     return spans
 
 
+def launch_counters():
+    """The Python-side counters the serving gates read: each kernel
+    wrapper's launches and ``PagedView.gather`` calls."""
+    from repro_torch.kernels.flash_prefill import kernel as fp_kernel
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.selective_scan import kernel as ss_kernel
+    from repro_torch.serve.kv_cache import PagedView
+    return {"paged_attention": (pa_kernel.paged_attention, "launches"),
+            "flash_prefill": (fp_kernel.flash_prefill, "launches"),
+            "selective_scan": (ss_kernel.selective_scan, "launches"),
+            "gather": (PagedView, "gather_calls")}
+
+
+def check_streams(streams, reqs, cfg):
+    if sorted(streams) != list(range(len(reqs))):
+        raise AssertionError(f"finished {sorted(streams)} of {len(reqs)}")
+    for rid, (_, max_new) in enumerate(reqs):
+        toks = streams[rid]
+        if len(toks) != max_new or toks.min() < 0 or \
+                toks.max() >= cfg.padded_vocab:
+            raise AssertionError(f"request {rid}: bad stream {toks}")
+
+
+def check_graph_run(tag, sched, launches, reads):
+    """The gates of a graph-segment run: the graph path ran, one host
+    read per segment (the harvest) and none elsewhere (``reads``: the
+    process's one-transfer reads and the host loop's predicate reads in
+    the run), and the launches the device
+    counted equal each wrapper's count at capture times the device's runs
+    of its branch. (``serve_in_turns`` also holds them to the host-read
+    run's.)"""
+    from repro_torch.serve import scheduler as sched_lib
+    if not sched.loop_impl.startswith("cuda-graph:"):
+        raise AssertionError(f"{tag}: segment ran {sched.loop_impl}")
+    if not sched.host_reads == sched.segments == sched.graph_replays > 0:
+        raise AssertionError(
+            f"{tag}: {sched.host_reads} host reads, {sched.graph_replays} "
+            f"graph launches for {sched.segments} segments")
+    if reads != (sched.segments, 0):
+        raise AssertionError(f"{tag}: (transfers, predicate reads) "
+                             f"{reads} in a run of {sched.segments} graph "
+                             f"segments")
+    runs = {"chunk": int(sched._counts[2]), "decode": int(sched._counts[3])}
+    for i, name in enumerate(sched_lib._COUNTED):
+        want = sum(per[i] * runs[key]
+                   for key, per in sched._per_branch.items())
+        if launches[name] != want:
+            raise AssertionError(
+                f"{tag}: {name} launches {launches[name]} (device-counted)"
+                f" != captured counts {sched._per_branch} x branch runs "
+                f"{runs}")
+    return runs
+
+
+def instrument_sync(sched):
+    """CUDA events around each segment and its one host read (the
+    harvest): event S when the host starts the segment (the device
+    reaches it when the admission before it is done), event A just
+    before the read (the device reaches it when the segment's graph has
+    run), event B when the harvest returns and the host goes on to the
+    next round. The device runs the segment from S to A (its kernels and
+    the graph's own gaps between them) and is idle from A to B: that gap
+    is what the per-segment sync costs. ``finish()`` removes the
+    instrument and returns (idle share of the device span, idle ms per
+    segment, segments, ms the device spent in segments)."""
+    import torch
+    marks, starts = [], []
+    harvest, segment = sched._harvest, sched._segment
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def timed_segment(*args):
+        starts.append(event())
+        return segment(*args)
+
+    def timed_harvest():
+        a = event()
+        out = harvest()
+        marks.append((a, event()))
+        return out
+
+    sched._segment, sched._harvest = timed_segment, timed_harvest
+
+    def finish():
+        del sched._segment, sched._harvest
+        torch.cuda.synchronize()
+        gaps = [a.elapsed_time(b) for a, b in marks]
+        in_segments = sum(s.elapsed_time(a)
+                          for s, (a, _) in zip(starts, marks))
+        span = marks[0][0].elapsed_time(marks[-1][1]) if marks else 0.0
+        return (sum(gaps) / span if span else 0.0,
+                sum(gaps) / max(len(gaps), 1), len(gaps), in_segments)
+
+    return finish
+
+
+def serve_in_turns(tag, cfg, make, reqs, admissions=False):
+    """The same requests through the graph segment and the host-read
+    segment, in turns (graph, host, host, graph), each scheduler warmed
+    (and the graph one captured) first. Gates every run's streams and
+    each graph run's one-read-per-segment and launch counts, and every
+    run's launches against the first host-read run's; prints tok/s,
+    iterations, segments, host reads, graph launches and kernel launches
+    per run, the per-segment sync and the device's time in segments (a
+    graph run's busy share, from CUDA events), how many bf16 streams the
+    two paths share, and a profiled run of 8 requests on each path (host
+    launches per iteration; the host-read run's kernel time, its busy
+    share). Returns the first graph run's launch counts and the runs;
+    both schedulers are closed."""
+    import torch
+    from repro_torch import core
+    from repro_torch.core.device_loop import DeviceLoop
+    counters = launch_counters()
+    scheds, spans = {}, {}
+    for loop in ("graph", "host"):
+        sched = make(loop)
+        t0 = time.perf_counter()
+        sched.warmup()
+        warm = time.perf_counter() - t0
+        drive(sched, reqs[:1])               # warm-up, not measured
+        torch.cuda.synchronize()
+        if admissions:
+            spans[loop] = time_admissions(sched)
+        scheds[loop] = sched
+        if loop == "graph":
+            log(f"[{tag}] graph segment: warm-up body and capture "
+                f"{warm:.3f} s, of which capture {sched.capture_seconds:.3f}"
+                f" s ({sched.loop_impl})")
+    runs = []
+    for loop in ("graph", "host", "host", "graph"):
+        sched = scheds[loop]
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        if admissions:
+            spans[loop].clear()
+        reads0 = (DeviceLoop.host_reads, core.while_loop.host_reads)
+        finish = instrument_sync(sched) if loop == "graph" else None
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        streams = drive(sched, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: getattr(o, a) for n, (o, a) in counters.items()}
+        check_streams(streams, reqs, cfg)
+        run = {"loop": sched.loop_impl, "attn_impl": sched.attn_impl,
+               "prefill_impl": sched.prefill_impl, "wall": wall,
+               "tok_s": sched.tokens_emitted / wall,
+               "iterations": sched.total_steps, "segments": sched.segments,
+               "host_reads": sched.host_reads,
+               "graph_launches": sched.graph_replays, "launches": launches,
+               "streams": streams, "admissions": list(spans.get(loop, []))}
+        line = (f"[{tag}] {run['loop']} ({run['attn_impl']} / "
+                f"{run['prefill_impl']}): {sched.tokens_emitted} tokens in "
+                f"{wall:.3f} s -> {run['tok_s']:.1f} tok/s, "
+                f"{run['iterations']} iterations, occupancy "
+                f"{sched.occupancy:.3f}, {run['segments']} segments, "
+                f"{run['host_reads']} host reads, {run['graph_launches']} "
+                f"graph launches; kernel launches "
+                f"{ {n: v for n, v in launches.items() if v} }; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if loop == "graph":
+            runs_by_branch = check_graph_run(
+                tag, sched, launches,
+                (DeviceLoop.host_reads - reads0[0],
+                 core.while_loop.host_reads - reads0[1]))
+            share, ms, n, seg_ms = finish()
+            line += (f"; device idle at the per-segment read {ms:.4f} ms x "
+                     f"{n} = {share:.4f} of the device span; device in "
+                     f"segments {seg_ms:.1f} ms = {seg_ms / 1e3 / wall:.3f} "
+                     f"of the wall (events: kernels and the graph's gaps); "
+                     f"branch runs {runs_by_branch}, captured counts "
+                     f"{sched._per_branch}")
+        if admissions:
+            line += (f"; admissions {sum(run['admissions']):.3f} s of the "
+                     f"wall ({', '.join(f'{a:.3f}' for a in run['admissions'])}"
+                     f" s)")
+        log(line)
+        runs.append(run)
+    for run in runs:        # device-counted (graph) against Python-counted
+        if run["launches"] != runs[1]["launches"]:
+            raise AssertionError(
+                f"{tag}: {run['loop']} launches {run['launches']} != the "
+                f"host-read run's {runs[1]['launches']}")
+    g, h = runs[0]["streams"], runs[1]["streams"]
+    same = sum(len(g[r]) == len(h[r]) and bool((g[r] == h[r]).all())
+               for r in g)
+    log(f"[{tag}] bf16 greedy streams equal between the graph and "
+        f"host-read segments for {same}/{len(reqs)} requests (not a gate: "
+        f"bf16 at random full-width weights)")
+    # host launches per iteration on each path; the host-read run's
+    # device-busy share from the profiler (its records of kernels inside
+    # a graph's conditional nodes are unreliable, so a graph run's share
+    # is the events' one above)
+    sub = reqs[:8]
+    profile_serving(scheds["host"], sub, tag)
+    profile_serving(scheds["graph"], sub, tag, device=False)
+    for sched in scheds.values():
+        sched.close()
+    return runs[0]["launches"], runs
+
+
 def phase_ssm_serve():
     """falcon-mamba-7b at full width through one-shot admission with
-    the selective-scan kernel; returns its launch count."""
+    the selective-scan kernel, graph segments against host-read ones;
+    returns the kernel's launch count in the first graph run."""
     import dataclasses
     import torch
     from repro_torch import bridge
     from repro_torch.configs import get_config
-    from repro_torch.kernels.selective_scan import kernel as ss_kernel
 
     base = get_config("falcon-mamba-7b")
     cfg = dataclasses.replace(base, ssm=dataclasses.replace(
@@ -764,53 +1102,24 @@ def phase_ssm_serve():
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB made in "
         f"{time.perf_counter() - t0:.1f} s")
     reqs = serving_requests(cfg)
-    sched = make_ssm_scheduler(params, cfg)
-    sched.submit(reqs[0][0], max_new=2)          # warm-up, not measured
-    sched.run_until_drained()
-    torch.cuda.synchronize()
-    share = instrument_sync(sched)
-    admissions = time_admissions(sched)
-
-    ss_kernel.selective_scan.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    streams = drive(sched, reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ss_kernel.selective_scan.launches
-    sync_share, sync_ms, n_iter = share()
-
-    if sorted(streams) != list(range(len(reqs))):
-        raise AssertionError(f"finished {sorted(streams)} of {len(reqs)}")
-    for rid, (_, max_new) in enumerate(reqs):
-        toks = streams[rid]
-        if len(toks) != max_new or toks.min() < 0 or \
-                toks.max() >= cfg.padded_vocab:
-            raise AssertionError(f"request {rid}: bad stream {toks}")
-    if launches != cfg.n_layers * len(admissions) or \
-            sched.attn_impl != "attention-free":
-        raise AssertionError(
-            f"kernel path not taken once per layer per admission: launches "
-            f"{launches} for {len(admissions)} admissions of {cfg.n_layers} "
-            f"layers, attention path {sched.attn_impl}")
-    log(f"[ssm-serve] {cfg.name} bf16, {sched.attn_impl}, scan_impl "
-        f"{cfg.ssm.scan_impl} (selective_scan kernel), one-shot, 8 slots: "
-        f"{len(reqs)} requests, {sched.tokens_emitted} tokens in {wall:.3f}"
-        f" s -> {sched.tokens_emitted / wall:.1f} tok/s, "
-        f"{sched.total_steps} iterations, occupancy {sched.occupancy:.3f}")
-    log(f"[ssm-serve] admissions: {len(admissions)} one-shot prefills of "
-        f"8 x 512 tokens, {sum(admissions):.3f} s of the wall "
-        f"({', '.join(f'{a:.3f}' for a in admissions)} s)")
-    log(f"[ssm-serve] per-iteration host sync: device idle {sync_ms:.4f} ms "
-        f"per iteration over {n_iter} iterations = {sync_share:.4f} of the "
-        f"device span; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[ssm-serve] launches: selective_scan {launches} (one call per "
-        f"layer per admission: {cfg.n_layers} layers x {len(admissions)} "
+    launches, runs = serve_in_turns(
+        "ssm-serve", cfg, lambda loop: make_ssm_scheduler(params, cfg, loop),
+        reqs, admissions=True)
+    for run in runs:
+        n_adm = len(run["admissions"])
+        if run["launches"]["selective_scan"] != cfg.n_layers * n_adm:
+            raise AssertionError(
+                f"kernel path not taken once per layer per admission: "
+                f"launches {run['launches']['selective_scan']} for {n_adm} "
+                f"admissions of {cfg.n_layers} layers ({run['loop']})")
+    log(f"[ssm-serve] {cfg.name} bf16, attention-free, scan_impl "
+        f"{cfg.ssm.scan_impl} (selective_scan kernel), one-shot, 8 slots, "
+        f"{len(reqs)} requests: selective_scan {launches['selective_scan']}"
+        f" launches in the first graph run (one call per layer per "
+        f"admission: {cfg.n_layers} layers x {len(runs[0]['admissions'])} "
         f"admissions)")
     profile_admission(params, cfg, reqs[:8])
-    profile_serving(sched, reqs[:8])
-    return launches
+    return launches["selective_scan"]
 
 
 def profile_admission(params, cfg, reqs):
@@ -845,11 +1154,38 @@ def profile_admission(params, cfg, reqs):
         f"contiguous copies) {copy_ms:.3f} ms in {copy_n}")
 
 
-def phase_ssm_parity():
-    """8 of the serving requests in fp32 through the kernel's scan and
-    the plain blocked scan: greedy streams must be identical."""
-    import dataclasses
+def parity_runs(tag, make, reqs, variants):
+    """fp32 greedy streams of ``reqs`` for each (name, cfg, loop) of
+    ``variants``; {name: {rid: tokens}}."""
     import torch
+    runs = {}
+    for name, cfg, loop in variants:
+        sched = make(cfg, loop)
+        t0 = time.perf_counter()
+        runs[name] = drive(sched, reqs)
+        torch.cuda.synchronize()
+        log(f"[{tag}] fp32 {name} ({sched.loop_impl}): "
+            f"{sched.tokens_emitted} tokens in "
+            f"{time.perf_counter() - t0:.2f} s")
+        sched.close()
+    return runs
+
+
+def same_streams(tag, runs, a, b, what):
+    n = len(runs[a])
+    same = [len(runs[a][r]) == len(runs[b][r])
+            and bool((runs[a][r] == runs[b][r]).all()) for r in range(n)]
+    log(f"[{tag}] greedy streams identical, {a} vs {b}: {sum(same)}/{n} "
+        f"requests")
+    if not all(same):
+        raise AssertionError(f"{what} disagree in fp32")
+
+
+def phase_ssm_parity():
+    """8 of the serving requests in fp32 through the kernel's scan in
+    graph segments, the kernel's scan in host-read segments and the
+    plain blocked scan: greedy streams must be identical."""
+    import dataclasses
     from repro_torch import bridge
     from repro_torch.configs import get_config
 
@@ -857,34 +1193,29 @@ def phase_ssm_parity():
                                compute_dtype="float32")
     params = bridge.init_params(base, seed=0, device="cuda")
     reqs = serving_requests(base)[:8]
-    runs = {}
-    for impl in ("cuda", "blocked"):
-        cfg = dataclasses.replace(base, ssm=dataclasses.replace(
+
+    def scan(impl):
+        return dataclasses.replace(base, ssm=dataclasses.replace(
             base.ssm, scan_impl=impl))
-        sched = make_ssm_scheduler(params, cfg)
-        t0 = time.perf_counter()
-        runs[impl] = drive(sched, reqs)
-        torch.cuda.synchronize()
-        log(f"[ssm-parity] fp32 scan {impl}, {cfg.n_layers} layers: "
-            f"{sched.tokens_emitted} tokens in "
-            f"{time.perf_counter() - t0:.2f} s")
-    same = [len(runs["cuda"][r]) == len(runs["blocked"][r])
-            and bool((runs["cuda"][r] == runs["blocked"][r]).all())
-            for r in range(len(reqs))]
-    log(f"[ssm-parity] greedy streams identical for {sum(same)}/{len(reqs)}"
-        f" requests")
-    if not all(same):
-        raise AssertionError("selective-scan kernel path and blocked path "
-                             "disagree in fp32")
+    runs = parity_runs(
+        "ssm-parity", lambda c, loop: make_ssm_scheduler(params, c, loop),
+        reqs, [("cuda-graph", scan("cuda"), None),
+               ("cuda-host-read", scan("cuda"), "host"),
+               ("blocked-graph", scan("blocked"), None)])
+    same_streams("ssm-parity", runs, "cuda-graph", "cuda-host-read",
+                 "graph segments and host-read segments")
+    same_streams("ssm-parity", runs, "cuda-graph", "blocked-graph",
+                 "selective-scan kernel path and blocked path")
 
 
-def make_scheduler(params, cfg):
+def make_scheduler(params, cfg, loop=None):
     from repro_torch.serve import scheduler as sched_lib
     # eos_id -1 is never sampled: every request runs to its max_new, so
     # the work is the same from run to run
     return sched_lib.DecodeScheduler(
         params, cfg, n_slots=8, prompt_len=512, max_new_cap=64, eos_id=-1,
-        kv="paged", kv_block=16, prefill="chunked", chunk_tokens=128)
+        kv="paged", kv_block=16, prefill="chunked", chunk_tokens=128,
+        loop=loop)
 
 
 def drive(sched, reqs):
@@ -894,120 +1225,70 @@ def drive(sched, reqs):
     return {f.request_id: f.tokens for f in sched.run_until_drained()}
 
 
-def instrument_sync(sched):
-    """CUDA events around the scheduler's per-iteration host sync: event
-    A is recorded just before the flag read (the device reaches it when
-    the previous iteration's work is done), event B when the host starts
-    enqueuing the next iteration. The device is idle from A to B: that
-    gap is what the sync costs."""
-    import torch
-    marks = []
-    read, iterate = sched._read_flags, sched._iterate
-
-    def timed_read():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append(("A", ev))
-        return read()
-
-    def timed_iterate(*args):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append(("B", ev))
-        return iterate(*args)
-
-    sched._read_flags, sched._iterate = timed_read, timed_iterate
-
-    def share():
-        gaps = [a.elapsed_time(b) for (ka, a), (kb, b)
-                in zip(marks, marks[1:]) if ka == "A" and kb == "B"]
-        span = marks[0][1].elapsed_time(marks[-1][1])
-        return sum(gaps) / span, sum(gaps) / max(len(gaps), 1), len(gaps)
-
-    return share
-
-
 def phase_serve():
     """llama3.2-1b at full width through the chunked paged scheduler
-    with both kernels; returns the kernels' launch counts."""
+    with both kernels, graph segments against host-read ones; returns
+    the kernels' launch counts in the first graph run."""
     import dataclasses
-    import torch
     from repro_torch import bridge
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_prefill import kernel as fp_kernel
-    from repro_torch.kernels.paged_attention import kernel as pa_kernel
-    from repro_torch.serve.kv_cache import PagedView
 
     cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
     params = bridge.init_params(cfg, seed=0, device="cuda")
     reqs = serving_requests(cfg)
-    sched = make_scheduler(params, cfg)
-    drive(sched, reqs[:1])                 # warm-up, not measured
-    torch.cuda.synchronize()
-    sched.reset_stats()
-    share = instrument_sync(sched)
-
-    pa_kernel.paged_attention.launches = 0
-    fp_kernel.flash_prefill.launches = 0
-    PagedView.gather_calls = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    streams = drive(sched, reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"paged_attention": pa_kernel.paged_attention.launches,
-                "flash_prefill": fp_kernel.flash_prefill.launches}
-    gathers = PagedView.gather_calls
-    sync_share, sync_ms, n_iter = share()
-
-    if sorted(streams) != list(range(len(reqs))):
-        raise AssertionError(f"finished {sorted(streams)} of {len(reqs)}")
-    for rid, (_, max_new) in enumerate(reqs):
-        toks = streams[rid]
-        if len(toks) != max_new or toks.min() < 0 or \
-                toks.max() >= cfg.padded_vocab:
-            raise AssertionError(f"request {rid}: bad stream {toks}")
-    if min(launches.values()) == 0 or gathers != 0:
-        raise AssertionError(f"kernel path not taken: launches {launches},"
-                             f" gather calls {gathers}")
-    log(f"[serve] {cfg.name} bf16, {sched.attn_impl} / "
-        f"{sched.prefill_impl}, 8 slots, chunk 128: {len(reqs)} requests, "
-        f"{sched.tokens_emitted} tokens in {wall:.3f} s -> "
-        f"{sched.tokens_emitted / wall:.1f} tok/s, {sched.total_steps} "
-        f"iterations, occupancy {sched.occupancy:.3f}")
-    log(f"[serve] per-iteration host sync: device idle {sync_ms:.4f} ms "
-        f"per iteration over {n_iter} iterations = {sync_share:.4f} of the "
-        f"device span; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[serve] launches: {launches}; PagedView.gather calls: {gathers}")
-    profile_serving(sched, reqs[:8])
-    return launches
+    launches, runs = serve_in_turns(
+        "serve", cfg, lambda loop: make_scheduler(params, cfg, loop), reqs)
+    for run in runs:
+        got = run["launches"]
+        if min(got["paged_attention"], got["flash_prefill"]) == 0 or \
+                got["gather"] != 0:
+            raise AssertionError(f"kernel path not taken ({run['loop']}): "
+                                 f"launches {got}")
+    log(f"[serve] {cfg.name} bf16, {runs[0]['attn_impl']} / "
+        f"{runs[0]['prefill_impl']}, 8 slots, chunk 128, {len(reqs)} "
+        f"requests: launches in the first graph run {launches}")
+    return {k: launches[k] for k in ("paged_attention", "flash_prefill")}
 
 
-def profile_serving(sched, reqs):
-    """Where the serving loop's time goes: a second, profiled run of
-    ``reqs`` (after the measured one, so the profiler's own cost is kept
-    out of the serving numbers). Prints the device's busy share of the
-    wall time, kernel launches per iteration and the top kernels."""
+def profile_serving(sched, reqs, tag, device=True):
+    """Where the serving loop's time goes: a further, profiled run of
+    ``reqs`` (after the measured ones, so the profiler's own cost is
+    kept out of the serving numbers). Prints the host's launches per
+    iteration (kernel launches and graph launches) and, with ``device``,
+    the device's busy share of the wall time and the top kernels;
+    returns the device ms (None without ``device``). A graph segment's
+    kernels are left out (``device=False``): the profiler delivers the
+    records of kernels inside conditional nodes late and in part, into
+    later sessions (PERF.md §6)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device
+                                     else [])
     sched.reset_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         drive(sched, reqs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = prof.key_averages()
+    n_kernel = sum(r.count for r in rows if r.key in (
+        "cudaLaunchKernel", "cuLaunchKernelEx", "cuLaunchKernel",
+        "cudaLaunchKernelExC"))
+    n_graph = sum(r.count for r in rows if "GraphLaunch" in r.key)
+    it = max(sched.total_steps, 1)
+    line = (f"[profile] {tag} {sched.loop_impl}, {len(reqs)} requests, "
+            f"{sched.total_steps} iterations, {sched.segments} segments, "
+            f"{wall_us / 1e3:.1f} ms wall: host launches per iteration "
+            f"{n_kernel / it:.1f} kernels, {n_graph / it:.3f} graphs "
+            f"({n_kernel} and {n_graph} in all)")
+    if not device:
+        log(line)
+        return None
     kernels = [r for r in rows
                if r.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(r.self_device_time_total for r in kernels)
-    launches = sum(r.count for r in rows if r.key == "cudaLaunchKernel"
-                   or r.key == "cuLaunchKernelEx")
-    log(f"[profile] {len(reqs)} requests, {sched.total_steps} iterations: "
-        f"device busy {dev_us / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall "
-        f"({dev_us / wall_us:.3f}); {launches / sched.total_steps:.0f} "
-        f"kernel launches per iteration")
+    log(f"{line}; device busy {dev_us / 1e3:.1f} ms "
+        f"({dev_us / wall_us:.3f} of the profiled wall)")
     top = sorted(kernels, key=lambda r: -r.self_device_time_total)[:6]
     for r in top:
         log(f"[profile]   {r.self_device_time_total / 1e3:9.2f} ms "
@@ -1017,13 +1298,14 @@ def profile_serving(sched, reqs):
             m = re.search(r"(\w+<[^()]*>)\(", r.key)
             log(f"[profile]   port kernel {r.self_device_time_total / 1e3:9.3f}"
                 f" ms {r.count:6d}x  {m.group(1) if m else r.key[:70]}")
+    return dev_us / 1e3
 
 
 def phase_parity():
-    """The first 8 requests in fp32 through the kernel path and the
-    gather path: greedy streams must be identical."""
+    """The first 8 requests in fp32 through the kernel path in graph
+    segments, in host-read segments, and the gather path: greedy streams
+    must be identical."""
     import dataclasses
-    import torch
     from repro_torch import bridge
     from repro_torch.configs import get_config
 
@@ -1031,23 +1313,16 @@ def phase_parity():
                               compute_dtype="float32")
     params = bridge.init_params(cfg, seed=0, device="cuda")
     reqs = serving_requests(cfg)[:8]
-    runs = {}
-    for impl in ("cuda", "gather"):
-        sched = make_scheduler(params, dataclasses.replace(cfg,
-                                                           attn_impl=impl))
-        t0 = time.perf_counter()
-        runs[impl] = drive(sched, reqs)
-        torch.cuda.synchronize()
-        log(f"[parity] fp32 {sched.attn_impl} / {sched.prefill_impl}: "
-            f"{sched.tokens_emitted} tokens in "
-            f"{time.perf_counter() - t0:.2f} s")
-    same = [bool((runs["cuda"][r] == runs["gather"][r]).all())
-            and len(runs["cuda"][r]) == len(runs["gather"][r])
-            for r in range(len(reqs))]
-    log(f"[parity] greedy streams identical for {sum(same)}/{len(reqs)} "
-        f"requests")
-    if not all(same):
-        raise AssertionError("kernel path and gather path disagree in fp32")
+    kern = dataclasses.replace(cfg, attn_impl="cuda")
+    runs = parity_runs(
+        "parity", lambda c, loop: make_scheduler(params, c, loop), reqs,
+        [("cuda-graph", kern, None), ("cuda-host-read", kern, "host"),
+         ("gather-graph", dataclasses.replace(cfg, attn_impl="gather"),
+          None)])
+    same_streams("parity", runs, "cuda-graph", "cuda-host-read",
+                 "graph segments and host-read segments")
+    same_streams("parity", runs, "cuda-graph", "gather-graph",
+                 "kernel path and gather path")
 
 
 def lstm_case(seed, B, D, H, dtype):
@@ -1881,6 +2156,7 @@ def main() -> int:
         log(f"[done] phases 1-3, 6, 9 and 13 passed in "
             f"{time.perf_counter() - t0:.1f} s")
         return 0
+    timed(phase_loop_overhead)
     launches = timed(phase_serve)
     timed(phase_parity)
     records.append(timed(phase_scan_kernel))

@@ -31,14 +31,29 @@ that tape:
 ``saved_tensors_hooks``. The primal path (grad mode off, or no tensor
 requiring grad) records nothing and so pushes nothing, as in JAX.
 
-The predicate. The JAX loop decides in-graph; an eager loop has to
-bring the decision to the host once per iteration. The iteration
-counter and ``max_iters`` are Python ints, so the clamp costs nothing;
-a predicate that ``cond_fn`` returns as a tensor (a data-dependent one,
-such as ``dynamic_rnn``'s ``t < max(lens)``) is read to the host, and
-each read is counted in ``while_loop.host_reads``. A vector predicate
-keeps the loop alive while ANY element holds, as in JAX. A predicate
-returned as a Python bool costs no read.
+The predicate, and which lowering decides where. The JAX loop decides
+in-graph. This port has two lowerings, chosen by ``impl``:
+
+- ``impl="host"`` (the default; the only one on the CPU and the only one
+  that records gradients, with the §5.3 policies above): an eager Python
+  loop that brings the decision to the host once per iteration. The
+  iteration counter and ``max_iters`` are Python ints, so the clamp costs
+  nothing; a predicate that ``cond_fn`` returns as a tensor (a
+  data-dependent one, such as ``dynamic_rnn``'s ``t < max(lens)``) is
+  read to the host, and each read is counted in
+  ``while_loop.host_reads``. A vector predicate keeps the loop alive
+  while ANY element holds, as in JAX. A predicate returned as a Python
+  bool costs no read.
+- ``impl="graph"`` (CUDA tensors, no grad mode): ``core.device_loop``
+  captures the loop once as a CUDA graph whose WHILE node re-evaluates
+  the predicate on the device, and replays it: one graph launch per
+  call, no host read (``DeviceLoop.replays``). The carry must be static
+  CUDA tensors (a counter too: no Python numbers), updated in place; a
+  ``cond(..., backend="graph")`` inside the body becomes an IF node.
+  The loop captured for a ``(cond_fn, body_fn)`` pair and its carry's
+  objects is replayed by every later call with the same ones, while
+  those functions live; a caller that replays one loop throughout (the
+  serving scheduler) holds its ``device_loop.DeviceLoop`` instead.
 
 ``parallel_iterations`` is accepted for the JAX signature and has no
 effect on results; in the JAX package it is only an unroll factor. The
@@ -94,8 +109,11 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
                parallel_iterations: int = 1,
                offload_shardings: Any = None,
                mesh: Any = None,
-               name: str = "while") -> Any:
-    """Run ``body_fn`` while ``cond_fn`` holds; reverse-differentiable.
+               name: str = "while",
+               impl: str = "host",
+               prologue: Optional[Callable] = None) -> Any:
+    """Run ``body_fn`` while ``cond_fn`` holds; reverse-differentiable
+    under ``impl="host"``.
 
     Args:
       cond_fn: carry -> bool (a Python bool, or a tensor read to the
@@ -110,6 +128,10 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
       parallel_iterations: accepted; no effect on results.
       offload_shardings, mesh: refused (multi-device; ROADMAP.md dist).
       name: frame name, for error messages.
+      impl: "host" (eager, predicate read on the host) or "graph" (CUDA
+        graph, decided on the device; see the module docstring).
+      prologue: carry -> None, called once before the first predicate
+        (captured into the same launch under ``impl="graph"``).
 
     Returns:
       The final carry. ``while_loop.host_reads`` counts the predicate
@@ -122,6 +144,14 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
     _refuse_dist(mesh, offload_shardings)
     if cond_fn is None and max_iters is None:
         raise ValueError("counted loop (cond_fn=None) requires max_iters")
+    if impl == "graph":
+        from . import device_loop
+        return device_loop.run(cond_fn, body_fn, init, max_iters=max_iters,
+                               prologue=prologue, name=name)
+    if impl != "host":
+        raise ValueError(f"unknown while_loop impl {impl!r}")
+    if prologue is not None:
+        prologue(init)
 
     recompute = save_policy in ("carry", "carry_offload")
     stack = None

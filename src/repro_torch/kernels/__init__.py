@@ -17,6 +17,16 @@ shared library under ``build/repro_torch/`` at the root of the checkout
 with ``ctypes``. Every C entry returns ``cudaGetLastError()`` after its
 launch; ``check`` turns a non-zero code into an exception.
 
+``csrc/graph_loop.cu`` is built the same way but is not a kernel: it
+builds the CUDA-graph WHILE and IF nodes of ``core.device_loop``.
+
+Launch counts. Each wrapper adds one to its Python ``launches`` counter
+where it launches, and calls ``count_launch``: inside
+``device_launch_counts`` while a CUDA graph is being captured, that
+captures an add of one to a device counter beside the kernel, so every
+replay of the graph counts the launches it really makes (a captured call
+launches nothing when Python makes it).
+
 Packages: paged_attention (single-token GQA decode through the block
 table), flash_prefill (causal chunk attention through the block table),
 selective_scan (the mamba1 recurrence, over a whole prompt), lstm_cell (one
@@ -26,6 +36,7 @@ flash_attention (the full-sequence GQA forward of mode ``full``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,7 +44,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -45,9 +56,38 @@ ARCH_TAG = "sm_90a"
 # every kernel of the port, one csrc/<name>.cu each
 KERNELS = ("paged_attention", "flash_prefill", "selective_scan", "lstm_cell",
            "flash_attention")
+# every source built: the kernels and the CUDA-graph control flow of
+# core.device_loop (conditional nodes, no kernel of the JAX package)
+SOURCES = KERNELS + ("graph_loop",)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
+# (counts, names) armed by device_launch_counts, innermost last
+_DEVICE_COUNTS: List[Tuple[torch.Tensor, Tuple[str, ...]]] = []
+
+
+@contextlib.contextmanager
+def device_launch_counts(counts: torch.Tensor, names: Sequence[str]):
+    """Count launches on the device in the graphs captured inside this
+    context: ``counts[i]`` (an integer CUDA tensor allocated outside
+    capture) counts the launches of ``names[i]``."""
+    _DEVICE_COUNTS.append((counts, tuple(names)))
+    try:
+        yield
+    finally:
+        _DEVICE_COUNTS.pop()
+
+
+def count_launch(name: str) -> None:
+    """Called where a wrapper launches ``name``: under capture inside
+    ``device_launch_counts``, captures an add of one to its device
+    counter. Eager launches are counted by the Python counter alone."""
+    if not _DEVICE_COUNTS:
+        return
+    counts, names = _DEVICE_COUNTS[-1]
+    if name in names and counts.is_cuda and \
+            torch.cuda.is_current_stream_capturing():
+        counts[names.index(name)].add_(1)
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -82,10 +122,10 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
-def build_all(names: Iterable[str] = KERNELS
+def build_all(names: Iterable[str] = SOURCES
               ) -> Dict[str, Tuple[float, str]]:
-    """Compile ``csrc/<name>.cu`` for every name not built yet (all the
-    port's kernels by default), one
+    """Compile ``csrc/<name>.cu`` for every name not built yet (every
+    source of the port by default), one
     ``nvcc`` process each, all started together. Returns
     ``{name: (seconds, ptxas report)}`` for the sources compiled by this
     call (a library already on disk with the same source digest is

@@ -7,7 +7,7 @@ import ctypes
 
 import torch
 
-from .. import (check, dtype_code, entry, ptr, stream_ptr,
+from .. import (check, count_launch, dtype_code, entry, ptr, stream_ptr,
                 validate_block_table_call)
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -33,6 +33,7 @@ def flash_prefill(q, k_pool, v_pool, table, q_off):
               stream_ptr())
     check(code, "flash_prefill")
     flash_prefill.launches += 1
+    count_launch("flash_prefill")
     return out
 
 

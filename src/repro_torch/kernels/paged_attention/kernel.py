@@ -9,7 +9,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .. import (check, dtype_code, entry, ptr, stream_ptr,
+from .. import (check, count_launch, dtype_code, entry, ptr, stream_ptr,
                 validate_block_table_call)
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -68,6 +68,7 @@ def paged_attention(q, k_pool, v_pool, table, cur_len):
               stream_ptr())
     check(code, "paged_attention")
     paged_attention.launches += 1
+    count_launch("paged_attention")
     return out
 
 

@@ -5,7 +5,10 @@ Port of the continuous path of ``repro/launch/serve.py``. Drives
 (alternating short/long ``max_new``) and reports aggregate tokens/s,
 p50/p99 request latency and slot occupancy, with the decode and
 prefill attention paths that actually ran ("attention-free" for a
-pure-SSM model):
+pure-SSM model) and the segment loop's lowering (``cuda-graph:while``
+on the card: each segment one graph launch and one host read;
+``host-read`` on the CPU) with its segments, host reads and graph
+launches:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --slots 8 --prompt-len 512 --requests 16 --kv paged \
@@ -101,11 +104,15 @@ def run_continuous(args, cfg, params, workload):
     busy = max(wall - idle_s, 1e-9)
     lat = [finish_wall[r] - arrival_wall[r] for r in finish_wall]
     toks = sched.tokens_emitted
+    sched.close()
     return {"wall_s": wall, "busy_s": busy, "tok_s": toks / busy,
             "p50_s": pctl(lat, 50), "p99_s": pctl(lat, 99),
             "occupancy": sched.occupancy, "steps": sched.total_steps,
             "tokens": toks, "attn_impl": sched.attn_impl,
-            "prefill_impl": sched.prefill_impl}
+            "prefill_impl": sched.prefill_impl,
+            "loop_impl": sched.loop_impl, "segments": sched.segments,
+            "host_reads": sched.host_reads,
+            "graph_replays": sched.graph_replays}
 
 
 def main(argv=None):
@@ -161,7 +168,9 @@ def main(argv=None):
           f"latency p50 {cont['p50_s'] * 1e3:.0f}ms "
           f"p99 {cont['p99_s'] * 1e3:.0f}ms | "
           f"occupancy {cont['occupancy'] * 100:.0f}% "
-          f"({cont['steps']} device steps)")
+          f"({cont['steps']} device steps) | loop {cont['loop_impl']}: "
+          f"{cont['segments']} segments, {cont['host_reads']} host reads, "
+          f"{cont['graph_replays']} graph launches")
     return cont
 
 

@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import resolve_device
+from ..kernels import count_launch
 
 __all__ = ["DenseKVCache", "PagedKVCache", "DenseView", "PagedView",
            "blocks_needed", "make_kv_cache"]
@@ -201,6 +202,7 @@ class PagedView:
         (``-1`` entries clip to block 0). The gather fallback; the
         kernel path reads the pool through ``paged_state`` instead."""
         PagedView.gather_calls += 1
+        count_launch("gather")     # on the device, in a counting graph
         table = self._bound_table()
         safe = table.clamp(min=0).long()
         n, bpr = table.shape

@@ -32,13 +32,37 @@ cache under ``attn_impl="cuda"``), and a slot retires to DONE on EOS or
 its budget (its cache blocks freed on the device) until the host
 harvests it.
 
-The JAX package runs a segment as one ``core.while_loop`` whose
-predicate (and, chunked, two ``lax.cond`` branches) stay on the device.
-Eager PyTorch has no such loop, so here each iteration starts with ONE
-host read of small flag vectors: ``active`` in one-shot mode; in
-chunked mode also ``prefilling`` and the slots whose prefill finishes
-this iteration. That sync is the known cost of this port (PERF.md);
-capturing segments in CUDA graphs is its remedy (ROADMAP.md).
+A segment is the JAX package's ``step``: one ``core.while_loop`` that
+runs while some slot is busy, fewer than ``want`` slots are idle and
+fewer than ``max_steps`` iterations have run (its ``cond_fn``). Its body
+is, in chunked mode, ``cond(any(prefilling), chunk)`` then
+``cond(any(active), decode)`` (a slot that finishes its chunk decodes in
+the same iteration), and in one-shot mode the decode alone; then
+``steps += 1``. Two lowerings (``loop_impl``):
+
+- ``"cuda-graph:while"`` (the default on a CUDA pool): the loop is
+  captured once (``warmup``) as a ``core.device_loop.DeviceLoop``, the
+  lowering of ``core.while_loop(impl="graph")``: a CUDA graph whose
+  WHILE node evaluates the predicate and whose IF nodes
+  (``cond(backend="graph")``) take the two branches on the device. The scheduler holds the loop and
+  frees it in ``close()``. A segment is one H2D write of
+  ``want``/``max_steps``, one graph launch, and one host read at harvest
+  (``done``, the emissions and the device counters in one transfer).
+  Everything the body writes is written in place, so the captured
+  addresses stay valid; admission stays eager between segments, as in
+  the JAX package.
+- ``"host-read"`` (the only one on the CPU; on the card only when asked
+  for with ``loop="host"``): the same predicate (``_seg_cond``) and
+  branches, decided on the host from ONE read per iteration of the
+  predicate and the two branch decisions.
+
+The counters (loop iterations, decoding slot-iterations, iterations that
+ran each branch, kernel launches) live on the device, as the JAX
+package's ``steps`` and ``slot_steps`` do, and are read with the
+harvest. A captured kernel call launches nothing when Python makes it,
+so the graph counts each launch on the device where it happens
+(``kernels.count_launch``), and the harvest advances the wrappers'
+``launches`` counters (and ``PagedView.gather_calls``) by those counts.
 
 Per-request greedy outputs equal ``engine.generate_batch_sync``'s, and
 are identical between ``kv="dense"`` and ``kv="paged"``.
@@ -47,13 +71,30 @@ are identical between ``kv="dense"`` and ``kv="paged"``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
+from .. import core, kernels
+from ..core import device_loop
+from ..kernels.flash_prefill import kernel as fp_kernel
+from ..kernels.paged_attention import kernel as pa_kernel
 from . import engine, kv_cache as kvc
 from . import sampling as sampling_lib
+
+# "no per-segment iteration cap" (the JAX package's _NO_STEP_CAP): large
+# enough that the free-slot predicate always fires first
+_NO_STEP_CAP = 2**31 - 1
+
+# the calls a captured segment counts on the device (``SlotPool.launches``,
+# in this order), and the Python-side counters the harvest advances
+_COUNTED = ("paged_attention", "flash_prefill", "gather")
+_LAUNCH_COUNTERS = ((pa_kernel.paged_attention, "launches"),
+                    (fp_kernel.flash_prefill, "launches"),
+                    (kvc.PagedView, "gather_calls"))
 
 
 @dataclasses.dataclass
@@ -74,6 +115,21 @@ class SlotPool:
     plen: torch.Tensor       # (n,) int32 — true prompt length
     pf_pos: torch.Tensor     # (n,) int32 — prompt positions written
     prefilling: torch.Tensor  # (n,) bool
+    # device counters, read with the harvest
+    steps: torch.Tensor      # () int32 — loop iterations
+    slot_steps: torch.Tensor  # () int32 — decoding slots, summed over them
+    chunk_steps: torch.Tensor  # () int32 — iterations that ran a chunk
+    decode_steps: torch.Tensor  # () int32 — iterations that ran a decode
+    launches: torch.Tensor   # (3,) int64 — graph launches of _COUNTED
+    # the segment's arguments
+    limits: torch.Tensor     # (2,) int32 — want, max_steps (host-written)
+    seg_start: torch.Tensor  # () int32 — steps at segment entry
+
+
+pytree.register_pytree_node(
+    SlotPool,
+    lambda p: ([getattr(p, f.name) for f in dataclasses.fields(p)], None),
+    lambda leaves, _: SlotPool(*leaves))
 
 
 @dataclasses.dataclass
@@ -111,6 +167,8 @@ class DecodeScheduler:
       prefill: "oneshot" (default) or "chunked" (dense family only).
       chunk_tokens: chunked mode: prompt positions each prefilling slot
         advances per iteration.
+      loop: the segment's lowering: None (a CUDA graph on a CUDA pool,
+        the host-read loop on the CPU), "graph" or "host".
     """
 
     def __init__(self, params, cfg, *, n_slots: int, prompt_len: int,
@@ -119,7 +177,8 @@ class DecodeScheduler:
                  sampling_lib.SamplingParams(),
                  admit_threshold: int = 1, kv: str = "dense",
                  kv_block: int = 16, kv_blocks: Optional[int] = None,
-                 prefill: str = "oneshot", chunk_tokens: int = 16):
+                 prefill: str = "oneshot", chunk_tokens: int = 16,
+                 loop: Optional[str] = None):
         if n_slots < 1 or max_new_cap < 1:
             raise ValueError("need n_slots >= 1 and max_new_cap >= 1")
         if not 1 <= admit_threshold <= n_slots:
@@ -137,8 +196,14 @@ class DecodeScheduler:
                     f"full-prompt forward")
             if chunk_tokens < 1:
                 raise ValueError("chunk_tokens must be >= 1")
+        if loop not in (None, "graph", "host"):
+            raise ValueError(f"loop must be None, 'graph' or 'host'; got "
+                             f"{loop!r}")
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
+        if loop is None:
+            loop = "graph" if self.device.type == "cuda" else "host"
+        self._graph = loop == "graph"
         self.n_slots, self.prompt_len = n_slots, prompt_len
         self.max_new_cap = max_new_cap
         self.eos_id = int(eos_id)
@@ -164,10 +229,20 @@ class DecodeScheduler:
         self._busy = np.zeros(n_slots, bool)
         self._slot_blocks = np.zeros(n_slots, np.int64)
         self._free_blocks = self.kv_blocks
-        self.total_steps = 0       # loop iterations
-        self.busy_slot_steps = 0   # sum over iterations of decoding slots
         self.tokens_emitted = 0
+        # run counters: host reads (flag reads and harvests), segments,
+        # graph launches; the device counters as last harvested
+        self.host_reads = self.segments = self.graph_replays = 0
+        self._counts = np.zeros(4, np.int64)
+        self._launches = np.zeros(len(_COUNTED), np.int64)
+        self._per_branch: Dict[str, List[int]] = {}  # counts at capture
+        self._loop: Optional[device_loop.DeviceLoop] = None
+        self.capture_seconds = 0.0     # wall time of the segment's capture
         self.pool = self._init_pool()
+        # the host buffer of each segment's want/max_steps write
+        self._limits = torch.zeros(2, dtype=torch.int32)
+        if self.device.type == "cuda":
+            self._limits = self._limits.pin_memory()
 
     # ---------------- pool construction ----------------
 
@@ -186,7 +261,10 @@ class DecodeScheduler:
             done=z(n, dtype=torch.bool), request_id=z(n, fill=-1),
             out=z(n, self.max_new_cap),
             prompt=z(n, self.prompt_len if self._chunked else 0),
-            plen=z(n), pf_pos=z(n), prefilling=z(n, dtype=torch.bool))
+            plen=z(n), pf_pos=z(n), prefilling=z(n, dtype=torch.bool),
+            steps=z(), slot_steps=z(), chunk_steps=z(), decode_steps=z(),
+            launches=z(len(_COUNTED), dtype=torch.int64), limits=z(2),
+            seg_start=z())
 
     # ---------------- device-side steps -------------------------------
 
@@ -256,20 +334,26 @@ class DecodeScheduler:
     def _chunk(self) -> None:
         """Advance every PREFILLING slot by one chunk; a slot whose
         chunk covers its last prompt position samples its first token
-        there and turns RUNNING."""
+        there and turns RUNNING. Registers are written in place (a
+        captured graph keeps their addresses)."""
         p, C, n = self.pool, self.chunk_tokens, self.n_slots
         logits = engine.prefill_chunk(self.params, self.cfg, p.prompt,
                                       p.cache, p.pf_pos, chunk=C,
                                       mask=p.prefilling)
-        fin = p.prefilling & (p.pf_pos + C >= p.plen)
+        fin = self._finishing(p)
         last = (p.plen - 1 - p.pf_pos).clamp(0, C - 1).long()
         rows = torch.arange(n, device=self.device)
         t0 = sampling_lib.sample_slots(logits[rows, last], self.sampling)
-        p.next_token = torch.where(fin, t0, p.next_token)
-        p.cur_len = torch.where(fin, p.plen + 1, p.cur_len)
-        p.pf_pos = torch.where(p.prefilling, p.pf_pos + C, p.pf_pos)
-        p.prefilling = p.prefilling & ~fin
-        p.active = p.active | fin
+        p.next_token.copy_(torch.where(fin, t0, p.next_token))
+        p.cur_len.copy_(torch.where(fin, p.plen + 1, p.cur_len))
+        p.pf_pos.copy_(torch.where(p.prefilling, p.pf_pos + C, p.pf_pos))
+        p.prefilling.copy_(p.prefilling & ~fin)
+        p.active.copy_(p.active | fin)
+
+    def _finishing(self, p: SlotPool) -> torch.Tensor:
+        """The prefilling slots whose next chunk covers their last prompt
+        position."""
+        return p.prefilling & (p.pf_pos + self.chunk_tokens >= p.plen)
 
     def _decode(self) -> None:
         """Emit each RUNNING slot's pending token, retire slots that hit
@@ -277,15 +361,16 @@ class DecodeScheduler:
         decode every slot one token. In chunked mode appends are gated
         to emitting rows: a mid-prefill slot's stale ``cur_len`` points
         into its prompt. In one-shot mode idle rows may write garbage:
-        admission rewrites a row's cache before it is read again."""
+        admission rewrites a row's cache before it is read again.
+        Registers are written in place."""
         p, n = self.pool, self.n_slots
         tok, emit = p.next_token, p.active
         rows = torch.arange(n, device=self.device)
         idx = p.n_emitted.clamp(0, self.max_new_cap - 1).long()
         p.out[rows, idx] = torch.where(emit, tok, p.out[rows, idx])
-        n_emitted = p.n_emitted + emit.int()
-        finished = emit & ((tok == self.eos_id) | (n_emitted >= p.budget))
-        active = emit & ~finished
+        p.n_emitted.add_(emit.int())
+        finished = emit & ((tok == self.eos_id) | (p.n_emitted >= p.budget))
+        active = emit & ~finished      # a new tensor: ``emit`` is a register
         if self._kv_key is not None:
             p.cache[self._kv_key].free(mask=finished)
         logits = engine.decode_step(self.params, self.cfg, tok[:, None],
@@ -293,47 +378,145 @@ class DecodeScheduler:
                                     write_mask=emit if self._chunked
                                     else None)
         nxt = sampling_lib.sample_slots(logits[:, 0], self.sampling)
-        p.next_token = torch.where(active, nxt, tok)
-        p.cur_len = p.cur_len + active.int()
-        p.n_emitted = n_emitted
-        p.active = active
-        p.done = p.done | finished
+        p.next_token.copy_(torch.where(active, nxt, tok))
+        p.cur_len.add_(active.int())
+        p.active.copy_(active)
+        p.done.copy_(p.done | finished)
 
-    def _read_flags(self):
-        """The per-iteration host sync: (active, prefilling, finishing)
-        as numpy bool vectors, where ``finishing`` marks the prefilling
-        slots whose chunk this iteration covers their last position. In
-        one-shot mode nothing prefills, and only ``active`` is read."""
+    def _chunk_branch(self) -> None:
+        self._chunk()
+        self.pool.chunk_steps.add_(1)
+
+    def _decode_branch(self) -> None:
         p = self.pool
-        if not self._chunked:
-            active = p.active.cpu().numpy()
-            none = np.zeros_like(active)
-            return active, none, none
-        fin = p.prefilling & (p.pf_pos + self.chunk_tokens >= p.plen)
-        flags = torch.stack([p.active, p.prefilling, fin]).cpu().numpy()
-        return flags[0], flags[1], flags[2]
+        p.slot_steps.add_(p.active.sum().int())
+        p.decode_steps.add_(1)
+        self._decode()
 
-    def _iterate(self, any_prefilling: bool, running) -> None:
-        """One loop iteration: a chunk for the prefilling slots, then a
-        decode for the running ones (including those finishing their
-        prefill now)."""
-        if any_prefilling:
-            self._chunk()
-        if running.any():
-            self._decode()
-        self.total_steps += 1
-        self.busy_slot_steps += int(running.sum())
+    # ---------------- the segment (the JAX package's ``step``) ---------
 
-    def _segment(self, want: int) -> None:
-        """Iterate while some slot is busy and fewer than ``want`` slots
-        are idle (the JAX package's segment predicate)."""
-        self.pool.done.zero_()
+    def _seg_enter(self, p: SlotPool) -> None:
+        """Entering a segment means the host harvested the last one:
+        clear ``done``, and note the iteration count at entry."""
+        p.done.zero_()
+        p.seg_start.copy_(p.steps)
+
+    def _seg_cond(self, p: SlotPool) -> torch.Tensor:
+        """The JAX package's ``cond_fn``: some slot busy, fewer than
+        ``want`` idle, fewer than ``max_steps`` iterations this segment."""
+        busy = p.active | p.prefilling
+        idle = self.n_slots - busy.sum()
+        return busy.any() & (idle < p.limits[0]) & \
+            (p.steps - p.seg_start < p.limits[1])
+
+    def _seg_body(self, p: SlotPool) -> SlotPool:
+        if self._chunked:
+            core.cond(p.prefilling.any(), self._captured_branch(
+                self._chunk_branch, "chunk"), _noop, backend="graph")
+            core.cond(p.active.any(), self._captured_branch(
+                self._decode_branch, "decode"), _noop, backend="graph")
+        else:
+            self._captured_branch(self._decode_branch, "decode")()
+        p.steps.add_(1)
+        return p
+
+    def _captured_branch(self, fn, key: str):
+        """``fn`` for capture: the kernel wrappers' counters move while
+        Python captures it, not when the device runs it, so the counts are
+        kept per branch (what one run of the branch launches) and the
+        counters put back."""
+        def run():
+            before = [getattr(o, a) for o, a in _LAUNCH_COUNTERS]
+            fn()
+            self._per_branch[key] = [getattr(o, a) - b for (o, a), b
+                                     in zip(_LAUNCH_COUNTERS, before)]
+            for (o, a), b in zip(_LAUNCH_COUNTERS, before):
+                setattr(o, a, b)
+        return run
+
+    def _read_flags(self) -> List[bool]:
+        """The host-read loop's one read per iteration: the segment
+        predicate (``_seg_cond``) and the two branch decisions, both taken
+        before the chunk runs: some slot prefills; some slot decodes (one
+        runs, or its chunk this iteration finishes its prompt)."""
+        p = self.pool
+        flags = torch.stack([self._seg_cond(p), p.prefilling.any(),
+                             (p.active | self._finishing(p)).any()])
+        self.host_reads += 1
+        return device_loop.read_host(flags)[0].tolist()
+
+    def _segment_host(self) -> None:
+        """The segment with its decisions on the host."""
+        p = self.pool
+        self._seg_enter(p)
         while True:
-            active, prefilling, finishing = self._read_flags()
-            busy = active | prefilling
-            if not busy.any() or self.n_slots - int(busy.sum()) >= want:
+            go, chunk, decode = self._read_flags()
+            if not go:
                 return
-            self._iterate(bool(prefilling.any()), active | finishing)
+            if chunk:
+                self._chunk_branch()
+            if decode:
+                self._decode_branch()
+            p.steps.add_(1)
+
+    def _segment(self, want: int, max_steps: int = _NO_STEP_CAP) -> None:
+        """Iterate while some slot is busy, fewer than ``want`` slots are
+        idle and fewer than ``max_steps`` iterations have run: write the
+        two limits (one H2D copy), then run the segment."""
+        self.segments += 1
+        self._limits.numpy()[:] = (want, max_steps)
+        self.pool.limits.copy_(self._limits, non_blocking=True)
+        if not self._graph:
+            self._segment_host()
+            return
+        if self._loop is None:
+            self._capture()
+        self._loop.run()
+        self.graph_replays += 1
+
+    def _capture(self) -> None:
+        """Run the body once eagerly on the idle pool (each branch is a
+        no-op there: masked writes, unchanged registers), so that lazy
+        initialisation (the kernels' build, cuBLAS, cached constants)
+        happens before capture; then capture the segment loop, with the
+        kernel launches counted on the device."""
+        if self._busy.any():
+            raise RuntimeError("the segment is captured on an idle pool")
+        with torch.no_grad():
+            if self._chunked:
+                self._chunk()
+            self._decode()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        with torch.no_grad(), kernels.device_launch_counts(
+                self.pool.launches, _COUNTED):
+            self._loop = device_loop.DeviceLoop(
+                self._seg_cond, self._seg_body, self.pool,
+                prologue=self._seg_enter, name="serve_step")
+        self.capture_seconds = time.perf_counter() - t0
+
+    def warmup(self) -> None:
+        """Build the kernels and capture the segment before serving (the
+        JAX package's ``warmup`` compiles its traces). Needs an idle
+        scheduler; the first segment does it otherwise. A no-op on the
+        host-read loop."""
+        if self._busy.any() or self.queue:
+            raise RuntimeError("warmup() must run on an idle scheduler")
+        if self._graph and self._loop is None:
+            self._capture()
+
+    def close(self) -> None:
+        """Free the captured segment (its graphs and memory pool)."""
+        if self._loop is not None:
+            self._loop.close()
+            self._loop = None
+
+    @property
+    def loop_impl(self) -> str:
+        """Which lowering runs the segment: "cuda-graph:while" or
+        "host-read"."""
+        return "cuda-graph:while" if self._graph else "host-read"
 
     # ---------------- host side ---------------------------------------
 
@@ -459,13 +642,19 @@ class DecodeScheduler:
         return k
 
     def _harvest(self) -> List[FinishedRequest]:
+        """ONE host read per segment: ``done``, the emissions, the
+        request ids and the device counters."""
         p = self.pool
-        done = p.done.cpu().numpy()
-        if not done.any():
-            return []
-        out = p.out.cpu().numpy()
-        n_emitted = p.n_emitted.cpu().numpy()
-        rids = p.request_id.cpu().numpy()
+        done, out, n_emitted, rids, *counts, launches = device_loop.read_host(
+            p.done, p.out, p.n_emitted, p.request_id, p.steps,
+            p.slot_steps, p.chunk_steps, p.decode_steps, p.launches)
+        self.host_reads += 1
+        self._counts = np.array([int(c) for c in counts], np.int64)
+        # the launches graph segments made since the last harvest (an
+        # eager launch was counted in Python when it was made)
+        for (o, a), k in zip(_LAUNCH_COUNTERS, launches - self._launches):
+            setattr(o, a, getattr(o, a) + int(k))
+        self._launches = launches.astype(np.int64)
         got = []
         for slot in np.nonzero(done)[0]:
             length = int(n_emitted[slot])
@@ -482,11 +671,16 @@ class DecodeScheduler:
             self._slot_blocks[slot] = 0
         return got
 
-    def step(self, expect_arrivals: bool = False) -> List[FinishedRequest]:
+    def step(self, expect_arrivals: bool = False,
+             max_steps: Optional[int] = None) -> List[FinishedRequest]:
         """One scheduling round: admit -> segment -> harvest. With an
         empty queue the segment drains (retirements do not pause it)
         unless ``expect_arrivals``: then it returns as soon as a slot
-        frees, so a request arriving mid-drain is admitted promptly."""
+        frees, so a request arriving mid-drain is admitted promptly.
+        ``max_steps`` additionally caps the segment's iterations (None:
+        no cap)."""
+        if self._graph and self._loop is None and not self._busy.any():
+            self._capture()
         self._admit_queued()
         if self.active_count == 0:
             return []
@@ -498,7 +692,8 @@ class DecodeScheduler:
             fresh = (min(self.admit_threshold, len(self.queue))
                      if self.queue else self.admit_threshold)
             want = self.free_slots + fresh
-        self._segment(want)
+        self._segment(want, _NO_STEP_CAP if max_steps is None
+                      else int(max_steps))
         return self._harvest()
 
     def run_until_drained(self) -> List[FinishedRequest]:
@@ -517,9 +712,24 @@ class DecodeScheduler:
         start of each new run, so back-to-back ``run_until_drained``
         calls each report their own counters. Manual ``step()`` driving
         mid-run is unaffected: the scheduler is not idle then."""
-        self.total_steps = 0
-        self.busy_slot_steps = 0
+        p = self.pool
+        for t in (p.steps, p.slot_steps, p.chunk_steps, p.decode_steps,
+                  p.launches):
+            t.zero_()
+        self._counts[:] = 0
+        self._launches[:] = 0
         self.tokens_emitted = 0
+        self.host_reads = self.segments = self.graph_replays = 0
+
+    @property
+    def total_steps(self) -> int:
+        """Loop iterations (as of the last harvest)."""
+        return int(self._counts[0])
+
+    @property
+    def busy_slot_steps(self) -> int:
+        """Decoding slots summed over the loop's iterations."""
+        return int(self._counts[1])
 
     @property
     def occupancy(self) -> float:
@@ -537,3 +747,7 @@ class DecodeScheduler:
     def prefill_impl(self) -> str:
         return engine.resolved_prefill_impl(self.cfg, self.kv, self.prefill,
                                             self.device)
+
+
+def _noop() -> None:
+    """The untaken side of a branch: the pool is updated in place."""
