@@ -6,8 +6,8 @@
 
 ``--kernels-only`` runs the card and build phases and the phases that
 check and time a kernel alone, all five kernels (the block-table
-kernels, the selective scan, the LSTM cell, flash attention), and
-prints their records with launches 0: copied into a checkout of another
+kernels with the chunk kernel's verify entry, the selective scan, the
+LSTM cell, flash attention), and prints their records with launches 0: copied into a checkout of another
 commit, it times that commit's kernels the same way. Every kernel's
 time is taken twice over the same operand copies: as device time (the
 calls captured once in a CUDA graph and replayed) and as eager calls
@@ -26,11 +26,14 @@ Phases, each printing its own lines:
    geometries (G = 4, 7, 1, 3; hd = 64, 128), in bf16 and fp32, with
    blocks of 16 and 8, shuffled tables, ``-1`` entries, ragged lengths,
    a ``cur_len = 0`` row (exactly 0), cur_len on the decode kernel's
-   partition edges and a chunk running past the table; then each kernel
-   timed at the serving phase's shapes (llama3.2-1b, and qwen2-7b for
-   hd 128) beside the plain version, ``scaled_dot_product_attention``
-   on the gathered dense layout (a yardstick the port never calls) and
-   the bound;
+   partition edges and a chunk running past the table; the chunk
+   kernel's ``flash_verify`` entry on speculative windows (W = 2, 5, 8,
+   bf16 and fp32, blocks 16 and 8, q_off on the decode kernel's
+   partition edges); then each kernel timed at the serving phase's
+   shapes (llama3.2-1b, and qwen2-7b for hd 128; the verify entry at
+   B = 8, W = 5, q_off 512-568) beside the plain version,
+   ``scaled_dot_product_attention`` on the gathered dense layout (a
+   yardstick the port never calls) and the bound;
 4. serving llama3.2-1b at full width (random weights from a seed, bf16)
    through the continuous-batching scheduler with the paged cache,
    chunked prefill and both kernels, once with the segment as a
@@ -126,7 +129,29 @@ Phases, each printing its own lines:
     ``tanh(x @ w)``, x (8, 128), w (128, 128), fp32, as a Python loop,
     as ``core.while_loop`` with the host-read predicate and as
     ``core.while_loop(impl="graph")`` (capture timed apart from
-    replay): iterations per second each way; the three must agree.
+    replay): iterations per second each way; the three must agree;
+17. (run after phase 5) speculative serving of llama3.2-1b at full width
+    (bf16, k = 4, n-gram drafter, the chunked paged pool of phase 4):
+    the 16 serving requests, and a variant whose prompts each tile one
+    random 32-token segment, each through graph and host-read segments
+    in turns as in phase 4 and beside the non-speculative graph run of
+    the same requests: every request must finish, ``flash_verify`` must
+    have launched (counted on the device in the graph) and neither
+    ``paged_attention`` nor the gather path; tok/s, accept rate, mean
+    accept length and the device's share of the wall in segments are
+    printed;
+18. the first 8 of both request sets in fp32: speculative graph
+    segments, speculative host-read segments and non-speculative graph
+    segments must give identical greedy streams; and the model drafter
+    (smollm-135m smoke drafting for the smoke llama3.2-1b at head dim
+    64, both vocab 512) likewise against its host-read run and the
+    non-speculative run;
+19. sampled decoding at full width (bf16): temperature 0.8 with top-k 0
+    and 50, and speculation at temperature 0.8, each in graph segments
+    with 8 slots, host-read segments with 8 and graph segments with 4:
+    the streams must be identical (the same seed); each configuration's
+    device ms an iteration (CUDA events around the graph segments over
+    the loop's iterations) is printed against greedy decoding's.
 
 The llama3.2-1b weights are freed before falcon-mamba's are made, and
 falcon-mamba's before the LSTM phases, and each of the last three
@@ -160,13 +185,18 @@ TOL = {"bfloat16": 1.6e-2,  # two bf16 ulps at magnitude 1: the output
 #                             2048 positions
 GEOMETRIES = (("llama3.2-1b", 32, 8, 64), ("qwen2-7b", 28, 4, 128),
               ("olmo-1b", 16, 16, 128), ("smollm-135m", 9, 3, 64))
-# the TPU kernel that each of kernels.KERNELS replaces
+# the TPU kernel (or kernel entry) that each record of the kernels line
+# replaces
 REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/kernel.py:51",
     "flash_prefill": "src/repro/kernels/flash_prefill/kernel.py:50",
+    "flash_verify": "src/repro/kernels/flash_prefill/ops.py:21",
     "selective_scan": "src/repro/kernels/selective_scan/kernel.py:27",
     "lstm_cell": "src/repro/kernels/lstm_cell/kernel.py:25",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:29"}
+# records whose kernel lives in another record's source: the verify entry
+# launches the chunk kernel
+SOURCE = {"flash_verify": "flash_prefill"}
 SCAN_TOL = 1e-4     # fp32: N-term sums in another order, fused
 #                     multiply-adds, states of magnitude up to ~10
 SCAN_CHUNK = 128    # falcon-mamba-7b's cfg.ssm.chunk: the TPU kernel's chunk
@@ -205,6 +235,8 @@ FWD_BF16_TOL = {"max": 0.125, "mean": 1.5e-2}  # bf16 logits against the
 FWD_PERTURB = 1.01  # a 1% error on every layer's attention output
 TRAIN_STEPS = 16                 # enough for the loss to fall reliably
 STEP_LOSS_RTOL = 1e-6            # paper_while+offload vs scan: the same ops
+SPEC_K = 4          # drafted tokens a verify window (the JAX default)
+VERIFY_W = SPEC_K + 1
 
 
 def log(msg: str) -> None:
@@ -219,7 +251,8 @@ def kernel_record(name, err, times, plain_ms, b_ms, b_by):
     made eagerly (the caller's time, the wrapper's host work included);
     ``plain_ms`` is the plain version's eager time."""
     return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{SOURCE.get(name, name)}.cu",
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
             "ms": times["ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": times["library_ms"],
@@ -444,17 +477,21 @@ def time_block_table(kind, name, geom, fns):
     """One block-table kernel at the serving phase's shapes for the
     attention geometry ``geom``: 8 slots, 512-token prompts, block 16,
     37 blocks per row; decode rows mid-generation, prefill rows at the
-    four chunk offsets of a 512-token prompt with 128-token chunks. Times
+    four chunk offsets of a 512-token prompt with 128-token chunks,
+    verify windows (W = 5, speculation's k = 4) at q_off 512-568. Times
     the kernel and SDPA on the gathered dense layout over 8 operand
     copies (``call_times``: device and eager), and the plain version
     eagerly. Returns its record (launches 0)."""
     import torch
     arch, H, KV, hd = geom
     main_lens = {"decode": [513 + 8 * i for i in range(8)],
-                 "prefill": [0, 128, 256, 384] * 2}
+                 "prefill": [0, 128, 256, 384] * 2,
+                 "verify": [512 + 8 * i for i in range(8)]}
     kern, plain = fns[kind]
-    copies = [make_case(kind, 100 + i, H, KV, hd, torch.bfloat16,
-                        main_lens[kind], max_len=577)
+    C = VERIFY_W if kind == "verify" else 128
+    shape = "decode" if kind == "decode" else "prefill"
+    copies = [make_case(shape, 100 + i, H, KV, hd, torch.bfloat16,
+                        main_lens[kind], max_len=577, C=C)
               for i in range(8)]
     out = kern(*copies[0])
     ref = plain(*copies[0])
@@ -462,7 +499,7 @@ def time_block_table(kind, name, geom, fns):
     if not torch.allclose(out.float(), ref.float(),
                           atol=TOL["bfloat16"], rtol=TOL["bfloat16"]):
         raise AssertionError(f"{name} disagrees at serving shapes ({arch})")
-    dense = [sdpa_operands(kind, *c) for c in copies]
+    dense = [sdpa_operands(shape, *c) for c in copies]
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def kernel_call(i):
@@ -474,7 +511,7 @@ def time_block_table(kind, name, geom, fns):
 
     times = call_times(kernel_call, len(copies), sdpa_call)
     plain_ms = time_ms(lambda i: plain(*copies[i]), len(copies), iters=10)
-    b_ms, b_by = bound(kind, *copies[0])
+    b_ms, b_by = bound(shape, *copies[0])
     log(f"[kernels] time {name} at serving shapes ({arch}) "
         f"q {tuple(copies[0][0].shape)} bf16, {fmt_times(times)}, plain "
         f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); device "
@@ -484,11 +521,43 @@ def time_block_table(kind, name, geom, fns):
     return kernel_record(name, err, times, plain_ms, b_ms, b_by)
 
 
+def check_verify(fns):
+    """The chunk kernel's verify entry against its plain version
+    (``flash_prefill_ref``) on speculative windows W = 2, 5, 8 at
+    llama3.2-1b's geometry, bf16 and fp32, blocks of 16 and 8, q_off at
+    0, on the decode kernel's partition edges (63, 64, 65), at 127, 128,
+    500 and at the table's end."""
+    import torch
+    kern, plain = fns["verify"]
+    lens = [0, 1, 63, 64, 65, 127, 128, 500, 2048 - 8]
+    seed = 500
+    for W in (2, 5, 8):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            for block in (16, 8):
+                seed += 1
+                args = make_case("prefill", seed, 32, 8, 64, dtype, lens,
+                                 block=block, C=W)
+                out = kern(*args)
+                torch.cuda.synchronize()
+                ref = plain(*args)
+                err = (out.float() - ref.float()).abs().max().item()
+                ok = torch.allclose(out.float(), ref.float(),
+                                    atol=TOL[dname], rtol=TOL[dname])
+                log(f"[kernels] check verify  W={W} H=32 KV=8 hd=64 "
+                    f"block={block:2d} {dname:8s}: max |kernel - plain| = "
+                    f"{err:.3e} (tol {TOL[dname]:g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("flash_verify disagrees with its "
+                                         "plain version")
+
+
 def phase_kernels():
     """Kernel against plain version at the four geometries, both dtypes
-    and blocks of 16 and 8, then the timing at the serving phase's shapes
-    (llama3.2-1b for the records, and qwen2-7b's hd 128). Returns the
-    kernel records (without launches)."""
+    and blocks of 16 and 8, and the verify entry on speculative windows;
+    then the timing at the serving phase's shapes (llama3.2-1b for the
+    records, and qwen2-7b's hd 128). Returns the kernel records (without
+    launches)."""
     import torch
     from repro_torch.kernels.flash_prefill import kernel as fp_kernel
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
@@ -496,7 +565,8 @@ def phase_kernels():
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     fns = {"decode": (pa_kernel.paged_attention, paged_attention_ref),
-           "prefill": (fp_kernel.flash_prefill, flash_prefill_ref)}
+           "prefill": (fp_kernel.flash_prefill, flash_prefill_ref),
+           "verify": (fp_kernel.flash_verify, flash_prefill_ref)}
     check_lens = {
         # cur_len: the 0-row, a single position, a full row, the decode
         # kernel's partition edges (63, 64, 65: 64 positions a partition),
@@ -532,9 +602,11 @@ def phase_kernels():
                         raise AssertionError(f"{kind} kernel disagrees with "
                                              f"its plain version")
 
+    check_verify(fns)
     records = [time_block_table(kind, name, GEOMETRIES[0], fns)
                for kind, name in (("decode", "paged_attention"),
-                                  ("prefill", "flash_prefill"))]
+                                  ("prefill", "flash_prefill"),
+                                  ("verify", "flash_verify"))]
     for kind, name in (("decode", "paged_attention"),
                        ("prefill", "flash_prefill")):
         time_block_table(kind, name, GEOMETRIES[1], fns)
@@ -886,6 +958,7 @@ def launch_counters():
     from repro_torch.serve.kv_cache import PagedView
     return {"paged_attention": (pa_kernel.paged_attention, "launches"),
             "flash_prefill": (fp_kernel.flash_prefill, "launches"),
+            "flash_verify": (fp_kernel.flash_verify, "launches"),
             "selective_scan": (ss_kernel.selective_scan, "launches"),
             "gather": (PagedView, "gather_calls")}
 
@@ -976,7 +1049,7 @@ def instrument_sync(sched):
     return finish
 
 
-def serve_in_turns(tag, cfg, make, reqs, admissions=False):
+def serve_in_turns(tag, cfg, make, reqs, admissions=False, profile=True):
     """The same requests through the graph segment and the host-read
     segment, in turns (graph, host, host, graph), each scheduler warmed
     (and the graph one captured) first. Gates every run's streams and
@@ -985,10 +1058,11 @@ def serve_in_turns(tag, cfg, make, reqs, admissions=False):
     iterations, segments, host reads, graph launches and kernel launches
     per run, the per-segment sync and the device's time in segments (a
     graph run's busy share, from CUDA events), how many bf16 streams the
-    two paths share, and a profiled run of 8 requests on each path (host
-    launches per iteration; the host-read run's kernel time, its busy
-    share). Returns the first graph run's launch counts and the runs;
-    both schedulers are closed."""
+    two paths share, and (``profile``) a profiled run of 8 requests on
+    each path (host launches per iteration; the host-read run's kernel
+    time, its busy share). A speculative scheduler's runs also print its
+    accept rate and mean accept length. Returns the first graph run's
+    launch counts and the runs; both schedulers are closed."""
     import torch
     from repro_torch import core
     from repro_torch.core.device_loop import DeviceLoop
@@ -1030,7 +1104,10 @@ def serve_in_turns(tag, cfg, make, reqs, admissions=False):
                "iterations": sched.total_steps, "segments": sched.segments,
                "host_reads": sched.host_reads,
                "graph_launches": sched.graph_replays, "launches": launches,
-               "streams": streams, "admissions": list(spans.get(loop, []))}
+               "streams": streams, "admissions": list(spans.get(loop, [])),
+               "accept_rate": sched.accept_rate,
+               "mean_accept_len": sched.mean_accept_len,
+               "spec_windows": sched.spec_windows}
         line = (f"[{tag}] {run['loop']} ({run['attn_impl']} / "
                 f"{run['prefill_impl']}): {sched.tokens_emitted} tokens in "
                 f"{wall:.3f} s -> {run['tok_s']:.1f} tok/s, "
@@ -1040,12 +1117,18 @@ def serve_in_turns(tag, cfg, make, reqs, admissions=False):
                 f"graph launches; kernel launches "
                 f"{ {n: v for n, v in launches.items() if v} }; peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if sched.speculative is not None:
+            line += (f"; speculation k={sched.speculative.k}: "
+                     f"{sched.spec_windows} windows, accept rate "
+                     f"{sched.accept_rate:.4f}, mean accept length "
+                     f"{sched.mean_accept_len:.4f}")
         if loop == "graph":
             runs_by_branch = check_graph_run(
                 tag, sched, launches,
                 (DeviceLoop.host_reads - reads0[0],
                  core.while_loop.host_reads - reads0[1]))
             share, ms, n, seg_ms = finish()
+            run["seg_ms"] = seg_ms
             line += (f"; device idle at the per-segment read {ms:.4f} ms x "
                      f"{n} = {share:.4f} of the device span; device in "
                      f"segments {seg_ms:.1f} ms = {seg_ms / 1e3 / wall:.3f} "
@@ -1073,9 +1156,10 @@ def serve_in_turns(tag, cfg, make, reqs, admissions=False):
     # device-busy share from the profiler (its records of kernels inside
     # a graph's conditional nodes are unreliable, so a graph run's share
     # is the events' one above)
-    sub = reqs[:8]
-    profile_serving(scheds["host"], sub, tag)
-    profile_serving(scheds["graph"], sub, tag, device=False)
+    if profile:
+        sub = reqs[:8]
+        profile_serving(scheds["host"], sub, tag)
+        profile_serving(scheds["graph"], sub, tag, device=False)
     for sched in scheds.values():
         sched.close()
     return runs[0]["launches"], runs
@@ -1155,18 +1239,22 @@ def profile_admission(params, cfg, reqs):
 
 
 def parity_runs(tag, make, reqs, variants):
-    """fp32 greedy streams of ``reqs`` for each (name, cfg, loop) of
-    ``variants``; {name: {rid: tokens}}."""
+    """fp32 greedy streams of ``reqs`` for each (name, cfg, loop) or
+    (name, cfg, loop, scheduler arguments) of ``variants``; {name: {rid:
+    tokens}}."""
     import torch
     runs = {}
-    for name, cfg, loop in variants:
-        sched = make(cfg, loop)
+    for name, cfg, loop, *extra in variants:
+        sched = make(cfg, loop, **(extra[0] if extra else {}))
         t0 = time.perf_counter()
         runs[name] = drive(sched, reqs)
         torch.cuda.synchronize()
+        spec = ("" if sched.speculative is None else
+                f"; {sched.spec_windows} verify windows, accept rate "
+                f"{sched.accept_rate:.4f}")
         log(f"[{tag}] fp32 {name} ({sched.loop_impl}): "
             f"{sched.tokens_emitted} tokens in "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"{time.perf_counter() - t0:.2f} s{spec}")
         sched.close()
     return runs
 
@@ -1208,14 +1296,16 @@ def phase_ssm_parity():
                  "selective-scan kernel path and blocked path")
 
 
-def make_scheduler(params, cfg, loop=None):
+def make_scheduler(params, cfg, loop=None, **kw):
+    """The chunked paged serving pool: 8 slots, block 16, chunk 128;
+    ``kw`` adds or overrides arguments (sampling, speculation, slots)."""
     from repro_torch.serve import scheduler as sched_lib
     # eos_id -1 is never sampled: every request runs to its max_new, so
     # the work is the same from run to run
-    return sched_lib.DecodeScheduler(
-        params, cfg, n_slots=8, prompt_len=512, max_new_cap=64, eos_id=-1,
-        kv="paged", kv_block=16, prefill="chunked", chunk_tokens=128,
-        loop=loop)
+    args = dict(n_slots=8, prompt_len=512, max_new_cap=64, eos_id=-1,
+                kv="paged", kv_block=16, prefill="chunked",
+                chunk_tokens=128, loop=loop)
+    return sched_lib.DecodeScheduler(params, cfg, **{**args, **kw})
 
 
 def drive(sched, reqs):
@@ -1323,6 +1413,217 @@ def phase_parity():
                  "graph segments and host-read segments")
     same_streams("parity", runs, "cuda-graph", "gather-graph",
                  "kernel path and gather path")
+
+
+def repetitive_requests(cfg, n=16, prompt_len=512, period=32):
+    """``serving_requests``' shape, but each prompt tiles one random
+    ``period``-token segment (numpy seed 1): traffic the n-gram drafter
+    accepts on."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [(np.resize(rng.integers(2, cfg.vocab, period),
+                       prompt_len)[None].astype(np.int32),
+             32 if i % 2 == 0 else 64) for i in range(n)]
+
+
+def spec_config(**kw):
+    from repro_torch.serve import speculative as spec_lib
+    return spec_lib.SpecConfig(k=SPEC_K, **kw)
+
+
+def graph_run(tag, sched, reqs):
+    """One timed run of ``reqs`` through a graph-segment scheduler, after
+    its capture and a one-request warm-up: tok/s, and the device's time
+    in segments (CUDA events, ``instrument_sync``) per loop iteration.
+    Returns the run's numbers and streams; the scheduler is closed."""
+    import torch
+    sched.warmup()
+    drive(sched, reqs[:1])
+    torch.cuda.synchronize()
+    finish = instrument_sync(sched)
+    t0 = time.perf_counter()
+    streams = drive(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, _, _, seg_ms = finish()
+    check_streams(streams, reqs, sched.cfg)
+    run = {"tok_s": sched.tokens_emitted / wall, "wall": wall,
+           "iterations": sched.total_steps, "seg_ms": seg_ms,
+           "ms_per_iter": seg_ms / max(sched.total_steps, 1),
+           "streams": streams, "accept_rate": sched.accept_rate,
+           "mean_accept_len": sched.mean_accept_len}
+    log(f"[{tag}] {sched.loop_impl}, {sched.n_slots} slots: "
+        f"{sched.tokens_emitted} tokens in {wall:.3f} s -> "
+        f"{run['tok_s']:.1f} tok/s, {run['iterations']} iterations, device "
+        f"in segments {seg_ms:.1f} ms = {run['ms_per_iter']:.4f} ms an "
+        f"iteration"
+        + ("" if sched.speculative is None else
+           f"; accept rate {sched.accept_rate:.4f}, mean accept length "
+           f"{sched.mean_accept_len:.4f}"))
+    sched.close()
+    return run
+
+
+def phase_spec_serve():
+    """llama3.2-1b at full width speculating (k = 4, n-gram drafter)
+    through the chunked paged scheduler: graph segments against host-read
+    ones in turns, on the serving requests and on a repetitive variant,
+    each beside the non-speculative graph run of the same requests.
+    Returns flash_verify's launches in the first graph run."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    first = None
+    for name, reqs in (("serving", serving_requests(cfg)),
+                       ("repetitive", repetitive_requests(cfg))):
+        tag = f"spec-serve {name}"
+        plain = graph_run(f"{tag} non-speculative",
+                          make_scheduler(params, cfg), reqs)
+        launches, runs = serve_in_turns(
+            tag, cfg, lambda loop: make_scheduler(
+                params, cfg, loop, speculative=spec_config()),
+            reqs, profile=name == "serving")
+        for run in runs:
+            got = run["launches"]
+            if got["flash_verify"] == 0 or got["gather"] != 0 or \
+                    got["paged_attention"] != 0:
+                raise AssertionError(f"{tag}: verify path not taken "
+                                     f"({run['loop']}): launches {got}")
+        g = runs[0]
+        log(f"[{tag}] {cfg.name} bf16, k={SPEC_K} n-gram: graph "
+            f"{g['tok_s']:.1f} tok/s (non-speculative graph "
+            f"{plain['tok_s']:.1f}), host-read {runs[1]['tok_s']:.1f}; "
+            f"accept rate {g['accept_rate']:.4f}, mean accept length "
+            f"{g['mean_accept_len']:.4f}; device in segments "
+            f"{g['seg_ms'] / 1e3 / g['wall']:.3f} of the graph wall; "
+            f"launches in the first graph run {launches}")
+        if first is None:
+            first = launches
+    return first["flash_verify"]
+
+
+def phase_spec_parity():
+    """fp32: the first 8 serving and repetitive requests through the
+    speculative kernel path in graph segments, in host-read segments,
+    and the non-speculative graph path: greedy streams identical; then
+    the model drafter at smoke width (smollm-135m drafting for the smoke
+    llama3.2-1b at the kernels' head dim 64; both vocab 512), and the
+    target drafting for itself, each against its host-read run and the
+    non-speculative run."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                              compute_dtype="float32", attn_impl="cuda")
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    spec = dict(speculative=spec_config())
+    for name, reqs in (("serving", serving_requests(cfg)[:8]),
+                       ("repetitive", repetitive_requests(cfg)[:8])):
+        tag = f"spec-parity {name}"
+        runs = parity_runs(
+            tag, lambda c, loop, **kw: make_scheduler(params, c, loop, **kw),
+            reqs, [("spec-graph", cfg, None, spec),
+                   ("spec-host-read", cfg, "host", spec),
+                   ("plain-graph", cfg, None)])
+        same_streams(tag, runs, "spec-graph", "spec-host-read",
+                     "speculative graph and host-read segments")
+        same_streams(tag, runs, "spec-graph", "plain-graph",
+                     "speculative and non-speculative streams")
+    del params
+    small = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                                compute_dtype="float32", attn_impl="cuda",
+                                head_dim=64, n_heads=8, n_kv_heads=2,
+                                d_model=128)
+    dcfg = dataclasses.replace(get_config("smollm-135m", smoke=True),
+                               compute_dtype="float32")
+    tp = bridge.init_params(small, seed=0, device="cuda")
+    dp = bridge.init_params(dcfg, seed=1, device="cuda")
+    rng = np.random.default_rng(3)
+    reqs = [(np.resize(rng.integers(2, small.vocab, 4), n)[None].astype(
+        np.int32), m) for n, m in ((48, 16), (20, 12), (64, 16), (7, 9),
+                                   (33, 16), (50, 14))]
+    model = dict(speculative=spec_config(drafter="model"), draft_params=dp,
+                 draft_cfg=dcfg)
+
+    def make(c, loop, **kw):
+        return make_scheduler(tp, c, loop, **{
+            **dict(n_slots=4, prompt_len=64, max_new_cap=16,
+                   chunk_tokens=16), **kw})
+    # the target drafting for itself accepts every window: k+1 tokens
+    # land an iteration, so a fault in a multi-token landing would show
+    itself = dict(speculative=spec_config(drafter="model"), draft_params=tp,
+                  draft_cfg=small)
+    runs = parity_runs("spec-parity model-drafter", make, reqs,
+                       [("spec-graph", small, None, model),
+                        ("spec-host-read", small, "host", model),
+                        ("self-graph", small, None, itself),
+                        ("self-host-read", small, "host", itself),
+                        ("plain-graph", small, None)])
+    for a, b in (("spec-graph", "spec-host-read"),
+                 ("spec-graph", "plain-graph"),
+                 ("self-graph", "self-host-read"),
+                 ("self-graph", "plain-graph")):
+        same_streams("spec-parity model-drafter", runs, a, b,
+                     f"model-drafter streams {a} and {b}")
+
+
+def phase_sampled():
+    """Sampled decoding at llama3.2-1b's full width (bf16, the kernel
+    path): temperature 0.8 with top-k 0 and 50, then speculation (k = 4,
+    n-gram) greedy and at temperature 0.8, on the first 8 serving
+    requests. Each sampled configuration runs in graph segments with 8
+    slots, in host-read segments with 8, and in graph segments with 4:
+    the streams must be identical (the same seed; keys by request and
+    emission index). Prints tok/s and the device ms an iteration against
+    greedy decoding's."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    reqs = serving_requests(cfg)[:8]
+    greedy = None
+    for name, sp, spec in (
+            ("greedy", SamplingParams(), None),
+            ("t0.8", SamplingParams(temperature=0.8), None),
+            ("t0.8 top-k 50", SamplingParams(temperature=0.8, top_k=50),
+             None),
+            ("spec greedy", SamplingParams(), spec_config()),
+            ("spec t0.8", SamplingParams(temperature=0.8), spec_config())):
+        tag = f"sampled {name}"
+        kw = dict(sampling=sp, seed=0)
+        if spec is not None:
+            kw["speculative"] = spec
+        run = graph_run(tag, make_scheduler(params, cfg, **kw), reqs)
+        if greedy is None:
+            greedy = run
+        log(f"[{tag}] device ms an iteration {run['ms_per_iter']:.4f} "
+            f"against greedy decoding's {greedy['ms_per_iter']:.4f} "
+            f"({run['ms_per_iter'] / greedy['ms_per_iter']:.3f}x); tok/s "
+            f"{run['tok_s']:.1f} against {greedy['tok_s']:.1f}")
+        if sp.greedy:
+            continue
+        host = make_scheduler(params, cfg, "host", **kw)
+        other = {"host-read, 8 slots": drive(host, reqs)}
+        other["graph, 4 slots"] = graph_run(
+            f"{tag} 4 slots", make_scheduler(params, cfg, n_slots=4, **kw),
+            reqs)["streams"]
+        for what, streams in other.items():
+            same = sum(len(streams[r]) == len(run["streams"][r])
+                       and bool((streams[r] == run["streams"][r]).all())
+                       for r in range(len(reqs)))
+            log(f"[{tag}] streams equal between graph, 8 slots and "
+                f"{what}: {same}/{len(reqs)} requests")
+            if same != len(reqs):
+                raise AssertionError(f"{tag}: sampled streams differ "
+                                     f"between graph, 8 slots and {what}")
 
 
 def lstm_case(seed, B, D, H, dtype):
@@ -2159,6 +2460,10 @@ def main() -> int:
     timed(phase_loop_overhead)
     launches = timed(phase_serve)
     timed(phase_parity)
+    launches["flash_verify"] = timed(phase_spec_serve)
+    timed(phase_spec_parity)
+    timed(phase_sampled)
+    free_device_memory("the selective-scan phases")
     records.append(timed(phase_scan_kernel))
     free_device_memory("falcon-mamba-7b")
     launches["selective_scan"] = timed(phase_ssm_serve)

@@ -18,6 +18,23 @@ launches:
         --arch falcon-mamba-7b --slots 8 --prompt-len 512 --requests 16 \
         --prefill oneshot
 
+``--temperature T`` (with ``--top-k K``) samples instead of taking the
+argmax: each request draws from its own threefry key,
+``fold_in(PRNGKey(--seed), request_id)``, bit-equal to the JAX
+package's. ``--spec-k K`` (with ``--prefill chunked``) turns on
+speculative decoding: each decode iteration drafts K tokens per running
+slot (``--spec-drafter ngram``: prompt lookup over the slot's own prompt
+and emissions, matching ``--spec-ngram`` tokens; ``--spec-drafter model
+--draft-arch A``: K+1 greedy steps of a small model with the target's
+vocab, riding its own cache) and verifies them in ONE target forward
+(through the chunk kernel's ``flash_verify`` entry under ``--attn-impl
+cuda --kv paged``); the report adds the accept rate and the mean accept
+length:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --slots 8 --prompt-len 512 --requests 16 --kv paged \
+        --attn-impl cuda --prefill chunked --chunk-tokens 128 --spec-k 4
+
 ``--prefill oneshot`` (the default) admits prompts through one prefill
 per admission round; a pure-SSM model takes only this mode, with
 prompts of exactly ``--prompt-len`` tokens. The selective scan's path
@@ -40,7 +57,9 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve import scheduler as sched_lib
+from repro_torch.serve import speculative as spec_lib
 
 
 def build_workload(args, rng):
@@ -62,13 +81,33 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def speculation(args):
+    """(SpecConfig or None, draft params, draft config) from the flags."""
+    if not args.spec_k:
+        return None, None, None
+    spec = spec_lib.SpecConfig(k=args.spec_k, drafter=args.spec_drafter,
+                               ngram=args.spec_ngram)
+    if args.spec_drafter != "model":
+        return spec, None, None
+    if not args.draft_arch:
+        raise SystemExit("--spec-drafter model needs --draft-arch")
+    draft_cfg = get_config(args.draft_arch, smoke=args.smoke)
+    return spec, bridge.init_params(draft_cfg, seed=1,
+                                    device=args.device), draft_cfg
+
+
 def run_continuous(args, cfg, params, workload):
     cap = max(m for _, m in workload)
+    spec, draft_params, draft_cfg = speculation(args)
     sched = sched_lib.DecodeScheduler(
         params, cfg, n_slots=args.slots, prompt_len=args.prompt_len,
         max_new_cap=cap, eos_id=args.eos_id, kv=args.kv,
         kv_block=args.kv_block, kv_blocks=args.kv_blocks,
-        prefill=args.prefill, chunk_tokens=args.chunk_tokens)
+        prefill=args.prefill, chunk_tokens=args.chunk_tokens,
+        sampling=sampling_lib.SamplingParams(temperature=args.temperature,
+                                             top_k=args.top_k),
+        seed=args.seed, speculative=spec, draft_params=draft_params,
+        draft_cfg=draft_cfg)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(2, cfg.vocab, (1, args.prompt_len)).astype(
         np.int32) for _ in workload]
@@ -112,7 +151,12 @@ def run_continuous(args, cfg, params, workload):
             "prefill_impl": sched.prefill_impl,
             "loop_impl": sched.loop_impl, "segments": sched.segments,
             "host_reads": sched.host_reads,
-            "graph_replays": sched.graph_replays}
+            "graph_replays": sched.graph_replays,
+            "spec_windows": sched.spec_windows,
+            "accepted_tokens": sched.accepted_tokens,
+            "drafted_tokens": sched.drafted_tokens,
+            "accept_rate": sched.accept_rate,
+            "mean_accept_len": sched.mean_accept_len}
 
 
 def main(argv=None):
@@ -127,7 +171,13 @@ def main(argv=None):
     ap.add_argument("--max-new-short", type=int, default=8)
     ap.add_argument("--max-new-long", type=int, default=32)
     ap.add_argument("--eos-id", type=int, default=1)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0: greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep exactly this many candidates before "
+                         "sampling (0: all)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the workload and the requests' PRNG keys")
     ap.add_argument("--kv", choices=("dense", "paged"), default="dense",
                     help="KV-cache layout: 'paged' bounds cache memory "
                          "by tokens in flight (block tables)")
@@ -149,6 +199,21 @@ def main(argv=None):
                          "per step")
     ap.add_argument("--chunk-tokens", type=int, default=16,
                     help="chunked-prefill chunk size")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft this many tokens "
+                         "per decode iteration and verify them in ONE "
+                         "target forward (needs --prefill chunked; 0: "
+                         "off); greedy streams stay those of plain decode")
+    ap.add_argument("--spec-drafter", choices=("ngram", "model"),
+                    default="ngram",
+                    help="'ngram': look the continuation up in the slot's "
+                         "own prompt and emissions; 'model': greedy steps "
+                         "of --draft-arch on its own cache")
+    ap.add_argument("--spec-ngram", type=int, default=2,
+                    help="n-gram drafter match length")
+    ap.add_argument("--draft-arch", default=None,
+                    help="draft model for --spec-drafter model (the "
+                         "target's vocab; random weights from seed 1)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (the kernels' plain "
                          "versions)")
@@ -171,6 +236,12 @@ def main(argv=None):
           f"({cont['steps']} device steps) | loop {cont['loop_impl']}: "
           f"{cont['segments']} segments, {cont['host_reads']} host reads, "
           f"{cont['graph_replays']} graph launches")
+    if args.spec_k:
+        print(f"[serve] speculative (k={args.spec_k}, {args.spec_drafter}): "
+              f"{cont['accepted_tokens']}/{cont['drafted_tokens']} drafts "
+              f"accepted (accept rate {cont['accept_rate'] * 100:.0f}%), "
+              f"mean accept length {cont['mean_accept_len']:.2f}, "
+              f"{cont['tok_s']:.1f} tok/s")
     return cont
 
 

@@ -1,14 +1,17 @@
 """Attention math: chunked online softmax, and attention against a KV
-cache view for chunked prefill and single-token decode.
+cache view for chunked prefill, speculative verify windows and
+single-token decode.
 
 Port of ``repro/models/attention.py`` (``chunked_attention``,
-``prefill_attention``, ``decode_attention``). Same arithmetic, op for
-op: scores in fp32 from compute-dtype operands, the online softmax over
-the same ``k_chunk`` blocks, ``p`` cast to the V dtype before PV in the
-blockwise paths and kept fp32 through PV in decode.
+``prefill_attention``, ``verify_attention``, ``decode_attention``). Same
+arithmetic, op for op: scores in fp32 from compute-dtype operands, the
+online softmax over the same ``k_chunk`` blocks, ``p`` cast to the V
+dtype before PV in the blockwise paths and kept fp32 through PV in
+decode and verify.
 
 ``attn_impl="cuda"`` routes a PAGED view to the block-table kernels
-(``kernels.flash_prefill``, ``kernels.paged_attention``): K/V are read
+(``kernels.flash_prefill`` and its ``flash_verify`` entry,
+``kernels.paged_attention``): K/V are read
 through the block table and the dense ``(rows, max_len, KV, hd)``
 layout is never built. Dense views, and ``attn_impl="gather"``, gather
 (the JAX package's ``"xla"`` path).
@@ -135,6 +138,41 @@ def prefill_attention(q, kv, *, q_off, attn_impl: str = "gather",
         acc, m, l = _online_block(acc, m, l, s, vs, "bkgct,btkd->bkgcd")
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, D).to(q.dtype)
+
+
+def verify_attention(q, kv, *, q_off, attn_impl: str = "gather"):
+    """A speculative verify window against a cache view whose lanes
+    already hold the window's own K/V (callers ``write_chunk`` at
+    ``q_off`` first). q: (B, W, H, D); q_off: (B,) int32, the position of
+    ``q[:, 0]`` (``cur_len - 1``). Query ``j`` sees lanes
+    ``[0, q_off + j]``, what a decode step at ``cur_len = q_off + j + 1``
+    sees.
+
+    The gather path is ``decode_attention``'s full-width masked softmax,
+    vectorised over the window (not ``prefill_attention``'s online
+    softmax), because each window position stands in for a decode step:
+    stale lanes past ``q_off + j`` (rejected drafts) are masked before
+    the softmax, and ``p`` stays fp32 through PV. ``attn_impl="cuda"``
+    with a paged view launches the chunk kernel's ``flash_verify``
+    entry."""
+    if attn_impl == "cuda":
+        state = kv.paged_state()
+        if state is not None:
+            from ..kernels.flash_prefill.ops import flash_verify
+            k_pool, v_pool, table = state
+            return flash_verify(q, k_pool, v_pool, table, q_off)
+    k_cache, v_cache = kv.gather()
+    B, W, H, D = q.shape
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qg = (q * (1.0 / math.sqrt(D))).reshape(B, W, KV, G, D)
+    s = torch.einsum("bwkgd,btkd->bwkgt", qg.float(), k_cache.float())
+    qpos = q_off.long()[:, None] + torch.arange(W, device=q.device)[None]
+    mask = torch.arange(T, device=q.device)[None, None, None, None, :] \
+        <= qpos[:, :, None, None, None]
+    p = F.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    out = torch.einsum("bwkgt,btkd->bwkgd", p, v_cache.float())
+    return out.reshape(B, W, H, D).to(q.dtype)
 
 
 def decode_attention(q, kv, *, cur_len, attn_impl: str = "gather"):

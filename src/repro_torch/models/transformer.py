@@ -19,6 +19,10 @@ per call into per-layer views. Attention modes:
 - ``chunk``: write a prompt chunk's K/V at per-row offsets, then attend
   against the cache (``prefill_attention``: the flash-prefill kernel
   through the block table under ``attn_impl="cuda"`` and a paged view);
+- ``verify``: write a speculative window's K/V at per-row offsets, then
+  score each position as a decode step would (``verify_attention``: the
+  chunk kernel's ``flash_verify`` entry under ``attn_impl="cuda"`` and
+  a paged view);
 - ``decode``: append one token's K/V at ``cur_len - 1``, then attend
   against the cache (``decode_attention``: the paged-attention kernel
   under ``attn_impl="cuda"`` and a paged view).
@@ -175,7 +179,7 @@ def attn_apply(p, x, cfg, *, positions, mode: str = "full",
                kv_cache=None, cur_len=None, chunk_off=None):
     """One attention sublayer; returns its output (B, S, d_model) in
     x's dtype. ``kv_cache`` is a cache layer view (``serve.kv_cache``)
-    in the prefill, chunk and decode modes."""
+    in the prefill, chunk, verify and decode modes."""
     cdt = cfg.dtype("compute")
     xc = x.to(cdt)
     B, S, D = xc.shape
@@ -203,6 +207,10 @@ def attn_apply(p, x, cfg, *, positions, mode: str = "full",
         out = attn_lib.prefill_attention(q, kv_cache, q_off=chunk_off,
                                          attn_impl=cfg.attn_impl,
                                          k_chunk=cfg.attn_k_chunk)
+    elif mode == "verify":
+        kv_cache.write_chunk(k, v, chunk_off)
+        out = attn_lib.verify_attention(q, kv_cache, q_off=chunk_off,
+                                        attn_impl=cfg.attn_impl)
     elif mode == "decode":
         kv_cache.append(k, v, cur_len)
         out = attn_lib.decode_attention(q, kv_cache, cur_len=cur_len,

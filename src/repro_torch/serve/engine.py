@@ -1,6 +1,6 @@
 """Serving engine, dense and pure-SSM families: caches, prefill,
-chunked prefill, single-token decode, and the batch-synchronous
-generation loop.
+chunked prefill, single-token decode, the speculative verify window, and
+the batch-synchronous generation loop.
 
 Port of ``repro/serve/engine.py``. Self-attention K/V lives behind the
 ``serve.kv_cache`` API: ``make_cache`` builds ``{"attn": KVCache}`` and
@@ -184,24 +184,61 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
     return _logits_head(params, cfg, x)
 
 
+def verify_step(params, cfg: ModelConfig, tokens, cache, cur_len, *,
+                write_mask=None):
+    """Score a W-token speculative window in ONE forward.
+
+    tokens: (B, W) int, ``[pending, d_1..d_{W-1}]`` per row; the window
+    starts at ``cur_len - 1`` (the pending token's position), so position
+    j's logits are the distribution over the token after the window's
+    first j+1 tokens. Returns logits (B, W, padded_vocab); the cache is
+    updated in place.
+
+    The window's K/V goes through the chunked-prefill write path at
+    per-row offsets (mode ``verify``: ``write_chunk``, then decode-exact
+    ``verify_attention``), overwriting stale lanes of rejected drafts
+    before a query can see them. ``write_mask`` gates rows as in
+    ``decode_step``. Attention-decoder families only."""
+    if cfg.family != "dense":
+        raise ValueError(f"verify_step requires an attention-decoder "
+                         f"family (dense); got {cfg.family!r}")
+    W = tokens.shape[1]
+    off = cur_len - 1
+    positions = off.long()[:, None] + torch.arange(
+        W, device=tokens.device)[None, :]
+    x = params["embed"][tokens]
+    # copy-on-write once per window, before any layer writes
+    node = cache["attn"].ensure_private(start=off, width=W, mask=write_mask)
+    for i, lp in enumerate(transformer.layer_params(params["layers"])):
+        x = transformer.attn_block(
+            lp, x, cfg, positions=positions, mode="verify",
+            kv_cache=node.view(i, mask=write_mask), chunk_off=off)
+    return _logits_head(params, cfg, x)
+
+
 # =========================== paths that ran =================================
 
 def _kernel_path(cfg, kv_impl) -> bool:
     return cfg.attn_impl == "cuda" and kv_impl == "paged"
 
 
-def resolved_attn_impl(cfg: ModelConfig, kv_impl: str, device) -> str:
+def resolved_attn_impl(cfg: ModelConfig, kv_impl: str, device,
+                       verify: bool = False) -> str:
     """Which decode-attention path a (cfg, kv_impl, device) triple
     runs: "cuda-paged:sm_90a" (the paged-attention kernel on the card),
     "torch-plain-paged:cpu" (its plain version, for CPU tensors),
     "gather:dense" / "gather:paged", or "attention-free" (pure SSM: no
-    K/V and no attention, whatever the knobs say)."""
+    K/V and no attention, whatever the knobs say). With ``verify`` (a
+    speculative pool decodes through ``verify_step``) the kernel path is
+    the chunk kernel's verify entry: "cuda-verify-paged:sm_90a" or
+    "torch-plain-verify-paged:cpu"."""
     if kv_key(cfg) is None:
         return "attention-free"
     dev = torch.device(device)
     if _kernel_path(cfg, kv_impl):
-        return ("cuda-paged:" + ARCH_TAG if dev.type == "cuda"
-                else "torch-plain-paged:" + dev.type)
+        kind = "verify-paged:" if verify else "paged:"
+        return ("cuda-" + kind + ARCH_TAG if dev.type == "cuda"
+                else "torch-plain-" + kind + dev.type)
     return f"gather:{kv_impl}"
 
 
@@ -271,7 +308,7 @@ def generate_batch_sync(params, cfg: ModelConfig, prompt, *, max_new: int,
     sp = sampling_lib.SamplingParams()
     logits, fresh = prefill(params, cfg, prompt, cache)
     cache.update(fresh)
-    token = sampling_lib.sample_slots(logits[:, -1], sp)[:, None]
+    token = sampling_lib.sample_slots(logits[:, -1], None, sp)[:, None]
     out = torch.zeros((max_new, B), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     cur, i = S + 1, 0
@@ -279,7 +316,7 @@ def generate_batch_sync(params, cfg: ModelConfig, prompt, *, max_new: int,
         out[i] = torch.where(done, eos_id, token[:, 0])
         done = done | (token[:, 0] == eos_id)
         logits = decode_step(params, cfg, token, cache, cur)
-        token = sampling_lib.sample_slots(logits[:, -1], sp)[:, None]
+        token = sampling_lib.sample_slots(logits[:, -1], None, sp)[:, None]
         i, cur = i + 1, cur + 1
     return _result_from_tokens(
         out.T, eos_id, i, attn_impl=resolved_attn_impl(cfg, kv_impl, dev),

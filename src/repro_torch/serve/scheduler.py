@@ -32,6 +32,25 @@ cache under ``attn_impl="cuda"``), and a slot retires to DONE on EOS or
 its budget (its cache blocks freed on the device) until the host
 harvests it.
 
+Sampling. Each request carries a threefry key, ``fold_in(PRNGKey(seed),
+request_id)`` derived on the device at admission unless ``submit`` is
+given one; the token at emission index j draws from ``fold_in(key, j)``
+(``sampling.step_keys``), so a sampled stream depends on the request's
+key and logits only, not on its slot or the pool's size, and equals the
+JAX package's for the same key.
+
+Speculation (``speculative=SpecConfig(k=...)``, chunked mode only): the
+decode branch becomes the JAX package's ``spec_decode_fn``. Each running
+slot drafts k tokens (``speculative.draft_ngram`` over its prompt and
+emissions, or k+1 greedy ``decode_step``s of a draft model against its
+own dense cache, a pool register that ``_chunk`` also prefills), ONE
+``engine.verify_step`` scores the window ``[pending, d_1..d_k]``
+(through the chunk kernel's ``flash_verify`` entry on a paged cache
+under ``attn_impl="cuda"``), ``speculative.accept`` takes a prefix, and
+up to ``accepted + 1`` tokens are emitted, cut at the first EOS and the
+budget; a slot that finishes retires and frees its blocks in the same
+iteration. Greedy speculative streams equal the non-speculative ones.
+
 A segment is the JAX package's ``step``: one ``core.while_loop`` that
 runs while some slot is busy, fewer than ``want`` slots are idle and
 fewer than ``max_steps`` iterations have run (its ``cond_fn``). Its body
@@ -83,7 +102,9 @@ from ..core import device_loop
 from ..kernels.flash_prefill import kernel as fp_kernel
 from ..kernels.paged_attention import kernel as pa_kernel
 from . import engine, kv_cache as kvc
+from . import prng
 from . import sampling as sampling_lib
+from . import speculative as spec_lib
 
 # "no per-segment iteration cap" (the JAX package's _NO_STEP_CAP): large
 # enough that the free-slot predicate always fires first
@@ -91,10 +112,11 @@ _NO_STEP_CAP = 2**31 - 1
 
 # the calls a captured segment counts on the device (``SlotPool.launches``,
 # in this order), and the Python-side counters the harvest advances
-_COUNTED = ("paged_attention", "flash_prefill", "gather")
+_COUNTED = ("paged_attention", "flash_prefill", "gather", "flash_verify")
 _LAUNCH_COUNTERS = ((pa_kernel.paged_attention, "launches"),
                     (fp_kernel.flash_prefill, "launches"),
-                    (kvc.PagedView, "gather_calls"))
+                    (kvc.PagedView, "gather_calls"),
+                    (fp_kernel.flash_verify, "launches"))
 
 
 @dataclasses.dataclass
@@ -109,18 +131,25 @@ class SlotPool:
     active: torch.Tensor     # (n,) bool — RUNNING
     done: torch.Tensor       # (n,) bool — retired, awaiting harvest
     request_id: torch.Tensor  # (n,) int32
+    keys: torch.Tensor       # (n, 2) int64 — request keys (uint32 words)
     out: torch.Tensor        # (n, max_new_cap) int32 — emissions
     # chunked mode only (the prompt buffer is (n, 0) in one-shot mode)
     prompt: torch.Tensor     # (n, prompt_len) int32 — resident prompts
     plen: torch.Tensor       # (n,) int32 — true prompt length
     pf_pos: torch.Tensor     # (n,) int32 — prompt positions written
     prefilling: torch.Tensor  # (n,) bool
+    # the draft model's own cache (speculation with drafter="model";
+    # else {}): dense, rows are slots
+    draft: Dict[str, Any]
     # device counters, read with the harvest
     steps: torch.Tensor      # () int32 — loop iterations
     slot_steps: torch.Tensor  # () int32 — decoding slots, summed over them
     chunk_steps: torch.Tensor  # () int32 — iterations that ran a chunk
     decode_steps: torch.Tensor  # () int32 — iterations that ran a decode
-    launches: torch.Tensor   # (3,) int64 — graph launches of _COUNTED
+    launches: torch.Tensor   # (4,) int64 — graph launches of _COUNTED
+    slot_accepted: torch.Tensor  # (n,) int32 — tokens emitted beyond one
+    #                              a verify window, summed
+    slot_windows: torch.Tensor   # (n,) int32 — verify windows run
     # the segment's arguments
     limits: torch.Tensor     # (2,) int32 — want, max_steps (host-written)
     seg_start: torch.Tensor  # () int32 — steps at segment entry
@@ -146,6 +175,7 @@ class _Queued:
     request_id: int
     prompt: np.ndarray       # (1, L) int32, 1 <= L <= prompt_len
     max_new: int
+    key: Optional[np.ndarray] = None  # (2,) uint32 words; None: derived
 
 
 class DecodeScheduler:
@@ -169,6 +199,17 @@ class DecodeScheduler:
         advances per iteration.
       loop: the segment's lowering: None (a CUDA graph on a CUDA pool,
         the host-read loop on the CPU), "graph" or "host".
+      sampling: ``SamplingParams`` (greedy by default).
+      seed: base PRNG seed; request r's key is ``fold_in(PRNGKey(seed),
+        r)``, derived on the device at admission, unless ``submit`` is
+        given an explicit key.
+      speculative: a ``speculative.SpecConfig`` makes every decode
+        iteration draft k / verify once (module docstring). Needs
+        ``prefill="chunked"``.
+      draft_params / draft_cfg: the draft model of
+        ``SpecConfig(drafter="model")``: a dense LM with the target's
+        vocab, on the target's device; its cache is a dense pool
+        register prefilled alongside the target.
     """
 
     def __init__(self, params, cfg, *, n_slots: int, prompt_len: int,
@@ -178,7 +219,9 @@ class DecodeScheduler:
                  admit_threshold: int = 1, kv: str = "dense",
                  kv_block: int = 16, kv_blocks: Optional[int] = None,
                  prefill: str = "oneshot", chunk_tokens: int = 16,
-                 loop: Optional[str] = None):
+                 loop: Optional[str] = None, seed: int = 0,
+                 speculative: Optional[spec_lib.SpecConfig] = None,
+                 draft_params=None, draft_cfg=None):
         if n_slots < 1 or max_new_cap < 1:
             raise ValueError("need n_slots >= 1 and max_new_cap >= 1")
         if not 1 <= admit_threshold <= n_slots:
@@ -199,6 +242,12 @@ class DecodeScheduler:
         if loop not in (None, "graph", "host"):
             raise ValueError(f"loop must be None, 'graph' or 'host'; got "
                              f"{loop!r}")
+        if speculative is not None:
+            spec_lib.validate(speculative, cfg, prefill, draft_cfg,
+                              draft_params)
+        elif draft_params is not None or draft_cfg is not None:
+            raise ValueError("draft_params/draft_cfg need "
+                             "speculative=SpecConfig(drafter='model')")
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         if loop is None:
@@ -208,6 +257,9 @@ class DecodeScheduler:
         self.max_new_cap = max_new_cap
         self.eos_id = int(eos_id)
         self.sampling = sampling
+        self.speculative = speculative
+        self.draft_cfg, self._draft_params = draft_cfg, draft_params
+        self._base_key = prng.prng_key(seed, self.device)
         self.admit_threshold = admit_threshold
         self.max_len = prompt_len + max_new_cap + 1
         self.prefill = prefill
@@ -235,6 +287,8 @@ class DecodeScheduler:
         self.host_reads = self.segments = self.graph_replays = 0
         self._counts = np.zeros(4, np.int64)
         self._launches = np.zeros(len(_COUNTED), np.int64)
+        # slot_accepted and slot_windows as last harvested
+        self._spec_counts = np.zeros((2, n_slots), np.int64)
         self._per_branch: Dict[str, List[int]] = {}  # counts at capture
         self._loop: Optional[device_loop.DeviceLoop] = None
         self.capture_seconds = 0.0     # wall time of the segment's capture
@@ -259,11 +313,15 @@ class DecodeScheduler:
             next_token=z(n), cur_len=z(n, fill=1), n_emitted=z(n),
             budget=z(n), active=z(n, dtype=torch.bool),
             done=z(n, dtype=torch.bool), request_id=z(n, fill=-1),
-            out=z(n, self.max_new_cap),
+            keys=z(n, 2, dtype=torch.int64), out=z(n, self.max_new_cap),
             prompt=z(n, self.prompt_len if self._chunked else 0),
             plen=z(n), pf_pos=z(n), prefilling=z(n, dtype=torch.bool),
+            draft=(engine.make_cache(self.draft_cfg, n, self.max_len,
+                                     device=dev)
+                   if self.draft_cfg is not None else {}),
             steps=z(), slot_steps=z(), chunk_steps=z(), decode_steps=z(),
-            launches=z(len(_COUNTED), dtype=torch.int64), limits=z(2),
+            launches=z(len(_COUNTED), dtype=torch.int64),
+            slot_accepted=z(n), slot_windows=z(n), limits=z(2),
             seg_start=z())
 
     # ---------------- device-side steps -------------------------------
@@ -290,8 +348,21 @@ class DecodeScheduler:
             m = mask.reshape((-1,) + (1,) * (vec.dim() - 1))
             vec[idx] = torch.where(m, new.to(vec.dtype), vec[idx])
 
-    def _admit(self, prompts, true_lens, slots, rids, max_news,
-               mask) -> None:
+    def _request_keys(self, rids, keys, derive):
+        """Each admitted request's key: ``fold_in(PRNGKey(seed), rid)``
+        where ``derive``, else the key given at submission."""
+        return torch.where(derive[:, None],
+                           prng.fold_in(self._base_key, rids), keys)
+
+    def _keys_at(self, keys, emitted):
+        """The keys of the tokens at emission indices ``emitted`` (None
+        under greedy, which draws nothing)."""
+        if self.sampling.greedy:
+            return None
+        return sampling_lib.step_keys(keys, emitted)
+
+    def _admit(self, prompts, true_lens, slots, rids, max_news, keys,
+               derive, mask) -> None:
         """One-shot admission: up to n requests in ONE prefill. prompts
         (n, Sb) right-padded to the bucket width Sb; true_lens (n,) real
         prompt lengths. Unmasked rows keep their slot: no K/V write
@@ -301,10 +372,12 @@ class DecodeScheduler:
         logits, fresh = engine.prefill(self.params, self.cfg, prompts,
                                        p.cache, rows=slots, mask=mask)
         # the first token comes from each row's LAST REAL position
-        # (bucketed rows are right-padded)
+        # (bucketed rows are right-padded), at emission index 0
         rows = torch.arange(n, device=self.device)
+        rkeys = self._request_keys(rids, keys, derive)
         tok0 = sampling_lib.sample_slots(
-            logits[rows, (true_lens - 1).long()], self.sampling)
+            logits[rows, (true_lens - 1).long()],
+            self._keys_at(rkeys, torch.zeros_like(rids)), self.sampling)
         idx = slots.long()
         for key, state in fresh.items():
             for leaf, new in state.items():
@@ -317,9 +390,11 @@ class DecodeScheduler:
         self._register(slots, mask, next_token=tok0, cur_len=true_lens + 1,
                        n_emitted=zeros, budget=max_news,
                        active=torch.ones_like(mask), done=zeros.bool(),
-                       request_id=rids, out=torch.zeros_like(p.out))
+                       request_id=rids, keys=rkeys,
+                       out=torch.zeros_like(p.out))
 
-    def _assign(self, prompts, plens, slots, rids, max_news, mask) -> None:
+    def _assign(self, prompts, plens, slots, rids, max_news, keys, derive,
+                mask) -> None:
         """Chunked admission: reserve the slots' blocks and register the
         requests as PREFILLING; no model forward."""
         self._reserve(slots, plens + max_news + 1, mask)
@@ -327,7 +402,9 @@ class DecodeScheduler:
         self._register(slots, mask, next_token=zeros, cur_len=zeros + 1,
                        n_emitted=zeros, budget=max_news,
                        active=zeros.bool(), done=zeros.bool(),
-                       request_id=rids, out=torch.zeros_like(self.pool.out),
+                       request_id=rids,
+                       keys=self._request_keys(rids, keys, derive),
+                       out=torch.zeros_like(self.pool.out),
                        prompt=prompts, plen=plens, pf_pos=zeros,
                        prefilling=torch.ones_like(mask))
 
@@ -340,10 +417,18 @@ class DecodeScheduler:
         logits = engine.prefill_chunk(self.params, self.cfg, p.prompt,
                                       p.cache, p.pf_pos, chunk=C,
                                       mask=p.prefilling)
+        if p.draft:
+            # the draft model prefills the same chunk into its own cache;
+            # its logits are not used (the first token is the target's)
+            engine.prefill_chunk(self._draft_params, self.draft_cfg,
+                                 p.prompt, p.draft, p.pf_pos, chunk=C,
+                                 mask=p.prefilling)
         fin = self._finishing(p)
         last = (p.plen - 1 - p.pf_pos).clamp(0, C - 1).long()
         rows = torch.arange(n, device=self.device)
-        t0 = sampling_lib.sample_slots(logits[rows, last], self.sampling)
+        t0 = sampling_lib.sample_slots(
+            logits[rows, last], self._keys_at(p.keys, torch.zeros_like(
+                p.n_emitted)), self.sampling)
         p.next_token.copy_(torch.where(fin, t0, p.next_token))
         p.cur_len.copy_(torch.where(fin, p.plen + 1, p.cur_len))
         p.pf_pos.copy_(torch.where(p.prefilling, p.pf_pos + C, p.pf_pos))
@@ -377,9 +462,74 @@ class DecodeScheduler:
                                     p.cache, p.cur_len,
                                     write_mask=emit if self._chunked
                                     else None)
-        nxt = sampling_lib.sample_slots(logits[:, 0], self.sampling)
+        nxt = sampling_lib.sample_slots(
+            logits[:, 0], self._keys_at(p.keys, p.n_emitted), self.sampling)
         p.next_token.copy_(torch.where(active, nxt, tok))
         p.cur_len.add_(active.int())
+        p.active.copy_(active)
+        p.done.copy_(p.done | finished)
+
+    def _spec_decode(self) -> None:
+        """One draft-k / verify-once iteration for every RUNNING slot (the
+        JAX package's ``spec_decode_fn``): draft, score the window
+        ``[pending, d_1..d_k]`` in one ``verify_step`` at ``cur_len - 1``,
+        accept a prefix, and emit ``m = min(accepted + 1, room, up to the
+        first EOS)`` tokens; ``cur_len`` advances by m. Rejected drafts
+        are not rolled back: their lanes lie at or past the new
+        ``cur_len - 1``, where the next window writes before it reads. A
+        slot that finishes retires and frees its blocks here. Registers
+        are written in place."""
+        p, n, k = self.pool, self.n_slots, self.speculative.k
+        cap, eos = self.max_new_cap, self.eos_id
+        emit, t0 = p.active, p.next_token
+        dev = self.device
+        if not p.draft:
+            drafts = spec_lib.draft_ngram(p.prompt, p.plen, p.out,
+                                          p.n_emitted, t0, k=k,
+                                          ngram=self.speculative.ngram)
+        else:
+            # k+1 greedy draft steps: the draft cache's valid prefix then
+            # ends at the window's end, and the next window rewrites
+            # whatever lies past the accepted point
+            toks, tok = [], t0
+            for j in range(k + 1):
+                dl = engine.decode_step(self._draft_params, self.draft_cfg,
+                                        tok[:, None], p.draft, p.cur_len + j,
+                                        write_mask=emit)
+                tok = torch.argmax(dl[:, 0], dim=-1).to(torch.int32)
+                if j < k:
+                    toks.append(tok)
+            drafts = torch.stack(toks, dim=1)
+        window = torch.cat([t0[:, None], drafts], dim=1)           # (n, k+1)
+        logits = engine.verify_step(self.params, self.cfg, window, p.cache,
+                                    p.cur_len, write_mask=emit)
+        # keys of emission indices n_emitted + 1 .. n_emitted + k + 1
+        wkeys = (None if self.sampling.greedy else
+                 sampling_lib.window_keys(p.keys, p.n_emitted + 1, k + 1))
+        acc, nxt = spec_lib.accept(logits, drafts, wkeys, self.sampling)
+        jw = torch.arange(k + 1, device=dev)
+        room = (p.budget - p.n_emitted).long()
+        eos_pos = torch.where((window == eos) & (jw[None] <= acc[:, None]),
+                              jw[None], k + 1).amin(dim=1)
+        m = torch.minimum(acc + 1, torch.minimum(room, eos_pos + 1))
+        m = torch.where(emit, m, 0)
+        # emissions land at out[:, n_emitted : n_emitted + m]
+        rel = torch.arange(cap, device=dev)[None] - p.n_emitted.long()[:, None]
+        put = (rel >= 0) & (rel < m[:, None])
+        landed = torch.gather(window, 1, rel.clamp(0, k))
+        rows = torch.arange(n, device=dev)
+        last_tok = window[rows, (m - 1).clamp(min=0)]
+        n_emitted = p.n_emitted + m.int()
+        finished = emit & ((last_tok == eos) | (n_emitted >= p.budget))
+        active = emit & ~finished      # a new tensor: ``emit`` is a register
+        if self._kv_key is not None:
+            p.cache[self._kv_key].free(mask=finished)
+        p.out.copy_(torch.where(put, landed, p.out))
+        p.slot_accepted.add_(torch.where(emit, m - 1, 0).int())
+        p.slot_windows.add_(emit.int())
+        p.n_emitted.copy_(n_emitted)
+        p.next_token.copy_(torch.where(active, nxt, t0))
+        p.cur_len.add_(m.int())
         p.active.copy_(active)
         p.done.copy_(p.done | finished)
 
@@ -387,11 +537,18 @@ class DecodeScheduler:
         self._chunk()
         self.pool.chunk_steps.add_(1)
 
+    def _decode_body(self) -> None:
+        """The decode branch's work: a speculative window or one token."""
+        if self.speculative is not None:
+            self._spec_decode()
+        else:
+            self._decode()
+
     def _decode_branch(self) -> None:
         p = self.pool
         p.slot_steps.add_(p.active.sum().int())
         p.decode_steps.add_(1)
-        self._decode()
+        self._decode_body()
 
     # ---------------- the segment (the JAX package's ``step``) ---------
 
@@ -485,7 +642,7 @@ class DecodeScheduler:
         with torch.no_grad():
             if self._chunked:
                 self._chunk()
-            self._decode()
+            self._decode_body()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -546,9 +703,11 @@ class DecodeScheduler:
         return int(kvc.blocks_needed(true_len + max_new + 1, self.kv_block))
 
     def submit(self, prompt, *, max_new: int,
-               request_id: Optional[int] = None) -> int:
+               request_id: Optional[int] = None, key=None) -> int:
         """Queue one request. prompt: (1, L) int, 1 <= L <= prompt_len
-        (L == prompt_len for a pure-SSM model)."""
+        (L == prompt_len for a pure-SSM model). key: the request's PRNG
+        key, two uint32 words (a JAX raw key); None derives
+        ``fold_in(PRNGKey(seed), request_id)`` at admission."""
         prompt = np.asarray(prompt)
         if prompt.ndim != 2 or prompt.shape[0] != 1 or \
                 not 1 <= prompt.shape[1] <= self.prompt_len:
@@ -572,8 +731,10 @@ class DecodeScheduler:
             self.reset_stats()
         rid = self._next_rid if request_id is None else int(request_id)
         self._next_rid = max(self._next_rid, rid) + 1
+        if key is not None:
+            key = np.asarray(key, np.int64).reshape(2) & 0xFFFFFFFF
         self.queue.append(_Queued(rid, prompt.astype(np.int32),
-                                  int(max_new)))
+                                  int(max_new), key))
         return rid
 
     def _bucket(self, length: int) -> int:
@@ -620,19 +781,25 @@ class DecodeScheduler:
         plens = np.full(n, L, np.int32)
         rids = np.full(n, -1, np.int32)
         max_news = np.zeros(n, np.int32)
+        keys = np.zeros((n, 2), np.int64)
+        derive = np.zeros(n, bool)
         for i, q in enumerate(batch):
             tl = q.prompt.shape[1]
             prompts[i, :tl] = q.prompt[0]
             plens[i] = tl
             rids[i] = q.request_id
             max_news[i] = q.max_new
+            if q.key is None:
+                derive[i] = True
+            else:
+                keys[i] = q.key
 
         def dev(a):
             return torch.from_numpy(a).to(self.device)
 
         admit = self._assign if self._chunked else self._admit
         admit(dev(prompts), dev(plens), dev(slots.astype(np.int32)),
-              dev(rids), dev(max_news), dev(mask))
+              dev(rids), dev(max_news), dev(keys), dev(derive), dev(mask))
         for i, q in enumerate(batch):
             slot = int(free[i])
             need = self.blocks_for(q.prompt.shape[1], q.max_new)
@@ -645,10 +812,13 @@ class DecodeScheduler:
         """ONE host read per segment: ``done``, the emissions, the
         request ids and the device counters."""
         p = self.pool
-        done, out, n_emitted, rids, *counts, launches = device_loop.read_host(
+        (done, out, n_emitted, rids, *counts, launches, accepted,
+         windows) = device_loop.read_host(
             p.done, p.out, p.n_emitted, p.request_id, p.steps,
-            p.slot_steps, p.chunk_steps, p.decode_steps, p.launches)
+            p.slot_steps, p.chunk_steps, p.decode_steps, p.launches,
+            p.slot_accepted, p.slot_windows)
         self.host_reads += 1
+        self._spec_counts = np.stack([accepted, windows]).astype(np.int64)
         self._counts = np.array([int(c) for c in counts], np.int64)
         # the launches graph segments made since the last harvest (an
         # eager launch was counted in Python when it was made)
@@ -714,10 +884,11 @@ class DecodeScheduler:
         mid-run is unaffected: the scheduler is not idle then."""
         p = self.pool
         for t in (p.steps, p.slot_steps, p.chunk_steps, p.decode_steps,
-                  p.launches):
+                  p.launches, p.slot_accepted, p.slot_windows):
             t.zero_()
         self._counts[:] = 0
         self._launches[:] = 0
+        self._spec_counts[:] = 0
         self.tokens_emitted = 0
         self.host_reads = self.segments = self.graph_replays = 0
 
@@ -739,9 +910,49 @@ class DecodeScheduler:
             return 0.0
         return self.busy_slot_steps / (self.total_steps * self.n_slots)
 
+    # Speculation, as of the last harvest. Emission-weighted, as in the
+    # JAX package: a window's accepted count is the tokens it emitted
+    # beyond one (after the EOS and budget cuts).
+
+    @property
+    def spec_windows(self) -> int:
+        """Verify windows run, summed over slots (0 without speculation)."""
+        return int(self._spec_counts[1].sum())
+
+    @property
+    def accepted_tokens(self) -> int:
+        """Tokens emitted beyond one a verify window, summed."""
+        return int(self._spec_counts[0].sum())
+
+    @property
+    def drafted_tokens(self) -> int:
+        """Drafted candidates, k a verify window."""
+        return self.spec_windows * (self.speculative.k
+                                    if self.speculative else 0)
+
+    @property
+    def accept_rate(self) -> float:
+        """accepted_tokens / drafted_tokens (0.0 when nothing drafted)."""
+        d = self.drafted_tokens
+        return self.accepted_tokens / d if d else 0.0
+
+    @property
+    def mean_accept_len(self) -> float:
+        """Mean accepted drafts a verify window (tokens an iteration is
+        this + 1)."""
+        w = self.spec_windows
+        return self.accepted_tokens / w if w else 0.0
+
+    def slot_accept_len(self) -> np.ndarray:
+        """Per-slot mean accept length over that slot's windows."""
+        a, w = self._spec_counts.astype(np.float64)
+        return a / np.maximum(w, 1.0)
+
     @property
     def attn_impl(self) -> str:
-        return engine.resolved_attn_impl(self.cfg, self.kv, self.device)
+        return engine.resolved_attn_impl(
+            self.cfg, self.kv, self.device,
+            verify=self.speculative is not None)
 
     @property
     def prefill_impl(self) -> str:

@@ -43,6 +43,8 @@ from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.models import model_zoo, rnn, transformer
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import scheduler as sched_lib
+from repro_torch.serve import speculative as spec_lib
+from repro_torch.serve.sampling import SamplingParams
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -184,6 +186,92 @@ def test_kernel_takes_operands_it_reads_narrowly(cuda_device, kind, dtype,
     assert kern.launches == before + 1
     torch.testing.assert_close(out.float(), plain(*args).float(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2, 5, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [16, 8])
+def test_flash_verify_matches_plain_version(cuda_device, W, dtype, block):
+    """The chunk kernel's verify entry on speculative windows (W = k+1)
+    at llama3.2-1b's geometry, q_off on the decode kernel's partition
+    edges (63, 64, 65) and at 0, a window running past the table; counted
+    as flash_verify, not flash_prefill."""
+    rng = np.random.default_rng(W * block)
+    B, H, KV, hd, bpr = 6, 32, 8, 64, 160 // block
+    T = block * bpr
+    q_off = np.array([0, 63, 64, 65, 100, T - W // 2], np.int32)
+    need = -(-np.minimum(q_off + W, T) // block)
+    n_blocks = B * bpr + 3
+    table = rng.permutation(n_blocks)[:B * bpr].reshape(B, bpr)
+    table = np.where(np.arange(bpr)[None] < need[:, None], table, -1)
+    dt = getattr(torch, dtype)
+
+    def t(a, d=dt):
+        return torch.tensor(a, dtype=d, device=cuda_device)
+    args = (t(rng.standard_normal((B, W, H, hd))),
+            t(rng.standard_normal((n_blocks, block, KV, hd))),
+            t(rng.standard_normal((n_blocks, block, KV, hd))),
+            t(table, torch.int32), t(q_off, torch.int32))
+    before = (fp_kernel.flash_verify.launches,
+              fp_kernel.flash_prefill.launches)
+    out = fp_kernel.flash_verify(*args)
+    torch.cuda.synchronize()
+    assert (fp_kernel.flash_verify.launches,
+            fp_kernel.flash_prefill.launches) == (before[0] + 1, before[1])
+    torch.testing.assert_close(out.float(), flash_prefill_ref(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_speculative_graph_segment_equals_host_read_on_card(cuda_device,
+                                                            temperature):
+    """A smoke model (hd 64) speculating through the chunked paged
+    scheduler on the card in fp32: graph segments give the host-read
+    segments' streams (greedy and sampled) and verify launches, counted
+    on the device; greedy speculative streams equal the non-speculative
+    graph run's; the kernel path never gathers."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                              compute_dtype="float32", head_dim=64,
+                              n_heads=8, n_kv_heads=2, d_model=128,
+                              attn_impl="cuda")
+    params = bridge.init_params(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(2)
+    reqs = [(np.resize(rng.integers(2, cfg.vocab, 4), n)[None].astype(
+        np.int32), m) for n, m in ((30, 9), (7, 12), (25, 5), (12, 8))]
+    sp = SamplingParams(temperature=temperature)
+    runs = {}
+    for name, loop, spec in (("graph", "graph", True),
+                             ("host", "host", True),
+                             ("plain", "graph", False)):
+        sched = sched_lib.DecodeScheduler(
+            params, cfg, n_slots=2, prompt_len=32, max_new_cap=12,
+            eos_id=-1, kv="paged", kv_block=16, prefill="chunked",
+            chunk_tokens=8, loop=loop, sampling=sp, seed=4,
+            speculative=spec_lib.SpecConfig(k=3, ngram=1) if spec else None)
+        sched.warmup()
+        v0 = fp_kernel.flash_verify.launches
+        g0 = kvc.PagedView.gather_calls
+        for rid, (p, m) in enumerate(reqs):
+            sched.submit(p, max_new=m, request_id=rid)
+        streams = {f.request_id: f.tokens for f in sched.run_until_drained()}
+        torch.cuda.synchronize()
+        runs[name] = (streams, fp_kernel.flash_verify.launches - v0,
+                      kvc.PagedView.gather_calls - g0, sched.spec_windows,
+                      sched.total_steps)
+        sched.close()
+    (g, gv, gg, gw, gs), (h, hv, hg, hw, hs) = runs["graph"], runs["host"]
+    # one verify launch a layer in each decode-branch run, counted on the
+    # device in the graph and in Python in the host-read run
+    assert gv == hv > 0 and gv % cfg.n_layers == 0
+    assert gg == hg == 0 and gw == hw > 0 and gs == hs
+    assert runs["plain"][1] == 0
+    for rid, (_, m) in enumerate(reqs):
+        assert len(g[rid]) == m
+        np.testing.assert_array_equal(g[rid], h[rid])
+        if temperature == 0.0:
+            np.testing.assert_array_equal(g[rid], runs["plain"][0][rid])
 
 
 @pytest.mark.cuda

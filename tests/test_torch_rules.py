@@ -152,6 +152,7 @@ def test_entry_points_default_to_cuda(call):
 
 @pytest.mark.parametrize("fn", [pa_kernel.paged_attention,
                                 fp_kernel.flash_prefill,
+                                fp_kernel.flash_verify,
                                 ss_kernel.selective_scan,
                                 lstm_kernel.lstm_cell,
                                 fa_kernel.flash_attention])

@@ -287,14 +287,10 @@ def test_kernel_path_equals_gather_path_and_never_gathers():
 
 # ------------------------------------------------------------ the edges
 
-def test_sampled_decoding_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sampling.SamplingParams(temperature=0.7)
-
-
 def test_greedy_takes_the_first_maximal_index():
     logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [3.0, 3.0, 3.0, 3.0]])
-    got = sampling.sample_slots(logits, sampling.SamplingParams())
+    keys = torch.zeros((2, 2), dtype=torch.int64)   # unused under greedy
+    got = sampling.sample_slots(logits, keys, sampling.SamplingParams())
     assert got.tolist() == [1, 0]
     assert got.tolist() == np.asarray(jnp.argmax(logits.numpy(),
                                                  axis=-1)).tolist()
@@ -308,6 +304,10 @@ def test_resolved_paths_name_what_runs():
     assert engine.resolved_attn_impl(kcfg, "paged", "cpu") == \
         "torch-plain-paged:cpu"
     assert engine.resolved_attn_impl(kcfg, "dense", "cuda") == "gather:dense"
+    assert engine.resolved_attn_impl(kcfg, "paged", "cuda", verify=True) == \
+        "cuda-verify-paged:sm_90a"
+    assert engine.resolved_attn_impl(kcfg, "paged", "cpu", verify=True) == \
+        "torch-plain-verify-paged:cpu"
     assert engine.resolved_attn_impl(cfg, "paged", "cuda") == "gather:paged"
     assert engine.resolved_prefill_impl(kcfg, "paged", "chunked",
                                         "cuda") == "cuda-flash-paged:sm_90a"

@@ -34,6 +34,8 @@ from repro_torch.kernels.flash_prefill import kernel as fp_kernel
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import scheduler as sched_lib
+from repro_torch.serve import speculative as spec_lib
+from repro_torch.serve.sampling import SamplingParams
 
 
 @pytest.fixture
@@ -135,7 +137,8 @@ def test_segment_predicate_equals_the_jax_cond_fn(monkeypatch):
 
 def _addresses(pool):
     """Every tensor the segment reads or writes, by address: the pool's
-    leaves and the tensors inside the KV cache object."""
+    leaves and the tensors inside the KV cache objects (the target's and
+    a draft model's)."""
     out = {}
     for k, leaf in enumerate(pytree.tree_leaves(pool)):
         if torch.is_tensor(leaf):
@@ -148,21 +151,40 @@ def _addresses(pool):
 
 
 @pytest.mark.parametrize("mode", ["chunked", "oneshot-dense",
-                                  "oneshot-ssm"])
+                                  "oneshot-ssm", "spec-ngram-sampled",
+                                  "spec-model"])
 def test_body_keeps_every_address(mode):
     """Capture-readiness on the CPU: admission, two body iterations and
     a harvest leave every register and cache tensor where it was, so a
-    graph captured once can replay the segment."""
+    graph captured once can replay the segment. The speculative pools
+    add the request keys, the spec counters and (model drafter) the
+    draft model's cache, all among the addresses held."""
+    spec = {}
     if mode == "oneshot-ssm":
         cfg, params = _mamba("cpu")
         sched = sched_lib.DecodeScheduler(params, cfg, **ONESHOT)
         reqs = _reqs(cfg, SSM_REQS)
     else:
         cfg, params = _llama("cpu")
-        kw = CHUNKED if mode == "chunked" else dict(ONESHOT, kv="paged")
-        sched = sched_lib.DecodeScheduler(params, cfg, **kw)
+        if mode == "spec-ngram-sampled":
+            spec = dict(speculative=spec_lib.SpecConfig(k=3, ngram=1),
+                        sampling=SamplingParams(temperature=0.8, top_k=5))
+        elif mode == "spec-model":
+            spec = dict(speculative=spec_lib.SpecConfig(k=2,
+                                                        drafter="model"),
+                        draft_params=params, draft_cfg=cfg)
+        kw = (CHUNKED if mode == "chunked" or spec
+              else dict(ONESHOT, kv="paged"))
+        sched = sched_lib.DecodeScheduler(params, cfg, **kw, **spec)
         reqs = _reqs(cfg, ((14, 5), (3, 6)))
     before = _addresses(sched.pool)
+    p = sched.pool
+    held = set(before.values())
+    for reg in (p.keys, p.slot_accepted, p.slot_windows):
+        assert reg.data_ptr() in held
+    if mode == "spec-model":
+        draft = p.draft["attn"]
+        assert {draft.k.data_ptr(), draft.v.data_ptr()} <= held
     for rid, (p, m) in enumerate(reqs[:2]):
         sched.submit(p, max_new=m, request_id=rid)
     sched._admit_queued()
@@ -174,6 +196,8 @@ def test_body_keeps_every_address(mode):
     assert int(sched.pool.decode_steps) == 2
     sched._harvest()
     assert _addresses(sched.pool) == before
+    if spec:
+        assert sched.spec_windows > 0
 
 
 @pytest.mark.parametrize("mode", ["chunked", "oneshot"])
@@ -255,26 +279,30 @@ def test_harvest_is_one_read_and_advances_launch_counts():
     assert DeviceLoop.host_reads == reads + 1 and sched.host_reads == 1
     pa0 = pa_kernel.paged_attention.launches
     fp0 = fp_kernel.flash_prefill.launches
+    fv0 = fp_kernel.flash_verify.launches
 
     def fake_chunk():
         fp_kernel.flash_prefill.launches += cfg.n_layers
 
     sched._captured_branch(fake_chunk, "chunk")()
     assert fp_kernel.flash_prefill.launches == fp0
-    assert sched._per_branch["chunk"] == [0, cfg.n_layers, 0]
+    assert sched._per_branch["chunk"] == [0, cfg.n_layers, 0, 0]
     L = cfg.n_layers
-    sched.pool.launches.copy_(torch.tensor([5 * L, 3 * L, 0]))
+    sched.pool.launches.copy_(torch.tensor([5 * L, 3 * L, 0, 2 * L]))
     sched._harvest()
     assert pa_kernel.paged_attention.launches - pa0 == 5 * L
     assert fp_kernel.flash_prefill.launches - fp0 == 3 * L
+    assert fp_kernel.flash_verify.launches - fv0 == 2 * L
     sched.pool.launches[0] += L      # one more decode run
     sched._harvest()
     assert pa_kernel.paged_attention.launches - pa0 == 6 * L
     sched._harvest()                 # no new launches: nothing to add
     assert pa_kernel.paged_attention.launches - pa0 == 6 * L
     assert fp_kernel.flash_prefill.launches - fp0 == 3 * L
+    assert fp_kernel.flash_verify.launches - fv0 == 2 * L
     pa_kernel.paged_attention.launches = pa0
     fp_kernel.flash_prefill.launches = fp0
+    fp_kernel.flash_verify.launches = fv0
 
 
 def test_loop_lowering_is_chosen_by_device_and_refused_on_the_cpu():
@@ -312,6 +340,7 @@ def _graph_vs_host(params, cfg, kw, reqs):
         pa0 = pa_kernel.paged_attention.launches
         fp0 = fp_kernel.flash_prefill.launches
         g0 = kvc.PagedView.gather_calls
+        fv0 = fp_kernel.flash_verify.launches
         wl0 = core.while_loop.host_reads
         streams = _drive(sched, reqs)
         torch.cuda.synchronize()
@@ -319,7 +348,8 @@ def _graph_vs_host(params, cfg, kw, reqs):
             sched=sched, streams=streams,
             launches=(pa_kernel.paged_attention.launches - pa0,
                       fp_kernel.flash_prefill.launches - fp0,
-                      kvc.PagedView.gather_calls - g0),
+                      kvc.PagedView.gather_calls - g0,
+                      fp_kernel.flash_verify.launches - fv0),
             wl_reads=core.while_loop.host_reads - wl0)
     return runs
 
@@ -355,11 +385,11 @@ def test_graph_segment_equals_host_segment_chunked_paged(cuda_device):
     reqs = _reqs(cfg, DENSE_REQS)
     runs = _graph_vs_host(params, cfg, CHUNKED, reqs)
     _check(runs, reqs)
-    pa, fp, gathers = runs["graph"]["launches"]
+    pa, fp, gathers, verify = runs["graph"]["launches"]
     sched = runs["graph"]["sched"]
     assert pa == int(sched.pool.decode_steps) * cfg.n_layers > 0
     assert fp == int(sched.pool.chunk_steps) * cfg.n_layers > 0
-    assert gathers == 0
+    assert gathers == verify == 0
 
 
 @pytest.mark.cuda
