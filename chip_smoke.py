@@ -151,7 +151,36 @@ Phases, each printing its own lines:
     with 8 slots, host-read segments with 8 and graph segments with 4:
     the streams must be identical (the same seed); each configuration's
     device ms an iteration (CUDA events around the graph segments over
-    the loop's iterations) is printed against greedy decoding's.
+    the loop's iterations) is printed against greedy decoding's;
+20. (run after phase 19) the prefix cache at llama3.2-1b full width
+    (bf16, 8 slots, block 16, chunk 128, a pool of 148 blocks, graph
+    segments of at most 8 iterations): 16 requests sharing a 384-token
+    system prompt, and 16 drawn from 4 whole prompts, each against the
+    same requests with the cache off: every request finishes, both
+    kernels launch (counted on the device), nothing gathers, one host
+    read a segment, and after the drain the free blocks are the pool
+    less the index's pins on the host and on the device; hit blocks,
+    evictions, chunk iterations, TTFT and ITL p50/p99 in steps and
+    wall, tok/s, peak residents and the copy-on-write's cost a call are
+    printed; in fp32 warm streams equal cold ones and the cache-off and
+    gather runs' (8/8), and both kernels over a table with 31 shared
+    blocks equal their plain versions; at smoke width, speculation (the
+    n-gram drafter and the target drafting for itself) with the cache
+    on and off gives the non-speculative streams, and its accept rates
+    are printed;
+21. the SLO scheduler at full width: 12 batch requests holding the 148
+    blocks and 4 interactive ones arriving two rounds apart, and the
+    same requests uncontended (16 slots): preemptions under overload
+    (none uncontended), interactive TTFT p99 in steps below batch's,
+    one host read a round at most; per-class p50/p99 TTFT and ITL in
+    steps and wall are printed; in fp32 every delivered stream,
+    preempted ones included, equals the uninterrupted FIFO run's;
+22. ``launch.serve --stream --prefix-cache --hi-every 4`` at full width
+    through the streaming front-end (the scheduler stepped on its
+    worker thread): 16 requests from 4 prompts arriving eight at a time
+    0.1 s apart, so that the second eight find every slot held: every
+    stream ends in ``done`` with its tokens, some stream is preempted,
+    both kernels launch and nothing gathers.
 
 The llama3.2-1b weights are freed before falcon-mamba's are made, and
 falcon-mamba's before the LSTM phases, and each of the last three
@@ -1329,11 +1358,7 @@ def phase_serve():
     launches, runs = serve_in_turns(
         "serve", cfg, lambda loop: make_scheduler(params, cfg, loop), reqs)
     for run in runs:
-        got = run["launches"]
-        if min(got["paged_attention"], got["flash_prefill"]) == 0 or \
-                got["gather"] != 0:
-            raise AssertionError(f"kernel path not taken ({run['loop']}): "
-                                 f"launches {got}")
+        check_kernel_path(f"serve {run['loop']}", run["launches"])
     log(f"[serve] {cfg.name} bf16, {runs[0]['attn_impl']} / "
         f"{runs[0]['prefill_impl']}, 8 slots, chunk 128, {len(reqs)} "
         f"requests: launches in the first graph run {launches}")
@@ -1624,6 +1649,546 @@ def phase_sampled():
             if same != len(reqs):
                 raise AssertionError(f"{tag}: sampled streams differ "
                                      f"between graph, 8 slots and {what}")
+
+
+PREFIX_POOL = 148   # 4 x blocks_for(512, 64) = 4 x 37 blocks: four cold
+#                     residents of the 8 slots
+SEG_STEPS = 8       # iterations a segment at most in phases 20-22: the
+#                     resolution of their TTFT and ITL in steps
+STREAM_POOL = 400   # phase 22: blocks for 8 cold residents (296) and
+#                     more, so its preemptions are for slots: the SLO
+#                     layer plans a block-short preemption from the
+#                     victims' unpinned blocks (5 of 37 for a 512-token
+#                     prompt with the prefix cache), so none is feasible
+
+
+def prefix_requests(cfg, kind, n=16, prompt_len=512):
+    """``serving_requests``' shape (512-token prompts, ``max_new`` 32/64)
+    for the prefix cache, numpy seed 2: ``"system"``, one 384-token
+    system prompt (24 blocks of 16) and a distinct 128-token tail each;
+    ``"pool4"``, whole prompts drawn from 4 distinct ones (request i
+    takes prompt i % 4, as ``launch.serve --prompt-pool 4``)."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    if kind == "system":
+        system = rng.integers(2, cfg.vocab, 384)
+        prompts = [np.concatenate([system, rng.integers(
+            2, cfg.vocab, prompt_len - 384)]) for _ in range(n)]
+    else:
+        pool = [rng.integers(2, cfg.vocab, prompt_len) for _ in range(4)]
+        prompts = [pool[i % 4] for i in range(n)]
+    return [(p[None].astype(np.int32), 32 if i % 2 == 0 else 64)
+            for i, p in enumerate(prompts)]
+
+
+def latency_run(sched, reqs):
+    """Submit every request at once and drive rounds of at most
+    ``SEG_STEPS`` iterations; returns {rid: tokens}, the TTFT and ITL
+    p50/p99 (``launch.serve.TokenClock``: seconds and iterations) and
+    the wall seconds."""
+    import torch
+    from repro_torch.launch.serve import TokenClock
+    clock, streams = TokenClock(), {}
+    t0 = time.perf_counter()
+    for rid, (prompt, max_new) in enumerate(reqs):
+        sched.submit(prompt, max_new=max_new, request_id=rid)
+        clock.arrive(rid, 0.0)
+    while sched.pending:
+        done = sched.step(max_steps=SEG_STEPS)
+        clock.observe(sched, done, time.perf_counter() - t0)
+        streams.update({f.request_id: f.tokens for f in done})
+    torch.cuda.synchronize()
+    return streams, clock.summary(), time.perf_counter() - t0
+
+
+def check_kernel_path(tag, launches):
+    if min(launches["paged_attention"], launches["flash_prefill"]) == 0 or \
+            launches["gather"] != 0:
+        raise AssertionError(f"{tag}: kernel path not taken: launches "
+                             f"{launches}")
+
+
+def check_drained(tag, sched):
+    """After the drain only the prefix index's pins hold blocks, on the
+    host mirror and on the device."""
+    pinned = (sum(e.block_id >= 0 for e in
+                  sched._prefix_index.entries.values())
+              if sched.prefix_cache else 0)
+    dev = int(sched.pool.cache["attn"].free_count)
+    if not sched.free_blocks == sched.kv_blocks - pinned == dev:
+        raise AssertionError(f"{tag}: free blocks {sched.free_blocks} "
+                             f"(device {dev}) != {sched.kv_blocks} - "
+                             f"{pinned} pinned")
+    return pinned
+
+
+def pair(summary, name, unit=""):
+    """(p50, p99) of ``TokenClock.summary()``'s ``name``."""
+    return summary[f"{name}_p50{unit}"], summary[f"{name}_p99{unit}"]
+
+
+def fmt_pair(p, scale=1.0, digits=1):
+    return "/".join("n/a" if v is None else f"{v * scale:.{digits}f}"
+                    for v in p)
+
+
+def cow_cost(sched, iters=64):
+    """What ``ensure_private`` costs a call on the pool (a prefix-cache
+    scheduler's sharing cache), all 8 rows, at the decode's shape (width
+    1 at ``cur_len - 1``) and the chunk's (width 128 at ``pf_pos``), with
+    nothing to copy (the serving path): as the segment captures it (the
+    decision's kernels, then an IF node around the copy), device us a
+    call from a counted ``DeviceLoop`` of ``iters`` calls less an empty
+    one, and the kernels that run (the loop's captured nodes with the
+    copy left out, less the empty loop's); and the branchless eager form
+    (``graph_ms`` of one call; its kernels from ``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import device_loop
+    node, p = sched.pool.cache["attn"], sched.pool
+    carry = torch.zeros((), dtype=torch.int32, device=p.cur_len.device)
+
+    def in_loop(body):
+        with torch.no_grad():
+            body(carry)
+            loop = device_loop.DeviceLoop(None, body, carry, max_iters=iters,
+                                          name="cow")
+        nodes = sum(device_loop._nodes(g) for g in loop._graphs)
+        loop.run()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            loop.run()
+        end.record()
+        end.synchronize()
+        loop.close()
+        return start.elapsed_time(end) / (10 * iters), nodes
+
+    empty = in_loop(lambda c: c)
+    out = {}
+    for name, start, width in (("decode", p.cur_len - 1, 1),
+                               ("chunk", p.pf_pos, sched.chunk_tokens)):
+        def body(c, start=start, width=width):
+            node.ensure_private(start=start, width=width)
+            return c
+        ms = in_loop(body)[0] - empty[0]
+        node._copy_on_write = lambda *a: None     # the decision alone
+        try:
+            nodes = in_loop(body)[1] - empty[1]
+        finally:
+            del node._copy_on_write
+        with torch.no_grad():
+            eager_ms = graph_ms(lambda _: body(carry), 1, reps=50)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                body(carry)
+                torch.cuda.synchronize()
+        n = sum(r.count for r in prof.key_averages() if r.key in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+            "cudaLaunchKernelExC"))
+        out[name] = (ms, nodes, eager_ms, n)
+    return out
+
+
+def phase_prefix_cache():
+    """llama3.2-1b at full width (bf16, the kernel path) through the
+    chunked paged scheduler with the prefix cache, against the same
+    requests with it off, on a pool of 148 blocks (four cold residents),
+    in graph segments of at most 8 iterations: a shared 384-token system
+    prompt with distinct tails, and whole prompts repeated from 4
+    (``--prompt-pool 4``). Gates: every request finishes, both kernels
+    launch (counted on the device), nothing gathers, one host read a
+    segment, and after the drain the host's free blocks are the pool
+    less the index's pins and equal the device's free count. Prints hit
+    blocks, evictions, chunk iterations, TTFT and ITL p50/p99 (steps,
+    wall), tok/s and peak residents; the copy-on-write's device cost a
+    call. Then in fp32: warm streams equal cold ones and the cache-off
+    run's, the kernel path's equal the gather path's with shared blocks
+    mapped, and both kernels over a table with shared blocks mapped equal
+    their plain versions; and speculation over shared blocks
+    (``prefix_speculation``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import kernel as fp_kernel
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    counters = launch_counters()
+    for kind in ("system", "pool4"):
+        reqs = prefix_requests(cfg, kind)
+        runs = {}
+        for pfx in (False, True):
+            tag = f"prefix-cache {kind} {'on' if pfx else 'off'}"
+            sched = make_scheduler(params, cfg, kv_blocks=PREFIX_POOL,
+                                   prefix_cache=pfx)
+            sched.warmup()
+            for obj, attr in counters.values():
+                setattr(obj, attr, 0)
+            streams, s, wall = latency_run(sched, reqs)
+            launches = {n: getattr(o, a) for n, (o, a) in counters.items()}
+            check_streams(streams, reqs, cfg)
+            check_kernel_path(tag, launches)
+            if sched.host_reads != sched.segments:
+                raise AssertionError(f"{tag}: {sched.host_reads} host reads "
+                                     f"for {sched.segments} segments")
+            pinned = check_drained(tag, sched)
+            runs[pfx] = run = {
+                "tok_s": sched.tokens_emitted / wall, "wall": wall,
+                "iterations": sched.total_steps,
+                "chunk_iters": int(sched._counts[2]),
+                "hits": sched.prefix_hit_blocks,
+                "evictions": sched.prefix_evictions,
+                "peak": sched.peak_resident, "streams": streams, **s}
+            log(f"[{tag}] {sched.loop_impl}, pool {PREFIX_POOL} blocks: "
+                f"{sched.tokens_emitted} tokens in {wall:.3f} s -> "
+                f"{run['tok_s']:.1f} tok/s; {run['iterations']} iterations "
+                f"({run['chunk_iters']} ran a chunk); hit blocks "
+                f"{run['hits']}, evictions {run['evictions']}, peak resident "
+                f"{run['peak']}, pinned after the drain {pinned}; TTFT p50/"
+                f"p99 {fmt_pair(pair(s, 'ttft_steps'), digits=0)} steps, "
+                f"{fmt_pair(pair(s, 'ttft', '_s'), 1e3)} ms; ITL p50/p99 "
+                f"{fmt_pair(pair(s, 'itl_steps'), digits=2)} steps, "
+                f"{fmt_pair(pair(s, 'itl', '_s'), 1e3, 3)} ms; {sched.host_reads} "
+                f"host reads for {sched.segments} segments; launches "
+                f"{ {n: v for n, v in launches.items() if v} }")
+            if pfx and kind == "system":
+                for name, (ms, nodes, eager, n) in cow_cost(sched).items():
+                    log(f"[prefix-cache] copy-on-write, {name} call (8 rows, "
+                        f"nothing to copy; one a {name} iteration): in the "
+                        f"segment {ms * 1e3:.1f} us device, {nodes} kernels "
+                        f"run (the decision; the copy behind an IF node); "
+                        f"branchless eager form {eager * 1e3:.1f} us, {n} "
+                        f"kernels")
+            sched.close()
+        off, on = runs[False], runs[True]
+        log(f"[prefix-cache {kind}] on vs off: chunk iterations "
+            f"{on['chunk_iters']} vs {off['chunk_iters']}, iterations "
+            f"{on['iterations']} vs {off['iterations']}, tok/s "
+            f"{on['tok_s']:.1f} vs {off['tok_s']:.1f}, TTFT p99 "
+            f"{on['ttft_steps_p99']:.0f} vs {off['ttft_steps_p99']:.0f} "
+            f"steps, peak "
+            f"resident {on['peak']} vs {off['peak']}")
+    del params
+    free_device_memory("the fp32 prefix-cache runs")
+
+    fcfg = dataclasses.replace(get_config("llama3.2-1b"),
+                               compute_dtype="float32", attn_impl="cuda")
+    fparams = bridge.init_params(fcfg, seed=0, device="cuda")
+    reqs = prefix_requests(fcfg, "pool4")[:8]
+    runs = parity_runs(
+        "prefix-parity", lambda c, loop, **kw: make_scheduler(
+            fparams, c, loop, kv_blocks=PREFIX_POOL, **kw), reqs,
+        [("cuda-on", fcfg, None, dict(prefix_cache=True)),
+         ("cuda-off", fcfg, None),
+         ("gather-on", dataclasses.replace(fcfg, attn_impl="gather"), None,
+          dict(prefix_cache=True))])
+    same_streams("prefix-parity", runs, "cuda-on", "cuda-off",
+                 "prefix cache on and off")
+    same_streams("prefix-parity", runs, "cuda-on", "gather-on",
+                 "kernel path and gather path with shared blocks")
+    warm = sum(bool((runs["cuda-on"][r + 4] == runs["cuda-on"][r]).all())
+               for r in range(4))
+    log(f"[prefix-parity] warm streams (requests 4-7) equal the cold ones "
+        f"of their prompts (0-3): {warm}/4")
+    if warm != 4:
+        raise AssertionError("warm streams differ from cold ones in fp32")
+    # both kernels on a table with shared blocks mapped: two warm
+    # admissions, held before their first chunk (a segment of 0 steps)
+    sched = make_scheduler(fparams, fcfg, kv_blocks=PREFIX_POOL,
+                           prefix_cache=True)
+    drive(sched, reqs[:1])
+    for rid in (100, 101):
+        sched.submit(reqs[0][0], max_new=2, request_id=rid)
+    sched.step(max_steps=0)
+    node, p = sched.pool.cache["attn"], sched.pool
+    rows = torch.nonzero(p.prefilling).flatten()
+    table = node.table[rows].contiguous()
+    hits = int(p.pf_pos[rows[0]]) // sched.kv_block
+    if not (len(rows) == 2 and hits == 31 and
+            bool((table[0, :hits] == table[1, :hits]).all()) and
+            bool((node.refcount[table[0, :hits].long()] == 3).all())):
+        raise AssertionError(f"prefix-parity: warm rows do not share the "
+                             f"31 hit blocks: pf_pos {p.pf_pos[rows]}")
+    dev = node.k_pool.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    H, hd = fcfg.n_heads, fcfg.resolved_head_dim
+    q_off = p.pf_pos[rows].contiguous()
+    errs = {}
+    for name, kern, ref, q in (
+            ("paged_attention", pa_kernel.paged_attention,
+             paged_attention_ref,
+             torch.randn((2, 1, H, hd), generator=g, device=dev)),
+            ("flash_prefill", fp_kernel.flash_prefill, flash_prefill_ref,
+             torch.randn((2, sched.chunk_tokens, H, hd), generator=g,
+                         device=dev))):
+        args = (q, node.k_pool[0], node.v_pool[0], table, q_off)
+        errs[name] = float((kern(*args) - ref(*args)).abs().max())
+    log(f"[prefix-parity] fp32 kernels over the warm rows' table (31 "
+        f"shared blocks, refcount 3: two rows and the pin), max |kernel - "
+        f"plain|: {errs}")
+    if max(errs.values()) > TOL["float32"]:
+        raise AssertionError(f"kernels disagree over shared blocks: {errs}")
+    sched.run_until_drained()
+    check_drained("prefix-parity", sched)
+    sched.close()
+    del fparams
+    prefix_speculation()
+
+
+def prefix_speculation():
+    """Speculation over shared blocks, at smoke width (the smoke
+    llama3.2-1b at head dim 64, fp32, the kernel path): 12 requests of 64
+    tokens from 3 prompts (so that a hit lands in a slot that held
+    another prompt) that each tile one random 4-token segment, 4 slots,
+    block 16, chunk 16, through the n-gram drafter and the model
+    drafter (the target drafting for itself, which accepts nearly every
+    window without hits) with the prefix cache on and off. The draft
+    model's cache is prefilled from the hit's first uncached position,
+    as in the JAX package, so on a hit its positions below hold stale
+    values and its drafts are rejected more. Gates: every
+    greedy stream equals the non-speculative run's, and ``flash_verify``
+    launches (counted on the device). Prints accept rates and hits."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    small = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                                compute_dtype="float32", attn_impl="cuda",
+                                head_dim=64, n_heads=8, n_kv_heads=2,
+                                d_model=128)
+    tp = bridge.init_params(small, seed=0, device="cuda")
+    rng = np.random.default_rng(5)
+    pool = [np.resize(rng.integers(2, small.vocab, 4), 64) for _ in range(3)]
+    reqs = [(pool[i % 3][None].astype(np.int32), 16) for i in range(12)]
+    counters = launch_counters()
+
+    def run(**kw):
+        sched = make_scheduler(tp, small, **{
+            **dict(n_slots=4, prompt_len=64, max_new_cap=16,
+                   chunk_tokens=16), **kw})
+        sched.warmup()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        streams = drive(sched, reqs)
+        out = (streams, sched.accept_rate, sched.prefix_hit_blocks,
+               getattr(*counters["flash_verify"]))
+        sched.close()
+        return out
+
+    plain = run()[0]
+    for drafter, extra in (("ngram", {}),
+                           ("model", dict(draft_params=tp, draft_cfg=small))):
+        got = {pfx: run(speculative=spec_config(drafter=drafter),
+                        prefix_cache=pfx, **extra) for pfx in (False, True)}
+        same = {pfx: sum(bool((g[0][r] == plain[r]).all()) for r in plain)
+                for pfx, g in got.items()}
+        log(f"[prefix-spec] {drafter} drafter (k={SPEC_K}), fp32 smoke: "
+            f"accept rate {got[False][1]:.4f} without the prefix cache, "
+            f"{got[True][1]:.4f} with it ({got[True][2]} hit blocks); "
+            f"flash_verify launches {got[False][3]}, {got[True][3]}; "
+            f"streams equal the non-speculative run's {same[False]}/"
+            f"{len(plain)}, {same[True]}/{len(plain)}")
+        if min(same.values()) != len(plain) or min(
+                g[3] for g in got.values()) == 0 or got[True][2] == 0:
+            raise AssertionError(f"prefix-spec {drafter}: streams differ, "
+                                 f"no verify launch or no hit")
+
+
+def slo_arrivals(reqs):
+    """{round: [rid]}: the 12 batch requests (i % 4 != 3) at round 0,
+    the interactive ones (i % 4 == 3) at rounds 2, 4, 6 and 8, when
+    batch traffic holds the pool."""
+    out = {0: [i for i in range(len(reqs)) if i % 4 != 3]}
+    for k, i in enumerate(i for i in range(len(reqs)) if i % 4 == 3):
+        out[2 * (k + 1)] = [i]
+    return out
+
+
+def slo_run(sched, reqs):
+    """The scripted overload through ``SLOScheduler`` (segments of at
+    most 8 iterations): the events, the summary and the wall seconds."""
+    import torch
+    from repro_torch.serve import slo as slo_lib
+    slo = slo_lib.SLOScheduler(sched, segment_steps=SEG_STEPS)
+    arrivals = slo_arrivals(reqs)
+    events, r = [], 0
+    t0 = time.perf_counter()
+    while r <= max(arrivals) or slo.pending:
+        for rid in arrivals.get(r, []):
+            prompt, max_new = reqs[rid]
+            slo.submit(prompt, max_new=max_new, request_id=rid,
+                       slo_class="interactive" if rid % 4 == 3
+                       else "batch")
+        events += slo.step()
+        r += 1
+    torch.cuda.synchronize()
+    return events, slo.json_summary(), time.perf_counter() - t0
+
+
+def delivered(events, n):
+    import numpy as np
+    out = {r: [] for r in range(n)}
+    for e in events:
+        if e.kind in ("token", "finished"):
+            out[e.request_id] += e.tokens
+    return {r: np.asarray(t, np.int32) for r, t in out.items()}
+
+
+def fmt_classes(s):
+    parts = []
+    for name, c in s["classes"].items():
+        parts.append(
+            f"{name}: {c['completed']} done, {c['preempted_times']} "
+            f"preempted, TTFT p50/p99 "
+            f"{fmt_pair((c['ttft_steps']['p50'], c['ttft_steps']['p99']), digits=0)}"
+            f" steps, {fmt_pair((c['ttft_wall_s']['p50'], c['ttft_wall_s']['p99']), 1e3)}"
+            f" ms; ITL p50/p99 "
+            f"{fmt_pair((c['itl_steps']['p50'], c['itl_steps']['p99']), digits=2)}"
+            f" steps, {fmt_pair((c['itl_wall_s']['p50'], c['itl_wall_s']['p99']), 1e3, 3)}"
+            f" ms")
+    return "; ".join(parts)
+
+
+def phase_slo():
+    """llama3.2-1b at full width (bf16, the kernel path) through
+    ``SLOScheduler`` on the chunked paged pool: the 16 serving requests,
+    12 batch at once and 4 interactive arriving two rounds apart while
+    batch traffic holds all 148 blocks, and the same requests
+    uncontended (16 slots and their blocks). Gates: preemptions (none
+    uncontended), every
+    request finishes, both kernels launch (counted on the device) and
+    nothing gathers, interactive TTFT p99 in steps below batch's. Prints
+    per class p50/p99 TTFT and ITL (steps, wall), preemptions and host
+    reads a round. Then in fp32 the overload's delivered streams,
+    preempted requests' included, must equal the uninterrupted ones (the
+    FIFO scheduler, 8 slots, no block shortage)."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+
+    counters = launch_counters()
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                                  compute_dtype=dtype, attn_impl="cuda")
+        params = bridge.init_params(cfg, seed=0, device="cuda")
+        reqs = serving_requests(cfg)
+        out = {}
+        if dtype == "float32":
+            # the uninterrupted streams: FIFO, 8 slots, no block shortage
+            ref = drive(make_scheduler(params, cfg), reqs)
+        # bf16: uncontended = a slot and blocks for every request at once
+        for name, kw in (("overload", dict(kv_blocks=PREFIX_POOL)),
+                         ("uncontended", dict(n_slots=16)))[
+                             :2 if dtype == "bfloat16" else 1]:
+            tag = f"slo {name} {dtype}"
+            sched = make_scheduler(params, cfg, **kw)
+            sched.warmup()
+            for obj, attr in counters.values():
+                setattr(obj, attr, 0)
+            events, s, wall = slo_run(sched, reqs)
+            launches = {n: getattr(o, a) for n, (o, a) in counters.items()}
+            streams = delivered(events, len(reqs))
+            check_streams(streams, reqs, cfg)
+            check_kernel_path(tag, launches)
+            n_pre = sum(e.kind == "preempted" for e in events)
+            out[name] = (streams, s, n_pre)
+            log(f"[{tag}] {sched.loop_impl}, {sched.n_slots} slots, pool "
+                f"{sched.kv_blocks} blocks, segments <= {SEG_STEPS}: "
+                f"{sched.tokens_emitted} tokens in {wall:.3f} s, "
+                f"{s['total_steps']} steps, {s['preemptions']} preemptions "
+                f"({n_pre} events), {s['replay_mismatches']} replay "
+                f"mismatches; {s['rounds']} rounds, {s['host_reads']} host "
+                f"reads ({s['host_reads'] / max(s['rounds'], 1):.3f} a "
+                f"round; segments {sched.segments}); {fmt_classes(s)}")
+            if s["replay_mismatches"]:
+                raise AssertionError(f"{tag}: a replay differs from what "
+                                     f"was delivered")
+            if s["host_reads"] > s["rounds"]:
+                raise AssertionError(f"{tag}: more than one host read a "
+                                     f"round")
+            sched.close()
+        streams, s, n_pre = out["overload"]
+        if s["preemptions"] == 0:
+            raise AssertionError(f"slo {dtype}: no preemption under "
+                                 f"overload")
+        c = s["classes"]
+        if dtype == "bfloat16" and not (c["interactive"]["ttft_steps"]["p99"]
+                                        < c["batch"]["ttft_steps"]["p99"]):
+            raise AssertionError("slo: interactive TTFT p99 (steps) not "
+                                 "below batch's")
+        if dtype == "bfloat16" and out["uncontended"][1]["preemptions"]:
+            raise AssertionError("slo: the uncontended run preempted")
+        if dtype == "float32":
+            victims = sorted({e.request_id for e in events
+                              if e.kind == "preempted"})
+            same = sum(len(streams[r]) == len(ref[r]) and
+                       bool((streams[r] == ref[r]).all()) for r in ref)
+            log(f"[slo float32] delivered streams equal the uninterrupted "
+                f"FIFO run's (8 slots, 296 blocks) for {same}/{len(ref)} "
+                f"requests (preempted: {victims})")
+            if same != len(ref):
+                raise AssertionError("slo: a preempted request's stream "
+                                     "differs from its uninterrupted one")
+        del params
+
+
+def phase_stream():
+    """``launch.serve --stream --prefix-cache --hi-every 4`` at llama3.2-1b
+    full width (bf16, the kernel path) through ``StreamingFrontend`` (the
+    scheduler stepped on its worker thread, the segment captured on the
+    main thread): 16 requests of 512 tokens from a pool of 4 prompts,
+    arriving eight at a time 0.1 s apart (a ``--trace`` file), so that
+    the second eight find every slot held; a pool of 400 blocks
+    (``STREAM_POOL``). Gates: every stream ends in ``done`` with its
+    ``max_new`` tokens, some stream is preempted, no replay differs, both
+    kernels launch and nothing gathers. Prints the per-class summary."""
+    import os
+    import tempfile
+    from repro_torch.launch import serve as launch_serve
+    counters = launch_counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    # the launcher orders the trace by (arrival, max_new)
+    rows = sorted((0.1 * (i // 8), 32 if i % 2 == 0 else 64)
+                  for i in range(16))
+    fd, trace = tempfile.mkstemp(suffix=".csv", text=True)
+    with os.fdopen(fd, "w") as f:
+        f.write("# arrival_s,max_new\n")
+        f.writelines(f"{t},{m}\n" for t, m in rows)
+    try:
+        s = launch_serve.main([
+            "--arch", "llama3.2-1b", "--attn-impl", "cuda", "--kv", "paged",
+            "--kv-blocks", str(STREAM_POOL), "--prefill", "chunked",
+            "--chunk-tokens", "128", "--slots", "8", "--prompt-len", "512",
+            "--trace", trace, "--prompt-pool", "4", "--eos-id", "-1",
+            "--stream", "--prefix-cache", "--hi-every", "4",
+            "--segment-steps", str(SEG_STEPS)])
+    finally:
+        os.unlink(trace)
+    launches = {n: getattr(o, a) for n, (o, a) in counters.items()}
+    check_kernel_path("stream", launches)
+    bad = [i for i, r in s["streams"].items()
+           if r["last"] != "done" or len(r["tokens"]) != rows[i][1]]
+    n_pre = sum(r["preempted"] for r in s["streams"].values())
+    log(f"[stream] {len(s['streams'])} streams, {n_pre} preempted events, "
+        f"launches { {n: v for n, v in launches.items() if v} }; "
+        f"{fmt_classes(s)}; {s['rounds']} rounds, {s['host_reads']} host "
+        f"reads, {s['segments']} segments")
+    if bad or len(s["streams"]) != 16 or s["replay_mismatches"]:
+        raise AssertionError(f"stream: streams {bad} did not end in done "
+                             f"with their max_new tokens")
+    if n_pre == 0:
+        raise AssertionError("stream: no preempted event under a tight "
+                             "pool")
+    return s
 
 
 def lstm_case(seed, B, D, H, dtype):
@@ -2463,6 +3028,10 @@ def main() -> int:
     launches["flash_verify"] = timed(phase_spec_serve)
     timed(phase_spec_parity)
     timed(phase_sampled)
+    free_device_memory("the prefix-cache phases")
+    timed(phase_prefix_cache)
+    timed(phase_slo)
+    timed(phase_stream)
     free_device_memory("the selective-scan phases")
     records.append(timed(phase_scan_kernel))
     free_device_memory("falcon-mamba-7b")

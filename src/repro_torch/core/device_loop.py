@@ -65,7 +65,8 @@ import torch.utils._pytree as pytree
 from ..kernels import check, entry, stream_ptr
 from .tensor_array import TensorArray
 
-__all__ = ["DeviceLoop", "graph_cond", "read_host", "release", "run"]
+__all__ = ["DeviceLoop", "capturing", "graph_cond", "read_host", "release",
+           "run"]
 
 _P = ctypes.c_void_p
 _REF = ctypes.POINTER(ctypes.c_void_p)
@@ -183,6 +184,12 @@ class _Recorder:
         self.pieces.append(("if", pred, negate, sub.pieces))
         self._open()
         return out
+
+
+def capturing() -> bool:
+    """Is a body that ``DeviceLoop`` captures being recorded (so that
+    ``cond(backend="graph")`` may be called)?"""
+    return bool(_Recorder.active)
 
 
 def graph_cond(pred, true_fn: Callable, false_fn: Callable,

@@ -42,6 +42,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Sequence, Tuple
@@ -62,29 +63,39 @@ SOURCES = KERNELS + ("graph_loop",)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
-# (counts, names) armed by device_launch_counts, innermost last
-_DEVICE_COUNTS: List[Tuple[torch.Tensor, Tuple[str, ...]]] = []
+# (counts, names) armed by device_launch_counts, innermost last, per
+# thread: a capture (and its stream) belongs to the thread that runs it,
+# and a serving front-end steps its scheduler on a worker thread
+_ARMED = threading.local()
+
+
+def _device_counts() -> List[Tuple[torch.Tensor, Tuple[str, ...]]]:
+    if not hasattr(_ARMED, "stack"):
+        _ARMED.stack = []
+    return _ARMED.stack
 
 
 @contextlib.contextmanager
 def device_launch_counts(counts: torch.Tensor, names: Sequence[str]):
-    """Count launches on the device in the graphs captured inside this
-    context: ``counts[i]`` (an integer CUDA tensor allocated outside
-    capture) counts the launches of ``names[i]``."""
-    _DEVICE_COUNTS.append((counts, tuple(names)))
+    """Count launches on the device in the graphs this thread captures
+    inside this context: ``counts[i]`` (an integer CUDA tensor allocated
+    outside capture) counts the launches of ``names[i]``."""
+    stack = _device_counts()
+    stack.append((counts, tuple(names)))
     try:
         yield
     finally:
-        _DEVICE_COUNTS.pop()
+        stack.pop()
 
 
 def count_launch(name: str) -> None:
     """Called where a wrapper launches ``name``: under capture inside
     ``device_launch_counts``, captures an add of one to its device
     counter. Eager launches are counted by the Python counter alone."""
-    if not _DEVICE_COUNTS:
+    stack = _device_counts()
+    if not stack:
         return
-    counts, names = _DEVICE_COUNTS[-1]
+    counts, names = stack[-1]
     if name in names and counts.is_cuda and \
             torch.cuda.is_current_stream_capturing():
         counts[names.index(name)].add_(1)

@@ -35,6 +35,30 @@ length:
         --slots 8 --prompt-len 512 --requests 16 --kv paged \
         --attn-impl cuda --prefill chunked --chunk-tokens 128 --spec-k 4
 
+``--prefix-cache`` (with ``--prefill chunked --kv paged``) shares full
+prompt blocks between requests: a repeated prompt maps the cached blocks
+into its own table and starts prefilling at its first uncached block;
+``--prompt-pool P`` draws the prompts from P distinct ones (the traffic
+it serves), and ``--compare`` re-runs the workload with the prefix cache
+(and speculation) off, side by side. ``--trace FILE`` replays a CSV of
+``arrival_s,max_new`` lines instead of Poisson arrivals. The report
+gives TTFT and inter-token p50/p99 from host timestamps taken when the
+tokens reach the host (each harvest; a burst of j tokens over a gap g
+counts j gaps of g/j):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --slots 8 --prompt-len 512 --requests 16 --kv paged \
+        --attn-impl cuda --prefill chunked --chunk-tokens 128 \
+        --prefix-cache --prompt-pool 4 --compare
+
+``--stream`` serves through the asyncio front-end
+(``serve.frontend.StreamingFrontend``) over the SLO scheduler
+(``serve.slo``): every ``--hi-every``-th request is interactive, the rest
+batch, segments are capped at ``--segment-steps`` iterations, at most
+``--max-inflight`` requests are open, and under overload batch residents
+are preempted; the report gives per-class p50/p99 TTFT and ITL in steps
+and wall time.
+
 ``--prefill oneshot`` (the default) admits prompts through one prefill
 per admission round; a pure-SSM model takes only this mode, with
 prompts of exactly ``--prompt-len`` tokens. The selective scan's path
@@ -63,8 +87,18 @@ from repro_torch.serve import speculative as spec_lib
 
 
 def build_workload(args, rng):
-    """[(arrival_s, max_new)] sorted by arrival: Poisson arrivals,
-    alternating short/long ``max_new``."""
+    """[(arrival_s, max_new)] sorted by arrival: the ``--trace`` CSV's
+    lines, or Poisson arrivals alternating short/long ``max_new``."""
+    if args.trace:
+        rows = []
+        with open(args.trace) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                t, m = line.split(",")
+                rows.append((float(t), int(m)))
+        return sorted(rows)
     arrivals = np.cumsum(rng.exponential(1.0 / args.rate,
                                          size=args.requests))
     return [(float(arrivals[i]),
@@ -74,6 +108,61 @@ def build_workload(args, rng):
 
 def pctl(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if len(xs) else 0.0
+
+
+def make_prompts(args, cfg, n):
+    """{request index: (1, prompt_len) prompt}, drawn from
+    ``--prompt-pool`` distinct prompts (0: all distinct)."""
+    rng = np.random.default_rng(args.seed)
+    pool_n = args.prompt_pool or n
+    pool = [rng.integers(2, cfg.vocab, (1, args.prompt_len)).astype(
+        np.int32) for _ in range(pool_n)]
+    return {i: pool[i % pool_n] for i in range(n)}
+
+
+class TokenClock:
+    """When each request's tokens reached the host, on two clocks: wall
+    seconds and the scheduler's loop iterations. TTFT runs from arrival
+    to the harvest that brought the first token; a burst of j tokens
+    after a gap g counts j inter-token gaps of g / j (as the SLO layer
+    does)."""
+
+    def __init__(self):
+        self.arrival, self.count, self.last = {}, {}, {}
+        self.ttft, self.ttft_steps = {}, {}
+        self.itl, self.itl_steps = [], []
+
+    def arrive(self, rid, t, step=0):
+        self.arrival[rid], self.count[rid] = (t, step), 0
+
+    def observe(self, sched, finished, t):
+        """Record the tokens that reached the host by wall time ``t``:
+        the resident requests' (the harvest's mirror) and the finished."""
+        step = sched.total_steps
+        seen = {rid: len(toks) for rid, toks in sched.resident().items()}
+        seen.update({f.request_id: f.length for f in finished})
+        for rid, n in seen.items():
+            prev = self.count.get(rid, 0)
+            if n <= prev or rid not in self.arrival:
+                continue
+            if prev == 0:
+                self.ttft[rid] = t - self.arrival[rid][0]
+                self.ttft_steps[rid] = step - self.arrival[rid][1]
+            else:
+                j = n - prev
+                self.itl += [(t - self.last[rid][0]) / j] * j
+                self.itl_steps += [(step - self.last[rid][1]) / j] * j
+            self.count[rid], self.last[rid] = n, (t, step)
+
+    def summary(self):
+        out = {}
+        for name, xs in (("ttft", list(self.ttft.values())),
+                         ("ttft_steps", list(self.ttft_steps.values())),
+                         ("itl", self.itl), ("itl_steps", self.itl_steps)):
+            unit = "" if name.endswith("steps") else "_s"
+            out[f"{name}_p50{unit}"] = pctl(xs, 50)
+            out[f"{name}_p99{unit}"] = pctl(xs, 99)
+        return out
 
 
 def _sync(device):
@@ -107,18 +196,19 @@ def run_continuous(args, cfg, params, workload):
         sampling=sampling_lib.SamplingParams(temperature=args.temperature,
                                              top_k=args.top_k),
         seed=args.seed, speculative=spec, draft_params=draft_params,
-        draft_cfg=draft_cfg)
-    rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(2, cfg.vocab, (1, args.prompt_len)).astype(
-        np.int32) for _ in workload]
+        draft_cfg=draft_cfg, prefix_cache=args.prefix_cache)
+    prompts = make_prompts(args, cfg, len(workload))
     # Warm-up request outside the timed window: loads the kernels and
-    # the math libraries on the device.
-    sched.submit(prompts[0], max_new=2, request_id=-1)
+    # the math libraries on the device (a prompt of none of the
+    # requests', so that it warms no prefix-cache entry of theirs).
+    sched.submit(np.full((1, args.prompt_len), 2, np.int32), max_new=2,
+                 request_id=-1)
     sched.run_until_drained()
     _sync(sched.device)
     sched.reset_stats()
 
     arrival_wall, finish_wall = {}, {}
+    clock, streams = TokenClock(), {}
     t0 = time.perf_counter()
     next_req = 0
     idle_s = 0.0          # open-loop arrival gaps: excluded from tok/s
@@ -129,6 +219,7 @@ def run_continuous(args, cfg, params, workload):
                                max_new=workload[next_req][1],
                                request_id=next_req)
             arrival_wall[rid] = workload[next_req][0]
+            clock.arrive(rid, workload[next_req][0], sched.total_steps)
             next_req += 1
         if sched.pending == 0:
             if next_req < len(workload):
@@ -136,8 +227,12 @@ def run_continuous(args, cfg, params, workload):
                 time.sleep(gap)
                 idle_s += gap
             continue
-        for f in sched.step(expect_arrivals=next_req < len(workload)):
-            finish_wall[f.request_id] = time.perf_counter() - t0
+        finished = sched.step(expect_arrivals=next_req < len(workload))
+        now = time.perf_counter() - t0
+        clock.observe(sched, finished, now)
+        for f in finished:
+            finish_wall[f.request_id] = now
+            streams[f.request_id] = f.tokens
     _sync(sched.device)
     wall = time.perf_counter() - t0
     busy = max(wall - idle_s, 1e-9)
@@ -156,7 +251,88 @@ def run_continuous(args, cfg, params, workload):
             "accepted_tokens": sched.accepted_tokens,
             "drafted_tokens": sched.drafted_tokens,
             "accept_rate": sched.accept_rate,
-            "mean_accept_len": sched.mean_accept_len}
+            "mean_accept_len": sched.mean_accept_len,
+            "prefix_hit_blocks": sched.prefix_hit_blocks,
+            "prefix_evictions": sched.prefix_evictions,
+            "peak_resident": sched.peak_resident, "streams": streams,
+            **clock.summary()}
+
+
+def run_stream(args, cfg, params, workload):
+    """The streaming front-end over the SLO scheduler: request i arrives
+    at its workload time and is interactive when ``--hi-every`` divides
+    i, batch otherwise. Returns ``SLOScheduler.json_summary()`` with the
+    wall time, the tokens delivered and, per request, its tokens, its
+    last event and its ``preempted`` events."""
+    import asyncio
+
+    from repro_torch.serve import frontend as fe
+    from repro_torch.serve import slo as slo_lib
+
+    cap = max(m for _, m in workload)
+    sched = sched_lib.DecodeScheduler(
+        params, cfg, n_slots=args.slots, prompt_len=args.prompt_len,
+        max_new_cap=cap, eos_id=args.eos_id, kv=args.kv,
+        kv_block=args.kv_block, kv_blocks=args.kv_blocks,
+        prefill=args.prefill, chunk_tokens=args.chunk_tokens,
+        sampling=sampling_lib.SamplingParams(temperature=args.temperature,
+                                             top_k=args.top_k),
+        seed=args.seed, prefix_cache=args.prefix_cache)
+    sched.warmup()
+    slo = slo_lib.SLOScheduler(sched, segment_steps=args.segment_steps)
+    front = fe.StreamingFrontend(slo, max_inflight=args.max_inflight)
+    prompts = make_prompts(args, cfg, len(workload))
+    streams = {}
+
+    async def client(i, arrival, max_new):
+        await asyncio.sleep(arrival)
+        klass = ("interactive" if args.hi_every and i % args.hi_every == 0
+                 else "batch")
+        rec = streams[i] = {"class": klass, "tokens": [], "last": None,
+                            "preempted": 0}
+        async for ev in front.stream(prompts[i], max_new=max_new,
+                                     slo_class=klass, request_id=i):
+            rec["last"] = ev["event"]
+            if ev["event"] == "token":
+                rec["tokens"].extend(ev["tokens"])
+            elif ev["event"] == "preempted":
+                rec["preempted"] += 1
+
+    async def drive():
+        await asyncio.gather(*[client(i, a, m)
+                               for i, (a, m) in enumerate(workload)])
+
+    t0 = time.perf_counter()
+    asyncio.run(drive())
+    _sync(sched.device)
+    summary = slo.json_summary()
+    summary.update(wall_s=time.perf_counter() - t0, streams=streams,
+                   tokens=sum(len(r["tokens"]) for r in streams.values()),
+                   segments=sched.segments,
+                   prefix_hit_blocks=sched.prefix_hit_blocks,
+                   loop_impl=sched.loop_impl)
+    sched.close()
+    return summary
+
+
+def print_stream(s):
+    print(f"[serve] stream ({s['loop_impl']}): {s['tokens']} tokens in "
+          f"{s['wall_s']:.2f}s | {s['preemptions']} preemptions, "
+          f"{s['replay_mismatches']} replay mismatches, {s['completed']} "
+          f"completed ({s['total_steps']} device steps, segment="
+          f"{s['segment_steps']}) | {s['rounds']} rounds, "
+          f"{s['host_reads']} host reads, {s['prefix_hit_blocks']} prefix "
+          f"hit blocks")
+    for name, c in s["classes"].items():
+        tw, iw = c["ttft_wall_s"], c["itl_wall_s"]
+        ts, is_ = c["ttft_steps"], c["itl_steps"]
+        print(f"[serve]   {name} (prio {c['priority']}): {c['completed']} "
+              f"done, {c['preempted_times']} preempted | TTFT p50 "
+              f"{ts['p50'] or 0:.0f}/p99 {ts['p99'] or 0:.0f} steps "
+              f"({(tw['p50'] or 0) * 1e3:.0f}/{(tw['p99'] or 0) * 1e3:.0f}"
+              f"ms) | ITL p50 {is_['p50'] or 0:.1f}/p99 "
+              f"{is_['p99'] or 0:.1f} steps ({(iw['p50'] or 0) * 1e3:.1f}/"
+              f"{(iw['p99'] or 0) * 1e3:.1f}ms)")
 
 
 def main(argv=None):
@@ -214,6 +390,34 @@ def main(argv=None):
     ap.add_argument("--draft-arch", default=None,
                     help="draft model for --spec-drafter model (the "
                          "target's vocab; random weights from seed 1)")
+    ap.add_argument("--trace", default=None,
+                    help="CSV of arrival_s,max_new lines (default: "
+                         "Poisson arrivals)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share full prompt blocks between requests "
+                         "(needs --prefill chunked --kv paged): a repeated "
+                         "prompt maps the cached blocks and prefills from "
+                         "its first uncached block; greedy streams are "
+                         "unchanged")
+    ap.add_argument("--prompt-pool", type=int, default=0,
+                    help="draw the prompts from this many distinct ones "
+                         "(0: all distinct): the traffic --prefix-cache "
+                         "serves")
+    ap.add_argument("--compare", action="store_true",
+                    help="re-run the workload with --prefix-cache and "
+                         "--spec-k off and print both side by side")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve through the asyncio streaming front-end "
+                         "over the SLO scheduler (priority classes, "
+                         "preemption); reports per-class TTFT/ITL")
+    ap.add_argument("--segment-steps", type=int, default=8,
+                    help="--stream: iterations a segment at most (the "
+                         "granularity of tokens and preemption)")
+    ap.add_argument("--max-inflight", type=int, default=64,
+                    help="--stream: open requests at most (backpressure)")
+    ap.add_argument("--hi-every", type=int, default=4,
+                    help="--stream: every Nth request is interactive "
+                         "(0: all batch)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (the kernels' plain "
                          "versions)")
@@ -224,6 +428,10 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     params = bridge.init_params(cfg, seed=0, device=args.device)
     workload = build_workload(args, np.random.default_rng(args.seed))
+    if args.stream:
+        s = run_stream(args, cfg, params, workload)
+        print_stream(s)
+        return s
     cont = run_continuous(args, cfg, params, workload)
     print(f"[serve] continuous (decode {cont['attn_impl']}, "
           f"prefill {cont['prefill_impl']}): "
@@ -235,13 +443,37 @@ def main(argv=None):
           f"occupancy {cont['occupancy'] * 100:.0f}% "
           f"({cont['steps']} device steps) | loop {cont['loop_impl']}: "
           f"{cont['segments']} segments, {cont['host_reads']} host reads, "
-          f"{cont['graph_replays']} graph launches")
+          f"{cont['graph_replays']} graph launches | TTFT p50 "
+          f"{cont['ttft_p50_s'] * 1e3:.1f}ms p99 "
+          f"{cont['ttft_p99_s'] * 1e3:.1f}ms, inter-token p50 "
+          f"{cont['itl_p50_s'] * 1e3:.2f}ms p99 "
+          f"{cont['itl_p99_s'] * 1e3:.2f}ms")
+    if args.prefix_cache:
+        print(f"[serve] prefix cache: {cont['prefix_hit_blocks']} blocks "
+              f"served from the cache, {cont['prefix_evictions']} "
+              f"evictions, peak resident {cont['peak_resident']}")
     if args.spec_k:
         print(f"[serve] speculative (k={args.spec_k}, {args.spec_drafter}): "
               f"{cont['accepted_tokens']}/{cont['drafted_tokens']} drafts "
               f"accepted (accept rate {cont['accept_rate'] * 100:.0f}%), "
               f"mean accept length {cont['mean_accept_len']:.2f}, "
               f"{cont['tok_s']:.1f} tok/s")
+    if args.compare and (args.prefix_cache or args.spec_k):
+        off = argparse.Namespace(**{**vars(args), "prefix_cache": False,
+                                    "spec_k": 0})
+        base = run_continuous(off, cfg, params, workload)
+        same = sum(len(cont["streams"][r]) == len(base["streams"][r]) and
+                   bool((cont["streams"][r] == base["streams"][r]).all())
+                   for r in base["streams"])
+        feats = "+".join((["spec-k%d" % args.spec_k] if args.spec_k else [])
+                         + (["prefix-cache"] if args.prefix_cache else []))
+        print(f"[serve] {feats} vs off: tok/s {cont['tok_s']:.1f} | "
+              f"{base['tok_s']:.1f}; device steps {cont['steps']} | "
+              f"{base['steps']}; TTFT p99 {cont['ttft_p99_s'] * 1e3:.1f} | "
+              f"{base['ttft_p99_s'] * 1e3:.1f}ms; peak resident "
+              f"{cont['peak_resident']} | {base['peak_resident']}; streams "
+              f"equal {same}/{len(base['streams'])}")
+        cont["off"] = base
     return cont
 
 

@@ -49,18 +49,20 @@ def kv_key(cfg: ModelConfig) -> Optional[str]:
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                kv_impl: str = "dense", kv_block: int = 16,
-               kv_blocks: Optional[int] = None,
+               kv_blocks: Optional[int] = None, kv_sharing: bool = False,
                device="cuda") -> Dict[str, Any]:
     """``{"attn": KVCache}`` for the dense family, ``{"ssm": {"conv",
     "h"}}`` for pure SSM. ``kv_impl`` selects the K/V layout ("dense" |
     "paged"), ``kv_block``/``kv_blocks`` size the paged pool
-    (``kv_blocks=None``: dense-equivalent capacity)."""
+    (``kv_blocks=None``: dense-equivalent capacity), ``kv_sharing`` lets
+    its rows share blocks (the prefix cache)."""
     require_ported(cfg)
     if cfg.family == "ssm":
         return {"ssm": _ssm_struct(cfg, batch, resolve_device(device))}
     return {"attn": kvc.make_kv_cache(cfg, cfg.n_layers, batch, max_len,
                                       impl=kv_impl, block=kv_block,
-                                      n_blocks=kv_blocks, device=device)}
+                                      n_blocks=kv_blocks,
+                                      sharing=kv_sharing, device=device)}
 
 
 def _logits_head(params, cfg: ModelConfig, x):

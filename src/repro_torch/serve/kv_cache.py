@@ -23,9 +23,20 @@ Differences from the JAX package, all forced by PyTorch:
   a host sync per write. So each cache holds one extra TRASH entry
   that such writes land in and that no read ever returns: pool block
   ``n_blocks`` (no table entry names it), dense row ``n_rows``.
-- Prefix sharing is not ported yet: ``alloc`` maps no shared blocks, so
-  a block's refcount never exceeds 1 and ``ensure_private`` (the JAX
-  package's copy-on-write) has nothing to copy.
+- Prefix sharing (the scheduler's prefix cache) is chosen when a paged
+  cache is created (``sharing=True``). Such a cache maps shared blocks
+  (``alloc(shared=, pin=)``), drops index pins (``release``) and copies
+  on write (``ensure_private``) as the JAX package does. The JAX
+  package hides the copy behind ``lax.cond(any(needs))``; deciding that
+  on the host would be a read on every write, which a captured segment
+  refuses. So inside a body that ``core.device_loop`` captures (the
+  scheduler's segment) the copy sits behind ``cond(backend="graph")``,
+  an IF node on ``any(needs)`` nested in the segment's branch, and
+  eagerly it is branchless: every candidate lane copies, and a lane
+  with nothing to copy moves the TRASH block onto itself. A cache
+  created without sharing maps nothing shared, refuses
+  ``shared``/``pin``, and its ``ensure_private`` stays a no-op, so the
+  segment captured for it holds no copy at all.
 
 Reads clip unallocated ``-1`` table entries to block 0; the lanes they
 expose are masked by the caller's lengths, as in the JAX package.
@@ -37,7 +48,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import resolve_device
+from .. import core, resolve_device
+from ..core import device_loop
 from ..kernels import count_launch
 
 __all__ = ["DenseKVCache", "PagedKVCache", "DenseView", "PagedView",
@@ -245,7 +257,11 @@ class DenseKVCache:
     def view(self, layer: int, rows=None, mask=None) -> DenseView:
         return DenseView(self.k[layer], self.v[layer], rows=rows, mask=mask)
 
-    def alloc(self, rows, budget, mask=None) -> "DenseKVCache":
+    def alloc(self, rows, budget, mask=None, shared=None,
+              pin=None) -> "DenseKVCache":
+        if shared is not None or pin is not None:
+            raise ValueError("a dense cache shares no storage: shared/pin "
+                             "need a paged cache created with sharing=True")
         return self
 
     def free(self, rows=None, mask=None) -> "DenseKVCache":
@@ -255,27 +271,36 @@ class DenseKVCache:
                        mask=None) -> "DenseKVCache":
         return self
 
+    def reclaimable(self) -> torch.Tensor:
+        """Dense rows hold no pool blocks: zeros."""
+        return torch.zeros((self.n_rows,), dtype=torch.int32,
+                           device=self.k.device)
+
 
 class PagedKVCache:
     """Block-table cache: shared pool + per-row tables + free-list.
 
-    ``refcount[b]`` counts the table entries holding physical block
-    ``b`` (0 = free); ``owner[b]`` is the row that allocated it, ``-1``
-    when free. ``alloc``/``free`` update ``table``, ``refcount`` and
-    ``owner`` in place (views taken earlier see the update) with the
-    JAX package's exact semantics, so the
-    two packages hold byte-identical tables after the same calls."""
+    ``refcount[b]`` counts the references holding physical block ``b``:
+    table entries across rows plus prefix-index pins (0 = free);
+    ``owner[b]`` is the row that allocated (and so writes) it, ``-1``
+    when free; mapping a shared block never changes it. ``alloc``,
+    ``free``, ``release`` and ``ensure_private`` update ``table``,
+    ``refcount``, ``owner`` and the pools in place (views taken earlier,
+    and a captured graph, see the update) with the JAX package's exact
+    semantics, so the two packages hold byte-identical tables after the
+    same calls. ``sharing`` (fixed at creation) says whether rows may
+    share blocks at all."""
 
     def __init__(self, k_pool, v_pool, table, owner, refcount,
-                 max_len: int):
+                 max_len: int, sharing: bool = False):
         self.k_pool, self.v_pool = k_pool, v_pool
         self.table, self.owner, self.refcount = table, owner, refcount
-        self.max_len = max_len
+        self.max_len, self.sharing = max_len, bool(sharing)
 
     @classmethod
     def create(cls, n_layers, n_rows, max_len, kv_heads, head_dim, dtype,
-               device, *, block: int = 16,
-               n_blocks: Optional[int] = None) -> "PagedKVCache":
+               device, *, block: int = 16, n_blocks: Optional[int] = None,
+               sharing: bool = False) -> "PagedKVCache":
         """``n_blocks`` defaults to dense-equivalent capacity
         (``n_rows * ceil(max_len / block)``)."""
         bpr = -(-max_len // block)
@@ -286,7 +311,7 @@ class PagedKVCache:
                    torch.zeros(pshape, dtype=dtype, device=device),
                    torch.full((n_rows, bpr), -1, **i32),
                    torch.full((nb,), -1, **i32),
-                   torch.zeros((nb,), **i32), max_len)
+                   torch.zeros((nb,), **i32), max_len, sharing)
 
     @property
     def n_rows(self) -> int:
@@ -304,62 +329,120 @@ class PagedKVCache:
     def blocks_per_row(self) -> int:
         return self.table.shape[1]
 
+    @property
+    def free_count(self) -> torch.Tensor:
+        """Free blocks (``refcount == 0``), a 0-d device tensor."""
+        return (self.refcount == 0).sum()
+
+    def reclaimable(self) -> torch.Tensor:
+        """(n_rows,) int32: per row, the table entries backed by a block
+        with ``refcount == 1``, i.e. the blocks freeing the row would
+        return to the pool (shared and index-pinned blocks only lose a
+        reference). The SLO layer's victim signal."""
+        ref = torch.where(self.table >= 0,
+                          self.refcount[self.table.clamp(min=0).long()], 0)
+        return (ref == 1).sum(dim=1).int()
+
     def view(self, layer: int, rows=None, mask=None) -> PagedView:
         return PagedView(self.k_pool[layer], self.v_pool[layer], self.table,
                          self.max_len, rows=rows, mask=mask)
 
-    def _scatter_vec(self, vec, idx, val, fill):
-        """``vec`` with ``vec[idx] = val``; ``idx == n_blocks`` drops."""
-        ext = torch.cat([vec, vec.new_full((1,), fill)])
+    def _set_vec(self, vec, idx, val) -> None:
+        """``vec[idx] = val`` in place; ``idx == len(vec)`` drops (the
+        JAX package's ``mode="drop"``)."""
+        ext = torch.cat([vec, vec.new_zeros(1)])
         ext[idx] = val.to(vec.dtype)
-        return ext[:-1]
+        vec.copy_(ext[:-1])
 
-    def alloc(self, rows, budget, mask=None) -> "PagedKVCache":
-        """Assign ``ceil(budget / block)`` fresh blocks to each masked
-        row, first-fit over the free blocks in index order. All or
-        nothing per row: a row whose blocks don't all fit allocates
-        nothing (its table stays ``-1``) and later rows still allocate
-        if theirs fit. Rows must be free (``free`` first)."""
+    def _unref(self, ids) -> None:
+        """Drop one reference per entry of ``ids`` (``n_blocks`` drops);
+        a block whose count reaches zero returns to the free-list."""
+        dec = torch.zeros((self.n_blocks + 1,), dtype=torch.int32,
+                          device=self.refcount.device)
+        dec.index_add_(0, ids.reshape(-1),
+                       torch.ones_like(ids, dtype=torch.int32).reshape(-1))
+        self.refcount.sub_(dec[:-1]).clamp_(min=0)
+        self.owner.masked_fill_(self.refcount == 0, -1)
+
+    def _free_ids(self):
+        """Free block ids in index order, free first, and their count."""
+        is_free = self.refcount == 0
+        return (torch.argsort(torch.where(is_free, 0, 1), stable=True),
+                is_free.sum())
+
+    def alloc(self, rows, budget, mask=None, shared=None,
+              pin=None) -> "PagedKVCache":
+        """Assign ``ceil(budget / block)`` blocks to each masked row,
+        first-fit over the free blocks in index order. Rows must be free
+        (``free`` first).
+
+        ``shared`` (n, blocks_per_row), sharing caches only: physical
+        block ids, a prefix-contiguous run padded with ``-1``, mapped
+        into each row's LEADING table columns with their refcounts
+        bumped instead of drawing fresh blocks (a prefix-cache hit); only
+        ``need - n_shared`` fresh blocks are taken. ``pin`` (same shape,
+        bool) adds one extra reference to the block mapped at each
+        pinned column (a prefix-index registration that outlives the
+        row).
+
+        All or nothing per row: a row whose fresh blocks don't all fit
+        allocates nothing and maps nothing (its table stays ``-1``), and
+        later rows still allocate if theirs fit."""
+        if (shared is not None or pin is not None) and not self.sharing:
+            raise ValueError("shared/pin need a paged cache created with "
+                             "sharing=True (the prefix cache)")
         dev = self.table.device
         rows = rows.long()
-        n = rows.shape[0]
+        n, bpr = rows.shape[0], self.blocks_per_row
         mask = (torch.ones((n,), dtype=torch.bool, device=dev)
                 if mask is None else mask)
         need = torch.where(mask, blocks_needed(budget.long(), self.block), 0)
-        j = torch.arange(self.blocks_per_row, device=dev)[None, :]
-        is_free = self.refcount == 0
-        free_ids = torch.argsort(torch.where(is_free, 0, 1), stable=True)
-        n_free = is_free.sum()
-        # Sequential first-fit: row i fits iff its blocks fit after the
-        # rows admitted before it; a failed row reserves nothing.
+        j = torch.arange(bpr, device=dev)[None, :]
+        shared = (torch.full((n, bpr), -1, dtype=torch.long, device=dev)
+                  if shared is None else shared.long())
+        pin = (torch.zeros((n, bpr), dtype=torch.bool, device=dev)
+               if pin is None else pin)
+        n_sh = torch.where(mask, ((shared >= 0) & (j < need[:, None])
+                                  ).sum(dim=1), 0)
+        fresh_need = need - n_sh
+        free_ids, n_free = self._free_ids()
+        # Sequential first-fit: row i fits iff its fresh blocks fit after
+        # the rows admitted before it; a failed row reserves nothing.
         acc = torch.zeros((), dtype=torch.long, device=dev)
         oks, starts = [], []
         for i in range(n):
-            ok = acc + need[i] <= n_free
+            ok = acc + fresh_need[i] <= n_free
             starts.append(acc)
-            acc = acc + torch.where(ok, need[i], 0)
+            acc = acc + torch.where(ok, fresh_need[i], 0)
             oks.append(ok)
         row_ok = torch.stack(oks) & mask
-        is_fresh = row_ok[:, None] & (j < need[:, None])
-        want = torch.stack(starts)[:, None] + j
+        col_fresh = j - n_sh[:, None]
+        is_shared = row_ok[:, None] & (j < n_sh[:, None])
+        is_fresh = row_ok[:, None] & (col_fresh >= 0) & (j < need[:, None])
+        want = torch.stack(starts)[:, None] + col_fresh
         phys = free_ids[want.clamp(0, self.n_blocks - 1)]
-        new_rows = torch.where(is_fresh, phys, -1)
+        new_rows = torch.where(is_shared, shared,
+                               torch.where(is_fresh, phys, -1))
         self.table[rows] = torch.where(mask[:, None], new_rows,
                                        self.table[rows].long()).int()
-        ids = torch.where(new_rows >= 0, new_rows, self.n_blocks).reshape(-1)
+        # +1 per mapped entry (shared or fresh), +1 more per pinned one
+        mapped = new_rows >= 0
+        inc = torch.where(mapped, 1 + (pin & mapped).int(), 0)
         rc = torch.cat([self.refcount, self.refcount.new_zeros(1)])
-        rc.index_add_(0, ids, (new_rows >= 0).int().reshape(-1))
+        rc.index_add_(0, torch.where(mapped, new_rows, self.n_blocks
+                                     ).reshape(-1), inc.reshape(-1).int())
         self.refcount.copy_(rc[:-1])
-        self.owner.copy_(self._scatter_vec(
-            self.owner,
-            torch.where(is_fresh, phys, self.n_blocks).reshape(-1),
-            rows[:, None].expand(is_fresh.shape).reshape(-1), -1))
+        # owner records the ALLOCATING row: fresh blocks only
+        self._set_vec(self.owner,
+                      torch.where(is_fresh, phys, self.n_blocks).reshape(-1),
+                      rows[:, None].expand(is_fresh.shape).reshape(-1))
         return self
 
     def free(self, rows=None, mask=None) -> "PagedKVCache":
         """Drop masked rows' table references; a block returns to the
-        free-list when its count reaches zero. Idempotent: a row whose
-        table was already cleared decrements nothing."""
+        free-list when its count reaches zero (blocks still mapped by
+        other rows, or pinned by the prefix index, survive). Idempotent:
+        a row whose table was already cleared decrements nothing."""
         dev = self.table.device
         n = self.n_rows
         rows = _rows(rows, n, dev)
@@ -367,37 +450,110 @@ class PagedKVCache:
                 if mask is None else mask)
         row_freed = torch.zeros((n,), dtype=torch.bool, device=dev)
         row_freed[rows] = mask
-        ids = torch.where(row_freed[:, None] & (self.table >= 0),
-                          self.table.long(), self.n_blocks)
-        dec = torch.zeros((self.n_blocks + 1,), dtype=torch.int32,
-                          device=dev)
-        dec.index_add_(0, ids.reshape(-1),
-                       torch.ones_like(ids, dtype=torch.int32).reshape(-1))
-        self.refcount.sub_(dec[:-1]).clamp_(min=0)
-        self.owner.masked_fill_(self.refcount == 0, -1)
+        self._unref(torch.where(row_freed[:, None] & (self.table >= 0),
+                                self.table.long(), self.n_blocks))
         self.table.masked_fill_(row_freed[:, None], -1)
+        return self
+
+    def release(self, block_ids) -> "PagedKVCache":
+        """Drop ONE reference from each listed physical block (``-1``
+        entries ignored): the prefix index evicting its pins."""
+        ids = block_ids.long()
+        self._unref(torch.where(ids >= 0, ids, self.n_blocks))
         return self
 
     def ensure_private(self, rows=None, *, start, width,
                        mask=None) -> "PagedKVCache":
-        """Copy-on-write before a write into shared blocks. Nothing is
-        shared until prefix caching is ported (``alloc`` maps no shared
-        blocks), so no block can need a private copy."""
+        """Copy-on-write before ``rows`` write positions ``[start, start
+        + width)``: each covered block with ``refcount > 1`` that the row
+        does not own is copied (every layer) to a fresh block and the
+        row's entry repointed; other references keep the original bits.
+        The owner writes in place (the prefix index serves a block to a
+        sharer only once its owner has finished writing it). When the
+        pool runs dry the entry becomes ``-1``: the write lands in the
+        TRASH block and the shared bits survive. ``width`` is static,
+        ``start`` an int or a per-row tensor.
+
+        Nothing here reads the device from the host (module docstring):
+        in a captured segment the copy is an IF node on ``any(needs)``;
+        eagerly each of the ``(width - 1) // block + 2`` candidate
+        columns of each row copies one block of every layer, a lane with
+        nothing to copy the TRASH block onto itself. A cache created
+        without sharing returns at once. On the scheduler's path no lane
+        copies: sharing stops at full blocks before the first written
+        position."""
+        if not self.sharing:
+            return self
+        dev = self.table.device
+        nb, bpr, blk_len = self.n_blocks, self.blocks_per_row, self.block
+        rows = _rows(rows, self.n_rows, dev)
+        n = rows.shape[0]
+        mask = (torch.ones((n,), dtype=torch.bool, device=dev)
+                if mask is None else mask)
+        start = _as_rows(start, n, dev)
+        span = (int(width) - 1) // blk_len + 2
+        cols = torch.div(start, blk_len, rounding_mode="floor")[:, None] \
+            + torch.arange(span, device=dev)[None, :]           # (n, span)
+        covered = (cols * blk_len < (start + int(width))[:, None]) \
+            & (cols >= 0) & (cols < bpr)
+        ccol = cols.clamp(0, bpr - 1)
+        blk = self.table[rows[:, None], ccol].long()
+        safe = blk.clamp(0, nb - 1)
+        needs = mask[:, None] & covered & (blk >= 0) \
+            & (self.refcount[safe] > 1) & (self.owner[safe] != rows[:, None])
+        if device_loop.capturing():
+            core.cond(needs.any(), lambda: self._copy_on_write(
+                rows, ccol, safe, needs), _no_copy, backend="graph")
+        else:
+            self._copy_on_write(rows, ccol, safe, needs)
         return self
+
+    def _copy_on_write(self, rows, ccol, safe, needs) -> None:
+        """Copy the blocks ``needs`` marks (lanes: rows x candidate
+        columns ``ccol``, current blocks ``safe``) to fresh blocks, in
+        place; lanes without a copy move the TRASH block onto itself."""
+        nb = self.n_blocks
+        free_ids, n_free = self._free_ids()
+        flat = needs.reshape(-1)
+        order = torch.cumsum(flat.long(), 0) - 1
+        ok = flat & (order < n_free)
+        fresh = torch.where(ok, free_ids[order.clamp(0, nb - 1)], nb)
+        src = torch.where(ok, safe.reshape(-1), nb)
+        self.k_pool[:, fresh] = self.k_pool[:, src]
+        self.v_pool[:, fresh] = self.v_pool[:, src]
+        # repoint the row's entry (the copy, or -1 when the pool is dry);
+        # the old block loses this row's reference either way
+        ext = torch.cat([self.table,
+                         self.table.new_full((1, self.blocks_per_row), -1)])
+        ext[torch.where(needs, rows[:, None], self.n_rows).reshape(-1),
+            ccol.reshape(-1)] = torch.where(ok, fresh, -1).int()
+        self.table.copy_(ext[:-1])
+        self._unref(torch.where(flat, safe.reshape(-1), nb))
+        self._set_vec(self.refcount, fresh, torch.ones_like(fresh))
+        self._set_vec(self.owner, fresh,
+                      rows[:, None].expand(needs.shape).reshape(-1))
+
+
+def _no_copy() -> None:
+    """The untaken side of the copy's IF node: nothing to copy."""
 
 
 def make_kv_cache(cfg, n_layers: int, n_rows: int, max_len: int, *,
                   impl: str = "dense", block: int = 16,
-                  n_blocks: Optional[int] = None, device="cuda"):
+                  n_blocks: Optional[int] = None, sharing: bool = False,
+                  device="cuda"):
     """Self-attention KV cache for ``cfg``'s head geometry, in the
-    compute dtype."""
+    compute dtype; ``sharing`` (paged only) lets rows share blocks."""
     device = resolve_device(device)
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     dt = cfg.dtype("compute")
     if impl == "dense":
+        if sharing:
+            raise ValueError("block sharing needs the paged cache")
         return DenseKVCache.create(n_layers, n_rows, max_len, KV, hd, dt,
                                    device)
     if impl == "paged":
         return PagedKVCache.create(n_layers, n_rows, max_len, KV, hd, dt,
-                                   device, block=block, n_blocks=n_blocks)
+                                   device, block=block, n_blocks=n_blocks,
+                                   sharing=sharing)
     raise ValueError(f"unknown kv cache impl {impl!r}")

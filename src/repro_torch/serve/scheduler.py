@@ -83,13 +83,54 @@ so the graph counts each launch on the device where it happens
 (``kernels.count_launch``), and the harvest advances the wrappers'
 ``launches`` counters (and ``PagedView.gather_calls``) by those counts.
 
+Prefix cache (``prefix_cache=True``: chunked and paged only). A
+host-side index (``_PrefixIndex``) keys every full prompt block by a
+chain hash (blake2b over the previous key and the block's tokens, the
+JAX package's keys), so a key match proves the whole prefix equal.
+Admission plans first and commits after (``_admit_queued``): a request
+maps the longest READY run of its blocks, capped at ``(plen - 1) //
+block`` so that at least one position prefills in-row and every write
+lands in a fresh block, evicting least-recently-used unreferenced entries
+until its fresh blocks fit; its prefill then starts at ``pf_pos = hits x
+block``, and the chunk kernel reads the shared blocks through the row's
+table. Its other full blocks are registered PENDING, pinned by one extra
+reference at ``alloc``, and turn READY once the row has left prefill.
+The cache is created with ``sharing=True`` (``kv_cache`` module
+docstring); without the prefix cache the segment captures no
+copy-on-write at all.
+
+Preemption (``preempt_slots``/``resubmit``, the SLO layer's mechanism):
+victims' rows are freed through the refcounted ``free`` and their
+registers returned to FREE in place between segments, and each request
+re-queues for recompute-from-prompt (the same key, so the same stream).
+READY registrations keep their pins (a replay maps them back); PENDING
+ones are half-written and leave the index in the same call.
+
+What the host needs between segments comes with the harvest's one read
+(``_harvest``): besides ``done``, the emissions and the counters, which
+slots still prefill (registrations turn READY), the block ids of the
+blocks registered at admission (taken from a copy of the table written
+at admission, which retirement does not clear), and ``reclaimable`` for
+a paged pool (the SLO layer's victim order). ``host_reads`` counts every
+read; the only one beyond the harvest is a preemption or a
+``reclaimable_host`` call made before any segment has run since the
+last admission, which reads what it needs then.
+
+The scheduler keeps the device and stream it was built on and makes
+them current whenever it works (``step``, ``warmup``, ``preempt_slots``),
+so a front-end may step it from a worker thread.
+
 Per-request greedy outputs equal ``engine.generate_batch_sync``'s, and
-are identical between ``kv="dense"`` and ``kv="paged"``.
+are identical between ``kv="dense"`` and ``kv="paged"``, and with the
+prefix cache on and off.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import hashlib
 import time
 from typing import Any, Dict, List, Optional
 
@@ -150,6 +191,10 @@ class SlotPool:
     slot_accepted: torch.Tensor  # (n,) int32 — tokens emitted beyond one
     #                              a verify window, summed
     slot_windows: torch.Tensor   # (n,) int32 — verify windows run
+    # the request's class (lower = more urgent) and deadline (host-clock
+    # seconds, +inf: none), registered for the SLO layer
+    priority: torch.Tensor   # (n,) int32
+    deadline: torch.Tensor   # (n,) float32
     # the segment's arguments
     limits: torch.Tensor     # (2,) int32 — want, max_steps (host-written)
     seg_start: torch.Tensor  # () int32 — steps at segment entry
@@ -176,6 +221,120 @@ class _Queued:
     prompt: np.ndarray       # (1, L) int32, 1 <= L <= prompt_len
     max_new: int
     key: Optional[np.ndarray] = None  # (2,) uint32 words; None: derived
+    priority: int = 0        # lower = more urgent (the SLO layer)
+    deadline: float = float("inf")
+
+
+@dataclasses.dataclass
+class PreemptedRequest:
+    """A resident request evicted by ``preempt_slots``: what re-queues it
+    for recompute-from-prompt, and the tokens it had emitted (a replay
+    regenerates them bit for bit: the same key, keyed by emission
+    index)."""
+
+    request_id: int
+    prompt: np.ndarray       # (1, L) int32: the original prompt
+    max_new: int             # the original budget
+    key: Optional[np.ndarray]  # the explicit key; None: derived from the id
+    tokens: np.ndarray       # (n_emitted,) at preemption
+    priority: int = 0
+    deadline: float = float("inf")
+
+
+# =========================== prefix index ===================================
+
+@dataclasses.dataclass
+class _PrefixEntry:
+    """One cached full prompt block: its physical ``block_id`` (-1 until
+    the harvest after the registering admission reads it), ``ready``
+    once the registering slot has left prefill (only READY entries
+    match: a half-written block is never shared), and ``row_refs``, the
+    resident rows referencing it (the registering row included), so
+    eviction never pulls a block from under a live table."""
+
+    block_id: int = -1
+    ready: bool = False
+    row_refs: int = 0
+
+
+class _PrefixIndex:
+    """Host-side content-addressed index over READY prompt blocks, the
+    JAX package's: chain-hash keys (block ``i``'s key digests block
+    ``i-1``'s key and block ``i``'s token ids), so the two packages hit
+    and evict the same blocks on the same traffic; entries in LRU order,
+    eviction taking the least recently used READY entry with no resident
+    reference."""
+
+    def __init__(self, block: int):
+        self.block = int(block)
+        self.entries: "collections.OrderedDict[bytes, _PrefixEntry]" = \
+            collections.OrderedDict()
+
+    @staticmethod
+    def seed(prefix_embeds) -> bytes:
+        """Chain seed of a request: a digest of a VLM request's patch
+        embeds (distinct images diverge at block 0), else empty."""
+        if prefix_embeds is None:
+            return b""
+        return hashlib.blake2b(np.ascontiguousarray(
+            np.asarray(prefix_embeds)).tobytes(), digest_size=16).digest()
+
+    def hashes(self, tokens: np.ndarray, prefix_len: int,
+               seed: bytes) -> List[bytes]:
+        """Chain hash of every FULL stream block of a prompt (the stream
+        is ``prefix_len`` patch positions, then the tokens)."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        plen = prefix_len + len(tokens)
+        h = hashlib.blake2b(seed, digest_size=16).digest()
+        out = []
+        for jb in range(plen // self.block):
+            lo = max(0, jb * self.block - prefix_len)
+            hi = (jb + 1) * self.block - prefix_len
+            seg = tokens[lo:hi] if hi > 0 else tokens[:0]
+            h = hashlib.blake2b(h + seg.tobytes(), digest_size=16).digest()
+            out.append(h)
+        return out
+
+    def lookup(self, hs: List[bytes], cap: int, dead=frozenset()):
+        """Longest READY prefix run of ``hs``, at most ``cap`` blocks,
+        skipping keys in ``dead`` (planned for eviction this round).
+        Pure: admission planning may back out. Returns (keys, ids)."""
+        keys: List[bytes] = []
+        ids: List[int] = []
+        for h in hs[:cap]:
+            e = self.entries.get(h)
+            if e is None or not e.ready or e.block_id < 0 or h in dead:
+                break
+            keys.append(h)
+            ids.append(e.block_id)
+        return keys, ids
+
+    def pick_victim(self, reserved) -> Optional[bytes]:
+        """The LRU READY entry with no resident reference, not in
+        ``reserved``."""
+        for h, e in self.entries.items():
+            if h in reserved or not e.ready or e.row_refs > 0 \
+                    or e.block_id < 0:
+                continue
+            return h
+        return None
+
+    def evict(self, h: bytes) -> int:
+        """Drop an entry; returns its block id, whose pin the caller
+        releases."""
+        return self.entries.pop(h).block_id
+
+    def register(self, h: bytes) -> _PrefixEntry:
+        """Add a PENDING entry referenced by the registering row."""
+        e = _PrefixEntry(row_refs=1)
+        self.entries[h] = e
+        return e
+
+    def touch(self, h: bytes) -> None:
+        self.entries.move_to_end(h)
+
+    def __len__(self) -> int:
+        return len(self.entries)
 
 
 class DecodeScheduler:
@@ -210,6 +369,8 @@ class DecodeScheduler:
         ``SpecConfig(drafter="model")``: a dense LM with the target's
         vocab, on the target's device; its cache is a dense pool
         register prefilled alongside the target.
+      prefix_cache: share full prompt blocks between requests (module
+        docstring). Needs ``prefill="chunked"`` and ``kv="paged"``.
     """
 
     def __init__(self, params, cfg, *, n_slots: int, prompt_len: int,
@@ -221,7 +382,8 @@ class DecodeScheduler:
                  prefill: str = "oneshot", chunk_tokens: int = 16,
                  loop: Optional[str] = None, seed: int = 0,
                  speculative: Optional[spec_lib.SpecConfig] = None,
-                 draft_params=None, draft_cfg=None):
+                 draft_params=None, draft_cfg=None,
+                 prefix_cache: bool = False):
         if n_slots < 1 or max_new_cap < 1:
             raise ValueError("need n_slots >= 1 and max_new_cap >= 1")
         if not 1 <= admit_threshold <= n_slots:
@@ -239,6 +401,13 @@ class DecodeScheduler:
                     f"full-prompt forward")
             if chunk_tokens < 1:
                 raise ValueError("chunk_tokens must be >= 1")
+        if prefix_cache and (prefill != "chunked" or kv != "paged"):
+            raise ValueError(
+                "prefix_cache=True requires prefill='chunked' (a hit "
+                "starts prefilling at its first uncached block, which "
+                "only the chunked path's per-row offsets support) and "
+                "kv='paged' (sharing is a block-table mapping); got "
+                f"prefill={prefill!r}, kv={kv!r}")
         if loop not in (None, "graph", "host"):
             raise ValueError(f"loop must be None, 'graph' or 'host'; got "
                              f"{loop!r}")
@@ -281,6 +450,29 @@ class DecodeScheduler:
         self._busy = np.zeros(n_slots, bool)
         self._slot_blocks = np.zeros(n_slots, np.int64)
         self._free_blocks = self.kv_blocks
+        # each resident slot's request (preemption re-queues from it; the
+        # SLO layer reads its priority)
+        self._slot_req: List[Optional[_Queued]] = [None] * n_slots
+        # host mirrors of device state as of the last harvest, kept
+        # exact between segments by admission and preemption
+        self._h_out = np.zeros((n_slots, max_new_cap), np.int32)
+        self._h_n_emitted = np.zeros(n_slots, np.int64)
+        self._h_prefilling = np.zeros(n_slots, bool)
+        self._h_reclaim = np.zeros(n_slots, np.int64)
+        self._reclaim_fresh = True
+        # prefix cache: the index, and per slot the keys it hit and the
+        # (key, column) pairs it registered
+        self.prefix_cache = bool(prefix_cache)
+        self._prefix_index = (_PrefixIndex(kv_block) if prefix_cache
+                              else None)
+        self._slot_hits: List[List[bytes]] = [[] for _ in range(n_slots)]
+        self._slot_regs: List[List[tuple]] = [[] for _ in range(n_slots)]
+        self._unfilled = False     # registrations whose block id is unread
+        self.prefix_hit_blocks = 0     # blocks mapped instead of prefilled
+        self.prefix_evictions = 0
+        self.peak_resident = 0         # most co-resident requests, taken
+        #                                right after each admission
+        self.preemptions = 0
         self.tokens_emitted = 0
         # run counters: host reads (flag reads and harvests), segments,
         # graph launches; the device counters as last harvested
@@ -293,10 +485,18 @@ class DecodeScheduler:
         self._loop: Optional[device_loop.DeviceLoop] = None
         self.capture_seconds = 0.0     # wall time of the segment's capture
         self.pool = self._init_pool()
+        # the table as each admission left it (prefix cache only): the
+        # harvest reads registered block ids from it, since a slot that
+        # retires within its first segment has its table row cleared
+        self._reg_table = (torch.full_like(self.pool.cache[self._kv_key].table,
+                                          -1) if prefix_cache else None)
         # the host buffer of each segment's want/max_steps write
         self._limits = torch.zeros(2, dtype=torch.int32)
+        # the stream the scheduler works on, whichever thread calls it
+        self._stream = None
         if self.device.type == "cuda":
             self._limits = self._limits.pin_memory()
+            self._stream = torch.cuda.current_stream(self.device)
 
     # ---------------- pool construction ----------------
 
@@ -309,7 +509,9 @@ class DecodeScheduler:
         return SlotPool(
             cache=engine.make_cache(self.cfg, n, self.max_len,
                                     kv_impl=self.kv, kv_block=self.kv_block,
-                                    kv_blocks=self.kv_blocks, device=dev),
+                                    kv_blocks=self.kv_blocks,
+                                    kv_sharing=self.prefix_cache,
+                                    device=dev),
             next_token=z(n), cur_len=z(n, fill=1), n_emitted=z(n),
             budget=z(n), active=z(n, dtype=torch.bool),
             done=z(n, dtype=torch.bool), request_id=z(n, fill=-1),
@@ -321,8 +523,9 @@ class DecodeScheduler:
                    if self.draft_cfg is not None else {}),
             steps=z(), slot_steps=z(), chunk_steps=z(), decode_steps=z(),
             launches=z(len(_COUNTED), dtype=torch.int64),
-            slot_accepted=z(n), slot_windows=z(n), limits=z(2),
-            seg_start=z())
+            slot_accepted=z(n), slot_windows=z(n), priority=z(n),
+            deadline=z(n, dtype=torch.float32, fill=float("inf")),
+            limits=z(2), seg_start=z())
 
     # ---------------- device-side steps -------------------------------
 
@@ -330,14 +533,18 @@ class DecodeScheduler:
     # whose ``mask``ed entries are the free slots being filled; the other
     # entries rewrite their own values.
 
-    def _reserve(self, slots, budget, mask) -> None:
-        """Release whatever the freed slots last held, then reserve each
-        admitted request's budget of positions (nothing to do without a
-        K/V cache)."""
+    def _reserve(self, slots, budget, mask, shared=None, pin=None,
+                 evict=None) -> None:
+        """Release the index pins of ``evict``, release whatever the
+        freed slots last held, then reserve each admitted request's
+        budget of positions, mapping ``shared`` blocks and pinning
+        ``pin`` columns (nothing to do without a K/V cache)."""
         if self._kv_key is not None:
             node = self.pool.cache[self._kv_key]
+            if evict is not None:
+                node.release(evict)
             node.free(slots, mask=mask)
-            node.alloc(slots, budget, mask=mask)
+            node.alloc(slots, budget, mask=mask, shared=shared, pin=pin)
 
     def _register(self, slots, mask, **regs) -> None:
         """Write each ``SlotPool`` register named in ``regs`` at the
@@ -362,7 +569,7 @@ class DecodeScheduler:
         return sampling_lib.step_keys(keys, emitted)
 
     def _admit(self, prompts, true_lens, slots, rids, max_news, keys,
-               derive, mask) -> None:
+               derive, mask, prios, deadlines) -> None:
         """One-shot admission: up to n requests in ONE prefill. prompts
         (n, Sb) right-padded to the bucket width Sb; true_lens (n,) real
         prompt lengths. Unmasked rows keep their slot: no K/V write
@@ -391,13 +598,17 @@ class DecodeScheduler:
                        n_emitted=zeros, budget=max_news,
                        active=torch.ones_like(mask), done=zeros.bool(),
                        request_id=rids, keys=rkeys,
-                       out=torch.zeros_like(p.out))
+                       out=torch.zeros_like(p.out), priority=prios,
+                       deadline=deadlines)
 
     def _assign(self, prompts, plens, slots, rids, max_news, keys, derive,
-                mask) -> None:
-        """Chunked admission: reserve the slots' blocks and register the
-        requests as PREFILLING; no model forward."""
-        self._reserve(slots, plens + max_news + 1, mask)
+                mask, prios, deadlines, shared=None, pin=None, pf0=None,
+                evict=None) -> None:
+        """Chunked admission: release ``evict``'s index pins, reserve the
+        slots' blocks (mapping ``shared`` hit blocks, pinning ``pin``
+        columns) and register the requests as PREFILLING from ``pf0``
+        (a hit starts at its first uncached block); no model forward."""
+        self._reserve(slots, plens + max_news + 1, mask, shared, pin, evict)
         zeros = torch.zeros_like(rids)
         self._register(slots, mask, next_token=zeros, cur_len=zeros + 1,
                        n_emitted=zeros, budget=max_news,
@@ -405,8 +616,34 @@ class DecodeScheduler:
                        request_id=rids,
                        keys=self._request_keys(rids, keys, derive),
                        out=torch.zeros_like(self.pool.out),
-                       prompt=prompts, plen=plens, pf_pos=zeros,
-                       prefilling=torch.ones_like(mask))
+                       prompt=prompts, plen=plens,
+                       pf_pos=zeros if pf0 is None else pf0,
+                       prefilling=torch.ones_like(mask), priority=prios,
+                       deadline=deadlines)
+        if self._reg_table is not None:
+            admitted = torch.zeros_like(self.pool.active)
+            admitted[slots.long()] = mask
+            self._reg_table.copy_(torch.where(
+                admitted[:, None], self.pool.cache[self._kv_key].table,
+                self._reg_table))
+
+    def _preempt(self, mask, evict) -> None:
+        """Free the masked slots' rows (blocks shared with other rows or
+        pinned by the index survive), after releasing ``evict``'s pins,
+        and return their registers to FREE, in place."""
+        p = self.pool
+        if self._kv_key is not None:
+            node = p.cache[self._kv_key]
+            if evict is not None:
+                node.release(evict)
+            node.free(mask=mask)
+        keep = ~mask
+        for reg in (p.active, p.prefilling, p.done):
+            reg.logical_and_(keep)
+        for reg, fill in ((p.request_id, -1), (p.budget, 0),
+                          (p.n_emitted, 0), (p.cur_len, 1), (p.pf_pos, 0),
+                          (p.plen, 0)):
+            reg.masked_fill_(mask, fill)
 
     def _chunk(self) -> None:
         """Advance every PREFILLING slot by one chunk; a slot whose
@@ -661,7 +898,8 @@ class DecodeScheduler:
         if self._busy.any() or self.queue:
             raise RuntimeError("warmup() must run on an idle scheduler")
         if self._graph and self._loop is None:
-            self._capture()
+            with self._on_device():
+                self._capture()
 
     def close(self) -> None:
         """Free the captured segment (its graphs and memory pool)."""
@@ -703,11 +941,16 @@ class DecodeScheduler:
         return int(kvc.blocks_needed(true_len + max_new + 1, self.kv_block))
 
     def submit(self, prompt, *, max_new: int,
-               request_id: Optional[int] = None, key=None) -> int:
+               request_id: Optional[int] = None, key=None,
+               priority: int = 0, deadline: float = float("inf")) -> int:
         """Queue one request. prompt: (1, L) int, 1 <= L <= prompt_len
         (L == prompt_len for a pure-SSM model). key: the request's PRNG
         key, two uint32 words (a JAX raw key); None derives
-        ``fold_in(PRNGKey(seed), request_id)`` at admission."""
+        ``fold_in(PRNGKey(seed), request_id)`` at admission.
+        ``priority`` (lower = more urgent) and ``deadline`` (host-clock
+        seconds) are registered with the slot; this FIFO driver ignores
+        them, the SLO layer (``serve.slo``) orders and preempts by
+        them."""
         prompt = np.asarray(prompt)
         if prompt.ndim != 2 or prompt.shape[0] != 1 or \
                 not 1 <= prompt.shape[1] <= self.prompt_len:
@@ -734,7 +977,8 @@ class DecodeScheduler:
         if key is not None:
             key = np.asarray(key, np.int64).reshape(2) & 0xFFFFFFFF
         self.queue.append(_Queued(rid, prompt.astype(np.int32),
-                                  int(max_new), key))
+                                  int(max_new), key, int(priority),
+                                  float(deadline)))
         return rid
 
     def _bucket(self, length: int) -> int:
@@ -746,22 +990,91 @@ class DecodeScheduler:
             b <<= 1
         return min(b, self.prompt_len)
 
+    def _plan_hits(self, q: _Queued, need: int, blocks_free: int,
+                   victims: List[bytes], reserved: set):
+        """Prefix-cache planning for the request at the queue's head:
+        the READY run it maps (capped at ``(plen - 1) // block``: one
+        position at least prefills in-row, and every written block is
+        fresh, so the scheduler's path never copies on write) and the
+        LRU entries to evict until its fresh blocks fit (``victims`` and
+        ``reserved`` grow). Pure on the index. Returns (plan, fresh
+        blocks needed, blocks free)."""
+        idx = self._prefix_index
+        plen = q.prompt.shape[1]
+        hs = idx.hashes(q.prompt[0], 0, idx.seed(None))
+        hit_keys, hit_ids = idx.lookup(hs, (plen - 1) // self.kv_block,
+                                       set(victims))
+        need -= len(hit_keys)
+        while need > blocks_free:
+            v = idx.pick_victim(reserved | set(hit_keys))
+            if v is None:
+                break
+            victims.append(v)
+            reserved.add(v)
+            blocks_free += 1          # each victim frees its pinned block
+        return {"hs": hs, "hit_keys": hit_keys, "hit_ids": hit_ids}, \
+            need, blocks_free
+
+    def _commit_hits(self, plans, victims, shared, pin, pf0, evict):
+        """Prefix-cache commit: the plan is final. Evict the victims
+        (their pins go in ``evict``), take references on the hit
+        entries (``shared``, ``pf0``), and register every full block past
+        each hit run PENDING (``pin``). Returns each request's (key,
+        column) registrations."""
+        idx = self._prefix_index
+        for j, h in enumerate(victims):
+            evict[j] = idx.evict(h)
+        self._free_blocks += len(victims)
+        self.prefix_evictions += len(victims)
+        regs: List[List[tuple]] = []
+        for i, plan in enumerate(plans):
+            for h in plan["hit_keys"]:
+                idx.entries[h].row_refs += 1
+                idx.touch(h)
+            hits = len(plan["hit_ids"])
+            shared[i, :hits] = plan["hit_ids"]
+            pf0[i] = hits * self.kv_block
+            self.prefix_hit_blocks += hits
+            mine = []
+            for c in range(len(plan["hit_keys"]), len(plan["hs"])):
+                h = plan["hs"][c]
+                if h in idx.entries:
+                    continue       # an in-flight twin registered it
+                idx.register(h)
+                pin[i, c] = True
+                mine.append((h, c))
+            regs.append(mine)
+        return regs
+
     def _admit_queued(self) -> int:
         """Fill free slots from the queue, FIFO, while each request's
-        blocks fit the free-list (head-of-line blocking keeps order).
+        fresh blocks fit the free-list (head-of-line blocking keeps
+        order). With the prefix cache, a planning pass that mutates
+        nothing (hits, evictions) comes first, so that coalescing or
+        blocking can abandon it, and the commit pass after.
         ``admit_threshold > 1`` coalesces: while some slot is busy, a
         batch smaller than the threshold (and than what the queue
         holds) waits for a later round."""
         if not self.queue or self.free_slots == 0:
             return 0
         batch: List[_Queued] = []
+        plans: List[Optional[dict]] = []
+        victims: List[bytes] = []        # keys planned for eviction
+        reserved: set = set()            # keys this round must not evict
         blocks_free = self._free_blocks
         while self.queue and len(batch) < self.free_slots:
             q = self.queue[0]
             need = self.blocks_for(q.prompt.shape[1], q.max_new)
+            plan = None
+            if self.prefix_cache:
+                plan, need, blocks_free = self._plan_hits(
+                    q, need, blocks_free, victims, reserved)
             if need > blocks_free:
                 break
             blocks_free -= need
+            if plan is not None:
+                reserved.update(plan["hit_keys"])
+            plans.append(plan)
             batch.append(self.queue.pop(0))
         k = len(batch)
         if k == 0:
@@ -783,12 +1096,16 @@ class DecodeScheduler:
         max_news = np.zeros(n, np.int32)
         keys = np.zeros((n, 2), np.int64)
         derive = np.zeros(n, bool)
+        prios = np.zeros(n, np.int32)
+        deadlines = np.full(n, np.inf, np.float32)
         for i, q in enumerate(batch):
             tl = q.prompt.shape[1]
             prompts[i, :tl] = q.prompt[0]
             plens[i] = tl
             rids[i] = q.request_id
             max_news[i] = q.max_new
+            prios[i] = q.priority
+            deadlines[i] = q.deadline
             if q.key is None:
                 derive[i] = True
             else:
@@ -797,27 +1114,71 @@ class DecodeScheduler:
         def dev(a):
             return torch.from_numpy(a).to(self.device)
 
-        admit = self._assign if self._chunked else self._admit
-        admit(dev(prompts), dev(plens), dev(slots.astype(np.int32)),
-              dev(rids), dev(max_news), dev(keys), dev(derive), dev(mask))
+        args = [dev(prompts), dev(plens), dev(slots.astype(np.int32)),
+                dev(rids), dev(max_news), dev(keys), dev(derive), dev(mask),
+                dev(prios), dev(deadlines)]
+        regs: List[List[tuple]] = [[] for _ in batch]
+        if not self._chunked:
+            self._admit(*args)
+        elif not self.prefix_cache:
+            self._assign(*args)
+        else:
+            bpr = int(kvc.blocks_needed(self.max_len, self.kv_block))
+            shared = np.full((n, bpr), -1, np.int32)
+            pin = np.zeros((n, bpr), bool)
+            pf0 = np.zeros(n, np.int32)
+            evict = np.full(self.kv_blocks, -1, np.int32)
+            regs = self._commit_hits(plans, victims, shared, pin, pf0, evict)
+            self._assign(*args, dev(shared), dev(pin), dev(pf0), dev(evict))
+            self._unfilled = self._unfilled or any(regs)
         for i, q in enumerate(batch):
             slot = int(free[i])
             need = self.blocks_for(q.prompt.shape[1], q.max_new)
             self._busy[slot] = True
-            self._slot_blocks[slot] = need
+            self._slot_req[slot] = q
+            self._h_n_emitted[slot] = 0
+            self._h_prefilling[slot] = self._chunked
+            if self.prefix_cache:
+                need -= len(plans[i]["hit_keys"])     # fresh blocks only
+                self._slot_hits[slot] = list(plans[i]["hit_keys"])
+                self._slot_regs[slot] = regs[i]
+                # registered blocks stay pinned by the index after this
+                # slot retires; only the rest return at harvest
+                self._slot_blocks[slot] = need - len(regs[i])
+            else:
+                self._slot_blocks[slot] = need
             self._free_blocks -= need
+        self._reclaim_fresh = False
+        self.peak_resident = max(self.peak_resident, self.active_count)
         return k
 
     def _harvest(self) -> List[FinishedRequest]:
         """ONE host read per segment: ``done``, the emissions, the
-        request ids and the device counters."""
+        request ids, the device counters, which slots still prefill,
+        ``reclaimable`` (paged) and, after an admission that registered
+        prefix blocks, the table that admission left."""
         p = self.pool
-        (done, out, n_emitted, rids, *counts, launches, accepted,
-         windows) = device_loop.read_host(
-            p.done, p.out, p.n_emitted, p.request_id, p.steps,
-            p.slot_steps, p.chunk_steps, p.decode_steps, p.launches,
-            p.slot_accepted, p.slot_windows)
+        extra = [p.prefilling]
+        paged = self.kv == "paged" and self._kv_key is not None
+        if paged:
+            extra.append(p.cache[self._kv_key].reclaimable())
+        if self._unfilled:
+            extra.append(self._reg_table)
+        vals = device_loop.read_host(
+            p.done, p.out, p.n_emitted, p.request_id, p.launches,
+            p.slot_accepted, p.slot_windows, p.steps, p.slot_steps,
+            p.chunk_steps, p.decode_steps, *extra)
         self.host_reads += 1
+        done, out, n_emitted, rids, launches, accepted, windows = vals[:7]
+        counts, (prefilling, *rest) = vals[7:11], vals[11:]
+        if paged:
+            self._h_reclaim[:] = rest.pop(0)
+            self._reclaim_fresh = True
+        if self._unfilled:
+            self._fill_block_ids(rest.pop(0))
+        self._h_out[:] = out
+        self._h_n_emitted[:] = n_emitted
+        self._h_prefilling[:] = prefilling
         self._spec_counts = np.stack([accepted, windows]).astype(np.int64)
         self._counts = np.array([int(c) for c in counts], np.int64)
         # the launches graph segments made since the last harvest (an
@@ -835,11 +1196,80 @@ class DecodeScheduler:
                 text_length=length - int(hit_eos), hit_eos=hit_eos))
             self.tokens_emitted += length
             self._busy[slot] = False
+            self._slot_req[slot] = None
             # the device freed these blocks at retirement; the host
             # mirror learns here, before the next admission
             self._free_blocks += int(self._slot_blocks[slot])
             self._slot_blocks[slot] = 0
+            if self.prefix_cache:
+                # a done slot's registrations are READY, and it no longer
+                # references any entry (its table row was freed)
+                self._drop_slot_refs(slot, ready=True)
+        if self.prefix_cache:
+            # registrations turn READY once their slot has left prefill
+            idx = self._prefix_index
+            for slot in np.nonzero(self._busy & ~self._h_prefilling)[0]:
+                for h, _ in self._slot_regs[slot]:
+                    e = idx.entries.get(h)
+                    if e is not None:
+                        e.ready = True
         return got
+
+    def _fill_block_ids(self, table: np.ndarray) -> None:
+        """Registered entries learn their physical block from the table
+        their admission left (defensive: a row whose alloc failed maps
+        nothing, and its entries leave the index)."""
+        idx = self._prefix_index
+        for slot in range(self.n_slots):
+            kept = []
+            for h, c in self._slot_regs[slot]:
+                e = idx.entries.get(h)
+                if e is None or e.block_id >= 0:
+                    kept.append((h, c))
+                elif int(table[slot, c]) >= 0:
+                    e.block_id = int(table[slot, c])
+                    kept.append((h, c))
+                else:
+                    idx.entries.pop(h)
+            self._slot_regs[slot] = kept
+        self._unfilled = False
+
+    def _drop_slot_refs(self, slot: int, ready: bool) -> List[int]:
+        """The slot leaves the index's rows: its hit entries and its
+        registrations lose the slot's reference. A registration turns
+        READY with ``ready``; otherwise a PENDING one (half-written)
+        leaves the index. Returns the evicted entries' block ids."""
+        idx = self._prefix_index
+        evicted = []
+        for h, _ in self._slot_regs[slot]:
+            e = idx.entries.get(h)
+            if e is None:
+                continue
+            if ready or e.ready:
+                e.ready = True
+                e.row_refs -= 1
+            else:
+                evicted.append(idx.evict(h))
+                self.prefix_evictions += 1
+        for h in self._slot_hits[slot]:
+            e = idx.entries.get(h)
+            if e is not None:
+                e.row_refs -= 1
+        self._slot_regs[slot] = []
+        self._slot_hits[slot] = []
+        return evicted
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """The scheduler's device and stream made current, autograd off:
+        a front-end steps the scheduler from a worker thread, whose
+        current stream is not the one the scheduler captured beside."""
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.no_grad())
+            if self._stream is not None:
+                stack.enter_context(torch.cuda.device(self.device))
+                stack.enter_context(torch.cuda.stream(self._stream))
+            yield
 
     def step(self, expect_arrivals: bool = False,
              max_steps: Optional[int] = None) -> List[FinishedRequest]:
@@ -848,23 +1278,116 @@ class DecodeScheduler:
         unless ``expect_arrivals``: then it returns as soon as a slot
         frees, so a request arriving mid-drain is admitted promptly.
         ``max_steps`` additionally caps the segment's iterations (None:
-        no cap)."""
-        if self._graph and self._loop is None and not self._busy.any():
-            self._capture()
-        self._admit_queued()
-        if self.active_count == 0:
+        no cap): a streaming or SLO driver takes control back every few
+        iterations to surface tokens and revisit preemption."""
+        with self._on_device():
+            if self._graph and self._loop is None and not self._busy.any():
+                self._capture()
+            self._admit_queued()
+            if self.active_count == 0:
+                return []
+            if not self.queue and not expect_arrivals:
+                want = self.n_slots + 1          # drain: never pause
+            else:
+                # return once enough slots have freed beyond those idle
+                # at entry (idle slots the queue could not fill do not
+                # count)
+                fresh = (min(self.admit_threshold, len(self.queue))
+                         if self.queue else self.admit_threshold)
+                want = self.free_slots + fresh
+            self._segment(want, _NO_STEP_CAP if max_steps is None
+                          else int(max_steps))
+            return self._harvest()
+
+    # ---------------- preemption (the SLO layer's mechanism) -----------
+
+    def resident(self) -> Dict[int, np.ndarray]:
+        """{request id: tokens emitted so far} of every resident request,
+        as of the last harvest."""
+        return {q.request_id: self.emitted(s)
+                for s, q in enumerate(self._slot_req) if q is not None}
+
+    def emitted(self, slot: int) -> np.ndarray:
+        """The tokens a resident slot has emitted, as of the last harvest
+        (exact between rounds)."""
+        return self._h_out[slot, :int(self._h_n_emitted[slot])].copy()
+
+    def reclaimable_host(self) -> np.ndarray:
+        """``reclaimable()`` of the paged pool on the host (zeros for a
+        dense cache): the harvest's copy, or a read of its own (counted
+        in ``host_reads``) after an admission or preemption since."""
+        if self.kv != "paged" or self._kv_key is None:
+            return np.zeros(self.n_slots, np.int64)
+        if not self._reclaim_fresh:
+            with self._on_device():
+                (rec,) = device_loop.read_host(
+                    self.pool.cache[self._kv_key].reclaimable())
+            self.host_reads += 1
+            self._h_reclaim[:] = rec
+            self._reclaim_fresh = True
+        return self._h_reclaim.copy()
+
+    def preempt_slots(self, slots) -> List[PreemptedRequest]:
+        """Evict resident requests from ``slots``, between segments,
+        freeing their blocks; returns each as a ``PreemptedRequest`` to
+        re-queue (``resubmit``) for recompute-from-prompt. The emitted
+        tokens come from the host mirrors (the last harvest's read, kept
+        exact by admission). READY registrations keep their pins (the
+        replay maps them back); PENDING ones leave the index, their pins
+        released in the same call that frees the rows."""
+        slots = sorted({int(s) for s in np.atleast_1d(
+            np.asarray(slots, np.int64))})
+        if not slots:
             return []
-        if not self.queue and not expect_arrivals:
-            want = self.n_slots + 1          # drain: never pause
-        else:
-            # return once enough slots have freed beyond those idle at
-            # entry (idle slots the queue could not fill do not count)
-            fresh = (min(self.admit_threshold, len(self.queue))
-                     if self.queue else self.admit_threshold)
-            want = self.free_slots + fresh
-        self._segment(want, _NO_STEP_CAP if max_steps is None
-                      else int(max_steps))
-        return self._harvest()
+        for s in slots:
+            if not 0 <= s < self.n_slots or not self._busy[s]:
+                raise ValueError(f"slot {s} is not resident")
+        evict = None
+        with self._on_device():
+            if self.prefix_cache:
+                if self._unfilled:
+                    # an admission since the last harvest registered
+                    # blocks: their ids are read here, the one read
+                    # beyond the harvest
+                    (table,) = device_loop.read_host(self._reg_table)
+                    self.host_reads += 1
+                    self._fill_block_ids(table)
+                evicted: List[int] = []
+                for s in slots:
+                    evicted += self._drop_slot_refs(
+                        s, ready=not self._h_prefilling[s])
+                evict = np.full(self.kv_blocks, -1, np.int32)
+                evict[:len(evicted)] = evicted
+                evict = torch.from_numpy(evict).to(self.device)
+                # each evicted pin was its block's last reference beside
+                # the row's own (freed below): fully free again
+                self._free_blocks += len(evicted)
+            mask = np.zeros(self.n_slots, bool)
+            mask[slots] = True
+            self._preempt(torch.from_numpy(mask).to(self.device), evict)
+        got: List[PreemptedRequest] = []
+        for s in slots:
+            q = self._slot_req[s]
+            got.append(PreemptedRequest(
+                request_id=q.request_id, prompt=q.prompt,
+                max_new=q.max_new, key=q.key, tokens=self.emitted(s),
+                priority=q.priority, deadline=q.deadline))
+            self._busy[s] = False
+            self._slot_req[s] = None
+            self._h_n_emitted[s] = 0
+            self._h_prefilling[s] = False
+            self._free_blocks += int(self._slot_blocks[s])
+            self._slot_blocks[s] = 0
+        self._reclaim_fresh = False
+        self.preemptions += len(slots)
+        return got
+
+    def resubmit(self, p: PreemptedRequest) -> None:
+        """Re-queue a preempted request at the FRONT of the queue with
+        its id, key, priority and deadline: the replay regenerates the
+        same stream from the prompt."""
+        self.queue.insert(0, _Queued(p.request_id, p.prompt, p.max_new,
+                                     p.key, p.priority, p.deadline))
 
     def run_until_drained(self) -> List[FinishedRequest]:
         """Drive until queue and pool are empty; returns all finished."""
@@ -883,14 +1406,17 @@ class DecodeScheduler:
         calls each report their own counters. Manual ``step()`` driving
         mid-run is unaffected: the scheduler is not idle then."""
         p = self.pool
-        for t in (p.steps, p.slot_steps, p.chunk_steps, p.decode_steps,
-                  p.launches, p.slot_accepted, p.slot_windows):
-            t.zero_()
+        with self._on_device():
+            for t in (p.steps, p.slot_steps, p.chunk_steps, p.decode_steps,
+                      p.launches, p.slot_accepted, p.slot_windows):
+                t.zero_()
         self._counts[:] = 0
         self._launches[:] = 0
         self._spec_counts[:] = 0
         self.tokens_emitted = 0
         self.host_reads = self.segments = self.graph_replays = 0
+        self.prefix_hit_blocks = self.prefix_evictions = 0
+        self.peak_resident = self.preemptions = 0
 
     @property
     def total_steps(self) -> int:

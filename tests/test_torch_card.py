@@ -607,3 +607,232 @@ def test_forward_flash_path_equals_chunked_path_on_card(cuda_device):
         "cuda") == "cuda-flash:sm_90a"
     torch.testing.assert_close(logits["cuda"], logits["gather"], rtol=1e-4,
                                atol=1e-4)
+
+
+def _aliased_case(kind, dtype, block, device, seed=0):
+    """A block table whose rows alias blocks, as the prefix cache leaves
+    it: rows 0-3 share a 5-block prefix (row 0 owns it), rows 4-5 a
+    3-block one, row 6 maps one shared block and row 7 none; each row's
+    private blocks follow. Decode reads each row to a length past its
+    shared prefix; the chunk starts at the row's first unshared position
+    (``q_off = hits x block``), as a prefix hit's prefill does."""
+    rng = np.random.default_rng(seed)
+    B, H, KV, hd, bpr, C = 8, 32, 8, 64, 256 // block, 40
+    hits = np.array([5, 5, 5, 5, 3, 3, 1, 0])
+    n_blocks = B * bpr + 3
+    ids = iter(rng.permutation(n_blocks))
+    prefix = {5: [next(ids) for _ in range(5)], 3: [next(ids) for _ in
+                                                    range(3)],
+              1: [next(ids)], 0: []}
+    table = np.full((B, bpr), -1, np.int64)
+    if kind == "decode":
+        lens = hits * block + rng.integers(1, 3 * block, B)
+        need = -(-lens // block)
+        q = rng.standard_normal((B, 1, H, hd))
+    else:
+        lens = hits * block
+        need = -(-(lens + C) // block)
+        q = rng.standard_normal((B, C, H, hd))
+    for b in range(B):
+        row = prefix[hits[b]] + [next(ids) for _ in range(need[b] - hits[b])]
+        table[b, :len(row)] = row
+    pools = rng.standard_normal((2, n_blocks, block, KV, hd))
+    dt = getattr(torch, dtype)
+    return (torch.tensor(q, dtype=dt, device=device),
+            torch.tensor(pools[0], dtype=dt, device=device),
+            torch.tensor(pools[1], dtype=dt, device=device),
+            torch.tensor(table, dtype=torch.int32, device=device),
+            torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [16, 8])
+def test_block_table_kernels_over_aliased_tables(cuda_device, kind, dtype,
+                                                 block):
+    """Both block-table kernels read blocks that several rows' tables
+    map (the prefix cache's sharing) as their plain versions do."""
+    args = _aliased_case(kind, dtype, block, cuda_device)
+    kern, plain = ((pa_kernel.paged_attention, paged_attention_ref)
+                   if kind == "decode"
+                   else (fp_kernel.flash_prefill, flash_prefill_ref))
+    out = kern(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain(*args).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_copy_on_write_on_card_equals_cpu(cuda_device):
+    """alloc with shared blocks and pins, a sharer's copy-on-write, a
+    dry pool, release and free: on the card the tables, refcounts,
+    owners and pools equal the same calls' on the CPU."""
+    caches = {}
+    for dev in ("cpu", cuda_device):
+        c = kvc.PagedKVCache.create(2, 3, 12, 2, 64, torch.float32, dev,
+                                    block=4, n_blocks=7, sharing=True)
+        g = torch.Generator().manual_seed(0)
+        c.k_pool.copy_(torch.randn(c.k_pool.shape, generator=g))
+        c.v_pool.copy_(-c.k_pool)
+
+        def t(a):
+            return torch.tensor(a, dtype=torch.int32, device=dev)
+        pin = torch.zeros((1, 3), dtype=torch.bool, device=dev)
+        pin[0, :2] = True
+        c.alloc(t([0]), t([12]), pin=pin)
+        shared = torch.full((2, 3), -1, dtype=torch.int32, device=dev)
+        shared[:, :2] = c.table[0, :2]
+        c.alloc(t([1, 2]), t([12, 8]), shared=shared)
+        c.ensure_private(t([1, 2]), start=t([2, 5]), width=4)
+        c.release(c.table[0, :1].clone())
+        c.free(t([0]))
+        caches[str(dev)] = c
+    a, b = caches["cpu"], caches[str(cuda_device)]
+    for x in ("table", "refcount", "owner", "k_pool", "v_pool"):
+        assert torch.equal(getattr(a, x), getattr(b, x).cpu()), x
+
+
+def _prefix_requests(cfg, rng):
+    """Prompts with a shared 32-token system prefix and distinct tails,
+    and whole repeats."""
+    system = rng.integers(2, cfg.vocab, 32)
+    tails = [rng.integers(2, cfg.vocab, n) for n in (9, 16, 5)]
+    ps = [np.concatenate([system, t]) for t in tails]
+    ps += [ps[0], ps[1], ps[0]]
+    return [(p[None].astype(np.int32), m)
+            for p, m in zip(ps, (9, 12, 5, 8, 10, 7))]
+
+
+@pytest.mark.cuda
+def test_prefix_cache_graph_segment_on_card(cuda_device):
+    """A smoke model (hd 64) through the chunked paged scheduler with the
+    prefix cache on the card in fp32: graph segments give the host-read
+    segments' streams and the cache-off run's, with the same hits; both
+    block-table kernels launch (counted on the device in the graph) and
+    nothing gathers; after the drain the device's free count is the host
+    mirror's."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                              compute_dtype="float32", head_dim=64,
+                              n_heads=8, n_kv_heads=2, d_model=128,
+                              attn_impl="cuda")
+    params = bridge.init_params(cfg, seed=0, device=cuda_device)
+    reqs = _prefix_requests(cfg, np.random.default_rng(3))
+    runs = {}
+    for name, loop, pfx in (("graph", "graph", True), ("host", "host", True),
+                            ("off", "graph", False)):
+        sched = sched_lib.DecodeScheduler(
+            params, cfg, n_slots=2, prompt_len=48, max_new_cap=12,
+            eos_id=-1, kv="paged", kv_block=16, prefill="chunked",
+            chunk_tokens=16, loop=loop, prefix_cache=pfx)
+        sched.warmup()
+        c0 = (pa_kernel.paged_attention.launches,
+              fp_kernel.flash_prefill.launches, kvc.PagedView.gather_calls)
+        for rid, (p, m) in enumerate(reqs):
+            sched.submit(p, max_new=m, request_id=rid)
+        streams = {f.request_id: f.tokens for f in sched.run_until_drained()}
+        torch.cuda.synchronize()
+        c1 = (pa_kernel.paged_attention.launches,
+              fp_kernel.flash_prefill.launches, kvc.PagedView.gather_calls)
+        runs[name] = (streams, sched.prefix_hit_blocks,
+                      [b - a for a, b in zip(c0, c1)])
+        assert sched.free_blocks == int(
+            sched.pool.cache["attn"].free_count)
+        sched.close()
+    g, h, off = runs["graph"], runs["host"], runs["off"]
+    assert g[1] == h[1] > 0 and off[1] == 0
+    assert g[2] == h[2] and min(g[2][:2]) > 0 and g[2][2] == 0
+    for rid, (_, m) in enumerate(reqs):
+        assert len(g[0][rid]) == m
+        np.testing.assert_array_equal(g[0][rid], h[0][rid])
+        np.testing.assert_array_equal(g[0][rid], off[0][rid])
+
+
+@pytest.mark.cuda
+def test_graph_segment_stepped_from_a_worker_thread_on_card(cuda_device):
+    """The segment captured on the main thread replays from a worker
+    thread (the streaming front-end's driver) on the scheduler's own
+    stream: the streams equal the main thread's run."""
+    import asyncio
+    cfg = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                              compute_dtype="float32", head_dim=64,
+                              n_heads=8, n_kv_heads=2, d_model=128,
+                              attn_impl="cuda")
+    params = bridge.init_params(cfg, seed=0, device=cuda_device)
+    reqs = _prefix_requests(cfg, np.random.default_rng(4))
+
+    def make():
+        s = sched_lib.DecodeScheduler(
+            params, cfg, n_slots=2, prompt_len=48, max_new_cap=12,
+            eos_id=-1, kv="paged", kv_block=16, prefill="chunked",
+            chunk_tokens=16, prefix_cache=True)
+        s.warmup()
+        for rid, (p, m) in enumerate(reqs):
+            s.submit(p, max_new=m, request_id=rid)
+        return s
+
+    main = make()
+    want = {f.request_id: f.tokens for f in main.run_until_drained()}
+    main.close()
+    sched = make()
+
+    async def drive():
+        out = {}
+        while sched.pending:
+            for f in await asyncio.to_thread(sched.step, True, 4):
+                out[f.request_id] = f.tokens
+        return out
+
+    got = asyncio.run(drive())
+    torch.cuda.synchronize()
+    assert sched.loop_impl == "cuda-graph:while" and sched.graph_replays > 0
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    sched.close()
+
+
+@pytest.mark.cuda
+def test_copy_on_write_inside_a_captured_loop_on_card(cuda_device):
+    """In a body that ``DeviceLoop`` captures, ``ensure_private`` puts the
+    copy behind an IF node on ``any(needs)``: the first replay copies the
+    shared blocks (as the eager branchless form does on the CPU), the
+    second finds nothing to copy and changes nothing."""
+    from repro_torch.core import device_loop
+
+    def build(dev):
+        c = kvc.PagedKVCache.create(2, 3, 12, 2, 64, torch.float32, dev,
+                                    block=4, n_blocks=9, sharing=True)
+        g = torch.Generator().manual_seed(1)
+        c.k_pool.copy_(torch.randn(c.k_pool.shape, generator=g))
+        c.v_pool.copy_(-c.k_pool)
+        t = functools.partial(torch.tensor, dtype=torch.int32, device=dev)
+        pin = torch.zeros((1, 3), dtype=torch.bool, device=dev)
+        pin[0, :2] = True
+        c.alloc(t([0]), t([12]), pin=pin)
+        shared = torch.full((2, 3), -1, dtype=torch.int32, device=dev)
+        shared[:, :2] = c.table[0, :2]
+        c.alloc(t([1, 2]), t([12, 8]), shared=shared)
+        return c, t([1, 2]), t([2, 5])
+
+    cpu, rows, start = build("cpu")
+    cpu.ensure_private(rows, start=start, width=4)
+    card, rows, start = build(cuda_device)
+    carry = torch.zeros((), dtype=torch.int32, device=cuda_device)
+
+    def body(c):
+        card.ensure_private(rows, start=start, width=4)
+        return c
+
+    with torch.no_grad():           # capture runs no kernel
+        loop = device_loop.DeviceLoop(None, body, carry, max_iters=1)
+    loop.run()
+    torch.cuda.synchronize()
+    for x in ("table", "refcount", "owner", "k_pool", "v_pool"):
+        assert torch.equal(getattr(cpu, x), getattr(card, x).cpu()), x
+    after = [getattr(card, x).clone() for x in ("table", "refcount",
+                                                 "k_pool")]
+    loop.run()
+    torch.cuda.synchronize()
+    for x, v in zip(("table", "refcount", "k_pool"), after):
+        assert torch.equal(getattr(card, x), v), x
+    loop.close()
