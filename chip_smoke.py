@@ -180,9 +180,30 @@ Phases, each printing its own lines:
     worker thread): 16 requests from 4 prompts arriving eight at a time
     0.1 s apart, so that the second eight find every slot held: every
     stream ends in ``done`` with its tokens, some stream is preempted,
-    both kernels launch and nothing gathers.
+    both kernels launch and nothing gathers;
+23. adaptive depth at llama3.2-1b full width (bf16, phase 4's pool and
+    16 requests): (a) early exit at threshold inf, an IF node a layer
+    in graph segments (``cuda-graph:if-per-layer``) and a read of the
+    halt vector a layer in host-read ones, in turns with the
+    non-adaptive graph run: streams 16/16 equal to it, mean depth
+    exactly 16, the kernels' launches equal to its (and its equal to
+    phase 4's), one host read a graph segment and no predicate read;
+    (b) exit by construction: ``wo`` and ``w_down`` zeroed from layer 2
+    on, threshold -1 and a floor of 2: streams 16/16 equal to the same
+    doctored model's non-adaptive run, mean depth exactly 2, and
+    ``paged_attention`` launches (counted on the device) exactly 2/16 of
+    that run's with ``flash_prefill`` unchanged (the port of the JAX
+    package's ``check_depth_gating``); (c) mixture-of-depths (capacity
+    0.5, every 2, zero routers) in fp32 on 8 requests: graph segments,
+    host-read segments and ``engine.generate_batch_sync`` give identical
+    streams; (d) printed: tok/s and device ms an iteration of every
+    run, ``exit_margin``'s device ms at B=8 beside its byte bound, what
+    remains of inf's extra time after its 16 margins, and the mean depth
+    at thresholds 0.05, 0.2 and 0.8, each beside the card's name and
+    power limit.
 
-The llama3.2-1b weights are freed before falcon-mamba's are made, and
+The llama3.2-1b weights are freed before phase 23 and falcon-mamba's
+are made (phase 23 frees its own before the next), and
 falcon-mamba's before the LSTM phases, and each of the last three
 phases frees what it made. Then
 one JSON line of kernel records and, last, the device line. Any
@@ -2191,6 +2212,279 @@ def phase_stream():
     return s
 
 
+# ------------------------------------------------------- adaptive depth
+
+EXIT_AT = 2          # phase 23: blocks from this layer on are identities
+EXIT_SWEEP = (0.05, 0.2, 0.8)   # finite thresholds on the undoctored model
+UNEMBED_B = 8        # rows of the exit margin timed alone (8 slots)
+
+
+def identity_tail(params, e):
+    """``wo`` and ``w_down`` zeroed from layer ``e`` on (fresh tensors
+    for those two leaves, the rest shared): both residual branches add
+    exact zeros, so those layers are identities
+    (``benchmarks/bench_adaptive_depth.py``'s construction)."""
+    out = dict(params)
+    lay = out["layers"] = dict(params["layers"])
+    lay["attn"], lay["mlp"] = dict(lay["attn"]), dict(lay["mlp"])
+    for tree, name in ((lay["attn"], "wo"), (lay["mlp"], "w_down")):
+        tree[name] = tree[name].clone()
+        tree[name][e:] = 0
+    return out
+
+
+def ready(sched, reqs):
+    """Capture (a graph scheduler) and warm up on one request."""
+    import torch
+    sched.warmup()
+    drive(sched, reqs[:1])
+    torch.cuda.synchronize()
+    return sched
+
+
+def adaptive_run(tag, sched, reqs):
+    """One run of ``reqs``: streams, kernel launches (counted on the
+    device in a graph segment, in Python at each eager launch), mean
+    depth, tok/s, and for a graph run the device's time in segments
+    (CUDA events) with its gates: one host read a segment and no
+    predicate read."""
+    import torch
+    from repro_torch import core
+    from repro_torch.core.device_loop import DeviceLoop
+    counters = launch_counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    graph = sched.loop_impl.startswith("cuda-graph:")
+    reads0 = (DeviceLoop.host_reads, core.while_loop.host_reads)
+    finish = instrument_sync(sched) if graph else None
+    t0 = time.perf_counter()
+    streams = drive(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_streams(streams, reqs, sched.cfg)
+    reads = (DeviceLoop.host_reads - reads0[0],
+             core.while_loop.host_reads - reads0[1])
+    run = {"streams": streams, "wall": wall,
+           "tok_s": sched.tokens_emitted / wall,
+           "launches": {n: getattr(o, a) for n, (o, a) in counters.items()},
+           "mean_depth": sched.mean_depth, "depth_impl": sched.depth_impl,
+           "iterations": sched.total_steps,
+           "decodes": int(sched._counts[3]), "reads": reads}
+    line = (f"[{tag}] {sched.loop_impl}, layer loop {sched.depth_impl}: "
+            f"{sched.tokens_emitted} tokens in {wall:.3f} s -> "
+            f"{run['tok_s']:.1f} tok/s, {run['iterations']} iterations "
+            f"({run['decodes']} with a decode), mean depth "
+            f"{run['mean_depth']:.4f}, launches pa "
+            f"{run['launches']['paged_attention']} fp "
+            f"{run['launches']['flash_prefill']}, {sched.segments} segments,"
+            f" {sched.host_reads} harvest reads, {reads[1]} predicate reads")
+    if graph:
+        if not sched.host_reads == sched.segments == sched.graph_replays > 0:
+            raise AssertionError(
+                f"{tag}: {sched.host_reads} host reads, "
+                f"{sched.graph_replays} graph launches for {sched.segments}"
+                f" segments")
+        if reads != (sched.segments, 0):
+            raise AssertionError(f"{tag}: (transfers, predicate reads) "
+                                 f"{reads} in {sched.segments} graph "
+                                 f"segments")
+        _, _, _, seg_ms = finish()
+        run["seg_ms"] = seg_ms
+        run["ms_iter"] = seg_ms / max(run["iterations"], 1)
+        line += (f"; device in segments {seg_ms:.1f} ms = "
+                 f"{run['ms_iter']:.4f} ms an iteration")
+    log(line)
+    if run["launches"]["gather"]:
+        raise AssertionError(f"{tag}: the gather path ran")
+    return run
+
+
+def same_count(tag, got, want):
+    """Greedy streams equal, request for request (a gate)."""
+    same = sum(len(got[r]) == len(want[r]) and bool((got[r] == want[r]).all())
+               for r in want)
+    log(f"[{tag}] streams equal {same}/{len(want)}")
+    if same != len(want):
+        raise AssertionError(f"{tag}: streams equal {same}/{len(want)}")
+
+
+def margin_cost(params, cfg):
+    """``exit_margin``'s device ms a call at B = UNEMBED_B (CUDA-graph
+    replays of four calls on four hidden-state copies) beside its byte
+    bound: the unembed read once, the rows and the margin moved once."""
+    import torch
+    from repro_torch.models import adaptive
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    xs = [torch.randn((UNEMBED_B, 1, cfg.d_model), generator=gen,
+                      device="cuda").to(cfg.dtype("compute"))
+          for _ in range(4)]
+    ms = graph_ms(lambda i: adaptive.exit_margin(params, cfg, xs[i]), 4)
+    w = params["embed"]
+    nbytes = (w.numel() * w.element_size()
+              + xs[0].numel() * xs[0].element_size()
+              + params["ln_final"].numel() * 4 + UNEMBED_B * 4)
+    flops = 2 * UNEMBED_B * cfg.d_model * cfg.padded_vocab
+    bound = max(nbytes / HBM_BYTES_PER_S,
+                flops / PEAK_FLOPS["bfloat16"]) * 1e3
+    return ms, bound, nbytes
+
+
+def phase_adaptive(plain_launches):
+    """Adaptive depth at llama3.2-1b full width (bf16, the chunked paged
+    pool of phase 4, the 16 serving requests): (a) threshold inf, graph
+    and host-read, against the non-adaptive graph run; (b) exit by
+    construction at an identity tail from layer ``EXIT_AT``; (c)
+    mixture-of-depths in fp32 through graph, host-read and
+    batch-synchronous decoding; (d) times (printed, not gated)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.serve import engine
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
+    L = cfg.n_layers
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    reqs = serving_requests(cfg)
+    inf = dataclasses.replace(cfg, early_exit=True)
+
+    # (a) threshold inf against the non-adaptive graph run, in turns
+    plain = ready(make_scheduler(params, cfg), reqs)
+    ada = ready(make_scheduler(params, inf), reqs)
+    host = ready(make_scheduler(params, inf, "host"), reqs)
+    a1 = adaptive_run("adaptive inf plain", plain, reqs)
+    b1 = adaptive_run("adaptive inf graph", ada, reqs)
+    h = adaptive_run("adaptive inf host-read", host, reqs)
+    b2 = adaptive_run("adaptive inf graph", ada, reqs)
+    a2 = adaptive_run("adaptive inf plain", plain, reqs)
+    host.close()
+    want = {k: a1["launches"][k] for k in ("paged_attention",
+                                           "flash_prefill")}
+    if want != plain_launches:
+        raise AssertionError(f"adaptive: the non-adaptive run launched "
+                             f"{want}, phase 4 {plain_launches}")
+    for run in (b1, h, b2):
+        same_count(f"adaptive inf {run['depth_impl']}", run["streams"],
+                   a1["streams"])
+        got = {k: run["launches"][k] for k in want}
+        if run["mean_depth"] != float(L) or got != want:
+            raise AssertionError(
+                f"adaptive inf ({run['depth_impl']}): mean depth "
+                f"{run['mean_depth']}, launches {got} against {want}")
+    if b1["depth_impl"] != "cuda-graph:if-per-layer" or \
+            h["depth_impl"] != "host-read":
+        raise AssertionError(f"adaptive: lowerings {b1['depth_impl']}, "
+                             f"{h['depth_impl']}")
+    log(f"[adaptive] inf: host-read lowering read the halt vector "
+        f"{h['reads'][1]} times ({h['reads'][1] / max(h['decodes'], 1):.2f}"
+        f" a decode iteration, {L} layers); graph lowering 0")
+
+    # (b) exit by construction: identities from layer EXIT_AT, every row
+    # halting after it (threshold -1, floor EXIT_AT)
+    doc = identity_tail(params, EXIT_AT)
+    ecfg = dataclasses.replace(cfg, early_exit=True, exit_threshold=-1.0,
+                               exit_min_layers=EXIT_AT)
+    dplain = ready(make_scheduler(doc, cfg), reqs)
+    dexit = ready(make_scheduler(doc, ecfg), reqs)
+    dhost = ready(make_scheduler(doc, ecfg, "host"), reqs)
+    c1 = adaptive_run("adaptive exit plain", dplain, reqs)
+    d1 = adaptive_run("adaptive exit graph", dexit, reqs)
+    dh = adaptive_run("adaptive exit host-read", dhost, reqs)
+    d2 = adaptive_run("adaptive exit graph", dexit, reqs)
+    c2 = adaptive_run("adaptive exit plain", dplain, reqs)
+    for sched in (dplain, dexit, dhost):
+        sched.close()
+    for run in (d1, dh, d2):
+        same_count(f"adaptive exit {run['depth_impl']}", run["streams"],
+                   c1["streams"])
+        pa, fp = (run["launches"][k] for k in ("paged_attention",
+                                                "flash_prefill"))
+        if run["mean_depth"] != float(EXIT_AT) or \
+                pa * L != c1["launches"]["paged_attention"] * EXIT_AT or \
+                fp != c1["launches"]["flash_prefill"]:
+            raise AssertionError(
+                f"adaptive exit ({run['depth_impl']}): mean depth "
+                f"{run['mean_depth']}, launches pa {pa} fp {fp} against "
+                f"{c1['launches']}")
+    log(f"[adaptive] exit at {EXIT_AT}: paged_attention "
+        f"{d1['launches']['paged_attention']} = {EXIT_AT}/{L} of "
+        f"{c1['launches']['paged_attention']} (device-counted), "
+        f"flash_prefill {d1['launches']['flash_prefill']} unchanged")
+
+    # (d) the margin alone, and the sweep on the undoctored model
+    m_ms, m_bound, m_bytes = margin_cost(params, cfg)
+    sweep = []
+    for thr in EXIT_SWEEP:
+        sched = ready(make_scheduler(params, dataclasses.replace(
+            inf, exit_threshold=thr)), reqs)
+        run = adaptive_run(f"adaptive threshold {thr:g}", sched, reqs)
+        sched.close()
+        if not 1.0 <= run["mean_depth"] <= L:
+            raise AssertionError(f"adaptive threshold {thr}: mean depth "
+                                 f"{run['mean_depth']}")
+        sweep.append((thr, run["mean_depth"], run["tok_s"]))
+    plain.close()
+    ada.close()
+    dec = max(a1["decodes"], 1)
+    extra = [(b["seg_ms"] - a["seg_ms"]) / dec for a, b in ((a1, b1),
+                                                             (a2, b2))]
+    log(f"[adaptive] {smi}: tok/s non-adaptive {a1['tok_s']:.1f}, "
+        f"{a2['tok_s']:.1f}; inf {b1['tok_s']:.1f}, {b2['tok_s']:.1f} "
+        f"(host-read {h['tok_s']:.1f}); doctored non-adaptive "
+        f"{c1['tok_s']:.1f}, {c2['tok_s']:.1f}; exit at {EXIT_AT} "
+        f"{d1['tok_s']:.1f}, {d2['tok_s']:.1f} (host-read {dh['tok_s']:.1f})"
+        f" | device ms an iteration: non-adaptive {a1['ms_iter']:.4f}, "
+        f"{a2['ms_iter']:.4f}; inf {b1['ms_iter']:.4f}, "
+        f"{b2['ms_iter']:.4f}; doctored {c1['ms_iter']:.4f}, "
+        f"{c2['ms_iter']:.4f}; exit {d1['ms_iter']:.4f}, "
+        f"{d2['ms_iter']:.4f}")
+    log(f"[adaptive] {smi}: exit_margin at B={UNEMBED_B} {m_ms:.4f} ms a "
+        f"call (device, CUDA-graph replay), bound {m_bound:.4f} ms "
+        f"({m_bytes / 1e6:.1f} MB, bytes); inf's extra device ms a decode "
+        f"iteration {extra[0]:.4f}, {extra[1]:.4f}, of which {L} margins "
+        f"{L * m_ms:.4f}, the rest (the {2 * L} IF nodes, the state "
+        f"updates) {extra[0] - L * m_ms:.4f}, {extra[1] - L * m_ms:.4f}")
+    log(f"[adaptive] {smi}: mean depth at thresholds "
+        + ", ".join(f"{t:g}: {d:.4f} ({r:.1f} tok/s)" for t, d, r in sweep)
+        + f"; inf {float(L):.1f}")
+    del params, doc, plain, ada, host, dplain, dexit, dhost
+    free_device_memory("the mixture-of-depths run")
+
+    # (c) mixture-of-depths, fp32: graph, host-read and batch-sync
+    mcfg = dataclasses.replace(cfg, compute_dtype="float32",
+                               mod_capacity=0.5, mod_every=2)
+    mparams = bridge.init_params(mcfg, seed=0, device="cuda")
+    sub = reqs[:8]
+    runs = {}
+    for loop in ("graph", "host"):
+        sched = ready(make_scheduler(mparams, mcfg, loop), sub)
+        runs[loop] = adaptive_run(f"adaptive mod {loop}", sched, sub)
+        sched.close()
+    same_count("adaptive mod host-read", runs["host"]["streams"],
+               runs["graph"]["streams"])
+    cap = max(m for _, m in sub)
+    prompts = torch.from_numpy(np.concatenate([p for p, _ in sub])).cuda()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = engine.generate_batch_sync(mparams, mcfg, prompts,
+                                         max_new=cap, eos_id=-1,
+                                         kv_impl="paged", kv_block=16)
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    toks = res.tokens.cpu().numpy()
+    same_count("adaptive mod batch-sync", {
+        r: toks[r, :len(runs["graph"]["streams"][r])] for r in range(8)},
+        runs["graph"]["streams"])
+    log(f"[adaptive] mod (capacity 0.5, every 2, zero routers) fp32: mean "
+        f"depth {runs['graph']['mean_depth']:.4f} graph, "
+        f"{runs['host']['mean_depth']:.4f} host-read; batch-sync "
+        f"{sync_s:.3f} s for 8 x {cap}")
+
+
 def lstm_case(seed, B, D, H, dtype):
     """Operands of one LSTM step on the card at lstm_init's weight scale,
     with a non-zero bias and incoming state."""
@@ -3032,6 +3326,9 @@ def main() -> int:
     timed(phase_prefix_cache)
     timed(phase_slo)
     timed(phase_stream)
+    free_device_memory("the adaptive-depth phase")
+    timed(phase_adaptive, {k: launches[k] for k in ("paged_attention",
+                                                    "flash_prefill")})
     free_device_memory("the selective-scan phases")
     records.append(timed(phase_scan_kernel))
     free_device_memory("falcon-mamba-7b")

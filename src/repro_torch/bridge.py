@@ -10,8 +10,9 @@ package casts them at every use (``transformer.attn_apply``,
 ``layers.swiglu``, the engine's embedding lookups), which in eager
 PyTorch would copy every weight on every step. Leaves the JAX package
 reads in fp32 stay in ``cfg.param_dtype``: the norm weights (``ln``,
-``ln_*``) and the mamba recurrence's ``A_log``, ``dt_bias`` and
-``D_skip``. Cast to bf16, ``A_log`` would change every channel's decay
+``ln_*``), the mixture-of-depths router (``layers.router.w``, drawn
+when ``cfg.mod_capacity > 0``) and the mamba recurrence's ``A_log``,
+``dt_bias`` and ``D_skip``. Cast to bf16, ``A_log`` would change every channel's decay
 ``exp(dt * A)``.
 
 For training, ``keep_param_dtype=True`` keeps EVERY leaf in
@@ -44,7 +45,7 @@ from .optim import adamw
 
 
 def _keeps_param_dtype(name: str) -> bool:
-    return name == "ln" or name.startswith("ln_") or \
+    return name in ("ln", "router") or name.startswith("ln_") or \
         name in ssm.PARAM_DTYPE_LEAVES
 
 

@@ -9,16 +9,16 @@ every one holding the greedy tokens of the first:
    budgets, retiring a slot on the device and admitting a queued
    request between segments;
 3. the paged KV cache, the block-table kernels (``attn_impl="cuda"``),
-   chunked prefill, the prefix cache, speculative decoding and the SLO
-   layer with preemption.
+   chunked prefill, the prefix cache, speculative decoding, the SLO
+   layer with preemption and adaptive depth (early exit).
 
     PYTHONPATH=src python -m repro_torch.examples.serve_decode
     PYTHONPATH=src python -m repro_torch.examples.serve_decode --device cpu
 
 Weights are random, from a seed, at smoke width, in fp32. It runs on
 the card unless ``--device cpu`` is given (the kernels' plain
-versions). The reference's disaggregation and adaptive-depth sections
-wait for those modules (ROADMAP.md).
+versions). The reference's disaggregation section waits for that
+module (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -204,7 +204,27 @@ def main(argv=None):
           f"{summary['interactive']['ttft_steps']['p50']:.0f} steps vs "
           f"batch {summary['batch']['ttft_steps']['p50']:.0f}, all "
           f"{slo.completed} requests completed")
-    for s in (sched, paged, kern, chunked, pfx, spec, tight):
+
+    # ---- adaptive depth: confident tokens stop running layers ----------
+    # early_exit=True runs the decode layer loop while any row is live:
+    # after each block the model's own unembed scores the hidden state,
+    # and rows whose top1 - top2 logit margin clears exit_threshold halt;
+    # their K/V for the skipped layers is filled from the halting layer's
+    # hidden state. Inside a captured segment each layer sits behind an
+    # IF node. The default threshold (inf) never halts a row and gives
+    # the non-adaptive tokens bit for bit; a finite one trades fidelity
+    # for depth. (CLI: ... --early-exit --exit-threshold 0.05)
+    acfg = dataclasses.replace(cfg, early_exit=True)   # threshold = inf
+    ada, got = serve(acfg)
+    same(got)
+    print(f"[serve] adaptive depth (threshold=inf, {ada.depth_impl}): "
+          f"identical tokens, mean {ada.mean_depth:.1f} layers/token of "
+          f"{cfg.n_layers} (no row ever halted)")
+    fast, _ = serve(dataclasses.replace(acfg, exit_threshold=0.05))
+    print(f"[serve] adaptive depth (threshold=0.05): mean "
+          f"{fast.mean_depth:.2f} layers/token, confident tokens exited "
+          f"early")
+    for s in (sched, paged, kern, chunked, pfx, spec, tight, ada, fast):
         s.close()
 
 

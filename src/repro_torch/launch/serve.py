@@ -39,8 +39,7 @@ length:
 prompt blocks between requests: a repeated prompt maps the cached blocks
 into its own table and starts prefilling at its first uncached block;
 ``--prompt-pool P`` draws the prompts from P distinct ones (the traffic
-it serves), and ``--compare`` re-runs the workload with the prefix cache
-(and speculation) off, side by side. ``--trace FILE`` replays a CSV of
+it serves). ``--trace FILE`` replays a CSV of
 ``arrival_s,max_new`` lines instead of Poisson arrivals. The report
 gives TTFT and inter-token p50/p99 from host timestamps taken when the
 tokens reach the host (each harvest; a burst of j tokens over a gap g
@@ -50,6 +49,29 @@ counts j gaps of g/j):
         --slots 8 --prompt-len 512 --requests 16 --kv paged \
         --attn-impl cuda --prefill chunked --chunk-tokens 128 \
         --prefix-cache --prompt-pool 4 --compare
+
+``--early-exit`` (with ``--exit-threshold T --exit-min-layers M``) turns
+on confidence-based early exit: a row whose shared-unembed top1 - top2
+logit margin clears T after at least M layers stops running layers, and
+the K/V of the layers it skips is filled from its hidden state;
+``--mod-capacity C --mod-every N`` turns on mixture-of-depths routing
+(zero-initialised routers). The report adds the mean layers a token, per
+``max_new`` class, and the lowering of the layer loop
+(``cuda-graph:if-per-layer`` inside a graph segment, ``host-read``
+otherwise). Threshold inf (the default) runs the halt machinery and
+emits the non-adaptive streams bit for bit.
+
+``--compare`` always runs the batch-synchronous baseline
+(``engine.generate_batch_sync``, back to back at equal slot count, the
+same cache layout and attention path) and prints the continuous /
+batch-synchronous tok/s ratio; with ``--prefix-cache``, ``--spec-k`` or
+``--early-exit`` it also re-runs the continuous workload with those off
+and prints the two side by side:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --slots 8 --prompt-len 512 --requests 16 --kv paged \
+        --attn-impl cuda --prefill chunked --chunk-tokens 128 \
+        --early-exit --exit-threshold 0.5 --compare
 
 ``--stream`` serves through the asyncio front-end
 (``serve.frontend.StreamingFrontend``) over the SLO scheduler
@@ -81,6 +103,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.serve import engine
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve import scheduler as sched_lib
 from repro_torch.serve import speculative as spec_lib
@@ -198,6 +221,7 @@ def run_continuous(args, cfg, params, workload):
         seed=args.seed, speculative=spec, draft_params=draft_params,
         draft_cfg=draft_cfg, prefix_cache=args.prefix_cache)
     prompts = make_prompts(args, cfg, len(workload))
+    req_depth = {}
     # Warm-up request outside the timed window: loads the kernels and
     # the math libraries on the device (a prompt of none of the
     # requests', so that it warms no prefix-cache entry of theirs).
@@ -233,6 +257,7 @@ def run_continuous(args, cfg, params, workload):
         for f in finished:
             finish_wall[f.request_id] = now
             streams[f.request_id] = f.tokens
+            req_depth[f.request_id] = f.mean_depth
     _sync(sched.device)
     wall = time.perf_counter() - t0
     busy = max(wall - idle_s, 1e-9)
@@ -255,7 +280,48 @@ def run_continuous(args, cfg, params, workload):
             "prefix_hit_blocks": sched.prefix_hit_blocks,
             "prefix_evictions": sched.prefix_evictions,
             "peak_resident": sched.peak_resident, "streams": streams,
-            **clock.summary()}
+            "mean_depth": sched.mean_depth, "req_depth": req_depth,
+            "depth_impl": sched.depth_impl, **clock.summary()}
+
+
+def run_batch_sync(args, cfg, params, workload):
+    """The batch-synchronous baseline: the workload's requests in
+    batches of ``--slots``, back to back, through
+    ``engine.generate_batch_sync`` with the same prompts, cache layout
+    and attention path as the continuous run, each batch generating to
+    its longest ``max_new`` (the last batch padded with copies of its
+    last request). A row's tokens count up to its EOS or its own
+    ``max_new``. Offline: no arrival gating. The paged pool is sized
+    dense-equivalent (``--kv-blocks`` is a scheduler capacity knob)."""
+    prompts = make_prompts(args, cfg, len(workload))
+    dev = params["embed"].device
+
+    def batch(idx):
+        return torch.from_numpy(np.concatenate([prompts[i] for i in idx])
+                                ).to(dev)
+
+    def gen(idx, max_new):
+        return engine.generate_batch_sync(
+            params, cfg, batch(idx), max_new=max_new, eos_id=args.eos_id,
+            kv_impl=args.kv, kv_block=args.kv_block)
+
+    batches = [list(range(i, min(i + args.slots, len(workload))))
+               for i in range(0, len(workload), args.slots)]
+    with torch.no_grad():
+        gen([0] * args.slots, 2)     # warm-up: kernels, math libraries
+        _sync(dev)
+        toks, res = 0, None
+        t0 = time.perf_counter()
+        for b in batches:
+            cap = max(workload[i][1] for i in b)
+            res = gen(b + [b[-1]] * (args.slots - len(b)), cap)
+            lengths = res.lengths.tolist()
+            toks += sum(min(lengths[j], workload[i][1])
+                        for j, i in enumerate(b))
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    return {"wall_s": wall, "tok_s": toks / wall, "tokens": toks,
+            "attn_impl": res.attn_impl}
 
 
 def run_stream(args, cfg, params, workload):
@@ -403,9 +469,32 @@ def main(argv=None):
                     help="draw the prompts from this many distinct ones "
                          "(0: all distinct): the traffic --prefix-cache "
                          "serves")
+    ap.add_argument("--early-exit", action="store_true",
+                    help="confidence-based early-exit decode: rows whose "
+                         "top-1/top-2 logit margin clears "
+                         "--exit-threshold stop running layers; skipped "
+                         "layers' K/V is filled from the halting layer's "
+                         "hidden state; threshold inf gives the "
+                         "non-adaptive streams bit for bit")
+    ap.add_argument("--exit-threshold", type=float, default=float("inf"),
+                    help="early-exit logit-margin threshold (inf: never "
+                         "exit early; smaller: shallower)")
+    ap.add_argument("--exit-min-layers", type=int, default=1,
+                    help="layers every token runs before the halt check "
+                         "can fire")
+    ap.add_argument("--mod-capacity", type=float, default=0.0,
+                    help="mixture-of-depths: fraction of tokens each "
+                         "routed layer processes in training; decode "
+                         "routes by the per-token gate (0: off; adds "
+                         "zero-initialised router params)")
+    ap.add_argument("--mod-every", type=int, default=2,
+                    help="route every Nth layer when --mod-capacity is set")
     ap.add_argument("--compare", action="store_true",
-                    help="re-run the workload with --prefix-cache and "
-                         "--spec-k off and print both side by side")
+                    help="also run the batch-synchronous baseline and "
+                         "print the continuous/batch-sync tok/s ratio; "
+                         "with --prefix-cache, --spec-k or --early-exit, "
+                         "also re-run the continuous workload with them "
+                         "off and print both side by side")
     ap.add_argument("--stream", action="store_true",
                     help="serve through the asyncio streaming front-end "
                          "over the SLO scheduler (priority classes, "
@@ -426,6 +515,12 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.attn_impl is not None:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    if args.early_exit or args.mod_capacity:
+        cfg = dataclasses.replace(
+            cfg, early_exit=args.early_exit,
+            exit_threshold=args.exit_threshold,
+            exit_min_layers=args.exit_min_layers,
+            mod_capacity=args.mod_capacity, mod_every=args.mod_every)
     params = bridge.init_params(cfg, seed=0, device=args.device)
     workload = build_workload(args, np.random.default_rng(args.seed))
     if args.stream:
@@ -448,6 +543,16 @@ def main(argv=None):
           f"{cont['ttft_p99_s'] * 1e3:.1f}ms, inter-token p50 "
           f"{cont['itl_p50_s'] * 1e3:.2f}ms p99 "
           f"{cont['itl_p99_s'] * 1e3:.2f}ms")
+    if args.early_exit or args.mod_capacity:
+        by_class = {}
+        for rid, d in cont["req_depth"].items():
+            by_class.setdefault(workload[rid][1], []).append(d)
+        per = ", ".join(f"max_new={m}: {np.mean(ds):.2f}"
+                        for m, ds in sorted(by_class.items()))
+        print(f"[serve] adaptive depth (threshold={args.exit_threshold:g}"
+              f", mod_capacity={args.mod_capacity:g}; layer loop "
+              f"{cont['depth_impl']}): {cont['mean_depth']:.2f} mean "
+              f"layers/token of {cfg.n_layers} | per class: {per}")
     if args.prefix_cache:
         print(f"[serve] prefix cache: {cont['prefix_hit_blocks']} blocks "
               f"served from the cache, {cont['prefix_evictions']} "
@@ -458,23 +563,48 @@ def main(argv=None):
               f"accepted (accept rate {cont['accept_rate'] * 100:.0f}%), "
               f"mean accept length {cont['mean_accept_len']:.2f}, "
               f"{cont['tok_s']:.1f} tok/s")
-    if args.compare and (args.prefix_cache or args.spec_k):
+    if args.compare:
+        compare(args, cfg, params, workload, cont)
+    return cont
+
+
+def compare(args, cfg, params, workload, cont):
+    """``--compare``: the continuous run with its features off (when any
+    of the prefix cache, speculation and early exit is on; the router
+    params of mixture-of-depths serve both runs), then the
+    batch-synchronous baseline and the continuous/batch-sync ratio.
+    Adds ``off`` and ``batch_sync`` to ``cont``."""
+    if args.prefix_cache or args.spec_k or args.early_exit:
         off = argparse.Namespace(**{**vars(args), "prefix_cache": False,
-                                    "spec_k": 0})
-        base = run_continuous(off, cfg, params, workload)
+                                    "spec_k": 0, "early_exit": False})
+        base = run_continuous(off, dataclasses.replace(
+            cfg, early_exit=False), params, workload)
         same = sum(len(cont["streams"][r]) == len(base["streams"][r]) and
                    bool((cont["streams"][r] == base["streams"][r]).all())
                    for r in base["streams"])
-        feats = "+".join((["spec-k%d" % args.spec_k] if args.spec_k else [])
-                         + (["prefix-cache"] if args.prefix_cache else []))
+        feats = "+".join(
+            (["spec-k%d" % args.spec_k] if args.spec_k else [])
+            + (["prefix-cache"] if args.prefix_cache else [])
+            + (["early-exit@%g" % args.exit_threshold]
+               if args.early_exit else []))
         print(f"[serve] {feats} vs off: tok/s {cont['tok_s']:.1f} | "
               f"{base['tok_s']:.1f}; device steps {cont['steps']} | "
               f"{base['steps']}; TTFT p99 {cont['ttft_p99_s'] * 1e3:.1f} | "
               f"{base['ttft_p99_s'] * 1e3:.1f}ms; peak resident "
-              f"{cont['peak_resident']} | {base['peak_resident']}; streams "
-              f"equal {same}/{len(base['streams'])}")
+              f"{cont['peak_resident']} | {base['peak_resident']}; mean "
+              f"layers/token {cont['mean_depth']:.2f} | "
+              f"{base['mean_depth']:.2f}; streams equal "
+              f"{same}/{len(base['streams'])}")
         cont["off"] = base
-    return cont
+    sync = run_batch_sync(args, cfg, params, workload)
+    print(f"[serve] batch-sync ({sync['attn_impl']}; offline, no arrival "
+          f"gating): {sync['tokens']} tokens in {sync['wall_s']:.2f}s -> "
+          f"{sync['tok_s']:.1f} tok/s")
+    # both rates are busy-time rates, so the ratio is arrival-free
+    sync["ratio"] = cont["tok_s"] / max(sync["tok_s"], 1e-9)
+    print(f"[serve] continuous/batch-sync busy tokens/s ratio: "
+          f"{sync['ratio']:.2f}x")
+    cont["batch_sync"] = sync
 
 
 if __name__ == "__main__":

@@ -30,6 +30,11 @@ per call into per-layer views. Attention modes:
 Cache views, and the SSM state in decode, are written in place (the
 JAX package returns new ones).
 
+The decode step's layer loop with adaptive depth (``models.adaptive``:
+early exit, mixture-of-depths) is ``decode_layers``, with
+``kv_project_append`` filling the K/V of the layers a row skips; the
+full-sequence forward applies mixture-of-depths at routed layers.
+
 The full-sequence forward drives the layer stack per
 ``cfg.layer_loop`` (``_run_layers``): ``scan`` and ``unroll`` are one
 Python loop over the layers; ``paper_while`` is ``core.fori_loop``, the
@@ -53,7 +58,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import core
+from ..core import device_loop
 from ..kernels import ARCH_TAG
+from . import adaptive
 from . import attention as attn_lib
 from . import layers
 from . import ssm as ssm_lib
@@ -122,6 +129,8 @@ def build_params(cfg, b):
                     "attn": attn_params(lb, cfg, D),
                     **_norm_params(lb, cfg.norm, D, "ln_mlp"),
                     "mlp": mlp_params(lb, cfg, D, cfg.d_ff)}
+        if adaptive.mod_on(cfg):
+            layers_p["router"] = adaptive.router_params(lb, cfg)
     p = {"embed": b.p((cfg.padded_vocab, D), init="normal", scale=0.02),
          "layers": layers_p, **_norm_params(b, cfg.norm, D, "ln_final")}
     if not cfg.tie_embeddings:
@@ -253,6 +262,127 @@ def attn_block(p, x, cfg, *, positions, mode="full", kv_cache=None,
     return x + m.to(x.dtype)
 
 
+def kv_project_append(p, h, cfg, kv_cache, positions, cur_len) -> None:
+    """K/V projection and cache append only: ``attn_apply``'s decode
+    write path without q, attention or the output projection. The
+    skipped-layer K/V fill of early-exit decode: a row that halted at
+    layer ``e`` still owes the cache K/V for layers ``e..L-1``. The ops
+    mirror ``attn_apply``'s line for line, so a layer filled from ``h``
+    holds the same bits as one whose block ran on the same ``h``, which
+    must already be this layer's ``ln_attn`` output."""
+    cdt = cfg.dtype("compute")
+    xc = h.to(cdt)
+    B, S, D = xc.shape
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = (xc @ p["wk"].reshape(D, KV * hd)).reshape(B, S, KV, hd)
+    v = (xc @ p["wv"].reshape(D, KV * hd)).reshape(B, S, KV, hd)
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    k = layers.rope(k, positions, cfg.rope_theta)
+    kv_cache.append(k, v, cur_len)
+
+
+def decode_layers(lps, x, cfg, *, block_fn, halt_fn=None, kv_fill_fn=None,
+                  live=None):
+    """Drive the decode-mode layer stack (one token a row).
+
+    ``lps``: the per-layer parameter views (``layer_params``).
+    ``block_fn(lp, x, i) -> (x_new, applied)`` runs decoder block ``i``
+    and always performs its K/V append (a row whose output is masked
+    off still writes K/V projected from its frozen hidden state);
+    ``applied`` (B,) bool says which rows' residual stream advanced
+    (mixture-of-depths skips report False), None meaning every row.
+
+    ``halt_fn`` None: depth is static, a Python loop over the layers.
+    Otherwise ``halt_fn(x, i) -> (B,) bool`` marks rows allowed to halt
+    after layer ``i``: the loop runs while any row is live, ``halted |=
+    halt_fn(x, i)`` (a halted row never un-halts), halted rows carry
+    ``x`` through (their block still runs, K/V included, but its output
+    is discarded), and after the loop ``kv_fill_fn(lp, x, i)`` (K/V
+    projection only, no attention) fills layers ``i_exit..L-1`` for
+    every row. ``live`` (B,) bool: rows that keep the loop alive
+    (retired slots pass False and start halted); ignored when static.
+
+    Two lowerings of the adaptive loop. Eagerly (the CPU, and the
+    card's host-read segment) it is ``core.while_loop`` with a Python
+    layer counter: the vector predicate ``~halted`` is read once a layer
+    (``while_loop.host_reads``), and the fill is a second loop from the
+    exit counter. Inside a body that ``core.device_loop`` captures, each
+    layer sits behind an IF node on ``any(~halted)`` and each fill layer
+    ``j`` behind one on ``i_exit <= j`` (``cond(backend="graph")``): the
+    layers stay unrolled, so each reads its own weights as a view and
+    ``node.view(i)`` keeps a Python layer, and the halt vector is
+    monotone, so once the IF of layer ``k`` is false every later one is
+    too. ``depth_impl`` names the lowering.
+
+    Returns ``(x, depth)``: depth (B,) int32 counts the blocks applied
+    a row. The input ``x`` is not written."""
+    n, B, dev = len(lps), x.shape[0], x.device
+    if halt_fn is None:
+        depth = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for i, lp in enumerate(lps):
+            x, applied = block_fn(lp, x, i)
+            depth += 1 if applied is None else applied.int()
+        return x, depth
+    if kv_fill_fn is None:
+        raise ValueError("decode_layers: halt_fn requires kv_fill_fn "
+                         "(skipped-layer KV propagation)")
+    # the loop state, written in place by each layer that runs
+    x = x.clone()
+    halted = (torch.zeros((B,), dtype=torch.bool, device=dev)
+              if live is None else ~live)
+    depth = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def layer(i):
+        x_new, applied = block_fn(lps[i], x, i)
+        run = ~halted if applied is None else applied & ~halted
+        x.copy_(torch.where(run[:, None, None], x_new, x))
+        depth.add_(run.int())
+        halted.logical_or_(halt_fn(x, i))
+
+    if device_loop.capturing():
+        i_exit = torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(n):
+            def run_layer(i=i):
+                layer(i)
+                i_exit.fill_(i + 1)
+            core.cond((~halted).any(), run_layer, _no_layer,
+                      backend="graph")
+        for j in range(n):
+            core.cond(i_exit <= j,
+                      lambda j=j: kv_fill_fn(lps[j], x, j), _no_layer,
+                      backend="graph")
+        return x, depth
+
+    def body(i):
+        layer(i)
+        return i + 1
+
+    i_exit = core.while_loop(lambda i: ~halted, body, 0, max_iters=n,
+                             name="adaptive_layers")
+
+    def fill(j):
+        kv_fill_fn(lps[j], x, j)
+        return j + 1
+
+    core.while_loop(lambda j: j < n, fill, i_exit, max_iters=n,
+                    name="kv_fill")
+    return x, depth
+
+
+def depth_impl(cfg, graph: bool) -> str:
+    """Which lowering runs the decode layer loop: "static" (no early
+    exit: a Python loop), "cuda-graph:if-per-layer" (inside a captured
+    segment) or "host-read" (a predicate read a layer)."""
+    if not cfg.early_exit:
+        return "static"
+    return "cuda-graph:if-per-layer" if graph else "host-read"
+
+
+def _no_layer() -> None:
+    """The untaken side of a layer's IF node: the state is in place."""
+
+
 def ssm_block(p, x, cfg, *, mode="full", state=None):
     """Pre-norm mamba block; returns the new x. Mode ``full`` runs the
     mixer over the sequence; mode ``decode`` takes one token (x: (B, 1,
@@ -299,7 +429,7 @@ def _save_attn_out(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, cfg):
-    """Wrap one layer step ``fn(lp, x) -> x`` per ``cfg.remat``."""
+    """Wrap one layer step ``fn(lp, x, i) -> x`` per ``cfg.remat``."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":       # save only the step's inputs
@@ -315,15 +445,16 @@ def _remat(fn, cfg):
 
 def _run_layers(stacked, x, cfg, block_fn):
     """Drive the homogeneous layer stack per ``cfg.layer_loop``;
-    ``block_fn(lp, x) -> x`` runs one layer."""
+    ``block_fn(lp, x, i) -> x`` runs layer ``i`` (a Python int)."""
     step = _remat(block_fn, cfg)
     lps = layer_params(stacked)
     if cfg.layer_loop in ("scan", "unroll"):
-        for lp in lps:
-            x = step(lp, x)
+        for i, lp in enumerate(lps):
+            x = step(lp, x, i)
         return x
     if cfg.layer_loop == "paper_while":
-        return core.fori_loop(0, len(lps), lambda i, xx: step(lps[i], xx),
+        return core.fori_loop(0, len(lps),
+                              lambda i, xx: step(lps[i], xx, i),
                               x, save_policy=cfg.save_policy)
     raise ValueError(cfg.layer_loop)
 
@@ -334,11 +465,15 @@ def forward_features(params, cfg, tokens):
     x = params["embed"].to(cfg.dtype("compute"))[tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None]
     if cfg.family == "ssm":
-        def block_fn(lp, xx):
+        def block_fn(lp, xx, i):
             return ssm_block(lp, xx, cfg, mode="full")
     else:
-        def block_fn(lp, xx):
-            return attn_block(lp, xx, cfg, positions=positions, mode="full")
+        def block_fn(lp, xx, i):
+            x2 = attn_block(lp, xx, cfg, positions=positions, mode="full")
+            if adaptive.mod_on(cfg):
+                # the router weight scales the kept delta: differentiable
+                x2 = adaptive.mod_apply_full(lp["router"], xx, x2, i, cfg)
+            return x2
     x = _run_layers(params["layers"], x, cfg, block_fn)
     return layers.apply_norm(cfg.norm, x, params, "ln_final")
 

@@ -13,7 +13,9 @@ place, so the decode and chunk steps return logits only; ``prefill``
 also returns the SSM state it computed, fresh, for the caller to splice.
 
 ``decode_step`` accepts an int ``cur_len`` (whole batch in lockstep) or
-a per-row ``(B,)`` int32 tensor (slot pool at mixed depths).
+a per-row ``(B,)`` int32 tensor (slot pool at mixed depths). With
+adaptive depth (``models.adaptive``) it runs
+``transformer.decode_layers`` and can return each row's depth.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from .. import resolve_device
 from ..configs import ModelConfig, require_ported
 from ..kernels import ARCH_TAG
-from ..models import layers, ssm as ssm_lib, transformer
+from ..models import adaptive, layers, ssm as ssm_lib, transformer
 from . import kv_cache as kvc
 from . import sampling as sampling_lib
 
@@ -80,18 +82,47 @@ def _decode_positions(cur_len, device):
                       device=device)
 
 
-def _decode_attn_families(params, cfg, x, cache, cur_len, write_mask):
-    """The layer loop of a decode step (the static-depth path of the
-    JAX package's ``transformer.decode_layers``, as a Python loop)."""
+def _decode_attn_families(params, cfg, x, cache, cur_len, write_mask,
+                          live=None):
+    """The layer loop of a decode step; returns ``(x, depth)``. Without
+    adaptive depth it is a Python loop over the layers and depth is
+    None (every row ran every layer); with it,
+    ``transformer.decode_layers`` with the mixture-of-depths block, the
+    early-exit halt check and the skipped-layer K/V fill."""
     positions = _decode_positions(cur_len, x.device)
     start = (cur_len - 1) if torch.is_tensor(cur_len) else int(cur_len) - 1
     node = cache["attn"].ensure_private(start=start, width=1,
                                         mask=write_mask)
-    for i, lp in enumerate(transformer.layer_params(params["layers"])):
-        x = transformer.attn_block(
-            lp, x, cfg, positions=positions, mode="decode",
+    lps = transformer.layer_params(params["layers"])
+    if not adaptive.enabled(cfg):
+        for i, lp in enumerate(lps):
+            x = transformer.attn_block(
+                lp, x, cfg, positions=positions, mode="decode",
+                kv_cache=node.view(i, mask=write_mask), cur_len=cur_len)
+        return x, None
+
+    def block_fn(lp, xx, i):
+        x2 = transformer.attn_block(
+            lp, xx, cfg, positions=positions, mode="decode",
             kv_cache=node.view(i, mask=write_mask), cur_len=cur_len)
-    return x
+        if adaptive.mod_on(cfg):
+            return adaptive.mod_apply_decode(lp["router"], xx, x2, i, cfg)
+        return x2, None
+
+    halt_fn = adaptive.make_halt_fn(params, cfg)
+    kv_fill_fn = None
+    if halt_fn is not None:
+        # skipped-layer K/V: the frozen hidden state projected into each
+        # remaining layer's cache (no q, attention or MLP)
+        def kv_fill_fn(lp, xx, i):
+            h = layers.apply_norm(cfg.norm, xx, lp, "ln_attn")
+            transformer.kv_project_append(
+                lp["attn"], h, cfg, node.view(i, mask=write_mask),
+                positions, cur_len)
+
+    return transformer.decode_layers(lps, x, cfg, block_fn=block_fn,
+                                     halt_fn=halt_fn, kv_fill_fn=kv_fill_fn,
+                                     live=live)
 
 
 def _decode_ssm(params, cfg, x, cache):
@@ -106,24 +137,43 @@ def _decode_ssm(params, cfg, x, cache):
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
-                write_mask=None):
+                write_mask=None, live=None, with_depth: bool = False):
     """One new token against a cache of ``cur_len - 1`` positions.
 
-    token: (B, 1) int. Returns logits (B, 1, padded_vocab); the cache is
-    updated in place. ``write_mask`` (B,) bool (attention families only)
-    gates which rows' K/V append lands: the chunked-prefill scheduler
-    decodes the whole pool while some slots are mid-prefill, whose stale
-    ``cur_len`` points into their own prompt."""
+    token: (B, 1) int. Returns logits (B, 1, padded_vocab), or ``(logits,
+    depth)`` with ``with_depth``: depth (B,) int32 counts the decoder
+    blocks applied a row (``n_layers`` unless adaptive depth is on; see
+    ``models.adaptive``). The cache is updated in place.
+
+    ``write_mask`` (B,) bool (attention families only) gates which rows'
+    K/V append lands: the chunked-prefill scheduler decodes the whole
+    pool while some slots are mid-prefill, whose stale ``cur_len``
+    points into their own prompt. ``live`` (B,) bool (adaptive depth
+    only): the rows that keep the adaptive layer loop alive; retired and
+    mid-prefill slots pass False, start halted and extend no loop (None:
+    every row)."""
     if write_mask is not None and cfg.family != "dense":
         raise ValueError(f"write_mask is only supported for attention "
                          f"families; got family {cfg.family!r}")
+    if adaptive.enabled(cfg):
+        adaptive.validate(cfg)
+    elif live is not None:
+        raise ValueError("live= requires adaptive depth "
+                         "(cfg.early_exit / cfg.mod_capacity)")
     x = params["embed"][token]
+    depth = None
     if cfg.family == "ssm":
         x = _decode_ssm(params, cfg, x, cache)
     else:
-        x = _decode_attn_families(params, cfg, x, cache, cur_len,
-                                  write_mask)
-    return _logits_head(params, cfg, x)
+        x, depth = _decode_attn_families(params, cfg, x, cache, cur_len,
+                                         write_mask, live)
+    logits = _logits_head(params, cfg, x)
+    if not with_depth:
+        return logits
+    if depth is None:
+        depth = torch.full((x.shape[0],), cfg.n_layers, dtype=torch.int32,
+                           device=x.device)
+    return logits, depth
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
@@ -317,7 +367,9 @@ def generate_batch_sync(params, cfg: ModelConfig, prompt, *, max_new: int,
     while i < max_new and not bool(done.all()):
         out[i] = torch.where(done, eos_id, token[:, 0])
         done = done | (token[:, 0] == eos_id)
-        logits = decode_step(params, cfg, token, cache, cur)
+        # rows done at EOS start the adaptive layer loop halted
+        logits = decode_step(params, cfg, token, cache, cur,
+                             live=~done if cfg.early_exit else None)
         token = sampling_lib.sample_slots(logits[:, -1], None, sp)[:, None]
         i, cur = i + 1, cur + 1
     return _result_from_tokens(

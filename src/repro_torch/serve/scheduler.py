@@ -51,6 +51,17 @@ up to ``accepted + 1`` tokens are emitted, cut at the first EOS and the
 budget; a slot that finishes retires and frees its blocks in the same
 iteration. Greedy speculative streams equal the non-speculative ones.
 
+Adaptive depth (``cfg.early_exit``, ``cfg.mod_capacity``;
+``models.adaptive``). The decode passes ``live=emit``, so retired and
+prefilling slots start the early-exit layer loop halted, and adds each
+emitted token's depth to the slot's ``slot_layers``/``slot_decodes``
+(restarted at admission); the harvest's one read brings them, and
+``FinishedRequest.mean_depth``, ``mean_depth`` and ``slot_mean_depth``
+come from it. Inside the captured segment the layer loop is an IF node a
+layer (``transformer.decode_layers``); ``depth_impl`` names the
+lowering. A draft model with early exit drafts at adaptive depth; the
+verify stays at full depth.
+
 A segment is the JAX package's ``step``: one ``core.while_loop`` that
 runs while some slot is busy, fewer than ``want`` slots are idle and
 fewer than ``max_steps`` iterations have run (its ``cond_fn``). Its body
@@ -142,6 +153,7 @@ from .. import core, kernels
 from ..core import device_loop
 from ..kernels.flash_prefill import kernel as fp_kernel
 from ..kernels.paged_attention import kernel as pa_kernel
+from ..models import transformer
 from . import engine, kv_cache as kvc
 from . import prng
 from . import sampling as sampling_lib
@@ -191,6 +203,10 @@ class SlotPool:
     slot_accepted: torch.Tensor  # (n,) int32 — tokens emitted beyond one
     #                              a verify window, summed
     slot_windows: torch.Tensor   # (n,) int32 — verify windows run
+    slot_layers: torch.Tensor    # (n,) int32 — decoder blocks applied to
+    #                              the resident request's tokens, summed
+    slot_decodes: torch.Tensor   # (n,) int32 — decode tokens that sum
+    #                              covers (mean depth = layers / decodes)
     # the request's class (lower = more urgent) and deadline (host-clock
     # seconds, +inf: none), registered for the SLO layer
     priority: torch.Tensor   # (n,) int32
@@ -213,6 +229,8 @@ class FinishedRequest:
     length: int              # emitted tokens, EOS included
     text_length: int         # tokens before EOS
     hit_eos: bool
+    mean_depth: float = 0.0  # decoder blocks applied a decode token
+    #                          (< n_layers when adaptive depth skipped some)
 
 
 @dataclasses.dataclass
@@ -481,6 +499,10 @@ class DecodeScheduler:
         self._launches = np.zeros(len(_COUNTED), np.int64)
         # slot_accepted and slot_windows as last harvested
         self._spec_counts = np.zeros((2, n_slots), np.int64)
+        # adaptive depth: the harvested requests' totals, and
+        # slot_layers / slot_decodes as last harvested
+        self.depth_layers = self.depth_tokens = 0
+        self._h_depth = np.zeros((2, n_slots), np.int64)
         self._per_branch: Dict[str, List[int]] = {}  # counts at capture
         self._loop: Optional[device_loop.DeviceLoop] = None
         self.capture_seconds = 0.0     # wall time of the segment's capture
@@ -523,7 +545,8 @@ class DecodeScheduler:
                    if self.draft_cfg is not None else {}),
             steps=z(), slot_steps=z(), chunk_steps=z(), decode_steps=z(),
             launches=z(len(_COUNTED), dtype=torch.int64),
-            slot_accepted=z(n), slot_windows=z(n), priority=z(n),
+            slot_accepted=z(n), slot_windows=z(n), slot_layers=z(n),
+            slot_decodes=z(n), priority=z(n),
             deadline=z(n, dtype=torch.float32, fill=float("inf")),
             limits=z(2), seg_start=z())
 
@@ -599,7 +622,8 @@ class DecodeScheduler:
                        active=torch.ones_like(mask), done=zeros.bool(),
                        request_id=rids, keys=rkeys,
                        out=torch.zeros_like(p.out), priority=prios,
-                       deadline=deadlines)
+                       deadline=deadlines, slot_layers=zeros,
+                       slot_decodes=zeros)
 
     def _assign(self, prompts, plens, slots, rids, max_news, keys, derive,
                 mask, prios, deadlines, shared=None, pin=None, pf0=None,
@@ -619,7 +643,8 @@ class DecodeScheduler:
                        prompt=prompts, plen=plens,
                        pf_pos=zeros if pf0 is None else pf0,
                        prefilling=torch.ones_like(mask), priority=prios,
-                       deadline=deadlines)
+                       deadline=deadlines, slot_layers=zeros,
+                       slot_decodes=zeros)
         if self._reg_table is not None:
             admitted = torch.zeros_like(self.pool.active)
             admitted[slots.long()] = mask
@@ -642,7 +667,8 @@ class DecodeScheduler:
             reg.logical_and_(keep)
         for reg, fill in ((p.request_id, -1), (p.budget, 0),
                           (p.n_emitted, 0), (p.cur_len, 1), (p.pf_pos, 0),
-                          (p.plen, 0)):
+                          (p.plen, 0), (p.slot_layers, 0),
+                          (p.slot_decodes, 0)):
             reg.masked_fill_(mask, fill)
 
     def _chunk(self) -> None:
@@ -677,13 +703,22 @@ class DecodeScheduler:
         position."""
         return p.prefilling & (p.pf_pos + self.chunk_tokens >= p.plen)
 
-    def _decode(self) -> None:
+    def _live(self, emit, cfg, warm: bool):
+        """The rows that keep an early-exit layer loop alive: the
+        emitting ones (None without early exit, and in the warm-up
+        before capture, where every row runs every layer so that each
+        op's lazy initialisation happens outside the capture)."""
+        return emit if cfg.early_exit and not warm else None
+
+    def _decode(self, warm: bool = False) -> None:
         """Emit each RUNNING slot's pending token, retire slots that hit
         EOS or their budget (freeing their blocks on the device), and
         decode every slot one token. In chunked mode appends are gated
         to emitting rows: a mid-prefill slot's stale ``cur_len`` points
         into its prompt. In one-shot mode idle rows may write garbage:
-        admission rewrites a row's cache before it is read again.
+        admission rewrites a row's cache before it is read again. With
+        early exit only the emitting rows keep the layer loop alive; the
+        depth of each emitted token goes to the slot's counters.
         Registers are written in place."""
         p, n = self.pool, self.n_slots
         tok, emit = p.next_token, p.active
@@ -695,18 +730,21 @@ class DecodeScheduler:
         active = emit & ~finished      # a new tensor: ``emit`` is a register
         if self._kv_key is not None:
             p.cache[self._kv_key].free(mask=finished)
-        logits = engine.decode_step(self.params, self.cfg, tok[:, None],
-                                    p.cache, p.cur_len,
-                                    write_mask=emit if self._chunked
-                                    else None)
+        logits, depth = engine.decode_step(
+            self.params, self.cfg, tok[:, None], p.cache, p.cur_len,
+            write_mask=emit if self._chunked else None,
+            live=self._live(emit, self.cfg, warm), with_depth=True)
         nxt = sampling_lib.sample_slots(
             logits[:, 0], self._keys_at(p.keys, p.n_emitted), self.sampling)
+        emitted = emit.int()
+        p.slot_layers.add_(emitted * depth)
+        p.slot_decodes.add_(emitted)
         p.next_token.copy_(torch.where(active, nxt, tok))
         p.cur_len.add_(active.int())
         p.active.copy_(active)
         p.done.copy_(p.done | finished)
 
-    def _spec_decode(self) -> None:
+    def _spec_decode(self, warm: bool = False) -> None:
         """One draft-k / verify-once iteration for every RUNNING slot (the
         JAX package's ``spec_decode_fn``): draft, score the window
         ``[pending, d_1..d_k]`` in one ``verify_step`` at ``cur_len - 1``,
@@ -714,8 +752,10 @@ class DecodeScheduler:
         first EOS)`` tokens; ``cur_len`` advances by m. Rejected drafts
         are not rolled back: their lanes lie at or past the new
         ``cur_len - 1``, where the next window writes before it reads. A
-        slot that finishes retires and frees its blocks here. Registers
-        are written in place."""
+        slot that finishes retires and frees its blocks here. A draft
+        model with early exit drafts at adaptive depth; the verify runs
+        the target at full depth, so each emitted token counts
+        ``n_layers`` blocks. Registers are written in place."""
         p, n, k = self.pool, self.n_slots, self.speculative.k
         cap, eos = self.max_new_cap, self.eos_id
         emit, t0 = p.active, p.next_token
@@ -730,9 +770,10 @@ class DecodeScheduler:
             # whatever lies past the accepted point
             toks, tok = [], t0
             for j in range(k + 1):
-                dl = engine.decode_step(self._draft_params, self.draft_cfg,
-                                        tok[:, None], p.draft, p.cur_len + j,
-                                        write_mask=emit)
+                dl = engine.decode_step(
+                    self._draft_params, self.draft_cfg, tok[:, None],
+                    p.draft, p.cur_len + j, write_mask=emit,
+                    live=self._live(emit, self.draft_cfg, warm))
                 tok = torch.argmax(dl[:, 0], dim=-1).to(torch.int32)
                 if j < k:
                     toks.append(tok)
@@ -764,6 +805,8 @@ class DecodeScheduler:
         p.out.copy_(torch.where(put, landed, p.out))
         p.slot_accepted.add_(torch.where(emit, m - 1, 0).int())
         p.slot_windows.add_(emit.int())
+        p.slot_layers.add_(m.int() * self.cfg.n_layers)
+        p.slot_decodes.add_(m.int())
         p.n_emitted.copy_(n_emitted)
         p.next_token.copy_(torch.where(active, nxt, t0))
         p.cur_len.add_(m.int())
@@ -774,12 +817,12 @@ class DecodeScheduler:
         self._chunk()
         self.pool.chunk_steps.add_(1)
 
-    def _decode_body(self) -> None:
+    def _decode_body(self, warm: bool = False) -> None:
         """The decode branch's work: a speculative window or one token."""
         if self.speculative is not None:
-            self._spec_decode()
+            self._spec_decode(warm)
         else:
-            self._decode()
+            self._decode(warm)
 
     def _decode_branch(self) -> None:
         p = self.pool
@@ -870,7 +913,8 @@ class DecodeScheduler:
 
     def _capture(self) -> None:
         """Run the body once eagerly on the idle pool (each branch is a
-        no-op there: masked writes, unchanged registers), so that lazy
+        no-op there: masked writes, unchanged registers; an early-exit
+        layer loop runs with every row live), so that lazy
         initialisation (the kernels' build, cuBLAS, cached constants)
         happens before capture; then capture the segment loop, with the
         kernel launches counted on the device."""
@@ -879,7 +923,7 @@ class DecodeScheduler:
         with torch.no_grad():
             if self._chunked:
                 self._chunk()
-            self._decode_body()
+            self._decode_body(warm=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -1137,6 +1181,7 @@ class DecodeScheduler:
             self._busy[slot] = True
             self._slot_req[slot] = q
             self._h_n_emitted[slot] = 0
+            self._h_depth[:, slot] = 0
             self._h_prefilling[slot] = self._chunked
             if self.prefix_cache:
                 need -= len(plans[i]["hit_keys"])     # fresh blocks only
@@ -1166,11 +1211,12 @@ class DecodeScheduler:
             extra.append(self._reg_table)
         vals = device_loop.read_host(
             p.done, p.out, p.n_emitted, p.request_id, p.launches,
-            p.slot_accepted, p.slot_windows, p.steps, p.slot_steps,
-            p.chunk_steps, p.decode_steps, *extra)
+            p.slot_accepted, p.slot_windows, p.slot_layers, p.slot_decodes,
+            p.steps, p.slot_steps, p.chunk_steps, p.decode_steps, *extra)
         self.host_reads += 1
         done, out, n_emitted, rids, launches, accepted, windows = vals[:7]
-        counts, (prefilling, *rest) = vals[7:11], vals[11:]
+        self._h_depth = np.stack(vals[7:9]).astype(np.int64)
+        counts, (prefilling, *rest) = vals[9:13], vals[13:]
         if paged:
             self._h_reclaim[:] = rest.pop(0)
             self._reclaim_fresh = True
@@ -1191,9 +1237,13 @@ class DecodeScheduler:
             length = int(n_emitted[slot])
             toks = out[slot, :length].copy()
             hit_eos = length > 0 and int(toks[-1]) == self.eos_id
+            dl, dt = (int(c) for c in self._h_depth[:, slot])
             got.append(FinishedRequest(
                 request_id=int(rids[slot]), tokens=toks, length=length,
-                text_length=length - int(hit_eos), hit_eos=hit_eos))
+                text_length=length - int(hit_eos), hit_eos=hit_eos,
+                mean_depth=dl / dt if dt else 0.0))
+            self.depth_layers += dl
+            self.depth_tokens += dt
             self.tokens_emitted += length
             self._busy[slot] = False
             self._slot_req[slot] = None
@@ -1375,6 +1425,7 @@ class DecodeScheduler:
             self._busy[s] = False
             self._slot_req[s] = None
             self._h_n_emitted[s] = 0
+            self._h_depth[:, s] = 0
             self._h_prefilling[s] = False
             self._free_blocks += int(self._slot_blocks[s])
             self._slot_blocks[s] = 0
@@ -1408,11 +1459,14 @@ class DecodeScheduler:
         p = self.pool
         with self._on_device():
             for t in (p.steps, p.slot_steps, p.chunk_steps, p.decode_steps,
-                      p.launches, p.slot_accepted, p.slot_windows):
+                      p.launches, p.slot_accepted, p.slot_windows,
+                      p.slot_layers, p.slot_decodes):
                 t.zero_()
         self._counts[:] = 0
         self._launches[:] = 0
         self._spec_counts[:] = 0
+        self._h_depth[:] = 0
+        self.depth_layers = self.depth_tokens = 0
         self.tokens_emitted = 0
         self.host_reads = self.segments = self.graph_replays = 0
         self.prefix_hit_blocks = self.prefix_evictions = 0
@@ -1473,6 +1527,31 @@ class DecodeScheduler:
         """Per-slot mean accept length over that slot's windows."""
         a, w = self._spec_counts.astype(np.float64)
         return a / np.maximum(w, 1.0)
+
+    # Adaptive depth, as of the last harvest (no read of its own).
+
+    @property
+    def mean_depth(self) -> float:
+        """Mean decoder blocks applied a decode token over the run: the
+        harvested requests' totals plus the resident slots' counters.
+        ``n_layers`` without adaptive depth; less where early exit or
+        mixture-of-depths skipped blocks (``models.adaptive``)."""
+        res = self._h_depth[:, self._busy].sum(axis=1)
+        dt = self.depth_tokens + int(res[1])
+        return (self.depth_layers + int(res[0])) / dt if dt else 0.0
+
+    def slot_mean_depth(self) -> np.ndarray:
+        """Per-slot mean depth over that slot's current residency (the
+        counters restart at admission)."""
+        a, d = self._h_depth.astype(np.float64)
+        return a / np.maximum(d, 1.0)
+
+    @property
+    def depth_impl(self) -> str:
+        """Which lowering runs the decode layer loop: "static",
+        "cuda-graph:if-per-layer" or "host-read"
+        (``transformer.depth_impl``)."""
+        return transformer.depth_impl(self.cfg, self._graph)
 
     @property
     def attn_impl(self) -> str:
