@@ -200,10 +200,44 @@ Phases, each printing its own lines:
     run, ``exit_margin``'s device ms at B=8 beside its byte bound, what
     remains of inf's extra time after its 16 margins, and the mean depth
     at thresholds 0.05, 0.2 and 0.8, each beside the card's name and
-    power limit.
+    power limit;
+24. (run after phase 12) the paper's §6.5 DQN
+    (``examples.dqn_in_graph.dqn_rows``): the same 200 steps from the
+    same carry in-graph (a: ``while_loop(impl="graph")``, its three
+    conditionals IF nodes), out-of-graph (b: a host loop of one captured
+    step a launch) and eager (c: native conditionals, three predicate
+    reads a step), in turns a, b, c, c, b, a: host and device us a step,
+    graph and kernel launches and host reads a step, (b)/(a) - 1 beside
+    the paper's 21% and (c)/(a) are printed; (a) must be one launch and
+    no host read, and the final carries of (a) and (b) must equal (c)'s
+    (the key, ``t`` and the actions exactly, floats within DQN_TOL); then
+    the example's ``main`` (2,000 training steps in one launch) must
+    improve the return;
+25. the examples: ``quickstart`` on the card equal to its CPU run within
+    QUICK_TOL; ``train_lm --full`` (smollm-135m at its published width)
+    20 steps through the Trainer and 20 as two in-graph loops of 10, the
+    loss finite and falling, ms a step printed; ``elastic_restart``
+    phases 1-2 at that width within 1e-5 (whether exactly 0 is printed);
+26. (run after phase 23) prefill/decode disaggregation at llama3.2-1b
+    full width (bf16): ``bench_disagg``'s mix (32 requests, 7 prompts of
+    8 tokens to 1 of 512, budgets 6-22, EOS -1; block 16, chunk 128,
+    segments of 8) through a 2-slot prefill tier and an 8-slot decode
+    tier against the colocated 8-slot scheduler, in turns (colocated,
+    disaggregated twice, colocated): every request finishes, nothing
+    gathers, each tier (and the colocated pool) makes one host read a
+    segment and drains, ``paged_attention`` launches on the decode tier
+    and ``flash_prefill`` on the prefill tier; tok/s, the running-slot
+    inter-token gap p50/p99 (``bench_disagg``'s round accounting),
+    shipments, bytes, the export's device us, host reads a round and
+    launches per tier, and how long the two tiers' segments were in
+    flight at once are printed; in fp32 the disaggregated streams must
+    equal the colocated ones 32/32, and a decode tier held full by two
+    batch-class requests must preempt one for an urgent arrival with no
+    replay mismatch, every stream equal to the uncontended run's.
 
-The llama3.2-1b weights are freed before phase 23 and falcon-mamba's
-are made (phase 23 frees its own before the next), and
+The llama3.2-1b weights are freed before phase 26 (which makes and frees
+its own) and falcon-mamba's are made (phase 23 frees its own before the
+next), and
 falcon-mamba's before the LSTM phases, and each of the last three
 phases frees what it made. Then
 one JSON line of kernel records and, last, the device line. Any
@@ -287,6 +321,11 @@ TRAIN_STEPS = 16                 # enough for the loss to fall reliably
 STEP_LOSS_RTOL = 1e-6            # paper_while+offload vs scan: the same ops
 SPEC_K = 4          # drafted tokens a verify window (the JAX default)
 VERIFY_W = SPEC_K + 1
+DQN_TOL = 1e-5      # in-graph against eager DQN carries after 200 steps: the
+#                     same kernels, the branch outputs copied; the parity
+#                     test's bound for a carry on the card
+QUICK_TOL = 1e-6    # quickstart's values on the card against the CPU: fp32
+#                     scalars through tanh, sin and products
 
 
 def log(msg: str) -> None:
@@ -3285,6 +3324,476 @@ def phase_train():
     del params, opt
 
 
+def card_label():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def phase_dqn():
+    """The paper's §6.5 DQN (``examples.dqn_in_graph.dqn_rows``): the
+    same 200 steps from the same carry in-graph (a), out-of-graph (b)
+    and eager (c), in turns; (a) must be one graph launch and no host
+    read, and its final carry must equal (c)'s (the key, ``t`` and the
+    actions exactly, floats within DQN_TOL). Then the example's ``main``
+    through the graph lowering must improve the return."""
+    from repro_torch.examples import dqn_in_graph as dqn
+    smi = card_label()
+    rows = dqn.dqn_rows()
+    names = {"a": "in-graph (one WHILE-node launch)",
+             "b": "out-of-graph (a captured step a launch)",
+             "c": "eager (native conds)"}
+    for k, name in names.items():
+        r = rows[k]
+        log(f"[dqn] {smi}: ({k}) {name}: host us/step "
+            + ", ".join(f"{v:.1f}" for v in r["host_us"])
+            + "; device us/step "
+            + ", ".join(f"{v:.1f}" for v in r["device_us"])
+            + f"; graph launches/step {r['graph_launches']:.4f}, kernel "
+            f"launches a training step {r['kernel_launches']:.1f}, host "
+            f"reads/step {r['host_reads']:.2f}")
+    log(f"[dqn] {smi}: (b)/(a) - 1 = {rows['speedup_percent']:.1f}% (the "
+        f"paper reports 21%); (c)/(a) = {rows['c_over_a']:.2f}x")
+    a = rows["a"]
+    if a["graph_launches"] * dqn.STEPS != 1 or a["host_reads"] != 0:
+        raise AssertionError(f"dqn: in-graph run made "
+                             f"{a['graph_launches'] * dqn.STEPS} launches "
+                             f"and {a['host_reads'] * dqn.STEPS} host reads")
+    for k in ("a", "b"):
+        diff = dqn.same_carry(rows[k]["carry"], rows["c"]["carry"], DQN_TOL)
+        if diff is not None:
+            raise AssertionError(f"dqn: ({k}) against eager: {diff}")
+    out = dqn.main([])
+    log(f"[dqn] main on the card: return/step {out['pre']:.4f} -> "
+        f"{out['post']:.4f} after {out['t']} training steps in one launch")
+
+
+def phase_examples():
+    """``quickstart`` on the card against the CPU (QUICK_TOL);
+    ``train_lm --full`` (smollm-135m, published width) 20 steps, then
+    ``--in-graph 10`` for 20 steps, the loss finite and falling; and
+    ``elastic_restart`` phases 1-2 at that width (max |difference| <
+    1e-5)."""
+    import math
+    from repro_torch.examples import elastic_restart, quickstart, train_lm
+    smi = card_label()
+    gpu, cpu = quickstart.main([]), quickstart.main(["--device", "cpu"])
+    for k, want in cpu.items():
+        got = gpu[k]
+        for g, w in zip(got if isinstance(got, list) else [got],
+                        want if isinstance(want, list) else [want]):
+            if abs(g - w) > QUICK_TOL * max(1.0, abs(w)):
+                raise AssertionError(f"quickstart {k}: card {got} cpu {want}")
+    log("[examples] quickstart: the card's values equal the CPU's within "
+        f"{QUICK_TOL}")
+    for extra in ([], ["--in-graph", "10"]):
+        r = train_lm.main(["--full", "--steps", "20"] + extra)
+        losses = r["losses"]
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"train_lm {extra}: losses {losses}")
+        log(f"[examples] {smi}: train_lm --full {' '.join(extra)}: "
+            f"{r['ms_per_step']:.2f} ms a step ({r['lowering']}), loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        del r
+    e = elastic_restart.main(["--full"])
+    log(f"[examples] elastic_restart --full: max |difference| "
+        f"{e['max_diff']:.3e} (exactly 0: {e['max_diff'] == 0})")
+
+
+DISAGG_SLOTS, DISAGG_PREFILL_SLOTS = 8, 2
+DISAGG_BUDGETS = (6, 10, 14, 18, 22)
+
+
+def disagg_requests(n=32, short=8, long=512):
+    """``bench_disagg._workload``: 7 short prompts to 1 long, the budgets
+    6-22 in turn (numpy seed 0)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [(rng.integers(2, 512, (1, long if i % 8 == 3 else short)
+                          ).astype(np.int32),
+             DISAGG_BUDGETS[i % len(DISAGG_BUDGETS)]) for i in range(n)]
+
+
+def make_disagg(params, cfg, **kw):
+    from repro_torch.serve import disagg as disagg_lib
+    args = dict(n_prefill_slots=DISAGG_PREFILL_SLOTS,
+                n_decode_slots=DISAGG_SLOTS, prompt_len=512,
+                max_new_cap=max(DISAGG_BUDGETS), eos_id=-1, kv_block=16,
+                chunk_tokens=128, segment_steps=8)
+    return disagg_lib.DisaggScheduler(params, cfg, **{**args, **kw})
+
+
+def segment_windows(sched):
+    """Record CUDA timing events around each of ``sched``'s segment
+    launches, on the stream it launches on, and the host's clock at the
+    launch; returns the list they go to, as (start, end, host seconds)
+    triples."""
+    import torch
+    wins, launch = [], sched._segment
+
+    def timed_segment(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        launch(*args, **kw)
+        end.record()
+        wins.append((start, end, t))
+    sched._segment = timed_segment
+    return wins
+
+
+def busy_ms(ref, wins):
+    """The union of the windows (ms after ``ref``), as sorted disjoint
+    intervals."""
+    spans = sorted((ref.elapsed_time(w[0]), ref.elapsed_time(w[1]))
+                   for w in wins)
+    out = []
+    for a, b in spans:
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def overlap_ms(xs, ys):
+    """Total length of the intersection of two sets of disjoint
+    intervals."""
+    total, i, j = 0.0, 0, 0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def gap_run(sched, reqs, delivery, tiers=()):
+    """``bench_disagg._drive``'s closed loop and round accounting, from
+    the host mirrors (no read of its own): every request submitted at
+    once, ``step(expect_arrivals=True)`` until drained; a round's wall
+    spreads over its delivery-tier iterations, a round without one
+    carries its wall into the next gap, a request's first token is not a
+    gap. ``delivery`` is the scheduler whose iterations are the clock;
+    each of ``tiers`` has its segments' device windows recorded. Returns
+    tok/s, the gaps' p50/p99 (ms), rounds, the streams, and each tier's
+    busy intervals (ms from the start)."""
+    import numpy as np
+    import torch
+    wins = [segment_windows(t) for t in tiers]
+    ref = torch.cuda.Event(enable_timing=True)
+    for rid, (prompt, max_new) in enumerate(reqs):
+        sched.submit(prompt, max_new=max_new, request_id=rid)
+    seen, gaps, streams = {}, [], {}
+    stall, rounds = 0.0, 0
+    torch.cuda.synchronize()
+    ref.record()
+    t0 = time.perf_counter()
+    steps_prev = delivery.total_steps
+    while sched.pending:
+        ts = time.perf_counter()
+        fin = sched.step(expect_arrivals=True)
+        rounds += 1
+        wall = time.perf_counter() - ts
+        k = delivery.total_steps - steps_prev
+        steps_prev = delivery.total_steps
+        for f in fin:
+            streams[f.request_id] = f.tokens
+        if k == 0:
+            stall += wall
+            continue
+        per = wall / k
+        now = {rid: len(t) for rid, t in sched.resident().items()}
+        now.update({f.request_id: f.length for f in fin})
+        for rid, n in now.items():
+            if rid not in seen:
+                seen[rid] = n
+                if n > 1:
+                    gaps.extend([per] * (n - 1))
+                continue
+            d = n - seen[rid]
+            if d <= 0:
+                continue
+            if seen[rid] > 0:
+                gaps.append(stall + per)
+                gaps.extend([per] * (d - 1))
+            elif d > 1:
+                gaps.extend([per] * (d - 1))
+            seen[rid] = n
+        stall = 0.0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for t in tiers:
+        del t._segment                   # the class's method again
+    g = np.asarray(gaps) * 1e3
+    return {"tok_s": sum(len(t) for t in streams.values()) / wall,
+            "p50_ms": float(np.percentile(g, 50)),
+            "p99_ms": float(np.percentile(g, 99)), "rounds": rounds,
+            "streams": streams, "wall_s": wall,
+            "busy": [busy_ms(ref, w) for w in wins],
+            "launch_gap_ms": launch_gap(wins)}
+
+
+def launch_gap(wins):
+    """With two tiers: the mean host time from each prefill-tier segment
+    launch to the next decode-tier launch, and the prefill segments'
+    mean device time (ms); None otherwise."""
+    if len(wins) != 2 or not wins[0]:
+        return None
+    decode = sorted(t for _, _, t in wins[1])
+    gaps = [next((d for d in decode if d > t), t) - t for _, _, t in wins[0]]
+    dev = [a.elapsed_time(b) for a, b, _ in wins[0]]
+    return 1e3 * sum(gaps) / len(gaps), sum(dev) / len(dev)
+
+
+def stream_overlap():
+    """Whether two graphs launched back to back on two streams run at
+    once on the card: 2,000 iterations of ``x = tanh(x @ w)``, x (64,
+    1024), w (1024, 1024), fp32, captured as a plain CUDA graph, and as
+    ``while_loop(impl="graph")`` (a WHILE node), one per stream. Returns
+    {lowering: (ms each alone, ms both, ms both in flight at once)}."""
+    import torch
+    from repro_torch import core
+    from repro_torch.core import device_loop
+    n = 2000
+    gen = torch.Generator().manual_seed(0)
+    w = (torch.randn(1024, 1024, generator=gen) / 32).cuda()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    carries = [(torch.randn(64, 1024, generator=gen).cuda(),
+                torch.zeros((), dtype=torch.int32, device="cuda"))
+               for _ in streams]
+    plain = []
+    with torch.no_grad():
+        for c in carries:
+            for _ in range(3):                  # cuBLAS warm-up
+                torch.tanh(c[0] @ w)
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                x = c[0]
+                for _ in range(n):
+                    x = torch.tanh(x @ w)
+                c[0].copy_(x)
+            plain.append(g)
+
+    def loop_fns():
+        """A predicate, body and prologue of their own: the graph
+        lowering keeps one captured loop for each set of functions."""
+        return (lambda c: c[1] < n,
+                lambda c: (torch.tanh(c[0] @ w), c[1] + 1),
+                lambda c: c[1].zero_())
+
+    fns = [loop_fns() for _ in streams]
+
+    def while_on(i):
+        cond_fn, body_fn, restart = fns[i]
+        core.while_loop(cond_fn, body_fn, carries[i], impl="graph",
+                        prologue=restart)
+
+    out = {}
+    with torch.no_grad():
+        for i in range(2):                      # capture both loops
+            with torch.cuda.stream(streams[i]):
+                while_on(i)
+        torch.cuda.synchronize()
+        for name, launch in (("plain graph", lambda i: plain[i].replay()),
+                             ("WHILE node", while_on)):
+            alone = []
+            for i in range(2):
+                wins = []
+                with torch.cuda.stream(streams[i]):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    launch(i)
+                    b.record()
+                b.synchronize()
+                alone.append(a.elapsed_time(b))
+            ref = torch.cuda.Event(enable_timing=True)
+            ref.record()
+            torch.cuda.synchronize()
+            wins = []
+            for i in range(2):
+                with torch.cuda.stream(streams[i]):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    launch(i)
+                    b.record()
+                    wins.append([(a, b)])
+            torch.cuda.synchronize()
+            spans = [busy_ms(ref, wn) for wn in wins]
+            both = max(b for (_, b) in spans[0] + spans[1]) - \
+                min(a for (a, _) in spans[0] + spans[1])
+            out[name] = (sum(alone) / 2, both, overlap_ms(*spans))
+    for _, body_fn, _ in fns:
+        device_loop.release(body_fn)
+    return out
+
+
+def phase_disagg():
+    """Prefill/decode disaggregation at llama3.2-1b full width, bf16: the
+    2-slot prefill tier and 8-slot decode tier against the colocated
+    8-slot scheduler, in turns, on ``bench_disagg``'s mix (32 requests,
+    7:1 prompts of 8 and 512 tokens, budgets 6-22, EOS -1; block 16,
+    chunk 128, segments of 8). Every request finishes, nothing gathers
+    on either tier, each tier makes one host read a segment, both pools
+    drain. Then in fp32: the disaggregated streams equal the colocated
+    ones 32/32, and a contended decode tier preempts with no replay
+    mismatch."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    smi = card_label()
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    reqs = disagg_requests()
+    colo = make_scheduler(params, cfg, max_new_cap=max(DISAGG_BUDGETS))
+    dis = make_disagg(params, cfg)
+    for s in (colo, dis):
+        s.warmup()
+        # warm both prompt widths, the ship and the splice
+        for plen in (8, 512):
+            s.submit(np.full((1, plen), 2, np.int32), max_new=1,
+                     request_id=10_000 + plen)
+            s.run_until_drained()
+    runs = []
+    for tag in ("colocated", "disagg", "disagg", "colocated"):
+        s = colo if tag == "colocated" else dis
+        r = gap_run(s, reqs, s if tag == "colocated" else s.decode,
+                    [s] if tag == "colocated" else [s.prefill, s.decode])
+        if len(r["streams"]) != len(reqs):
+            raise AssertionError(f"disagg {tag}: {len(r['streams'])} of "
+                                 f"{len(reqs)} requests finished")
+        tiers = [("colocated", s)] if tag == "colocated" else \
+            [("prefill tier", s.prefill), ("decode tier", s.decode)]
+        for name, t in tiers:
+            launches = t.device_launches
+            if launches["gather"] != 0:
+                raise AssertionError(f"disagg {tag} {name}: gathered")
+            if t.host_reads != t.segments:
+                raise AssertionError(f"disagg {tag} {name}: {t.host_reads} "
+                                     f"host reads, {t.segments} segments")
+            check_drained(f"disagg {tag} {name}", t)
+            r[name] = (launches, t.host_reads, t.segments)
+        if tag == "disagg":
+            if s.decode.device_launches["paged_attention"] == 0 or \
+                    s.prefill.device_launches["flash_prefill"] == 0 or \
+                    s.transfers != len(reqs):
+                raise AssertionError(f"disagg: kernels or shipments "
+                                     f"missing ({s.transfers} transfers)")
+            r["transfers"] = (s.transfers, s.transfer_bytes,
+                              s.export_ms * 1e3 / max(s.transfers, 1))
+        runs.append((tag, r))
+        line = (f"[disagg] {smi}: {tag}: {r['tok_s']:.1f} tok/s, running-"
+                f"slot gap p50/p99 {r['p50_ms']:.3f}/{r['p99_ms']:.3f} ms, "
+                f"{r['rounds']} rounds")
+        for name, _ in tiers:
+            launches, reads, segs = r[name]
+            line += (f"; {name}: {reads} host reads in {segs} segments "
+                     f"({reads / r['rounds']:.3f} a round), paged_attention "
+                     f"{launches['paged_attention']}, flash_prefill "
+                     f"{launches['flash_prefill']}")
+        busy = [sum(b - a for a, b in spans) for spans in r["busy"]]
+        if tag == "disagg":
+            n, b, us = r["transfers"]
+            both = overlap_ms(*r["busy"])
+            line += (f"; {n} transfers, {b / 1e6:.2f} MB, export "
+                     f"{us:.1f} device us each ({dis.transfer_impl}); "
+                     f"segments in flight: prefill tier {busy[0]:.1f} ms, "
+                     f"decode tier {busy[1]:.1f} ms, both at once "
+                     f"{both:.1f} ms ({both / max(min(busy), 1e-9):.3f} of "
+                     f"the shorter), wall {r['wall_s'] * 1e3:.1f} ms; from "
+                     f"a prefill launch to the next decode launch "
+                     f"{r['launch_gap_ms'][0]:.2f} ms of host against "
+                     f"{r['launch_gap_ms'][1]:.2f} ms of device for the "
+                     f"prefill segment")
+        else:
+            line += (f"; segments in flight {busy[0]:.1f} ms of "
+                     f"{r['wall_s'] * 1e3:.1f} ms wall")
+        log(line)
+    co = [r for t, r in runs if t == "colocated"]
+    de = [r for t, r in runs if t == "disagg"]
+    log(f"[disagg] {smi}: disagg/colocated tok/s "
+        + ", ".join(f"{d['tok_s'] / c['tok_s']:.3f}" for d, c in
+                    zip(de, co))
+        + "; running-slot p99 disagg/colocated "
+        + ", ".join(f"{d['p99_ms'] / c['p99_ms']:.3f}" for d, c in
+                    zip(de, co)))
+    same = sum(bool((runs[0][1]["streams"][i] ==
+                     runs[1][1]["streams"][i]).all()) for i in range(len(reqs)))
+    log(f"[disagg] bf16 streams shared by colocated and disaggregated: "
+        f"{same}/{len(reqs)}")
+    for name, (alone, both, at_once) in stream_overlap().items():
+        log(f"[disagg] {smi}: two streams, a {name} each (2,000 "
+            f"iterations of tanh(x @ w), (64, 1024) x (1024, 1024) fp32) "
+            f"launched back to back: {alone:.2f} ms alone, {both:.2f} ms "
+            f"both, in flight at once {at_once:.2f} ms")
+    colo.close()
+    dis.close()
+    del colo, dis, params
+    free_device_memory("the fp32 disaggregation runs")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = bridge.init_params(f32, seed=0, device="cuda")
+    colo = make_scheduler(params, f32, max_new_cap=max(DISAGG_BUDGETS))
+    dis = make_disagg(params, f32)
+    want = drive(colo, reqs)
+    got = drive(dis, reqs)
+    same = sum(bool((got[i] == want[i]).all()) for i in range(len(reqs)))
+    if same != len(reqs):
+        raise AssertionError(f"disagg fp32: {same}/{len(reqs)} streams equal")
+    log(f"[disagg] fp32: disaggregated streams equal colocated "
+        f"{same}/{len(reqs)}")
+    colo.close()
+    dis.close()
+    # contention: two batch-class residents fill the decode tier, then an
+    # urgent arrival must preempt (the reference test's shape, block 16)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(2, 512, (1, 48)).astype(np.int32)
+               for _ in range(3)]
+    tight = make_disagg(params, f32, n_prefill_slots=1, n_decode_slots=2,
+                        prompt_len=48, max_new_cap=8, decode_kv_blocks=8,
+                        segment_steps=2, prefill_segment_steps=4)
+    tight.submit(prompts[0], max_new=8, request_id=0, priority=1)
+    tight.submit(prompts[1], max_new=8, request_id=1, priority=1)
+    done = []
+    for _ in range(8):
+        if tight.decode.active_count == 2:
+            break
+        done += tight.step(max_steps=1)
+    if tight.decode.active_count != 2 or done:
+        raise AssertionError("disagg contention: the residents did not "
+                             "fill the decode tier")
+    tight.submit(prompts[2], max_new=4, request_id=2, priority=0)
+    done += tight.run_until_drained()
+    ref = make_scheduler(params, f32, n_slots=3, prompt_len=48,
+                         max_new_cap=8)
+    want = drive(ref, [(prompts[0], 8), (prompts[1], 8), (prompts[2], 4)])
+    got = {f.request_id: f.tokens for f in done}
+    if tight.preemptions < 1 or tight.replay_mismatches != 0 or \
+            any(not (got[i] == want[i]).all() for i in range(3)):
+        raise AssertionError(f"disagg contention: {tight.preemptions} "
+                             f"preemptions, {tight.replay_mismatches} replay "
+                             f"mismatches")
+    log(f"[disagg] fp32 contention: {tight.preemptions} preemption(s), "
+        f"{tight.replay_mismatches} replay mismatches, streams equal the "
+        f"uncontended run's 3/3")
+    for s in (tight, ref):
+        s.close()
+    torch.cuda.synchronize()
+    return {t: runs[i][1][t][0] for i, t in ((0, "colocated"),
+                                              (1, "prefill tier"),
+                                              (1, "decode tier"))}
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels-only"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
@@ -3329,6 +3838,8 @@ def main() -> int:
     free_device_memory("the adaptive-depth phase")
     timed(phase_adaptive, {k: launches[k] for k in ("paged_attention",
                                                     "flash_prefill")})
+    free_device_memory("the disaggregation phase")
+    timed(phase_disagg)
     free_device_memory("the selective-scan phases")
     records.append(timed(phase_scan_kernel))
     free_device_memory("falcon-mamba-7b")
@@ -3340,6 +3851,8 @@ def main() -> int:
     launches["lstm_cell"] = timed(phase_dynamic_rnn)
     timed(phase_policies)
     timed(phase_nmt)
+    timed(phase_dqn)
+    timed(phase_examples)
     free_device_memory("the flash-attention phases")
     records.append(timed(phase_flash_kernel))
     launches["flash_attention"] = timed(phase_full_forward)

@@ -10,15 +10,15 @@ every one holding the greedy tokens of the first:
    request between segments;
 3. the paged KV cache, the block-table kernels (``attn_impl="cuda"``),
    chunked prefill, the prefix cache, speculative decoding, the SLO
-   layer with preemption and adaptive depth (early exit).
+   layer with preemption, prefill/decode disaggregation and adaptive
+   depth (early exit).
 
     PYTHONPATH=src python -m repro_torch.examples.serve_decode
     PYTHONPATH=src python -m repro_torch.examples.serve_decode --device cpu
 
 Weights are random, from a seed, at smoke width, in fp32. It runs on
 the card unless ``--device cpu`` is given (the kernels' plain
-versions). The reference's disaggregation section waits for that
-module (ROADMAP.md).
+versions).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import numpy as np
 
 from .. import bridge
 from ..configs import get_config
+from ..serve import disagg as disagg_lib
 from ..serve import engine
 from ..serve import scheduler as sched_lib
 from ..serve import slo as slo_lib
@@ -205,6 +206,29 @@ def main(argv=None):
           f"batch {summary['batch']['ttft_steps']['p50']:.0f}, all "
           f"{slo.completed} requests completed")
 
+    # ---- disaggregation: a prefill tier and a decode tier --------------
+    # DisaggScheduler routes every request through TWO schedulers: a
+    # prefill tier (chunked flash-prefill admission, no decode) and a
+    # decode tier (the paged-attention kernel). A finished prompt's KV
+    # blocks are copied into a fresh buffer on a side stream and spliced
+    # into a decode slot one round later, the decode tier's stream
+    # waiting on the copy's event. Both tiers share this one device (and
+    # its weights), as the JAX package's do with one device; the router,
+    # the ship and the splice are the ones a split across devices would
+    # run. Tokens are still identical.
+    # (CLI: ... --disagg --prefill-slots 2)
+    dis = disagg_lib.DisaggScheduler(
+        params, kcfg, n_prefill_slots=2, n_decode_slots=n_slots,
+        prompt_len=args.prompt_len, max_new_cap=args.max_new, eos_id=1,
+        kv_block=8, chunk_tokens=5)
+    for b in range(args.batch):
+        dis.submit(prompt[b:b + 1], max_new=budgets[b])
+    same({f.request_id: f for f in dis.run_until_drained()})
+    print(f"[serve] disaggregated ({dis.transfer_impl}): identical tokens, "
+          f"{dis.transfers} KV shipments "
+          f"({dis.transfer_bytes / 1024:.0f} KiB), {dis.prefill_steps} "
+          f"prefill-tier + {dis.total_steps} decode-tier steps")
+
     # ---- adaptive depth: confident tokens stop running layers ----------
     # early_exit=True runs the decode layer loop while any row is live:
     # after each block the model's own unembed scores the hidden state,
@@ -224,7 +248,7 @@ def main(argv=None):
     print(f"[serve] adaptive depth (threshold=0.05): mean "
           f"{fast.mean_depth:.2f} layers/token, confident tokens exited "
           f"early")
-    for s in (sched, paged, kern, chunked, pfx, spec, tight, ada, fast):
+    for s in (sched, paged, kern, chunked, pfx, spec, tight, dis, ada, fast):
         s.close()
 
 

@@ -81,6 +81,20 @@ batch, segments are capped at ``--segment-steps`` iterations, at most
 are preempted; the report gives per-class p50/p99 TTFT and ITL in steps
 and wall time.
 
+``--disagg`` serves through prefill/decode disaggregation
+(``serve.disagg.DisaggScheduler``): a prefill tier of ``--prefill-slots``
+slots (0: ``--slots``) chunk-prefills the prompts, each finished prompt's
+KV blocks are copied on a side stream into a fresh buffer and spliced
+into the decode tier of ``--slots`` slots one round later. It implies
+``--kv paged --prefill chunked``; both tiers share the one card (and its
+weights), as the JAX package's tiers share one device;
+``--prefill-devices`` above 1 is multi-device and refused, as is the
+model drafter (``--spec-drafter model``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --slots 8 --prompt-len 512 --requests 16 --attn-impl cuda \
+        --chunk-tokens 128 --disagg --prefill-slots 2
+
 ``--prefill oneshot`` (the default) admits prompts through one prefill
 per admission round; a pure-SSM model takes only this mode, with
 prompts of exactly ``--prompt-len`` tokens. The selective scan's path
@@ -103,6 +117,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.serve import disagg as disagg_lib
 from repro_torch.serve import engine
 from repro_torch.serve import sampling as sampling_lib
 from repro_torch.serve import scheduler as sched_lib
@@ -220,19 +235,42 @@ def run_continuous(args, cfg, params, workload):
                                              top_k=args.top_k),
         seed=args.seed, speculative=spec, draft_params=draft_params,
         draft_cfg=draft_cfg, prefix_cache=args.prefix_cache)
+    run = serve_arrivals(args, cfg, sched, workload)
+    sched.close()
+    return {**run, "occupancy": sched.occupancy, "steps": sched.total_steps,
+            "attn_impl": sched.attn_impl,
+            "prefill_impl": sched.prefill_impl,
+            "loop_impl": sched.loop_impl, "segments": sched.segments,
+            "host_reads": sched.host_reads,
+            "graph_replays": sched.graph_replays,
+            "spec_windows": sched.spec_windows,
+            "accepted_tokens": sched.accepted_tokens,
+            "drafted_tokens": sched.drafted_tokens,
+            "accept_rate": sched.accept_rate,
+            "mean_accept_len": sched.mean_accept_len,
+            "prefix_hit_blocks": sched.prefix_hit_blocks,
+            "prefix_evictions": sched.prefix_evictions,
+            "peak_resident": sched.peak_resident,
+            "mean_depth": sched.mean_depth, "depth_impl": sched.depth_impl}
+
+
+def serve_arrivals(args, cfg, sched, workload):
+    """The open-loop arrival loop over a scheduler (a ``DecodeScheduler``
+    or a ``DisaggScheduler``): a warm-up request outside the timed window
+    (it loads the kernels and the math libraries on the device; a prompt
+    of none of the requests', so that it warms no prefix-cache entry of
+    theirs), then each request submitted at its arrival and the
+    scheduler stepped until all have finished. Returns wall and busy
+    seconds, tokens, tok/s over busy time, latency p50/p99, the streams,
+    each request's mean depth and ``TokenClock.summary()``."""
     prompts = make_prompts(args, cfg, len(workload))
-    req_depth = {}
-    # Warm-up request outside the timed window: loads the kernels and
-    # the math libraries on the device (a prompt of none of the
-    # requests', so that it warms no prefix-cache entry of theirs).
     sched.submit(np.full((1, args.prompt_len), 2, np.int32), max_new=2,
                  request_id=-1)
     sched.run_until_drained()
     _sync(sched.device)
     sched.reset_stats()
-
     arrival_wall, finish_wall = {}, {}
-    clock, streams = TokenClock(), {}
+    clock, streams, req_depth = TokenClock(), {}, {}
     t0 = time.perf_counter()
     next_req = 0
     idle_s = 0.0          # open-loop arrival gaps: excluded from tok/s
@@ -263,25 +301,49 @@ def run_continuous(args, cfg, params, workload):
     busy = max(wall - idle_s, 1e-9)
     lat = [finish_wall[r] - arrival_wall[r] for r in finish_wall]
     toks = sched.tokens_emitted
-    sched.close()
     return {"wall_s": wall, "busy_s": busy, "tok_s": toks / busy,
-            "p50_s": pctl(lat, 50), "p99_s": pctl(lat, 99),
-            "occupancy": sched.occupancy, "steps": sched.total_steps,
-            "tokens": toks, "attn_impl": sched.attn_impl,
-            "prefill_impl": sched.prefill_impl,
-            "loop_impl": sched.loop_impl, "segments": sched.segments,
-            "host_reads": sched.host_reads,
-            "graph_replays": sched.graph_replays,
-            "spec_windows": sched.spec_windows,
-            "accepted_tokens": sched.accepted_tokens,
-            "drafted_tokens": sched.drafted_tokens,
-            "accept_rate": sched.accept_rate,
-            "mean_accept_len": sched.mean_accept_len,
-            "prefix_hit_blocks": sched.prefix_hit_blocks,
-            "prefix_evictions": sched.prefix_evictions,
-            "peak_resident": sched.peak_resident, "streams": streams,
-            "mean_depth": sched.mean_depth, "req_depth": req_depth,
-            "depth_impl": sched.depth_impl, **clock.summary()}
+            "p50_s": pctl(lat, 50), "p99_s": pctl(lat, 99), "tokens": toks,
+            "streams": streams, "req_depth": req_depth, **clock.summary()}
+
+
+def run_disagg(args, cfg, params, workload):
+    """The open-loop arrivals (``serve_arrivals``) through the two-tier
+    ``DisaggScheduler``; both tiers on the one card."""
+    if args.prefill_devices > 1:
+        raise SystemExit(
+            "--prefill-devices > 1 carves the fleet into submeshes, which "
+            "is multi-device (ROADMAP.md queue 1 item 7); on one card both "
+            "tiers share the device")
+    if args.spec_k and args.spec_drafter == "model":
+        raise SystemExit("--disagg composes with the ngram drafter only (a "
+                         "draft model would need its own cache shipped "
+                         "between the tiers)")
+    spec, _, _ = speculation(args)
+    sched = disagg_lib.DisaggScheduler(
+        params, cfg, n_prefill_slots=args.prefill_slots or args.slots,
+        n_decode_slots=args.slots, prompt_len=args.prompt_len,
+        max_new_cap=max(m for _, m in workload), eos_id=args.eos_id,
+        sampling=sampling_lib.SamplingParams(temperature=args.temperature,
+                                             top_k=args.top_k),
+        seed=args.seed, kv_block=args.kv_block,
+        decode_kv_blocks=args.kv_blocks, chunk_tokens=args.chunk_tokens,
+        prefix_cache=args.prefix_cache, speculative=spec,
+        segment_steps=args.segment_steps)
+    run = serve_arrivals(args, cfg, sched, workload)
+    out = {**run, "steps": sched.total_steps,
+           "prefill_steps": sched.prefill_steps,
+           "attn_impl": sched.attn_impl,
+           "prefill_impl": sched.prefill_impl,
+           "loop_impl": sched.loop_impl,
+           "transfer_impl": sched.transfer_impl,
+           "transfers": sched.transfers,
+           "transfer_bytes": sched.transfer_bytes,
+           "preemptions": sched.preemptions,
+           "replay_mismatches": sched.replay_mismatches,
+           "host_reads": (sched.prefill.host_reads, sched.decode.host_reads),
+           "segments": (sched.prefill.segments, sched.decode.segments)}
+    sched.close()
+    return out
 
 
 def run_batch_sync(args, cfg, params, workload):
@@ -507,6 +569,16 @@ def main(argv=None):
     ap.add_argument("--hi-every", type=int, default=4,
                     help="--stream: every Nth request is interactive "
                          "(0: all batch)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="prefill/decode disaggregation: a prefill tier "
+                         "chunk-prefills prompts and ships their KV "
+                         "blocks to a decode tier, both on the one card; "
+                         "implies --kv paged --prefill chunked")
+    ap.add_argument("--prefill-slots", type=int, default=0,
+                    help="--disagg: the prefill tier's slots (0 = --slots)")
+    ap.add_argument("--prefill-devices", type=int, default=0,
+                    help="--disagg: devices of the prefill tier; above 1 "
+                         "is multi-device and refused")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (the kernels' plain "
                          "versions)")
@@ -527,6 +599,27 @@ def main(argv=None):
         s = run_stream(args, cfg, params, workload)
         print_stream(s)
         return s
+    if args.disagg:
+        d = run_disagg(args, cfg, params, workload)
+        print(f"[serve] disagg, both tiers on one {args.device} device "
+              f"(decode {d['attn_impl']}, prefill {d['prefill_impl']}, "
+              f"transfer {d['transfer_impl']}, loop {d['loop_impl']}): "
+              f"{d['tokens']} tokens, {d['wall_s']:.2f}s wall "
+              f"({d['busy_s']:.2f}s busy) -> {d['tok_s']:.1f} tok/s | "
+              f"latency p50 {d['p50_s'] * 1e3:.0f}ms "
+              f"p99 {d['p99_s'] * 1e3:.0f}ms | {d['steps']} decode steps + "
+              f"{d['prefill_steps']} prefill-tier steps | TTFT p99 "
+              f"{d['ttft_p99_s'] * 1e3:.1f}ms, inter-token p50 "
+              f"{d['itl_p50_s'] * 1e3:.2f}ms p99 "
+              f"{d['itl_p99_s'] * 1e3:.2f}ms")
+        print(f"[serve]   shipped {d['transfers']} KV shipments "
+              f"({d['transfer_bytes'] / 1e6:.2f} MB) | "
+              f"{d['preemptions']} preemptions, "
+              f"{d['replay_mismatches']} replay mismatches | host reads "
+              f"{d['host_reads'][0]} prefill tier ({d['segments'][0]} "
+              f"segments), {d['host_reads'][1]} decode tier "
+              f"({d['segments'][1]} segments)")
+        return d
     cont = run_continuous(args, cfg, params, workload)
     print(f"[serve] continuous (decode {cont['attn_impl']}, "
           f"prefill {cont['prefill_impl']}): "

@@ -38,6 +38,13 @@ Differences from the JAX package, all forced by PyTorch:
   ``shared``/``pin``, and its ``ensure_private`` stays a no-op, so the
   segment captured for it holds no copy at all.
 
+Block shipping (disaggregated serving, ``serve/disagg.py``):
+``PagedKVCache.export_rows`` gathers rows' leading table columns into a
+fresh ``(L, R, n_cols, block, KV, hd)`` buffer (columns behind ``-1``
+zeroed) and ``import_rows`` scatters such a buffer into another pool's
+allocated rows (columns behind ``-1``, and unmasked rows, land in the
+TRASH block), as the JAX package's do; the dense cache refuses both.
+
 Reads clip unallocated ``-1`` table entries to block 0; the lanes they
 expose are masked by the caller's lengths, as in the JAX package.
 """
@@ -276,6 +283,16 @@ class DenseKVCache:
         return torch.zeros((self.n_rows,), dtype=torch.int32,
                            device=self.k.device)
 
+    def export_rows(self, rows, n_cols: int):
+        """Block shipping is paged only (``PagedKVCache.export_rows``)."""
+        raise NotImplementedError("a dense cache ships no blocks: "
+                                  "disaggregation needs kv='paged'")
+
+    def import_rows(self, rows, k_data, v_data, mask=None):
+        """Block shipping is paged only (``PagedKVCache.import_rows``)."""
+        raise NotImplementedError("a dense cache ships no blocks: "
+                                  "disaggregation needs kv='paged'")
+
 
 class PagedKVCache:
     """Block-table cache: shared pool + per-row tables + free-list.
@@ -506,6 +523,42 @@ class PagedKVCache:
                 rows, ccol, safe, needs), _no_copy, backend="graph")
         else:
             self._copy_on_write(rows, ccol, safe, needs)
+        return self
+
+    # ---- block shipping between pools (disaggregated serving) ----
+
+    def export_rows(self, rows, n_cols: int):
+        """The K/V behind ``rows``' leading ``n_cols`` table columns as
+        FRESH ``(L, R, n_cols, block, KV, hd)`` buffers, the wire format
+        of a shipment to another pool: they alias nothing in this pool,
+        so its blocks may be recycled while the buffers are in flight.
+        Columns behind ``-1`` (a short prompt's tail) come back zeroed;
+        the importer's table routes them nowhere."""
+        rows = rows.long()
+        cols = self.table[rows, :int(n_cols)].long()        # (R, n_cols)
+        dead = (cols < 0)[None, :, :, None, None, None]
+        safe = cols.clamp(min=0)
+        return (self.k_pool[:, safe].masked_fill_(dead, 0),
+                self.v_pool[:, safe].masked_fill_(dead, 0))
+
+    def import_rows(self, rows, k_data, v_data,
+                    mask=None) -> "PagedKVCache":
+        """Scatter ``export_rows``-shaped buffers into ``rows``' leading
+        table columns, in place; the rows hold fresh allocations
+        (``alloc`` first). Columns the destination table does not back
+        (``-1``), and unmasked rows, land in the TRASH block."""
+        rows = rows.long()
+        n, n_cols = rows.shape[0], k_data.shape[2]
+        dst = self.table[rows, :n_cols].long()              # (n, n_cols)
+        ok = dst >= 0
+        if mask is not None:
+            ok = ok & mask[:, None]
+        flat = torch.where(ok, dst, self.n_blocks).reshape(-1)
+        L = k_data.shape[0]
+        self.k_pool[:, flat] = k_data.to(self.k_pool.dtype).reshape(
+            (L, n * n_cols) + tuple(k_data.shape[3:]))
+        self.v_pool[:, flat] = v_data.to(self.v_pool.dtype).reshape(
+            (L, n * n_cols) + tuple(v_data.shape[3:]))
         return self
 
     def _copy_on_write(self, rows, ccol, safe, needs) -> None:

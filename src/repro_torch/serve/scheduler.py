@@ -123,9 +123,27 @@ slots still prefill (registrations turn READY), the block ids of the
 blocks registered at admission (taken from a copy of the table written
 at admission, which retirement does not clear), and ``reclaimable`` for
 a paged pool (the SLO layer's victim order). ``host_reads`` counts every
-read; the only one beyond the harvest is a preemption or a
-``reclaimable_host`` call made before any segment has run since the
-last admission, which reads what it needs then.
+read. Without the prefix cache every block has one reference and a
+row's blocks are allocated whole, so admission, a splice and a
+preemption keep ``reclaimable`` exact on the host and nothing else is
+read. With the prefix cache, shared and pinned blocks make the host's
+count inexact: a preemption or a ``reclaimable_host`` call made before
+any segment has run since the last admission or preemption reads what
+it needs then.
+
+Disaggregation (``serve/disagg.py``) drives two schedulers on one card.
+The prefill tier is built with ``prefill_only=True`` (chunked and
+paged): a row whose prompt completes retires to DONE holding its blocks
+and its first token instead of decoding, and its segment, a capture of
+its own, holds no decode branch. ``dispatch_segment`` admits and
+launches a segment without reading the device; ``harvest_prefilled``
+brings ``done``, the first tokens and the prompt lengths with the
+harvest's one read; ``release_slots`` frees the shipped rows. The
+decode tier admits prefilled requests with ``splice_requests``: it
+allocates, imports the shipped blocks (``PagedKVCache.import_rows``)
+and registers each request RUNNING with ``cur_len = plen + 1``, the
+state a colocated slot holds the moment its last chunk completes, in
+one host-to-device write and no read.
 
 The scheduler keeps the device and stream it was built on and makes
 them current whenever it works (``step``, ``warmup``, ``preempt_slots``),
@@ -389,6 +407,9 @@ class DecodeScheduler:
         register prefilled alongside the target.
       prefix_cache: share full prompt blocks between requests (module
         docstring). Needs ``prefill="chunked"`` and ``kv="paged"``.
+      prefill_only: the prefill tier of a disaggregated deployment
+        (module docstring). Needs ``prefill="chunked"`` and
+        ``kv="paged"``, and refuses speculation.
     """
 
     def __init__(self, params, cfg, *, n_slots: int, prompt_len: int,
@@ -401,7 +422,7 @@ class DecodeScheduler:
                  loop: Optional[str] = None, seed: int = 0,
                  speculative: Optional[spec_lib.SpecConfig] = None,
                  draft_params=None, draft_cfg=None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, prefill_only: bool = False):
         if n_slots < 1 or max_new_cap < 1:
             raise ValueError("need n_slots >= 1 and max_new_cap >= 1")
         if not 1 <= admit_threshold <= n_slots:
@@ -426,6 +447,18 @@ class DecodeScheduler:
                 "only the chunked path's per-row offsets support) and "
                 "kv='paged' (sharing is a block-table mapping); got "
                 f"prefill={prefill!r}, kv={kv!r}")
+        if prefill_only:
+            if prefill != "chunked" or kv != "paged":
+                raise ValueError(
+                    "prefill_only=True (disaggregated prefill tier) "
+                    "requires prefill='chunked' and kv='paged': the "
+                    "tier exists to run chunked admission and ship "
+                    f"block-granular KV; got prefill={prefill!r}, "
+                    f"kv={kv!r}")
+            if speculative is not None:
+                raise ValueError(
+                    "a prefill-only tier never decodes; speculative "
+                    "decoding belongs on the decode tier")
         if loop not in (None, "graph", "host"):
             raise ValueError(f"loop must be None, 'graph' or 'host'; got "
                              f"{loop!r}")
@@ -451,6 +484,7 @@ class DecodeScheduler:
         self.max_len = prompt_len + max_new_cap + 1
         self.prefill = prefill
         self._chunked = prefill == "chunked"
+        self.prefill_only = bool(prefill_only)
         self.chunk_tokens = int(chunk_tokens)
         self.kv, self.kv_block = kv, kv_block
         self.kv_blocks = (n_slots * kvc.blocks_needed(self.max_len, kv_block)
@@ -516,9 +550,12 @@ class DecodeScheduler:
         self._limits = torch.zeros(2, dtype=torch.int32)
         # the stream the scheduler works on, whichever thread calls it
         self._stream = None
+        # recorded after each launched segment (``segment_done``)
+        self._seg_event = None
         if self.device.type == "cuda":
             self._limits = self._limits.pin_memory()
             self._stream = torch.cuda.current_stream(self.device)
+            self._seg_event = torch.cuda.Event()
 
     # ---------------- pool construction ----------------
 
@@ -696,7 +733,11 @@ class DecodeScheduler:
         p.cur_len.copy_(torch.where(fin, p.plen + 1, p.cur_len))
         p.pf_pos.copy_(torch.where(p.prefilling, p.pf_pos + C, p.pf_pos))
         p.prefilling.copy_(p.prefilling & ~fin)
-        p.active.copy_(p.active | fin)
+        if self.prefill_only:
+            # the prefill tier: the row waits, DONE, for its shipment
+            p.done.copy_(p.done | fin)
+        else:
+            p.active.copy_(p.active | fin)
 
     def _finishing(self, p: SlotPool) -> torch.Tensor:
         """The prefilling slots whose next chunk covers their last prompt
@@ -850,8 +891,9 @@ class DecodeScheduler:
         if self._chunked:
             core.cond(p.prefilling.any(), self._captured_branch(
                 self._chunk_branch, "chunk"), _noop, backend="graph")
-            core.cond(p.active.any(), self._captured_branch(
-                self._decode_branch, "decode"), _noop, backend="graph")
+            if not self.prefill_only:
+                core.cond(p.active.any(), self._captured_branch(
+                    self._decode_branch, "decode"), _noop, backend="graph")
         else:
             self._captured_branch(self._decode_branch, "decode")()
         p.steps.add_(1)
@@ -877,8 +919,9 @@ class DecodeScheduler:
         before the chunk runs: some slot prefills; some slot decodes (one
         runs, or its chunk this iteration finishes its prompt)."""
         p = self.pool
-        flags = torch.stack([self._seg_cond(p), p.prefilling.any(),
-                             (p.active | self._finishing(p)).any()])
+        decode = (p.active.any() if self.prefill_only else
+                  (p.active | self._finishing(p)).any())
+        flags = torch.stack([self._seg_cond(p), p.prefilling.any(), decode])
         self.host_reads += 1
         return device_loop.read_host(flags)[0].tolist()
 
@@ -923,7 +966,8 @@ class DecodeScheduler:
         with torch.no_grad():
             if self._chunked:
                 self._chunk()
-            self._decode_body(warm=True)
+            if not self.prefill_only:
+                self._decode_body(warm=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -1192,16 +1236,21 @@ class DecodeScheduler:
                 self._slot_blocks[slot] = need - len(regs[i])
             else:
                 self._slot_blocks[slot] = need
+                # one reference a block: all of the row's are reclaimable
+                self._h_reclaim[slot] = need
             self._free_blocks -= need
-        self._reclaim_fresh = False
+        self._reclaim_fresh = not self.prefix_cache
         self.peak_resident = max(self.peak_resident, self.active_count)
         return k
 
-    def _harvest(self) -> List[FinishedRequest]:
+    def _read_harvest(self, *more: torch.Tensor):
         """ONE host read per segment: ``done``, the emissions, the
         request ids, the device counters, which slots still prefill,
-        ``reclaimable`` (paged) and, after an admission that registered
-        prefix blocks, the table that admission left."""
+        ``reclaimable`` (paged), after an admission that registered
+        prefix blocks the table that admission left, and ``more``.
+        Updates the host mirrors and counters; returns ``done``, the
+        emissions, ``n_emitted``, the request ids and ``more``'s
+        values."""
         p = self.pool
         extra = [p.prefilling]
         paged = self.kv == "paged" and self._kv_key is not None
@@ -1212,8 +1261,13 @@ class DecodeScheduler:
         vals = device_loop.read_host(
             p.done, p.out, p.n_emitted, p.request_id, p.launches,
             p.slot_accepted, p.slot_windows, p.slot_layers, p.slot_decodes,
-            p.steps, p.slot_steps, p.chunk_steps, p.decode_steps, *extra)
+            p.steps, p.slot_steps, p.chunk_steps, p.decode_steps, *extra,
+            *more)
         self.host_reads += 1
+        if more:
+            vals, wanted = vals[:-len(more)], vals[-len(more):]
+        else:
+            wanted = []
         done, out, n_emitted, rids, launches, accepted, windows = vals[:7]
         self._h_depth = np.stack(vals[7:9]).astype(np.int64)
         counts, (prefilling, *rest) = vals[9:13], vals[13:]
@@ -1232,6 +1286,20 @@ class DecodeScheduler:
         for (o, a), k in zip(_LAUNCH_COUNTERS, launches - self._launches):
             setattr(o, a, getattr(o, a) + int(k))
         self._launches = launches.astype(np.int64)
+        if self.prefix_cache:
+            # registrations turn READY once their slot has left prefill
+            idx = self._prefix_index
+            for slot in np.nonzero(self._busy & ~self._h_prefilling)[0]:
+                for h, _ in self._slot_regs[slot]:
+                    e = idx.entries.get(h)
+                    if e is not None:
+                        e.ready = True
+        return (done, out, n_emitted, rids, *wanted)
+
+    def _harvest(self) -> List[FinishedRequest]:
+        """The segment's one read (``_read_harvest``), then the finished
+        requests: their slots return to FREE on the host."""
+        done, out, n_emitted, rids = self._read_harvest()
         got = []
         for slot in np.nonzero(done)[0]:
             length = int(n_emitted[slot])
@@ -1255,14 +1323,6 @@ class DecodeScheduler:
                 # a done slot's registrations are READY, and it no longer
                 # references any entry (its table row was freed)
                 self._drop_slot_refs(slot, ready=True)
-        if self.prefix_cache:
-            # registrations turn READY once their slot has left prefill
-            idx = self._prefix_index
-            for slot in np.nonzero(self._busy & ~self._h_prefilling)[0]:
-                for h, _ in self._slot_regs[slot]:
-                    e = idx.entries.get(h)
-                    if e is not None:
-                        e.ready = True
         return got
 
     def _fill_block_ids(self, table: np.ndarray) -> None:
@@ -1321,21 +1381,22 @@ class DecodeScheduler:
                 stack.enter_context(torch.cuda.stream(self._stream))
             yield
 
-    def step(self, expect_arrivals: bool = False,
-             max_steps: Optional[int] = None) -> List[FinishedRequest]:
-        """One scheduling round: admit -> segment -> harvest. With an
-        empty queue the segment drains (retirements do not pause it)
-        unless ``expect_arrivals``: then it returns as soon as a slot
-        frees, so a request arriving mid-drain is admitted promptly.
-        ``max_steps`` additionally caps the segment's iterations (None:
-        no cap): a streaming or SLO driver takes control back every few
-        iterations to surface tokens and revisit preemption."""
+    def dispatch_segment(self, expect_arrivals: bool = False,
+                         max_steps: Optional[int] = None) -> bool:
+        """Admit, then launch one segment without reading the device (the
+        first half of ``step``). With an empty queue the segment drains
+        (retirements do not pause it) unless ``expect_arrivals``: then it
+        returns as soon as a slot frees, so a request arriving mid-drain
+        is admitted promptly. ``max_steps`` additionally caps its
+        iterations (None: no cap). Returns False when nothing ran (an
+        idle pool). The disaggregated router launches the prefill tier's
+        segment this way and polls ``segment_done``."""
         with self._on_device():
             if self._graph and self._loop is None and not self._busy.any():
                 self._capture()
             self._admit_queued()
             if self.active_count == 0:
-                return []
+                return False
             if not self.queue and not expect_arrivals:
                 want = self.n_slots + 1          # drain: never pause
             else:
@@ -1347,6 +1408,28 @@ class DecodeScheduler:
                 want = self.free_slots + fresh
             self._segment(want, _NO_STEP_CAP if max_steps is None
                           else int(max_steps))
+            if self._seg_event is not None:
+                self._seg_event.record(self._stream)
+        return True
+
+    def segment_done(self) -> bool:
+        """Has the last launched segment finished? A poll of an event
+        recorded after it, which does not wait (always True on the
+        CPU, where the segment ran in the call)."""
+        return self._seg_event is None or self._seg_event.query()
+
+    def step(self, expect_arrivals: bool = False,
+             max_steps: Optional[int] = None) -> List[FinishedRequest]:
+        """One scheduling round: admit -> segment -> harvest
+        (``dispatch_segment``'s arguments): a streaming or SLO layer
+        takes control back every few iterations with ``max_steps`` to
+        surface tokens and revisit preemption. A prefill-only tier
+        returns [] without a read: collect its rows with
+        ``harvest_prefilled``."""
+        if not self.dispatch_segment(expect_arrivals, max_steps) or \
+                self.prefill_only:
+            return []
+        with self._on_device():
             return self._harvest()
 
     # ---------------- preemption (the SLO layer's mechanism) -----------
@@ -1364,8 +1447,10 @@ class DecodeScheduler:
 
     def reclaimable_host(self) -> np.ndarray:
         """``reclaimable()`` of the paged pool on the host (zeros for a
-        dense cache): the harvest's copy, or a read of its own (counted
-        in ``host_reads``) after an admission or preemption since."""
+        dense cache): the harvest's copy, kept exact by admission, splice
+        and preemption without the prefix cache; with it, a read of its
+        own (counted in ``host_reads``) after an admission or preemption
+        since the last harvest."""
         if self.kv != "paged" or self._kv_key is None:
             return np.zeros(self.n_slots, np.int64)
         if not self._reclaim_fresh:
@@ -1429,9 +1514,156 @@ class DecodeScheduler:
             self._h_prefilling[s] = False
             self._free_blocks += int(self._slot_blocks[s])
             self._slot_blocks[s] = 0
-        self._reclaim_fresh = False
+            self._h_reclaim[s] = 0
+        # shared blocks change other rows' counts: read them when needed
+        self._reclaim_fresh = self._reclaim_fresh and not self.prefix_cache
         self.preemptions += len(slots)
         return got
+
+    # ---------------- disaggregation hooks (serve/disagg.py) ----------
+
+    def harvest_prefilled(self) -> List[dict]:
+        """Prefill-only tier: the rows whose prompt completed in the last
+        segment, from the segment's ONE read (``done``, the first
+        tokens and the prompt lengths come with the harvest's): one
+        record per row, ``slot``, the host-side request ``req``, the
+        first sampled token ``t0`` and the prefilled length ``plen``.
+        Frees nothing: the rows keep backing the blocks the caller
+        exports; ``release_slots`` frees them, before the next segment
+        (whose entry clears ``done``)."""
+        if not self.prefill_only:
+            raise RuntimeError("harvest_prefilled() requires a "
+                               "prefill_only=True scheduler")
+        with self._on_device():
+            done, _, _, _, t0, plen = self._read_harvest(
+                self.pool.next_token, self.pool.plen)
+        return [{"slot": int(s), "req": self._slot_req[int(s)],
+                 "t0": int(t0[s]), "plen": int(plen[s])}
+                for s in np.nonzero(done)[0]]
+
+    def release_slots(self, slots) -> None:
+        """Free harvested prefill rows (their blocks and registers) once
+        their blocks are exported, in place between segments (the
+        preemption's device op). Prefix-index registrations turn READY
+        and keep their pins, as at retirement."""
+        slots = sorted({int(s) for s in np.atleast_1d(
+            np.asarray(slots, np.int64))})
+        if not slots:
+            return
+        for s in slots:
+            if not 0 <= s < self.n_slots or not self._busy[s]:
+                raise ValueError(f"slot {s} is not resident")
+        mask = np.zeros(self.n_slots, bool)
+        mask[slots] = True
+        with self._on_device():
+            self._preempt(torch.from_numpy(mask).to(self.device), None)
+        for s in slots:
+            self._busy[s] = False
+            self._slot_req[s] = None
+            self._free_blocks += int(self._slot_blocks[s])
+            self._slot_blocks[s] = 0
+            self._h_reclaim[s] = 0
+            self._h_prefilling[s] = False
+            if self.prefix_cache:
+                self._drop_slot_refs(s, ready=True)
+        self._reclaim_fresh = self._reclaim_fresh and not self.prefix_cache
+
+    def splice_requests(self, reqs: List[_Queued], t0s, plens, k_data,
+                        v_data, ready=None) -> List[int]:
+        """Admit already-prefilled requests into free slots (the decode
+        tier of a disaggregated deployment): free and allocate each row
+        for ``plen + max_new + 1`` positions, import the shipped blocks
+        ``k_data``/``v_data`` ``(L, len(reqs), n_cols, block, KV, hd)``
+        into its leading table columns, and register it RUNNING with
+        ``cur_len = plen + 1``, ``t0`` pending and nothing emitted. One
+        host-to-device write (the registers, packed) and no read.
+        ``ready``: a CUDA event after which the shipment is complete (the
+        scheduler's stream waits for it). The caller gates on
+        ``free_slots`` and ``free_blocks``. Returns the slots filled."""
+        if not self._chunked or self.kv != "paged" or self.prefill_only:
+            raise RuntimeError(
+                "splice_requests needs prefill='chunked', kv='paged' and "
+                "prefill_only=False (the disaggregated decode tier)")
+        k = len(reqs)
+        if k == 0:
+            return []
+        if k_data.shape[1] != k or k > self.free_slots:
+            raise RuntimeError(
+                f"splice of {k} requests needs {k} free slots and a "
+                f"matching shipment; free={self.free_slots}, shipment "
+                f"rows={k_data.shape[1]}")
+        needs = [self.blocks_for(int(plens[i]), reqs[i].max_new)
+                 for i in range(k)]
+        if sum(needs) > self._free_blocks:
+            raise RuntimeError(f"splice needs {sum(needs)} blocks; free="
+                               f"{self._free_blocks} (the caller gates "
+                               f"admission)")
+        n, L = self.n_slots, self.prompt_len
+        free = np.nonzero(~self._busy)[0]
+        slots = np.concatenate([free, np.nonzero(self._busy)[0]])
+        # the registers of all n rows in one int64 buffer: prompt, plen,
+        # slot, rid, max_new, key words, derive, mask, priority, t0 and
+        # the deadline's float32 bits
+        host = np.zeros((n, L + 11), np.int64)
+        host[:, L] = L
+        host[:, L + 1] = slots
+        host[:, L + 2] = -1
+        host[:, L + 10] = np.float32(np.inf).view(np.int32)
+        for i, q in enumerate(reqs):
+            tl = q.prompt.shape[1]
+            host[i, :tl] = q.prompt[0]
+            host[i, L] = int(plens[i])
+            host[i, L + 2] = q.request_id
+            host[i, L + 3] = q.max_new
+            if q.key is None:
+                host[i, L + 6] = 1
+            else:
+                host[i, L + 4:L + 6] = q.key
+            host[i, L + 7] = 1
+            host[i, L + 8] = q.priority
+            host[i, L + 9] = int(t0s[i])
+            host[i, L + 10] = np.float32(q.deadline).view(np.int32)
+        with self._on_device():
+            if ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(ready)
+            d = torch.from_numpy(host)
+            if self._stream is not None:
+                d = d.pin_memory()
+            d = d.to(self.device, non_blocking=True)
+            i32 = d.to(torch.int32)
+            prompts, plen, slot_ix = i32[:, :L], i32[:, L], i32[:, L + 1]
+            rids, max_news = i32[:, L + 2], i32[:, L + 3]
+            keys, derive = d[:, L + 4:L + 6], d[:, L + 6].bool()
+            mask, prios, t0 = d[:, L + 7].bool(), i32[:, L + 8], i32[:, L + 9]
+            deadlines = i32[:, L + 10].contiguous().view(torch.float32)
+            self._reserve(slot_ix, plen + max_news + 1, mask)
+            self.pool.cache[self._kv_key].import_rows(
+                slot_ix[:k], k_data, v_data, mask=mask[:k])
+            zeros = torch.zeros_like(rids)
+            self._register(slot_ix, mask, next_token=t0, cur_len=plen + 1,
+                           n_emitted=zeros, budget=max_news,
+                           active=torch.ones_like(mask), done=zeros.bool(),
+                           request_id=rids,
+                           keys=self._request_keys(rids, keys, derive),
+                           out=torch.zeros_like(self.pool.out),
+                           prompt=prompts, plen=plen, pf_pos=plen,
+                           prefilling=zeros.bool(), priority=prios,
+                           deadline=deadlines, slot_layers=zeros,
+                           slot_decodes=zeros)
+        filled = []
+        for i, q in enumerate(reqs):
+            slot = int(free[i])
+            self._busy[slot] = True
+            self._slot_req[slot] = q
+            self._slot_blocks[slot] = needs[i]
+            self._h_reclaim[slot] = needs[i]
+            self._free_blocks -= needs[i]
+            self._h_n_emitted[slot] = 0
+            self._h_depth[:, slot] = 0
+            self._h_prefilling[slot] = False
+            filled.append(slot)
+        self.peak_resident = max(self.peak_resident, self.active_count)
+        return filled
 
     def resubmit(self, p: PreemptedRequest) -> None:
         """Re-queue a preempted request at the FRONT of the queue with
@@ -1563,6 +1795,21 @@ class DecodeScheduler:
     def prefill_impl(self) -> str:
         return engine.resolved_prefill_impl(self.cfg, self.kv, self.prefill,
                                             self.device)
+
+    @property
+    def device_launches(self) -> Dict[str, int]:
+        """Launches inside this scheduler's graph segments since the run
+        began, counted on the device, as of the last harvest: one entry
+        for each of ``paged_attention``, ``flash_prefill``, ``gather``
+        and ``flash_verify`` (zeros under the host-read loop, whose
+        launches the wrappers count in Python)."""
+        return {k: int(v) for k, v in zip(_COUNTED, self._launches)}
+
+    @property
+    def transfer_impl(self) -> str:
+        """How prefilled K/V reaches the decode kernel: here it never
+        leaves the pool (the disaggregated router names its copy)."""
+        return "colocated"
 
 
 def _noop() -> None:
