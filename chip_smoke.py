@@ -103,7 +103,9 @@ Phases, each printing its own lines:
     at the forward's shape beside the plain version,
     ``scaled_dot_product_attention`` (a yardstick the port never calls)
     and the bound, and at qwen2-7b's (B=4, S=2048, H=28, KV=4, D=128)
-    beside SDPA;
+    beside SDPA, and at qwen2-moe-a2.7b's (B=4, S=2048, H=KV=16, D=128;
+    the ``shapes`` entry of its record) beside SDPA and its plain
+    version;
 14. ``model_zoo.forward`` and ``loss_fn`` of llama3.2-1b at full width
     (random weights from a seed, B=4, S=2048 tokens from ``SyntheticLM``)
     under ``no_grad`` with ``attn_impl="cuda"`` (the kernel launches
@@ -166,8 +168,9 @@ Phases, each printing its own lines:
     gather runs' (8/8), and both kernels over a table with 31 shared
     blocks equal their plain versions; at smoke width, speculation (the
     n-gram drafter and the target drafting for itself) with the cache
-    on and off gives the non-speculative streams, and its accept rates
-    are printed;
+    on and off gives the non-speculative streams, the self-drafting
+    accept rate with hits is within DRAFT_RATE_TOL of the rate without,
+    and the accept rates are printed;
 21. the SLO scheduler at full width: 12 batch requests holding the 148
     blocks and 4 interactive ones arriving two rounds apart, and the
     same requests uncontended (16 slots): preemptions under overload
@@ -233,14 +236,52 @@ Phases, each printing its own lines:
     flight at once are printed; in fp32 the disaggregated streams must
     equal the colocated ones 32/32, and a decode tier held full by two
     batch-class requests must preempt one for an urgent arrival with no
-    replay mismatch, every stream equal to the uncontended run's.
+    replay mismatch, every stream equal to the uncontended run's;
+27. (run after phase 26) qwen2-moe-a2.7b at full width (24 layers, 60
+    experts top-4 and 4 shared, bf16, random weights from a seed,
+    ``attn_impl="cuda"``) through the chunked paged pool of phase 4 (8
+    slots, block 16, chunk 128): 16 requests of exactly 512 tokens, 64
+    new each, EOS -1, graph and host-read segments in turns as in phase
+    4 (the MoE's sort-based routing inside the captured segment): every
+    request finishes, both block-table kernels launch and the gather
+    path never runs, one host read a graph segment, launches equal
+    across lowerings; tok/s, the device's share of the wall in segments,
+    device ms an iteration, host reads a segment and peak memory are
+    printed, then a decode-only segment's device ms an iteration at 8
+    running slots beside the bytes bound of the reference's MoE (every
+    expert's weights read every iteration; predicted 8.5 ms) and beside
+    the top-4 share of the expert bytes;
+28. the same model cut to 4 layers in fp32: the 16 requests through the
+    kernels in graph segments and through the gather path in host-read
+    segments must give identical greedy streams 16/16; the routed
+    entries dropped for capacity (decode and prefill groups) are
+    printed, counted from the routing maps of the host-read run's MoE
+    calls and read once after it; ``model_zoo.forward`` and ``loss_fn``
+    at B=1, S=512 through the flash kernel (G = 1, D = 128, one launch a
+    layer) must agree with chunked attention (logits within LOGIT_TOL,
+    the loss and its aux terms within MOE_LOSS_RTOL);
+29. internvl2-1b at full width (bf16, ``attn_impl="cuda"``) through the
+    chunked paged pool with its patch prefix (``prefix_len`` 256) and the
+    prefix cache on and off, in graph segments: 16 requests of 256
+    seeded random patch embeddings and a 256-token prompt, 4 images each
+    shown to 4 requests behind one 64-token system text: every request
+    finishes, both kernels launch and nothing gathers, one host read a
+    segment, the cache hits and the drain leaves only its pins; one
+    prompt with two images never hits; hit blocks, chunk iterations and
+    tok/s are printed, on against off; then at 4 layers in fp32 the
+    kernel path with the prefix cache must give the gather path's
+    streams without it, 16/16.
 
 The llama3.2-1b weights are freed before phase 26 (which makes and frees
 its own) and falcon-mamba's are made (phase 23 frees its own before the
-next), and
-falcon-mamba's before the LSTM phases, and each of the last three
+next), phases 27-29 make and free their own, and
+falcon-mamba's are freed before the LSTM phases, and each of the last three
 phases frees what it made. Then
-one JSON line of kernel records and, last, the device line. Any
+one JSON line of kernel records (``paged_attention`` and
+``flash_prefill`` also give ``path_launches``: their launches in each
+serving path's first graph run, llama3.2-1b, qwen2-moe-a2.7b and
+internvl2-1b, the counts set to 0 just before it) and, last, the
+device line. Any
 failed check raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA device is present.
 """
@@ -268,7 +309,12 @@ TOL = {"bfloat16": 1.6e-2,  # two bf16 ulps at magnitude 1: the output
        "float32": 1e-4}     # fp32 sums in another order over up to
 #                             2048 positions
 GEOMETRIES = (("llama3.2-1b", 32, 8, 64), ("qwen2-7b", 28, 4, 128),
-              ("olmo-1b", 16, 16, 128), ("smollm-135m", 9, 3, 64))
+              ("olmo-1b", 16, 16, 128), ("smollm-135m", 9, 3, 64),
+              ("internvl2-1b", 14, 2, 64))
+# the MoE and VLM serving phases' attention geometries (qwen2-moe-a2.7b's
+# MHA is olmo-1b's): the block-table kernels are timed there too, as
+# extra ``shapes`` of their records
+NEW_SHAPES = (("qwen2-moe-a2.7b", 16, 16, 128), ("internvl2-1b", 14, 2, 64))
 # the TPU kernel (or kernel entry) that each record of the kernels line
 # replaces
 REPLACES = {
@@ -300,9 +346,11 @@ FA_TOL = {  # (rtol, atol) of |kernel - plain| <= atol + rtol |plain|
 #                                  need at most 2.8e-3)
 FA_SWEEP = ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 64, 6, 3, 128),
             (2, 128, 2, 1, 16),          # (B, S, H, KV, D): the JAX sweep,
-            (2, 128, 8, 2, 8))           # and the smoke llama's head dim
+            (2, 128, 8, 2, 8),           # the smoke llama's head dim,
+            (1, 256, 16, 16, 128))       # and qwen2-moe-a2.7b's MHA
 FA_FORWARD = (4, 2048, 32, 8, 64)        # the llama3.2-1b forward's shape
 FA_QWEN = (4, 2048, 28, 4, 128)          # qwen2-7b's geometry, timed beside
+FA_MOE = (4, 2048, 16, 16, 128)          # qwen2-moe-a2.7b's (G = 1), likewise
 FA_EDGES = (  # (B, S, H, KV, D, T): the wgmma route's edges (D = 64, 128):
     (2, 200, 8, 2, 64, 200),     # S, T off multiples of 128, B > 1 (TMA's
     (2, 130, 8, 2, 64, 300),     # zero fill past T in each batch row); T > S
@@ -326,6 +374,15 @@ DQN_TOL = 1e-5      # in-graph against eager DQN carries after 200 steps: the
 #                     test's bound for a carry on the card
 QUICK_TOL = 1e-6    # quickstart's values on the card against the CPU: fp32
 #                     scalars through tanh, sin and products
+DRAFT_RATE_TOL = 0.02   # phase 20: the self-drafting accept rate with prefix
+#                         hits against without (equal on the CPU; the
+#                         draft's hit positions are prefilled in one call
+#                         there, in chunks without hits)
+MOE_PARITY_LAYERS = 4    # phase 28 and phase 29's fp32 runs: full width,
+#                          depth cut to 4 layers
+MOE_LOSS_RTOL = 1e-5     # fp32 aux losses through flash and chunked attention
+VLM_IMAGES = 4           # phase 29: images, each shared by 4 requests
+VLM_SYSTEM = 64          # tokens of the system text behind every image
 
 
 def log(msg: str) -> None:
@@ -699,6 +756,16 @@ def phase_kernels():
     for kind, name in (("decode", "paged_attention"),
                        ("prefill", "flash_prefill")):
         time_block_table(kind, name, GEOMETRIES[1], fns)
+    # the MoE and VLM serving geometries: extra records of the same kernels
+    for rec, kind in zip(records, ("decode", "prefill")):
+        rec["shapes"] = []
+        for geom in NEW_SHAPES:
+            r = time_block_table(kind, rec["name"], geom, fns)
+            rec["shapes"].append({
+                "arch": geom[0], "H": geom[1], "KV": geom[2], "hd": geom[3],
+                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "eager_ms", "library_eager_ms")}})
     return records
 
 
@@ -1716,10 +1783,7 @@ PREFIX_POOL = 148   # 4 x blocks_for(512, 64) = 4 x 37 blocks: four cold
 SEG_STEPS = 8       # iterations a segment at most in phases 20-22: the
 #                     resolution of their TTFT and ITL in steps
 STREAM_POOL = 400   # phase 22: blocks for 8 cold residents (296) and
-#                     more, so its preemptions are for slots: the SLO
-#                     layer plans a block-short preemption from the
-#                     victims' unpinned blocks (5 of 37 for a 512-token
-#                     prompt with the prefix cache), so none is feasible
+#                     more, so its preemptions are for slots, not blocks
 
 
 def prefix_requests(cfg, kind, n=16, prompt_len=512):
@@ -2011,11 +2075,12 @@ def prefix_speculation():
     block 16, chunk 16, through the n-gram drafter and the model
     drafter (the target drafting for itself, which accepts nearly every
     window without hits) with the prefix cache on and off. The draft
-    model's cache is prefilled from the hit's first uncached position,
-    as in the JAX package, so on a hit its positions below hold stale
-    values and its drafts are rejected more. Gates: every
-    greedy stream equals the non-speculative run's, and ``flash_verify``
-    launches (counted on the device). Prints accept rates and hits."""
+    model's own cache shares no block, so admission prefills its hit
+    positions (the JAX package leaves them stale). Gates: every greedy
+    stream equals the non-speculative run's, ``flash_verify`` launches
+    (counted on the device), and the model drafter's accept rate with
+    hits is within ``DRAFT_RATE_TOL`` of its rate without. Prints accept
+    rates and hits."""
     import dataclasses
     import numpy as np
     from repro_torch import bridge
@@ -2060,6 +2125,10 @@ def prefix_speculation():
                 g[3] for g in got.values()) == 0 or got[True][2] == 0:
             raise AssertionError(f"prefix-spec {drafter}: streams differ, "
                                  f"no verify launch or no hit")
+        if drafter == "model" and \
+                abs(got[True][1] - got[False][1]) > DRAFT_RATE_TOL:
+            raise AssertionError("prefix-spec: the model drafter accepts "
+                                 "less after prefix hits")
 
 
 def slo_arrivals(reqs):
@@ -2973,7 +3042,40 @@ def phase_flash_kernel():
         f"device kernel/sdpa {times['ms'] / times['library_ms']:.2f}, max "
         f"|kernel - plain| {err:.3e} (atol needed {need:.3e})")
     del copies, heads
+    record["shapes"] = [time_flash_moe(kern, sdpa)]
     return record
+
+
+def time_flash_moe(kern, sdpa):
+    """The flash kernel at qwen2-moe-a2.7b's forward (G = 1, D = 128),
+    bf16 causal, held against its plain version and timed beside SDPA:
+    an extra ``shapes`` entry of its record."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    copies = [fa_case(400 + i, *FA_MOE, torch.bfloat16) for i in range(4)]
+    ref = attention_ref(*copies[0])
+    err, need, ok = fa_check(kern(*copies[0]), ref)
+    if not ok:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {FA_MOE}: {need:.3e}")
+    heads = [[t.transpose(1, 2) for t in c] for c in copies]
+    times = call_times(lambda i: kern(*copies[i]), len(copies),
+                       lambda i: sdpa(*heads[i], is_causal=True,
+                                      enable_gqa=True), iters=20)
+    plain_ms = time_ms(lambda i: attention_ref(*copies[i]), len(copies),
+                       iters=5)
+    b_ms, b_by = fa_bound(*copies[0])
+    log(f"[flash] time flash_attention at qwen2-moe-a2.7b's "
+        f"B,S,H,KV,D={FA_MOE} bf16 causal: {fmt_times(times)}, plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), device "
+        f"kernel/sdpa {times['ms'] / times['library_ms']:.2f}, max |kernel "
+        f"- plain| {err:.3e} (atol needed {need:.3e})")
+    return {"arch": "qwen2-moe-a2.7b", "B,S,H,KV,D": list(FA_MOE),
+            "max_abs_err": err, "ms": times["ms"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": times["library_ms"],
+            "eager_ms": times["eager_ms"],
+            "library_eager_ms": times["library_eager_ms"]}
 
 
 def forward_batch(cfg):
@@ -3794,6 +3896,337 @@ def phase_disagg():
                                               (1, "decode tier"))}
 
 
+# ------------------------------------------------- the MoE and VLM families
+
+def moe_requests(cfg, n=16, prompt_len=512, max_new=64):
+    """n requests of exactly ``prompt_len`` random tokens (numpy seed 0;
+    MoE prompts are never padded), each ``max_new`` tokens."""
+    return [(p, max_new) for p, _ in serving_requests(cfg, n, prompt_len)]
+
+
+def moe_decode_bytes(cfg, positions):
+    """Bytes one decode iteration of the reference's MoE must read: every
+    expert's weights (each expert computes its capacity rows, used or
+    not), attention, shared experts, norms, routers and the unembedding
+    in bf16, and the K/V of ``positions`` cached positions. Returns
+    (all, expert weights, K/V)."""
+    from repro_torch.models import model_zoo
+    m, L, D = cfg.moe, cfg.n_layers, cfg.d_model
+    experts = L * m.n_experts * 3 * D * m.d_ff_expert * 2
+    embed = cfg.padded_vocab * D * 2          # 8 rows of it are read
+    other = model_zoo.count_params(cfg) * 2 - experts - embed
+    kv = positions * L * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    return experts + other + kv, experts, kv
+
+
+def moe_decode_ms(sched, reqs, prefill_iters, iters=32):
+    """Device ms of one decode iteration at 8 running slots: the requests
+    admitted and prefilled in a first segment of ``prefill_iters``
+    iterations, then a segment of ``iters`` decode-only iterations timed
+    with CUDA events (``instrument_sync``'s start-to-read span)."""
+    for rid, (prompt, max_new) in enumerate(reqs):
+        sched.submit(prompt, max_new=max_new, request_id=rid)
+    sched.step(max_steps=prefill_iters)
+    chunks = int(sched._counts[2])
+    finish = instrument_sync(sched)
+    sched.step(max_steps=iters)
+    _, _, _, seg_ms = finish()
+    if int(sched._counts[2]) != chunks or sched.active_count != len(reqs):
+        raise AssertionError("moe: the timed segment was not decode only")
+    sched.run_until_drained()
+    return seg_ms / iters
+
+
+def phase_moe_serve():
+    """qwen2-moe-a2.7b at full width (bf16, random weights from a seed,
+    ``attn_impl="cuda"``) through the chunked paged scheduler: 16
+    requests of exactly 512 tokens, 64 new each, EOS -1, graph segments
+    against host-read ones in turns (``serve_in_turns``). Gates: every
+    request finishes, both block-table kernels launch and the gather
+    path never runs, one host read a segment. Prints tok/s, the device's
+    share of the wall in segments, device ms an iteration, host reads a
+    segment and peak memory; then a decode-only segment's device ms an
+    iteration beside the bytes bound of the reference's MoE (every
+    expert's weights read every iteration) and beside the top-4 share of
+    the expert bytes. Returns the kernels' launches in the first graph
+    run."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              attn_impl="cuda")
+    t0 = time.perf_counter()
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in torch.utils._pytree.tree_leaves(params))
+    kv = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    log(f"[moe] {cfg.name} weights {nbytes / 1e9:.2f} GB (bf16, routers "
+        f"and norms fp32) drawn in {time.perf_counter() - t0:.1f} s; K/V "
+        f"{kv / 1e3:.1f} KB a token")
+    reqs = moe_requests(cfg)
+    launches, runs = serve_in_turns(
+        "moe", cfg, lambda loop: make_scheduler(params, cfg, loop), reqs,
+        profile=False)
+    for run in runs:
+        check_kernel_path(f"moe {run['loop']}", run["launches"])
+    g = runs[0]
+    log(f"[moe] {cfg.name} bf16, {g['attn_impl']} / {g['prefill_impl']}, 8 "
+        f"slots, chunk 128: graph run {g['tok_s']:.1f} tok/s, device in "
+        f"segments {g['seg_ms'] / 1e3 / g['wall']:.3f} of the wall, "
+        f"{g['seg_ms'] / g['iterations']:.3f} device ms an iteration "
+        f"(chunks and decodes), {g['host_reads'] / g['segments']:.3f} host "
+        f"reads a segment; launches {launches}")
+    sched = make_scheduler(params, cfg)
+    sched.warmup()
+    ms = moe_decode_ms(sched, reqs[:8], prefill_iters=4)
+    sched.close()
+    total, experts, kv = moe_decode_bytes(cfg, 8 * (512 + 20))
+    bound = total / HBM_BYTES_PER_S * 1e3
+    active = (total - experts + experts * cfg.moe.top_k
+              / cfg.moe.n_experts) / HBM_BYTES_PER_S * 1e3
+    log(f"[moe] decode-only iteration at 8 running slots: {ms:.3f} device "
+        f"ms (graph segment, CUDA events); bytes bound {bound:.3f} ms "
+        f"({total / 1e9:.2f} GB: experts {experts / 1e9:.2f} GB, K/V "
+        f"{kv / 1e9:.2f} GB at 8 x 532 positions; predicted 8.5 ms), "
+        f"-> at most {8 / bound * 1e3:.0f} tok/s, measured decode rate "
+        f"{8 / ms * 1e3:.0f} tok/s; ms/bound {ms / bound:.2f}; were only "
+        f"the top-{cfg.moe.top_k} of {cfg.moe.n_experts} experts read: "
+        f"{active:.3f} ms")
+    del params
+    return {k: launches[k] for k in ("paged_attention", "flash_prefill")}
+
+
+def phase_moe_parity():
+    """qwen2-moe-a2.7b at full width cut to 4 layers, fp32: the 16
+    requests of phase 27 through the kernel path in graph segments and
+    the gather path in host-read segments: greedy streams must be
+    identical 16/16. The routed entries dropped for capacity are counted
+    from the routing maps of the host-read run's MoE calls, kept on the
+    device and read once after the run: in decode every row's (the
+    pool routes as one group), in a chunk the prefilling rows' only (a
+    row that does not prefill runs its group on a clamped, repeated
+    token and writes nothing). Then ``model_zoo.forward`` and
+    ``loss_fn`` at B=1, S=512 through the flash kernel (G = 1, D = 128:
+    one launch a layer) and through chunked attention: logits within
+    LOGIT_TOL, the loss and aux terms within MOE_LOSS_RTOL."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.core import device_loop
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.serve import engine
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              compute_dtype="float32",
+                              n_layers=MOE_PARITY_LAYERS)
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    reqs = moe_requests(cfg)
+    dropped = {"decode": [], "prefill": []}
+    entries = {"decode": [], "prefill": []}
+    route, chunk = moe.route, engine.prefill_chunk
+    rows = {}
+
+    def counted(expert_idx, E, C):
+        maps = route(expert_idx, E, C)
+        per_row = maps[3].sum(dim=(1, 2))
+        if expert_idx.shape[0] == 1:
+            kind, live = "decode", torch.ones_like(per_row)
+        else:
+            kind, live = "prefill", rows["mask"].long()
+        dropped[kind].append((per_row * live).sum())
+        entries[kind].append(live.sum() * expert_idx[0].numel())
+        return maps
+
+    def chunk_rows(*args, mask=None, **kw):
+        rows["mask"] = mask
+        return chunk(*args, mask=mask, **kw)
+
+    kern = dataclasses.replace(cfg, attn_impl="cuda")
+    gath = dataclasses.replace(cfg, attn_impl="gather")
+    runs = parity_runs("moe-parity",
+                       lambda c, loop: make_scheduler(params, c, loop), reqs,
+                       [("cuda-graph", kern, None)])
+    moe.route, engine.prefill_chunk = counted, chunk_rows
+    try:
+        runs.update(parity_runs(
+            "moe-parity", lambda c, loop: make_scheduler(params, c, loop),
+            reqs, [("gather-host-read", gath, "host")]))
+    finally:
+        moe.route, engine.prefill_chunk = route, chunk
+    same_streams("moe-parity", runs, "cuda-graph", "gather-host-read",
+                 "graph segments with the kernels and host-read segments "
+                 "with the gather path")
+    counts = device_loop.read_host(
+        *(torch.stack(v).sum() for v in (*dropped.values(),
+                                          *entries.values())))
+    counts = dict(zip(("decode", "prefill"), (
+        f"{int(d)} of {int(n)}" for d, n in zip(counts[:2], counts[2:]))))
+    calls = {k: len(v) for k, v in dropped.items()}
+    log(f"[moe-parity] routed entries dropped for capacity in the "
+        f"host-read run (read once after it): {counts} in {calls} MoE "
+        f"calls (decode: one group of 8 tokens, capacity "
+        f"{moe._group_capacity(8, cfg)}; prefill: a group a row of 128 "
+        f"tokens, capacity {moe._group_capacity(128, cfg)})")
+
+    toks = torch.from_numpy(reqs[0][0]).long().cuda()
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    with torch.no_grad():
+        fa_kernel.flash_attention.launches = 0
+        lk, aux_k = model_zoo.forward(params, kern, batch)
+        n_fa = fa_kernel.flash_attention.launches
+        lg, aux_g = model_zoo.forward(params, gath, batch)
+        loss_k, m_k = model_zoo.loss_fn(params, kern, batch)
+        loss_g, m_g = model_zoo.loss_fn(params, gath, batch)
+    err = float((lk - lg).abs().max())
+    rel = {k: abs(float(m_k[k]) - float(m_g[k])) / abs(float(m_g[k]))
+           for k in m_g}
+    terms = {k: float(v) for k, v in m_k.items()}
+    log(f"[moe-parity] model_zoo.forward fp32 B=1 S=512: flash_attention "
+        f"launches {n_fa} (one a layer), max |flash - chunked| logits "
+        f"{err:.3e} (tol {LOGIT_TOL:g}); loss terms {terms}, relative "
+        f"differences {rel}")
+    if n_fa != cfg.n_layers or err > LOGIT_TOL or \
+            max(rel.values()) > MOE_LOSS_RTOL:
+        raise AssertionError("moe-parity: the full forward through the "
+                             "flash kernel disagrees with chunked attention")
+    del params
+
+
+def vlm_requests(cfg, n=16, prompt_len=256, seed=3):
+    """n VLM requests: ``VLM_IMAGES`` seeded random images of
+    ``n_patches`` patch embeddings (request i shows image i % 4), then
+    one ``VLM_SYSTEM``-token system text and distinct tokens to
+    ``prompt_len``; ``max_new`` alternating 32 and 64. Returns
+    [(prompt (1, prompt_len), max_new, patches (1, n_patches, D))]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    images = [(0.02 * rng.standard_normal(
+        (1, cfg.n_patches, cfg.d_model))).astype(np.float32)
+        for _ in range(VLM_IMAGES)]
+    system = rng.integers(2, cfg.vocab, VLM_SYSTEM)
+    return [(np.concatenate([system, rng.integers(
+        2, cfg.vocab, prompt_len - VLM_SYSTEM)])[None].astype(np.int32),
+        32 if i % 2 == 0 else 64, images[i % VLM_IMAGES])
+        for i in range(n)]
+
+
+def vlm_drive(sched, reqs):
+    for rid, (prompt, max_new, pe) in enumerate(reqs):
+        sched.submit(prompt, max_new=max_new, request_id=rid,
+                     prefix_embeds=pe)
+    return {f.request_id: f.tokens for f in sched.run_until_drained()}
+
+
+def make_vlm_scheduler(params, cfg, loop=None, **kw):
+    return make_scheduler(params, cfg, loop, prompt_len=256,
+                          prefix_len=cfg.n_patches, **kw)
+
+
+def phase_vlm():
+    """internvl2-1b at full width (bf16, random weights from a seed,
+    ``attn_impl="cuda"``) through the chunked paged scheduler with its
+    patch prefix (``prefix_len`` 256): 16 requests of 256 seeded random
+    patch embeddings and a 256-token prompt, 4 images each shown to 4
+    requests behind one 64-token system text, with the prefix cache on
+    and off, in graph segments. Gates: every request finishes, both
+    block-table kernels launch and nothing gathers, one host read a
+    segment, the cache hits, and after the drain only the index's pins
+    hold blocks; two requests with one prompt and two images never hit.
+    Prints hit blocks, chunk iterations and tok/s, on against off. Then
+    at 4 layers in fp32: the kernel path with the prefix cache in graph
+    segments gives the gather path's streams without it, 16/16."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("internvl2-1b"), attn_impl="cuda")
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    reqs = vlm_requests(cfg)
+    counters = launch_counters()
+    runs = {}
+    for pfx in (False, True):
+        tag = f"vlm prefix-cache {'on' if pfx else 'off'}"
+        sched = make_vlm_scheduler(params, cfg, prefix_cache=pfx)
+        sched.warmup()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        streams = vlm_drive(sched, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: getattr(o, a) for n, (o, a) in counters.items()}
+        check_streams(streams, [(p, m) for p, m, _ in reqs], cfg)
+        check_kernel_path(tag, launches)
+        if sched.host_reads != sched.segments:
+            raise AssertionError(f"{tag}: {sched.host_reads} host reads "
+                                 f"for {sched.segments} segments")
+        pinned = check_drained(tag, sched)
+        runs[pfx] = run = {"tok_s": sched.tokens_emitted / wall,
+                           "chunk_iters": int(sched._counts[2]),
+                           "hits": sched.prefix_hit_blocks,
+                           "launches": launches}
+        log(f"[{tag}] {sched.loop_impl} ({sched.attn_impl} / "
+            f"{sched.prefill_impl}), prefix_len {sched.prefix_len}: "
+            f"{sched.tokens_emitted} tokens in {wall:.3f} s -> "
+            f"{run['tok_s']:.1f} tok/s; {sched.total_steps} iterations "
+            f"({run['chunk_iters']} ran a chunk); hit blocks {run['hits']}, "
+            f"evictions {sched.prefix_evictions}, pinned after the drain "
+            f"{pinned}; {sched.host_reads} host reads for {sched.segments} "
+            f"segments; launches { {n: v for n, v in launches.items() if v} }"
+            f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB")
+        sched.close()
+    on, off = runs[True], runs[False]
+    log(f"[vlm] prefix cache on vs off: hit blocks {on['hits']} vs "
+        f"{off['hits']}, chunk iterations {on['chunk_iters']} vs "
+        f"{off['chunk_iters']}, tok/s {on['tok_s']:.1f} vs "
+        f"{off['tok_s']:.1f}")
+    if on["hits"] == 0:
+        raise AssertionError("vlm: requests sharing an image never hit")
+    distinct = [(reqs[0][0], 4, reqs[0][2]), (reqs[0][0], 4, reqs[1][2])]
+    sched = make_vlm_scheduler(params, cfg, prefix_cache=True, n_slots=1)
+    vlm_drive(sched, distinct)
+    log(f"[vlm] one prompt, two images, one slot: hit blocks "
+        f"{sched.prefix_hit_blocks}")
+    if sched.prefix_hit_blocks:
+        raise AssertionError("vlm: distinct images hit")
+    sched.close()
+    del params
+    free_device_memory("the fp32 VLM parity runs")
+
+    fcfg = dataclasses.replace(get_config("internvl2-1b"),
+                               compute_dtype="float32",
+                               n_layers=MOE_PARITY_LAYERS)
+    fparams = bridge.init_params(fcfg, seed=0, device="cuda")
+    par = {}
+    for name, c, pfx in (
+            ("cuda-graph-cache", dataclasses.replace(fcfg, attn_impl="cuda"),
+             True),
+            ("gather-graph", dataclasses.replace(fcfg, attn_impl="gather"),
+             False)):
+        sched = make_vlm_scheduler(fparams, c, prefix_cache=pfx)
+        t0 = time.perf_counter()
+        par[name] = vlm_drive(sched, reqs)
+        torch.cuda.synchronize()
+        log(f"[vlm-parity] fp32 {name} ({sched.loop_impl}): "
+            f"{sched.tokens_emitted} tokens in "
+            f"{time.perf_counter() - t0:.2f} s, hit blocks "
+            f"{sched.prefix_hit_blocks}")
+        sched.close()
+    same_streams("vlm-parity", par, "cuda-graph-cache", "gather-graph",
+                 "the kernel path with the prefix cache and the gather path")
+    del fparams
+    return {k: on["launches"][k] for k in ("paged_attention",
+                                            "flash_prefill")}
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels-only"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
@@ -3840,6 +4273,13 @@ def main() -> int:
                                                     "flash_prefill")})
     free_device_memory("the disaggregation phase")
     timed(phase_disagg)
+    free_device_memory("the MoE serving phase")
+    paths = {"llama3.2-1b": launches,
+             "qwen2-moe-a2.7b": timed(phase_moe_serve)}
+    free_device_memory("the MoE parity phase")
+    timed(phase_moe_parity)
+    free_device_memory("the VLM phase")
+    paths["internvl2-1b"] = timed(phase_vlm)
     free_device_memory("the selective-scan phases")
     records.append(timed(phase_scan_kernel))
     free_device_memory("falcon-mamba-7b")
@@ -3860,6 +4300,10 @@ def main() -> int:
     timed(phase_train)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        if rec["name"] in ("paged_attention", "flash_prefill"):
+            # each serving path's own run, counts set to 0 just before it
+            rec["path_launches"] = {arch: got[rec["name"]]
+                                    for arch, got in paths.items()}
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@ package casts them at every use (``transformer.attn_apply``,
 ``layers.swiglu``, the engine's embedding lookups), which in eager
 PyTorch would copy every weight on every step. Leaves the JAX package
 reads in fp32 stay in ``cfg.param_dtype``: the norm weights (``ln``,
-``ln_*``), the mixture-of-depths router (``layers.router.w``, drawn
-when ``cfg.mod_capacity > 0``) and the mamba recurrence's ``A_log``,
+``ln_*``), the routers (the MoE family's ``layers.moe.router``, which
+the JAX package casts to fp32 at use, and the mixture-of-depths
+``layers.router.w``, drawn when ``cfg.mod_capacity > 0``) and the
+mamba recurrence's ``A_log``,
 ``dt_bias`` and ``D_skip``. Cast to bf16, ``A_log`` would change every channel's decay
 ``exp(dt * A)``.
 
@@ -107,6 +109,10 @@ def opt_state_from_numpy(state_np, device="cuda") -> adamw.AdamWState:
                             nu=conv(nu))
 
 
+# leaves larger than this in the param dtype are drawn a slice at a time
+_DRAW_BYTES = 1 << 32
+
+
 class _ParamSource:
     """Draws one tensor per ``p`` call, following the parameter
     factory of the JAX package's ``models/params.py``: fan-in normal
@@ -133,9 +139,20 @@ class _ParamSource:
             scale = scale / math.sqrt(max(fi, 1))
         elif init != "normal":
             raise ValueError(init)
+        if math.prod(shape) * self.pdt.itemsize > _DRAW_BYTES and \
+                dt != self.pdt:
+            # a stacked expert leaf at full width (qwen2-moe-a2.7b's
+            # w_gate is 16.6 GB in fp32): drawn a layer at a time
+            out = torch.empty(shape, dtype=dt, device=self.device)
+            for i in range(shape[0]):
+                out[i] = self._draw(shape[1:], scale)
+            return out
+        return self._draw(shape, scale).to(dt)
+
+    def _draw(self, shape, scale):
         t = torch.randn(shape, generator=self.gen, device=self.device,
                         dtype=self.pdt)
-        return t.mul_(scale).to(dt)
+        return t.mul_(scale)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",

@@ -14,8 +14,11 @@ differences, all forced by the framework:
   ``"blocked"`` keep their names.
 
 Ported so far: the dense family (smollm-135m, llama3.2-1b, olmo-1b,
-qwen2-7b) and the pure-SSM mamba1 family (falcon-mamba-7b). The other
-architectures wait for their families' slices (ROADMAP.md).
+qwen2-7b), the pure-SSM mamba1 family (falcon-mamba-7b), the MoE family
+(qwen2-moe-a2.7b, dbrx-132b) and the VLM family (internvl2-1b, whose
+vision tower is a stub in the JAX package too: patch embeddings are
+inputs). The hybrid and audio families wait for their slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -114,7 +117,8 @@ class ModelConfig:
 
 
 ARCH_IDS = ("olmo-1b", "smollm-135m", "qwen2-7b", "llama3.2-1b",
-            "falcon-mamba-7b")
+            "falcon-mamba-7b", "qwen2-moe-a2.7b", "dbrx-132b",
+            "internvl2-1b")
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -122,17 +126,19 @@ _MODULES = {
     "qwen2-7b": "qwen2_7b",
     "llama3.2-1b": "llama3p2_1b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
+    "dbrx-132b": "dbrx_132b",
+    "internvl2-1b": "internvl2_1b",
 }
 
-_NOT_PORTED = ("dbrx-132b", "qwen2-moe-a2.7b", "zamba2-1.2b",
-               "whisper-small", "internvl2-1b")
+_NOT_PORTED = ("zamba2-1.2b", "whisper-small")
 
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for a config whose model family the port does not run:
-    anything but dense and pure-SSM mamba1 (hybrid and mamba2 wait for
-    the hybrid slice)."""
-    if cfg.family == "dense":
+    anything but dense, MoE, VLM and pure-SSM mamba1 (hybrid and mamba2
+    wait for the hybrid slice, audio for the encoder-decoder one)."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return
     if cfg.family == "ssm" and cfg.ssm is not None and \
             cfg.ssm.kind == "mamba1":

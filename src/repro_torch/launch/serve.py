@@ -96,8 +96,12 @@ model drafter (``--spec-drafter model``):
         --chunk-tokens 128 --disagg --prefill-slots 2
 
 ``--prefill oneshot`` (the default) admits prompts through one prefill
-per admission round; a pure-SSM model takes only this mode, with
-prompts of exactly ``--prompt-len`` tokens. The selective scan's path
+per admission round; a pure-SSM model takes only this mode. Every
+prompt has exactly ``--prompt-len`` tokens, which a pure-SSM or MoE
+model requires (``--arch qwen2-moe-a2.7b``, ``--arch dbrx-132b
+--smoke``: dbrx at full width does not fit one card). ``--arch
+internvl2-1b`` serves without patch embeddings (``prefix_len`` 0), as
+the JAX package's launcher does. The selective scan's path
 comes from the config's ``ssm.scan_impl`` (falcon-mamba-7b ships
 ``"assoc"``; ``"cuda"`` runs the hand-written kernel), as in the JAX
 package, which has no flag for it either.

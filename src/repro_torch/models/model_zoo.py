@@ -2,12 +2,14 @@
 loss and the parameter count.
 
 Port of ``repro/models/model_zoo.py`` (``forward``, ``features``,
-``cross_entropy``, ``_chunked_ce``, ``loss_fn``, ``count_params``) for
-the dense and pure-SSM families. The MoE auxiliary terms, the VLM patch
-prefix and the audio encoder-decoder wait for their families' slices
-(ROADMAP.md). ``batch`` is a dict of tensors: ``tokens`` (B, S) and,
-for the loss, ``labels`` (B, S); labels outside ``[0, vocab)`` are
-masked.
+``cross_entropy``, ``_chunked_ce``, ``loss_fn``, ``count_params``,
+``count_active_params``) for the dense, MoE, VLM and pure-SSM
+families; the audio encoder-decoder waits for its slice (ROADMAP.md).
+``batch`` is a dict of tensors: ``tokens`` (B, S), for a VLM
+``patches`` (B, n_patches, d_model), the patch embeddings in front of
+the tokens, and for the loss ``labels`` (B, S); labels outside ``[0,
+vocab)`` are masked. The loss adds the MoE auxiliary terms with
+``MOE_AUX_WEIGHTS``.
 """
 
 from __future__ import annotations
@@ -22,20 +24,27 @@ from ..configs import ModelConfig, require_ported
 from . import transformer
 
 CE_CHUNK = 512
+MOE_AUX_WEIGHTS = {"moe_load_balance": 1e-2, "moe_z_loss": 1e-3}
+
+
+def _prefix(cfg: ModelConfig, batch: Dict):
+    return batch.get("patches") if cfg.family == "vlm" else None
 
 
 def forward(params, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor,
                                                             Dict]:
-    """Full-sequence logits (B, S, padded_vocab) and the (empty) aux
-    dict."""
+    """Full-sequence logits (B, S, padded_vocab) (a VLM's S counts its
+    patches) and the aux dict (the MoE losses; empty otherwise)."""
     require_ported(cfg)
-    return transformer.forward(params, cfg, batch["tokens"]), {}
+    return transformer.forward(params, cfg, batch["tokens"],
+                               prefix_embeds=_prefix(cfg, batch))
 
 
 def features(params, cfg: ModelConfig, batch: Dict):
     """Backbone + final norm, no unembed; returns (features, aux)."""
     require_ported(cfg)
-    return transformer.forward_features(params, cfg, batch["tokens"]), {}
+    return transformer.forward_features(params, cfg, batch["tokens"],
+                                        prefix_embeds=_prefix(cfg, batch))
 
 
 def _token_nll(logits, labels, vocab: int):
@@ -90,12 +99,22 @@ def _chunked_ce(x, labels, w, cfg: ModelConfig, chunk: int = CE_CHUNK):
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor,
                                                             Dict]:
-    """Scalar training loss (the chunked CE) and its metrics."""
-    x, _ = features(params, cfg, batch)
+    """Scalar training loss (the chunked CE plus the weighted MoE
+    auxiliary terms) and its metrics. A VLM's loss covers its token
+    positions only."""
+    x, aux = features(params, cfg, batch)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_patches:]
     ce = _chunked_ce(x, batch["labels"], transformer.unembed_weight(params,
                                                                     cfg),
                      cfg)
-    return ce, {"ce": ce, "loss": ce}
+    total, metrics = ce, {"ce": ce}
+    for k, wt in MOE_AUX_WEIGHTS.items():
+        if k in aux:
+            total = total + wt * aux[k]
+            metrics[k] = aux[k]
+    metrics["loss"] = total
+    return total, metrics
 
 
 class _ShapeSource:
@@ -115,3 +134,14 @@ def count_params(cfg: ModelConfig) -> int:
             return sum(count(v) for v in t.values())
         return t.numel()
     return int(count(tree))
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Parameters a token meets (MoE: top_k of the routed expert pool,
+    plus the shared experts)."""
+    total = count_params(cfg)
+    if cfg.family != "moe":
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert * cfg.n_layers
+    return total - per_expert * m.n_experts + per_expert * m.top_k

@@ -1,6 +1,6 @@
-"""Decoder-only LM, dense and pure-SSM families: parameters, the
-attention block and its modes, the mamba block, and the full-sequence
-forward.
+"""Decoder-only LM, dense, MoE, VLM and pure-SSM families: parameters,
+the attention block and its modes, the mamba block, and the
+full-sequence forward.
 
 Port of ``repro/models/transformer.py`` (``attn_params``,
 ``mlp_params``, ``_ssm_block_params``, ``build_params``,
@@ -29,6 +29,12 @@ per call into per-layer views. Attention modes:
 
 Cache views, and the SSM state in decode, are written in place (the
 JAX package returns new ones).
+
+The MoE family's block replaces the SwiGLU MLP by ``moe.moe_mlp``
+(``attn_block(..., with_aux=True)`` also returns its auxiliary losses,
+which ``forward_features`` sums over the layers);
+the VLM family prepends ``prefix_embeds``, the patch embeddings, to the
+token embeddings.
 
 The decode step's layer loop with adaptive depth (``models.adaptive``:
 early exit, mixture-of-depths) is ``decode_layers``, with
@@ -63,6 +69,7 @@ from ..kernels import ARCH_TAG
 from . import adaptive
 from . import attention as attn_lib
 from . import layers
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 
 
@@ -118,8 +125,9 @@ def _ssm_block_params(b, cfg):
 
 
 def build_params(cfg, b):
-    """The dense or pure-SSM family's parameter tree (the JAX package's
-    names and layouts; layer leaves stacked on a leading L dim)."""
+    """The dense, MoE, VLM or pure-SSM family's parameter tree (the JAX
+    package's names and layouts; layer leaves stacked on a leading L
+    dim)."""
     D = cfg.d_model
     lb = _Stacked(b, cfg.n_layers)
     if cfg.family == "ssm":
@@ -127,8 +135,11 @@ def build_params(cfg, b):
     else:
         layers_p = {**_norm_params(lb, cfg.norm, D, "ln_attn"),
                     "attn": attn_params(lb, cfg, D),
-                    **_norm_params(lb, cfg.norm, D, "ln_mlp"),
-                    "mlp": mlp_params(lb, cfg, D, cfg.d_ff)}
+                    **_norm_params(lb, cfg.norm, D, "ln_mlp")}
+        if cfg.family == "moe":
+            layers_p["moe"] = moe_lib.moe_params(lb, cfg, D)
+        else:
+            layers_p["mlp"] = mlp_params(lb, cfg, D, cfg.d_ff)
         if adaptive.mod_on(cfg):
             layers_p["router"] = adaptive.router_params(lb, cfg)
     p = {"embed": b.p((cfg.padded_vocab, D), init="normal", scale=0.02),
@@ -248,8 +259,10 @@ tag_attn_out.register_autograd(lambda ctx, grad: grad)
 
 
 def attn_block(p, x, cfg, *, positions, mode="full", kv_cache=None,
-               cur_len=None, chunk_off=None):
-    """Pre-norm attention + SwiGLU MLP block; returns the new x."""
+               cur_len=None, chunk_off=None, with_aux: bool = False):
+    """Pre-norm attention + (MoE | SwiGLU MLP) block; returns the new x,
+    or ``(x, aux)`` with ``with_aux`` (the MoE auxiliary losses; ``{}``
+    for the other families)."""
     h = layers.apply_norm(cfg.norm, x, p, "ln_attn")
     a = attn_apply(p["attn"], h, cfg, positions=positions, mode=mode,
                    kv_cache=kv_cache, cur_len=cur_len, chunk_off=chunk_off)
@@ -257,9 +270,14 @@ def attn_block(p, x, cfg, *, positions, mode="full", kv_cache=None,
         a = tag_attn_out(a)
     x = x + a
     h = layers.apply_norm(cfg.norm, x, p, "ln_mlp")
-    m = layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                      p["mlp"]["w_down"], cfg.dtype("compute"))
-    return x + m.to(x.dtype)
+    aux: Dict[str, torch.Tensor] = {}
+    if cfg.family == "moe":
+        m, aux = moe_lib.moe_mlp(p["moe"], h, cfg, need_aux=with_aux)
+    else:
+        m = layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                          p["mlp"]["w_down"], cfg.dtype("compute"))
+    x = x + m.to(x.dtype)
+    return (x, aux) if with_aux else x
 
 
 def kv_project_append(p, h, cfg, kv_cache, positions, cur_len) -> None:
@@ -429,7 +447,8 @@ def _save_attn_out(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, cfg):
-    """Wrap one layer step ``fn(lp, x, i) -> x`` per ``cfg.remat``."""
+    """Wrap one layer step ``fn(lp, carry, i) -> carry`` per
+    ``cfg.remat``."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":       # save only the step's inputs
@@ -445,7 +464,9 @@ def _remat(fn, cfg):
 
 def _run_layers(stacked, x, cfg, block_fn):
     """Drive the homogeneous layer stack per ``cfg.layer_loop``;
-    ``block_fn(lp, x, i) -> x`` runs layer ``i`` (a Python int)."""
+    ``block_fn(lp, x, i) -> x`` runs layer ``i`` (a Python int). The
+    carry ``x`` may be a tuple (the MoE family carries its auxiliary
+    losses beside the residual stream)."""
     step = _remat(block_fn, cfg)
     lps = layer_params(stacked)
     if cfg.layer_loop in ("scan", "unroll"):
@@ -459,14 +480,31 @@ def _run_layers(stacked, x, cfg, block_fn):
     raise ValueError(cfg.layer_loop)
 
 
-def forward_features(params, cfg, tokens):
-    """Backbone + final norm, no unembed. tokens: (B, S) int. The table
-    is cast at this use (a no-op on serving weights, already cast)."""
-    x = params["embed"].to(cfg.dtype("compute"))[tokens]
+def forward_features(params, cfg, tokens, *, prefix_embeds=None):
+    """Backbone + final norm, no unembed. tokens: (B, S) int; the table
+    is cast at this use (a no-op on serving weights, already cast).
+    ``prefix_embeds`` (B, P, D): a VLM's patch embeddings, in front of
+    the tokens. Returns ``(features, aux)``: aux is the MoE family's
+    auxiliary losses summed over the layers (``{}`` otherwise)."""
+    if cfg.family in ("moe", "vlm"):
+        adaptive.validate(cfg)
+    cdt = cfg.dtype("compute")
+    x = params["embed"].to(cdt)[tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cdt), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
+    aux: Dict[str, torch.Tensor] = {}
     if cfg.family == "ssm":
         def block_fn(lp, xx, i):
             return ssm_block(lp, xx, cfg, mode="full")
+    elif cfg.family == "moe":
+        def block_fn(lp, carry, i):
+            xx, a = carry
+            x2, d = attn_block(lp, xx, cfg, positions=positions,
+                               mode="full", with_aux=True)
+            return x2, {k: a[k] + d[k] for k in a}
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = (x, {"moe_load_balance": zero, "moe_z_loss": zero})
     else:
         def block_fn(lp, xx, i):
             x2 = attn_block(lp, xx, cfg, positions=positions, mode="full")
@@ -475,11 +513,17 @@ def forward_features(params, cfg, tokens):
                 x2 = adaptive.mod_apply_full(lp["router"], xx, x2, i, cfg)
             return x2
     x = _run_layers(params["layers"], x, cfg, block_fn)
-    return layers.apply_norm(cfg.norm, x, params, "ln_final")
+    if cfg.family == "moe":
+        x, aux = x
+    x = layers.apply_norm(cfg.norm, x, params, "ln_final")
+    return x, aux
 
 
-def forward(params, cfg, tokens):
-    """Full-sequence logits (B, S, padded_vocab)."""
-    x = forward_features(params, cfg, tokens)
+def forward(params, cfg, tokens, *, prefix_embeds=None):
+    """``(logits, aux)``: full-sequence logits (B, S, padded_vocab) (S
+    counts a VLM's patch prefix) and ``forward_features``' aux."""
+    x, aux = forward_features(params, cfg, tokens,
+                              prefix_embeds=prefix_embeds)
     cdt = cfg.dtype("compute")
-    return x.to(cdt) @ unembed_weight(params, cfg).to(cdt)
+    logits = x.to(cdt) @ unembed_weight(params, cfg).to(cdt)
+    return logits, aux

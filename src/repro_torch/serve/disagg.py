@@ -109,6 +109,12 @@ class DisaggScheduler:
         format is block-granular).
       prefill_kv_blocks / decode_kv_blocks: each tier's pool.
       prefix_cache: prompt-block sharing on the prefill tier.
+      prefix_len: a VLM deployment's patch prefix (``cfg.n_patches``;
+        every request then brings ``prefix_embeds``), else 0. The
+        prefill tier prefills the patches with the prompt; the decode
+        tier sees the prefilled stream, patches included, as its
+        prompt (its ``prompt_len`` is ``prompt_len + prefix_len``), so
+        its positions match a colocated pool's.
       speculative / draft_params / draft_cfg: decode-tier speculation,
         the n-gram drafter only.
       segment_steps: the decode segment's iteration cap while the prefill
@@ -129,7 +135,8 @@ class DisaggScheduler:
                  chunk_tokens: int = 16, prefix_cache: bool = False,
                  speculative=None, draft_params=None, draft_cfg=None,
                  segment_steps: int = 8,
-                 prefill_segment_steps: Optional[int] = None):
+                 prefill_segment_steps: Optional[int] = None,
+                 prefix_len: int = 0):
         if prefill_mesh is not None or decode_mesh is not None:
             raise NotImplementedError(_MULTI_DEVICE)
         if segment_steps < 1:
@@ -143,6 +150,7 @@ class DisaggScheduler:
                 "model drafter keeps a dense per-slot draft cache that "
                 "would also need shipping between the tiers")
         self.cfg = cfg
+        self.prefix_len = int(prefix_len)
         self.segment_steps = int(segment_steps)
         self.prefill_segment_steps = int(prefill_segment_steps
                                          or segment_steps)
@@ -161,16 +169,19 @@ class DisaggScheduler:
                 max_new_cap=1, eos_id=eos_id, sampling=sampling, seed=seed,
                 kv="paged", kv_block=kv_block, kv_blocks=prefill_kv_blocks,
                 prefill="chunked", chunk_tokens=chunk_tokens,
-                prefix_cache=prefix_cache, prefill_only=True)
+                prefix_cache=prefix_cache, prefill_only=True,
+                prefix_len=self.prefix_len)
         self.decode = sched_lib.DecodeScheduler(
-            params, cfg, n_slots=n_decode_slots, prompt_len=prompt_len,
+            params, cfg, n_slots=n_decode_slots,
+            prompt_len=prompt_len + self.prefix_len,
             max_new_cap=max_new_cap, eos_id=eos_id, sampling=sampling,
             seed=seed, kv="paged", kv_block=kv_block,
             kv_blocks=decode_kv_blocks, prefill="chunked",
             chunk_tokens=chunk_tokens, speculative=speculative)
         self.device = self.decode.device
         # one wire shape for every prompt: columns for the longest
-        self.ship_cols = int(kvc.blocks_needed(prompt_len, kv_block))
+        self.ship_cols = int(kvc.blocks_needed(prompt_len + self.prefix_len,
+                                               kv_block))
         self._side = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
         # router state
@@ -274,14 +285,14 @@ class DisaggScheduler:
                 break
             plan.append(s)
             slots_free += 1
-            blocks_free += int(dec._slot_blocks[s])
+            blocks_free = dec.free_blocks + dec.blocks_freed(plan)
         if slots_free < 1 or blocks_free < need:
             return False
         for p in dec.preempt_slots(plan):
             self._snapshots[p.request_id] = p.tokens
             self.queue.append(sched_lib._Queued(
                 p.request_id, p.prompt, p.max_new, p.key, p.priority,
-                p.deadline))
+                p.deadline, p.prefix_embeds))
         self.preemptions += len(plan)
         return True
 
@@ -289,16 +300,19 @@ class DisaggScheduler:
 
     def submit(self, prompt, *, max_new: int,
                request_id: Optional[int] = None, key=None,
-               priority: int = 0, deadline: float = float("inf")) -> int:
+               priority: int = 0, deadline: float = float("inf"),
+               prefix_embeds=None) -> int:
         """Queue one request into the backlog. The prefill tier's
-        ``submit`` validates the prompt and assigns the id; the
-        decode-tier residency check is the router's."""
+        ``submit`` validates the prompt (and a VLM's ``prefix_embeds``)
+        and assigns the id; the decode-tier residency check is the
+        router's."""
         if not 1 <= max_new <= self.decode.max_new_cap:
             raise ValueError(
                 f"max_new must be in [1, {self.decode.max_new_cap}]")
         prompt = np.asarray(prompt)
         if prompt.ndim == 2:
-            need = self.decode.blocks_for(prompt.shape[1], max_new)
+            need = self.decode.blocks_for(prompt.shape[1] + self.prefix_len,
+                                          max_new)
             if need > self.decode.kv_blocks:
                 raise ValueError(
                     f"request needs {need} decode-tier blocks but the "
@@ -307,7 +321,8 @@ class DisaggScheduler:
             self.reset_stats()
         rid = self.prefill.submit(prompt, max_new=1, request_id=request_id,
                                   key=key, priority=priority,
-                                  deadline=deadline)
+                                  deadline=deadline,
+                                  prefix_embeds=prefix_embeds)
         q = self.prefill.queue.pop()
         self.queue.append(dataclasses.replace(q, max_new=int(max_new)))
         self._orig_max_new[rid] = int(max_new)

@@ -1,14 +1,18 @@
-"""Serving engine, dense and pure-SSM families: caches, prefill,
-chunked prefill, single-token decode, the speculative verify window, and
-the batch-synchronous generation loop.
+"""Serving engine, dense, MoE, VLM and pure-SSM families: caches,
+prefill, chunked prefill, single-token decode, the speculative verify
+window, and the batch-synchronous generation loop.
 
 Port of ``repro/serve/engine.py``. Self-attention K/V lives behind the
-``serve.kv_cache`` API: ``make_cache`` builds ``{"attn": KVCache}`` and
+``serve.kv_cache`` API: ``make_cache`` builds ``{"attn": KVCache}`` for
+the attention-decoder families (dense, MoE, VLM) and
 every layer reads and writes its slice through a view, so the dense and
 paged layouts share every line of attention math. A pure-SSM model's
 cache is ``{"ssm": {"conv", "h"}}``: plain per-row state with the layer
 dim first and the batch dim at axis 1 of every leaf, the invariant the
-scheduler's admission splice relies on. The caches are updated in
+scheduler's admission splice relies on. A VLM request's patch
+embeddings (``prefix_embeds``) occupy stream positions ``[0,
+n_patches)`` ahead of its tokens, in ``prefill`` and ``prefill_chunk``
+alike. The caches are updated in
 place, so the decode and chunk steps return logits only; ``prefill``
 also returns the SSM state it computed, fresh, for the caller to splice.
 
@@ -43,21 +47,26 @@ def _ssm_struct(cfg: ModelConfig, batch: int, device) -> Dict[str, Any]:
                              device=device)}
 
 
+# the attention-decoder families: one KVCache, decode/verify/chunk modes
+ATTN_FAMILIES = ("dense", "moe", "vlm")
+
+
 def kv_key(cfg: ModelConfig) -> Optional[str]:
     """Cache-dict key of the family's self-attention ``KVCache`` (None
     for pure-SSM families, which have no attention K/V)."""
-    return {"dense": "attn", "ssm": None}[cfg.family]
+    return {"dense": "attn", "moe": "attn", "vlm": "attn",
+            "ssm": None}[cfg.family]
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                kv_impl: str = "dense", kv_block: int = 16,
                kv_blocks: Optional[int] = None, kv_sharing: bool = False,
                device="cuda") -> Dict[str, Any]:
-    """``{"attn": KVCache}`` for the dense family, ``{"ssm": {"conv",
-    "h"}}`` for pure SSM. ``kv_impl`` selects the K/V layout ("dense" |
-    "paged"), ``kv_block``/``kv_blocks`` size the paged pool
-    (``kv_blocks=None``: dense-equivalent capacity), ``kv_sharing`` lets
-    its rows share blocks (the prefix cache)."""
+    """``{"attn": KVCache}`` for the attention-decoder families,
+    ``{"ssm": {"conv", "h"}}`` for pure SSM. ``kv_impl`` selects the K/V
+    layout ("dense" | "paged"), ``kv_block``/``kv_blocks`` size the paged
+    pool (``kv_blocks=None``: dense-equivalent capacity), ``kv_sharing``
+    lets its rows share blocks (the prefix cache)."""
     require_ported(cfg)
     if cfg.family == "ssm":
         return {"ssm": _ssm_struct(cfg, batch, resolve_device(device))}
@@ -152,7 +161,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
     only): the rows that keep the adaptive layer loop alive; retired and
     mid-prefill slots pass False, start halted and extend no loop (None:
     every row)."""
-    if write_mask is not None and cfg.family != "dense":
+    if write_mask is not None and cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"write_mask is only supported for attention "
                          f"families; got family {cfg.family!r}")
     if adaptive.enabled(cfg):
@@ -176,9 +185,17 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
     return logits, depth
 
 
+def _prefix_len(cfg: ModelConfig, prefix_embeds) -> int:
+    """Stream positions a VLM request's patch prefix takes (0 without
+    one)."""
+    return cfg.n_patches if (cfg.family == "vlm"
+                             and prefix_embeds is not None) else 0
+
+
 def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
-            mask=None):
-    """Prime the cache with a full prompt (one-shot).
+            mask=None, prefix_embeds=None):
+    """Prime the cache with a full prompt (one-shot). A VLM's
+    ``prefix_embeds`` (B, n_patches, d_model) go in front of the tokens.
 
     Returns ``(logits (B, S, padded_vocab), fresh)``. ``rows``/``mask``
     bind prompt row ``i`` to cache row ``rows[i]``: attention K/V is
@@ -187,6 +204,8 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
     K-1, Di), "h": (L, B, Di, N)}}`` for the caller to splice along axis
     1 (``fresh`` is ``{}`` for the dense family)."""
     x = params["embed"][tokens]
+    if _prefix_len(cfg, prefix_embeds):
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     if cfg.family == "ssm":
         convs, hs = [], []
         for lp in transformer.layer_params(params["layers"]):
@@ -209,8 +228,10 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
 
 
 def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
-                  chunk: int, mask=None):
-    """Advance prefill by one ``chunk``-token slice of each row's prompt.
+                  chunk: int, mask=None, prefix_embeds=None):
+    """Advance prefill by one ``chunk``-token slice of each row's prompt
+    stream (a VLM's ``prefix_embeds`` (n, n_patches, d_model) at stream
+    positions ``[0, n_patches)``, then the tokens).
 
     prompts: (n, W) int32, the full per-row token buffers (lanes past a
     row's true length are garbage, causally invisible to real queries);
@@ -225,8 +246,15 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
     W = prompts.shape[1]
     pos = offsets.long()[:, None] + torch.arange(
         chunk, device=offsets.device)[None, :]
-    tid = torch.gather(prompts, 1, pos.clamp(0, W - 1))
+    prefix = _prefix_len(cfg, prefix_embeds)
+    tid = torch.gather(prompts, 1, (pos - prefix).clamp(0, W - 1))
     x = params["embed"][tid]
+    if prefix:
+        # a patch embed where pos < prefix, a token embed elsewhere
+        pe = torch.gather(prefix_embeds.to(x.dtype), 1,
+                          pos.clamp(0, prefix - 1)[..., None].expand(
+                              -1, -1, x.shape[-1]))
+        x = torch.where((pos < prefix)[..., None], pe, x)
     node = cache["attn"].ensure_private(start=offsets, width=chunk,
                                         mask=mask)
     for i, lp in enumerate(transformer.layer_params(params["layers"])):
@@ -251,9 +279,9 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, cur_len, *,
     ``verify_attention``), overwriting stale lanes of rejected drafts
     before a query can see them. ``write_mask`` gates rows as in
     ``decode_step``. Attention-decoder families only."""
-    if cfg.family != "dense":
+    if cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"verify_step requires an attention-decoder "
-                         f"family (dense); got {cfg.family!r}")
+                         f"family (dense/moe/vlm); got {cfg.family!r}")
     W = tokens.shape[1]
     off = cur_len - 1
     positions = off.long()[:, None] + torch.arange(
@@ -342,28 +370,32 @@ def _result_from_tokens(toks, eos_id, steps, attn_impl="",
 
 def generate_batch_sync(params, cfg: ModelConfig, prompt, *, max_new: int,
                         eos_id: int = 1, kv_impl: str = "dense",
-                        kv_block: int = 16) -> GenerateResult:
+                        kv_block: int = 16,
+                        prefix_embeds=None) -> GenerateResult:
     """Greedy decode with per-sequence EOS early exit, batch-synchronous.
 
     The JAX package runs this loop in-graph (``core.while_loop``). Here
     it is a Python loop over a preallocated output tensor with one host
     read of ``done.all()`` per step: the data-dependent exit is the only
-    value the host needs. prompt: (B, S) int on the device to run on."""
+    value the host needs. prompt: (B, S) int on the device to run on;
+    ``prefix_embeds`` (B, n_patches, d_model): a VLM's patch prefix."""
     B, S = prompt.shape
     dev = prompt.device
-    max_len = S + max_new + 1
+    prefix = _prefix_len(cfg, prefix_embeds)
+    max_len = S + prefix + max_new + 1
     cache = make_cache(cfg, B, max_len, kv_impl=kv_impl, kv_block=kv_block,
                        device=dev)
     if kv_key(cfg) is not None:
         cache[kv_key(cfg)].alloc(torch.arange(B, device=dev),
                                  torch.full((B,), max_len, device=dev))
     sp = sampling_lib.SamplingParams()
-    logits, fresh = prefill(params, cfg, prompt, cache)
+    logits, fresh = prefill(params, cfg, prompt, cache,
+                            prefix_embeds=prefix_embeds)
     cache.update(fresh)
     token = sampling_lib.sample_slots(logits[:, -1], None, sp)[:, None]
     out = torch.zeros((max_new, B), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    cur, i = S + 1, 0
+    cur, i = S + prefix + 1, 0
     while i < max_new and not bool(done.all()):
         out[i] = torch.where(done, eos_id, token[:, 0])
         done = done | (token[:, 0] == eos_id)

@@ -143,14 +143,16 @@ class StreamingFrontend:
     # ---------------- client API --------------------------------------
 
     async def stream(self, prompt, *, max_new: int, slo_class="batch",
-                     request_id=None, key=None) -> AsyncIterator[dict]:
+                     request_id=None, key=None,
+                     prefix_embeds=None) -> AsyncIterator[dict]:
         """Submit one request and yield its event stream.
 
         Yields ``{"event": "token", "tokens": [...]}`` dicts as the
         engine emits (bursts under speculation), ``"preempted"``
         notices, and a final ``{"event": "done", ...}``; the generator
         then ends. Pass each dict through :func:`format_sse` for an
-        HTTP ``text/event-stream`` response.
+        HTTP ``text/event-stream`` response. ``prefix_embeds``: a VLM
+        request's patch embeddings (``DecodeScheduler.submit``).
         """
         self._waiting += 1
         self._wake.set()
@@ -161,7 +163,8 @@ class StreamingFrontend:
         try:
             rid = self.slo.submit(
                 prompt, max_new=max_new, slo_class=slo_class,
-                request_id=request_id, key=key)
+                request_id=request_id, key=key,
+                prefix_embeds=prefix_embeds)
             q: asyncio.Queue = asyncio.Queue()
             self._queues[rid] = q
             self._ensure_driver()

@@ -13,11 +13,12 @@ Two admission modes:
   RUNNING in one admission call, which prefills every admitted prompt
   in ONE ``engine.prefill`` over the ``n_slots``-wide permuted batch
   and samples each first token at the row's last real position. Dense
-  prompts are right-padded to a power-of-two bucket; SSM prompts must
-  be exactly ``prompt_len`` long (a recurrence keeps folding pad lanes
-  into its state). SSM state comes back fresh from the prefill and is
-  spliced into the pool along the slot axis.
-- ``prefill="chunked"`` (dense family only): FREE -> PREFILLING
+  and VLM prompts are right-padded to a power-of-two bucket; SSM and MoE
+  prompts must be exactly ``prompt_len`` long (a recurrence keeps
+  folding pad lanes into its state, and pad tokens would displace real
+  ones from expert slots). SSM state comes back fresh from the prefill
+  and is spliced into the pool along the slot axis.
+- ``prefill="chunked"`` (dense, MoE and VLM families): FREE -> PREFILLING
   (assigned at admission: registers and block tables, no model forward)
   -> RUNNING. Every iteration of a segment advances each prefilling slot
   by at most ``chunk_tokens`` prompt positions (``engine.prefill_chunk``,
@@ -25,6 +26,19 @@ Two admission modes:
   ``cfg.attn_impl == "cuda"``); a slot whose chunk covers its last
   prompt position samples its first token and decodes in the same
   iteration.
+
+A VLM pool (``prefix_len = cfg.n_patches``) takes each request's patch
+embeddings (``submit(prefix_embeds=)``): they fill stream positions
+``[0, prefix_len)`` ahead of the tokens, in the one-shot prefill or from
+the pool's ``prefix`` register chunk by chunk, and the prefix index
+seeds each request's chain hash with a digest of its embeds, so that
+requests with one image share its blocks and distinct images never do.
+
+MoE decode routes all ``n_slots`` rows as ONE group (``models.moe``),
+free and mid-prefill rows included, so a request's tokens depend on what
+the other rows feed; every row is fed what the JAX package feeds it (a
+retired slot its frozen token, a prefilling one the zero its admission
+wrote), in both lowerings.
 
 In both modes each iteration decodes every running slot one token
 (``engine.decode_step``, through the paged-attention kernel for a paged
@@ -209,6 +223,8 @@ class SlotPool:
     plen: torch.Tensor       # (n,) int32 — true prompt length
     pf_pos: torch.Tensor     # (n,) int32 — prompt positions written
     prefilling: torch.Tensor  # (n,) bool
+    prefix: torch.Tensor     # (n, prefix_len, d_model) — VLM patch embeds
+    #                          (chunked mode; (n, 0, d_model) otherwise)
     # the draft model's own cache (speculation with drafter="model";
     # else {}): dense, rows are slots
     draft: Dict[str, Any]
@@ -259,6 +275,7 @@ class _Queued:
     key: Optional[np.ndarray] = None  # (2,) uint32 words; None: derived
     priority: int = 0        # lower = more urgent (the SLO layer)
     deadline: float = float("inf")
+    prefix_embeds: Optional[np.ndarray] = None  # (1, prefix_len, d): VLM
 
 
 @dataclasses.dataclass
@@ -275,6 +292,7 @@ class PreemptedRequest:
     tokens: np.ndarray       # (n_emitted,) at preemption
     priority: int = 0
     deadline: float = float("inf")
+    prefix_embeds: Optional[np.ndarray] = None  # a VLM request's patches
 
 
 # =========================== prefix index ===================================
@@ -384,12 +402,15 @@ class DecodeScheduler:
       prompt_len: longest prompt accepted (the only length accepted for
         a pure-SSM model in one-shot mode).
       max_new_cap: largest per-request ``max_new``.
+      prefix_len: a VLM pool's patch prefix, ``cfg.n_patches`` (every
+        request then brings ``prefix_embeds``), else 0.
       admit_threshold: one-shot coalescing: while some slot is busy,
         wait until this many requests (or the whole queue) can be
         admitted in one prefill.
       kv: "dense" or "paged" KV cache; ``kv_block``/``kv_blocks`` size
         the paged pool (default: dense-equivalent capacity).
-      prefill: "oneshot" (default) or "chunked" (dense family only).
+      prefill: "oneshot" (default) or "chunked" (attention-decoder
+        families: dense, MoE, VLM).
       chunk_tokens: chunked mode: prompt positions each prefilling slot
         advances per iteration.
       loop: the segment's lowering: None (a CUDA graph on a CUDA pool,
@@ -422,7 +443,8 @@ class DecodeScheduler:
                  loop: Optional[str] = None, seed: int = 0,
                  speculative: Optional[spec_lib.SpecConfig] = None,
                  draft_params=None, draft_cfg=None,
-                 prefix_cache: bool = False, prefill_only: bool = False):
+                 prefix_cache: bool = False, prefill_only: bool = False,
+                 prefix_len: int = 0):
         if n_slots < 1 or max_new_cap < 1:
             raise ValueError("need n_slots >= 1 and max_new_cap >= 1")
         if not 1 <= admit_threshold <= n_slots:
@@ -433,11 +455,11 @@ class DecodeScheduler:
             raise ValueError(f"prefill must be 'oneshot' or 'chunked'; "
                              f"got {prefill!r}")
         if prefill == "chunked":
-            if cfg.family != "dense":
+            if cfg.family not in engine.ATTN_FAMILIES:
                 raise ValueError(
                     f"prefill='chunked' requires an attention-decoder "
-                    f"family; family {cfg.family!r} prefills through a "
-                    f"full-prompt forward")
+                    f"family (dense/moe/vlm); family {cfg.family!r} "
+                    f"prefills through a full-prompt forward")
             if chunk_tokens < 1:
                 raise ValueError("chunk_tokens must be >= 1")
         if prefix_cache and (prefill != "chunked" or kv != "paged"):
@@ -462,9 +484,16 @@ class DecodeScheduler:
         if loop not in (None, "graph", "host"):
             raise ValueError(f"loop must be None, 'graph' or 'host'; got "
                              f"{loop!r}")
+        if prefix_len and (cfg.family != "vlm"
+                           or prefix_len != cfg.n_patches):
+            # the prefill derives the patch prefix from cfg.n_patches
+            raise ValueError(
+                f"prefix_len must be 0, or cfg.n_patches "
+                f"({cfg.n_patches}) on a vlm config; got {prefix_len} for "
+                f"family {cfg.family!r}")
         if speculative is not None:
             spec_lib.validate(speculative, cfg, prefill, draft_cfg,
-                              draft_params)
+                              draft_params, prefix_len)
         elif draft_params is not None or draft_cfg is not None:
             raise ValueError("draft_params/draft_cfg need "
                              "speculative=SpecConfig(drafter='model')")
@@ -481,7 +510,8 @@ class DecodeScheduler:
         self.draft_cfg, self._draft_params = draft_cfg, draft_params
         self._base_key = prng.prng_key(seed, self.device)
         self.admit_threshold = admit_threshold
-        self.max_len = prompt_len + max_new_cap + 1
+        self.prefix_len = int(prefix_len)
+        self.max_len = prompt_len + self.prefix_len + max_new_cap + 1
         self.prefill = prefill
         self._chunked = prefill == "chunked"
         self.prefill_only = bool(prefill_only)
@@ -490,11 +520,13 @@ class DecodeScheduler:
         self.kv_blocks = (n_slots * kvc.blocks_needed(self.max_len, kv_block)
                           if kv_blocks is None else int(kv_blocks))
         self._kv_key = engine.kv_key(cfg)
-        # Right padding is exact only for attention prefills (causal
-        # masking keeps real tokens blind to pad lanes); an SSM
-        # recurrence folds the pad tail into its state, so pure-SSM
-        # prompts must have exactly prompt_len tokens.
-        self._bucketed = cfg.family == "dense"
+        # Right padding is exact only for pure-attention prefills
+        # (causal masking keeps real tokens blind to pad lanes); an SSM
+        # recurrence folds the pad tail into its state, and MoE routing
+        # lets pad tokens displace real ones from expert slots (in a
+        # ragged final chunk too), so those prompts must have exactly
+        # prompt_len tokens.
+        self._bucketed = cfg.family in ("dense", "vlm")
         self._next_rid = 0
         self.queue: List[_Queued] = []
         # host mirrors of slot occupancy and (paged) free blocks, kept
@@ -577,6 +609,8 @@ class DecodeScheduler:
             keys=z(n, 2, dtype=torch.int64), out=z(n, self.max_new_cap),
             prompt=z(n, self.prompt_len if self._chunked else 0),
             plen=z(n), pf_pos=z(n), prefilling=z(n, dtype=torch.bool),
+            prefix=z(n, self.prefix_len if self._chunked else 0,
+                     self.cfg.d_model, dtype=self.cfg.dtype("compute")),
             draft=(engine.make_cache(self.draft_cfg, n, self.max_len,
                                      device=dev)
                    if self.draft_cfg is not None else {}),
@@ -629,21 +663,24 @@ class DecodeScheduler:
         return sampling_lib.step_keys(keys, emitted)
 
     def _admit(self, prompts, true_lens, slots, rids, max_news, keys,
-               derive, mask, prios, deadlines) -> None:
+               derive, mask, prios, deadlines, prefix=None) -> None:
         """One-shot admission: up to n requests in ONE prefill. prompts
         (n, Sb) right-padded to the bucket width Sb; true_lens (n,) real
-        prompt lengths. Unmasked rows keep their slot: no K/V write
-        (masked in the prefill) and their own state spliced back."""
+        prompt lengths; ``prefix`` (n, prefix_len, d) a VLM pool's patch
+        embeds. Unmasked rows keep their slot: no K/V write (masked in
+        the prefill) and their own state spliced back."""
         p, n = self.pool, self.n_slots
-        self._reserve(slots, true_lens + max_news + 1, mask)
+        pl = self.prefix_len
+        self._reserve(slots, true_lens + pl + max_news + 1, mask)
         logits, fresh = engine.prefill(self.params, self.cfg, prompts,
-                                       p.cache, rows=slots, mask=mask)
+                                       p.cache, rows=slots, mask=mask,
+                                       prefix_embeds=prefix)
         # the first token comes from each row's LAST REAL position
         # (bucketed rows are right-padded), at emission index 0
         rows = torch.arange(n, device=self.device)
         rkeys = self._request_keys(rids, keys, derive)
         tok0 = sampling_lib.sample_slots(
-            logits[rows, (true_lens - 1).long()],
+            logits[rows, (true_lens + pl - 1).long()],
             self._keys_at(rkeys, torch.zeros_like(rids)), self.sampling)
         idx = slots.long()
         for key, state in fresh.items():
@@ -654,7 +691,8 @@ class DecodeScheduler:
                 full[:, idx] = torch.where(m, new.to(full.dtype),
                                            full[:, idx])
         zeros = torch.zeros_like(rids)
-        self._register(slots, mask, next_token=tok0, cur_len=true_lens + 1,
+        self._register(slots, mask, next_token=tok0,
+                       cur_len=true_lens + pl + 1,
                        n_emitted=zeros, budget=max_news,
                        active=torch.ones_like(mask), done=zeros.bool(),
                        request_id=rids, keys=rkeys,
@@ -663,14 +701,24 @@ class DecodeScheduler:
                        slot_decodes=zeros)
 
     def _assign(self, prompts, plens, slots, rids, max_news, keys, derive,
-                mask, prios, deadlines, shared=None, pin=None, pf0=None,
-                evict=None) -> None:
+                mask, prios, deadlines, prefix=None, shared=None, pin=None,
+                pf0=None, evict=None, draft_from=0) -> None:
         """Chunked admission: release ``evict``'s index pins, reserve the
         slots' blocks (mapping ``shared`` hit blocks, pinning ``pin``
         columns) and register the requests as PREFILLING from ``pf0``
-        (a hit starts at its first uncached block); no model forward."""
+        (a hit starts at its first uncached block); plens (n,) are
+        stream lengths (a VLM's patch prefix, then the prompt), and
+        ``prefix`` its patch embeds. No model forward, except for a
+        model drafter after a prefix hit: its own dense cache shares
+        nothing, so the draft model prefills positions ``[0,
+        draft_from)`` of the admitted rows here (``draft_from`` is the
+        longest hit run in positions, 0 without a hit), and the chunks
+        then advance target and draft together from each row's hit."""
         self._reserve(slots, plens + max_news + 1, mask, shared, pin, evict)
         zeros = torch.zeros_like(rids)
+        regs = {}
+        if prefix is not None:
+            regs["prefix"] = prefix
         self._register(slots, mask, next_token=zeros, cur_len=zeros + 1,
                        n_emitted=zeros, budget=max_news,
                        active=zeros.bool(), done=zeros.bool(),
@@ -681,7 +729,14 @@ class DecodeScheduler:
                        pf_pos=zeros if pf0 is None else pf0,
                        prefilling=torch.ones_like(mask), priority=prios,
                        deadline=deadlines, slot_layers=zeros,
-                       slot_decodes=zeros)
+                       slot_decodes=zeros, **regs)
+        if self.pool.draft and draft_from:
+            admitted = torch.zeros_like(self.pool.active)
+            admitted[slots.long()] = mask & (pf0 > 0)
+            engine.prefill_chunk(self._draft_params, self.draft_cfg,
+                                 self.pool.prompt, self.pool.draft,
+                                 torch.zeros_like(self.pool.pf_pos),
+                                 chunk=int(draft_from), mask=admitted)
         if self._reg_table is not None:
             admitted = torch.zeros_like(self.pool.active)
             admitted[slots.long()] = mask
@@ -714,9 +769,10 @@ class DecodeScheduler:
         there and turns RUNNING. Registers are written in place (a
         captured graph keeps their addresses)."""
         p, C, n = self.pool, self.chunk_tokens, self.n_slots
-        logits = engine.prefill_chunk(self.params, self.cfg, p.prompt,
-                                      p.cache, p.pf_pos, chunk=C,
-                                      mask=p.prefilling)
+        logits = engine.prefill_chunk(
+            self.params, self.cfg, p.prompt, p.cache, p.pf_pos, chunk=C,
+            mask=p.prefilling,
+            prefix_embeds=p.prefix if self.prefix_len else None)
         if p.draft:
             # the draft model prefills the same chunk into its own cache;
             # its logits are not used (the first token is the target's)
@@ -802,8 +858,8 @@ class DecodeScheduler:
         emit, t0 = p.active, p.next_token
         dev = self.device
         if not p.draft:
-            drafts = spec_lib.draft_ngram(p.prompt, p.plen, p.out,
-                                          p.n_emitted, t0, k=k,
+            drafts = spec_lib.draft_ngram(p.prompt, p.plen - self.prefix_len,
+                                          p.out, p.n_emitted, t0, k=k,
                                           ngram=self.speculative.ngram)
         else:
             # k+1 greedy draft steps: the draft cache's valid prefix then
@@ -1023,16 +1079,22 @@ class DecodeScheduler:
 
     def blocks_for(self, true_len: int, max_new: int) -> int:
         """Blocks a request holds while resident (0 for dense); agrees
-        with the device-side alloc of ``true_len + max_new + 1``."""
+        with the device-side alloc of ``true_len + prefix_len + max_new +
+        1``."""
         if self.kv != "paged":
             return 0
-        return int(kvc.blocks_needed(true_len + max_new + 1, self.kv_block))
+        return int(kvc.blocks_needed(true_len + self.prefix_len + max_new
+                                     + 1, self.kv_block))
 
     def submit(self, prompt, *, max_new: int,
                request_id: Optional[int] = None, key=None,
-               priority: int = 0, deadline: float = float("inf")) -> int:
+               priority: int = 0, deadline: float = float("inf"),
+               prefix_embeds=None) -> int:
         """Queue one request. prompt: (1, L) int, 1 <= L <= prompt_len
-        (L == prompt_len for a pure-SSM model). key: the request's PRNG
+        (L == prompt_len for a pure-SSM or MoE model). ``prefix_embeds``
+        (1, prefix_len, d_model): a VLM request's patch embeddings,
+        required on a pool built with ``prefix_len`` and refused
+        otherwise. key: the request's PRNG
         key, two uint32 words (a JAX raw key); None derives
         ``fold_in(PRNGKey(seed), request_id)`` at admission.
         ``priority`` (lower = more urgent) and ``deadline`` (host-clock
@@ -1048,7 +1110,7 @@ class DecodeScheduler:
             raise ValueError(
                 f"family {self.cfg.family!r} requires exact-length "
                 f"prompts (1, {self.prompt_len}): right-padding is not "
-                f"exact for SSM state; got {prompt.shape}")
+                f"exact for SSM state / MoE routing; got {prompt.shape}")
         if not 1 <= max_new <= self.max_new_cap:
             raise ValueError(f"max_new must be in [1, {self.max_new_cap}]")
         need = self.blocks_for(prompt.shape[1], max_new)
@@ -1056,6 +1118,21 @@ class DecodeScheduler:
             raise ValueError(
                 f"request needs {need} cache blocks but the paged pool "
                 f"only has kv_blocks={self.kv_blocks}")
+        # a pool sized with prefix_len needs the prefix on every request:
+        # one admission batch shares one prefill
+        if self.prefix_len > 0:
+            pe = (np.shape(prefix_embeds) if prefix_embeds is not None
+                  else None)
+            if pe is None or tuple(pe[:2]) != (1, self.prefix_len):
+                raise ValueError(
+                    f"this pool was built with prefix_len="
+                    f"{self.prefix_len}: every request needs "
+                    f"prefix_embeds (1, {self.prefix_len}, d); got {pe}")
+            prefix_embeds = np.asarray(prefix_embeds)
+        elif prefix_embeds is not None:
+            raise ValueError("prefix_embeds on a pool built with "
+                             "prefix_len=0; pass prefix_len at "
+                             "construction")
         if not self.queue and not self._busy.any():
             # first submission of a fresh run on a drained scheduler:
             # counters describe runs, not scheduler lifetimes
@@ -1066,7 +1143,7 @@ class DecodeScheduler:
             key = np.asarray(key, np.int64).reshape(2) & 0xFFFFFFFF
         self.queue.append(_Queued(rid, prompt.astype(np.int32),
                                   int(max_new), key, int(priority),
-                                  float(deadline)))
+                                  float(deadline), prefix_embeds))
         return rid
 
     def _bucket(self, length: int) -> int:
@@ -1088,8 +1165,9 @@ class DecodeScheduler:
         ``reserved`` grow). Pure on the index. Returns (plan, fresh
         blocks needed, blocks free)."""
         idx = self._prefix_index
-        plen = q.prompt.shape[1]
-        hs = idx.hashes(q.prompt[0], 0, idx.seed(None))
+        plen = self.prefix_len + q.prompt.shape[1]
+        hs = idx.hashes(q.prompt[0], self.prefix_len,
+                        idx.seed(q.prefix_embeds))
         hit_keys, hit_ids = idx.lookup(hs, (plen - 1) // self.kv_block,
                                        set(victims))
         need -= len(hit_keys)
@@ -1202,14 +1280,22 @@ class DecodeScheduler:
         def dev(a):
             return torch.from_numpy(a).to(self.device)
 
+        if self._chunked:
+            plens += np.int32(self.prefix_len)    # stream lengths
         args = [dev(prompts), dev(plens), dev(slots.astype(np.int32)),
                 dev(rids), dev(max_news), dev(keys), dev(derive), dev(mask),
                 dev(prios), dev(deadlines)]
+        prefix = None
+        if self.prefix_len:
+            pe = np.zeros((n, self.prefix_len, self.cfg.d_model), np.float32)
+            for i, q in enumerate(batch):
+                pe[i] = q.prefix_embeds[0]
+            prefix = dev(pe).to(self.cfg.dtype("compute"))
         regs: List[List[tuple]] = [[] for _ in batch]
         if not self._chunked:
-            self._admit(*args)
+            self._admit(*args, prefix)
         elif not self.prefix_cache:
-            self._assign(*args)
+            self._assign(*args, prefix)
         else:
             bpr = int(kvc.blocks_needed(self.max_len, self.kv_block))
             shared = np.full((n, bpr), -1, np.int32)
@@ -1217,7 +1303,8 @@ class DecodeScheduler:
             pf0 = np.zeros(n, np.int32)
             evict = np.full(self.kv_blocks, -1, np.int32)
             regs = self._commit_hits(plans, victims, shared, pin, pf0, evict)
-            self._assign(*args, dev(shared), dev(pin), dev(pf0), dev(evict))
+            self._assign(*args, prefix, dev(shared), dev(pin), dev(pf0),
+                         dev(evict), draft_from=int(pf0.max()))
             self._unfilled = self._unfilled or any(regs)
         for i, q in enumerate(batch):
             slot = int(free[i])
@@ -1344,30 +1431,55 @@ class DecodeScheduler:
             self._slot_regs[slot] = kept
         self._unfilled = False
 
-    def _drop_slot_refs(self, slot: int, ready: bool) -> List[int]:
-        """The slot leaves the index's rows: its hit entries and its
-        registrations lose the slot's reference. A registration turns
-        READY with ``ready``; otherwise a PENDING one (half-written)
-        leaves the index. Returns the evicted entries' block ids."""
-        idx = self._prefix_index
-        evicted = []
+    def _slot_refs(self, slot: int, ready: bool):
+        """What the slot's leaving the index's rows does: the keys of
+        the registrations that leave the index (PENDING, half-written,
+        unless ``ready``), of those that turn READY, and of the hit
+        entries; the last two lose the slot's reference."""
+        entries = self._prefix_index.entries
+        evict, keep = [], []
         for h, _ in self._slot_regs[slot]:
-            e = idx.entries.get(h)
-            if e is None:
-                continue
-            if ready or e.ready:
-                e.ready = True
-                e.row_refs -= 1
-            else:
-                evicted.append(idx.evict(h))
-                self.prefix_evictions += 1
-        for h in self._slot_hits[slot]:
-            e = idx.entries.get(h)
+            e = entries.get(h)
             if e is not None:
-                e.row_refs -= 1
+                (keep if ready or e.ready else evict).append(h)
+        hits = [h for h in self._slot_hits[slot] if h in entries]
+        return evict, keep, hits
+
+    def _drop_slot_refs(self, slot: int, ready: bool) -> List[int]:
+        """The slot leaves the index's rows (``_slot_refs``). Returns the
+        evicted entries' block ids."""
+        idx = self._prefix_index
+        evict, keep, hits = self._slot_refs(slot, ready)
+        for h in keep:
+            idx.entries[h].ready = True
+        for h in keep + hits:
+            idx.entries[h].row_refs -= 1
+        self.prefix_evictions += len(evict)
         self._slot_regs[slot] = []
         self._slot_hits[slot] = []
-        return evicted
+        return [idx.evict(h) for h in evict]
+
+    def blocks_freed(self, plan) -> int:
+        """Blocks that come back once the resident rows in ``plan`` are
+        preempted (``preempt_slots``) and the next admission evicts what
+        it may: each row's unpinned blocks, its PENDING registrations
+        (evicted with it), and each READY entry whose last row reference
+        leaves with the plan (the admission may evict it, a block each;
+        an entry the head maps instead needs no fresh block, which
+        counts the same). From host state: no read."""
+        freed = sum(int(self._slot_blocks[s]) for s in plan)
+        if not self.prefix_cache:
+            return freed
+        evicted, refs = set(), collections.Counter()
+        for s in plan:
+            evict, keep, hits = self._slot_refs(
+                s, ready=not self._h_prefilling[s])
+            evicted.update(evict)
+            refs.update(keep + hits)
+        entries = self._prefix_index.entries
+        return freed + len(evicted) + sum(
+            1 for h, n in refs.items() if h not in evicted
+            and entries[h].block_id >= 0 and entries[h].row_refs == n)
 
     @contextlib.contextmanager
     def _on_device(self):
@@ -1506,7 +1618,8 @@ class DecodeScheduler:
             got.append(PreemptedRequest(
                 request_id=q.request_id, prompt=q.prompt,
                 max_new=q.max_new, key=q.key, tokens=self.emitted(s),
-                priority=q.priority, deadline=q.deadline))
+                priority=q.priority, deadline=q.deadline,
+                prefix_embeds=q.prefix_embeds))
             self._busy[s] = False
             self._slot_req[s] = None
             self._h_n_emitted[s] = 0
@@ -1670,7 +1783,8 @@ class DecodeScheduler:
         its id, key, priority and deadline: the replay regenerates the
         same stream from the prompt."""
         self.queue.insert(0, _Queued(p.request_id, p.prompt, p.max_new,
-                                     p.key, p.priority, p.deadline))
+                                     p.key, p.priority, p.deadline,
+                                     p.prefix_embeds))
 
     def run_until_drained(self) -> List[FinishedRequest]:
         """Drive until queue and pool are empty; returns all finished."""

@@ -182,13 +182,15 @@ class SLOScheduler:
 
     def submit(self, prompt, *, max_new: int, slo_class="batch",
                deadline: Optional[float] = None, request_id=None,
-               key=None) -> int:
+               key=None, prefix_embeds=None) -> int:
         """Queue one request under a priority class.
 
         slo_class: an :class:`SLOClass` or a registered class name.
         deadline: absolute ``time.monotonic()`` seconds; defaults to
         arrival + the class's ``ttft_budget`` (``+inf`` without one).
         Deadlines ORDER requests within a class — they never drop one.
+        ``prefix_embeds``: a VLM request's patch embeddings, kept with
+        the request, so that a preempted one replays with them.
         """
         cls = (self.classes[slo_class] if isinstance(slo_class, str)
                else slo_class)
@@ -207,7 +209,8 @@ class SLOScheduler:
             # (the inner FIFO admits only what the SLO layer feeds it)
             rid = self.inner.submit(
                 prompt, max_new=max_new, request_id=request_id, key=key,
-                priority=cls.priority, deadline=float(deadline))
+                priority=cls.priority, deadline=float(deadline),
+                prefix_embeds=prefix_embeds)
             q = self.inner.queue.pop()
             self._backlog.append(q)
             self._req[rid] = _ReqState(
@@ -309,10 +312,7 @@ class SLOScheduler:
                 break
             plan.append(s)
             slots_free += 1
-            # the host mirror understates what preempt_slots returns
-            # (evicted PENDING prefix pins add more), so the plan is
-            # conservative, never short
-            blocks_free += int(inner._slot_blocks[s])
+            blocks_free = inner.free_blocks + inner.blocks_freed(plan)
         if slots_free < 1 or blocks_free < need:
             return []               # infeasible: evicting buys nothing
         events = []
@@ -325,7 +325,7 @@ class SLOScheduler:
             # in the metrics, which is exactly what bench_slo measures
             self._backlog.append(sched_lib._Queued(
                 p.request_id, p.prompt, p.max_new, p.key, p.priority,
-                p.deadline))
+                p.deadline, p.prefix_embeds))
             events.append(Event("preempted", p.request_id))
         self.preemptions += len(plan)
         self._backlog.sort(key=lambda q: (q.priority, q.deadline,

@@ -143,7 +143,7 @@ def accept(logits: torch.Tensor, drafts: torch.Tensor,
 
 
 def validate(spec: SpecConfig, cfg, prefill: str, draft_cfg: Optional[Any],
-             draft_params) -> None:
+             draft_params, prefix_len: int = 0) -> None:
     """The scheduler's construction checks for a speculative pool."""
     if prefill != "chunked":
         raise ValueError(
@@ -155,15 +155,20 @@ def validate(spec: SpecConfig, cfg, prefill: str, draft_cfg: Optional[Any],
         if draft_cfg is None or draft_params is None:
             raise ValueError("drafter='model' needs draft_params and "
                              "draft_cfg")
-        if draft_cfg.family != "dense":
+        if draft_cfg.family not in ("dense", "moe"):
             raise ValueError(
-                f"draft model must be an attention-decoder LM (dense); "
-                f"got family {draft_cfg.family!r}")
+                f"draft model must be an attention-decoder LM "
+                f"(dense/moe); got family {draft_cfg.family!r}")
         if draft_cfg.vocab != cfg.vocab:
             raise ValueError(
                 f"draft vocab ({draft_cfg.vocab}) must equal the target "
                 f"vocab ({cfg.vocab}): drafted ids are fed straight to "
                 f"the target verifier")
+        if prefix_len:
+            raise ValueError(
+                "drafter='model' does not support a patch prefix (the "
+                "draft model cannot consume the target's patch embeds); "
+                "use drafter='ngram' for VLM pools")
     elif draft_cfg is not None or draft_params is not None:
         raise ValueError("draft_params/draft_cfg given but "
                          "spec.drafter != 'model'")

@@ -521,7 +521,7 @@ def test_mod_forward_features_matches_jax():
     toks = rng.integers(2, cfg.vocab, (2, 11)).astype(np.int32)
     ref, _ = J["jax"].jit(J["transformer"].forward_features,
                           static_argnums=1)(jp, jcfg, J["jnp"].asarray(toks))
-    ours = transformer.forward_features(tp, cfg, _t(toks))
+    ours, _ = transformer.forward_features(tp, cfg, _t(toks))
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=TOL,
                                atol=TOL)
 

@@ -149,7 +149,7 @@ def test_forward_logits_match_jax(arch):
     jcfg, jp, cfg, tp = _pair(arch)
     toks = RNG.integers(2, cfg.vocab, (2, 19)).astype(np.int32)
     logits, _ = _jit_forward(jp, jcfg, jnp.asarray(toks))
-    ours = transformer.forward(tp, cfg, _t(toks))
+    ours, _ = transformer.forward(tp, cfg, _t(toks))
     assert ours.shape == (2, 19, cfg.padded_vocab)
     _close(ours, logits, 1e-4)
 
@@ -158,7 +158,7 @@ def test_forward_logits_match_jax_bf16():
     jcfg, jp, cfg, tp = _pair("llama3.2-1b", compute="bfloat16")
     toks = RNG.integers(2, cfg.vocab, (2, 19)).astype(np.int32)
     logits, _ = _jit_forward(jp, jcfg, jnp.asarray(toks))
-    ours = transformer.forward(tp, cfg, _t(toks))
+    ours, _ = transformer.forward(tp, cfg, _t(toks))
     assert ours.dtype == torch.bfloat16
     # logits are O(1); a few bf16 ulps after 2 layers of bf16 rounding
     _close(ours, logits, 6e-2)

@@ -103,7 +103,7 @@ def test_configs_equal_jax_field_for_field(arch, smoke):
 
 def test_unported_families_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("dbrx-132b")
+        get_config("zamba2-1.2b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -184,10 +184,13 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn):
 def test_ssm_family_is_ported_but_hybrid_is_not():
     cfg = get_config("falcon-mamba-7b")
     assert (cfg.family, cfg.ssm.kind, cfg.d_inner) == ("ssm", "mamba1", 8192)
-    for arch in ("zamba2-1.2b", "qwen2-moe-a2.7b", "whisper-small",
-                 "internvl2-1b"):
+    for arch in ("zamba2-1.2b", "whisper-small"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
+    # the MoE and VLM families load (field for field: above)
+    assert {a: get_config(a).family for a in (
+        "qwen2-moe-a2.7b", "dbrx-132b", "internvl2-1b")} == {
+        "qwen2-moe-a2.7b": "moe", "dbrx-132b": "moe", "internvl2-1b": "vlm"}
 
 
 def test_one_shot_admission_is_the_default():
