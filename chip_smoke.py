@@ -22,8 +22,9 @@ Phases, each printing its own lines:
    ``src/repro_torch/kernels/csrc`` with ``nvcc``, one process each, all
    started together, with ptxas's register and shared memory report;
 3. each block-table kernel against its plain PyTorch version on the
-   card, at the llama3.2-1b, qwen2-7b, olmo-1b and smollm-135m attention
-   geometries (G = 4, 7, 1, 3; hd = 64, 128), in bf16 and fp32, with
+   card, at the llama3.2-1b, qwen2-7b, olmo-1b, smollm-135m,
+   internvl2-1b and zamba2-1.2b attention geometries (G = 4, 7, 1, 3, 7,
+   1; hd = 64, 128), in bf16 and fp32, with
    blocks of 16 and 8, shuffled tables, ``-1`` entries, ragged lengths,
    a ``cur_len = 0`` row (exactly 0), cur_len on the decode kernel's
    partition edges and a chunk running past the table; the chunk
@@ -33,7 +34,9 @@ Phases, each printing its own lines:
    shapes (llama3.2-1b, and qwen2-7b for hd 128; the verify entry at
    B = 8, W = 5, q_off 512-568) beside the plain version,
    ``scaled_dot_product_attention`` on the gathered dense layout (a
-   yardstick the port never calls) and the bound;
+   yardstick the port never calls) and the bound, and at the MoE, VLM
+   and (the decode kernel) hybrid serving geometries as extra
+   ``shapes`` of the records;
 4. serving llama3.2-1b at full width (random weights from a seed, bf16)
    through the continuous-batching scheduler with the paged cache,
    chunked prefill and both kernels, once with the segment as a
@@ -61,7 +64,8 @@ Phases, each printing its own lines:
    launches bit for bit; then timed at the serving chunk beside the
    plain version and the bound, and at the per-layer call (Q=512)
    beside the chunk chain the call site made before and its bound;
-7. serving falcon-mamba-7b at full width and depth (random weights
+7. serving falcon-mamba-7b at full width and ``SSM_SERVE_LAYERS`` (32)
+   of its 64 layers (random weights
    from a seed, bf16, ``scan_impl="cuda"``) through one-shot admission,
    graph segments against host-read ones in turns as in phase 4 (the
    admissions stay eager between segments): every request must finish
@@ -103,8 +107,9 @@ Phases, each printing its own lines:
     at the forward's shape beside the plain version,
     ``scaled_dot_product_attention`` (a yardstick the port never calls)
     and the bound, and at qwen2-7b's (B=4, S=2048, H=28, KV=4, D=128)
-    beside SDPA, and at qwen2-moe-a2.7b's (B=4, S=2048, H=KV=16, D=128;
-    the ``shapes`` entry of its record) beside SDPA and its plain
+    beside SDPA, and at qwen2-moe-a2.7b's (B=4, S=2048, H=KV=16, D=128)
+    and zamba2-1.2b's shared block's (B=4, S=2048, H=KV=32, D=64; the
+    ``shapes`` entries of its record) beside SDPA and its plain
     version;
 14. ``model_zoo.forward`` and ``loss_fn`` of llama3.2-1b at full width
     (random weights from a seed, B=4, S=2048 tokens from ``SyntheticLM``)
@@ -270,17 +275,52 @@ Phases, each printing its own lines:
     prompt with two images never hits; hit blocks, chunk iterations and
     tok/s are printed, on against off; then at 4 layers in fp32 the
     kernel path with the prefix cache must give the gather path's
-    streams without it, 16/16.
+    streams without it, 16/16;
+30. (run last) training the MoE and VLM families: internvl2-1b at full
+    width through ``launch.train.main`` (B=4, S=1024 behind 256 patch
+    embeddings, lr 1e-3, 12 steps, a checkpoint at step 8): the loss
+    finite and falling, and a second launch resuming at 8 reruns steps
+    8-11, the first of them with the first launch's loss bit for bit and
+    the rest within RESUME_RTOL; qwen2-moe-a2.7b at full width
+    and 2 layers (``MOE_TRAIN_LAYERS``: 4 do not fit the card) through
+    ``make_train_step`` (B=2, S=512, 6 steps): the loss finite and
+    falling, both aux terms finite, every layer's router gradient
+    non-zero; ms a step and peak memory printed; no flash launch;
+31. (run after phase 29) adaptive depth on qwen2-moe-a2.7b and
+    internvl2-1b at full width (bf16, the pools of phases 27 and 29
+    without the prefix cache, graph segments): threshold inf gives the
+    non-adaptive streams bit for bit (16/16, in turns), mean depth
+    exactly 24 and equal launches; exit by construction at layer 2 (an
+    identity tail; the MoE's expert and shared ``w_down`` zeroed)
+    launches exactly 2/24 of the doctored non-adaptive run's
+    ``paged_attention``, streams equal; mixture-of-depths (zero routers)
+    runs with depth 24; one host read a graph segment; tok/s and device
+    ms an iteration against the non-adaptive run printed; then at 4
+    layers in fp32, early exit at inf and mixture-of-depths on, the
+    kernel path in graph and host-read segments and the gather path
+    give one set of streams (8/8);
+32. (run after phase 8) zamba2-1.2b at full width (38 mamba2 layers,
+    one shared attention block applied 7 times; bf16, random weights
+    from a seed, ``attn_impl="cuda"``) through one-shot admission: 16
+    requests of exactly 512 tokens, 64 new each, in graph and host-read
+    segments in turns as in phase 4: every request finishes, one host
+    read a graph segment, ``paged_attention`` launches equal across
+    lowerings at 7 a decode iteration, no gather; tok/s, a decode-only
+    segment's device ms an iteration at 8 slots beside its bytes bound
+    (predicted 1.1 ms) and an admission's device ms printed; then at 12
+    layers (2 applications) in fp32 the kernel path in graph and
+    host-read segments and the gather path give one set of streams.
 
 The llama3.2-1b weights are freed before phase 26 (which makes and frees
 its own) and falcon-mamba's are made (phase 23 frees its own before the
-next), phases 27-29 make and free their own, and
+next), phases 27-32 make and free their own, and
 falcon-mamba's are freed before the LSTM phases, and each of the last three
 phases frees what it made. Then
 one JSON line of kernel records (``paged_attention`` and
 ``flash_prefill`` also give ``path_launches``: their launches in each
-serving path's first graph run, llama3.2-1b, qwen2-moe-a2.7b and
-internvl2-1b, the counts set to 0 just before it) and, last, the
+serving path's first graph run, llama3.2-1b, qwen2-moe-a2.7b,
+internvl2-1b, both early-exit runs at inf and zamba2-1.2b, the counts
+set to 0 just before it) and, last, the
 device line. Any
 failed check raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA device is present.
@@ -310,11 +350,13 @@ TOL = {"bfloat16": 1.6e-2,  # two bf16 ulps at magnitude 1: the output
 #                             2048 positions
 GEOMETRIES = (("llama3.2-1b", 32, 8, 64), ("qwen2-7b", 28, 4, 128),
               ("olmo-1b", 16, 16, 128), ("smollm-135m", 9, 3, 64),
-              ("internvl2-1b", 14, 2, 64))
+              ("internvl2-1b", 14, 2, 64), ("zamba2-1.2b", 32, 32, 64))
 # the MoE and VLM serving phases' attention geometries (qwen2-moe-a2.7b's
 # MHA is olmo-1b's): the block-table kernels are timed there too, as
 # extra ``shapes`` of their records
 NEW_SHAPES = (("qwen2-moe-a2.7b", 16, 16, 128), ("internvl2-1b", 14, 2, 64))
+# the hybrid's shared attention block (decode only: it prefills one-shot)
+HYBRID_SHAPE = ("zamba2-1.2b", 32, 32, 64)
 # the TPU kernel (or kernel entry) that each record of the kernels line
 # replaces
 REPLACES = {
@@ -331,6 +373,9 @@ SCAN_TOL = 1e-4     # fp32: N-term sums in another order, fused
 #                     multiply-adds, states of magnitude up to ~10
 SCAN_CHUNK = 128    # falcon-mamba-7b's cfg.ssm.chunk: the TPU kernel's chunk
 SCAN_LAYER = 512    # one layer's call in a one-shot admission of 512 tokens
+SSM_SERVE_LAYERS = 32   # phases 7-8: falcon-mamba-7b's depth, cut from 64
+#                         to keep the script under 900 s as phases 30-32
+#                         join it (a layer's work is the same at any depth)
 LSTM_TOL = {"float32": 1e-5,    # K <= 1024 fp32 products summed in
             #                     another order
             "bfloat16": 1.6e-2}  # c', h' rounded to bf16 on both sides
@@ -351,6 +396,7 @@ FA_SWEEP = ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 64, 6, 3, 128),
 FA_FORWARD = (4, 2048, 32, 8, 64)        # the llama3.2-1b forward's shape
 FA_QWEN = (4, 2048, 28, 4, 128)          # qwen2-7b's geometry, timed beside
 FA_MOE = (4, 2048, 16, 16, 128)          # qwen2-moe-a2.7b's (G = 1), likewise
+FA_ZAMBA = (4, 2048, 32, 32, 64)         # zamba2-1.2b's shared block (G = 1)
 FA_EDGES = (  # (B, S, H, KV, D, T): the wgmma route's edges (D = 64, 128):
     (2, 200, 8, 2, 64, 200),     # S, T off multiples of 128, B > 1 (TMA's
     (2, 130, 8, 2, 64, 300),     # zero fill past T in each batch row); T > S
@@ -383,6 +429,20 @@ MOE_PARITY_LAYERS = 4    # phase 28 and phase 29's fp32 runs: full width,
 MOE_LOSS_RTOL = 1e-5     # fp32 aux losses through flash and chunked attention
 VLM_IMAGES = 4           # phase 29: images, each shared by 4 requests
 VLM_SYSTEM = 64          # tokens of the system text behind every image
+MOE_TRAIN_LAYERS = 2     # phase 30: qwen2-moe-a2.7b's depth in training.
+#   At 4 layers its 2.91 B fp32 masters are 11.6 GB a tree; the step holds
+#   the masters, both moments, the gradients and the new masters and
+#   moments at once (7 trees, 81 GB) and cannot fit the 80 GB card
+TRAIN_FAMILY_STEPS = 12  # phase 30: internvl2-1b launcher steps
+TRAIN_FAMILY_CKPT = 8    # phase 30: its checkpoint; the resume reruns 8-11
+TRAIN_FAMILY_LR = 1e-3   # phase 30: at the launcher's 3e-4, 12 steps move a
+#                          loss of about 12.1 by only 0.015
+MOE_TRAIN_STEPS = 6      # phase 30: qwen2-moe-a2.7b train steps
+RESUME_RTOL = 1e-3       # phase 30: resumed steps after the first (whose
+#                          loss must be bit-equal) against the first
+#                          launch's: bf16 steps whose embedding gradient
+#                          is summed by atomic adds in any order
+HYBRID_PARITY_LAYERS = 12   # phase 32's fp32 runs: 2 shared-block apps
 
 
 def log(msg: str) -> None:
@@ -756,10 +816,12 @@ def phase_kernels():
     for kind, name in (("decode", "paged_attention"),
                        ("prefill", "flash_prefill")):
         time_block_table(kind, name, GEOMETRIES[1], fns)
-    # the MoE and VLM serving geometries: extra records of the same kernels
+    # the MoE, VLM and hybrid serving geometries: extra records of the
+    # same kernels (the hybrid's shared block decodes only)
     for rec, kind in zip(records, ("decode", "prefill")):
         rec["shapes"] = []
-        for geom in NEW_SHAPES:
+        for geom in NEW_SHAPES + ((HYBRID_SHAPE,) if kind == "decode"
+                                  else ()):
             r = time_block_table(kind, rec["name"], geom, fns)
             rec["shapes"].append({
                 "arch": geom[0], "H": geom[1], "KV": geom[2], "hd": geom[3],
@@ -1263,7 +1325,8 @@ def serve_in_turns(tag, cfg, make, reqs, admissions=False, profile=True):
                "streams": streams, "admissions": list(spans.get(loop, [])),
                "accept_rate": sched.accept_rate,
                "mean_accept_len": sched.mean_accept_len,
-               "spec_windows": sched.spec_windows}
+               "spec_windows": sched.spec_windows,
+               "decodes": int(sched._counts[3])}
         line = (f"[{tag}] {run['loop']} ({run['attn_impl']} / "
                 f"{run['prefill_impl']}): {sched.tokens_emitted} tokens in "
                 f"{wall:.3f} s -> {run['tok_s']:.1f} tok/s, "
@@ -1322,17 +1385,19 @@ def serve_in_turns(tag, cfg, make, reqs, admissions=False, profile=True):
 
 
 def phase_ssm_serve():
-    """falcon-mamba-7b at full width through one-shot admission with
-    the selective-scan kernel, graph segments against host-read ones;
-    returns the kernel's launch count in the first graph run."""
+    """falcon-mamba-7b at full width and ``SSM_SERVE_LAYERS`` layers
+    through one-shot admission with the selective-scan kernel, graph
+    segments against host-read ones; returns the kernel's launch count
+    in the first graph run."""
     import dataclasses
     import torch
     from repro_torch import bridge
     from repro_torch.configs import get_config
 
     base = get_config("falcon-mamba-7b")
-    cfg = dataclasses.replace(base, ssm=dataclasses.replace(
-        base.ssm, scan_impl="cuda"))
+    cfg = dataclasses.replace(base, n_layers=SSM_SERVE_LAYERS,
+                              ssm=dataclasses.replace(base.ssm,
+                                                      scan_impl="cuda"))
     t0 = time.perf_counter()
     params = bridge.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1434,7 +1499,8 @@ def phase_ssm_parity():
     from repro_torch.configs import get_config
 
     base = dataclasses.replace(get_config("falcon-mamba-7b"),
-                               compute_dtype="float32")
+                               compute_dtype="float32",
+                               n_layers=SSM_SERVE_LAYERS)
     params = bridge.init_params(base, seed=0, device="cuda")
     reqs = serving_requests(base)[:8]
 
@@ -2334,28 +2400,33 @@ def identity_tail(params, e):
     (``benchmarks/bench_adaptive_depth.py``'s construction)."""
     out = dict(params)
     lay = out["layers"] = dict(params["layers"])
-    lay["attn"], lay["mlp"] = dict(lay["attn"]), dict(lay["mlp"])
-    for tree, name in ((lay["attn"], "wo"), (lay["mlp"], "w_down")):
+    mlp = "moe" if "moe" in lay else "mlp"
+    lay["attn"], lay[mlp] = dict(lay["attn"]), dict(lay[mlp])
+    # an MoE block's output is its experts' and its shared experts' sum
+    zero = [(lay["attn"], "wo"), (lay[mlp], "w_down")] + (
+        [(lay[mlp], "shared_down")] if "shared_down" in lay[mlp] else [])
+    for tree, name in zero:
         tree[name] = tree[name].clone()
         tree[name][e:] = 0
     return out
 
 
-def ready(sched, reqs):
+def ready(sched, reqs, driver=None):
     """Capture (a graph scheduler) and warm up on one request."""
     import torch
     sched.warmup()
-    drive(sched, reqs[:1])
+    (driver or drive)(sched, reqs[:1])
     torch.cuda.synchronize()
     return sched
 
 
-def adaptive_run(tag, sched, reqs):
+def adaptive_run(tag, sched, reqs, driver=None):
     """One run of ``reqs``: streams, kernel launches (counted on the
     device in a graph segment, in Python at each eager launch), mean
     depth, tok/s, and for a graph run the device's time in segments
     (CUDA events) with its gates: one host read a segment and no
-    predicate read."""
+    predicate read. ``driver`` submits and drains (``drive``, or
+    ``vlm_drive`` for requests with patches)."""
     import torch
     from repro_torch import core
     from repro_torch.core.device_loop import DeviceLoop
@@ -2366,10 +2437,10 @@ def adaptive_run(tag, sched, reqs):
     reads0 = (DeviceLoop.host_reads, core.while_loop.host_reads)
     finish = instrument_sync(sched) if graph else None
     t0 = time.perf_counter()
-    streams = drive(sched, reqs)
+    streams = (driver or drive)(sched, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check_streams(streams, reqs, sched.cfg)
+    check_streams(streams, [r[:2] for r in reqs], sched.cfg)
     reads = (DeviceLoop.host_reads - reads0[0],
              core.while_loop.host_reads - reads0[1])
     run = {"streams": streams, "wall": wall,
@@ -3042,22 +3113,26 @@ def phase_flash_kernel():
         f"device kernel/sdpa {times['ms'] / times['library_ms']:.2f}, max "
         f"|kernel - plain| {err:.3e} (atol needed {need:.3e})")
     del copies, heads
-    record["shapes"] = [time_flash_moe(kern, sdpa)]
+    record["shapes"] = [time_flash_shape(kern, sdpa, "qwen2-moe-a2.7b",
+                                         FA_MOE, 400),
+                        time_flash_shape(kern, sdpa, "zamba2-1.2b",
+                                         FA_ZAMBA, 500)]
     return record
 
 
-def time_flash_moe(kern, sdpa):
-    """The flash kernel at qwen2-moe-a2.7b's forward (G = 1, D = 128),
-    bf16 causal, held against its plain version and timed beside SDPA:
-    an extra ``shapes`` entry of its record."""
+def time_flash_shape(kern, sdpa, arch, shape, seed):
+    """The flash kernel at a model's forward (qwen2-moe-a2.7b: G = 1, D =
+    128; zamba2-1.2b's shared block: G = 1, D = 64), bf16 causal, held
+    against its plain version and timed beside SDPA: an extra ``shapes``
+    entry of its record."""
     import torch
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    copies = [fa_case(400 + i, *FA_MOE, torch.bfloat16) for i in range(4)]
+    copies = [fa_case(seed + i, *shape, torch.bfloat16) for i in range(4)]
     ref = attention_ref(*copies[0])
     err, need, ok = fa_check(kern(*copies[0]), ref)
     if not ok:
         raise AssertionError(f"flash_attention disagrees with its plain "
-                             f"version at {FA_MOE}: {need:.3e}")
+                             f"version at {shape}: {need:.3e}")
     heads = [[t.transpose(1, 2) for t in c] for c in copies]
     times = call_times(lambda i: kern(*copies[i]), len(copies),
                        lambda i: sdpa(*heads[i], is_causal=True,
@@ -3065,12 +3140,12 @@ def time_flash_moe(kern, sdpa):
     plain_ms = time_ms(lambda i: attention_ref(*copies[i]), len(copies),
                        iters=5)
     b_ms, b_by = fa_bound(*copies[0])
-    log(f"[flash] time flash_attention at qwen2-moe-a2.7b's "
-        f"B,S,H,KV,D={FA_MOE} bf16 causal: {fmt_times(times)}, plain "
+    log(f"[flash] time flash_attention at {arch}'s "
+        f"B,S,H,KV,D={shape} bf16 causal: {fmt_times(times)}, plain "
         f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), device "
         f"kernel/sdpa {times['ms'] / times['library_ms']:.2f}, max |kernel "
         f"- plain| {err:.3e} (atol needed {need:.3e})")
-    return {"arch": "qwen2-moe-a2.7b", "B,S,H,KV,D": list(FA_MOE),
+    return {"arch": arch, "B,S,H,KV,D": list(shape),
             "max_abs_err": err, "ms": times["ms"], "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": times["library_ms"],
@@ -3919,11 +3994,12 @@ def moe_decode_bytes(cfg, positions):
     return experts + other + kv, experts, kv
 
 
-def moe_decode_ms(sched, reqs, prefill_iters, iters=32):
+def decode_only_ms(sched, reqs, prefill_iters, iters=32):
     """Device ms of one decode iteration at 8 running slots: the requests
     admitted and prefilled in a first segment of ``prefill_iters``
     iterations, then a segment of ``iters`` decode-only iterations timed
-    with CUDA events (``instrument_sync``'s start-to-read span)."""
+    with CUDA events (``instrument_sync``'s start-to-read span). A
+    one-shot pool admits in the first ``step`` and runs no chunk."""
     for rid, (prompt, max_new) in enumerate(reqs):
         sched.submit(prompt, max_new=max_new, request_id=rid)
     sched.step(max_steps=prefill_iters)
@@ -3932,7 +4008,7 @@ def moe_decode_ms(sched, reqs, prefill_iters, iters=32):
     sched.step(max_steps=iters)
     _, _, _, seg_ms = finish()
     if int(sched._counts[2]) != chunks or sched.active_count != len(reqs):
-        raise AssertionError("moe: the timed segment was not decode only")
+        raise AssertionError("the timed segment was not decode only")
     sched.run_until_drained()
     return seg_ms / iters
 
@@ -3981,7 +4057,7 @@ def phase_moe_serve():
         f"reads a segment; launches {launches}")
     sched = make_scheduler(params, cfg)
     sched.warmup()
-    ms = moe_decode_ms(sched, reqs[:8], prefill_iters=4)
+    ms = decode_only_ms(sched, reqs[:8], prefill_iters=4)
     sched.close()
     total, experts, kv = moe_decode_bytes(cfg, 8 * (512 + 20))
     bound = total / HBM_BYTES_PER_S * 1e3
@@ -4227,6 +4303,443 @@ def phase_vlm():
                                             "flash_prefill")}
 
 
+# ------------------------------------------- phases 30-32: this slice's paths
+
+def phase_train_families():
+    """Training the MoE and VLM families on the card. internvl2-1b at
+    full width through ``launch.train.main`` (fp32 masters, bf16
+    compute, lr ``TRAIN_FAMILY_LR``, B=4, S=1024 tokens behind 256 patch
+    embeddings,
+    ``TRAIN_FAMILY_STEPS`` steps, a checkpoint at step
+    ``TRAIN_FAMILY_CKPT``): the loss is finite and falls, and a second
+    launch resumes from the checkpoint and reruns the steps after it
+    with the first launch's losses (the first bit for bit, the rest
+    within ``RESUME_RTOL``). qwen2-moe-a2.7b at full
+    width and ``MOE_TRAIN_LAYERS`` layers through
+    ``train_loop.make_train_step`` (B=2, S=512, ``MOE_TRAIN_STEPS``
+    steps, no checkpoint): the loss is finite and falls, both aux terms
+    are finite, and every layer's router gets a non-zero gradient. Both
+    print ms a step and peak memory; neither launches the forward-only
+    flash kernel."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+    import statistics
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+
+    cfg = get_config("internvl2-1b")
+    n_params = model_zoo.count_params(cfg)
+    root = checkpoint_root(3 * 4 * n_params)
+    argv = ["--arch", cfg.name, "--batch", "4", "--seq", "1024", "--steps",
+            str(TRAIN_FAMILY_STEPS), "--lr", str(TRAIN_FAMILY_LR),
+            "--ckpt-dir", root, "--ckpt-every", str(TRAIN_FAMILY_CKPT)]
+    try:
+        fa_kernel.flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = launch_train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        hist = first["trainer"].history
+        losses = [h[1] for h in hist]
+        step_ms = [h[2] * 1e3 for h in hist]
+        k = len(losses) // 4
+        a, b = statistics.mean(losses[:k]), statistics.mean(losses[-k:])
+        log(f"[train-vlm] {cfg.name} ({n_params / 1e9:.3f}B params) fp32 "
+            f"masters, bf16 compute, B=4, S=1024 + {cfg.n_patches} patches: "
+            f"{len(losses)} steps in {wall:.1f} s; ms a step median "
+            f"{statistics.median(step_ms[1:]):.1f} (first {step_ms[0]:.1f});"
+            f" peak memory {peak / 2**30:.2f} GiB; losses "
+            + " ".join(f"{x:.4f}" for x in losses))
+        if not all(math.isfinite(x) for x in losses) or not b < a:
+            raise AssertionError("train-vlm: the loss is not finite or does "
+                                 "not fall")
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        again = launch_train.main(argv)
+        rerun = [(h[0], h[1]) for h in again["trainer"].history]
+        want = [(h[0], h[1]) for h in hist[TRAIN_FAMILY_CKPT:]]
+        rel = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(rerun, want))
+        log(f"[train-vlm] second launch resumed at step {again['start']}: "
+            f"losses {[x for _, x in rerun]} against the first launch's "
+            f"{[x for _, x in want]}; max relative difference {rel:.3e}")
+        # the restored state is the saved one, so the first resumed
+        # step's forward, and its loss, are the first launch's bit for
+        # bit; later steps follow updates whose backward adds the
+        # embedding's row gradients atomically, in any order
+        if again["start"] != TRAIN_FAMILY_CKPT or \
+                [s for s, _ in rerun] != [s for s, _ in want] or \
+                rerun[0] != want[0] or rel > RESUME_RTOL:
+            raise AssertionError("train-vlm: the resume does not continue "
+                                 "exactly")
+        del again
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if fa_kernel.flash_attention.launches:
+        raise AssertionError("train-vlm launched the forward-only kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                               n_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = bridge.init_params(mcfg, seed=0, device="cuda",
+                                keep_param_dtype=True)
+    opt = adamw.init(params)
+    data = SyntheticLM(mcfg.vocab, 512, 2, seed=0)
+    step_fn = train_loop.make_train_step(mcfg, adamw.AdamWConfig(lr=1e-3))
+    rows = []
+    for i in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, data.batch_at(i))
+        terms = {k: float(m[k]) for k in ("loss", "ce", "moe_load_balance",
+                                          "moe_z_loss")}
+        rows.append((terms, (time.perf_counter() - t0) * 1e3))
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r[0]["loss"] for r in rows]
+    log(f"[train-moe] {mcfg.name} at full width, {MOE_TRAIN_LAYERS} layers "
+        f"({model_zoo.count_params(mcfg) / 1e9:.3f}B params), fp32 masters,"
+        f" bf16 compute, B=2, S=512: ms a step "
+        f"{', '.join(f'{r[1]:.1f}' for r in rows)}; peak memory "
+        f"{peak / 2**30:.2f} GiB; per step (loss, ce, load balance, "
+        f"z loss): " + "; ".join(
+            ", ".join(f"{v:.5f}" for v in r[0].values()) for r in rows))
+    if not all(math.isfinite(v) for r in rows for v in r[0].values()) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError("train-moe: a loss term is not finite or the "
+                             "loss does not fall")
+    leaves, spec = pytree.tree_flatten(params)
+    router = params["layers"]["moe"]["router"]
+    live = [t if t is router else t.detach() for t in leaves]
+    router.requires_grad_(True)
+    batch = train_loop.batch_to_device(data.batch_at(MOE_TRAIN_STEPS),
+                                       "cuda")
+    with torch.enable_grad():
+        loss, _ = model_zoo.loss_fn(bridge.compute_params(
+            pytree.tree_unflatten(live, spec), mcfg), mcfg, batch)
+        (g,) = torch.autograd.grad(loss, [router])
+    per_layer = g.abs().amax(dim=(1, 2)).tolist()
+    log(f"[train-moe] router gradient max |g| by layer: "
+        f"{[f'{x:.3e}' for x in per_layer]}")
+    if not all(x > 0 for x in per_layer):
+        raise AssertionError("train-moe: a router gets no gradient")
+    if fa_kernel.flash_attention.launches:
+        raise AssertionError("train-moe launched the forward-only kernel")
+    del params, opt, leaves, live, router, g
+
+
+def family_serving(arch):
+    """(requests, scheduler factory, driver) of a family's serving pool:
+    the MoE's 16 x 512 exact-length prompts through ``make_scheduler``,
+    the VLM's 16 patch-prefixed requests through ``make_vlm_scheduler``
+    (without the prefix cache)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.family == "vlm":
+        return (vlm_requests(cfg),
+                lambda p, c, loop=None: make_vlm_scheduler(p, c, loop),
+                vlm_drive)
+    return (moe_requests(cfg),
+            lambda p, c, loop=None: make_scheduler(p, c, loop), drive)
+
+
+def adaptive_family(arch):
+    """Phase 31 for one family at full width (bf16, ``attn_impl="cuda"``,
+    graph segments): threshold inf against the non-adaptive run in turns
+    (plain, inf, inf, plain): streams bit for bit, mean depth exactly
+    n_layers, launches equal; exit by construction (identity tail from
+    layer ``EXIT_AT``, threshold -1, floor ``EXIT_AT``) against the
+    doctored model's non-adaptive run: streams equal, mean depth exactly
+    ``EXIT_AT``, ``paged_attention`` launches exactly ``EXIT_AT``/L of
+    its, ``flash_prefill`` unchanged; mixture-of-depths (capacity 0.5,
+    every 2, zero routers) runs to the end. ``adaptive_run`` gates one
+    host read a segment. Then at ``MOE_PARITY_LAYERS`` layers in fp32,
+    with early exit at inf and mixture-of-depths on: the kernel path in
+    graph and host-read segments and the gather path give one set of
+    streams. Returns the first inf run's launches."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+
+    tag = f"adaptive {arch}"
+    reqs, make, driver = family_serving(arch)
+    cfg = dataclasses.replace(get_config(arch), attn_impl="cuda")
+    L = cfg.n_layers
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    inf = dataclasses.replace(cfg, early_exit=True)
+    plain = ready(make(params, cfg), reqs, driver)
+    ada = ready(make(params, inf), reqs, driver)
+    a1 = adaptive_run(f"{tag} plain", plain, reqs, driver)
+    b1 = adaptive_run(f"{tag} inf", ada, reqs, driver)
+    b2 = adaptive_run(f"{tag} inf", ada, reqs, driver)
+    a2 = adaptive_run(f"{tag} plain", plain, reqs, driver)
+    plain.close()
+    ada.close()
+    want = {k: a1["launches"][k] for k in ("paged_attention",
+                                           "flash_prefill")}
+    for run in (b1, b2):
+        same_count(f"{tag} inf", run["streams"], a1["streams"])
+        got = {k: run["launches"][k] for k in want}
+        if run["mean_depth"] != float(L) or got != want or \
+                run["depth_impl"] != "cuda-graph:if-per-layer":
+            raise AssertionError(
+                f"{tag} inf: mean depth {run['mean_depth']}, launches "
+                f"{got} against {want}, lowering {run['depth_impl']}")
+
+    doc = identity_tail(params, EXIT_AT)
+    ecfg = dataclasses.replace(cfg, early_exit=True, exit_threshold=-1.0,
+                               exit_min_layers=EXIT_AT)
+    dplain = ready(make(doc, cfg), reqs, driver)
+    dexit = ready(make(doc, ecfg), reqs, driver)
+    c1 = adaptive_run(f"{tag} exit plain", dplain, reqs, driver)
+    d1 = adaptive_run(f"{tag} exit", dexit, reqs, driver)
+    dplain.close()
+    dexit.close()
+    same_count(f"{tag} exit", d1["streams"], c1["streams"])
+    pa, fp = (d1["launches"][k] for k in ("paged_attention",
+                                          "flash_prefill"))
+    if d1["mean_depth"] != float(EXIT_AT) or \
+            pa * L != c1["launches"]["paged_attention"] * EXIT_AT or \
+            fp != c1["launches"]["flash_prefill"]:
+        raise AssertionError(f"{tag} exit: mean depth {d1['mean_depth']}, "
+                             f"launches pa {pa} fp {fp} against "
+                             f"{c1['launches']}")
+    log(f"[{tag}] exit at {EXIT_AT}: paged_attention {pa} = {EXIT_AT}/{L} "
+        f"of {c1['launches']['paged_attention']} (device-counted), "
+        f"flash_prefill {fp} unchanged")
+    del doc
+
+    mod = dataclasses.replace(cfg, mod_capacity=0.5, mod_every=2)
+    mparams = {**params, "layers": {**params["layers"], "router": {
+        "w": torch.zeros((L, cfg.d_model), device="cuda")}}}
+    msched = ready(make(mparams, mod), reqs, driver)
+    m = adaptive_run(f"{tag} mod", msched, reqs, driver)
+    msched.close()
+    if m["mean_depth"] != float(L):
+        raise AssertionError(f"{tag} mod: zero routers skipped blocks "
+                             f"(mean depth {m['mean_depth']})")
+    log(f"[{tag}] {card_label()}: tok/s non-adaptive {a1['tok_s']:.1f}, "
+        f"{a2['tok_s']:.1f}; inf {b1['tok_s']:.1f}, {b2['tok_s']:.1f} "
+        f"(x{b1['tok_s'] / a1['tok_s']:.3f}); doctored non-adaptive "
+        f"{c1['tok_s']:.1f}, exit at {EXIT_AT} {d1['tok_s']:.1f} "
+        f"(x{d1['tok_s'] / c1['tok_s']:.3f}); mixture-of-depths "
+        f"{m['tok_s']:.1f} | device ms an iteration: non-adaptive "
+        f"{a1['ms_iter']:.4f}, {a2['ms_iter']:.4f}; inf "
+        f"{b1['ms_iter']:.4f}, {b2['ms_iter']:.4f}; doctored "
+        f"{c1['ms_iter']:.4f}; exit {d1['ms_iter']:.4f}; mod "
+        f"{m['ms_iter']:.4f}")
+    del params, mparams
+    free_device_memory(f"the {arch} adaptive parity runs")
+
+    fcfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                               n_layers=MOE_PARITY_LAYERS, early_exit=True,
+                               mod_capacity=0.5, mod_every=2)
+    fparams = bridge.init_params(fcfg, seed=0, device="cuda")
+    sub = reqs[:8]
+    kern = dataclasses.replace(fcfg, attn_impl="cuda")
+    gath = dataclasses.replace(fcfg, attn_impl="gather")
+    par = {}
+    for name, c, loop in (("cuda-graph", kern, None),
+                          ("cuda-host-read", kern, "host"),
+                          ("gather-host-read", gath, "host")):
+        sched = make(fparams, c, loop)
+        t0 = time.perf_counter()
+        par[name] = driver(sched, sub)
+        torch.cuda.synchronize()
+        log(f"[{tag} parity] fp32 {MOE_PARITY_LAYERS} layers, early exit "
+            f"inf and mixture-of-depths, {name} ({sched.loop_impl}, layer "
+            f"loop {sched.depth_impl}): {sched.tokens_emitted} tokens in "
+            f"{time.perf_counter() - t0:.2f} s, mean depth "
+            f"{sched.mean_depth:.4f}")
+        sched.close()
+    same_streams(f"{tag} parity", par, "cuda-graph", "cuda-host-read",
+                 "graph and host-read segments under adaptive depth")
+    same_streams(f"{tag} parity", par, "cuda-graph", "gather-host-read",
+                 "the kernel and gather paths under adaptive depth")
+    del fparams
+    return b1["launches"]
+
+
+def phase_adaptive_families():
+    """Adaptive depth on the MoE and VLM families (``adaptive_family``
+    for qwen2-moe-a2.7b, then internvl2-1b). Returns each family's first
+    inf run's launches."""
+    out = {}
+    for arch in ("qwen2-moe-a2.7b", "internvl2-1b"):
+        out[f"{arch} early-exit"] = adaptive_family(arch)
+        free_device_memory("the next family")
+    return out
+
+
+def make_hybrid_scheduler(params, cfg, loop=None):
+    """The hybrid's pool: one-shot admission (the only mode it takes),
+    8 slots, 512-token prompts, 64 new at most, the paged cache in
+    blocks of 16 (the shared block's K/V, one cache layer an
+    application)."""
+    from repro_torch.serve import scheduler as sched_lib
+    return sched_lib.DecodeScheduler(
+        params, cfg, n_slots=8, prompt_len=512, max_new_cap=64, eos_id=-1,
+        kv="paged", kv_block=16, prefill="oneshot", loop=loop)
+
+
+def hybrid_decode_bytes(cfg, slots, positions):
+    """Bytes a decode iteration must move at ``slots`` rows with
+    ``positions`` cached positions in all: every mamba2 layer's weights,
+    the shared block's once an application (the 50 MB L2 cannot keep
+    its 134 MB between applications), the unembedding, in bf16; the
+    fp32 SSM state (and the conv state) read and written; each
+    application's K/V of the cached positions. Returns (total, parts)."""
+    from repro_torch.serve import engine
+    D, s = cfg.d_model, cfg.ssm
+    di, H = cfg.d_inner, cfg.d_inner // s.head_dim
+    n_apps = engine._attn_layer_count(cfg)
+    mamba = cfg.n_layers * (D * (2 * di + 2 * s.d_state + H)
+                            + di * D + s.d_conv * (di + 2 * s.d_state)) * 2
+    shared = (4 * D * cfg.n_heads * cfg.resolved_head_dim
+              + 3 * D * cfg.d_ff) * 2
+    unembed = D * cfg.padded_vocab * 2
+    state = cfg.n_layers * slots * (H * s.head_dim * s.d_state * 4
+                                    + (s.d_conv - 1) * (di + 2 * s.d_state)
+                                    * 2) * 2
+    kv = positions * n_apps * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    parts = {"mamba2": mamba, "shared x apps": shared * n_apps,
+             "unembed": unembed, "ssm state r+w": state, "kv": kv}
+    return sum(parts.values()), parts
+
+
+def hybrid_admission_ms(params, cfg, reqs):
+    """One one-shot prefill of ``reqs`` (8 x 512 tokens, what an
+    admission runs) into a paged cache, under the profiler: the device
+    ms of its kernels, and the wall ms of the call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import engine
+    tokens = torch.from_numpy(np.concatenate([p for p, _ in reqs])).to(
+        "cuda", torch.long)
+    B, S = tokens.shape
+    cache = engine.make_cache(cfg, B, S + 1, kv_impl="paged", kv_block=16,
+                              device="cuda")
+    cache["attn"].alloc(torch.arange(B, device="cuda"),
+                        torch.full((B,), S + 1, device="cuda"))
+    engine.prefill(params, cfg, tokens, cache)       # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.prefill(params, cfg, tokens, cache)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = sum(r.self_device_time_total for r in prof.key_averages()
+              if r.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return dev, wall
+
+
+def phase_hybrid():
+    """zamba2-1.2b at full width (38 mamba2 layers under one shared
+    attention block applied 7 times; bf16, random weights from a seed,
+    ``attn_impl="cuda"``) through one-shot admission: 16 requests of
+    exactly 512 tokens, 64 new each, EOS -1, graph and host-read
+    segments in turns (``serve_in_turns``). Gates: every request
+    finishes, one host read a graph segment, ``paged_attention`` launches
+    equal across lowerings at 7 a decode iteration, no gather. Prints
+    tok/s, a decode-only segment's device ms an iteration beside its
+    bytes bound, and an admission's device ms. Then at
+    ``HYBRID_PARITY_LAYERS`` layers (2 applications) in fp32: the kernel
+    path in graph and host-read segments and the gather path give one
+    set of streams. Returns the launches of the first graph run."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.serve import engine
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), attn_impl="cuda")
+    n_apps = engine._attn_layer_count(cfg)
+    t0 = time.perf_counter()
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in torch.utils._pytree.tree_leaves(params))
+    log(f"[hybrid] {cfg.name}: {cfg.n_layers} mamba2 layers (d_inner "
+        f"{cfg.d_inner}, {cfg.d_inner // cfg.ssm.head_dim} heads of "
+        f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}), one shared block "
+        f"({cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim},"
+        f" d_ff {cfg.d_ff}) applied {n_apps} times; weights "
+        f"{nbytes / 1e9:.2f} GB drawn in {time.perf_counter() - t0:.1f} s")
+    reqs = moe_requests(cfg)
+    launches, runs = serve_in_turns(
+        "hybrid", cfg, lambda loop: make_hybrid_scheduler(params, cfg, loop),
+        reqs, admissions=True, profile=False)
+    for run in runs:
+        pa = run["launches"]["paged_attention"]
+        if pa != n_apps * run["decodes"] or run["launches"]["gather"]:
+            raise AssertionError(
+                f"hybrid {run['loop']}: paged_attention {pa} for "
+                f"{run['decodes']} decode iterations of {n_apps} "
+                f"applications; gather {run['launches']['gather']}")
+    g = runs[0]
+    adm = [a * 1e3 for r in runs for a in r["admissions"]]
+    log(f"[hybrid] {cfg.name} bf16, {g['attn_impl']} / {g['prefill_impl']},"
+        f" one-shot, 8 slots: graph {runs[0]['tok_s']:.1f}, "
+        f"{runs[3]['tok_s']:.1f} tok/s; host-read {runs[1]['tok_s']:.1f}, "
+        f"{runs[2]['tok_s']:.1f}; paged_attention "
+        f"{g['launches']['paged_attention']}"
+        f" launches = {n_apps} x {g['decodes']} decode iterations; "
+        f"admissions (wall, synchronised) "
+        f"{min(adm):.1f}-{max(adm):.1f} ms")
+    sched = make_hybrid_scheduler(params, cfg)
+    sched.warmup()
+    ms = decode_only_ms(sched, reqs[:8], prefill_iters=4)
+    sched.close()
+    total, parts = hybrid_decode_bytes(cfg, 8, 8 * (512 + 20))
+    bound = total / HBM_BYTES_PER_S * 1e3
+    adm_dev, adm_wall = hybrid_admission_ms(params, cfg, reqs[:8])
+    log(f"[hybrid] {card_label()}: decode-only iteration at 8 running "
+        f"slots {ms:.3f} device ms (graph segment, CUDA events); bytes "
+        f"bound {bound:.3f} ms ({total / 1e9:.3f} GB: "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
+        + f" GB; predicted 1.1 ms); ms/bound {ms / bound:.2f}; an "
+        f"admission of 8 x 512 tokens: device {adm_dev:.2f} ms (profiled "
+        f"kernels), wall {adm_wall:.2f} ms")
+    del params
+    free_device_memory("the fp32 hybrid parity runs")
+
+    fcfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                               compute_dtype="float32",
+                               n_layers=HYBRID_PARITY_LAYERS)
+    fparams = bridge.init_params(fcfg, seed=0, device="cuda")
+    runs = parity_runs(
+        "hybrid-parity", lambda c, loop: make_hybrid_scheduler(fparams, c,
+                                                               loop),
+        reqs[:8], [("cuda-graph", dataclasses.replace(fcfg, attn_impl="cuda"),
+                    None),
+                   ("cuda-host-read", dataclasses.replace(
+                       fcfg, attn_impl="cuda"), "host"),
+                   ("gather-graph", dataclasses.replace(
+                       fcfg, attn_impl="gather"), None)])
+    same_streams("hybrid-parity", runs, "cuda-graph", "cuda-host-read",
+                 "graph and host-read segments")
+    same_streams("hybrid-parity", runs, "cuda-graph", "gather-graph",
+                 "the paged kernel and the gather path")
+    del fparams
+    return {k: launches[k] for k in ("paged_attention", "flash_prefill")}
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels-only"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
@@ -4280,12 +4793,16 @@ def main() -> int:
     timed(phase_moe_parity)
     free_device_memory("the VLM phase")
     paths["internvl2-1b"] = timed(phase_vlm)
+    free_device_memory("the adaptive-depth phase of the MoE and VLM")
+    paths.update(timed(phase_adaptive_families))
     free_device_memory("the selective-scan phases")
     records.append(timed(phase_scan_kernel))
     free_device_memory("falcon-mamba-7b")
     launches["selective_scan"] = timed(phase_ssm_serve)
     free_device_memory("the fp32 parity run")
     timed(phase_ssm_parity)
+    free_device_memory("the hybrid phase")
+    paths["zamba2-1.2b"] = timed(phase_hybrid)
     free_device_memory("the LSTM phases")
     records.append(timed(phase_lstm_kernel))
     launches["lstm_cell"] = timed(phase_dynamic_rnn)
@@ -4298,6 +4815,8 @@ def main() -> int:
     launches["flash_attention"] = timed(phase_full_forward)
     free_device_memory("the training phase")
     timed(phase_train)
+    free_device_memory("the MoE and VLM training phase")
+    timed(phase_train_families)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] in ("paged_attention", "flash_prefill"):

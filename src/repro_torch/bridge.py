@@ -12,9 +12,9 @@ PyTorch would copy every weight on every step. Leaves the JAX package
 reads in fp32 stay in ``cfg.param_dtype``: the norm weights (``ln``,
 ``ln_*``), the routers (the MoE family's ``layers.moe.router``, which
 the JAX package casts to fp32 at use, and the mixture-of-depths
-``layers.router.w``, drawn when ``cfg.mod_capacity > 0``) and the
-mamba recurrence's ``A_log``,
-``dt_bias`` and ``D_skip``. Cast to bf16, ``A_log`` would change every channel's decay
+``layers.router.w``, drawn when ``cfg.mod_capacity > 0``), mamba2's
+``norm_w`` and the mamba recurrence's ``A_log``, ``dt_bias`` and
+``D_skip``. Cast to bf16, ``A_log`` would change every channel's decay
 ``exp(dt * A)``.
 
 For training, ``keep_param_dtype=True`` keeps EVERY leaf in
@@ -48,7 +48,7 @@ from .optim import adamw
 
 def _keeps_param_dtype(name: str) -> bool:
     return name in ("ln", "router") or name.startswith("ln_") or \
-        name in ssm.PARAM_DTYPE_LEAVES
+        name in ssm.PARAM_DTYPE_LEAVES + ssm.NORM_LEAVES
 
 
 def _convert(tree, cfg, device, keep=False):

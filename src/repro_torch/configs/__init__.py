@@ -15,10 +15,11 @@ differences, all forced by the framework:
 
 Ported so far: the dense family (smollm-135m, llama3.2-1b, olmo-1b,
 qwen2-7b), the pure-SSM mamba1 family (falcon-mamba-7b), the MoE family
-(qwen2-moe-a2.7b, dbrx-132b) and the VLM family (internvl2-1b, whose
+(qwen2-moe-a2.7b, dbrx-132b), the VLM family (internvl2-1b, whose
 vision tower is a stub in the JAX package too: patch embeddings are
-inputs). The hybrid and audio families wait for their slices
-(ROADMAP.md).
+inputs) and the hybrid family (zamba2-1.2b: mamba2 under one shared
+attention block; served, its training not yet ported). The audio
+family waits for its slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -118,7 +119,7 @@ class ModelConfig:
 
 ARCH_IDS = ("olmo-1b", "smollm-135m", "qwen2-7b", "llama3.2-1b",
             "falcon-mamba-7b", "qwen2-moe-a2.7b", "dbrx-132b",
-            "internvl2-1b")
+            "internvl2-1b", "zamba2-1.2b")
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -129,19 +130,23 @@ _MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
     "dbrx-132b": "dbrx_132b",
     "internvl2-1b": "internvl2_1b",
+    "zamba2-1.2b": "zamba2_1p2b",
 }
 
-_NOT_PORTED = ("zamba2-1.2b", "whisper-small")
+_NOT_PORTED = ("whisper-small",)
 
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for a config whose model family the port does not run:
-    anything but dense, MoE, VLM and pure-SSM mamba1 (hybrid and mamba2
-    wait for the hybrid slice, audio for the encoder-decoder one)."""
+    anything but dense, MoE, VLM, pure-SSM mamba1 and the mamba2 hybrid
+    (audio waits for the encoder-decoder slice)."""
     if cfg.family in ("dense", "moe", "vlm"):
         return
     if cfg.family == "ssm" and cfg.ssm is not None and \
             cfg.ssm.kind == "mamba1":
+        return
+    if cfg.family == "hybrid" and cfg.ssm is not None and \
+            cfg.ssm.kind == "mamba2":
         return
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet; see ROADMAP.md")

@@ -1,10 +1,11 @@
 """Data pipeline: deterministic synthetic LM stream + memmap corpus.
 
-Port of ``repro/data/pipeline.py`` (numpy only, copied; the audio
-``frames`` and VLM ``patches`` stubs wait for those families). The
-batch for (step, host) is a pure function of (seed, step, host), so a
-restarted host replays the exact token stream from its checkpoint's
-step, and ``SyntheticLM`` gives the JAX package's batches bit for bit.
+Port of ``repro/data/pipeline.py`` (numpy only, copied). The batch for
+(step, host) is a pure function of (seed, step, host), so a restarted
+host replays the exact token stream from its checkpoint's step, and
+``SyntheticLM`` gives the JAX package's batches bit for bit, its
+``patches`` (a VLM's patch embeddings) and ``frames`` (an audio
+model's, a shape only until that family is ported) included.
 Prefetch is a double-buffered background thread. Batches are numpy
 arrays; the train step moves them to the device.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -21,14 +22,19 @@ import numpy as np
 class SyntheticLM:
     """Synthetic token stream with next-token structure:
     ``t[i+1] = (31 * t[i] + noise) mod vocab``, noise in [0, 7), so a
-    model can reduce its loss on it."""
+    model can reduce its loss on it. ``frames`` and ``patches`` are
+    per-row shapes of standard-normal float32 stubs, drawn after the
+    tokens from the same generator."""
 
     def __init__(self, vocab: int, seq_len: int, batch: int, *,
-                 seed: int = 0, host: int = 0, n_hosts: int = 1):
+                 seed: int = 0, host: int = 0, n_hosts: int = 1,
+                 frames: Optional[tuple] = None,
+                 patches: Optional[tuple] = None):
         assert batch % n_hosts == 0
         self.vocab, self.seq_len = vocab, seq_len
         self.local_batch = batch // n_hosts
         self.seed, self.host = seed, host
+        self.frames, self.patches = frames, patches
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(
@@ -41,8 +47,15 @@ class SyntheticLM:
         toks[:, 0:1] = t0
         for i in range(S):
             toks[:, i + 1] = (toks[:, i] * mult + steps[:, i]) % V
-        return {"tokens": toks[:, :-1].astype(np.int32),
-                "labels": toks[:, 1:].astype(np.int32)}
+        out = {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+        if self.frames:
+            out["frames"] = rng.standard_normal(
+                (B, *self.frames), dtype=np.float32)
+        if self.patches:
+            out["patches"] = rng.standard_normal(
+                (B, *self.patches), dtype=np.float32)
+        return out
 
 
 class MemmapCorpus:

@@ -55,7 +55,9 @@ on confidence-based early exit: a row whose shared-unembed top1 - top2
 logit margin clears T after at least M layers stops running layers, and
 the K/V of the layers it skips is filled from its hidden state;
 ``--mod-capacity C --mod-every N`` turns on mixture-of-depths routing
-(zero-initialised routers). The report adds the mean layers a token, per
+(zero-initialised routers), on the dense, MoE (``--arch
+qwen2-moe-a2.7b``) and VLM (``--arch internvl2-1b``) families. The
+report adds the mean layers a token, per
 ``max_new`` class, and the lowering of the layer loop
 (``cuda-graph:if-per-layer`` inside a graph segment, ``host-read``
 otherwise). Threshold inf (the default) runs the halt machinery and
@@ -96,12 +98,14 @@ model drafter (``--spec-drafter model``):
         --chunk-tokens 128 --disagg --prefill-slots 2
 
 ``--prefill oneshot`` (the default) admits prompts through one prefill
-per admission round; a pure-SSM model takes only this mode. Every
-prompt has exactly ``--prompt-len`` tokens, which a pure-SSM or MoE
-model requires (``--arch qwen2-moe-a2.7b``, ``--arch dbrx-132b
---smoke``: dbrx at full width does not fit one card). ``--arch
-internvl2-1b`` serves without patch embeddings (``prefix_len`` 0), as
-the JAX package's launcher does. The selective scan's path
+per admission round; a pure-SSM model and the hybrid (``--arch
+zamba2-1.2b``: mamba2 layers under one shared attention block, whose
+prompt K/V lands in one cache layer per application of the block) take
+only this mode. Every prompt has exactly ``--prompt-len`` tokens, which
+a pure-SSM, hybrid or MoE model requires (``--arch qwen2-moe-a2.7b``,
+``--arch dbrx-132b --smoke``: dbrx at full width does not fit one
+card). ``--arch internvl2-1b`` serves without patch embeddings
+(``prefix_len`` 0), as the JAX package's launcher does. The selective scan's path
 comes from the config's ``ssm.scan_impl`` (falcon-mamba-7b ships
 ``"assoc"``; ``"cuda"`` runs the hand-written kernel), as in the JAX
 package, which has no flag for it either.

@@ -8,15 +8,22 @@ Port of ``repro/launch/train.py`` on one card:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --smoke --steps 12 --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen2-moe-a2.7b --smoke --steps 12 --device cpu
+
 It wires the configs, the fp32 master weights (random, from seed 0,
 ``bridge.init_params(..., keep_param_dtype=True)``), AdamW with a
-warmup-cosine schedule, the ``SyntheticLM`` stream, the train step and
+warmup-cosine schedule, the ``SyntheticLM`` stream (with a VLM's
+``patches``, standard-normal stand-ins for the stub vision tower's
+patch embeddings, as in the JAX package), the train step and
 the ``Trainer`` (async checkpoints with auto-resume, the straggler
 watchdog, SIGTERM-safe exit). The config's ``attn_impl`` stays as the
 config gives it: training attends through ``chunked_attention``
 (``attn_impl="gather"``, every config's default); under
 ``attn_impl="cuda"`` a step stops at the forward-only flash kernel's
-refusal. ``--mesh`` is multi-device and refused. Runs on the card;
+refusal. The MoE family's metrics carry its two aux losses. The
+hybrid's training is not ported yet and is refused, as is ``--mesh``
+(multi-device). Runs on the card;
 ``--device cpu`` runs the plain versions of the kernels.
 """
 
@@ -67,9 +74,9 @@ def main(argv=None):
             "ROADMAP.md (this port trains on one card)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family in ("moe", "vlm"):
-        # SyntheticLM brings no patches, and neither family's training
-        # is held to the JAX package's yet
+    if cfg.family in ("hybrid", "audio"):
+        # the hybrid's forward is ported, its train step is not held to
+        # the JAX package's yet; the audio family is not ported
         raise NotImplementedError(
             f"training the {cfg.family!r} family through launch.train is "
             f"not ported yet; see ROADMAP.md")
@@ -86,7 +93,9 @@ def main(argv=None):
         lr=args.lr, schedule=schedule.warmup_cosine(
             max(args.steps // 20, 1), args.steps))
     opt_state = adamw.init(params)
-    data = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=0)
+    data = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=0,
+                       patches=((cfg.n_patches, cfg.d_model)
+                                if cfg.family == "vlm" else None))
 
     step_fn = train_loop.make_train_step(cfg, opt_cfg)
     trainer = train_loop.Trainer(

@@ -60,7 +60,9 @@ def enabled(cfg) -> bool:
 def validate(cfg) -> None:
     """Reject configs whose adaptive knobs cannot work (the JAX
     package's messages). Adaptive depth rides the attention-family
-    decode layer loop; the port runs it on the dense family only."""
+    decode layer loop (dense, MoE, VLM); SSM, hybrid and audio decode
+    drive other state, and the hybrid's shared block has no per-layer
+    identity to route."""
     if not enabled(cfg):
         return
     if cfg.family not in ("dense", "moe", "vlm"):
@@ -68,11 +70,6 @@ def validate(cfg) -> None:
             f"adaptive depth (early_exit / mod_capacity) requires an "
             f"attention-decoder family (dense/moe/vlm); got "
             f"{cfg.family!r}")
-    if cfg.family in ("moe", "vlm"):
-        # the JAX package accepts these; the port has not held them to it
-        raise NotImplementedError(
-            f"adaptive depth on the {cfg.family!r} family is not ported "
-            f"yet; see ROADMAP.md")
     if not 1 <= cfg.exit_min_layers <= cfg.n_layers:
         raise ValueError(
             f"exit_min_layers must be in [1, n_layers={cfg.n_layers}]; "

@@ -3,7 +3,7 @@ loss and the parameter count.
 
 Port of ``repro/models/model_zoo.py`` (``forward``, ``features``,
 ``cross_entropy``, ``_chunked_ce``, ``loss_fn``, ``count_params``,
-``count_active_params``) for the dense, MoE, VLM and pure-SSM
+``count_active_params``) for the dense, MoE, VLM, pure-SSM and hybrid
 families; the audio encoder-decoder waits for its slice (ROADMAP.md).
 ``batch`` is a dict of tensors: ``tokens`` (B, S), for a VLM
 ``patches`` (B, n_patches, d_model), the patch embeddings in front of

@@ -1,14 +1,17 @@
-"""Mamba-1 mixer (the selective scan) for the pure-SSM family.
+"""Mamba mixers: mamba1 (the selective scan) for the pure-SSM family,
+mamba2 (the SSD chunk decomposition) for the hybrid.
 
-Port of the mamba1 half of ``repro/models/ssm.py`` (``mamba1_params``,
-``_causal_conv``, ``_conv_step``, ``_ssm_inputs_m1``,
-``mamba1_forward``, ``mamba1_init_state``, ``mamba1_step``); mamba2
-waits for the hybrid slice. Same arithmetic: the projections and the
-causal conv run in the compute dtype, the recurrence in fp32 with
-``A_log``, ``dt_bias`` and ``D_skip`` kept in fp32 (``bridge`` leaves
-these three in the param dtype).
+Port of ``repro/models/ssm.py`` (``mamba1_params``, ``_causal_conv``,
+``_conv_step``, ``_ssm_inputs_m1``, ``mamba1_forward``,
+``mamba1_init_state``, ``mamba1_step``, ``mamba2_params``,
+``_split_m2``, ``mamba2_forward``, ``mamba2_init_state``,
+``mamba2_step``). Same arithmetic: the projections and the causal conv
+run in the compute dtype, the recurrence in fp32 with ``A_log``,
+``dt_bias`` and ``D_skip`` kept in fp32 (``bridge`` leaves these three
+in the param dtype, and mamba2's ``norm_w``, the RMSNorm after its
+gate).
 
-``cfg.ssm.scan_impl`` picks the recurrence:
+``cfg.ssm.scan_impl`` picks mamba1's recurrence:
 
 - ``"cuda"``: ``kernels.selective_scan`` (the hand-written kernel for a
   CUDA tensor, its plain sequential version for a CPU one), called once
@@ -29,7 +32,19 @@ chunk of the whole sequence when its length is not a multiple),
 carrying the (B, d_inner, N) state from chunk to chunk in a Python loop
 (``_chunked``), as the JAX package does for the same reason.
 
-Decode (``mamba1_step``) is one state update per token.
+mamba2 (``mamba2_forward``) has a scalar decay a head, so a chunk of Q
+steps is matrix products (the SSD block decomposition): the intra-chunk
+part through the (Q, Q) decay-masked score matrix, the carried state's
+part, and the state at the chunk's end, in fp32, chunk by chunk in a
+Python loop. These are plain products (``torch.einsum``), as the JAX
+package computes them outside any Pallas kernel. The chunk rule is the
+JAX package's: ``Q = min(chunk, S)``, and one chunk of the whole
+sequence when S is not a multiple, so an odd-length prompt rounds as
+one chunk.
+
+Decode (``mamba1_step``, ``mamba2_step``) is one state update per
+token; ``mixer_forward``, ``mixer_step`` and ``init_state`` pick the
+mixer by ``cfg.ssm.kind``.
 """
 
 from __future__ import annotations
@@ -41,9 +56,12 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.selective_scan.ops import selective_scan
+from . import layers
 
 # leaves the JAX package reads in fp32 whatever the compute dtype
 PARAM_DTYPE_LEAVES = ("A_log", "dt_bias", "D_skip")
+# mamba2's RMSNorm weight after the gate, read in fp32 as every norm
+NORM_LEAVES = ("norm_w",)
 SUB = 8          # sub-block length of the blocked scan
 
 
@@ -244,3 +262,152 @@ def mamba1_step(p: Dict, x_t, state: Dict, cfg
     y = y.to(cdt) * F.silu(z)
     out = y @ p["out_proj"].to(cdt)
     return out.to(x_t.dtype), {"conv": conv_new, "h": h}
+
+
+# =========================== Mamba-2 (SSD) =================================
+
+def mamba2_params(b, cfg):
+    d, s = cfg.d_model, cfg.ssm
+    di = s.expand * d
+    H, N = di // s.head_dim, s.d_state
+    conv_dim = di + 2 * N
+    return {
+        "in_proj": b.p((d, 2 * di + 2 * N + H)),
+        "conv_w": b.p((s.d_conv, conv_dim), init="normal", scale=0.2),
+        "conv_b": b.p((conv_dim,), init="zeros"),
+        "A_log": b.p((H,), init="normal", scale=0.5, param_dtype=True),
+        "dt_bias": b.p((H,), init="zeros", param_dtype=True),
+        "D_skip": b.p((H,), init="ones", param_dtype=True),
+        "norm_w": b.p((di,), init="ones"),
+        "out_proj": b.p((di, d)),
+    }
+
+
+def _split_m2(zxbcdt, cfg):
+    """(z, xBC, dt_raw) of the input projection: widths d_inner,
+    d_inner + 2N and the head count."""
+    di, N = cfg.d_inner, cfg.ssm.d_state
+    return torch.split(zxbcdt, [di, di + 2 * N, zxbcdt.shape[-1] - 2 * di
+                                - 2 * N], dim=-1)
+
+
+def _ssd_chunk(h, la_c, B_c, C_c, dtx_c, causal):
+    """One chunk of the SSD decomposition. h: (B, H, P, N) fp32 state;
+    la_c (B, Q, H) log-decays, B_c/C_c (B, Q, N), dtx_c (B, Q, H, P).
+    Returns (state at the chunk's end, y (B, Q, H, P))."""
+    cum = torch.cumsum(la_c, dim=1)                           # (B, Q, H)
+    # L[i, j] = exp(cum_i - cum_j) for i >= j; the masked entries are
+    # exp(-inf) = 0, so no inf reaches a product or its gradient
+    diff = cum[:, :, None, :] - cum[:, None, :, :]            # (B, Q, Q, H)
+    L = torch.exp(diff.masked_fill(~causal[None, :, :, None], -math.inf))
+    sc = torch.einsum("bin,bjn->bij", C_c, B_c)
+    y_intra = torch.einsum("bijh,bjhp->bihp", sc[..., None] * L, dtx_c)
+    y_inter = torch.einsum("bin,bhpn->bihp", C_c, h) * \
+        torch.exp(cum)[..., None]
+    decay_end = torch.exp(cum[:, -1:, :] - cum)               # (B, Q, H)
+    h_new = (torch.exp(cum[:, -1])[..., None, None] * h
+             + torch.einsum("bjn,bjhp->bhpn", B_c,
+                            dtx_c * decay_end[..., None]))
+    return h_new, y_intra + y_inter
+
+
+def mamba2_forward(p: Dict, x, cfg, return_state: bool = False):
+    """Full-sequence mamba2 mixer (SSD, chunk by chunk). x: (B, S, D) ->
+    (B, S, D); with ``return_state`` also the state after the last
+    position, ``{"conv": (B, K-1, Di + 2N) compute dtype, "h": (B, H, P,
+    N) fp32}``."""
+    s = cfg.ssm
+    Bn, S, _ = x.shape
+    cdt = cfg.dtype("compute")
+    di, P, N = cfg.d_inner, s.head_dim, s.d_state
+    H = di // P
+    Q = min(s.chunk, S)
+    if S % Q != 0:
+        Q = S      # odd lengths (tests, short prompts): a single chunk
+
+    zxbcdt = x.to(cdt) @ p["in_proj"].to(cdt)
+    z, xBC_pre, dt_raw = _split_m2(zxbcdt, cfg)
+    xBC = F.silu(_causal_conv(xBC_pre, p["conv_w"].to(cdt),
+                              p["conv_b"].to(cdt)))
+    xs, B_, C_ = torch.split(xBC, [di, N, N], dim=-1)
+    xf = xs.reshape(Bn, S, H, P).float()
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())    # (B, S, H)
+    la = dt * -torch.exp(p["A_log"].float())                  # log-decay
+    Bf, Cf = B_.float(), C_.float()
+    dtx = dt[..., None] * xf                                  # (B, S, H, P)
+
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    h = torch.zeros((Bn, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(0, S, Q):
+        sl = slice(c, c + Q)
+        h, y_c = _ssd_chunk(h, la[:, sl], Bf[:, sl], Cf[:, sl], dtx[:, sl],
+                            causal)
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1)
+    y = y + p["D_skip"].float()[:, None] * xf
+    y = y.reshape(Bn, S, di).to(cdt) * F.silu(z)
+    y = layers.rms_norm(y, p["norm_w"])
+    out = (y.to(cdt) @ p["out_proj"].to(cdt)).to(x.dtype)
+    if return_state:
+        K = s.d_conv
+        pad = F.pad(xBC_pre, (0, 0, K - 1, 0))
+        return out, {"conv": pad[:, -(K - 1):].to(cdt), "h": h}
+    return out
+
+
+def mamba2_init_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+    s = cfg.ssm
+    H = cfg.d_inner // s.head_dim
+    return {"conv": torch.zeros((batch, s.d_conv - 1,
+                                 cfg.d_inner + 2 * s.d_state),
+                                dtype=cfg.dtype("compute"), device=device),
+            "h": torch.zeros((batch, H, s.head_dim, s.d_state),
+                             dtype=torch.float32, device=device)}
+
+
+def mamba2_step(p: Dict, x_t, state: Dict, cfg
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single decode step. x_t: (B, D) -> (y, new_state)."""
+    s = cfg.ssm
+    cdt = cfg.dtype("compute")
+    di, P, N = cfg.d_inner, s.head_dim, s.d_state
+    H = di // P
+    zxbcdt = x_t.to(cdt) @ p["in_proj"].to(cdt)
+    z, xBC, dt_raw = _split_m2(zxbcdt, cfg)
+    conv_new, xBC = _conv_step(state["conv"], xBC, p["conv_w"].to(cdt),
+                               p["conv_b"].to(cdt))
+    xBC = F.silu(xBC)
+    xs, B_, C_ = torch.split(xBC, [di, N, N], dim=-1)
+    xs = xs.reshape(-1, H, P).float()
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())    # (B, H)
+    dA = torch.exp(dt * -torch.exp(p["A_log"].float()))       # (B, H)
+    h = (dA[..., None, None] * state["h"]
+         + (xs * dt[..., None])[..., None] * B_.float()[:, None, None, :])
+    y = torch.einsum("bn,bhpn->bhp", C_.float(), h)
+    y = y + p["D_skip"].float()[:, None] * xs
+    y = y.reshape(-1, di).to(cdt) * F.silu(z)
+    y = layers.rms_norm(y, p["norm_w"])
+    out = y.to(cdt) @ p["out_proj"].to(cdt)
+    return out.to(x_t.dtype), {"conv": conv_new, "h": h}
+
+
+# =========================== by kind ========================================
+
+def mixer_forward(p: Dict, x, cfg, return_state: bool = False):
+    """``mamba1_forward`` or ``mamba2_forward`` by ``cfg.ssm.kind``."""
+    fwd = mamba1_forward if cfg.ssm.kind == "mamba1" else mamba2_forward
+    return fwd(p, x, cfg, return_state=return_state)
+
+
+def mixer_step(p: Dict, x_t, state: Dict, cfg):
+    """``mamba1_step`` or ``mamba2_step`` by ``cfg.ssm.kind``."""
+    step = mamba1_step if cfg.ssm.kind == "mamba1" else mamba2_step
+    return step(p, x_t, state, cfg)
+
+
+def init_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+    """``mamba1_init_state`` or ``mamba2_init_state`` by kind."""
+    init = (mamba1_init_state if cfg.ssm.kind == "mamba1"
+            else mamba2_init_state)
+    return init(cfg, batch, device)

@@ -1,11 +1,11 @@
-"""Decoder-only LM, dense, MoE, VLM and pure-SSM families: parameters,
-the attention block and its modes, the mamba block, and the
+"""Decoder-only LM, dense, MoE, VLM, pure-SSM and hybrid families:
+parameters, the attention block and its modes, the mamba block, and the
 full-sequence forward.
 
 Port of ``repro/models/transformer.py`` (``attn_params``,
-``mlp_params``, ``_ssm_block_params``, ``build_params``,
-``attn_apply``, ``attn_block``, ``ssm_block``, ``forward_features``,
-``forward``). The stacked layer
+``mlp_params``, ``_attn_block_params``, ``_ssm_block_params``,
+``build_params``, ``attn_apply``, ``attn_block``, ``ssm_block``,
+``_hybrid_layers``, ``forward_features``, ``forward``). The stacked layer
 parameters (leading ``L`` dim, as the JAX package stores them) are
 driven by a Python loop over layers; ``layer_params`` splits them once
 per call into per-layer views. Attention modes:
@@ -34,7 +34,9 @@ The MoE family's block replaces the SwiGLU MLP by ``moe.moe_mlp``
 (``attn_block(..., with_aux=True)`` also returns its auxiliary losses,
 which ``forward_features`` sums over the layers);
 the VLM family prepends ``prefix_embeds``, the patch embeddings, to the
-token embeddings.
+token embeddings. The hybrid family (zamba2) stacks mamba2 blocks and
+holds ONE ``shared_attn`` block (attention and SwiGLU MLP), applied
+before every ``shared_attn_every``-th segment of mamba2 layers.
 
 The decode step's layer loop with adaptive depth (``models.adaptive``:
 early exit, mixture-of-depths) is ``decode_layers``, with
@@ -119,31 +121,43 @@ class _Stacked:
         return self._b.p((self._n, *shape), **kw)
 
 
+def _attn_block_params(b, cfg):
+    D = cfg.d_model
+    p = {**_norm_params(b, cfg.norm, D, "ln_attn"),
+         "attn": attn_params(b, cfg, D),
+         **_norm_params(b, cfg.norm, D, "ln_mlp")}
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.moe_params(b, cfg, D)
+    else:
+        p["mlp"] = mlp_params(b, cfg, D, cfg.d_ff)
+    if adaptive.mod_on(cfg):
+        p["router"] = adaptive.router_params(b, cfg)
+    return p
+
+
 def _ssm_block_params(b, cfg):
+    mixer = (ssm_lib.mamba1_params if cfg.ssm.kind == "mamba1"
+             else ssm_lib.mamba2_params)
     return {**_norm_params(b, cfg.norm, cfg.d_model, "ln"),
-            "ssm": ssm_lib.mamba1_params(b, cfg)}
+            "ssm": mixer(b, cfg)}
 
 
 def build_params(cfg, b):
-    """The dense, MoE, VLM or pure-SSM family's parameter tree (the JAX
-    package's names and layouts; layer leaves stacked on a leading L
-    dim)."""
+    """The dense, MoE, VLM, pure-SSM or hybrid family's parameter tree
+    (the JAX package's names and layouts; layer leaves stacked on a
+    leading L dim; the hybrid's one ``shared_attn`` block unstacked)."""
     D = cfg.d_model
     lb = _Stacked(b, cfg.n_layers)
-    if cfg.family == "ssm":
+    shared = {}
+    if cfg.family in ("ssm", "hybrid"):
         layers_p = _ssm_block_params(lb, cfg)
+        if cfg.family == "hybrid":
+            shared["shared_attn"] = _attn_block_params(b, cfg)
     else:
-        layers_p = {**_norm_params(lb, cfg.norm, D, "ln_attn"),
-                    "attn": attn_params(lb, cfg, D),
-                    **_norm_params(lb, cfg.norm, D, "ln_mlp")}
-        if cfg.family == "moe":
-            layers_p["moe"] = moe_lib.moe_params(lb, cfg, D)
-        else:
-            layers_p["mlp"] = mlp_params(lb, cfg, D, cfg.d_ff)
-        if adaptive.mod_on(cfg):
-            layers_p["router"] = adaptive.router_params(lb, cfg)
+        layers_p = _attn_block_params(lb, cfg)
     p = {"embed": b.p((cfg.padded_vocab, D), init="normal", scale=0.02),
-         "layers": layers_p, **_norm_params(b, cfg.norm, D, "ln_final")}
+         "layers": layers_p, **shared,
+         **_norm_params(b, cfg.norm, D, "ln_final")}
     if not cfg.tie_embeddings:
         p["unembed"] = b.p((D, cfg.padded_vocab), init="normal",
                            scale=0.02)
@@ -402,15 +416,16 @@ def _no_layer() -> None:
 
 
 def ssm_block(p, x, cfg, *, mode="full", state=None):
-    """Pre-norm mamba block; returns the new x. Mode ``full`` runs the
-    mixer over the sequence; mode ``decode`` takes one token (x: (B, 1,
-    D)) and updates this layer's ``state`` (``{"conv", "h"}`` views into
-    the cache) in place."""
+    """Pre-norm mamba block (mamba1 or mamba2 by ``cfg.ssm.kind``);
+    returns the new x. Mode ``full`` runs the mixer over the sequence;
+    mode ``decode`` takes one token (x: (B, 1, D)) and updates this
+    layer's ``state`` (``{"conv", "h"}`` views into the cache) in
+    place."""
     h = layers.apply_norm(cfg.norm, x, p, "ln")
     if mode == "full":
-        y = ssm_lib.mamba1_forward(p["ssm"], h, cfg)
+        y = ssm_lib.mixer_forward(p["ssm"], h, cfg)
     elif mode == "decode":
-        y, new = ssm_lib.mamba1_step(p["ssm"], h[:, 0], state, cfg)
+        y, new = ssm_lib.mixer_step(p["ssm"], h[:, 0], state, cfg)
         state["conv"].copy_(new["conv"])
         state["h"].copy_(new["h"])
         y = y[:, None]
@@ -480,41 +495,76 @@ def _run_layers(stacked, x, cfg, block_fn):
     raise ValueError(cfg.layer_loop)
 
 
+def layer_slice(stacked, start: int, stop: int):
+    """The stacked layer tree's layers ``[start, stop)`` (views)."""
+    if isinstance(stacked, dict):
+        return {k: layer_slice(v, start, stop) for k, v in stacked.items()}
+    return stacked[start:stop]
+
+
+def hybrid_segments(cfg) -> List[range]:
+    """The hybrid's mamba2 layers by shared-block application: app ``a``
+    runs the shared block, then the layers of ``segments[a]``."""
+    k, L = cfg.shared_attn_every, cfg.n_layers
+    return [range(s, min(s + k, L)) for s in range(0, L, k)]
+
+
+def _hybrid_layers(params, x, cfg, positions):
+    """zamba2: the shared attention block before every segment of
+    ``shared_attn_every`` mamba2 layers, each segment driven per
+    ``cfg.layer_loop`` (the shared block outside the remat, as in the
+    JAX package)."""
+    for seg in hybrid_segments(cfg):
+        x = attn_block(params["shared_attn"], x, cfg, positions=positions,
+                       mode="full")
+        x = _run_layers(layer_slice(params["layers"], seg.start, seg.stop),
+                        x, cfg,
+                        lambda lp, xx, i: ssm_block(lp, xx, cfg,
+                                                    mode="full"))
+    return x
+
+
 def forward_features(params, cfg, tokens, *, prefix_embeds=None):
     """Backbone + final norm, no unembed. tokens: (B, S) int; the table
     is cast at this use (a no-op on serving weights, already cast).
     ``prefix_embeds`` (B, P, D): a VLM's patch embeddings, in front of
     the tokens. Returns ``(features, aux)``: aux is the MoE family's
-    auxiliary losses summed over the layers (``{}`` otherwise)."""
-    if cfg.family in ("moe", "vlm"):
-        adaptive.validate(cfg)
+    auxiliary losses summed over the layers (``{}`` otherwise).
+    Mixture-of-depths applies at routed layers of every attention
+    family, the MoE one included (the JAX package's one ``block_fn``)."""
     cdt = cfg.dtype("compute")
     x = params["embed"].to(cdt)[tokens]
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cdt), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     aux: Dict[str, torch.Tensor] = {}
-    if cfg.family == "ssm":
-        def block_fn(lp, xx, i):
-            return ssm_block(lp, xx, cfg, mode="full")
+
+    def routed(lp, xx, x2, i):
+        if adaptive.mod_on(cfg):
+            # the router weight scales the kept delta: differentiable
+            return adaptive.mod_apply_full(lp["router"], xx, x2, i, cfg)
+        return x2
+
+    if cfg.family == "hybrid":
+        x = _hybrid_layers(params, x, cfg, positions)
+    elif cfg.family == "ssm":
+        x = _run_layers(params["layers"], x, cfg,
+                        lambda lp, xx, i: ssm_block(lp, xx, cfg,
+                                                    mode="full"))
     elif cfg.family == "moe":
         def block_fn(lp, carry, i):
             xx, a = carry
             x2, d = attn_block(lp, xx, cfg, positions=positions,
                                mode="full", with_aux=True)
-            return x2, {k: a[k] + d[k] for k in a}
+            return routed(lp, xx, x2, i), {k: a[k] + d[k] for k in a}
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        x = (x, {"moe_load_balance": zero, "moe_z_loss": zero})
+        x, aux = _run_layers(params["layers"], (x, {
+            "moe_load_balance": zero, "moe_z_loss": zero}), cfg, block_fn)
     else:
         def block_fn(lp, xx, i):
             x2 = attn_block(lp, xx, cfg, positions=positions, mode="full")
-            if adaptive.mod_on(cfg):
-                # the router weight scales the kept delta: differentiable
-                x2 = adaptive.mod_apply_full(lp["router"], xx, x2, i, cfg)
-            return x2
-    x = _run_layers(params["layers"], x, cfg, block_fn)
-    if cfg.family == "moe":
-        x, aux = x
+            return routed(lp, xx, x2, i)
+        x = _run_layers(params["layers"], x, cfg, block_fn)
     x = layers.apply_norm(cfg.norm, x, params, "ln_final")
     return x, aux
 

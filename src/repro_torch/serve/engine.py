@@ -1,4 +1,4 @@
-"""Serving engine, dense, MoE, VLM and pure-SSM families: caches,
+"""Serving engine, dense, MoE, VLM, pure-SSM and hybrid families: caches,
 prefill, chunked prefill, single-token decode, the speculative verify
 window, and the batch-synchronous generation loop.
 
@@ -9,10 +9,13 @@ every layer reads and writes its slice through a view, so the dense and
 paged layouts share every line of attention math. A pure-SSM model's
 cache is ``{"ssm": {"conv", "h"}}``: plain per-row state with the layer
 dim first and the batch dim at axis 1 of every leaf, the invariant the
-scheduler's admission splice relies on. A VLM request's patch
-embeddings (``prefix_embeds``) occupy stream positions ``[0,
-n_patches)`` ahead of its tokens, in ``prefill`` and ``prefill_chunk``
-alike. The caches are updated in
+scheduler's admission splice relies on. The hybrid's cache holds both:
+``attn`` with one layer per application of its shared block
+(``ceil(n_layers / shared_attn_every)``), and the mamba2 ``ssm`` state;
+it prefills one-shot only and never verifies, as in the JAX package. A
+VLM request's patch embeddings (``prefix_embeds``) occupy stream
+positions ``[0, n_patches)`` ahead of its tokens, in ``prefill`` and
+``prefill_chunk`` alike. The caches are updated in
 place, so the decode and chunk steps return logits only; ``prefill``
 also returns the SSM state it computed, fresh, for the caller to splice.
 
@@ -38,13 +41,13 @@ from . import sampling as sampling_lib
 
 
 def _ssm_struct(cfg: ModelConfig, batch: int, device) -> Dict[str, Any]:
-    """Zeroed mamba1 state: conv (L, batch, K-1, Di) in the compute
-    dtype, h (L, batch, Di, N) fp32."""
-    s, L, di = cfg.ssm, cfg.n_layers, cfg.d_inner
-    return {"conv": torch.zeros((L, batch, s.d_conv - 1, di),
-                                dtype=cfg.dtype("compute"), device=device),
-            "h": torch.zeros((L, batch, di, s.d_state), dtype=torch.float32,
-                             device=device)}
+    """Zeroed SSM state of every layer, the layer dim first: mamba1's
+    conv (L, batch, K-1, Di) and h (L, batch, Di, N), mamba2's conv (L,
+    batch, K-1, Di + 2N) and h (L, batch, H, P, N); conv in the compute
+    dtype, h fp32."""
+    one = ssm_lib.init_state(cfg, batch, device)
+    return {k: v.new_zeros((cfg.n_layers,) + v.shape)
+            for k, v in one.items()}
 
 
 # the attention-decoder families: one KVCache, decode/verify/chunk modes
@@ -55,7 +58,15 @@ def kv_key(cfg: ModelConfig) -> Optional[str]:
     """Cache-dict key of the family's self-attention ``KVCache`` (None
     for pure-SSM families, which have no attention K/V)."""
     return {"dense": "attn", "moe": "attn", "vlm": "attn",
-            "ssm": None}[cfg.family]
+            "hybrid": "attn", "ssm": None}[cfg.family]
+
+
+def _attn_layer_count(cfg: ModelConfig) -> int:
+    """Layers of the K/V cache: one per application of the hybrid's
+    shared block, else one per layer."""
+    if cfg.family == "hybrid":
+        return len(transformer.hybrid_segments(cfg))
+    return cfg.n_layers
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -63,17 +74,21 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                kv_blocks: Optional[int] = None, kv_sharing: bool = False,
                device="cuda") -> Dict[str, Any]:
     """``{"attn": KVCache}`` for the attention-decoder families,
-    ``{"ssm": {"conv", "h"}}`` for pure SSM. ``kv_impl`` selects the K/V
-    layout ("dense" | "paged"), ``kv_block``/``kv_blocks`` size the paged
-    pool (``kv_blocks=None``: dense-equivalent capacity), ``kv_sharing``
-    lets its rows share blocks (the prefix cache)."""
+    ``{"ssm": {"conv", "h"}}`` for pure SSM, both for the hybrid.
+    ``kv_impl`` selects the K/V layout ("dense" | "paged"),
+    ``kv_block``/``kv_blocks`` size the paged pool (``kv_blocks=None``:
+    dense-equivalent capacity), ``kv_sharing`` lets its rows share
+    blocks (the prefix cache)."""
     require_ported(cfg)
-    if cfg.family == "ssm":
-        return {"ssm": _ssm_struct(cfg, batch, resolve_device(device))}
-    return {"attn": kvc.make_kv_cache(cfg, cfg.n_layers, batch, max_len,
-                                      impl=kv_impl, block=kv_block,
-                                      n_blocks=kv_blocks,
-                                      sharing=kv_sharing, device=device)}
+    out = {}
+    if cfg.family in ("ssm", "hybrid"):
+        out["ssm"] = _ssm_struct(cfg, batch, resolve_device(device))
+    if kv_key(cfg) is not None:
+        out["attn"] = kvc.make_kv_cache(
+            cfg, _attn_layer_count(cfg), batch, max_len, impl=kv_impl,
+            block=kv_block, n_blocks=kv_blocks, sharing=kv_sharing,
+            device=device)
+    return out
 
 
 def _logits_head(params, cfg: ModelConfig, x):
@@ -134,14 +149,31 @@ def _decode_attn_families(params, cfg, x, cache, cur_len, write_mask,
                                      live=live)
 
 
-def _decode_ssm(params, cfg, x, cache):
-    """The layer loop of a pure-SSM decode step; each layer updates its
-    slice of the cache's conv and h state in place."""
+def _decode_ssm(params, cfg, x, cache, layers_=None):
+    """The layer loop of a pure-SSM decode step (or of ``layers_``, a
+    range of them); each layer updates its slice of the cache's conv and
+    h state in place."""
     st = cache["ssm"]
-    for i, lp in enumerate(transformer.layer_params(params["layers"])):
-        x = transformer.ssm_block(lp, x, cfg, mode="decode",
+    lps = transformer.layer_params(params["layers"])
+    for i in (range(len(lps)) if layers_ is None else layers_):
+        x = transformer.ssm_block(lps[i], x, cfg, mode="decode",
                                   state={"conv": st["conv"][i],
                                          "h": st["h"][i]})
+    return x
+
+
+def _decode_hybrid(params, cfg, x, cache, cur_len):
+    """The hybrid's decode step: one copy-on-write for the step, then at
+    application ``a`` the shared block against cache layer ``a`` and
+    that segment's mamba2 steps."""
+    positions = _decode_positions(cur_len, x.device)
+    start = (cur_len - 1) if torch.is_tensor(cur_len) else int(cur_len) - 1
+    node = cache["attn"].ensure_private(start=start, width=1)
+    for app, seg in enumerate(transformer.hybrid_segments(cfg)):
+        x = transformer.attn_block(
+            params["shared_attn"], x, cfg, positions=positions,
+            mode="decode", kv_cache=node.view(app), cur_len=cur_len)
+        x = _decode_ssm(params, cfg, x, cache, seg)
     return x
 
 
@@ -173,6 +205,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
     depth = None
     if cfg.family == "ssm":
         x = _decode_ssm(params, cfg, x, cache)
+    elif cfg.family == "hybrid":
+        x = _decode_hybrid(params, cfg, x, cache, cur_len)
     else:
         x, depth = _decode_attn_families(params, cfg, x, cache, cur_len,
                                          write_mask, live)
@@ -202,25 +236,43 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
     written in place at those rows, masked rows only. SSM state comes
     back FRESH and prompt-batch-wide in ``fresh = {"ssm": {"conv": (L, B,
     K-1, Di), "h": (L, B, Di, N)}}`` for the caller to splice along axis
-    1 (``fresh`` is ``{}`` for the dense family)."""
+    1 (``fresh`` is ``{}`` for the attention-decoder families). The
+    hybrid runs its shared block in prefill mode at each application,
+    writing cache layer ``a``, and returns its mamba2 state fresh."""
     x = params["embed"][tokens]
     if _prefix_len(cfg, prefix_embeds):
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    if cfg.family == "ssm":
-        convs, hs = [], []
-        for lp in transformer.layer_params(params["layers"]):
-            h = layers.apply_norm(cfg.norm, x, lp, "ln")
-            y, st = ssm_lib.mamba1_forward(lp["ssm"], h, cfg,
-                                           return_state=True)
-            x = x + y
-            convs.append(st["conv"])
-            hs.append(st["h"])
-        fresh = {"ssm": {"conv": torch.stack(convs), "h": torch.stack(hs)}}
-        return _logits_head(params, cfg, x), fresh
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None]
+    lps = transformer.layer_params(params["layers"])
+    if cfg.family in ("ssm", "hybrid"):
+        convs, hs = [], []
+
+        def mixers(x, layers_):
+            for i in layers_:
+                h = layers.apply_norm(cfg.norm, x, lps[i], "ln")
+                y, st = ssm_lib.mixer_forward(lps[i]["ssm"], h, cfg,
+                                              return_state=True)
+                x = x + y
+                convs.append(st["conv"])
+                hs.append(st["h"])
+            return x
+
+        if cfg.family == "ssm":
+            x = mixers(x, range(cfg.n_layers))
+        else:
+            node = cache["attn"].ensure_private(rows, start=0, width=S,
+                                                mask=mask)
+            for app, seg in enumerate(transformer.hybrid_segments(cfg)):
+                x = transformer.attn_block(
+                    params["shared_attn"], x, cfg, positions=positions,
+                    mode="prefill",
+                    kv_cache=node.view(app, rows=rows, mask=mask))
+                x = mixers(x, seg)
+        fresh = {"ssm": {"conv": torch.stack(convs), "h": torch.stack(hs)}}
+        return _logits_head(params, cfg, x), fresh
     node = cache["attn"].ensure_private(rows, start=0, width=S, mask=mask)
-    for i, lp in enumerate(transformer.layer_params(params["layers"])):
+    for i, lp in enumerate(lps):
         x = transformer.attn_block(
             lp, x, cfg, positions=positions, mode="prefill",
             kv_cache=node.view(i, rows=rows, mask=mask))
@@ -243,6 +295,11 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
     ``cfg.attn_impl == "cuda"`` and the cache is paged.
 
     Returns logits (n, chunk, padded_vocab)."""
+    if cfg.family not in ATTN_FAMILIES:
+        raise ValueError(
+            f"chunked prefill requires an attention-family cache; family "
+            f"{cfg.family!r} folds its recurrent state through a full-prompt "
+            f"forward (use engine.prefill)")
     W = prompts.shape[1]
     pos = offsets.long()[:, None] + torch.arange(
         chunk, device=offsets.device)[None, :]

@@ -3,9 +3,10 @@ chunked admission.
 
 Port of ``repro/serve/scheduler.py`` (admission, the decode segment,
 harvest). The engine owns a fixed pool of ``n_slots`` decode slots,
-each one row of a shared cache (attention K/V, or a pure-SSM model's
-conv and h state) plus per-slot registers on the device (``cur_len``,
-``n_emitted``, ``budget``, ``active``, ``done`` ...).
+each one row of a shared cache (attention K/V, a pure-SSM model's
+conv and h state, or both for the hybrid) plus per-slot registers on
+the device (``cur_len``, ``n_emitted``, ``budget``, ``active``, ``done``
+...).
 
 Two admission modes:
 
@@ -13,11 +14,13 @@ Two admission modes:
   RUNNING in one admission call, which prefills every admitted prompt
   in ONE ``engine.prefill`` over the ``n_slots``-wide permuted batch
   and samples each first token at the row's last real position. Dense
-  and VLM prompts are right-padded to a power-of-two bucket; SSM and MoE
-  prompts must be exactly ``prompt_len`` long (a recurrence keeps
-  folding pad lanes into its state, and pad tokens would displace real
-  ones from expert slots). SSM state comes back fresh from the prefill
-  and is spliced into the pool along the slot axis.
+  and VLM prompts are right-padded to a power-of-two bucket; SSM, hybrid
+  and MoE prompts must be exactly ``prompt_len`` long (a recurrence
+  keeps folding pad lanes into its state, and pad tokens would displace
+  real ones from expert slots). SSM state comes back fresh from the
+  prefill and is spliced into the pool along the slot axis; the
+  hybrid's prefill also writes its prompt K/V into every application's
+  cache layer through the block table, and it admits one-shot only.
 - ``prefill="chunked"`` (dense, MoE and VLM families): FREE -> PREFILLING
   (assigned at admission: registers and block tables, no model forward)
   -> RUNNING. Every iteration of a segment advances each prefilling slot
@@ -400,7 +403,7 @@ class DecodeScheduler:
         the attention path and ``cfg.ssm.scan_impl`` the scan.
       n_slots: decode slots (rows of the cache).
       prompt_len: longest prompt accepted (the only length accepted for
-        a pure-SSM model in one-shot mode).
+        a pure-SSM, hybrid or MoE model).
       max_new_cap: largest per-request ``max_new``.
       prefix_len: a VLM pool's patch prefix, ``cfg.n_patches`` (every
         request then brings ``prefix_embeds``), else 0.
@@ -1091,10 +1094,10 @@ class DecodeScheduler:
                priority: int = 0, deadline: float = float("inf"),
                prefix_embeds=None) -> int:
         """Queue one request. prompt: (1, L) int, 1 <= L <= prompt_len
-        (L == prompt_len for a pure-SSM or MoE model). ``prefix_embeds``
-        (1, prefix_len, d_model): a VLM request's patch embeddings,
-        required on a pool built with ``prefix_len`` and refused
-        otherwise. key: the request's PRNG
+        (L == prompt_len for a pure-SSM, hybrid or MoE model).
+        ``prefix_embeds`` (1, prefix_len, d_model): a VLM request's patch
+        embeddings, required on a pool built with ``prefix_len`` and
+        refused otherwise. key: the request's PRNG
         key, two uint32 words (a JAX raw key); None derives
         ``fold_in(PRNGKey(seed), request_id)`` at admission.
         ``priority`` (lower = more urgent) and ``deadline`` (host-clock

@@ -50,11 +50,15 @@ def _refuse_dist(what: str) -> None:
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """A batch of numpy arrays (or tensors) as int64 tensors on
-    ``device``."""
-    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                               else v).to(device, torch.int64)
-            for k, v in batch.items()}
+    """A batch of numpy arrays (or tensors) on ``device``: integer
+    leaves (``tokens``, ``labels``) as int64, floating ones (a VLM's
+    ``patches``) as float32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+        dt = torch.float32 if t.is_floating_point() else torch.int64
+        out[k] = t.to(device, dt)
+    return out
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, rules=None,

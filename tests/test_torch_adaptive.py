@@ -5,8 +5,12 @@ Against the JAX package (its own weights through ``bridge.from_numpy``,
 the same numpy inputs, fp32 compute): ``exit_margin``,
 ``make_halt_fn``, ``mod_apply_full`` and ``mod_apply_decode``; one
 ``decode_step(with_depth=True, live=...)`` whose rows halt at different
-layers; the toy-stack ``decode_layers`` (monotone halt, fill coverage,
-live rows starting halted); the mixture-of-depths full forward.
+layers (dense, MoE and VLM); the toy-stack ``decode_layers`` (monotone
+halt, fill coverage, live rows starting halted); the mixture-of-depths
+full forward (the MoE's aux too); an MoE decode whose halted rows are
+still routed and take expert capacity (every layer's routing maps);
+the chunked scheduler under early exit for the MoE and for a VLM pool
+with its patch prefix.
 Tolerances: fp32 sums in another order agree to about 1e-6 relative,
 held at 1e-4 (logits, margins) and 1e-5 (the router's blend); halt
 bits, depth vectors and the toy stack's values exactly.
@@ -22,7 +26,8 @@ the launch count that stands in for the JAX package's
 ``--early-exit --compare`` report.
 
 The tests marked ``cuda`` run the graph lowering (an IF node a layer
-inside a captured segment) against the host-read one on the card:
+inside a captured segment) against the host-read one on the card, for
+the dense family and for the MoE (its routing inside the segment):
 
     python -m pytest --noconftest -m cuda tests/test_torch_adaptive.py
 
@@ -121,10 +126,11 @@ def _through_scheduler(params, cfg, prompts, eos_id=1, **kw):
 
 # ------------------------------------------------ the functions, against JAX
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-1b", "qwen2-7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-1b", "qwen2-7b",
+                                  "qwen2-moe-a2.7b", "internvl2-1b"])
 def test_exit_margin_and_halt_fn_match_jax(arch):
     """The margin over the padded vocab (tied unembed for smollm and
-    llama, untied for qwen2), at the last of 3 positions; the halt bits
+    llama, untied for the others), at the last of 3 positions; the halt bits
     at a threshold between two margins, under and over the layer
     floor."""
     J = _jax()
@@ -196,7 +202,9 @@ def _jax_decode(J, jcfg, jp, prompts, tok, live):
 
 
 @pytest.mark.parametrize("arch,n_layers", [("llama3.2-1b", 4),
-                                           ("qwen2-7b", 3)])
+                                           ("qwen2-7b", 3),
+                                           ("qwen2-moe-a2.7b", 2),
+                                           ("internvl2-1b", 2)])
 def test_decode_step_with_depth_matches_jax(arch, n_layers):
     """Rows halt at different layers. Each row's margin after layer k
     is read from the JAX step that halts every row after layer k
@@ -362,12 +370,16 @@ def test_host_lowering_reads_the_halt_vector_once_a_layer():
 
 # ------------------------------------------- pins inside the port, exact
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-1b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-1b",
+                                  "qwen2-moe-a2.7b", "internvl2-1b"])
 def test_inf_threshold_is_bit_identical(arch):
     """Threshold inf runs the halt machinery and halts nothing: the
     batch-synchronous tokens, and the scheduler's with 8 requests into 2
     slots, equal the non-adaptive engine's bit for bit, with a mean
-    depth of exactly n_layers."""
+    depth of exactly n_layers. An MoE decode routes the pool as one
+    group, so its scheduler streams are held to the non-adaptive
+    scheduler's (2 rows a group), not to the batch-synchronous loop's
+    (8 rows)."""
     cfg, params = _model(arch)
     prompts = _prompts(cfg, n=8, seed=5)
     base = _sync(params, cfg, prompts)
@@ -376,12 +388,15 @@ def test_inf_threshold_is_bit_identical(arch):
     ada = _sync(params, acfg, prompts)
     torch.testing.assert_close(ada.tokens, base.tokens, rtol=0, atol=0)
     torch.testing.assert_close(ada.lengths, base.lengths, rtol=0, atol=0)
+    ref = {r: base.tokens[r, :int(base.lengths[r])].numpy()
+           for r in range(len(prompts))}
+    if cfg.family == "moe":
+        ref = {r: f.tokens for r, f in _through_scheduler(
+            params, cfg, prompts)[1].items()}
     sched, out = _through_scheduler(params, acfg, prompts)
     for rid in range(len(prompts)):
         f = out[rid]
-        np.testing.assert_array_equal(
-            f.tokens, base.tokens[rid, :f.length].numpy())
-        assert f.length == int(base.lengths[rid])
+        np.testing.assert_array_equal(f.tokens, ref[rid])
         assert f.mean_depth == float(cfg.n_layers)
     assert sched.mean_depth == float(cfg.n_layers)
     assert sched.depth_impl == "host-read"
@@ -483,6 +498,110 @@ def test_decode_attention_runs_once_a_layer_that_ran(monkeypatch):
     assert n == cfg.n_layers
 
 
+# ------------------------------------- the MoE and VLM families, against JAX
+
+def test_halted_moe_rows_still_take_capacity(monkeypatch):
+    """20 rows, the first 4 not live (halted from the start), threshold
+    inf, under a rank-one router that sends every token to one of two
+    expert pairs, so the decode group of 20 overflows its capacity of 8:
+    every layer's decode routing maps equal the JAX package's.
+    The halted rows are routed and hold expert slots, so live rows are
+    the ones dropped, as in the JAX package, whose block runs every row
+    and only masks the output."""
+    J = _jax()
+    jax = J["jax"]
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe
+    jcfg, jp, cfg, _ = _pair("qwen2-moe-a2.7b", n_layers=3)
+    jp = jax.tree.map(np.array, jp)
+    rng = np.random.default_rng(8)
+    L, D, E = jp["layers"]["moe"]["router"].shape
+    jp["layers"]["moe"]["router"] = (
+        rng.standard_normal((L, D, 1)).astype(np.float32)
+        * np.linspace(3, -3, E).astype(np.float32)[None, None])
+    tp = bridge.from_numpy(jp, cfg, device="cpu")
+    B = 20
+    prompts = rng.integers(2, cfg.vocab, (B, PROMPT)).astype(np.int32)
+    tok = rng.integers(2, cfg.vocab, (B, 1)).astype(np.int32)
+    live = np.array([False] * 4 + [True] * 16)
+    acfg, ajcfg = (dataclasses.replace(c, early_exit=True)
+                   for c in (cfg, jcfg))
+    jmaps, maps = [], []
+    disp, route = jmoe._dispatch_gather, moe.route
+
+    def dispatch(xg_pad, slot_token, token_slot, dropped):
+        if token_slot.shape[:2] == (1, B):          # the decode regroup
+            jax.debug.callback(
+                lambda *a: jmaps.append([np.asarray(v) for v in a]),
+                slot_token, token_slot, dropped)
+        return disp(xg_pad, slot_token, token_slot, dropped)
+
+    def rec(expert_idx, E, C):
+        out = route(expert_idx, E, C)
+        if expert_idx.shape[:2] == (1, B):
+            maps.append([out[0].numpy(), out[2].numpy(), out[3].numpy()])
+        return out
+
+    monkeypatch.setattr(jmoe, "_dispatch_gather", dispatch)
+    monkeypatch.setattr(moe, "route", rec)
+    jl, jd, _, _ = _jax_decode(J, ajcfg, jp, prompts, tok, live)
+    cache = engine.make_cache(cfg, B, PROMPT + 4, device="cpu")
+    engine.prefill(tp, cfg, _t(prompts), cache)
+    tl, td = engine.decode_step(tp, acfg, _t(tok), cache, PROMPT + 1,
+                                live=_t(live), with_depth=True)
+    np.testing.assert_array_equal(td.numpy(), jd)
+    assert jd.tolist() == [0] * 4 + [3] * 16
+    np.testing.assert_allclose(tl.numpy(), jl, rtol=TOL, atol=TOL)
+    assert len(maps) == len(jmaps) == 3
+    for ours, theirs in zip(maps, jmaps):
+        for a, b in zip(ours, theirs):
+            np.testing.assert_array_equal(a, b)
+        dropped = ours[2][0]                         # (B, top_k)
+        assert not dropped[:4].all()      # halted rows hold expert slots
+        assert dropped[4:].any()          # so live rows are dropped
+
+
+def _adaptive_streams(mod, params, cfg, reqs, prefix, **kw):
+    sched = mod.DecodeScheduler(params, cfg, **kw)
+    for rid, (p, m, pe) in enumerate(reqs):
+        sched.submit(p, max_new=m, request_id=rid,
+                     **({"prefix_embeds": pe} if prefix else {}))
+    out = {f.request_id: (np.asarray(f.tokens), f.mean_depth)
+           for f in sched.run_until_drained()}
+    return out, sched
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "internvl2-1b"])
+def test_adaptive_scheduler_matches_jax_scheduler(arch):
+    """Early exit after layer 2 of 3 through the chunked paged
+    scheduler, 5 requests into 2 slots: every stream and each request's
+    mean depth equal the JAX scheduler's. MoE prompts are exact-length
+    (chunks of 5 leave a ragged last chunk); the VLM pool is built with
+    ``prefix_len = n_patches`` and every request brings its patch
+    embeddings, which the chunks prefill ahead of the tokens."""
+    J = _jax()
+    from repro.serve import scheduler as jsched
+    jcfg, jp, cfg, tp = _pair(arch, n_layers=3, early_exit=True,
+                              exit_threshold=-1.0, exit_min_layers=2)
+    rng = np.random.default_rng(10)
+    prefix = cfg.family == "vlm"
+    reqs = [(rng.integers(2, cfg.vocab, (1, PROMPT)).astype(np.int32), m,
+             rng.standard_normal((1, cfg.n_patches, cfg.d_model)).astype(
+                 np.float32) if prefix else None)
+            for m in (6, 3, 8, 4, 5)]
+    kw = dict(n_slots=SLOTS, prompt_len=PROMPT, max_new_cap=MAX_NEW,
+              eos_id=1, kv="paged", kv_block=4, prefill="chunked",
+              chunk_tokens=5, prefix_len=cfg.n_patches if prefix else 0)
+    ref, js = _adaptive_streams(jsched, jp, jcfg, reqs, prefix, **kw)
+    ours, sched = _adaptive_streams(sched_lib, tp, cfg, reqs, prefix, **kw)
+    assert sorted(ours) == sorted(ref) == list(range(len(reqs)))
+    for rid in ref:
+        np.testing.assert_array_equal(ours[rid][0], ref[rid][0])
+        assert ours[rid][1] == ref[rid][1] == 2.0
+    assert sched.mean_depth == 2.0
+    assert sched.total_steps == js.total_steps
+
+
 # --------------------------------------------------- mixture-of-depths
 
 def test_mod_router_gradient_reaches_routed_layers_only():
@@ -507,23 +626,49 @@ def test_mod_router_gradient_reaches_routed_layers_only():
             assert not w.grad[i].any()
 
 
-def test_mod_forward_features_matches_jax():
+@pytest.mark.parametrize("arch,n_layers", [("llama3.2-1b", 4),
+                                           ("qwen2-moe-a2.7b", 4),
+                                           ("internvl2-1b", 2)])
+def test_mod_forward_features_matches_jax(arch, n_layers):
     """The full forward with routers drawn away from zero, so that the
-    capacity cut keeps half of each row at the routed layers."""
+    capacity cut keeps half of each row at the routed layers; the MoE
+    aux losses too (mixture-of-depths applies on the MoE block, as in
+    the JAX package's one ``block_fn``), and a VLM's patch prefix. The
+    VLM runs at its smoke depth: its standard-normal patches are 50x the
+    token embeddings' scale, and at 4 layers the JAX package's own fp32
+    features lie 1.8e-4 from an fp64 run of the same math, past this
+    test's 1e-4."""
     J = _jax()
-    jcfg, jp, cfg, _ = _pair("llama3.2-1b", n_layers=4, mod_capacity=0.5)
+    jcfg, jp, cfg, _ = _pair(arch, n_layers=n_layers, mod_capacity=0.5)
     rng = np.random.default_rng(6)
-    w = (rng.standard_normal((4, cfg.d_model)) * 0.3).astype(np.float32)
+    w = (rng.standard_normal((n_layers, cfg.d_model)) * 0.3).astype(
+        np.float32)
     jp = {**jp, "layers": {**jp["layers"], "router": {
         "w": J["jnp"].asarray(w)}}}
     tp = bridge.from_numpy(J["jax"].tree.map(np.asarray, jp), cfg,
                            device="cpu")
     toks = rng.integers(2, cfg.vocab, (2, 11)).astype(np.int32)
-    ref, _ = J["jax"].jit(J["transformer"].forward_features,
-                          static_argnums=1)(jp, jcfg, J["jnp"].asarray(toks))
-    ours, _ = transformer.forward_features(tp, cfg, _t(toks))
+    pe = (rng.standard_normal((2, cfg.n_patches, cfg.d_model)).astype(
+        np.float32) if cfg.family == "vlm" else None)
+    ref, raux = J["jax"].jit(
+        lambda p, t, e: J["transformer"].forward_features(
+            p, jcfg, t, prefix_embeds=e))(
+        jp, J["jnp"].asarray(toks), None if pe is None else
+        J["jnp"].asarray(pe))
+    ours, aux = transformer.forward_features(
+        tp, cfg, _t(toks), prefix_embeds=None if pe is None else _t(pe))
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=TOL,
                                atol=TOL)
+    assert aux.keys() == raux.keys()
+    for k in raux:
+        np.testing.assert_allclose(float(aux[k]), float(raux[k]),
+                                   rtol=1e-5, err_msg=k)
+    # the routers' cut changed the result
+    plain, _ = transformer.forward_features(
+        {**tp, "layers": {**tp["layers"], "router": {
+            "w": torch.zeros_like(tp["layers"]["router"]["w"])}}},
+        cfg, _t(toks), prefix_embeds=None if pe is None else _t(pe))
+    assert not torch.allclose(plain, ours)
 
 
 @pytest.mark.parametrize("kw", [{}, dict(kv="paged", kv_block=4,
@@ -589,6 +734,22 @@ def test_launcher_early_exit_compare_reports_depth_and_ratio(capsys):
     assert out["mean_depth"] == 1.0 and out["off"]["mean_depth"] == 2.0
     assert out["batch_sync"]["tokens"] == sum(
         len(s) for s in out["streams"].values())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "internvl2-1b"])
+def test_launcher_takes_adaptive_depth_on_moe_and_vlm(arch, capsys):
+    """``--early-exit`` and ``--mod-capacity`` on the MoE and VLM
+    families (the JAX launcher's flags, refused by the port before):
+    threshold -1 halts every row after its first layer."""
+    out = launch_serve.main(
+        ["--arch", arch, "--smoke", "--slots", "2", "--requests", "3",
+         "--prompt-len", "8", "--max-new-short", "3", "--max-new-long",
+         "5", "--device", "cpu", "--eos-id", "-1", "--rate", "1e9",
+         "--early-exit", "--exit-threshold", "-1", "--mod-capacity",
+         "0.5"])
+    text = capsys.readouterr().out
+    assert "mod_capacity=0.5; layer loop host-read" in text
+    assert out["mean_depth"] == 1.0 and out["tokens"] == 3 + 5 + 3
 
 
 def test_launcher_compare_runs_the_batch_sync_baseline_alone(capsys):
@@ -707,3 +868,58 @@ def test_adaptive_graph_segment_equals_host_read_on_card(cuda_device):
     for r, toks in runs["off", "graph"][0].items():
         np.testing.assert_array_equal(runs["tail", "graph"][0][r], toks)
         np.testing.assert_array_equal(runs["inf", "graph"][0][r], toks)
+
+
+@pytest.mark.cuda
+def test_moe_adaptive_graph_segment_equals_host_read_on_card(cuda_device):
+    """qwen2-moe's smoke width (its routing inside the captured segment)
+    through the chunked paged scheduler and the kernels, under early
+    exit at threshold inf and at an identity tail from layer 1 of 2:
+    graph and host-read segments give the same streams, depths and
+    device-counted paged-attention launches (the tail's half the
+    non-adaptive run's), and inf's streams are the non-adaptive ones."""
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b", smoke=True),
+                              compute_dtype="float32", attn_impl="cuda",
+                              head_dim=64, n_heads=4, n_kv_heads=4,
+                              d_model=256)
+    params = bridge.init_params(cfg, seed=0, device=cuda_device)
+    lay = params["layers"] = dict(params["layers"])
+    lay["attn"], lay["moe"] = dict(lay["attn"]), dict(lay["moe"])
+    for tree, name in ((lay["attn"], "wo"), (lay["moe"], "w_down"),
+                       (lay["moe"], "shared_down")):
+        tree[name] = tree[name].clone()
+        tree[name][1:] = 0
+    prompts = _prompts(cfg, n=6, seed=5)
+    variants = {"off": cfg,
+                "inf": dataclasses.replace(cfg, early_exit=True),
+                "tail": dataclasses.replace(cfg, early_exit=True,
+                                            exit_threshold=-1.0,
+                                            exit_min_layers=1)}
+    runs = {}
+    for name, c in variants.items():
+        for loop in ("graph", "host"):
+            sched = sched_lib.DecodeScheduler(
+                params, c, n_slots=SLOTS, prompt_len=PROMPT,
+                max_new_cap=MAX_NEW, eos_id=-1, kv="paged", kv_block=16,
+                prefill="chunked", chunk_tokens=8, loop=loop)
+            sched.warmup()
+            pa_kernel.paged_attention.launches = 0
+            for rid, p in enumerate(prompts):
+                sched.submit(p[None, :], max_new=MAX_NEW, request_id=rid)
+            out = {f.request_id: f for f in sched.run_until_drained()}
+            runs[name, loop] = ({r: f.tokens for r, f in out.items()},
+                                sched.mean_depth,
+                                pa_kernel.paged_attention.launches)
+            sched.close()
+    for name in variants:
+        g, h = runs[name, "graph"], runs[name, "host"]
+        for r in g[0]:
+            np.testing.assert_array_equal(g[0][r], h[0][r])
+        assert g[1] == h[1] and g[2] == h[2] > 0
+    assert runs["inf", "graph"][1] == 2.0 and runs["tail", "graph"][1] == 1.0
+    assert runs["inf", "graph"][2] == runs["off", "graph"][2]
+    assert 2 * runs["tail", "graph"][2] == runs["off", "graph"][2]
+    for r, toks in runs["off", "graph"][0].items():
+        np.testing.assert_array_equal(runs["inf", "graph"][0][r], toks)
+        np.testing.assert_array_equal(runs["tail", "graph"][0][r], toks)

@@ -338,16 +338,23 @@ def test_decode_drops_with_more_than_8_slots(prefill, monkeypatch):
 
 
 def test_moe_refuses_padded_prompts_adaptive_depth_and_the_launcher():
+    """Padded prompts stay refused. Adaptive depth and training are
+    ported for the MoE and VLM families (tests/test_torch_adaptive.py,
+    tests/test_torch_train.py): an early-exit config's full forward is
+    the plain one, aux included; the launcher refuses the hybrid's
+    training, which is not ported yet."""
     _, _, cfg, tp = _pair()
     sched = sched_lib.DecodeScheduler(tp, cfg, n_slots=2, prompt_len=8,
                                       max_new_cap=4, prefill="chunked")
     with pytest.raises(ValueError, match="exact-length"):
         sched.submit(np.ones((1, 5), np.int32), max_new=2)
     ee = dataclasses.replace(cfg, early_exit=True, exit_threshold=1.0)
+    batch = {"tokens": torch.ones((1, 4), dtype=torch.long)}
+    (a, aux_a), (b, aux_b) = (model_zoo.forward(tp, c, batch)
+                              for c in (ee, cfg))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert aux_a.keys() == aux_b.keys() == {"moe_load_balance",
+                                            "moe_z_loss"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_zoo.forward(tp, ee, {"tokens": torch.ones((1, 4),
-                                                        dtype=torch.long)})
-    for arch in ("qwen2-moe-a2.7b", "internvl2-1b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch_train.main(["--arch", arch, "--smoke", "--steps", "1",
-                               "--device", "cpu"])
+        launch_train.main(["--arch", "zamba2-1.2b", "--smoke", "--steps",
+                           "1", "--device", "cpu"])

@@ -575,3 +575,167 @@ def test_launcher_runs_and_resumes_on_cpu(tmp_path, capsys):
                                     again["trainer"].history] == [2]
     assert launch_train.main(argv + ["--steps", "2"]) is None
     assert "resumed from step 2" in capsys.readouterr().out
+
+
+# ------------------------------------------------ the MoE and VLM families
+
+FAMILIES = ("qwen2-moe-a2.7b", "internvl2-1b")
+
+
+def _family(arch, **kw):
+    """(jax cfg, jax params, port cfg, fp32 masters, a batch) for a smoke
+    config, fp32 compute; the VLM batch carries its patches."""
+    over = dict(compute_dtype="float32", **kw)
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), **over)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
+    jparams = _jax_params(jcfg)
+    patches = ((cfg.n_patches, cfg.d_model) if cfg.family == "vlm"
+               else None)
+    batch = jpipe.SyntheticLM(cfg.vocab, 24, 4, seed=2,
+                              patches=patches).batch_at(1)
+    return jcfg, jparams, cfg, _ours(jparams, cfg), batch
+
+
+@pytest.mark.parametrize("frames,patches", [(None, (8, 64)), ((6, 32), None),
+                                            ((6, 32), (8, 64))],
+                         ids=["patches", "frames", "both"])
+def test_synthetic_lm_stubs_equal_jax(frames, patches):
+    """Patches and frames are drawn after the tokens from the same
+    generator: the batches equal the JAX package's, every leaf."""
+    kw = dict(seed=3, frames=frames, patches=patches)
+    ours, theirs = (m(500, 24, 4, **kw) for m in (SyntheticLM,
+                                                  jpipe.SyntheticLM))
+    for step in (0, 5):
+        a, b = ours.batch_at(step), theirs.batch_at(step)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_batch_to_device_keeps_patches_float():
+    """A VLM batch's patches arrive equal to the numpy draw, float32;
+    tokens and labels as int64."""
+    batch = SyntheticLM(512, 16, 2, seed=4, patches=(8, 64)).batch_at(0)
+    moved = _t_batch(batch)
+    assert moved["patches"].dtype == torch.float32
+    assert moved["tokens"].dtype == moved["labels"].dtype == torch.int64
+    np.testing.assert_array_equal(moved["patches"].numpy(),
+                                  batch["patches"])
+    assert not np.array_equal(batch["patches"],
+                              np.trunc(batch["patches"]))
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_loss_and_grads_match_jax(arch):
+    """The loss with the MoE aux terms, and the gradients, against
+    ``jax.value_and_grad(loss_fn, has_aux=True)``."""
+    jcfg, jparams, cfg, params, batch = _family(arch)
+    (jloss, jm), jgrads = jax.jit(
+        jax.value_and_grad(jzoo.loss_fn, has_aux=True),
+        static_argnums=1)(jparams, jcfg, jax.tree.map(jnp.asarray, batch))
+    leaves, spec = torch.utils._pytree.tree_flatten(params)
+    for p in leaves:
+        p.requires_grad_()
+    loss, metrics = model_zoo.loss_fn(bridge.compute_params(params, cfg), cfg,
+                                      _t_batch(batch))
+    grads = torch.utils._pytree.tree_unflatten(
+        list(torch.autograd.grad(loss, leaves)), spec)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    assert metrics.keys() == jm.keys()
+    for k in jm:
+        np.testing.assert_allclose(metrics[k].item(), float(jm[k]),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    if cfg.family == "moe":
+        assert {"moe_load_balance", "moe_z_loss"} <= metrics.keys()
+    ours_g, theirs_g = _flat(grads), _flat(jgrads)
+    assert ours_g.keys() == theirs_g.keys()
+    for k in ours_g:
+        floor = 1e-4 * np.abs(theirs_g[k]).max()
+        np.testing.assert_allclose(ours_g[k], theirs_g[k], rtol=1e-4,
+                                   atol=floor, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_step_matches_jax_fp32(arch):
+    """One AdamW step: loss, aux metrics, grad norm and the new
+    parameters."""
+    jcfg, jparams, cfg, params, batch = _family(arch)
+    jopt_cfg = jadamw.AdamWConfig(schedule=jschedule.warmup_cosine(2, 10))
+    jp, jo, jm = jax.jit(jtrain.make_train_step(jcfg, jopt_cfg))(
+        jparams, jadamw.init(jparams), batch)
+    opt_cfg = adamw.AdamWConfig(schedule=schedule.warmup_cosine(2, 10))
+    p, o, m = train_loop.make_train_step(cfg, opt_cfg)(
+        params, adamw.init(params), batch)
+    assert m.keys() == jm.keys()
+    for k in ("loss", "ce", *model_zoo.MOE_AUX_WEIGHTS):
+        if k in jm:
+            np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-5,
+                                       err_msg=k)
+    np.testing.assert_allclose(m["grad_norm"].item(), float(jm["grad_norm"]),
+                               rtol=1e-4)
+    # An entry's first AdamW update is lr * g / (|g| + eps): where the
+    # gradient is below the floor that test_family_loss_and_grads_match_jax
+    # holds it to (1e-4 of its leaf's largest), its sign is not
+    # determined and the update may differ by up to 2 lr; elsewhere the
+    # parameters agree to 1e-5.
+    ours_p, theirs_p, g = _flat(p), _flat(jp), _flat(jo.mu)
+    assert ours_p.keys() == theirs_p.keys()
+    lr = float(jm["lr"])
+    for k in ours_p:
+        tiny = np.abs(g[k]) < 1e-4 * np.abs(g[k]).max()
+        atol = np.where(tiny, 2 * lr, 1e-5)
+        assert (np.abs(ours_p[k] - theirs_p[k]) <= atol).all(), k
+    assert o.step == int(jo.step) == 1
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_grad_accum_equals_full_batch(arch):
+    """Two microbatches, the patches split along the batch axis with the
+    tokens: the accumulated step equals the JAX package's accumulated
+    step, and for the VLM the full batch's (its loss is a mean of
+    per-token terms). The MoE aux losses are products of batch means,
+    so there the microbatches' mean is not the full batch's, in either
+    package."""
+    jcfg, jparams, cfg, params, batch = _family(arch, grad_accum=2)
+    opt_cfg = adamw.AdamWConfig(schedule=schedule.constant())
+    p2, _, m2 = train_loop.make_train_step(cfg, opt_cfg, accum="fori")(
+        params, adamw.init(params), batch)
+    jp, _, jm = jax.jit(jtrain.make_train_step(
+        jcfg, jadamw.AdamWConfig(schedule=jschedule.constant()),
+        accum="fori"))(jparams, jadamw.init(jparams), batch)
+    np.testing.assert_allclose(m2["loss"].item(), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(m2["grad_norm"].item(),
+                               float(jm["grad_norm"]), rtol=1e-4)
+    if cfg.family == "vlm":
+        c1 = dataclasses.replace(cfg, grad_accum=1)
+        p1, _, m1 = train_loop.make_train_step(c1, opt_cfg)(
+            params, adamw.init(params), batch)
+        np.testing.assert_allclose(m1["loss"].item(), m2["loss"].item(),
+                                   rtol=1e-6)
+        _assert_trees_close(p1, p2, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_launcher_runs_and_resumes_on_cpu(arch, tmp_path, capsys):
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--seq", "16",
+            "--device", "cpu", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "2"]
+    out = launch_train.main(argv + ["--steps", "2"])
+    assert out["start"] == 0 and len(out["trainer"].history) == 2
+    assert np.isfinite(float(out["metrics"]["loss"]))
+    if arch.startswith("qwen2-moe"):
+        assert np.isfinite(float(out["metrics"]["moe_load_balance"]))
+    again = launch_train.main(argv + ["--steps", "3"])
+    assert again["start"] == 2 and [h[0] for h in
+                                    again["trainer"].history] == [2]
+    # the resumed step equals the same step run on from memory
+    step = train_loop.make_train_step(
+        get_config(arch, smoke=True), adamw.AdamWConfig(
+            lr=3e-4, schedule=schedule.warmup_cosine(1, 3)))
+    patches = ((8, 64) if arch == "internvl2-1b" else None)
+    data = SyntheticLM(512, 16, 2, seed=0, patches=patches)
+    _, _, m = step(out["params"], out["opt"], data.batch_at(2))
+    assert m["loss"].item() == again["trainer"].history[0][1]
+    assert "resumed from step 2" in capsys.readouterr().out
