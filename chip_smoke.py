@@ -23,8 +23,9 @@ Phases, each printing its own lines:
    started together, with ptxas's register and shared memory report;
 3. each block-table kernel against its plain PyTorch version on the
    card, at the llama3.2-1b, qwen2-7b, olmo-1b, smollm-135m,
-   internvl2-1b and zamba2-1.2b attention geometries (G = 4, 7, 1, 3, 7,
-   1; hd = 64, 128), in bf16 and fp32, with
+   internvl2-1b, zamba2-1.2b and whisper-small attention geometries
+   (G = 4, 7, 1, 3, 7, 1, 1; KV up to 32, whisper's 12; hd = 64, 128),
+   in bf16 and fp32, with
    blocks of 16 and 8, shuffled tables, ``-1`` entries, ragged lengths,
    a ``cur_len = 0`` row (exactly 0), cur_len on the decode kernel's
    partition edges and a chunk running past the table; the chunk
@@ -35,8 +36,9 @@ Phases, each printing its own lines:
    B = 8, W = 5, q_off 512-568) beside the plain version,
    ``scaled_dot_product_attention`` on the gathered dense layout (a
    yardstick the port never calls) and the bound, and at the MoE, VLM
-   and (the decode kernel) hybrid serving geometries as extra
-   ``shapes`` of the records;
+   and (the decode kernel) hybrid and whisper-small serving geometries
+   (whisper's at its own rows: 8 slots at 100-268 positions of 321) as
+   extra ``shapes`` of the records;
 4. serving llama3.2-1b at full width (random weights from a seed, bf16)
    through the continuous-batching scheduler with the paged cache,
    chunked prefill and both kernels, once with the segment as a
@@ -64,7 +66,7 @@ Phases, each printing its own lines:
    launches bit for bit; then timed at the serving chunk beside the
    plain version and the bound, and at the per-layer call (Q=512)
    beside the chunk chain the call site made before and its bound;
-7. serving falcon-mamba-7b at full width and ``SSM_SERVE_LAYERS`` (32)
+7. serving falcon-mamba-7b at full width and ``SSM_SERVE_LAYERS`` (16)
    of its 64 layers (random weights
    from a seed, bf16, ``scan_impl="cuda"``) through one-shot admission,
    graph segments against host-read ones in turns as in phase 4 (the
@@ -242,8 +244,9 @@ Phases, each printing its own lines:
     equal the colocated ones 32/32, and a decode tier held full by two
     batch-class requests must preempt one for an urgent arrival with no
     replay mismatch, every stream equal to the uncontended run's;
-27. (run after phase 26) qwen2-moe-a2.7b at full width (24 layers, 60
-    experts top-4 and 4 shared, bf16, random weights from a seed,
+27. (run after phase 26) qwen2-moe-a2.7b at full width and
+    ``MOE_SERVE_LAYERS`` (12) of its 24 layers (60 experts top-4 and 4
+    shared, bf16, random weights from a seed,
     ``attn_impl="cuda"``) through the chunked paged pool of phase 4 (8
     slots, block 16, chunk 128): 16 requests of exactly 512 tokens, 64
     new each, EOS -1, graph and host-read segments in turns as in phase
@@ -288,13 +291,15 @@ Phases, each printing its own lines:
     non-zero; ms a step and peak memory printed; no flash launch;
 31. (run after phase 29) adaptive depth on qwen2-moe-a2.7b and
     internvl2-1b at full width (bf16, the pools of phases 27 and 29
-    without the prefix cache, graph segments): threshold inf gives the
-    non-adaptive streams bit for bit (16/16, in turns), mean depth
-    exactly 24 and equal launches; exit by construction at layer 2 (an
-    identity tail; the MoE's expert and shared ``w_down`` zeroed)
-    launches exactly 2/24 of the doctored non-adaptive run's
-    ``paged_attention``, streams equal; mixture-of-depths (zero routers)
-    runs with depth 24; one host read a graph segment; tok/s and device
+    without the prefix cache, graph segments; qwen2-moe at
+    ``MOE_SERVE_LAYERS`` layers, internvl2 at its 24): threshold inf
+    gives the non-adaptive streams bit for bit (16/16, in turns), mean
+    depth exactly the layer count L and equal launches; exit by
+    construction at layer 2 (an identity tail; the MoE's expert and
+    shared ``w_down`` zeroed) launches exactly 2/L of the doctored
+    non-adaptive run's ``paged_attention``, streams equal;
+    mixture-of-depths (zero routers) runs with depth L; one host read a
+    graph segment; tok/s and device
     ms an iteration against the non-adaptive run printed; then at 4
     layers in fp32, early exit at inf and mixture-of-depths on, the
     kernel path in graph and host-read segments and the gather path
@@ -309,18 +314,44 @@ Phases, each printing its own lines:
     segment's device ms an iteration at 8 slots beside its bytes bound
     (predicted 1.1 ms) and an admission's device ms printed; then at 12
     layers (2 applications) in fp32 the kernel path in graph and
-    host-read segments and the gather path give one set of streams.
+    host-read segments and the gather path give one set of streams;
+33. (run after phase 32) whisper-small at full width (12 encoder and
+    12 decoder layers, d_model 768, 12 heads of 64, vocab 51865, 1500
+    stub frames; bf16, random weights and frames from a seed,
+    ``attn_impl="cuda"``, the paged self cache in blocks of 16) through
+    one-shot admission: 16 requests of 4-192 tokens drawn from the seed,
+    128 new each, on 8 slots, in graph and host-read segments in turns
+    as in phase 4: every request finishes, one host read a graph
+    segment, ``paged_attention`` launches equal across lowerings at 12 a
+    decode iteration, the gather path never runs on the self cache;
+    tok/s each way and the device-busy share, an admission's device ms
+    (the encoder's part apart) and a decode-only segment's device ms an
+    iteration at 8 slots beside its bytes bound
+    (``encdec_decode_bytes``) printed;
+34. the same at 4 + 4 layers in fp32: the kernel path in graph and
+    host-read segments and the gather path give one set of greedy
+    streams (8/8); ``engine.prefill_chunk`` over a paged cache through
+    the flash-prefill kernel gives the one-shot prefill's logits within
+    LOGIT_TOL at every real position;
+35. (run last) training the audio family and the hybrid through
+    ``launch.train.main`` at full width: whisper-small at B=8, S=448 (its
+    ``max_target_len``) behind 1500 frames, 12 steps with a checkpoint at
+    8: the loss finite and falling (mean of the first 3 against the last
+    3, as phase 30) and the resume exact; zamba2-1.2b (38 layers,
+    ``remat="full"``) at B=2, S=2048 (``ZAMBA_TRAIN_BATCH``: B=4 does not
+    fit the card), 8 steps: the loss finite and falling; ms a step and
+    peak memory printed.
 
 The llama3.2-1b weights are freed before phase 26 (which makes and frees
 its own) and falcon-mamba's are made (phase 23 frees its own before the
-next), phases 27-32 make and free their own, and
+next), phases 27-35 make and free their own, and
 falcon-mamba's are freed before the LSTM phases, and each of the last three
 phases frees what it made. Then
 one JSON line of kernel records (``paged_attention`` and
 ``flash_prefill`` also give ``path_launches``: their launches in each
 serving path's first graph run, llama3.2-1b, qwen2-moe-a2.7b,
-internvl2-1b, both early-exit runs at inf and zamba2-1.2b, the counts
-set to 0 just before it) and, last, the
+internvl2-1b, both early-exit runs at inf, zamba2-1.2b and
+whisper-small, the counts set to 0 just before it) and, last, the
 device line. Any
 failed check raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA device is present.
@@ -350,13 +381,20 @@ TOL = {"bfloat16": 1.6e-2,  # two bf16 ulps at magnitude 1: the output
 #                             2048 positions
 GEOMETRIES = (("llama3.2-1b", 32, 8, 64), ("qwen2-7b", 28, 4, 128),
               ("olmo-1b", 16, 16, 128), ("smollm-135m", 9, 3, 64),
-              ("internvl2-1b", 14, 2, 64), ("zamba2-1.2b", 32, 32, 64))
+              ("internvl2-1b", 14, 2, 64), ("zamba2-1.2b", 32, 32, 64),
+              ("whisper-small", 12, 12, 64))
 # the MoE and VLM serving phases' attention geometries (qwen2-moe-a2.7b's
 # MHA is olmo-1b's): the block-table kernels are timed there too, as
 # extra ``shapes`` of their records
 NEW_SHAPES = (("qwen2-moe-a2.7b", 16, 16, 128), ("internvl2-1b", 14, 2, 64))
 # the hybrid's shared attention block (decode only: it prefills one-shot)
 HYBRID_SHAPE = ("zamba2-1.2b", 32, 32, 64)
+# whisper-small's decoder self-attention (decode only in serving: the
+# scheduler admits the audio family one-shot)
+WHISPER_SHAPE = ("whisper-small", 12, 12, 64)
+# its serving phase's decode rows: prompts of 4-192 tokens part way into
+# 128 new ones (max_len 192 + 128 + 1)
+WHISPER_LENS, WHISPER_MAX_LEN = [100 + 24 * i for i in range(8)], 321
 # the TPU kernel (or kernel entry) that each record of the kernels line
 # replaces
 REPLACES = {
@@ -373,9 +411,10 @@ SCAN_TOL = 1e-4     # fp32: N-term sums in another order, fused
 #                     multiply-adds, states of magnitude up to ~10
 SCAN_CHUNK = 128    # falcon-mamba-7b's cfg.ssm.chunk: the TPU kernel's chunk
 SCAN_LAYER = 512    # one layer's call in a one-shot admission of 512 tokens
-SSM_SERVE_LAYERS = 32   # phases 7-8: falcon-mamba-7b's depth, cut from 64
-#                         to keep the script under 900 s as phases 30-32
-#                         join it (a layer's work is the same at any depth)
+SSM_SERVE_LAYERS = 16   # phases 7-8: falcon-mamba-7b's depth, cut from 64
+#                         (to 32 as phases 30-32 joined, to 16 as phases
+#                         33-35 did) to keep the script under 900 s (a
+#                         layer's work is the same at any depth)
 LSTM_TOL = {"float32": 1e-5,    # K <= 1024 fp32 products summed in
             #                     another order
             "bfloat16": 1.6e-2}  # c', h' rounded to bf16 on both sides
@@ -426,6 +465,9 @@ DRAFT_RATE_TOL = 0.02   # phase 20: the self-drafting accept rate with prefix
 #                         there, in chunks without hits)
 MOE_PARITY_LAYERS = 4    # phase 28 and phase 29's fp32 runs: full width,
 #                          depth cut to 4 layers
+MOE_SERVE_LAYERS = 12    # phases 27 and 31: qwen2-moe-a2.7b's depth, cut
+#                          from 24 to keep the script under 900 s as phases
+#                          33-35 joined it (a layer's work is the same)
 MOE_LOSS_RTOL = 1e-5     # fp32 aux losses through flash and chunked attention
 VLM_IMAGES = 4           # phase 29: images, each shared by 4 requests
 VLM_SYSTEM = 64          # tokens of the system text behind every image
@@ -443,6 +485,20 @@ RESUME_RTOL = 1e-3       # phase 30: resumed steps after the first (whose
 #                          launch's: bf16 steps whose embedding gradient
 #                          is summed by atomic adds in any order
 HYBRID_PARITY_LAYERS = 12   # phase 32's fp32 runs: 2 shared-block apps
+WHISPER_PROMPT = 192     # phases 33-34: the longest prompt (4-192 tokens)
+WHISPER_NEW = 128        # phases 33-34: new tokens a request
+WHISPER_PARITY_LAYERS = 4   # phase 34: encoder and decoder depth in fp32
+WHISPER_CHUNK = 64       # phase 34: prefill_chunk's chunk
+WHISPER_TRAIN_STEPS = 12    # phase 35: whisper-small launcher steps
+WHISPER_TRAIN_CKPT = 8      # phase 35: its checkpoint; the resume reruns 8-11
+WHISPER_TRAIN_LR = 1e-4     # phase 35: at 1e-3 the loss rose after step 2
+#                             (11.02 -> 11.06, means of 3); at 3e-4 and 1e-4
+#                             it fell by 0.011 and 0.016 on the H100
+ZAMBA_TRAIN_BATCH = 2       # phase 35: zamba2-1.2b's batch at S=2048. B=4
+#   runs out of the 80 GB (77.96 GiB allocated when it failed): seven fp32
+#   trees of 1.17 B parameters and the shared block's seven applications
+#   outside the remat, each keeping its chunked attention's fp32 scores
+ZAMBA_TRAIN_STEPS = 8       # phase 35: zamba2-1.2b launcher steps
 
 
 def log(msg: str) -> None:
@@ -679,25 +735,28 @@ def phase_build():
         kernels.library(name)
 
 
-def time_block_table(kind, name, geom, fns):
+def time_block_table(kind, name, geom, fns, lens=None, max_len=577):
     """One block-table kernel at the serving phase's shapes for the
     attention geometry ``geom``: 8 slots, 512-token prompts, block 16,
     37 blocks per row; decode rows mid-generation, prefill rows at the
     four chunk offsets of a 512-token prompt with 128-token chunks,
-    verify windows (W = 5, speculation's k = 4) at q_off 512-568. Times
-    the kernel and SDPA on the gathered dense layout over 8 operand
-    copies (``call_times``: device and eager), and the plain version
-    eagerly. Returns its record (launches 0)."""
+    verify windows (W = 5, speculation's k = 4) at q_off 512-568 (or the
+    rows' ``lens`` in a table of ``max_len`` positions). Times the
+    kernel and SDPA on the gathered dense layout over 8 operand copies
+    (``call_times``: device and eager), and the plain version eagerly.
+    Returns its record (launches 0)."""
     import torch
     arch, H, KV, hd = geom
     main_lens = {"decode": [513 + 8 * i for i in range(8)],
                  "prefill": [0, 128, 256, 384] * 2,
                  "verify": [512 + 8 * i for i in range(8)]}
+    if lens is not None:
+        main_lens[kind] = lens
     kern, plain = fns[kind]
     C = VERIFY_W if kind == "verify" else 128
     shape = "decode" if kind == "decode" else "prefill"
     copies = [make_case(shape, 100 + i, H, KV, hd, torch.bfloat16,
-                        main_lens[kind], max_len=577, C=C)
+                        main_lens[kind], max_len=max_len, C=C)
               for i in range(8)]
     out = kern(*copies[0])
     ref = plain(*copies[0])
@@ -816,13 +875,16 @@ def phase_kernels():
     for kind, name in (("decode", "paged_attention"),
                        ("prefill", "flash_prefill")):
         time_block_table(kind, name, GEOMETRIES[1], fns)
-    # the MoE, VLM and hybrid serving geometries: extra records of the
-    # same kernels (the hybrid's shared block decodes only)
+    # the MoE, VLM, hybrid and audio serving geometries: extra records of
+    # the same kernels (the hybrid's shared block and whisper's decoder
+    # decode only); whisper's at its own serving lengths
     for rec, kind in zip(records, ("decode", "prefill")):
         rec["shapes"] = []
-        for geom in NEW_SHAPES + ((HYBRID_SHAPE,) if kind == "decode"
-                                  else ()):
-            r = time_block_table(kind, rec["name"], geom, fns)
+        for geom in NEW_SHAPES + ((HYBRID_SHAPE, WHISPER_SHAPE)
+                                  if kind == "decode" else ()):
+            at = ({"lens": WHISPER_LENS, "max_len": WHISPER_MAX_LEN}
+                  if geom is WHISPER_SHAPE else {})
+            r = time_block_table(kind, rec["name"], geom, fns, **at)
             rec["shapes"].append({
                 "arch": geom[0], "H": geom[1], "KV": geom[2], "hd": geom[3],
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -1184,8 +1246,8 @@ def launch_counters():
 def check_streams(streams, reqs, cfg):
     if sorted(streams) != list(range(len(reqs))):
         raise AssertionError(f"finished {sorted(streams)} of {len(reqs)}")
-    for rid, (_, max_new) in enumerate(reqs):
-        toks = streams[rid]
+    for rid, req in enumerate(reqs):
+        max_new, toks = req[1], streams[rid]
         if len(toks) != max_new or toks.min() < 0 or \
                 toks.max() >= cfg.padded_vocab:
             raise AssertionError(f"request {rid}: bad stream {toks}")
@@ -1530,10 +1592,17 @@ def make_scheduler(params, cfg, loop=None, **kw):
     return sched_lib.DecodeScheduler(params, cfg, **{**args, **kw})
 
 
+def submit_all(sched, reqs):
+    """Submit every request at once: ``(prompt, max_new)``, or for the
+    audio family ``(prompt, max_new, frames)``."""
+    for rid, (prompt, max_new, *frames) in enumerate(reqs):
+        sched.submit(prompt, max_new=max_new, request_id=rid,
+                     **({"frames": frames[0]} if frames else {}))
+
+
 def drive(sched, reqs):
     """Submit every request at once and drain; {rid: tokens}."""
-    for rid, (prompt, max_new) in enumerate(reqs):
-        sched.submit(prompt, max_new=max_new, request_id=rid)
+    submit_all(sched, reqs)
     return {f.request_id: f.tokens for f in sched.run_until_drained()}
 
 
@@ -4000,8 +4069,7 @@ def decode_only_ms(sched, reqs, prefill_iters, iters=32):
     iterations, then a segment of ``iters`` decode-only iterations timed
     with CUDA events (``instrument_sync``'s start-to-read span). A
     one-shot pool admits in the first ``step`` and runs no chunk."""
-    for rid, (prompt, max_new) in enumerate(reqs):
-        sched.submit(prompt, max_new=max_new, request_id=rid)
+    submit_all(sched, reqs)
     sched.step(max_steps=prefill_iters)
     chunks = int(sched._counts[2])
     finish = instrument_sync(sched)
@@ -4014,8 +4082,9 @@ def decode_only_ms(sched, reqs, prefill_iters, iters=32):
 
 
 def phase_moe_serve():
-    """qwen2-moe-a2.7b at full width (bf16, random weights from a seed,
-    ``attn_impl="cuda"``) through the chunked paged scheduler: 16
+    """qwen2-moe-a2.7b at full width and ``MOE_SERVE_LAYERS`` layers
+    (bf16, random weights from a seed, ``attn_impl="cuda"``) through the
+    chunked paged scheduler: 16
     requests of exactly 512 tokens, 64 new each, EOS -1, graph segments
     against host-read ones in turns (``serve_in_turns``). Gates: every
     request finishes, both block-table kernels launch and the gather
@@ -4032,7 +4101,7 @@ def phase_moe_serve():
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
-                              attn_impl="cuda")
+                              attn_impl="cuda", n_layers=MOE_SERVE_LAYERS)
     t0 = time.perf_counter()
     params = bridge.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -4305,44 +4374,29 @@ def phase_vlm():
 
 # ------------------------------------------- phases 30-32: this slice's paths
 
-def phase_train_families():
-    """Training the MoE and VLM families on the card. internvl2-1b at
-    full width through ``launch.train.main`` (fp32 masters, bf16
-    compute, lr ``TRAIN_FAMILY_LR``, B=4, S=1024 tokens behind 256 patch
-    embeddings,
-    ``TRAIN_FAMILY_STEPS`` steps, a checkpoint at step
-    ``TRAIN_FAMILY_CKPT``): the loss is finite and falls, and a second
-    launch resumes from the checkpoint and reruns the steps after it
-    with the first launch's losses (the first bit for bit, the rest
-    within ``RESUME_RTOL``). qwen2-moe-a2.7b at full
-    width and ``MOE_TRAIN_LAYERS`` layers through
-    ``train_loop.make_train_step`` (B=2, S=512, ``MOE_TRAIN_STEPS``
-    steps, no checkpoint): the loss is finite and falls, both aux terms
-    are finite, and every layer's router gets a non-zero gradient. Both
-    print ms a step and peak memory; neither launches the forward-only
-    flash kernel."""
-    import dataclasses
+def launch_and_resume(tag, cfg, what, argv, ckpt):
+    """``launch.train.main`` at full width (fp32 masters, bf16 compute)
+    with ``argv`` and a checkpoint at step ``ckpt`` into a temporary
+    directory: the loss is finite and falls (the mean of the last quarter
+    of the steps below the first quarter's), and a second launch resumes
+    from the checkpoint and reruns the steps after it with the first
+    launch's losses (the first bit for bit, the rest within
+    ``RESUME_RTOL``); the forward-only flash kernel never launches.
+    Prints ms a step and peak memory; returns (median ms a step, peak
+    GiB)."""
     import gc
     import math
     import shutil
     import statistics
     import torch
-    import torch.utils._pytree as pytree
-    from repro_torch import bridge
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch import train as launch_train
     from repro_torch.models import model_zoo
-    from repro_torch.optim import adamw
-    from repro_torch.train import train_loop
 
-    cfg = get_config("internvl2-1b")
     n_params = model_zoo.count_params(cfg)
     root = checkpoint_root(3 * 4 * n_params)
-    argv = ["--arch", cfg.name, "--batch", "4", "--seq", "1024", "--steps",
-            str(TRAIN_FAMILY_STEPS), "--lr", str(TRAIN_FAMILY_LR),
-            "--ckpt-dir", root, "--ckpt-every", str(TRAIN_FAMILY_CKPT)]
+    argv = ["--arch", cfg.name, *argv, "--ckpt-dir", root, "--ckpt-every",
+            str(ckpt)]
     try:
         fa_kernel.flash_attention.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -4356,41 +4410,79 @@ def phase_train_families():
         step_ms = [h[2] * 1e3 for h in hist]
         k = len(losses) // 4
         a, b = statistics.mean(losses[:k]), statistics.mean(losses[-k:])
-        log(f"[train-vlm] {cfg.name} ({n_params / 1e9:.3f}B params) fp32 "
-            f"masters, bf16 compute, B=4, S=1024 + {cfg.n_patches} patches: "
-            f"{len(losses)} steps in {wall:.1f} s; ms a step median "
-            f"{statistics.median(step_ms[1:]):.1f} (first {step_ms[0]:.1f});"
-            f" peak memory {peak / 2**30:.2f} GiB; losses "
-            + " ".join(f"{x:.4f}" for x in losses))
+        median = statistics.median(step_ms[1:])
+        log(f"[{tag}] {card_label()}: {cfg.name} "
+            f"({n_params / 1e9:.3f}B params) fp32 masters, bf16 compute, "
+            f"{what}: {len(losses)} steps in {wall:.1f} s; ms a step median "
+            f"{median:.1f} (first {step_ms[0]:.1f}); peak memory "
+            f"{peak / 2**30:.2f} GiB; losses "
+            + " ".join(f"{x:.4f}" for x in losses)
+            + f"; mean of the first {k} {a:.5f}, of the last {k} {b:.5f}")
         if not all(math.isfinite(x) for x in losses) or not b < a:
-            raise AssertionError("train-vlm: the loss is not finite or does "
-                                 "not fall")
+            raise AssertionError(f"{tag}: the loss is not finite or does "
+                                 f"not fall")
         del first
         gc.collect()
         torch.cuda.empty_cache()
         again = launch_train.main(argv)
         rerun = [(h[0], h[1]) for h in again["trainer"].history]
-        want = [(h[0], h[1]) for h in hist[TRAIN_FAMILY_CKPT:]]
+        want = [(h[0], h[1]) for h in hist[ckpt:]]
         rel = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(rerun, want))
-        log(f"[train-vlm] second launch resumed at step {again['start']}: "
+        log(f"[{tag}] second launch resumed at step {again['start']}: "
             f"losses {[x for _, x in rerun]} against the first launch's "
             f"{[x for _, x in want]}; max relative difference {rel:.3e}")
         # the restored state is the saved one, so the first resumed
         # step's forward, and its loss, are the first launch's bit for
         # bit; later steps follow updates whose backward adds the
         # embedding's row gradients atomically, in any order
-        if again["start"] != TRAIN_FAMILY_CKPT or \
+        if again["start"] != ckpt or \
                 [s for s, _ in rerun] != [s for s, _ in want] or \
                 rerun[0] != want[0] or rel > RESUME_RTOL:
-            raise AssertionError("train-vlm: the resume does not continue "
-                                 "exactly")
+            raise AssertionError(f"{tag}: the resume does not continue "
+                                 f"exactly")
         del again
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if fa_kernel.flash_attention.launches:
-        raise AssertionError("train-vlm launched the forward-only kernel")
+        raise AssertionError(f"{tag} launched the forward-only kernel")
     gc.collect()
     torch.cuda.empty_cache()
+    return median, peak / 2**30
+
+
+def phase_train_families():
+    """Training the MoE and VLM families on the card. internvl2-1b at
+    full width through ``launch_and_resume`` (lr ``TRAIN_FAMILY_LR``,
+    B=4, S=1024 tokens behind 256 patch embeddings,
+    ``TRAIN_FAMILY_STEPS`` steps, a checkpoint at step
+    ``TRAIN_FAMILY_CKPT``): the loss is finite and falls, and a second
+    launch resumes from the checkpoint and reruns the steps after it
+    with the first launch's losses (the first bit for bit, the rest
+    within ``RESUME_RTOL``). qwen2-moe-a2.7b at full
+    width and ``MOE_TRAIN_LAYERS`` layers through
+    ``train_loop.make_train_step`` (B=2, S=512, ``MOE_TRAIN_STEPS``
+    steps, no checkpoint): the loss is finite and falls, both aux terms
+    are finite, and every layer's router gets a non-zero gradient. Both
+    print ms a step and peak memory; neither launches the forward-only
+    flash kernel."""
+    import dataclasses
+    import math
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+
+    cfg = get_config("internvl2-1b")
+    launch_and_resume(
+        "train-vlm", cfg, f"B=4, S=1024 + {cfg.n_patches} patches",
+        ["--batch", "4", "--seq", "1024", "--steps",
+         str(TRAIN_FAMILY_STEPS), "--lr", str(TRAIN_FAMILY_LR)],
+        TRAIN_FAMILY_CKPT)
 
     mcfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
                                n_layers=MOE_TRAIN_LAYERS)
@@ -4478,6 +4570,8 @@ def adaptive_family(arch):
     tag = f"adaptive {arch}"
     reqs, make, driver = family_serving(arch)
     cfg = dataclasses.replace(get_config(arch), attn_impl="cuda")
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, n_layers=MOE_SERVE_LAYERS)
     L = cfg.n_layers
     params = bridge.init_params(cfg, seed=0, device="cuda")
     inf = dataclasses.replace(cfg, early_exit=True)
@@ -4740,6 +4834,306 @@ def phase_hybrid():
     return {k: launches[k] for k in ("paged_attention", "flash_prefill")}
 
 
+def whisper_requests(cfg, n=16, seed=5):
+    """n audio requests (numpy seed ``seed``): a prompt of 4 to
+    ``WHISPER_PROMPT`` random tokens, ``WHISPER_NEW`` new tokens, and
+    ``n_frames`` standard-normal frame embeddings (the stub frontend's
+    output, as ``SyntheticLM`` draws them). Returns [(prompt (1, L),
+    max_new, frames (1, n_frames, d_model))]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        n_tok = int(rng.integers(4, WHISPER_PROMPT + 1))
+        out.append((rng.integers(2, cfg.vocab, (1, n_tok)).astype(np.int32),
+                    WHISPER_NEW, rng.standard_normal(
+                        (1, cfg.n_frames, cfg.d_model)).astype(np.float32)))
+    return out
+
+
+def make_whisper_scheduler(params, cfg, loop=None):
+    """The audio family's pool: one-shot admission (the only mode it
+    takes), 8 slots, prompts of up to ``WHISPER_PROMPT`` tokens bucketed
+    to powers of two, ``WHISPER_NEW`` new at most, the paged self cache
+    in blocks of 16 (the cross K/V dense, one row a slot)."""
+    from repro_torch.serve import scheduler as sched_lib
+    return sched_lib.DecodeScheduler(
+        params, cfg, n_slots=8, prompt_len=WHISPER_PROMPT,
+        max_new_cap=WHISPER_NEW, eos_id=-1, kv="paged", kv_block=16,
+        prefill="oneshot", loop=loop)
+
+
+def encdec_decode_bytes(cfg, slots, positions):
+    """Bytes a decode iteration of the encoder-decoder must move at
+    ``slots`` rows with ``positions`` cached self-attention positions in
+    all, in bf16: every decoder layer's weights that a decode reads (the
+    self-attention's four projections, the cross-attention's query and
+    output ones: its K/V are cached, the MLP with its biases, the norms),
+    the tied unembedding, every slot's cross K/V (``n_frames`` positions
+    a layer) and the self K/V of the cached positions. Returns (total,
+    parts)."""
+    D, L, F = cfg.d_model, cfg.n_layers, cfg.n_frames
+    hh = cfg.n_heads * cfg.resolved_head_dim
+    kvw = cfg.n_kv_heads * cfg.resolved_head_dim
+    layer = (4 * D * hh + 2 * D * hh + 2 * D * cfg.d_ff + cfg.d_ff + D
+             + 6 * D)
+    parts = {"decoder weights": L * layer * 2,
+             "unembed": cfg.padded_vocab * D * 2,
+             "cross k/v": slots * L * F * 2 * kvw * 2,
+             "self k/v": positions * L * 2 * kvw * 2}
+    return sum(parts.values()), parts
+
+
+def whisper_admission_ms(params, cfg, reqs):
+    """One one-shot prefill of ``reqs`` (8 requests, right-padded to
+    their bucket, with their frames: what an admission runs) into a
+    paged cache, under the profiler: the device ms of its kernels, the
+    share of them in the encoder's call (its own profiled run), and the
+    wall ms of the call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import encdec
+    from repro_torch.serve import engine
+    longest = max(p.shape[1] for p, _, _ in reqs)
+    width = min(1 << (longest - 1).bit_length(), WHISPER_PROMPT)
+    toks = np.zeros((len(reqs), width), np.int32)
+    for i, (p, _, _) in enumerate(reqs):
+        toks[i, :p.shape[1]] = p[0]
+    tokens = torch.from_numpy(toks).to("cuda", torch.long)
+    frames = torch.from_numpy(np.concatenate([f for _, _, f in reqs])).to(
+        "cuda")
+    B = len(reqs)
+    cache = engine.make_cache(cfg, B, width + 1, kv_impl="paged",
+                              kv_block=16, device="cuda")
+    cache["self"].alloc(torch.arange(B, device="cuda"),
+                        torch.full((B,), width + 1, device="cuda"))
+
+    def device_ms(fn):
+        fn()                                        # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = sum(r.self_device_time_total for r in prof.key_averages()
+                  if r.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        return dev, wall
+
+    dev, wall = device_ms(lambda: engine.prefill(params, cfg, tokens, cache,
+                                                 frames=frames))
+    enc, _ = device_ms(lambda: encdec.encode(params, cfg, frames))
+    return dev, enc, wall, width
+
+
+def phase_whisper_serve():
+    """whisper-small at full width (12 encoder and 12 decoder layers,
+    d_model 768, 12 heads of 64, vocab 51865, 1500 stub frames; bf16,
+    random weights and frames from a seed, ``attn_impl="cuda"``) through
+    one-shot admission: 16 requests of 4-192 tokens, 128 new each, EOS
+    -1, graph and host-read segments in turns (``serve_in_turns``).
+    Gates: every request finishes, one host read a graph segment,
+    ``paged_attention`` launches equal across lowerings at 12 a decode
+    iteration, no gather on the self cache. Prints tok/s each way and
+    the device-busy share, an admission's device ms (and the encoder's
+    part), and a decode-only segment's device ms an iteration beside its
+    bytes bound (``encdec_decode_bytes``). Returns the launches of the
+    first graph run."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("whisper-small"), attn_impl="cuda")
+    t0 = time.perf_counter()
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in torch.utils._pytree.tree_leaves(params))
+    log(f"[whisper] {cfg.name}: {cfg.encoder_layers} encoder and "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim},"
+        f" d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_frames} frames; "
+        f"weights {nbytes / 1e9:.3f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = whisper_requests(cfg)
+    launches, runs = serve_in_turns(
+        "whisper", cfg, lambda loop: make_whisper_scheduler(params, cfg,
+                                                            loop),
+        reqs, admissions=True, profile=False)
+    for run in runs:
+        pa = run["launches"]["paged_attention"]
+        if pa != cfg.n_layers * run["decodes"] or run["launches"]["gather"]:
+            raise AssertionError(
+                f"whisper {run['loop']}: paged_attention {pa} for "
+                f"{run['decodes']} decode iterations of {cfg.n_layers} "
+                f"layers; gather {run['launches']['gather']}")
+    g = runs[0]
+    busy = [r["seg_ms"] / 1e3 / r["wall"] for r in runs if "seg_ms" in r]
+    adm = [a * 1e3 for r in runs for a in r["admissions"]]
+    log(f"[whisper] {card_label()}: {cfg.name} bf16, {g['attn_impl']} / "
+        f"{g['prefill_impl']}, one-shot, 8 slots: graph "
+        f"{runs[0]['tok_s']:.1f}, {runs[3]['tok_s']:.1f} tok/s (device busy "
+        f"in segments {', '.join(f'{b:.3f}' for b in busy)} of the wall); "
+        f"host-read {runs[1]['tok_s']:.1f}, {runs[2]['tok_s']:.1f}; "
+        f"paged_attention {g['launches']['paged_attention']} launches = "
+        f"{cfg.n_layers} x {g['decodes']} decode iterations; admissions "
+        f"(wall, synchronised) {min(adm):.1f}-{max(adm):.1f} ms")
+    sched = make_whisper_scheduler(params, cfg)
+    sched.warmup()
+    ms = decode_only_ms(sched, reqs[:8], prefill_iters=4)
+    sched.close()
+    # the timed segment's middle: 4 + 16 tokens past each prompt
+    positions = sum(p.shape[1] + 20 for p, _, _ in reqs[:8])
+    total, parts = encdec_decode_bytes(cfg, 8, positions)
+    bound_ms = total / HBM_BYTES_PER_S * 1e3
+    adm_dev, enc_dev, adm_wall, width = whisper_admission_ms(params, cfg,
+                                                            reqs[:8])
+    log(f"[whisper] {card_label()}: decode-only iteration at 8 running "
+        f"slots {ms:.3f} device ms (graph segment, CUDA events); bytes "
+        f"bound {bound_ms:.3f} ms ({total / 1e9:.3f} GB: "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
+        + f" GB; predicted 3-5 ms); ms/bound {ms / bound_ms:.2f}; an "
+        f"admission of 8 requests (bucket {width}, {cfg.n_frames} frames "
+        f"each): device {adm_dev:.2f} ms (profiled kernels), of which the "
+        f"encoder's call {enc_dev:.2f} ms; wall {adm_wall:.2f} ms")
+    del params
+    return {k: launches[k] for k in ("paged_attention", "flash_prefill")}
+
+
+def phase_whisper_parity():
+    """whisper-small at full width and ``WHISPER_PARITY_LAYERS`` encoder
+    and decoder layers in fp32: 8 of the serving requests through the
+    kernel path in graph and host-read segments and the gather path give
+    one set of greedy streams; then ``engine.prefill_chunk`` over a
+    paged cache, through the flash-prefill kernel in chunks of
+    ``WHISPER_CHUNK`` against the cross K/V a one-shot prefill returned,
+    gives the one-shot prefill's logits within LOGIT_TOL at every
+    position of 4 rows of ``WHISPER_PROMPT`` tokens, one kernel launch a
+    layer a chunk."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import kernel as fp_kernel
+    from repro_torch.serve import engine
+
+    fcfg = dataclasses.replace(get_config("whisper-small"),
+                               compute_dtype="float32",
+                               n_layers=WHISPER_PARITY_LAYERS,
+                               encoder_layers=WHISPER_PARITY_LAYERS)
+    fparams = bridge.init_params(fcfg, seed=0, device="cuda")
+    reqs = whisper_requests(fcfg)[:8]
+    kern = dataclasses.replace(fcfg, attn_impl="cuda")
+    runs = parity_runs(
+        "whisper-parity",
+        lambda c, loop: make_whisper_scheduler(fparams, c, loop), reqs,
+        [("cuda-graph", kern, None), ("cuda-host-read", kern, "host"),
+         ("gather-graph", dataclasses.replace(fcfg, attn_impl="gather"),
+          None)])
+    same_streams("whisper-parity", runs, "cuda-graph", "cuda-host-read",
+                 "graph and host-read segments")
+    same_streams("whisper-parity", runs, "cuda-graph", "gather-graph",
+                 "the paged kernel and the gather path")
+
+    B, S, C = 4, WHISPER_PROMPT, WHISPER_CHUNK
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(2, fcfg.vocab, (B, S))).to(
+        "cuda", torch.long)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, fcfg.n_frames, fcfg.d_model)).astype(np.float32)).to("cuda")
+
+    def paged():
+        cache = engine.make_cache(kern, B, S + 1, kv_impl="paged",
+                                  kv_block=16, device="cuda")
+        cache["self"].alloc(torch.arange(B, device="cuda"),
+                            torch.full((B,), S + 1, device="cuda"))
+        return cache
+
+    ref, fresh = engine.prefill(fparams, kern, tokens, paged(),
+                                frames=frames)
+    cache = paged()
+    cache["cross"] = fresh["cross"]
+    got = torch.empty_like(ref)
+    fp_kernel.flash_prefill.launches = 0
+    for off in range(0, S, C):
+        got[:, off:off + C] = engine.prefill_chunk(
+            fparams, kern, tokens, cache,
+            torch.full((B,), off, dtype=torch.int32, device="cuda"),
+            chunk=C, mask=torch.ones(B, dtype=torch.bool, device="cuda"))
+    n_launch = fp_kernel.flash_prefill.launches
+    err = (got - ref).abs().max().item()
+    ok = torch.allclose(got, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    log(f"[whisper-parity] prefill_chunk (flash_prefill, {B} rows, chunks "
+        f"of {C}) against the one-shot prefill, fp32: max |logits diff| "
+        f"{err:.3e} over {B} x {S} positions (tol {LOGIT_TOL:g}); "
+        f"flash_prefill launches {n_launch}")
+    if not ok or n_launch != fcfg.n_layers * (S // C):
+        raise AssertionError("whisper-parity: the chunked prefill does not "
+                             "give the one-shot prefill's logits through "
+                             "the kernel")
+    del fparams, fresh, cache
+
+
+def phase_train_whisper_zamba():
+    """Training the audio family and the hybrid at full width through
+    ``launch.train.main`` (fp32 masters, bf16 compute). whisper-small
+    (``launch_and_resume``): B=8, S=448 (its ``max_target_len``) behind
+    1500 stub frames a row, lr ``WHISPER_TRAIN_LR``,
+    ``WHISPER_TRAIN_STEPS`` steps, a checkpoint at
+    ``WHISPER_TRAIN_CKPT``: the loss finite and falling, the resume
+    exact. zamba2-1.2b (38 layers, ``remat="full"``, the shared block
+    outside the remat as in the JAX package): B=``ZAMBA_TRAIN_BATCH``,
+    S=2048, lr ``TRAIN_FAMILY_LR``, ``ZAMBA_TRAIN_STEPS`` steps: the loss
+    finite and falling (the mean of the last 3 below the first 3's).
+    Both print ms a step and peak memory."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_zoo
+
+    cfg = get_config("whisper-small")
+    launch_and_resume(
+        "train-whisper", cfg,
+        f"B=8, S={cfg.max_target_len} behind {cfg.n_frames} frames",
+        ["--batch", "8", "--seq", str(cfg.max_target_len), "--steps",
+         str(WHISPER_TRAIN_STEPS), "--lr", str(WHISPER_TRAIN_LR)],
+        WHISPER_TRAIN_CKPT)
+
+    zcfg = get_config("zamba2-1.2b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = launch_train.main(
+        ["--arch", zcfg.name, "--batch", str(ZAMBA_TRAIN_BATCH), "--seq",
+         "2048", "--steps", str(ZAMBA_TRAIN_STEPS), "--lr",
+         str(TRAIN_FAMILY_LR)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["trainer"].history
+    losses = [h[1] for h in hist]
+    step_ms = [h[2] * 1e3 for h in hist]
+    a, b = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    log(f"[train-hybrid] {card_label()}: {zcfg.name} "
+        f"({model_zoo.count_params(zcfg) / 1e9:.3f}B params, "
+        f"{zcfg.n_layers} layers, remat {zcfg.remat}) fp32 masters, bf16 "
+        f"compute, B={ZAMBA_TRAIN_BATCH}, S=2048: {len(losses)} steps in "
+        f"{wall:.1f} s; ms a step median "
+        f"{statistics.median(step_ms[1:]):.1f} (first {step_ms[0]:.1f}); "
+        f"peak memory {peak / 2**30:.2f} GiB; losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; mean of the first 3 {a:.5f}, of the last 3 {b:.5f}")
+    if not all(math.isfinite(x) for x in losses) or not b < a:
+        raise AssertionError("train-hybrid: the loss is not finite or does "
+                             "not fall")
+    del out
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels-only"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
@@ -4803,6 +5197,10 @@ def main() -> int:
     timed(phase_ssm_parity)
     free_device_memory("the hybrid phase")
     paths["zamba2-1.2b"] = timed(phase_hybrid)
+    free_device_memory("the audio serving phase")
+    paths["whisper-small"] = timed(phase_whisper_serve)
+    free_device_memory("the audio parity phase")
+    timed(phase_whisper_parity)
     free_device_memory("the LSTM phases")
     records.append(timed(phase_lstm_kernel))
     launches["lstm_cell"] = timed(phase_dynamic_rnn)
@@ -4817,6 +5215,8 @@ def main() -> int:
     timed(phase_train)
     free_device_memory("the MoE and VLM training phase")
     timed(phase_train_families)
+    free_device_memory("the audio and hybrid training phase")
+    timed(phase_train_whisper_zamba)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] in ("paged_attention", "flash_prefill"):

@@ -9,8 +9,10 @@ mamba conv) are cast to ``cfg.compute_dtype`` ONCE, here. The JAX
 package casts them at every use (``transformer.attn_apply``,
 ``layers.swiglu``, the engine's embedding lookups), which in eager
 PyTorch would copy every weight on every step. Leaves the JAX package
-reads in fp32 stay in ``cfg.param_dtype``: the norm weights (``ln``,
-``ln_*``), the routers (the MoE family's ``layers.moe.router``, which
+reads in fp32 stay in ``cfg.param_dtype``: the norms' weights and
+biases (``ln``, ``ln_*``; the audio family's ``ln1``-``ln3``, ``enc_ln``
+and their ``_b`` biases, which ``layers.layer_norm`` reads in fp32),
+the routers (the MoE family's ``layers.moe.router``, which
 the JAX package casts to fp32 at use, and the mixture-of-depths
 ``layers.router.w``, drawn when ``cfg.mod_capacity > 0``), mamba2's
 ``norm_w`` and the mamba recurrence's ``A_log``, ``dt_bias`` and
@@ -42,12 +44,16 @@ import torch
 
 from . import resolve_device
 from .configs import ModelConfig, require_ported
-from .models import rnn, ssm, transformer
+from .models import model_zoo, rnn, ssm
 from .optim import adamw
 
 
 def _keeps_param_dtype(name: str) -> bool:
-    return name in ("ln", "router") or name.startswith("ln_") or \
+    """Leaves the model reads in the param dtype: every norm's weight and
+    bias (``ln``, ``ln_*``, the audio family's ``ln1``..``ln3``,
+    ``enc_ln`` and their ``_b`` biases), the routers and mamba's
+    recurrence and norm leaves."""
+    return name == "router" or name.startswith(("ln", "enc_ln")) or \
         name in ssm.PARAM_DTYPE_LEAVES + ssm.NORM_LEAVES
 
 
@@ -158,7 +164,7 @@ class _ParamSource:
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 keep_param_dtype: bool = False) -> Dict[str, Any]:
     """Random parameters of the JAX package's shapes and init rules
-    (``transformer.build_params`` over a source that follows
+    (``model_zoo.build_fn(cfg)`` over a source that follows
     ``models/params.py``), drawn from a ``torch.Generator`` seeded with
     ``seed``. The numbers differ from the JAX package's draws.
 
@@ -178,7 +184,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     require_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return transformer.build_params(
+    return model_zoo.build_fn(cfg)(
         cfg, _ParamSource(cfg, gen, device, keep_param_dtype))
 
 

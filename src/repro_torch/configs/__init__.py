@@ -17,9 +17,11 @@ Ported so far: the dense family (smollm-135m, llama3.2-1b, olmo-1b,
 qwen2-7b), the pure-SSM mamba1 family (falcon-mamba-7b), the MoE family
 (qwen2-moe-a2.7b, dbrx-132b), the VLM family (internvl2-1b, whose
 vision tower is a stub in the JAX package too: patch embeddings are
-inputs) and the hybrid family (zamba2-1.2b: mamba2 under one shared
-attention block; served, its training not yet ported). The audio
-family waits for its slice (ROADMAP.md).
+inputs), the hybrid family (zamba2-1.2b: mamba2 under one shared
+attention block) and the audio family (whisper-small: an
+encoder-decoder whose conv frontend is a stub in the JAX package too:
+frame embeddings are inputs). Every family of the JAX package is
+ported.
 """
 
 from __future__ import annotations
@@ -119,7 +121,7 @@ class ModelConfig:
 
 ARCH_IDS = ("olmo-1b", "smollm-135m", "qwen2-7b", "llama3.2-1b",
             "falcon-mamba-7b", "qwen2-moe-a2.7b", "dbrx-132b",
-            "internvl2-1b", "zamba2-1.2b")
+            "internvl2-1b", "zamba2-1.2b", "whisper-small")
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -131,16 +133,14 @@ _MODULES = {
     "dbrx-132b": "dbrx_132b",
     "internvl2-1b": "internvl2_1b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "whisper-small": "whisper_small",
 }
-
-_NOT_PORTED = ("whisper-small",)
-
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for a config whose model family the port does not run:
-    anything but dense, MoE, VLM, pure-SSM mamba1 and the mamba2 hybrid
-    (audio waits for the encoder-decoder slice)."""
-    if cfg.family in ("dense", "moe", "vlm"):
+    anything but dense, MoE, VLM, audio, pure-SSM mamba1 and the mamba2
+    hybrid."""
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         return
     if cfg.family == "ssm" and cfg.ssm is not None and \
             cfg.ssm.kind == "mamba1":
@@ -153,10 +153,6 @@ def require_ported(cfg: ModelConfig) -> None:
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} belongs to a model family the PyTorch port has not "
-            f"reached yet; see ROADMAP.md")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

@@ -5,7 +5,7 @@ Port of ``repro/data/pipeline.py`` (numpy only, copied). The batch for
 host replays the exact token stream from its checkpoint's step, and
 ``SyntheticLM`` gives the JAX package's batches bit for bit, its
 ``patches`` (a VLM's patch embeddings) and ``frames`` (an audio
-model's, a shape only until that family is ported) included.
+model's frame embeddings, which its encoder reads) included.
 Prefetch is a double-buffered background thread. Batches are numpy
 arrays; the train step moves them to the device.
 """

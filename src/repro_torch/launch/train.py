@@ -11,19 +11,22 @@ Port of ``repro/launch/train.py`` on one card:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen2-moe-a2.7b --smoke --steps 12 --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch whisper-small --batch 8 --seq 448 --steps 8
+
 It wires the configs, the fp32 master weights (random, from seed 0,
 ``bridge.init_params(..., keep_param_dtype=True)``), AdamW with a
 warmup-cosine schedule, the ``SyntheticLM`` stream (with a VLM's
-``patches``, standard-normal stand-ins for the stub vision tower's
-patch embeddings, as in the JAX package), the train step and
-the ``Trainer`` (async checkpoints with auto-resume, the straggler
-watchdog, SIGTERM-safe exit). The config's ``attn_impl`` stays as the
+``patches`` and the audio family's ``frames``, standard-normal
+stand-ins for the stub vision tower's patch embeddings and the stub
+audio frontend's frame embeddings, as in the JAX package), the train
+step and the ``Trainer`` (async checkpoints with auto-resume, the
+straggler watchdog, SIGTERM-safe exit). The config's ``attn_impl`` stays as the
 config gives it: training attends through ``chunked_attention``
 (``attn_impl="gather"``, every config's default); under
 ``attn_impl="cuda"`` a step stops at the forward-only flash kernel's
-refusal. The MoE family's metrics carry its two aux losses. The
-hybrid's training is not ported yet and is refused, as is ``--mesh``
-(multi-device). Runs on the card;
+refusal. The MoE family's metrics carry its two aux losses. Every
+family trains; ``--mesh`` (multi-device) is refused. Runs on the card;
 ``--device cpu`` runs the plain versions of the kernels.
 """
 
@@ -74,12 +77,6 @@ def main(argv=None):
             "ROADMAP.md (this port trains on one card)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family in ("hybrid", "audio"):
-        # the hybrid's forward is ported, its train step is not held to
-        # the JAX package's yet; the audio family is not ported
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family through launch.train is "
-            f"not ported yet; see ROADMAP.md")
     if args.grad_accum:
         cfg = dataclasses.replace(cfg, grad_accum=args.grad_accum)
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -94,6 +91,8 @@ def main(argv=None):
             max(args.steps // 20, 1), args.steps))
     opt_state = adamw.init(params)
     data = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=0,
+                       frames=((cfg.n_frames, cfg.d_model)
+                               if cfg.family == "audio" else None),
                        patches=((cfg.n_patches, cfg.d_model)
                                 if cfg.family == "vlm" else None))
 

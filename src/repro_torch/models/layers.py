@@ -1,9 +1,13 @@
-"""Shared building blocks: norms, RoPE, the SwiGLU MLP.
+"""Shared building blocks: norms, RoPE, sinusoidal positions, the
+SwiGLU and GELU MLPs.
 
 Port of ``repro/models/layers.py``. Same arithmetic: norms run in fp32
 and cast back; RoPE uses the JAX package's frequency formula
 ``exp(-log(theta) * i / half)``, not ``theta ** (-i / half)``, whose
-fp32 rounding differs enough to break fp32 parity.
+fp32 rounding differs enough to break fp32 parity; sinusoids divide the
+fp32 position by ``10000 ** (2 i / d)`` and cast last, as the JAX
+package does; the GELU is the tanh approximation
+(``jax.nn.gelu(approximate=True)``), not the erf form.
 """
 
 from __future__ import annotations
@@ -74,3 +78,41 @@ def swiglu(x, w_gate, w_up, w_down, compute_dtype):
     are already in ``compute_dtype`` (cast once at load)."""
     x = x.to(compute_dtype)
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_inv(d: int, device: torch.device):
+    """``10000 ** (2 i / d)`` for i < d / 2, the fp32 exponent as the
+    JAX package forms it, the power taken in fp64 and rounded once to
+    fp32; once per (width, device), so that a decode step inside a
+    captured segment copies nothing to the device."""
+    expo = 2 * torch.arange(d // 2, dtype=torch.float32) / d
+    return torch.pow(torch.tensor(10000.0, dtype=torch.float64),
+                     expo.double()).float().to(device)
+
+
+def sinusoidal_positions(n: int, d: int, dtype=torch.float32,
+                         device="cpu"):
+    """(n, d) sinusoidal embeddings of positions ``[0, n)``: sines then
+    cosines, computed in fp32 and cast to ``dtype``."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    angle = pos / _sinusoid_inv(d, torch.device(device))[None, :]
+    return torch.cat([torch.sin(angle), torch.cos(angle)],
+                     dim=-1).to(dtype)
+
+
+def sinusoid_at(pos, d: int, dtype=torch.float32):
+    """Sinusoidal embedding at position(s) ``pos``, an integer tensor: a
+    scalar gives (d,), a (B,) vector (per-slot decode positions) (B, d),
+    any shape ``pos.shape + (d,)``."""
+    angle = pos.float()[..., None] / _sinusoid_inv(d, pos.device)
+    return torch.cat([torch.sin(angle), torch.cos(angle)],
+                     dim=-1).to(dtype)
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out, compute_dtype):
+    """GELU MLP with biases: gelu_tanh(x @ w_in + b_in) @ w_out + b_out.
+    The weights are already in ``compute_dtype`` (cast once at load)."""
+    x = x.to(compute_dtype)
+    h = F.gelu(x @ w_in + b_in, approximate="tanh")
+    return h @ w_out + b_out

@@ -1,15 +1,16 @@
-"""Unified model entry for the ported families: forward, features, the
-loss and the parameter count.
+"""Unified model entry for every family: the parameter builder,
+forward, features, the loss and the parameter count.
 
-Port of ``repro/models/model_zoo.py`` (``forward``, ``features``,
-``cross_entropy``, ``_chunked_ce``, ``loss_fn``, ``count_params``,
-``count_active_params``) for the dense, MoE, VLM, pure-SSM and hybrid
-families; the audio encoder-decoder waits for its slice (ROADMAP.md).
-``batch`` is a dict of tensors: ``tokens`` (B, S), for a VLM
-``patches`` (B, n_patches, d_model), the patch embeddings in front of
-the tokens, and for the loss ``labels`` (B, S); labels outside ``[0,
-vocab)`` are masked. The loss adds the MoE auxiliary terms with
-``MOE_AUX_WEIGHTS``.
+Port of ``repro/models/model_zoo.py`` (``build_fn``, ``forward``,
+``features``, ``cross_entropy``, ``_chunked_ce``, ``loss_fn``,
+``count_params``, ``count_active_params``) for the dense, MoE, VLM,
+pure-SSM, hybrid and audio families. ``batch`` is a dict of tensors:
+``tokens`` (B, S), for a VLM ``patches`` (B, n_patches, d_model), the
+patch embeddings in front of the tokens, for the audio family
+``frames`` (B, n_frames, d_model), the stub frontend's frame
+embeddings that the encoder reads, and for the loss ``labels`` (B, S);
+labels outside ``[0, vocab)`` are masked. The loss adds the MoE
+auxiliary terms with ``MOE_AUX_WEIGHTS``.
 """
 
 from __future__ import annotations
@@ -21,10 +22,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig, require_ported
-from . import transformer
+from . import encdec, transformer
 
 CE_CHUNK = 512
 MOE_AUX_WEIGHTS = {"moe_load_balance": 1e-2, "moe_z_loss": 1e-3}
+
+
+def build_fn(cfg: ModelConfig):
+    """The family's parameter builder, ``fn(cfg, b)`` over a parameter
+    source ``b`` (``bridge.init_params``)."""
+    return (encdec.build_params if cfg.family == "audio"
+            else transformer.build_params)
 
 
 def _prefix(cfg: ModelConfig, batch: Dict):
@@ -36,6 +44,8 @@ def forward(params, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor,
     """Full-sequence logits (B, S, padded_vocab) (a VLM's S counts its
     patches) and the aux dict (the MoE losses; empty otherwise)."""
     require_ported(cfg)
+    if cfg.family == "audio":
+        return encdec.forward(params, cfg, batch["tokens"], batch["frames"])
     return transformer.forward(params, cfg, batch["tokens"],
                                prefix_embeds=_prefix(cfg, batch))
 
@@ -43,6 +53,9 @@ def forward(params, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor,
 def features(params, cfg: ModelConfig, batch: Dict):
     """Backbone + final norm, no unembed; returns (features, aux)."""
     require_ported(cfg)
+    if cfg.family == "audio":
+        return encdec.forward_features(params, cfg, batch["tokens"],
+                                       batch["frames"])
     return transformer.forward_features(params, cfg, batch["tokens"],
                                         prefix_embeds=_prefix(cfg, batch))
 
@@ -127,7 +140,7 @@ class _ShapeSource:
 
 def count_params(cfg: ModelConfig) -> int:
     require_ported(cfg)
-    tree = transformer.build_params(cfg, _ShapeSource())
+    tree = build_fn(cfg)(cfg, _ShapeSource())
 
     def count(t):
         if isinstance(t, dict):

@@ -102,12 +102,19 @@ def mlp_params(b, cfg, d_model: int, d_ff: int):
             "w_down": b.p((d_ff, d_model), fan_in=d_ff)}
 
 
-def _norm_params(b, kind: str, d: int, name: str):
+def norm_params(b, kind: str, d: int, name: str):
+    """A norm's parameters: ``name`` (ones) for rmsnorm, ``name`` and
+    its bias ``name + "_b"`` (zeros) for layernorm, none for OLMo's
+    non-parametric norm; drawn in the param dtype, which the norms read
+    them in."""
     if kind == "rmsnorm":
         return {name: b.p((d,), init="ones")}
+    if kind == "layernorm":
+        return {name: b.p((d,), init="ones"),
+                name + "_b": b.p((d,), init="zeros", param_dtype=True)}
     if kind == "nonparametric_ln":
         return {}
-    raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    raise ValueError(kind)
 
 
 class _Stacked:
@@ -123,9 +130,9 @@ class _Stacked:
 
 def _attn_block_params(b, cfg):
     D = cfg.d_model
-    p = {**_norm_params(b, cfg.norm, D, "ln_attn"),
+    p = {**norm_params(b, cfg.norm, D, "ln_attn"),
          "attn": attn_params(b, cfg, D),
-         **_norm_params(b, cfg.norm, D, "ln_mlp")}
+         **norm_params(b, cfg.norm, D, "ln_mlp")}
     if cfg.family == "moe":
         p["moe"] = moe_lib.moe_params(b, cfg, D)
     else:
@@ -138,7 +145,7 @@ def _attn_block_params(b, cfg):
 def _ssm_block_params(b, cfg):
     mixer = (ssm_lib.mamba1_params if cfg.ssm.kind == "mamba1"
              else ssm_lib.mamba2_params)
-    return {**_norm_params(b, cfg.norm, cfg.d_model, "ln"),
+    return {**norm_params(b, cfg.norm, cfg.d_model, "ln"),
             "ssm": mixer(b, cfg)}
 
 
@@ -157,7 +164,7 @@ def build_params(cfg, b):
         layers_p = _attn_block_params(lb, cfg)
     p = {"embed": b.p((cfg.padded_vocab, D), init="normal", scale=0.02),
          "layers": layers_p, **shared,
-         **_norm_params(b, cfg.norm, D, "ln_final")}
+         **norm_params(b, cfg.norm, D, "ln_final")}
     if not cfg.tie_embeddings:
         p["unembed"] = b.p((D, cfg.padded_vocab), init="normal",
                            scale=0.02)
@@ -435,7 +442,12 @@ def ssm_block(p, x, cfg, *, mode="full", state=None):
 
 
 def unembed_weight(params, cfg):
-    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    """The output projection (d_model, padded_vocab): the tied embedding
+    (always, for the audio family, whose tree has no ``unembed``) or
+    ``unembed``."""
+    if cfg.tie_embeddings or cfg.family == "audio":
+        return params["embed"].T
+    return params["unembed"]
 
 
 # =========================== layer loops ====================================

@@ -1,6 +1,6 @@
-"""Serving engine, dense, MoE, VLM, pure-SSM and hybrid families: caches,
-prefill, chunked prefill, single-token decode, the speculative verify
-window, and the batch-synchronous generation loop.
+"""Serving engine, every family (dense, MoE, VLM, pure-SSM, hybrid and
+audio): caches, prefill, chunked prefill, single-token decode, the
+speculative verify window, and the batch-synchronous generation loop.
 
 Port of ``repro/serve/engine.py``. Self-attention K/V lives behind the
 ``serve.kv_cache`` API: ``make_cache`` builds ``{"attn": KVCache}`` for
@@ -12,15 +12,23 @@ dim first and the batch dim at axis 1 of every leaf, the invariant the
 scheduler's admission splice relies on. The hybrid's cache holds both:
 ``attn`` with one layer per application of its shared block
 (``ceil(n_layers / shared_attn_every)``), and the mamba2 ``ssm`` state;
-it prefills one-shot only and never verifies, as in the JAX package. A
-VLM request's patch embeddings (``prefix_embeds``) occupy stream
+it prefills one-shot only and never verifies, as in the JAX package.
+The audio family's cache is ``{"self": KVCache, "cross": {"k", "v"}}``:
+the decoder's self-attention K/V behind the ``KVCache`` API (one layer
+per decoder layer), and the cross-attention K/V of the encoder output,
+``(L, batch, n_frames, KV, hd)`` with the batch dim at axis 1, which
+``prefill`` returns fresh for the caller to splice and every decode
+step reads through the plain path (``kv_cache.CrossView``). A VLM
+request's patch embeddings (``prefix_embeds``) occupy stream
 positions ``[0, n_patches)`` ahead of its tokens, in ``prefill`` and
 ``prefill_chunk`` alike. The caches are updated in
 place, so the decode and chunk steps return logits only; ``prefill``
 also returns the SSM state it computed, fresh, for the caller to splice.
 
 ``decode_step`` accepts an int ``cur_len`` (whole batch in lockstep) or
-a per-row ``(B,)`` int32 tensor (slot pool at mixed depths). With
+a per-row ``(B,)`` int32 tensor (slot pool at mixed depths); the audio
+family adds the sinusoid of each row's position, computed on the device
+from ``cur_len``. With
 adaptive depth (``models.adaptive``) it runs
 ``transformer.decode_layers`` and can return each row's depth.
 """
@@ -35,7 +43,7 @@ import torch
 from .. import resolve_device
 from ..configs import ModelConfig, require_ported
 from ..kernels import ARCH_TAG
-from ..models import adaptive, layers, ssm as ssm_lib, transformer
+from ..models import adaptive, encdec, layers, ssm as ssm_lib, transformer
 from . import kv_cache as kvc
 from . import sampling as sampling_lib
 
@@ -50,6 +58,15 @@ def _ssm_struct(cfg: ModelConfig, batch: int, device) -> Dict[str, Any]:
             for k, v in one.items()}
 
 
+def _cross_struct(cfg: ModelConfig, batch: int, device) -> Dict[str, Any]:
+    """Zeroed cross-attention K/V of every decoder layer, ``{"k", "v"}``
+    each (L, batch, n_frames, KV, hd) in the compute dtype."""
+    shape = (cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {k: torch.zeros(shape, dtype=cfg.dtype("compute"), device=device)
+            for k in ("k", "v")}
+
+
 # the attention-decoder families: one KVCache, decode/verify/chunk modes
 ATTN_FAMILIES = ("dense", "moe", "vlm")
 
@@ -58,7 +75,7 @@ def kv_key(cfg: ModelConfig) -> Optional[str]:
     """Cache-dict key of the family's self-attention ``KVCache`` (None
     for pure-SSM families, which have no attention K/V)."""
     return {"dense": "attn", "moe": "attn", "vlm": "attn",
-            "hybrid": "attn", "ssm": None}[cfg.family]
+            "hybrid": "attn", "audio": "self", "ssm": None}[cfg.family]
 
 
 def _attn_layer_count(cfg: ModelConfig) -> int:
@@ -74,7 +91,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                kv_blocks: Optional[int] = None, kv_sharing: bool = False,
                device="cuda") -> Dict[str, Any]:
     """``{"attn": KVCache}`` for the attention-decoder families,
-    ``{"ssm": {"conv", "h"}}`` for pure SSM, both for the hybrid.
+    ``{"ssm": {"conv", "h"}}`` for pure SSM, both for the hybrid,
+    ``{"self": KVCache, "cross": {"k", "v"}}`` for the audio family.
     ``kv_impl`` selects the K/V layout ("dense" | "paged"),
     ``kv_block``/``kv_blocks`` size the paged pool (``kv_blocks=None``:
     dense-equivalent capacity), ``kv_sharing`` lets its rows share
@@ -83,8 +101,10 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     out = {}
     if cfg.family in ("ssm", "hybrid"):
         out["ssm"] = _ssm_struct(cfg, batch, resolve_device(device))
+    if cfg.family == "audio":
+        out["cross"] = _cross_struct(cfg, batch, resolve_device(device))
     if kv_key(cfg) is not None:
-        out["attn"] = kvc.make_kv_cache(
+        out[kv_key(cfg)] = kvc.make_kv_cache(
             cfg, _attn_layer_count(cfg), batch, max_len, impl=kv_impl,
             block=kv_block, n_blocks=kv_blocks, sharing=kv_sharing,
             device=device)
@@ -92,7 +112,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _logits_head(params, cfg: ModelConfig, x):
-    """Final norm + (tied / untied) unembed."""
+    """Final norm + (tied / untied) unembed; the audio family's is its
+    layer norm with bias, then the tied embedding."""
     x = layers.apply_norm(cfg.norm, x, params, "ln_final")
     return x.to(cfg.dtype("compute")) @ transformer.unembed_weight(params,
                                                                    cfg)
@@ -177,6 +198,25 @@ def _decode_hybrid(params, cfg, x, cache, cur_len):
     return x
 
 
+def _decode_audio(params, cfg, x, cache, cur_len):
+    """The audio family's decode step: the sinusoid of each row's
+    position (``cur_len - 1``, on the device), one copy-on-write for the
+    step, then each decoder layer against its self-attention cache
+    layer and its cross K/V."""
+    start = (cur_len - 1) if torch.is_tensor(cur_len) else int(cur_len) - 1
+    pe = layers.sinusoid_at(torch.as_tensor(start, device=x.device),
+                            cfg.d_model, cfg.dtype("compute"))
+    x = x + (pe if pe.dim() == 1 else pe[:, None, :])
+    node = cache["self"].ensure_private(start=start, width=1)
+    cross = cache["cross"]
+    for i, lp in enumerate(transformer.layer_params(params["decoder"])):
+        x = encdec._dec_block(
+            lp, x, cfg, mode="decode", self_kv=node.view(i),
+            cross_kv=kvc.CrossView(cross["k"][i], cross["v"][i]),
+            cur_len=cur_len)
+    return x
+
+
 def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
                 write_mask=None, live=None, with_depth: bool = False):
     """One new token against a cache of ``cur_len - 1`` positions.
@@ -207,6 +247,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
         x = _decode_ssm(params, cfg, x, cache)
     elif cfg.family == "hybrid":
         x = _decode_hybrid(params, cfg, x, cache, cur_len)
+    elif cfg.family == "audio":
+        x = _decode_audio(params, cfg, x, cache, cur_len)
     else:
         x, depth = _decode_attn_families(params, cfg, x, cache, cur_len,
                                          write_mask, live)
@@ -226,10 +268,31 @@ def _prefix_len(cfg: ModelConfig, prefix_embeds) -> int:
                              and prefix_embeds is not None) else 0
 
 
+def _prefill_audio(params, cfg, tokens, cache, frames, rows, mask):
+    """The audio family's one-shot prefill: the encoder over ``frames``,
+    its cross K/V (returned fresh), then the decoder in mode
+    ``prefill``, writing the prompt's self K/V in place at ``rows``."""
+    if frames is None:
+        raise ValueError("the audio family's prefill needs frames "
+                         f"(B, {cfg.n_frames}, {cfg.d_model})")
+    cdt = cfg.dtype("compute")
+    enc_out = encdec.encode(params, cfg, frames)
+    cross = encdec.cross_kv(params, cfg, enc_out)
+    S = tokens.shape[1]
+    x = params["embed"][tokens] + layers.sinusoidal_positions(
+        S, cfg.d_model, cdt, tokens.device)
+    node = cache["self"].ensure_private(rows, start=0, width=S, mask=mask)
+    for i, lp in enumerate(transformer.layer_params(params["decoder"])):
+        x = encdec._dec_block(lp, x, cfg, enc_out, mode="prefill",
+                              self_kv=node.view(i, rows=rows, mask=mask))
+    return _logits_head(params, cfg, x), {"cross": cross}
+
+
 def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
-            mask=None, prefix_embeds=None):
+            mask=None, prefix_embeds=None, frames=None):
     """Prime the cache with a full prompt (one-shot). A VLM's
-    ``prefix_embeds`` (B, n_patches, d_model) go in front of the tokens.
+    ``prefix_embeds`` (B, n_patches, d_model) go in front of the tokens;
+    the audio family's encoder reads ``frames`` (B, n_frames, d_model).
 
     Returns ``(logits (B, S, padded_vocab), fresh)``. ``rows``/``mask``
     bind prompt row ``i`` to cache row ``rows[i]``: attention K/V is
@@ -238,7 +301,12 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
     K-1, Di), "h": (L, B, Di, N)}}`` for the caller to splice along axis
     1 (``fresh`` is ``{}`` for the attention-decoder families). The
     hybrid runs its shared block in prefill mode at each application,
-    writing cache layer ``a``, and returns its mamba2 state fresh."""
+    writing cache layer ``a``, and returns its mamba2 state fresh; the
+    audio family returns its cross K/V fresh, ``{"cross": {"k": (L, B,
+    n_frames, KV, hd), "v": ...}}``."""
+    if cfg.family == "audio":
+        return _prefill_audio(params, cfg, tokens, cache, frames, rows,
+                              mask)
     x = params["embed"][tokens]
     if _prefix_len(cfg, prefix_embeds):
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -288,14 +356,16 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
     prompts: (n, W) int32, the full per-row token buffers (lanes past a
     row's true length are garbage, causally invisible to real queries);
     offsets: (n,) int32 per-row stream offsets; ``mask`` (n,) bool
-    selects the rows that write. Each row embeds positions
+    selects the rows that write. The audio family adds the sinusoid of
+    each position and reads the cross K/V that a one-shot ``prefill``
+    left in ``cache["cross"]``. Each row embeds positions
     ``[offsets[i], offsets[i] + chunk)``, writes their K/V at those
     offsets and attends causally against everything already written;
     through the block table (flash-prefill kernel) when
     ``cfg.attn_impl == "cuda"`` and the cache is paged.
 
     Returns logits (n, chunk, padded_vocab)."""
-    if cfg.family not in ATTN_FAMILIES:
+    if cfg.family not in ATTN_FAMILIES + ("audio",):
         raise ValueError(
             f"chunked prefill requires an attention-family cache; family "
             f"{cfg.family!r} folds its recurrent state through a full-prompt "
@@ -312,8 +382,17 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
                           pos.clamp(0, prefix - 1)[..., None].expand(
                               -1, -1, x.shape[-1]))
         x = torch.where((pos < prefix)[..., None], pe, x)
-    node = cache["attn"].ensure_private(start=offsets, width=chunk,
-                                        mask=mask)
+    node = cache[kv_key(cfg)].ensure_private(start=offsets, width=chunk,
+                                             mask=mask)
+    if cfg.family == "audio":
+        x = x + layers.sinusoid_at(pos, cfg.d_model, x.dtype)
+        cross = cache["cross"]
+        for i, lp in enumerate(transformer.layer_params(params["decoder"])):
+            x = encdec._dec_block(
+                lp, x, cfg, mode="chunk", self_kv=node.view(i, mask=mask),
+                cross_kv=kvc.CrossView(cross["k"][i], cross["v"][i]),
+                chunk_off=offsets)
+        return _logits_head(params, cfg, x)
     for i, lp in enumerate(transformer.layer_params(params["layers"])):
         x = transformer.attn_block(
             lp, x, cfg, positions=pos, mode="chunk",
@@ -427,15 +506,17 @@ def _result_from_tokens(toks, eos_id, steps, attn_impl="",
 
 def generate_batch_sync(params, cfg: ModelConfig, prompt, *, max_new: int,
                         eos_id: int = 1, kv_impl: str = "dense",
-                        kv_block: int = 16,
-                        prefix_embeds=None) -> GenerateResult:
+                        kv_block: int = 16, prefix_embeds=None,
+                        frames=None) -> GenerateResult:
     """Greedy decode with per-sequence EOS early exit, batch-synchronous.
 
     The JAX package runs this loop in-graph (``core.while_loop``). Here
     it is a Python loop over a preallocated output tensor with one host
     read of ``done.all()`` per step: the data-dependent exit is the only
     value the host needs. prompt: (B, S) int on the device to run on;
-    ``prefix_embeds`` (B, n_patches, d_model): a VLM's patch prefix."""
+    ``prefix_embeds`` (B, n_patches, d_model): a VLM's patch prefix;
+    ``frames`` (B, n_frames, d_model): the audio family's encoder
+    input."""
     B, S = prompt.shape
     dev = prompt.device
     prefix = _prefix_len(cfg, prefix_embeds)
@@ -447,7 +528,7 @@ def generate_batch_sync(params, cfg: ModelConfig, prompt, *, max_new: int,
                                  torch.full((B,), max_len, device=dev))
     sp = sampling_lib.SamplingParams()
     logits, fresh = prefill(params, cfg, prompt, cache,
-                            prefix_embeds=prefix_embeds)
+                            prefix_embeds=prefix_embeds, frames=frames)
     cache.update(fresh)
     token = sampling_lib.sample_slots(logits[:, -1], None, sp)[:, None]
     out = torch.zeros((max_new, B), dtype=torch.int32, device=dev)

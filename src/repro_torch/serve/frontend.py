@@ -144,7 +144,8 @@ class StreamingFrontend:
 
     async def stream(self, prompt, *, max_new: int, slo_class="batch",
                      request_id=None, key=None,
-                     prefix_embeds=None) -> AsyncIterator[dict]:
+                     prefix_embeds=None,
+                     frames=None) -> AsyncIterator[dict]:
         """Submit one request and yield its event stream.
 
         Yields ``{"event": "token", "tokens": [...]}`` dicts as the
@@ -152,7 +153,8 @@ class StreamingFrontend:
         notices, and a final ``{"event": "done", ...}``; the generator
         then ends. Pass each dict through :func:`format_sse` for an
         HTTP ``text/event-stream`` response. ``prefix_embeds``: a VLM
-        request's patch embeddings (``DecodeScheduler.submit``).
+        request's patch embeddings; ``frames``: an audio request's frame
+        embeddings (``DecodeScheduler.submit``).
         """
         self._waiting += 1
         self._wake.set()
@@ -164,7 +166,7 @@ class StreamingFrontend:
             rid = self.slo.submit(
                 prompt, max_new=max_new, slo_class=slo_class,
                 request_id=request_id, key=key,
-                prefix_embeds=prefix_embeds)
+                prefix_embeds=prefix_embeds, frames=frames)
             q: asyncio.Queue = asyncio.Queue()
             self._queues[rid] = q
             self._ensure_driver()

@@ -45,6 +45,11 @@ zeroed) and ``import_rows`` scatters such a buffer into another pool's
 allocated rows (columns behind ``-1``, and unmasked rows, land in the
 TRASH block), as the JAX package's do; the dense cache refuses both.
 
+The audio family's cross-attention cache is not a ``KVCache``: plain
+``(L, n_rows, n_frames, KV, hd)`` arrays with the batch dim at axis 1
+(spliced at admission, as the SSM state is), read a layer at a time
+through a ``CrossView`` (a ``DenseView`` without the trash row).
+
 Reads clip unallocated ``-1`` table entries to block 0; the lanes they
 expose are masked by the caller's lengths, as in the JAX package.
 """
@@ -59,8 +64,8 @@ from .. import core, resolve_device
 from ..core import device_loop
 from ..kernels import count_launch
 
-__all__ = ["DenseKVCache", "PagedKVCache", "DenseView", "PagedView",
-           "blocks_needed", "make_kv_cache"]
+__all__ = ["DenseKVCache", "PagedKVCache", "DenseView", "CrossView",
+           "PagedView", "blocks_needed", "make_kv_cache"]
 
 
 def blocks_needed(n_tokens, block: int):
@@ -149,6 +154,17 @@ class DenseView:
     def paged_state(self):
         """Block-table kernel operands; None: this layout is dense."""
         return None
+
+
+class CrossView(DenseView):
+    """A dense cache layer with no trash row, read only: the audio
+    family's cross-attention K/V, ``k``/``v`` ``(n_rows, n_frames, KV,
+    hd)``, written whole at admission (spliced along the batch axis)
+    and read through the plain path."""
+
+    @property
+    def n_rows(self) -> int:
+        return self.k.shape[0]
 
 
 class PagedView:

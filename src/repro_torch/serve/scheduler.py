@@ -13,14 +13,19 @@ Two admission modes:
 - ``prefill="oneshot"`` (the default, as in the JAX package): FREE ->
   RUNNING in one admission call, which prefills every admitted prompt
   in ONE ``engine.prefill`` over the ``n_slots``-wide permuted batch
-  and samples each first token at the row's last real position. Dense
-  and VLM prompts are right-padded to a power-of-two bucket; SSM, hybrid
-  and MoE prompts must be exactly ``prompt_len`` long (a recurrence
-  keeps folding pad lanes into its state, and pad tokens would displace
-  real ones from expert slots). SSM state comes back fresh from the
-  prefill and is spliced into the pool along the slot axis; the
-  hybrid's prefill also writes its prompt K/V into every application's
-  cache layer through the block table, and it admits one-shot only.
+  and samples each first token at the row's last real position. Dense,
+  VLM and audio prompts are right-padded to a power-of-two bucket; SSM,
+  hybrid and MoE prompts must be exactly ``prompt_len`` long (a
+  recurrence keeps folding pad lanes into its state, and pad tokens
+  would displace real ones from expert slots). SSM state comes back
+  fresh from the prefill and is spliced into the pool along the slot
+  axis; the hybrid's prefill also writes its prompt K/V into every
+  application's cache layer through the block table, and it admits
+  one-shot only. So does the audio family: every request brings its
+  frame embeddings (``submit(frames=)``), the admission runs the
+  encoder over them, and the cross K/V it returns fresh splices into
+  the pool's ``cross`` cache along the slot axis, with the device's
+  tensors only (rows without a request get zero frames).
 - ``prefill="chunked"`` (dense, MoE and VLM families): FREE -> PREFILLING
   (assigned at admission: registers and block tables, no model forward)
   -> RUNNING. Every iteration of a segment advances each prefilling slot
@@ -279,6 +284,7 @@ class _Queued:
     priority: int = 0        # lower = more urgent (the SLO layer)
     deadline: float = float("inf")
     prefix_embeds: Optional[np.ndarray] = None  # (1, prefix_len, d): VLM
+    frames: Optional[np.ndarray] = None  # (1, n_frames, d): audio
 
 
 @dataclasses.dataclass
@@ -296,6 +302,7 @@ class PreemptedRequest:
     priority: int = 0
     deadline: float = float("inf")
     prefix_embeds: Optional[np.ndarray] = None  # a VLM request's patches
+    frames: Optional[np.ndarray] = None         # an audio request's frames
 
 
 # =========================== prefix index ===================================
@@ -528,8 +535,9 @@ class DecodeScheduler:
         # recurrence folds the pad tail into its state, and MoE routing
         # lets pad tokens displace real ones from expert slots (in a
         # ragged final chunk too), so those prompts must have exactly
-        # prompt_len tokens.
-        self._bucketed = cfg.family in ("dense", "vlm")
+        # prompt_len tokens. The audio family admits one-shot only.
+        self._bucketed = cfg.family in (("dense", "vlm") if self._chunked
+                                        else ("dense", "vlm", "audio"))
         self._next_rid = 0
         self.queue: List[_Queued] = []
         # host mirrors of slot occupancy and (paged) free blocks, kept
@@ -666,18 +674,21 @@ class DecodeScheduler:
         return sampling_lib.step_keys(keys, emitted)
 
     def _admit(self, prompts, true_lens, slots, rids, max_news, keys,
-               derive, mask, prios, deadlines, prefix=None) -> None:
+               derive, mask, prios, deadlines, prefix=None,
+               frames=None) -> None:
         """One-shot admission: up to n requests in ONE prefill. prompts
         (n, Sb) right-padded to the bucket width Sb; true_lens (n,) real
         prompt lengths; ``prefix`` (n, prefix_len, d) a VLM pool's patch
-        embeds. Unmasked rows keep their slot: no K/V write (masked in
-        the prefill) and their own state spliced back."""
+        embeds; ``frames`` (n, n_frames, d) an audio pool's frames.
+        Unmasked rows keep their slot: no K/V write (masked in the
+        prefill) and their own state (SSM state, cross K/V) spliced
+        back."""
         p, n = self.pool, self.n_slots
         pl = self.prefix_len
         self._reserve(slots, true_lens + pl + max_news + 1, mask)
         logits, fresh = engine.prefill(self.params, self.cfg, prompts,
                                        p.cache, rows=slots, mask=mask,
-                                       prefix_embeds=prefix)
+                                       prefix_embeds=prefix, frames=frames)
         # the first token comes from each row's LAST REAL position
         # (bucketed rows are right-padded), at emission index 0
         rows = torch.arange(n, device=self.device)
@@ -1092,12 +1103,14 @@ class DecodeScheduler:
     def submit(self, prompt, *, max_new: int,
                request_id: Optional[int] = None, key=None,
                priority: int = 0, deadline: float = float("inf"),
-               prefix_embeds=None) -> int:
+               prefix_embeds=None, frames=None) -> int:
         """Queue one request. prompt: (1, L) int, 1 <= L <= prompt_len
         (L == prompt_len for a pure-SSM, hybrid or MoE model).
         ``prefix_embeds`` (1, prefix_len, d_model): a VLM request's patch
         embeddings, required on a pool built with ``prefix_len`` and
-        refused otherwise. key: the request's PRNG
+        refused otherwise. ``frames`` (1, n_frames, d_model): an audio
+        request's frame embeddings, required for the audio family and
+        refused for the others. key: the request's PRNG
         key, two uint32 words (a JAX raw key); None derives
         ``fold_in(PRNGKey(seed), request_id)`` at admission.
         ``priority`` (lower = more urgent) and ``deadline`` (host-clock
@@ -1136,6 +1149,17 @@ class DecodeScheduler:
             raise ValueError("prefix_embeds on a pool built with "
                              "prefix_len=0; pass prefix_len at "
                              "construction")
+        if self.cfg.family == "audio":
+            if frames is None or np.shape(frames)[:2] != \
+                    (1, self.cfg.n_frames):
+                raise ValueError(
+                    f"audio pool: every request needs frames "
+                    f"(1, {self.cfg.n_frames}, ...); got "
+                    f"{None if frames is None else np.shape(frames)}")
+            frames = np.asarray(frames)
+        elif frames is not None:
+            raise ValueError(f"frames invalid for family "
+                             f"{self.cfg.family!r}")
         if not self.queue and not self._busy.any():
             # first submission of a fresh run on a drained scheduler:
             # counters describe runs, not scheduler lifetimes
@@ -1146,7 +1170,7 @@ class DecodeScheduler:
             key = np.asarray(key, np.int64).reshape(2) & 0xFFFFFFFF
         self.queue.append(_Queued(rid, prompt.astype(np.int32),
                                   int(max_new), key, int(priority),
-                                  float(deadline), prefix_embeds))
+                                  float(deadline), prefix_embeds, frames))
         return rid
 
     def _bucket(self, length: int) -> int:
@@ -1294,9 +1318,17 @@ class DecodeScheduler:
             for i, q in enumerate(batch):
                 pe[i] = q.prefix_embeds[0]
             prefix = dev(pe).to(self.cfg.dtype("compute"))
+        frames = None
+        if self.cfg.family == "audio":
+            # zero frames for the rows that admit no request
+            fr = np.zeros((n, self.cfg.n_frames, self.cfg.d_model),
+                          np.float32)
+            for i, q in enumerate(batch):
+                fr[i] = q.frames[0]
+            frames = dev(fr)
         regs: List[List[tuple]] = [[] for _ in batch]
         if not self._chunked:
-            self._admit(*args, prefix)
+            self._admit(*args, prefix, frames)
         elif not self.prefix_cache:
             self._assign(*args, prefix)
         else:
@@ -1622,7 +1654,7 @@ class DecodeScheduler:
                 request_id=q.request_id, prompt=q.prompt,
                 max_new=q.max_new, key=q.key, tokens=self.emitted(s),
                 priority=q.priority, deadline=q.deadline,
-                prefix_embeds=q.prefix_embeds))
+                prefix_embeds=q.prefix_embeds, frames=q.frames))
             self._busy[s] = False
             self._slot_req[s] = None
             self._h_n_emitted[s] = 0
@@ -1787,7 +1819,7 @@ class DecodeScheduler:
         same stream from the prompt."""
         self.queue.insert(0, _Queued(p.request_id, p.prompt, p.max_new,
                                      p.key, p.priority, p.deadline,
-                                     p.prefix_embeds))
+                                     p.prefix_embeds, p.frames))
 
     def run_until_drained(self) -> List[FinishedRequest]:
         """Drive until queue and pool are empty; returns all finished."""

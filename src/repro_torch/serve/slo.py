@@ -182,15 +182,16 @@ class SLOScheduler:
 
     def submit(self, prompt, *, max_new: int, slo_class="batch",
                deadline: Optional[float] = None, request_id=None,
-               key=None, prefix_embeds=None) -> int:
+               key=None, prefix_embeds=None, frames=None) -> int:
         """Queue one request under a priority class.
 
         slo_class: an :class:`SLOClass` or a registered class name.
         deadline: absolute ``time.monotonic()`` seconds; defaults to
         arrival + the class's ``ttft_budget`` (``+inf`` without one).
         Deadlines ORDER requests within a class — they never drop one.
-        ``prefix_embeds``: a VLM request's patch embeddings, kept with
-        the request, so that a preempted one replays with them.
+        ``prefix_embeds``: a VLM request's patch embeddings, and
+        ``frames``: an audio request's frame embeddings, kept with the
+        request, so that a preempted one replays with them.
         """
         cls = (self.classes[slo_class] if isinstance(slo_class, str)
                else slo_class)
@@ -210,7 +211,7 @@ class SLOScheduler:
             rid = self.inner.submit(
                 prompt, max_new=max_new, request_id=request_id, key=key,
                 priority=cls.priority, deadline=float(deadline),
-                prefix_embeds=prefix_embeds)
+                prefix_embeds=prefix_embeds, frames=frames)
             q = self.inner.queue.pop()
             self._backlog.append(q)
             self._req[rid] = _ReqState(
@@ -325,7 +326,7 @@ class SLOScheduler:
             # in the metrics, which is exactly what bench_slo measures
             self._backlog.append(sched_lib._Queued(
                 p.request_id, p.prompt, p.max_new, p.key, p.priority,
-                p.deadline, p.prefix_embeds))
+                p.deadline, p.prefix_embeds, p.frames))
             events.append(Event("preempted", p.request_id))
         self.preemptions += len(plan)
         self._backlog.sort(key=lambda q: (q.priority, q.deadline,

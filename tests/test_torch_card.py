@@ -836,3 +836,45 @@ def test_copy_on_write_inside_a_captured_loop_on_card(cuda_device):
     for x, v in zip(("table", "refcount", "k_pool"), after):
         assert torch.equal(getattr(card, x), v), x
     loop.close()
+
+
+@pytest.mark.cuda
+def test_audio_graph_segment_equals_host_read_on_card(cuda_device):
+    """The audio family (whisper-small's smoke config widened to heads of
+    64, the kernel's head dims; fp32) through one-shot admission: the
+    kernel path in a graph segment, in host-read segments and the gather
+    path give one set of streams; the device-counted paged-attention
+    launches equal the Python-counted ones, one a decoder layer a decode
+    iteration, and the self cache is never gathered."""
+    cfg = dataclasses.replace(get_config("whisper-small", smoke=True),
+                              d_model=256, head_dim=64,
+                              compute_dtype="float32")
+    params = bridge.init_params(cfg, seed=2, device=cuda_device)
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(2, cfg.vocab, (1, n)).astype(np.int32), m,
+             rng.standard_normal((1, cfg.n_frames, cfg.d_model)).astype(
+                 np.float32)) for n, m in ((5, 6), (12, 4), (3, 7), (9, 5))]
+    runs = {}
+    for name, impl, loop in (("graph", "cuda", "graph"),
+                             ("host", "cuda", "host"),
+                             ("gather", "gather", "host")):
+        sched = sched_lib.DecodeScheduler(
+            params, dataclasses.replace(cfg, attn_impl=impl), n_slots=2,
+            prompt_len=12, max_new_cap=8, eos_id=-1, kv="paged",
+            kv_block=8, loop=loop)
+        sched.warmup()
+        pa_kernel.paged_attention.launches = 0
+        kvc.PagedView.gather_calls = 0
+        for rid, (p, m, f) in enumerate(reqs):
+            sched.submit(p, max_new=m, request_id=rid, frames=f)
+        got = {r.request_id: r.tokens for r in sched.run_until_drained()}
+        runs[name] = (got, pa_kernel.paged_attention.launches,
+                      kvc.PagedView.gather_calls, int(sched._counts[3]))
+        sched.close()
+    assert runs["graph"][1] == runs["host"][1] == \
+        cfg.n_layers * runs["graph"][3] > 0
+    assert runs["graph"][2] == runs["host"][2] == 0
+    for name in ("host", "gather"):
+        for rid in range(len(reqs)):
+            np.testing.assert_array_equal(runs[name][0][rid],
+                                          runs["graph"][0][rid])

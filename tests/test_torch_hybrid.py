@@ -11,8 +11,9 @@ state and 1e-4 for logits. Token streams, loop counts and occupancy
 exactly.
 
 What the JAX package refuses for the hybrid (chunked prefill, the
-prefix cache, speculation, adaptive depth, training through the
-launcher) the port refuses with the same messages.
+prefix cache, speculation, adaptive depth) the port refuses with the
+same messages; the launcher trains it (its loss and gradients are held
+to the JAX package's in tests/test_torch_train.py).
 """
 
 import dataclasses
@@ -280,8 +281,8 @@ def test_oneshot_scheduler_matches_jax_scheduler(kv):
 def test_refusals_carry_the_reference_messages():
     """Chunked prefill, the prefix cache and speculation: the JAX
     scheduler and the port's refuse with the same message; adaptive
-    depth, the engine's chunk and verify steps and the training
-    launcher refuse too."""
+    depth and the engine's chunk and verify steps refuse too. The
+    training launcher takes the hybrid (one step, a finite loss)."""
     from repro.serve import speculative as jspec
     jcfg, jp, cfg, tp = _pair()
     kw = dict(n_slots=2, prompt_len=PROMPT, max_new_cap=MAX_NEW)
@@ -312,9 +313,10 @@ def test_refusals_carry_the_reference_messages():
     with pytest.raises(ValueError, match="verify_step requires"):
         engine.verify_step(tp, cfg, torch.ones((1, 2), dtype=torch.long),
                            cache, torch.ones(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.main(["--arch", ARCH, "--smoke", "--steps", "1",
-                           "--device", "cpu"])
+    out = launch_train.main(["--arch", ARCH, "--smoke", "--steps", "1",
+                             "--batch", "2", "--seq", "8",
+                             "--device", "cpu"])
+    assert np.isfinite(float(out["metrics"]["loss"]))
 
 
 def test_launcher_serves_the_hybrid_oneshot(capsys):

@@ -27,6 +27,7 @@ from repro.serve import kv_cache as jkvc
 from repro_torch import bridge
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import attention, layers, transformer
+from repro_torch.models import model_zoo as zoo
 from repro_torch.serve import engine, kv_cache as kvc
 
 RNG = np.random.default_rng(0)
@@ -123,6 +124,7 @@ def test_decode_attention_gather_path_matches_jax(vector):
 
 _jit_init = jax.jit(model_zoo.init_params, static_argnums=0)
 _jit_forward = jax.jit(jtransformer.forward, static_argnums=1)
+_jit_zoo_forward = jax.jit(model_zoo.forward, static_argnums=1)
 _jit_prefill_chunk = jax.jit(jengine.prefill_chunk, static_argnums=1,
                              static_argnames="chunk")
 _jit_decode_step = jax.jit(jengine.decode_step, static_argnums=1)
@@ -146,10 +148,19 @@ def _pair(arch, compute="float32", attn_impl=None):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_logits_match_jax(arch):
+    """Every family's full forward; the audio family's through
+    ``model_zoo.forward`` with a batch of frames (its encoder's input)."""
     jcfg, jp, cfg, tp = _pair(arch)
     toks = RNG.integers(2, cfg.vocab, (2, 19)).astype(np.int32)
-    logits, _ = _jit_forward(jp, jcfg, jnp.asarray(toks))
-    ours, _ = transformer.forward(tp, cfg, _t(toks))
+    if cfg.family == "audio":
+        frames = _rand(2, cfg.n_frames, cfg.d_model)
+        logits, _ = _jit_zoo_forward(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                                "frames": jnp.asarray(frames)})
+        ours, _ = zoo.forward(tp, cfg, {"tokens": _t(toks),
+                                        "frames": _t(frames)})
+    else:
+        logits, _ = _jit_forward(jp, jcfg, jnp.asarray(toks))
+        ours, _ = transformer.forward(tp, cfg, _t(toks))
     assert ours.shape == (2, 19, cfg.padded_vocab)
     _close(ours, logits, 1e-4)
 

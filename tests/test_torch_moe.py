@@ -341,8 +341,8 @@ def test_moe_refuses_padded_prompts_adaptive_depth_and_the_launcher():
     """Padded prompts stay refused. Adaptive depth and training are
     ported for the MoE and VLM families (tests/test_torch_adaptive.py,
     tests/test_torch_train.py): an early-exit config's full forward is
-    the plain one, aux included; the launcher refuses the hybrid's
-    training, which is not ported yet."""
+    the plain one, aux included. The launcher refuses no family any
+    more: it trains the hybrid too (one step, a finite loss)."""
     _, _, cfg, tp = _pair()
     sched = sched_lib.DecodeScheduler(tp, cfg, n_slots=2, prompt_len=8,
                                       max_new_cap=4, prefill="chunked")
@@ -355,6 +355,7 @@ def test_moe_refuses_padded_prompts_adaptive_depth_and_the_launcher():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert aux_a.keys() == aux_b.keys() == {"moe_load_balance",
                                             "moe_z_loss"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.main(["--arch", "zamba2-1.2b", "--smoke", "--steps",
-                           "1", "--device", "cpu"])
+    out = launch_train.main(["--arch", "zamba2-1.2b", "--smoke", "--steps",
+                             "1", "--batch", "2", "--seq", "8",
+                             "--device", "cpu"])
+    assert np.isfinite(float(out["metrics"]["loss"]))

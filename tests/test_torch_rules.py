@@ -16,7 +16,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import model_zoo
 from repro_torch import bridge
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, get_config, require_ported
 from repro_torch.examples import dynamic_rnn_nmt
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_prefill import kernel as fp_kernel
@@ -102,9 +102,16 @@ def test_configs_equal_jax_field_for_field(arch, smoke):
 
 
 def test_unported_families_are_refused():
-    """Only the audio family (whisper-small) waits; the hybrid loads."""
+    """Every family of the JAX package loads, the audio family
+    (whisper-small) the last of them; ``require_ported`` still refuses
+    a family the port does not know, and ``get_config`` an unknown
+    arch."""
+    cfg = get_config("whisper-small")
+    assert (cfg.family, cfg.encoder_layers, cfg.n_frames) == ("audio", 12,
+                                                             1500)
+    require_ported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-small")
+        require_ported(dataclasses.replace(cfg, family="video"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_config("zamba2-1.2b")
@@ -186,18 +193,18 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn):
 
 def test_ssm_family_is_ported_but_hybrid_is_not():
     """The name is older than the hybrid's port: the mamba1 family and
-    the mamba2 hybrid both load now (zamba2's training waits, and
-    launch.train refuses it); the audio family does not."""
+    the mamba2 hybrid both load, and launch.train trains the hybrid
+    (one step, a finite loss); the audio family loads too."""
     cfg = get_config("falcon-mamba-7b")
     assert (cfg.family, cfg.ssm.kind, cfg.d_inner) == ("ssm", "mamba1", 8192)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-small")
+    assert get_config("whisper-small").family == "audio"
     hyb = get_config("zamba2-1.2b")
     assert (hyb.family, hyb.ssm.kind, hyb.d_inner, hyb.shared_attn_every) \
         == ("hybrid", "mamba2", 4096, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.main(["--arch", "zamba2-1.2b", "--smoke", "--steps",
-                           "1", "--device", "cpu"])
+    out = launch_train.main(["--arch", "zamba2-1.2b", "--smoke", "--steps",
+                             "1", "--batch", "2", "--seq", "8",
+                             "--device", "cpu"])
+    assert np.isfinite(float(out["metrics"]["loss"]))
     # the MoE and VLM families load (field for field: above)
     assert {a: get_config(a).family for a in (
         "qwen2-moe-a2.7b", "dbrx-132b", "internvl2-1b")} == {

@@ -577,23 +577,53 @@ def test_launcher_runs_and_resumes_on_cpu(tmp_path, capsys):
     assert "resumed from step 2" in capsys.readouterr().out
 
 
-# ------------------------------------------------ the MoE and VLM families
+# ---------------------- the MoE, VLM, hybrid and audio families
 
 FAMILIES = ("qwen2-moe-a2.7b", "internvl2-1b")
+# the families whose loss and train step are held to the JAX package's
+# (the hybrid's summed shared-block gradients and the SSD chunk loop's;
+# the encoder-decoder's, its tied embedding included)
+GRAD_FAMILIES = FAMILIES + ("zamba2-1.2b", "whisper-small")
+
+
+def _stubs(cfg):
+    """SyntheticLM's stub shapes for a config: a VLM's patches, an audio
+    model's frames."""
+    return dict(patches=((cfg.n_patches, cfg.d_model)
+                         if cfg.family == "vlm" else None),
+                frames=((cfg.n_frames, cfg.d_model)
+                        if cfg.family == "audio" else None))
 
 
 def _family(arch, **kw):
     """(jax cfg, jax params, port cfg, fp32 masters, a batch) for a smoke
-    config, fp32 compute; the VLM batch carries its patches."""
+    config, fp32 compute; the VLM batch carries its patches, the audio
+    batch its frames. 24 positions: three of the hybrid smoke's SSD
+    chunks of 8.
+
+    The audio family's weights are the port's draws
+    (``bridge.init_params``, attention projections at their true
+    fan-in), handed to the JAX package as numpy. The JAX package's own
+    draws take ``wq``/``wk``'s fan-in from the head count, which at
+    smoke width gives attention scores a std of about 16; through the
+    encoder's, the decoder's and the cross-attention's near-argmax
+    softmaxes the two packages' fp32 gradients then lie up to 2e-4 of a
+    leaf's largest from each other, past the 1e-4 tolerance the other
+    families meet. At unit-scale scores they agree within 1e-6."""
     over = dict(compute_dtype="float32", **kw)
     jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), **over)
     cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
-    jparams = _jax_params(jcfg)
-    patches = ((cfg.n_patches, cfg.d_model) if cfg.family == "vlm"
-               else None)
+    if cfg.family == "audio":
+        params = bridge.init_params(cfg, seed=0, device="cpu",
+                                    keep_param_dtype=True)
+        jparams = jax.tree.map(jnp.asarray, torch.utils._pytree.tree_map(
+            lambda t: t.numpy(), params))
+    else:
+        jparams = _jax_params(jcfg)
+        params = _ours(jparams, cfg)
     batch = jpipe.SyntheticLM(cfg.vocab, 24, 4, seed=2,
-                              patches=patches).batch_at(1)
-    return jcfg, jparams, cfg, _ours(jparams, cfg), batch
+                              **_stubs(cfg)).batch_at(1)
+    return jcfg, jparams, cfg, params, batch
 
 
 @pytest.mark.parametrize("frames,patches", [(None, (8, 64)), ((6, 32), None),
@@ -626,10 +656,12 @@ def test_batch_to_device_keeps_patches_float():
                               np.trunc(batch["patches"]))
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", GRAD_FAMILIES)
 def test_family_loss_and_grads_match_jax(arch):
-    """The loss with the MoE aux terms, and the gradients, against
-    ``jax.value_and_grad(loss_fn, has_aux=True)``."""
+    """The loss with the MoE aux terms, and every leaf's gradient (the
+    hybrid's one shared block summed over its applications, the audio
+    family's tied embedding over its lookup and its unembedding),
+    against ``jax.value_and_grad(loss_fn, has_aux=True)``."""
     jcfg, jparams, cfg, params, batch = _family(arch)
     (jloss, jm), jgrads = jax.jit(
         jax.value_and_grad(jzoo.loss_fn, has_aux=True),
@@ -656,7 +688,7 @@ def test_family_loss_and_grads_match_jax(arch):
                                    atol=floor, err_msg=k)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", GRAD_FAMILIES)
 def test_family_train_step_matches_jax_fp32(arch):
     """One AdamW step: loss, aux metrics, grad norm and the new
     parameters."""
@@ -689,14 +721,14 @@ def test_family_train_step_matches_jax_fp32(arch):
     assert o.step == int(jo.step) == 1
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", GRAD_FAMILIES)
 def test_family_grad_accum_equals_full_batch(arch):
-    """Two microbatches, the patches split along the batch axis with the
-    tokens: the accumulated step equals the JAX package's accumulated
-    step, and for the VLM the full batch's (its loss is a mean of
-    per-token terms). The MoE aux losses are products of batch means,
-    so there the microbatches' mean is not the full batch's, in either
-    package."""
+    """Two microbatches, the patches (or frames) split along the batch
+    axis with the tokens: the accumulated step equals the JAX package's
+    accumulated step, and for every family but the MoE the full batch's
+    (the loss is a mean of per-token terms). The MoE aux losses are
+    products of batch means, so there the microbatches' mean is not the
+    full batch's, in either package."""
     jcfg, jparams, cfg, params, batch = _family(arch, grad_accum=2)
     opt_cfg = adamw.AdamWConfig(schedule=schedule.constant())
     p2, _, m2 = train_loop.make_train_step(cfg, opt_cfg, accum="fori")(
@@ -708,7 +740,7 @@ def test_family_grad_accum_equals_full_batch(arch):
                                rtol=1e-5)
     np.testing.assert_allclose(m2["grad_norm"].item(),
                                float(jm["grad_norm"]), rtol=1e-4)
-    if cfg.family == "vlm":
+    if cfg.family != "moe":
         c1 = dataclasses.replace(cfg, grad_accum=1)
         p1, _, m1 = train_loop.make_train_step(c1, opt_cfg)(
             params, adamw.init(params), batch)
@@ -717,7 +749,7 @@ def test_family_grad_accum_equals_full_batch(arch):
         _assert_trees_close(p1, p2, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", GRAD_FAMILIES)
 def test_family_launcher_runs_and_resumes_on_cpu(arch, tmp_path, capsys):
     argv = ["--arch", arch, "--smoke", "--batch", "2", "--seq", "16",
             "--device", "cpu", "--ckpt-dir", str(tmp_path),
@@ -734,8 +766,8 @@ def test_family_launcher_runs_and_resumes_on_cpu(arch, tmp_path, capsys):
     step = train_loop.make_train_step(
         get_config(arch, smoke=True), adamw.AdamWConfig(
             lr=3e-4, schedule=schedule.warmup_cosine(1, 3)))
-    patches = ((8, 64) if arch == "internvl2-1b" else None)
-    data = SyntheticLM(512, 16, 2, seed=0, patches=patches)
+    data = SyntheticLM(512, 16, 2, seed=0,
+                       **_stubs(get_config(arch, smoke=True)))
     _, _, m = step(out["params"], out["opt"], data.batch_at(2))
     assert m["loss"].item() == again["trainer"].history[0][1]
     assert "resumed from step 2" in capsys.readouterr().out
