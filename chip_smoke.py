@@ -126,8 +126,9 @@ Phases, each printing its own lines:
 15. training: ``launch.train.main`` at llama3.2-1b full width (fp32
     masters, bf16 compute, ``remat="full"``, B=4, S=2048) for a few
     steps into a temporary checkpoint directory: the loss must be
-    finite and fall, the checkpoint must restore bit for bit and a
-    second launch must resume from it; one step under
+    finite and fall, and a second launch must resume from the
+    checkpoint, its one restore bit for bit the first launch's final
+    state (kept on the card meanwhile); one step under
     ``layer_loop="paper_while"`` with ``save_policy="offload"`` must
     give ``scan``'s loss; one step at B=1 under each of ``remat="full"``,
     ``"attn_out"`` and ``"none"`` must give one loss, and the memory
@@ -342,6 +343,33 @@ Phases, each printing its own lines:
     fit the card), 8 steps: the loss finite and falling; ms a step and
     peak memory printed.
 
+36. (run after phase 35) smollm-135m at full width (30 layers, d_model
+    576, vocab 49152, fp32 compute) on a (1, 1, 1) data x model x stage
+    ``DeviceMesh`` on the card: NCCL at world size 1, initialised through
+    ``launch.distributed`` (a ``FileStore`` in a temporary directory) and
+    built through ``launch.mesh``; one train step at B=4, S=512 with
+    ``rules=make_rules(cfg, mesh)`` and the masters and AdamW moments as
+    DTensors placed by ``logical_to_sharding(param_axes(cfg), rules)``,
+    against the single-device step on the same batch: the loss to 1e-5
+    relative, every updated leaf to 1e-5 (2 x lr where the leaf's
+    gradient is below 1e-4 of its largest, as the fp32 train tests hold
+    it); a second step keeps every leaf placed; the backend, the world
+    size and three leaves' placements printed;
+37. the same width off the mesh: ``accum="pipeline"``,
+    ``accum_stages=4``, ``grad_accum=4`` at B=16, S=128 against
+    ``accum="fori"`` on the same batch within 36's tolerance; the
+    schedule's step count (M + S - 1 = 7), its ms a step (CUDA events
+    around the train step, over the 7 steps) and the peak memory
+    printed beside the bytes the schedule's fp32 trees were reckoned at;
+38. ``dist.pipeline.distributed_while`` off the mesh, with and without
+    its barrier, against ``x * 1.0001 ** 50``; a counted loop of 1001
+    ``tanh(x @ w)`` bodies under ``impl="graph"`` with
+    ``parallel_iterations=4``: bit for bit the carry of
+    ``parallel_iterations=1``, in ceil(1001 / 4) = 251 loop steps (250
+    WHILE-node iterations of 4 bodies, then a remainder step of 1 after
+    the WHILE node) against 1001 (read from the graph's device
+    counter), each replay timed.
+
 The llama3.2-1b weights are freed before phase 26 (which makes and frees
 its own) and falcon-mamba's are made (phase 23 frees its own before the
 next), phases 27-35 make and free their own, and
@@ -499,6 +527,14 @@ ZAMBA_TRAIN_BATCH = 2       # phase 35: zamba2-1.2b's batch at S=2048. B=4
 #   trees of 1.17 B parameters and the shared block's seven applications
 #   outside the remat, each keeping its chunked attention's fp32 scores
 ZAMBA_TRAIN_STEPS = 8       # phase 35: zamba2-1.2b launcher steps
+MESH_BATCH = (4, 512)       # phase 36: B, S of the smollm-135m mesh step
+MESH_LR = 1e-3              # phases 36-37: AdamW's rate, constant
+PIPE_BATCH = (16, 128)      # phase 37: 4 microbatches x 4 stage chunks of
+#                             one row each
+PIPE_STAGES = 4             # phase 37: accum_stages (and grad_accum)
+WINDOW_ITERS = 1001         # phase 38: a counted loop whose window of 4
+#                             leaves a remainder step of 1
+LOOP_WINDOW = 4             # phase 38: parallel_iterations
 
 
 def log(msg: str) -> None:
@@ -3394,10 +3430,10 @@ def phase_train():
     import math
     import shutil
     import statistics
+    from unittest import mock
     import torch
     import torch.utils._pytree as pytree
     from repro_torch import bridge, core
-    from repro_torch.checkpointing import checkpoint as ck
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -3439,23 +3475,41 @@ def phase_train():
         if fa_kernel.flash_attention.launches != 0:
             raise AssertionError("training launched the forward-only kernel")
 
-        like = {"params": res["params"], "opt": res["opt"]}
-        t0 = time.perf_counter()
-        step, state = ck.restore_latest(root, like)
-        secs = time.perf_counter() - t0
-        same = all(torch.equal(a, b) if torch.is_tensor(a) else a == b
-                   for a, b in zip(pytree.tree_leaves(state),
-                                   pytree.tree_leaves(like)))
-        log(f"[train] checkpoint step {step} restored in {secs:.1f} s: "
-            f"{'bit-equal' if same else 'DIFFERS'} to the final state "
-            f"({len(pytree.tree_leaves(like))} leaves)")
-        if step != TRAIN_STEPS or not same:
-            raise AssertionError("the checkpoint does not restore exactly")
-        del res, like, state
+        # The checkpoint is restored once, by the second launch's
+        # resume, and held there to the first launch's final state
+        # (13.8 GiB kept on the card: the second launch's step peaks at
+        # about 49 GiB beside it).
+        final = pytree.tree_leaves({"params": res["params"],
+                                    "opt": res["opt"]})
+        del res
         gc.collect()
         torch.cuda.empty_cache()
+        seen = {}
+        resume = train_loop.Trainer.maybe_resume
 
-        again = launch_train.main(argv + ["--steps", str(TRAIN_STEPS + 2)])
+        def held_resume(trainer, params, opt_state):
+            t0 = time.perf_counter()
+            step, params, opt_state = resume(trainer, params, opt_state)
+            torch.cuda.synchronize()
+            seen["secs"] = time.perf_counter() - t0
+            state = pytree.tree_leaves({"params": params, "opt": opt_state})
+            seen["step"], seen["leaves"] = step, len(state)
+            seen["same"] = len(state) == len(final) and all(
+                torch.equal(a, b) if torch.is_tensor(a) else a == b
+                for a, b in zip(state, final))
+            return step, params, opt_state
+
+        with mock.patch.object(train_loop.Trainer, "maybe_resume",
+                               held_resume):
+            again = launch_train.main(argv + ["--steps",
+                                              str(TRAIN_STEPS + 2)])
+        del final
+        log(f"[train] checkpoint step {seen['step']} restored in "
+            f"{seen['secs']:.1f} s by the second launch: "
+            f"{'bit-equal' if seen['same'] else 'DIFFERS'} to the first "
+            f"launch's final state ({seen['leaves']} leaves)")
+        if seen["step"] != TRAIN_STEPS or not seen["same"]:
+            raise AssertionError("the checkpoint does not restore exactly")
         resumed = [h[0] for h in again["trainer"].history]
         log(f"[train] second launch resumed at step {again['start']}, ran "
             f"steps {resumed}, losses "
@@ -5134,6 +5188,223 @@ def phase_train_whisper_zamba():
     del out
 
 
+def step_gap(new, ref, mu, lr):
+    """(entries off the fp32 train tests' bound, the largest difference):
+    1e-5, or 2 x lr where the first AdamW update's sign is not determined
+    (the gradient, mu / (1 - b1), below 1e-4 of its leaf's largest)."""
+    import torch
+    import torch.utils._pytree as pytree
+    bad, worst = 0, 0.0
+    for a, b, g in zip(pytree.tree_leaves(new), pytree.tree_leaves(ref),
+                       pytree.tree_leaves(mu)):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        d = (a - b).abs()
+        tiny = g.abs() < 1e-4 * g.abs().max()
+        bad += int((d > torch.where(tiny, 2 * lr, 1e-5)).sum())
+        worst = max(worst, float(d.max()))
+    return bad, worst
+
+
+def phase_mesh_step():
+    """A train step of smollm-135m at full width on a (1, 1, 1) mesh
+    with NCCL at world size 1, against the single-device step."""
+    import dataclasses
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.utils._pytree as pytree
+    from torch.distributed.tensor import DTensor
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import distributed
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.train import train_loop
+
+    cfg = dataclasses.replace(get_config("smollm-135m"),
+                              compute_dtype="float32")
+    B, S = MESH_BATCH
+    params = bridge.init_params(cfg, seed=0, device="cuda",
+                                keep_param_dtype=True)
+    data = SyntheticLM(cfg.vocab, S, B, seed=1)
+    opt_cfg = adamw.AdamWConfig(lr=MESH_LR, schedule=schedule.constant())
+
+    def timed_step(step, p, o, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(p, o, batch)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    (p1, o1, m1), one_ms = timed_step(train_loop.make_train_step(
+        cfg, opt_cfg), params, adamw.init(params), data.batch_at(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        distributed.init_distributed(store=store, world_size=1, rank=0,
+                                     device_type="cuda")
+        try:
+            mesh = mesh_lib.make_mesh((1, 1, 1), ("data", "model", "stage"),
+                                      "cuda")
+            rules = model_zoo.make_rules(cfg, mesh)
+            placed = train_loop.place_params(params, cfg, rules)
+            step = train_loop.make_train_step(cfg, opt_cfg, rules)
+            (p2, o2, m2), first_ms = timed_step(step, placed,
+                                                adamw.init(placed),
+                                                data.batch_at(0))
+            (p3, o3, _), again_ms = timed_step(step, p2, o2,
+                                               data.batch_at(1))
+            want = [rules.sharding(a) for a in pytree.tree_leaves(
+                model_zoo.param_axes(cfg),
+                is_leaf=lambda x: isinstance(x, tuple))]
+            for tree in (p2, o2.mu, o2.nu, p3, o3.mu, o3.nu):
+                leaves = pytree.tree_leaves(tree)
+                if not all(isinstance(t, DTensor) and tuple(t.placements)
+                           == w for t, w in zip(leaves, want)):
+                    raise AssertionError("a master or moment left its "
+                                         "placements")
+            log(f"[mesh] backend {dist.get_backend()}, world size "
+                f"{dist.get_world_size()}, mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}; placements: "
+                f"embed {p2['embed'].placements}, layers.mlp.w_gate "
+                f"{p2['layers']['mlp']['w_gate'].placements}, "
+                f"layers.attn.wq {p2['layers']['attn']['wq'].placements}")
+        finally:
+            dist.destroy_process_group()
+    bad, worst = step_gap(p2, p1, o1.mu, MESH_LR)
+    loss1, loss2 = float(m1["loss"]), float(m2["loss"])
+    log(f"[mesh] smollm-135m ({model_zoo.count_params(cfg) / 1e6:.1f}M) "
+        f"fp32, B={B} S={S}: loss {loss2:.6f} on the mesh, {loss1:.6f} on "
+        f"one device; largest leaf difference {worst:.3g}, {bad} entries "
+        f"off the bound; step {first_ms:.1f} ms on the mesh (first), "
+        f"{again_ms:.1f} ms (second), {one_ms:.1f} ms on one device")
+    if abs(loss2 - loss1) > 1e-5 * abs(loss1) or bad:
+        raise AssertionError("the mesh step differs from the single-device "
+                             "step")
+
+
+def phase_pipelined_accum():
+    """accum="pipeline" (4 stages) against accum="fori" at smollm-135m
+    full width, off the mesh."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import pipeline
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.train import train_loop
+
+    M = N = PIPE_STAGES
+    cfg = dataclasses.replace(get_config("smollm-135m"),
+                              compute_dtype="float32", grad_accum=M)
+    B, S = PIPE_BATCH
+    tree = 4 * model_zoo.count_params(cfg)
+    # the stacked per-microbatch gradients in, the drained ones out and
+    # their stack, a tree per slot and the zero slot
+    log(f"[pipeline] reckoned: one fp32 gradient tree {tree / 1e9:.3f} GB; "
+        f"the schedule holds about {3 * M + N + 1} of them "
+        f"({(3 * M + N + 1) * tree / 1e9:.2f} GB)")
+    params = bridge.init_params(cfg, seed=0, device="cuda",
+                                keep_param_dtype=True)
+    batch = SyntheticLM(cfg.vocab, S, B, seed=2).batch_at(0)
+    opt_cfg = adamw.AdamWConfig(lr=MESH_LR, schedule=schedule.constant())
+    fori = train_loop.make_train_step(cfg, opt_cfg, None, True, "fori")
+    pipe = train_loop.make_train_step(cfg, opt_cfg, None, True, "pipeline",
+                                      N)
+    pf, of, mf = fori(params, adamw.init(params), batch)
+    pipe(params, adamw.init(params), batch)            # first call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipeline.reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    pp, op, mp = pipe(params, adamw.init(params), batch)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    steps = pipeline.COUNTS["steps"]
+    bad, worst = step_gap(pp, pf, of.mu, MESH_LR)
+    log(f"[pipeline] smollm-135m fp32, B={B} S={S}, {M} microbatches over "
+        f"{N} stages: {steps} schedule steps, {pipeline.COUNTS['stage_calls']}"
+        f" stage calls; train step {ms:.1f} ms (CUDA events), "
+        f"{ms / steps:.1f} ms a schedule step; peak memory "
+        f"{peak / 2**30:.2f} GiB; loss {float(mp['loss']):.6f} against "
+        f"fori's {float(mf['loss']):.6f}; largest leaf difference "
+        f"{worst:.3g}, {bad} entries off the bound")
+    if steps != M + N - 1 or pipeline.COUNTS["stage_calls"] != M * N:
+        raise AssertionError("the schedule did not take M + S - 1 steps")
+    if abs(float(mp["loss"]) - float(mf["loss"])) > 1e-5 * float(mf["loss"]) \
+            or bad:
+        raise AssertionError("pipelined accumulation differs from fori")
+
+
+def phase_dist_loop():
+    """distributed_while off the mesh; parallel_iterations under the
+    graph lowering."""
+    import math
+    import torch
+    from repro_torch import core
+    from repro_torch.core import device_loop
+    from repro_torch.dist import pipeline
+
+    x = torch.linspace(0.5, 1.5, 128, device="cuda").reshape(8, 4, 4)
+    want = x * 1.0001 ** 50
+    for barrier in (False, True):
+        y = pipeline.distributed_while(lambda v: v * 1.0001, 50, x,
+                                       barrier=barrier)(x)
+        err = float((y - want).abs().max())
+        log(f"[loop] distributed_while barrier={barrier}: 50 iterations, "
+            f"max |y - x * 1.0001^50| {err:.3g}")
+        if err > 1e-5 * float(want.abs().max()):
+            raise AssertionError("distributed_while is off")
+
+    gen = torch.Generator().manual_seed(0)
+    w = (torch.randn(128, 128, generator=gen) / 11.3).cuda()
+    x0 = torch.randn(8, 128, generator=gen).cuda()
+    out = {}
+    for par in (1, LOOP_WINDOW):
+        x = x0.clone()
+        k = torch.zeros((), dtype=torch.int32, device="cuda")
+
+        def body(c):
+            return torch.tanh(c[0] @ w), c[1] + 1
+
+        with torch.no_grad():
+            body((x0, k))                    # lazy init outside capture
+            core.while_loop(None, body, (x, k), max_iters=WINDOW_ITERS,
+                            impl="graph", parallel_iterations=par)
+            loop = core.while_loop.last_loop
+            got = (x.clone(), int(k), loop.iterations(), loop.remainder)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                loop.run()
+            end.record()
+            torch.cuda.synchronize()
+        out[par] = got + (start.elapsed_time(end) / 5,)
+        device_loop.release(body)
+        log(f"[loop] {WINDOW_ITERS} tanh(x @ w) bodies, "
+            f"parallel_iterations={par}: {got[2]} loop steps "
+            f"({got[2] - bool(got[3])} WHILE-node iterations of window "
+            f"{par}, a remainder step of {got[3]}), {got[1]} bodies, "
+            f"{out[par][4]:.3f} ms a replay")
+    n_w = math.ceil(WINDOW_ITERS / LOOP_WINDOW)
+    n = WINDOW_ITERS
+    if (out[1][2], out[LOOP_WINDOW][2]) != (n, n_w) \
+            or (out[1][3], out[LOOP_WINDOW][3]) != (0, n % LOOP_WINDOW) \
+            or (out[1][1], out[LOOP_WINDOW][1]) != (n, n):
+        raise AssertionError("the unroll window's trip counts are off")
+    if not torch.equal(out[1][0], out[LOOP_WINDOW][0]):
+        raise AssertionError("parallel_iterations changed the carry")
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels-only"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
@@ -5217,6 +5488,11 @@ def main() -> int:
     timed(phase_train_families)
     free_device_memory("the audio and hybrid training phase")
     timed(phase_train_whisper_zamba)
+    free_device_memory("the mesh phases")
+    timed(phase_mesh_step)
+    free_device_memory("the pipelined accumulation")
+    timed(phase_pipelined_accum)
+    timed(phase_dist_loop)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] in ("paged_attention", "flash_prefill"):

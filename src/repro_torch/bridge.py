@@ -120,21 +120,32 @@ _DRAW_BYTES = 1 << 32
 
 
 class _ParamSource:
-    """Draws one tensor per ``p`` call, following the parameter
-    factory of the JAX package's ``models/params.py``: fan-in normal
-    (fan-in defaults to ``shape[-2]``), ones, zeros, or a plain normal.
-    Tensors land in the compute dtype, except norm weights (ones) and
-    those drawn with ``param_dtype=True``, which stay in the param
-    dtype."""
+    """The parameter factory of the JAX package's ``models/params.py``
+    (its ``Builder``): one ``p(shape, axes, ...)`` call site per leaf.
 
-    def __init__(self, cfg, gen, device, keep_param_dtype=False):
+    In mode ``"init"`` a call draws one tensor: fan-in normal (fan-in
+    defaults to ``shape[-2]``), ones, zeros, or a plain normal. Tensors
+    land in the compute dtype, except norm weights (ones) and those
+    drawn with ``param_dtype=True``, which stay in the param dtype. In
+    mode ``"axes"`` a call returns the leaf's logical axes (a tuple of
+    ``dist.sharding`` names, one per dim) and draws nothing."""
+
+    def __init__(self, cfg, gen=None, device=None, keep_param_dtype=False,
+                 mode="init"):
+        if mode not in ("init", "axes"):
+            raise ValueError(f"unknown parameter source mode {mode!r}")
+        self.mode = mode
         self.gen, self.device = gen, device
         self.pdt = cfg.dtype("param")
         self.cdt = self.pdt if keep_param_dtype else cfg.dtype("compute")
 
-    def p(self, shape, *, init="fan_in", scale=1.0, fan_in=0,
+    def p(self, shape, axes, *, init="fan_in", scale=1.0, fan_in=0,
           param_dtype=False):
         shape = tuple(shape)
+        if len(axes) != len(shape):
+            raise ValueError(f"axes {axes} do not match shape {shape}")
+        if self.mode == "axes":
+            return tuple(axes)
         dt = self.pdt if param_dtype or init == "ones" else self.cdt
         if init == "ones":
             return torch.ones(shape, dtype=dt, device=self.device)

@@ -246,6 +246,14 @@ class DeviceLoop:
         counter, reset by each replay).
       prologue: carry -> None, run once per replay before the first
         predicate (the JAX scheduler's segment clears ``done`` there).
+      unroll: body copies per WHILE-node iteration, for a counted loop
+        (``while_loop``'s ``parallel_iterations`` window): the WHILE
+        node takes ``max_iters // unroll`` iterations, and the
+        remainder step after it, in the same graph, runs the other
+        ``max_iters % unroll`` copies (``lax.scan(unroll=)``'s
+        remainder). ``iterations()`` reads the loop steps of the last
+        replay, the remainder step included: ``ceil(max_iters /
+        unroll)``.
     """
 
     captures = 0
@@ -255,8 +263,10 @@ class DeviceLoop:
     def __init__(self, cond_fn: Optional[Callable], body_fn: Callable,
                  carry: Any, *, max_iters: Optional[int] = None,
                  prologue: Optional[Callable] = None,
-                 name: str = "while"):
+                 name: str = "while", unroll: int = 1):
         what = f"while_loop({name!r}, impl='graph')"
+        if unroll > 1 and cond_fn is not None:
+            raise ValueError(f"{what}: unroll applies to a counted loop")
         if torch.is_grad_enabled():
             raise RuntimeError(f"{what} records no gradient: call it under "
                                f"torch.no_grad() (impl='host' is the "
@@ -278,6 +288,9 @@ class DeviceLoop:
         self._outer = self._exec = None
         self._trip = (None if max_iters is None else
                       torch.zeros((), dtype=torch.int32, device=dev))
+        # WHILE-node iterations, and the copies of the remainder step
+        steps = None if max_iters is None else max_iters // unroll
+        self.remainder = 0 if max_iters is None else max_iters % unroll
         torch.cuda.current_stream(dev).synchronize()
 
         def enter():
@@ -290,12 +303,12 @@ class DeviceLoop:
             p = None if cond_fn is None else _predicate(
                 cond_fn(carry), what, any_of=True)
             if self._trip is not None:
-                bound = (self._trip < max_iters).to(torch.int32)
+                bound = (self._trip < steps).to(torch.int32)
                 p = bound if p is None else p * bound
             self._keep.append(p)
             return p
 
-        def body():
+        def copy():
             out = pytree.tree_leaves(body_fn(carry), is_leaf=_is_ta)
             if len(out) != len(self.leaves):
                 raise TypeError(f"{what}: body_fn changed the carry's "
@@ -308,6 +321,10 @@ class DeviceLoop:
                                     f"({type(old).__name__}) must come back "
                                     f"as the same object")
                 old.copy_(new)
+
+        def body(copies):
+            for _ in range(copies):
+                copy()
             if self._trip is not None:
                 self._trip.add_(1)
 
@@ -317,9 +334,12 @@ class DeviceLoop:
             cond_rec = _Recorder(self)
             pred = cond_rec.run(predicate)
             body_rec = _Recorder(self)
-            body_rec.run(body)
+            body_rec.run(lambda: body(unroll))
+            tail_rec = _Recorder(self)
+            if self.remainder:
+                tail_rec.run(lambda: body(self.remainder))
             self._assemble(first.pieces, cond_rec.pieces, pred,
-                           body_rec.pieces)
+                           body_rec.pieces, tail_rec.pieces)
         except BaseException:
             self.close()
             raise
@@ -348,7 +368,7 @@ class DeviceLoop:
                handle, _IF, ctypes.byref(body))
             self._add(body, btail, sub)
 
-    def _assemble(self, enter, cond, pred, body) -> None:
+    def _assemble(self, enter, cond, pred, body, tail_pieces) -> None:
         outer, tail = _P(), _P()
         _c("graph_loop_create", ctypes.byref(outer))
         self._outer = outer
@@ -362,6 +382,7 @@ class DeviceLoop:
         self._add(wbody, btail, body + cond)
         _c("graph_loop_add_set", wbody, ctypes.byref(btail), handle,
            _P(pred.data_ptr()), 0)
+        self._add(outer, tail, tail_pieces)
         exe = _P()
         _c("graph_loop_instantiate", outer, ctypes.byref(exe))
         self._exec = exe
@@ -377,6 +398,12 @@ class DeviceLoop:
         _c("graph_loop_launch", self._exec, stream_ptr())
         DeviceLoop.replays += 1
         return self.carry
+
+    def iterations(self) -> int:
+        """Loop steps of the last replay of a counted loop: the WHILE
+        node's iterations, plus one for a remainder step (one host
+        read, after the replay completes)."""
+        return int(read_host(self._trip)[0])
 
     def close(self) -> None:
         """Free the graphs (and so their memory pool)."""
@@ -437,26 +464,26 @@ def _forget(key) -> None:
 
 
 def run(cond_fn, body_fn, init, *, max_iters=None, prologue=None,
-        name="while") -> Any:
+        name="while", unroll=1) -> DeviceLoop:
     """``while_loop(..., impl="graph")``: replay the loop captured for
     these functions and this carry, capturing it on the first call (or
-    when the carry's objects changed)."""
+    when the carry's objects changed); returns the ``DeviceLoop``."""
     fns = (cond_fn, body_fn, prologue)
-    key = tuple(_weak(f) for f in fns) + (max_iters,)
+    key = tuple(_weak(f) for f in fns) + (max_iters, unroll)
     loop = _CACHE.get(key)
     if loop is not None and not loop.matches(init):
         _forget(key)
         loop = None
     if loop is None:
         loop = DeviceLoop(cond_fn, body_fn, init, max_iters=max_iters,
-                          prologue=prologue, name=name)
+                          prologue=prologue, name=name, unroll=unroll)
         _CACHE[key] = loop
         for f in fns:
             if f is not None:
                 weakref.finalize(getattr(f, "__self__", f), _forget,
                                  key).atexit = False
     loop.run()
-    return init
+    return loop
 
 
 def release(fn) -> None:

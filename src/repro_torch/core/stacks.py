@@ -39,6 +39,11 @@ grad (a parameter the body captures) is kept by reference under every
 policy, since it is alive anyway and identical in every iteration. A
 value saved by several ops of one iteration is pushed once.
 
+A DTensor (a carry sharded over a mesh, ``dist.sharding``) is pushed as
+its rank's local shard, with its mesh and placements; the pop rebuilds
+the DTensor from the fetched shard, so each rank's host stack holds
+only its own shard.
+
 On the CPU, "host memory" is the tensor's own memory: the same code
 copies into plain (unpinned) chunks, with no streams, so the CPU tests
 run the push/pop bookkeeping and the results match the device policies
@@ -47,6 +52,7 @@ exactly.
 
 from __future__ import annotations
 
+import sys
 import weakref
 from typing import Dict, List, Optional
 
@@ -97,13 +103,25 @@ class SaveStack:
     def _push(self, t: torch.Tensor):
         if t.requires_grad and t.is_leaf:
             return t.detach()                     # a loop constant
-        nbytes = t.numel() * t.element_size()
         if not self.offload:
-            self.saved_bytes += nbytes
+            local = getattr(t, "_local_tensor", t)     # a DTensor's shard
+            self.saved_bytes += local.numel() * local.element_size()
             return t.detach()
         seen = self._seen.get(id(t))
         if seen is not None and seen[0]() is t and seen[1] == t._version:
             return seen[2]
+        dtensor = sys.modules.get("torch.distributed.tensor")
+        if dtensor is not None and isinstance(t, dtensor.DTensor):
+            local = self._offload(t.detach().to_local())
+            packed = (local, t.device_mesh, t.placements, t.shape,
+                      t.stride())
+        else:
+            packed = self._offload(t)
+        self._seen[id(t)] = (weakref.ref(t), t._version, packed)
+        return packed
+
+    def _offload(self, t: torch.Tensor) -> _Slot:
+        nbytes = t.numel() * t.element_size()
         self.saved_bytes += nbytes
         self.host_bytes += nbytes
         if self._device is None:
@@ -123,7 +141,6 @@ class SaveStack:
             host.copy_(src)
         slot = _Slot(host, self.iteration)
         self._iters[self.iteration].append(slot)
-        self._seen[id(t)] = (weakref.ref(t), t._version, slot)
         return slot
 
     def _alloc(self, nbytes: int) -> torch.Tensor:
@@ -160,6 +177,12 @@ class SaveStack:
     def _pop(self, packed):
         if torch.is_tensor(packed):
             return packed
+        if isinstance(packed, tuple):           # a DTensor's local shard
+            from torch.distributed.tensor import DTensor
+            slot, mesh, placements, shape, stride = packed
+            return DTensor.from_local(self._pop(slot), mesh, placements,
+                                      run_check=False, shape=shape,
+                                      stride=stride)
         slot: _Slot = packed
         it = slot.iteration
         if slot.dev is None:

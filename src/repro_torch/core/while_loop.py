@@ -55,10 +55,24 @@ in-graph. This port has two lowerings, chosen by ``impl``:
   those functions live; a caller that replays one loop throughout (the
   serving scheduler) holds its ``device_loop.DeviceLoop`` instead.
 
-``parallel_iterations`` is accepted for the JAX signature and has no
-effect on results; in the JAX package it is only an unroll factor. The
-distributed arguments (``mesh``, ``offload_shardings``) belong to the
-multi-device ``dist`` slice of ROADMAP.md and are refused here.
+``parallel_iterations``, the paper's §4.3 knob for how many iterations
+may be in flight, has the JAX package's meaning: on a counted loop
+(``cond_fn=None``) under ``save_policy="all"`` it is the unroll window,
+the number of body copies one loop step runs (``lax.scan(unroll=)``
+there), with a remainder step when the window does not divide the trip
+count. With ``mesh=`` carrying a pipeline "stage" axis the window is
+widened to at least one full stage rotation
+(``dist.pipeline.schedule_unroll``). Under ``impl="graph"`` a window of
+``w`` makes ``n // w`` WHILE-node iterations of ``w`` copies, and a
+remainder step of the other ``n % w`` copies after the WHILE node, in
+the same graph; under ``impl="host"`` it makes ``ceil(n / w)`` loop
+steps, each one bound check (``while_loop.steps`` counts them). Results do not change. The
+stack-saving policies run the loop rolled, as in the JAX package.
+
+``offload_shardings`` (a tree matching ``init`` of DTensor placement
+tuples, or None leaves) must match the placements of the carry's
+DTensors; the host stack then keeps each rank's local shard
+(``core.stacks``).
 """
 
 from __future__ import annotations
@@ -95,12 +109,50 @@ def _holds(pred) -> bool:
     return bool(pred)
 
 
-def _refuse_dist(mesh, offload_shardings) -> None:
-    if mesh is not None or offload_shardings is not None:
-        raise NotImplementedError(
-            "while_loop: mesh= and offload_shardings= are multi-device; "
-            "they belong to the dist slice of ROADMAP.md (this port runs "
-            "on one card)")
+def _is_placements(x) -> bool:
+    from torch.distributed.tensor.placement_types import Placement
+    return isinstance(x, tuple) and bool(x) and all(
+        isinstance(p, Placement) for p in x)
+
+
+def _check_offload_shardings(init, offload_shardings, name) -> None:
+    """Each placement tuple of ``offload_shardings`` must be the
+    placements of the carry leaf at its place (a plain tensor may only
+    be replicated)."""
+    if offload_shardings is None:
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    want = pytree.tree_leaves(
+        offload_shardings, is_leaf=lambda x: x is None or _is_placements(x))
+    leaves = pytree.tree_leaves(init, is_leaf=_is_ta)
+    if len(want) != len(leaves) or not all(
+            w is None or _is_placements(w) for w in want):
+        raise ValueError(
+            f"while_loop({name!r}): offload_shardings must be a tree like "
+            f"init with a placements tuple (or None) per leaf")
+    for leaf, w in zip(leaves, want):
+        if w is None:
+            continue
+        have = (tuple(leaf.placements) if isinstance(leaf, DTensor) else
+                (Replicate(),) * len(w))
+        if have != tuple(w):
+            raise ValueError(
+                f"while_loop({name!r}): offload_shardings gives {tuple(w)} "
+                f"for a carry leaf placed as {have}")
+
+
+def _window(cond_fn, save_policy, parallel_iterations, mesh,
+            max_iters) -> int:
+    """Body copies per loop step: ``parallel_iterations`` on a counted
+    loop under "all" (widened to a stage rotation on a stage mesh),
+    else 1."""
+    if cond_fn is not None or save_policy != "all":
+        return 1
+    window = parallel_iterations
+    if mesh is not None and parallel_iterations > 1:
+        from ..dist import pipeline
+        window = pipeline.schedule_unroll(mesh, parallel_iterations)
+    return max(1, min(int(window), max_iters))
 
 
 def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
@@ -125,8 +177,12 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
       max_iters: bound on the trip count; required for reverse-mode AD
         (it bounds the save-stacks, paper §5.1) and for counted loops.
       save_policy: "all" | "offload" | "carry" | "carry_offload".
-      parallel_iterations: accepted; no effect on results.
-      offload_shardings, mesh: refused (multi-device; ROADMAP.md dist).
+      parallel_iterations: the unroll window of a counted loop under
+        "all" (§4.3; see the module docstring); no effect on results.
+      offload_shardings: a tree like ``init`` of DTensor placement
+        tuples (or None), checked against the carry's DTensors.
+      mesh: the device mesh the loop runs under (a ``DeviceMesh`` or a
+        name -> size mapping); a "stage" axis widens the window.
       name: frame name, for error messages.
       impl: "host" (eager, predicate read on the host) or "graph" (CUDA
         graph, decided on the device; see the module docstring).
@@ -135,19 +191,25 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
 
     Returns:
       The final carry. ``while_loop.host_reads`` counts the predicate
-      reads; ``while_loop.last_stack`` is the save-stack of the last
-      call that recorded a gradient (its ``saved_bytes`` and
-      ``host_bytes``), else None.
+      reads and ``while_loop.steps`` the host lowering's loop steps;
+      ``while_loop.last_stack`` is the save-stack of the last call that
+      recorded a gradient (its ``saved_bytes`` and ``host_bytes``),
+      else None; ``while_loop.last_loop`` is the ``DeviceLoop`` of the
+      last ``impl="graph"`` call.
     """
     if save_policy not in SAVE_POLICIES:
         raise ValueError(f"unknown save_policy {save_policy!r}")
-    _refuse_dist(mesh, offload_shardings)
     if cond_fn is None and max_iters is None:
         raise ValueError("counted loop (cond_fn=None) requires max_iters")
+    _check_offload_shardings(init, offload_shardings, name)
+    window = _window(cond_fn, save_policy, parallel_iterations, mesh,
+                     max_iters)
     if impl == "graph":
         from . import device_loop
-        return device_loop.run(cond_fn, body_fn, init, max_iters=max_iters,
-                               prologue=prologue, name=name)
+        while_loop.last_loop = device_loop.run(
+            cond_fn, body_fn, init, max_iters=max_iters, prologue=prologue,
+            name=name, unroll=window)
+        return init
     if impl != "host":
         raise ValueError(f"unknown while_loop impl {impl!r}")
     if prologue is not None:
@@ -172,6 +234,16 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
     i = 0
     while (max_iters is None or i < max_iters) and \
             (cond_fn is None or _holds(cond_fn(carry))):
+        while_loop.steps += 1
+        if window > 1:          # a counted loop under "all"
+            for _ in range(min(window, max_iters - i) - 1):
+                if stack is None:
+                    carry = body_fn(carry)
+                else:
+                    with stack.hooks():
+                        carry = body_fn(carry)
+                    stack.next_iteration()
+                i += 1
         if stack is None:
             carry = body_fn(carry)
         elif recompute and _needs_grad(leaves):
@@ -200,7 +272,9 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
 
 
 while_loop.host_reads = 0
+while_loop.steps = 0
 while_loop.last_stack = None
+while_loop.last_loop = None
 
 
 def fori_loop(lower, upper: int, body_fn: Callable, init: Any, *,
@@ -208,14 +282,16 @@ def fori_loop(lower, upper: int, body_fn: Callable, init: Any, *,
               offload_shardings: Any = None, mesh: Any = None) -> Any:
     """Counted loop ``for i in [lower, upper): carry = body_fn(i, carry)``;
     ``i`` is a Python int."""
-    _refuse_dist(mesh, offload_shardings)
     n = int(upper) - int(lower)
 
     def body(carry):
         i, c = carry
         return (i + 1, body_fn(i, c))
 
+    if offload_shardings is not None:
+        offload_shardings = (None, offload_shardings)
     _, out = while_loop(None, body, (int(lower), init), max_iters=max(n, 0),
                         save_policy=save_policy,
-                        parallel_iterations=parallel_iterations)
+                        parallel_iterations=parallel_iterations,
+                        offload_shardings=offload_shardings, mesh=mesh)
     return out

@@ -1,0 +1,527 @@
+"""Logical-axis sharding rules (paper §4.3) on a torch ``DeviceMesh``.
+
+Port of ``repro/dist/sharding.py``. Model code never names mesh axes:
+parameters carry *logical* axes (``BATCH``, ``MLP``, ``VOCAB``, ...),
+and this module binds them to mesh axes once per (config, mesh) pair in
+a ``ShardingRules``. What a JAX ``Mesh`` is there, a
+``torch.distributed.device_mesh.DeviceMesh`` with ``mesh_dim_names`` is
+here, and what a ``NamedSharding`` is there, a tuple of DTensor
+placements is here: ``Shard(d)`` or ``Replicate()``, one per mesh dim.
+
+``resolve_rules`` is shape logic. It reads only the names and sizes of
+the mesh's axes (``mesh_shape``), so it takes a ``DeviceMesh``, a bare
+name -> size mapping (the tests' meshes) or anything with a JAX-style
+``shape`` mapping, and gives the same table for the same shape.
+
+Resolution is divisibility-aware, as in the JAX package: a logical
+axis binds to "model" only when the model dimension that carries it
+divides the axis size, and ``spec(..., dims=)`` and ``constrain`` drop
+an axis that does not divide the operand's dimension, so a
+sharding annotation is always safe; off a mesh it is a no-op.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
+
+import torch
+import torch.utils._pytree as pytree
+
+__all__ = [
+    "BATCH", "SEQ", "ATTN_SEQ", "ACT_SEQ", "EMBED", "MLP", "HEAD", "HEADS",
+    "KV_HEADS", "HEAD_DIM", "VOCAB", "EXPERT", "EXPERT_MLP", "INNER",
+    "STATE", "LAYERS", "CACHE_KV", "CACHE_HD", "STAGE", "SLOT", "BLOCK",
+    "PartitionSpec", "P", "ShardingRules", "mesh_shape", "resolve_rules",
+    "is_dtensor",
+    "constrain", "local_rows", "local_mean", "local_heads",
+    "keep_grad_layout",
+    "logical_to_sharding",
+    "distribute_local",
+    "distribute_tree",
+    "carve_slices", "slice_mesh", "transfer_sharding",
+]
+
+# --------------------------- logical axes -----------------------------------
+# Plain strings, the JAX package's own: specs compare by value across the
+# two packages.
+
+BATCH = "batch"          # global batch (data parallel)
+SEQ = "seq"              # generic sequence axis
+ATTN_SEQ = "attn_seq"    # sequence inside attention (context parallel)
+ACT_SEQ = "act_seq"      # inter-block residual stream (sequence parallel)
+EMBED = "embed"          # d_model; kept replicated (residual stream)
+MLP = "mlp"              # feed-forward hidden (tensor parallel)
+HEADS = "heads"          # query heads (tensor parallel)
+HEAD = HEADS             # alias
+KV_HEADS = "kv_heads"    # key/value heads (GQA may not divide)
+HEAD_DIM = "head_dim"
+VOCAB = "vocab"          # (padded) vocabulary
+EXPERT = "expert"        # MoE expert pool
+EXPERT_MLP = "expert_mlp"  # per-expert hidden (when EXPERT can't shard)
+INNER = "inner"          # SSM d_inner
+STATE = "state"          # SSM state dim
+LAYERS = "layers"        # stacked-layer leading dim (never sharded)
+CACHE_KV = "cache_kv"    # KV-cache head axis
+CACHE_HD = "cache_hd"    # KV-cache head_dim axis
+STAGE = "stage"          # pipeline stage (dist.pipeline)
+SLOT = "slot"            # serve decode-slot pool: data-parallel like BATCH
+BLOCK = "kv_block"       # paged KV-cache physical-block axis
+
+# Mesh axes batch-like logical axes map onto, outermost first.
+_DATA_AXES = ("pod", "data")
+_MODEL_AXIS = "model"
+_STAGE_AXIS = "stage"
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+
+
+class PartitionSpec(tuple):
+    """The port's ``jax.sharding.PartitionSpec``: one entry per tensor
+    dim, each ``None`` (replicated), a mesh axis name, or a tuple of
+    names (the dim split over several axes, outermost first)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P" + super().__repr__()
+
+
+P = PartitionSpec
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """Axis name -> size of a mesh: a ``DeviceMesh`` (its
+    ``mesh_dim_names``), a name -> size mapping, or an object with a
+    JAX-style ``shape`` mapping. ``None`` has no axes."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, (int(s) for s in mesh.shape)))
+    return {str(k): int(v) for k, v in mesh.shape.items()}
+
+
+def _size(mesh) -> int:
+    n = 1
+    for s in mesh_shape(mesh).values():
+        n *= s
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Immutable logical-axis -> mesh-axes table, bound to a mesh."""
+
+    mesh: Any
+    table: Dict[str, MeshAxes]
+
+    def mesh_axes(self, logical: Optional[str]) -> MeshAxes:
+        """Mesh axis (or axes tuple) a logical axis resolves to, or None."""
+        if logical is None:
+            return None
+        return self.table.get(logical)
+
+    def axis_size(self, logical: Optional[str]) -> int:
+        """Number of shards the logical axis is split into (1 if unsharded)."""
+        ax = self.mesh_axes(logical)
+        if ax is None or self.mesh is None:
+            return 1
+        shape = mesh_shape(self.mesh)
+        n = 1
+        for a in ((ax,) if isinstance(ax, str) else ax):
+            n *= shape[a]
+        return n
+
+    def spec(self, logical_spec, dims=None) -> PartitionSpec:
+        """PartitionSpec for a tuple of logical axes (None = replicated).
+
+        A mesh axis may appear at most once per spec; later duplicates
+        are dropped. With ``dims`` (the operand shape), axes whose
+        shard count does not divide the dimension are dropped too.
+        """
+        shape = mesh_shape(self.mesh)
+        used = set()
+        out = []
+        for i, logical in enumerate(logical_spec):
+            ax = self.mesh_axes(logical)
+            if ax is None or self.mesh is None:
+                out.append(None)
+                continue
+            axes = (ax,) if isinstance(ax, str) else tuple(ax)
+            axes = tuple(a for a in axes if a not in used and a in shape)
+            if dims is not None:
+                n = 1
+                for a in axes:
+                    n *= shape[a]
+                if n == 0 or dims[i] % n != 0:
+                    out.append(None)
+                    continue
+            if not axes:
+                out.append(None)
+                continue
+            used.update(axes)
+            out.append(axes[0] if len(axes) == 1 else axes)
+        return PartitionSpec(*out)
+
+    def sharding(self, logical_spec, mesh=None, dims=None) -> tuple:
+        """The DTensor placements of a logical spec on ``mesh`` (default:
+        the rules' mesh), one per mesh dim: ``Shard(d)`` where the spec
+        puts that mesh axis on tensor dim ``d``, else ``Replicate()``
+        (``()`` = fully replicated). A dim split over several axes gets
+        ``Shard(d)`` on each, outermost first, which is the JAX order
+        when the mesh lists its axes in that order (it does for
+        ("pod", "data"))."""
+        from torch.distributed.tensor import Replicate, Shard
+        use = mesh if mesh is not None else self.mesh
+        if use is None:
+            raise ValueError("ShardingRules has no mesh; pass one explicitly")
+        where = {}
+        for d, entry in enumerate(self.spec(logical_spec, dims=dims)):
+            for a in (() if entry is None else
+                      (entry,) if isinstance(entry, str) else entry):
+                where[a] = d
+        return tuple(Shard(where[a]) if a in where else Replicate()
+                     for a in mesh_shape(use))
+
+
+def _present(shape: Dict[str, int], axis: str) -> bool:
+    return shape.get(axis, 1) > 1
+
+
+def _divides(dim: int, size: int) -> bool:
+    return dim > 0 and size > 0 and dim % size == 0
+
+
+def resolve_rules(mesh, *, d_model: int = 0, n_heads: int = 0,
+                  n_kv_heads: int = 0, head_dim: int = 0, d_ff: int = 0,
+                  vocab: int = 0, n_experts: int = 0,
+                  d_inner: int = 0) -> ShardingRules:
+    """Bind logical axes to the mesh for one model's dimensions.
+
+    - ``BATCH`` (and the serving ``SLOT``/``BLOCK``) spreads over every
+      data-like axis present ("pod", "data").
+    - Tensor-parallel axes (``MLP``/``VOCAB``/``HEADS``/``INNER``/...)
+      bind to "model" only when the corresponding dimension divides the
+      axis size.
+    - ``EXPERT`` and ``EXPERT_MLP`` are mutually exclusive on "model":
+      experts shard when the pool divides, otherwise the per-expert
+      hidden width does.
+    - ``SEQ``/``ATTN_SEQ``/``ACT_SEQ`` reuse "model" (checked against
+      shapes at ``constrain`` time, not here).
+    - ``STAGE`` binds to a "stage" axis when the mesh has one
+      (``dist.pipeline``).
+    """
+    table: Dict[str, MeshAxes] = {a: None for a in (
+        BATCH, SEQ, ATTN_SEQ, ACT_SEQ, EMBED, MLP, HEADS, KV_HEADS,
+        HEAD_DIM, VOCAB, EXPERT, EXPERT_MLP, INNER, STATE, LAYERS,
+        CACHE_KV, CACHE_HD, STAGE, SLOT, BLOCK)}
+    if mesh is None:
+        return ShardingRules(mesh=None, table=table)
+    shape = mesh_shape(mesh)
+
+    data = tuple(a for a in _DATA_AXES if _present(shape, a))
+    if data:
+        table[BATCH] = data if len(data) > 1 else data[0]
+        table[SLOT] = table[BATCH]
+        table[BLOCK] = table[BATCH]
+    if _present(shape, _STAGE_AXIS):
+        table[STAGE] = _STAGE_AXIS
+
+    if _present(shape, _MODEL_AXIS):
+        m = shape[_MODEL_AXIS]
+        if _divides(d_ff, m):
+            table[MLP] = _MODEL_AXIS
+        if _divides(vocab, m):
+            table[VOCAB] = _MODEL_AXIS
+        if _divides(n_heads, m):
+            table[HEADS] = _MODEL_AXIS
+        if _divides(n_kv_heads, m):
+            table[KV_HEADS] = _MODEL_AXIS
+            table[CACHE_KV] = _MODEL_AXIS
+        if _divides(d_inner, m):
+            table[INNER] = _MODEL_AXIS
+        if _divides(n_experts, m):
+            table[EXPERT] = _MODEL_AXIS
+        elif _divides(d_ff, m):
+            table[EXPERT_MLP] = _MODEL_AXIS
+        table[SEQ] = _MODEL_AXIS
+        table[ATTN_SEQ] = _MODEL_AXIS
+        table[ACT_SEQ] = _MODEL_AXIS
+    return ShardingRules(mesh=mesh, table=table)
+
+
+def is_dtensor(x) -> bool:
+    """Is ``x`` a DTensor? Cheap, and imports nothing: no DTensor exists
+    until ``torch.distributed.tensor`` is loaded (a second to import), so
+    the single-device paths that call this never load it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def constrain(x, rules: Optional[ShardingRules], logical_spec):
+    """Redistribute a DTensor to a logical spec's placements; a no-op
+    off a mesh.
+
+    Returns ``x`` untouched for ``rules=None``, a mesh-less rules
+    object, a mesh of size 1, or a plain tensor. Axes that do not
+    divide the operand's dimension are dropped rather than producing
+    uneven shards, as in the JAX package.
+    """
+    if rules is None or rules.mesh is None or _size(rules.mesh) == 1 \
+            or not is_dtensor(x):
+        return x
+    return x.redistribute(rules.mesh, rules.sharding(
+        logical_spec, dims=tuple(x.shape)))
+
+
+def _on_local_rows(rows, whole):
+    """(mesh, the rows' layout as they came, the layout they run in, the
+    partial layout of a sum over them, the local rows, the whole
+    tensors) for ``local_rows``/``local_mean``: the rows keep the first
+    one's splits of dim 0, and are split further over every other mesh
+    dim that divides what is left of them, so that no two ranks run
+    the same rows; they are replicated over the rest. A whole tensor's
+    gradient is marked partial over the dims that split the rows (each
+    rank's rows give a part of it)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = rows[0].device_mesh
+    came = [p if p.is_shard(0) else Replicate() for p in rows[0].placements]
+    n = rows[0].shape[0]         # rows a rank holds; 0: split unevenly
+    for i, p in enumerate(came):
+        if p.is_shard(0):
+            n = n // mesh.size(i) if n % mesh.size(i) == 0 else 0
+    layout = list(came)
+    for i, p in enumerate(came):
+        if not p.is_shard(0) and mesh.size(i) > 1 and n \
+                and n % mesh.size(i) == 0:
+            layout[i] = Shard(0)
+            n //= mesh.size(i)
+    summed = [Partial() if p.is_shard(0) else Replicate() for p in layout]
+    local = [r.redistribute(mesh, layout).to_local() for r in rows]
+    full = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=summed) if is_dtensor(w) else w for w in whole]
+    return mesh, came, layout, summed, local, full
+
+
+def local_rows(fn, rows, whole=()):
+    """``fn(*rows, *whole)`` on this rank's rows: a tensor whose dim 0
+    is the rows'.
+
+    Off a mesh that is ``fn`` as it is. On a mesh the ``rows`` (DTensors
+    with the batch on dim 0) keep the first one's splits of dim 0, and
+    are split over the other mesh dims too where their count divides,
+    the ``whole`` tensors are gathered whole, ``fn`` runs on plain
+    tensors and its result comes back laid out as the rows came. The
+    MoE block's routing and experts run so (DTensor has no strategy for
+    the routing's ``searchsorted``)."""
+    if not is_dtensor(rows[0]):
+        return fn(*rows, *whole)
+    from torch.distributed.tensor import DTensor
+    mesh, came, layout, _, local, full = _on_local_rows(rows, whole)
+    out = fn(*local, *full)
+    shape = torch.Size((rows[0].shape[0],) + tuple(out.shape[1:]))
+    out = DTensor.from_local(out, mesh, layout, run_check=False,
+                             shape=shape,
+                             stride=torch.empty(shape,
+                                                device="meta").stride())
+    return out.redistribute(mesh, came)
+
+
+def local_mean(fn, rows, whole=()):
+    """``sum / count`` over the global batch, where ``fn(*rows, *whole)``
+    returns this rank's (sum, count) in plain tensors.
+
+    Off a mesh that is ``fn`` on the tensors as they are. On a mesh it
+    runs as ``local_rows`` does and the sums of the ranks along the mesh
+    dims that split the rows are added (an all-reduce, differentiable).
+    The model's chunked cross entropy runs so: DTensor's vocab-parallel
+    gather of the label logits (a masked partial) fails on (B, S, V)
+    logits, and the backward of a vocab-sharded (B, S, D) @ (D, V) can
+    leave dx's rows split over two mesh axes.
+    """
+    if not is_dtensor(rows[0]):
+        s, c = fn(*rows, *whole)
+        return s / torch.clamp(c, min=1.0)
+    from torch.distributed.tensor import DTensor
+    mesh, _, _, summed, local, full = _on_local_rows(rows, whole)
+    s, c = (DTensor.from_local(t, mesh, summed, run_check=False)
+            for t in fn(*local, *full))
+    return s / torch.clamp(c, min=1.0)
+
+
+def local_heads(fn, q, *kv):
+    """``fn(q, *kv)`` on this rank's batch rows and heads.
+
+    Off a mesh that is ``fn`` as it is. On a mesh (DTensors laid out
+    (batch, seq, heads, head_dim)) the inputs keep q's batch split, take
+    the heads split over every other mesh dim whose size divides all
+    their head counts (GQA's groups stay whole) and are replicated over
+    the rest; ``fn`` runs on the local tensors and its output (q's shape)
+    comes back with that layout (split by heads where q came so). The
+    model's chunked attention runs so: DTensor's propagation through its
+    blockwise online softmax leaves the gradients in layouts that the
+    projections' backward cannot reshape."""
+    if not is_dtensor(q):
+        return fn(q, *kv)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, xs = q.device_mesh, (q, *kv)
+    head_dim = 2
+    layout, heads = [], False
+    for i, p in enumerate(q.placements):
+        if p.is_shard(0):
+            layout.append(p)
+        elif not heads and all(x.shape[head_dim] % mesh.size(i) == 0
+                               for x in xs):
+            layout.append(Shard(head_dim))
+            heads = True
+        else:
+            layout.append(Replicate())
+    # Where q came split by heads and the K/V heads could not follow,
+    # the output leaves split as q came, contiguous (DTensor would split
+    # a replicated output itself for the output projection, as a strided
+    # view that the matmul's flattening view cannot take); each rank's
+    # inputs then get the gradient of its heads only, a partial sum,
+    # brought back to each input's own layout.
+    split = [i for i, p in enumerate(q.placements)
+             if p.is_shard(head_dim) and layout[i].is_replicate()]
+    grads = [Partial() if i in split else p for i, p in enumerate(layout)]
+    out = fn(*[keep_grad_layout(x).redistribute(mesh, layout).to_local(
+        grad_placements=grads) for x in xs])
+    for i in split:
+        out = out.chunk(mesh.size(i), dim=head_dim)[
+            mesh.get_local_rank(i)].contiguous()
+        layout[i] = Shard(head_dim)
+    return DTensor.from_local(out, mesh, layout, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape,
+                                                 device="meta").stride())
+
+
+class _KeepGradLayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        # a partial sum's cotangent is replicated
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != tuple(ctx.placements):
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def keep_grad_layout(x):
+    """``x``, whose gradient arrives in ``x``'s own layout (a DTensor's
+    placements); anything else as it is. DTensor turns a partial sum in
+    the backward into whatever layout is cheapest at that op, which can
+    split the rows of a (B, S, D) gradient over two mesh axes, and the
+    (B*S, D) -> (B, S, D) view in a matmul's backward has no strategy
+    for that. The model's sublayer outputs pass through this."""
+    if not is_dtensor(x) or not x.requires_grad:
+        return x
+    return _KeepGradLayout.apply(x)
+
+
+def logical_to_sharding(axes: Any, rules: ShardingRules,
+                        mesh=None) -> Any:
+    """Map a tree of logical-axis tuples (``model_zoo.param_axes``) to
+    placements on ``mesh`` (default: the rules' mesh). Tuples are
+    leaves."""
+    return pytree.tree_map(lambda spec: rules.sharding(spec, mesh=mesh),
+                           axes, is_leaf=lambda s: isinstance(s, tuple))
+
+
+def distribute_local(x: torch.Tensor, mesh, placements):
+    """``x``, which every rank holds whole and alike, as a DTensor on
+    ``mesh`` with ``placements``: each rank keeps its own slice, with no
+    communication (``distribute_tensor`` would broadcast along every
+    replicated mesh dim). Shards split evenly, in mesh-dim order, as
+    DTensor's own layout does."""
+    from torch.distributed.tensor import DTensor
+    local = x
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            n = mesh.size(i)
+            if local.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(x.shape)} does "
+                                 f"not split evenly over {n} ranks")
+            local = local.chunk(n, dim=p.dim)[mesh.get_local_rank(i)]
+    return DTensor.from_local(local.contiguous(), mesh, list(placements),
+                              run_check=False, shape=x.shape,
+                              stride=x.contiguous().stride())
+
+
+def distribute_tree(tree: Any, placements: Any, mesh) -> Any:
+    """Every tensor of a dict tree as a DTensor on ``mesh`` with the
+    placements at the same place of ``placements`` (a tree from
+    ``logical_to_sharding``): the port's ``jax.device_put(params,
+    shardings)``. Every rank passes the same full tensors."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, placements[k], mesh)
+                for k, v in tree.items()}
+    return distribute_local(tree, mesh, placements)
+
+
+# --------------------------- mesh slices ------------------------------------
+# Disaggregated serving carves one fleet into disjoint submeshes, a
+# prefill slice and a decode slice, and ships finished KV blocks between
+# them. In the port a fleet is the ranks of the default process group.
+
+
+def carve_slices(n_first: int, devices=None):
+    """Split a device (rank) list into two disjoint contiguous slices:
+    ``(first, rest)``, the leading ``n_first`` and the remainder.
+    ``devices`` defaults to the ranks of the default process group (one
+    rank when none is initialised)."""
+    if devices is None:
+        n = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+        devices = range(n)
+    devices = list(devices)
+    if not 0 < n_first < len(devices):
+        raise ValueError(
+            f"carve_slices(n_first={n_first}) needs 0 < n_first < "
+            f"{len(devices)} devices (both slices must be non-empty)")
+    return devices[:n_first], devices[n_first:]
+
+
+def slice_mesh(devices, axes=("data",), shape=None, device_type=None):
+    """A ``DeviceMesh`` over an explicit subset of ranks, reshaped to
+    ``shape`` (default: 1-D over one axis). Every rank of the default
+    group calls it, as it builds process groups; a rank outside the
+    slice gets a mesh it is not part of (``get_coordinate()`` is None).
+    ``device_type`` defaults to "cuda" when a card is present."""
+    from torch.distributed.device_mesh import DeviceMesh
+    devices = [int(d) for d in devices]
+    axes = tuple(axes)
+    shape = (len(devices),) if shape is None else tuple(shape)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} / axes {axes} rank mismatch")
+    n = 1
+    for s in shape:
+        n *= s
+    if n != len(devices):
+        raise ValueError(
+            f"shape {shape} wants {n} devices, got {len(devices)}")
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return DeviceMesh(device_type, torch.tensor(devices).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def transfer_sharding(rules: ShardingRules, mesh, dims) -> tuple:
+    """Destination placements of a shipped KV-block buffer
+    ``(L, R, n_cols, block, KV, hd)`` (``PagedKVCache.export_rows``): the
+    destination pool's head axes (``CACHE_KV``/``CACHE_HD``), the row and
+    column dims replicated; on a data-only slice every axis drops."""
+    return rules.sharding((LAYERS, None, None, None, CACHE_KV, CACHE_HD),
+                          mesh, dims=tuple(dims))

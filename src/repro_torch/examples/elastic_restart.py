@@ -6,7 +6,7 @@ restores the latest checkpoint into fresh state and replays steps 4-5
 from the deterministic data stream: the parameters must match the
 uninterrupted run (max |difference| < 1e-5). Phase 3 of the reference
 restores the checkpoint onto a (4, 2) data x model mesh of 8 devices;
-that is multi-device, which this port does not run (ROADMAP.md, queue 1
+restoring onto a mesh is slice 7c of the port (ROADMAP.md, queue 1
 item 7), and the script says so instead of running it.
 
     PYTHONPATH=src python -m repro_torch.examples.elastic_restart
@@ -72,8 +72,7 @@ def run(cfg, params0, *, batch: int = 4, seq: int = 32) -> Dict[str, float]:
           f"uninterrupted run = {err:.2e} ({exact}; deterministic replay)")
     assert err < RESUME_TOL
     print("[elastic] phase3: not run: restoring onto a (4, 2) mesh is "
-          "multi-device (ROADMAP.md queue 1 item 7); this port runs on "
-          "one card")
+          "slice 7c of the port (ROADMAP.md queue 1 item 7)")
     return {"loss": loss1, "resumed_loss": float(m2["loss"]),
             "max_diff": err}
 

@@ -1,0 +1,206 @@
+"""Guarded process-group initialisation, and a local launcher.
+
+Port of ``repro/launch/distributed.py``. ``init_distributed``
+initialises ``torch.distributed`` exactly when the environment names a
+multi-process job (torchrun's ``RANK``, ``WORLD_SIZE`` and
+``MASTER_ADDR``) or the caller passes explicit arguments, and is a
+clean no-op otherwise, so one entry point serves one process, a
+torchrun job and the local launcher without branching at the call
+site. It is idempotent. The backend follows the device: NCCL for
+"cuda", gloo for "cpu"; nothing falls back from one to the other.
+
+``run_local`` is the port's stand-in for the JAX package's forced
+host devices: it runs a function on N local ranks (spawned processes,
+one torch thread each), joined by gloo (or NCCL) over a ``FileStore``
+in a temporary directory, so no network is needed, and returns each
+rank's result. A rank that raises fails the call with its traceback.
+From the shell:
+
+    PYTHONPATH=src python -m repro_torch.launch.distributed --ranks 8 \\
+        --device cpu repro_torch.launch.train --arch smollm-135m \\
+        --smoke --steps 3 --mesh 2,4 --device cpu
+
+runs ``main(argv)`` of the named module on every rank.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import importlib
+import os
+import queue
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Optional
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["init_distributed", "is_multi_process", "run_local", "main"]
+
+# The variables that mark a torchrun job.
+_ENV_KEYS = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
+# How long a collective may wait for a peer before it fails.
+COLLECTIVE_TIMEOUT_S = 300
+# How long the other ranks get to end once one has failed or timed out.
+GRACE_S = 5.0
+
+
+def init_distributed(init_method: Optional[str] = None,
+                     world_size: Optional[int] = None,
+                     rank: Optional[int] = None, *, store=None,
+                     device_type: str = "cuda") -> bool:
+    """Initialise the default process group iff this is a multi-process
+    job. Returns ``is_multi_process()``.
+
+    Explicit arguments (``init_method`` such as ``file://...`` or
+    ``tcp://localhost:PORT``, or a ``store``, with ``world_size`` and
+    ``rank``) force initialisation, a world of one included (a
+    ``DeviceMesh`` needs a group); otherwise torchrun's variables are
+    read (``env://``), and their absence means one process and no
+    group. A second call reports the existing state.
+    """
+    if dist.is_initialized():
+        return is_multi_process()
+    explicit = init_method is not None or store is not None
+    if not explicit and not all(os.environ.get(k) for k in _ENV_KEYS):
+        return False
+    backend = {"cuda": "nccl", "cpu": "gloo"}[device_type]
+    if device_type == "cuda":
+        from repro_torch import resolve_device
+        resolve_device("cuda")
+        local = os.environ.get("LOCAL_RANK")
+        if local is None:
+            local = rank if rank is not None else os.environ.get("RANK", 0)
+        torch.cuda.set_device(int(local) % torch.cuda.device_count())
+    timeout = datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+    if explicit:
+        if world_size is None or rank is None:
+            raise ValueError("init_distributed: explicit initialisation "
+                             "needs world_size and rank")
+        dist.init_process_group(backend, init_method=init_method,
+                                store=store, world_size=world_size,
+                                rank=rank, timeout=timeout)
+    else:
+        dist.init_process_group(backend, timeout=timeout)
+    return is_multi_process()
+
+
+def is_multi_process() -> bool:
+    """True when the default group spans more than one process."""
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+# ---------------------------------------------------------------- launcher
+
+def _rank_main(fn, rank, world_size, store_path, device_type, args,
+               results) -> None:
+    torch.set_num_threads(1)
+    store = None
+    try:
+        store = dist.FileStore(store_path, world_size)
+        init_distributed(store=store, world_size=world_size, rank=rank,
+                         device_type=device_type)
+        out = fn(*args)
+        dist.barrier()
+        results.put((rank, True, out))
+    except BaseException:
+        # reported to the caller, which raises with it
+        results.put((rank, False, traceback.format_exc()))
+        return
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    # Leave only when every rank has destroyed its group: a rank that
+    # exits while a peer still reads from its gloo pairs makes the
+    # peer fail with "Connection closed by peer". The count lives in
+    # the store's file, not on the sockets.
+    store.add("exited", 1)
+    while store.add("exited", 0) < world_size:
+        time.sleep(0.01)
+
+
+def run_local(fn: Callable, world_size: int, *args,
+              device_type: str = "cpu", timeout: float = 600.0
+              ) -> List[Any]:
+    """Run ``fn(*args)`` on ``world_size`` local ranks and return their
+    results in rank order.
+
+    Each rank is a spawned process with one torch thread, in a default
+    group initialised with ``device_type``'s backend over a
+    ``FileStore``. ``fn``, ``args`` and the results are pickled, so
+    ``fn`` is a module-level function. If a rank raises, or the ranks
+    are not done within ``timeout`` seconds, the others get ``GRACE_S``
+    seconds to end, are then stopped, and this raises with every
+    traceback received.
+    """
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    got, failed = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store_path = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(fn, r, world_size, store_path,
+                                   device_type, args, results))
+                 for r in range(world_size)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            while len(got) + len(failed) < world_size:
+                wait = deadline - time.monotonic()
+                if failed:
+                    wait = min(wait, GRACE_S)
+                if wait <= 0:
+                    break
+                try:
+                    rank, ok, payload = results.get(timeout=wait)
+                except queue.Empty:
+                    break
+                (got if ok else failed)[rank] = payload
+            for p in procs:
+                p.join(timeout=GRACE_S if not failed else 1.0)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+            results.close()
+    missing = sorted(set(range(world_size)) - set(got) - set(failed))
+    if failed or missing:
+        lines = [f"run_local: {len(failed)} of {world_size} ranks raised "
+                 f"(first failure first)"
+                 + (f"; ranks {missing} did not finish within "
+                    f"{timeout:.0f} s" if missing else "")]
+        for rank in failed:
+            lines.append(f"--- rank {rank} ---\n{failed[rank]}")
+        raise RuntimeError("\n".join(lines))
+    bad = [p.exitcode for p in procs if p.exitcode not in (0, None)]
+    if bad:
+        raise RuntimeError(f"run_local: ranks exited with codes {bad}")
+    return [got[r] for r in range(world_size)]
+
+
+def _run_module(module: str, argv: List[str]) -> None:
+    importlib.import_module(module).main(argv)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description="run MODULE.main(ARGS) on N local ranks")
+    ap.add_argument("--ranks", type=int, required=True)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (NCCL, the default) or cpu (gloo)")
+    ap.add_argument("--timeout", type=float, default=3600.0)
+    ap.add_argument("module")
+    ap.add_argument("args", nargs=argparse.REMAINDER)
+    a = ap.parse_args(argv)
+    run_local(_run_module, a.ranks, a.module, a.args,
+              device_type=a.device, timeout=a.timeout)
+
+
+if __name__ == "__main__":
+    main()

@@ -90,7 +90,7 @@ KV blocks are copied on a side stream into a fresh buffer and spliced
 into the decode tier of ``--slots`` slots one round later. It implies
 ``--kv paged --prefill chunked``; both tiers share the one card (and its
 weights), as the JAX package's tiers share one device;
-``--prefill-devices`` above 1 is multi-device and refused, as is the
+``--prefill-devices`` above 1 (submeshes, slice 7c) is refused, as is the
 model drafter (``--spec-drafter model``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
@@ -319,8 +319,8 @@ def run_disagg(args, cfg, params, workload):
     ``DisaggScheduler``; both tiers on the one card."""
     if args.prefill_devices > 1:
         raise SystemExit(
-            "--prefill-devices > 1 carves the fleet into submeshes, which "
-            "is multi-device (ROADMAP.md queue 1 item 7); on one card both "
+            "--prefill-devices > 1 carves the fleet into submeshes, slice "
+            "7c of the port (ROADMAP.md queue 1 item 7); on one card both "
             "tiers share the device")
     if args.spec_k and args.spec_drafter == "model":
         raise SystemExit("--disagg composes with the ngram drafter only (a "
@@ -586,7 +586,7 @@ def main(argv=None):
                     help="--disagg: the prefill tier's slots (0 = --slots)")
     ap.add_argument("--prefill-devices", type=int, default=0,
                     help="--disagg: devices of the prefill tier; above 1 "
-                         "is multi-device and refused")
+                         "(submeshes, slice 7c) is refused")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (the kernels' plain "
                          "versions)")

@@ -26,20 +26,37 @@ config gives it: training attends through ``chunked_attention``
 (``attn_impl="gather"``, every config's default); under
 ``attn_impl="cuda"`` a step stops at the forward-only flash kernel's
 refusal. The MoE family's metrics carry its two aux losses. Every
-family trains; ``--mesh`` (multi-device) is refused. Runs on the card;
-``--device cpu`` runs the plain versions of the kernels.
+family trains. Runs on the card; ``--device cpu`` runs the plain
+versions of the kernels.
+
+``--mesh 2,4`` trains on a ``DeviceMesh`` of that shape over the ranks
+of the job, its axes ``("data", "model", "stage")[:len(shape)]``, with
+the masters and AdamW moments sharded by the config's logical axes
+(``train_loop.place_params``). Run it under torchrun, or on local ranks
+with ``launch.distributed`` (gloo ranks on the CPU need no network):
+
+    PYTHONPATH=src python -m repro_torch.launch.distributed --ranks 8 \
+        --device cpu repro_torch.launch.train --arch smollm-135m \
+        --smoke --steps 3 --mesh 2,4 --device cpu
+
+A mesh whose size is not the world size raises; a mesh of one device
+on a single process gets a group of one. Checkpoints of a sharded run
+are not written (``--ckpt-dir`` with ``--mesh`` is refused).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 
 import torch
 
 from repro_torch import bridge, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch import distributed
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model_zoo
 from repro_torch.optim import adamw, schedule
 from repro_torch.train import train_loop
@@ -57,8 +74,10 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default=None,
-                    help="multi-device; refused (the dist slice of "
-                         "ROADMAP.md)")
+                    help="e.g. '4,2' => (data,model) or '2,2,2' => "
+                         "(data,model,stage); with a stage axis > 1 and "
+                         "--grad-accum > 1, microbatches route through "
+                         "the dist.pipeline schedule; default one device")
     ap.add_argument("--grad-accum", type=int, default=0,
                     help="microbatches per step (0 = config default)")
     ap.add_argument("--device", default="cuda",
@@ -71,21 +90,32 @@ def main(argv=None):
     "trainer", "start"}`` for callers that inspect the run (None when
     the checkpoint is already past ``--steps``)."""
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is multi-device; it belongs to the dist slice of "
-            "ROADMAP.md (this port trains on one card)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.grad_accum:
         cfg = dataclasses.replace(cfg, grad_accum=args.grad_accum)
+    rules, log, own_group = None, print, False
+    if args.mesh:
+        rules, own_group = _mesh_rules(args, cfg, device)
+        if torch.distributed.get_rank() != 0:
+            log = _quiet
+    try:
+        return _train(args, cfg, device, rules, log)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, device, rules, log):
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    print(f"[launch.train] {cfg.name}: "
-          f"{model_zoo.count_params(cfg) / 1e6:.1f}M params, "
-          f"{n_dev} {device.type} device(s)")
+    log(f"[launch.train] {cfg.name}: "
+        f"{model_zoo.count_params(cfg) / 1e6:.1f}M params, "
+        f"{n_dev} {device.type} device(s)")
 
     params = bridge.init_params(cfg, seed=0, device=device,
                                 keep_param_dtype=True)
+    if rules is not None:
+        params = train_loop.place_params(params, cfg, rules)
     opt_cfg = adamw.AdamWConfig(
         lr=args.lr, schedule=schedule.warmup_cosine(
             max(args.steps // 20, 1), args.steps))
@@ -96,21 +126,64 @@ def main(argv=None):
                        patches=((cfg.n_patches, cfg.d_model)
                                 if cfg.family == "vlm" else None))
 
-    step_fn = train_loop.make_train_step(cfg, opt_cfg)
+    step_fn = train_loop.make_train_step(cfg, opt_cfg, rules)
     trainer = train_loop.Trainer(
         step_fn, data,
         train_loop.TrainerConfig(ckpt_dir=args.ckpt_dir,
-                                 ckpt_every=args.ckpt_every, log_every=10))
+                                 ckpt_every=args.ckpt_every, log_every=10),
+        log_fn=log)
     start, params, opt_state = trainer.maybe_resume(params, opt_state)
     if start >= args.steps:
-        print("[launch.train] checkpoint is already past --steps; done")
+        log("[launch.train] checkpoint is already past --steps; done")
         return None
     params, opt_state, metrics = trainer.run(
         params, opt_state, start_step=start, steps=args.steps - start)
-    print(f"[launch.train] finished at loss {float(metrics['loss']):.4f}; "
-          f"stragglers flagged: {len(trainer.straggler_steps)}")
+    log(f"[launch.train] finished at loss {float(metrics['loss']):.4f}; "
+        f"stragglers flagged: {len(trainer.straggler_steps)}")
     return {"params": params, "opt": opt_state, "metrics": metrics,
             "trainer": trainer, "start": start}
+
+
+def _quiet(_: str) -> None:
+    pass
+
+
+def _mesh_rules(args, cfg, device):
+    """The ``ShardingRules`` of ``--mesh`` on the job's ranks, with the
+    JAX launcher's notes on the stage axis."""
+    if args.ckpt_dir:
+        raise ValueError("--ckpt-dir with --mesh: checkpoints of sharded "
+                         "masters are not written by this port")
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    axes = ("data", "model", "stage")[:len(shape)]
+    distributed.init_distributed(device_type=device.type)
+    own_group = False
+    if not torch.distributed.is_initialized() and math.prod(shape) == 1:
+        # a one-device mesh on one process: a group of one, for this run
+        distributed.init_distributed(
+            store=torch.distributed.HashStore(), world_size=1, rank=0,
+            device_type=device.type)
+        own_group = True
+    try:
+        mesh = mesh_lib.make_mesh(shape, axes, device.type)
+    except BaseException:
+        if own_group:
+            torch.distributed.destroy_process_group()
+        raise
+    if torch.distributed.get_rank() == 0:
+        print(f"[launch.train] mesh {dict(zip(axes, shape))} over "
+              f"{torch.distributed.get_world_size()} "
+              f"{torch.distributed.get_backend()} rank(s)")
+        if len(shape) > 2 and shape[2] > 1:
+            if cfg.grad_accum > 1:
+                print("[launch.train] stage axis: grad-accum microbatches "
+                      "route through the dist.pipeline schedule "
+                      "(train_loop accum='auto')")
+            else:
+                print("[launch.train] note: stage axis without "
+                      "--grad-accum > 1 holds replicas; pass --grad-accum "
+                      "to pipeline microbatches over it")
+    return model_zoo.make_rules(cfg, mesh), own_group
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ import math
 
 import torch
 
+from ..dist import sharding as sh
 from . import layers
 
 
@@ -89,7 +90,8 @@ def router_params(b, cfg):
     """Per-layer MoD router: one scalar head ``g = sigmoid(x . w)``,
     zero-initialised (``g = 0.5`` everywhere), kept in the param dtype
     (the gate is computed in fp32, as in the JAX package)."""
-    return {"w": b.p((cfg.d_model,), init="zeros", param_dtype=True)}
+    return {"w": b.p((cfg.d_model,), (sh.EMBED,), init="zeros",
+                     param_dtype=True)}
 
 
 # =========================== early exit =====================================

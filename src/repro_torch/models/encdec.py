@@ -12,8 +12,10 @@ The output projection is the tied ``embed``.
 The stacked encoder and decoder trees (layer dim in front) are driven
 a layer at a time by ``transformer._run_layers``, which applies
 ``cfg.remat`` to each layer step, as the port's transformer does. The
-multi-device knobs of the JAX module (sharding rules, sequence-parallel
-attention) are not ported.
+JAX module's ``constrain`` calls have no counterpart: on a mesh,
+DTensor's propagation places the activations (``train_loop``), and its
+sequence-parallel attention route is a layout choice not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,16 +25,18 @@ from typing import Dict, Tuple
 import torch
 
 from . import attention as attn_lib
+from ..dist import sharding as sh
 from . import layers, transformer
 
 
 # =========================== parameters ====================================
 
 def _mlp_params(b, cfg):
-    return {"w_in": b.p((cfg.d_model, cfg.d_ff)),
-            "b_in": b.p((cfg.d_ff,), init="zeros"),
-            "w_out": b.p((cfg.d_ff, cfg.d_model), fan_in=cfg.d_ff),
-            "b_out": b.p((cfg.d_model,), init="zeros")}
+    return {"w_in": b.p((cfg.d_model, cfg.d_ff), (sh.EMBED, sh.MLP)),
+            "b_in": b.p((cfg.d_ff,), (sh.MLP,), init="zeros"),
+            "w_out": b.p((cfg.d_ff, cfg.d_model), (sh.MLP, sh.EMBED),
+                         fan_in=cfg.d_ff),
+            "b_out": b.p((cfg.d_model,), (sh.EMBED,), init="zeros")}
 
 
 def _enc_block_params(b, cfg):
@@ -58,7 +62,8 @@ def build_params(cfg, b):
     layouts): the tied ``embed``, the stacked ``encoder`` and
     ``decoder`` blocks, ``enc_ln`` and ``ln_final`` with their biases."""
     D = cfg.d_model
-    return {"embed": b.p((cfg.padded_vocab, D), init="normal", scale=0.02),
+    return {"embed": b.p((cfg.padded_vocab, D), (sh.VOCAB, sh.EMBED),
+                         init="normal", scale=0.02),
             "encoder": _enc_block_params(
                 transformer._Stacked(b, cfg.encoder_layers), cfg),
             "decoder": _dec_block_params(
@@ -91,12 +96,20 @@ def _q(p, x, cfg):
 def _proj_out(p, out, cfg, x):
     B, S, H, hd = out.shape
     o = out.to(cfg.dtype("compute")).reshape(B, S, H * hd)
-    return (o @ p["wo"].reshape(H * hd, -1)).to(x.dtype)
+    return sh.keep_grad_layout((o @ p["wo"].reshape(H * hd, -1)).to(x.dtype))
 
 
 def _mlp(p, h, cfg):
-    return layers.gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"], p["b_out"],
-                           cfg.dtype("compute"))
+    return sh.keep_grad_layout(layers.gelu_mlp(
+        h, p["w_in"], p["b_in"], p["w_out"], p["b_out"],
+        cfg.dtype("compute")))
+
+
+def _attend(q, k, v, cfg, **kw):
+    """``chunked_attention`` on this rank's rows and heads on a mesh."""
+    return sh.local_heads(lambda q, k, v: attn_lib.chunked_attention(
+        q, k, v, q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk, **kw),
+        q, k, v)
 
 
 def encode(params, cfg, frames):
@@ -109,9 +122,7 @@ def encode(params, cfg, frames):
     def block(lp, x, i):
         h = layers.layer_norm(x, lp["ln1"], lp["ln1_b"])
         q, k, v = _qkv(lp["attn"], h, cfg)
-        a = attn_lib.chunked_attention(q, k, v, causal=False,
-                                       q_chunk=cfg.attn_q_chunk,
-                                       k_chunk=cfg.attn_k_chunk)
+        a = _attend(q, k, v, cfg, causal=False)
         x = x + _proj_out(lp["attn"], a, cfg, x)
         h = layers.layer_norm(x, lp["ln2"], lp["ln2_b"])
         return x + _mlp(lp["mlp"], h, cfg).to(x.dtype)
@@ -144,10 +155,8 @@ def _dec_block(lp, x, cfg, enc_out=None, *, mode="full", self_kv=None,
     h = layers.layer_norm(x, lp["ln1"], lp["ln1_b"])
     q, k, v = _qkv(lp["self_attn"], h, cfg)
     if mode == "full":
-        a = attn_lib.chunked_attention(
-            q, k, v, causal=True, q_chunk=cfg.attn_q_chunk,
-            k_chunk=cfg.attn_k_chunk,
-            skip_masked_blocks=cfg.attn_skip_masked_blocks)
+        a = _attend(q, k, v, cfg, causal=True,
+                    skip_masked_blocks=cfg.attn_skip_masked_blocks)
     elif mode == "prefill":
         self_kv.write_prompt(k, v)
         a = attn_lib.chunked_attention(q, k, v, causal=True,
@@ -170,9 +179,7 @@ def _dec_block(lp, x, cfg, enc_out=None, *, mode="full", self_kv=None,
     h = layers.layer_norm(x, lp["ln2"], lp["ln2_b"])
     if mode in ("full", "prefill"):
         qc, kc, vc = _qkv(lp["cross_attn"], h, cfg, kv_x=enc_out)
-        a = attn_lib.chunked_attention(qc, kc, vc, causal=False,
-                                       q_chunk=cfg.attn_q_chunk,
-                                       k_chunk=cfg.attn_k_chunk)
+        a = _attend(qc, kc, vc, cfg, causal=False)
     elif mode == "chunk":
         ck, cv = cross_kv.gather()
         a = attn_lib.chunked_attention(_q(lp["cross_attn"], h, cfg), ck, cv,

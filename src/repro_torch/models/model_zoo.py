@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig, require_ported
+from ..dist import sharding as sh
 from . import encdec, transformer
 
 CE_CHUNK = 512
@@ -84,30 +85,38 @@ def _chunked_ce(x, labels, w, cfg: ModelConfig, chunk: int = CE_CHUNK):
     the padded tail are -1): the (B, S, V) fp32 logits are never whole
     in memory (4.2 GB at vocab 128256, B=4, S=2048), and each chunk runs
     under a non-reentrant ``checkpoint``, so the backward recomputes its
-    logits instead of keeping them."""
-    B, S, _ = x.shape
-    chunk = min(chunk, S)
+    logits instead of keeping them.
+
+    On a mesh (DTensor features) it runs on each rank's rows with the
+    unembedding gathered whole, and the ranks' sums are added
+    (``sharding.local_mean``)."""
     cdt = cfg.dtype("compute")
 
-    def one(xi, li):
-        # each chunk casts the weight, as the JAX package does, so the
-        # chunks' cotangents of fp32 masters add in fp32
-        per_tok, valid = _token_nll(xi.to(cdt) @ w.to(cdt), li, cfg.vocab)
-        return per_tok.sum(), valid.sum().float()
+    def sums(x, labels, w):
+        B, S, _ = x.shape
+        n = min(chunk, S)
 
-    sums, counts = [], []
-    for c in range(math.ceil(S / chunk)):
-        xi = x[:, c * chunk:(c + 1) * chunk]
-        li = labels[:, c * chunk:(c + 1) * chunk]
-        pad = chunk - xi.shape[1]
-        if pad:
-            xi = torch.cat([xi, xi.new_zeros(B, pad, xi.shape[2])], dim=1)
-            li = torch.cat([li, li.new_full((B, pad), -1)], dim=1)
-        s, n = checkpoint(one, xi, li, use_reentrant=False)
-        sums.append(s)
-        counts.append(n)
-    return torch.stack(sums).sum() / torch.clamp(torch.stack(counts).sum(),
-                                                 min=1.0)
+        def one(xi, li):
+            # each chunk casts the weight, as the JAX package does, so the
+            # chunks' cotangents of fp32 masters add in fp32
+            per_tok, valid = _token_nll(xi.to(cdt) @ w.to(cdt), li,
+                                        cfg.vocab)
+            return per_tok.sum(), valid.sum().float()
+
+        s_, c_ = [], []
+        for c in range(math.ceil(S / n)):
+            xi = x[:, c * n:(c + 1) * n]
+            li = labels[:, c * n:(c + 1) * n]
+            pad = n - xi.shape[1]
+            if pad:
+                xi = torch.cat([xi, xi.new_zeros(B, pad, xi.shape[2])], dim=1)
+                li = torch.cat([li, li.new_full((B, pad), -1)], dim=1)
+            s, k = checkpoint(one, xi, li, use_reentrant=False)
+            s_.append(s)
+            c_.append(k)
+        return torch.stack(s_).sum(), torch.stack(c_).sum()
+
+    return sh.local_mean(sums, (x, labels), (w,))
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor,
@@ -134,8 +143,29 @@ class _ShapeSource:
     """A parameter source that draws nothing: ``meta`` tensors of each
     parameter's shape."""
 
-    def p(self, shape, **kw):
+    def p(self, shape, axes, **kw):
         return torch.empty(tuple(shape), device="meta")
+
+
+def param_axes(cfg: ModelConfig):
+    """The parameter tree with each leaf replaced by its logical axes
+    (a tuple of ``dist.sharding`` names), from the same structure
+    function as the weights (the JAX package's ``Builder("axes")``)."""
+    from ..bridge import _ParamSource
+    require_ported(cfg)
+    return build_fn(cfg)(cfg, _ParamSource(cfg, mode="axes"))
+
+
+def make_rules(cfg: ModelConfig, mesh) -> sh.ShardingRules:
+    """The config's ``ShardingRules`` on ``mesh`` (a ``DeviceMesh`` or a
+    name -> size mapping)."""
+    return sh.resolve_rules(
+        mesh, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+        d_ff=(cfg.moe.d_ff_expert if cfg.moe else cfg.d_ff),
+        vocab=cfg.padded_vocab,
+        n_experts=(cfg.moe.n_experts if cfg.moe else 0),
+        d_inner=cfg.d_inner)
 
 
 def count_params(cfg: ModelConfig) -> int:

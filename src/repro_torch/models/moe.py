@@ -39,22 +39,24 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist import sharding as sh
 from . import layers
 
 
 def moe_params(b, cfg, d_model: int):
     m = cfg.moe
-    p = {"router": b.p((d_model, m.n_experts), scale=0.1),
+    p = {"router": b.p((d_model, m.n_experts), (sh.EMBED, None), scale=0.1),
          "w_gate": b.p((m.n_experts, d_model, m.d_ff_expert),
-                       fan_in=d_model),
+                       (sh.EXPERT, sh.EMBED, sh.EXPERT_MLP), fan_in=d_model),
          "w_up": b.p((m.n_experts, d_model, m.d_ff_expert),
-                     fan_in=d_model),
+                     (sh.EXPERT, sh.EMBED, sh.EXPERT_MLP), fan_in=d_model),
          "w_down": b.p((m.n_experts, m.d_ff_expert, d_model),
+                       (sh.EXPERT, sh.EXPERT_MLP, sh.EMBED),
                        fan_in=m.d_ff_expert)}
     if m.n_shared_experts:
-        p["shared_gate"] = b.p((d_model, m.d_ff_shared))
-        p["shared_up"] = b.p((d_model, m.d_ff_shared))
-        p["shared_down"] = b.p((m.d_ff_shared, d_model))
+        p["shared_gate"] = b.p((d_model, m.d_ff_shared), (sh.EMBED, sh.MLP))
+        p["shared_up"] = b.p((d_model, m.d_ff_shared), (sh.EMBED, sh.MLP))
+        p["shared_down"] = b.p((m.d_ff_shared, d_model), (sh.MLP, sh.EMBED))
     return p
 
 
@@ -161,29 +163,36 @@ def moe_mlp(p: Dict, x, cfg, *, need_aux: bool = True
     cdt = cfg.dtype("compute")
 
     xg = x.to(cdt)
-    logits = xg.float() @ p["router"].float()                 # (G, S, E)
+    logits = sh.keep_grad_layout(xg.float() @ p["router"].float())  # G,S,E
     probs = torch.softmax(logits, dim=-1)
     gate, expert_idx = torch.topk(probs, K, dim=-1)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
-    slot_token, slot_entry, token_slot, dropped = route(expert_idx, E, C)
+    def experts(xg, gate, expert_idx, w_gate, w_up, w_down):
+        G = xg.shape[0]
+        slot_token, slot_entry, token_slot, dropped = route(expert_idx, E,
+                                                            C)
+        # dispatch: one gather (G, E * (C + 1), D); sentinel rows read 0
+        xg_pad = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
+        buf = _DispatchGather.apply(xg_pad, slot_token, token_slot, dropped)
+        be = buf.reshape(G, E, C + 1, D)[:, :, :C]            # (G, E, C, D)
 
-    # dispatch: one gather (G, E * (C + 1), D); sentinel rows read zeros
-    xg_pad = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
-    buf = _DispatchGather.apply(xg_pad, slot_token, token_slot, dropped)
-    be = buf.reshape(G, E, C + 1, D)[:, :, :C]                # (G, E, C, D)
+        # dense per-expert SwiGLU over every expert's C rows
+        g = F.silu(torch.einsum("gecd,edf->gecf", be, w_gate))
+        u = torch.einsum("gecd,edf->gecf", be, w_up)
+        h = torch.einsum("gecf,efd->gecd", g * u, w_down)
 
-    # dense per-expert SwiGLU over every expert's C rows
-    g = F.silu(torch.einsum("gecd,edf->gecf", be, p["w_gate"]))
-    u = torch.einsum("gecd,edf->gecf", be, p["w_up"])
-    h = torch.einsum("gecf,efd->gecd", g * u, p["w_down"])
+        # combine: one gather (G, S, K, D), the gate-weighted sum over K
+        h_flat = torch.cat([h, h.new_zeros(G, E, 1, D)], dim=2).reshape(
+            G, E * (C + 1), D)
+        contrib = _CombineGather.apply(h_flat, token_slot, slot_entry)
+        gate_eff = gate.masked_fill(dropped, 0.0).to(h.dtype)
+        return torch.einsum("gskd,gsk->gsd", contrib, gate_eff)
 
-    # combine: one gather (G, S, K, D), then the gate-weighted sum over K
-    h_flat = torch.cat([h, h.new_zeros(G, E, 1, D)], dim=2).reshape(
-        G, E * (C + 1), D)
-    contrib = _CombineGather.apply(h_flat, token_slot, slot_entry)
-    gate_eff = gate.masked_fill(dropped, 0.0).to(h.dtype)
-    out = torch.einsum("gskd,gsk->gsd", contrib, gate_eff)
+    # on a mesh, each rank routes its own rows (groups) through the
+    # expert weights gathered whole
+    out = sh.local_rows(experts, (xg, gate, expert_idx),
+                        (p["w_gate"], p["w_up"], p["w_down"]))
 
     if m.n_shared_experts:
         out = out + layers.swiglu(xg, p["shared_gate"], p["shared_up"],

@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.selective_scan.ops import selective_scan
+from ..dist import sharding as sh
 from . import layers
 
 # leaves the JAX package reads in fp32 whatever the compute dtype
@@ -70,16 +71,17 @@ def mamba1_params(b, cfg):
     di = s.expand * d
     dt_rank = max(1, math.ceil(d / 16))
     return {
-        "in_proj": b.p((d, 2 * di)),
-        "conv_w": b.p((s.d_conv, di), init="normal", scale=0.2),
-        "conv_b": b.p((di,), init="zeros"),
-        "x_proj": b.p((di, dt_rank + 2 * s.d_state)),
-        "dt_proj": b.p((dt_rank, di)),
-        "dt_bias": b.p((di,), init="zeros", param_dtype=True),
-        "A_log": b.p((di, s.d_state), init="normal", scale=0.5,
-                     param_dtype=True),
-        "D_skip": b.p((di,), init="ones", param_dtype=True),
-        "out_proj": b.p((di, d)),
+        "in_proj": b.p((d, 2 * di), (sh.EMBED, sh.INNER)),
+        "conv_w": b.p((s.d_conv, di), (None, sh.INNER), init="normal",
+                      scale=0.2),
+        "conv_b": b.p((di,), (sh.INNER,), init="zeros"),
+        "x_proj": b.p((di, dt_rank + 2 * s.d_state), (sh.INNER, None)),
+        "dt_proj": b.p((dt_rank, di), (None, sh.INNER)),
+        "dt_bias": b.p((di,), (sh.INNER,), init="zeros", param_dtype=True),
+        "A_log": b.p((di, s.d_state), (sh.INNER, sh.STATE), init="normal",
+                     scale=0.5, param_dtype=True),
+        "D_skip": b.p((di,), (sh.INNER,), init="ones", param_dtype=True),
+        "out_proj": b.p((di, d), (sh.INNER, sh.EMBED)),
     }
 
 
@@ -272,14 +274,16 @@ def mamba2_params(b, cfg):
     H, N = di // s.head_dim, s.d_state
     conv_dim = di + 2 * N
     return {
-        "in_proj": b.p((d, 2 * di + 2 * N + H)),
-        "conv_w": b.p((s.d_conv, conv_dim), init="normal", scale=0.2),
-        "conv_b": b.p((conv_dim,), init="zeros"),
-        "A_log": b.p((H,), init="normal", scale=0.5, param_dtype=True),
-        "dt_bias": b.p((H,), init="zeros", param_dtype=True),
-        "D_skip": b.p((H,), init="ones", param_dtype=True),
-        "norm_w": b.p((di,), init="ones"),
-        "out_proj": b.p((di, d)),
+        "in_proj": b.p((d, 2 * di + 2 * N + H), (sh.EMBED, sh.INNER)),
+        "conv_w": b.p((s.d_conv, conv_dim), (None, sh.INNER), init="normal",
+                      scale=0.2),
+        "conv_b": b.p((conv_dim,), (sh.INNER,), init="zeros"),
+        "A_log": b.p((H,), (None,), init="normal", scale=0.5,
+                     param_dtype=True),
+        "dt_bias": b.p((H,), (None,), init="zeros", param_dtype=True),
+        "D_skip": b.p((H,), (None,), init="ones", param_dtype=True),
+        "norm_w": b.p((di,), (sh.INNER,), init="ones"),
+        "out_proj": b.p((di, d), (sh.INNER, sh.EMBED)),
     }
 
 

@@ -67,6 +67,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import core
 from ..core import device_loop
+from ..dist import sharding as sh
 from ..kernels import ARCH_TAG
 from . import adaptive
 from . import attention as attn_lib
@@ -77,7 +78,8 @@ from . import ssm as ssm_lib
 
 # =========================== parameters ====================================
 # Structure functions over a parameter source ``b`` whose ``b.p(shape,
-# init=..., scale=..., fan_in=...)`` draws one tensor
+# axes, init=..., scale=..., fan_in=...)`` draws one tensor (or, in its
+# axes mode, returns the logical axes)
 # (``bridge.init_params``), as the JAX package's ``build_params`` runs
 # over the parameter factory of its ``models/params.py``.
 
@@ -86,20 +88,25 @@ def attn_params(b, cfg, d_model: int):
     # fan_in=d_model: the JAX package's default (shape[-2], the head
     # count here) makes random full-width attention an argmax
     # (bridge.init_params)
-    p = {"wq": b.p((d_model, H, hd), fan_in=d_model),
-         "wk": b.p((d_model, KV, hd), fan_in=d_model),
-         "wv": b.p((d_model, KV, hd), fan_in=d_model),
-         "wo": b.p((H, hd, d_model), fan_in=H * hd)}
+    p = {"wq": b.p((d_model, H, hd), (sh.EMBED, sh.HEADS, sh.HEAD_DIM),
+                   fan_in=d_model),
+         "wk": b.p((d_model, KV, hd), (sh.EMBED, sh.KV_HEADS, sh.HEAD_DIM),
+                   fan_in=d_model),
+         "wv": b.p((d_model, KV, hd), (sh.EMBED, sh.KV_HEADS, sh.HEAD_DIM),
+                   fan_in=d_model),
+         "wo": b.p((H, hd, d_model), (sh.HEADS, sh.HEAD_DIM, sh.EMBED),
+                   fan_in=H * hd)}
     if cfg.qkv_bias:
-        p["bq"] = b.p((H, hd), init="zeros")
-        p["bk"] = b.p((KV, hd), init="zeros")
-        p["bv"] = b.p((KV, hd), init="zeros")
+        p["bq"] = b.p((H, hd), (sh.HEADS, sh.HEAD_DIM), init="zeros")
+        p["bk"] = b.p((KV, hd), (sh.KV_HEADS, sh.HEAD_DIM), init="zeros")
+        p["bv"] = b.p((KV, hd), (sh.KV_HEADS, sh.HEAD_DIM), init="zeros")
     return p
 
 
 def mlp_params(b, cfg, d_model: int, d_ff: int):
-    return {"w_gate": b.p((d_model, d_ff)), "w_up": b.p((d_model, d_ff)),
-            "w_down": b.p((d_ff, d_model), fan_in=d_ff)}
+    return {"w_gate": b.p((d_model, d_ff), (sh.EMBED, sh.MLP)),
+            "w_up": b.p((d_model, d_ff), (sh.EMBED, sh.MLP)),
+            "w_down": b.p((d_ff, d_model), (sh.MLP, sh.EMBED), fan_in=d_ff)}
 
 
 def norm_params(b, kind: str, d: int, name: str):
@@ -108,10 +115,11 @@ def norm_params(b, kind: str, d: int, name: str):
     non-parametric norm; drawn in the param dtype, which the norms read
     them in."""
     if kind == "rmsnorm":
-        return {name: b.p((d,), init="ones")}
+        return {name: b.p((d,), (sh.EMBED,), init="ones")}
     if kind == "layernorm":
-        return {name: b.p((d,), init="ones"),
-                name + "_b": b.p((d,), init="zeros", param_dtype=True)}
+        return {name: b.p((d,), (sh.EMBED,), init="ones"),
+                name + "_b": b.p((d,), (sh.EMBED,), init="zeros",
+                                 param_dtype=True)}
     if kind == "nonparametric_ln":
         return {}
     raise ValueError(kind)
@@ -124,8 +132,8 @@ class _Stacked:
     def __init__(self, b, n: int):
         self._b, self._n = b, n
 
-    def p(self, shape, **kw):
-        return self._b.p((self._n, *shape), **kw)
+    def p(self, shape, axes, **kw):
+        return self._b.p((self._n, *shape), (sh.LAYERS, *axes), **kw)
 
 
 def _attn_block_params(b, cfg):
@@ -162,11 +170,13 @@ def build_params(cfg, b):
             shared["shared_attn"] = _attn_block_params(b, cfg)
     else:
         layers_p = _attn_block_params(lb, cfg)
-    p = {"embed": b.p((cfg.padded_vocab, D), init="normal", scale=0.02),
+    p = {"embed": b.p((cfg.padded_vocab, D), (sh.VOCAB, sh.EMBED),
+                      init="normal", scale=0.02),
          "layers": layers_p, **shared,
          **norm_params(b, cfg.norm, D, "ln_final")}
     if not cfg.tie_embeddings:
-        p["unembed"] = b.p((D, cfg.padded_vocab), init="normal",
+        p["unembed"] = b.p((D, cfg.padded_vocab), (sh.EMBED, sh.VOCAB),
+                           init="normal",
                            scale=0.02)
     return p
 
@@ -239,10 +249,10 @@ def attn_apply(p, x, cfg, *, positions, mode: str = "full",
     elif mode in ("full", "prefill"):
         if mode == "prefill":
             kv_cache.write_prompt(k, v)
-        out = attn_lib.chunked_attention(
+        out = sh.local_heads(lambda q, k, v: attn_lib.chunked_attention(
             q, k, v, causal=True, q_chunk=cfg.attn_q_chunk,
             k_chunk=cfg.attn_k_chunk,
-            skip_masked_blocks=cfg.attn_skip_masked_blocks)
+            skip_masked_blocks=cfg.attn_skip_masked_blocks), q, k, v)
     elif mode == "chunk":
         kv_cache.write_chunk(k, v, chunk_off)
         out = attn_lib.prefill_attention(q, kv_cache, q_off=chunk_off,
@@ -289,7 +299,7 @@ def attn_block(p, x, cfg, *, positions, mode="full", kv_cache=None,
                    kv_cache=kv_cache, cur_len=cur_len, chunk_off=chunk_off)
     if cfg.remat == "attn_out":   # only there: other modes' graphs unchanged
         a = tag_attn_out(a)
-    x = x + a
+    x = x + sh.keep_grad_layout(a)
     h = layers.apply_norm(cfg.norm, x, p, "ln_mlp")
     aux: Dict[str, torch.Tensor] = {}
     if cfg.family == "moe":
@@ -297,7 +307,7 @@ def attn_block(p, x, cfg, *, positions, mode="full", kv_cache=None,
     else:
         m = layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                           p["mlp"]["w_down"], cfg.dtype("compute"))
-    x = x + m.to(x.dtype)
+    x = x + sh.keep_grad_layout(m.to(x.dtype))
     return (x, aux) if with_aux else x
 
 

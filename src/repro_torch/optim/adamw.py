@@ -32,8 +32,8 @@ class AdamWConfig:
 
 
 def init(params) -> AdamWState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):   # a DTensor master gets moments of its placements
+        return torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(step=0, mu=pytree.tree_map(zeros, params),
                       nu=pytree.tree_map(zeros, params))
 

@@ -31,7 +31,7 @@ copy runs in the call).
 Both tiers read the one set of weights on the card: with ``mesh=None``
 the reference hands both tiers the same parameters too, and a copy would
 only double their memory. ``prefill_mesh``/``decode_mesh`` other than
-None are multi-device and refused.
+None are tiers on submeshes, slice 7c of ROADMAP.md, and refused.
 
 Kept from the reference: the priority backlog (sorted by priority,
 deadline, request id); the rule that a shipment dispatched in a round
@@ -75,9 +75,9 @@ from . import scheduler as sched_lib
 
 __all__ = ["DisaggScheduler"]
 
-_MULTI_DEVICE = ("the tiers on submeshes are multi-device (ROADMAP.md "
-                 "queue 1 item 7); on one card both tiers share it: pass "
-                 "prefill_mesh=None and decode_mesh=None")
+_MULTI_DEVICE = ("the tiers on submeshes are slice 7c of the port "
+                 "(ROADMAP.md queue 1 item 7); on one card both tiers "
+                 "share it: pass prefill_mesh=None and decode_mesh=None")
 
 
 @dataclasses.dataclass
@@ -104,7 +104,8 @@ class DisaggScheduler:
       prompt_len, max_new_cap, eos_id, sampling, seed: as the colocated
         scheduler's; ``seed`` is shared by the tiers (both derive request
         keys from it).
-      prefill_mesh / decode_mesh: refused unless None (multi-device).
+      prefill_mesh / decode_mesh: refused unless None (submeshes, slice
+        7c).
       kv_block, chunk_tokens: block and chunk geometry (shared: the wire
         format is block-granular).
       prefill_kv_blocks / decode_kv_blocks: each tier's pool.

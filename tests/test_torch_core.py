@@ -122,15 +122,28 @@ def test_host_reads_are_counted_only_for_tensor_predicates():
 
 
 def test_refusals():
+    """An unknown policy and an unbounded counted loop are refused. The
+    distributed arguments are taken: ``mesh=`` (a mesh without a stage
+    axis changes nothing), and ``offload_shardings`` only where its
+    placements are the carry's."""
+    from torch.distributed.tensor import Replicate, Shard
     with pytest.raises(ValueError, match="save_policy"):
         core.while_loop(None, lambda c: c, 0, max_iters=2, save_policy="x")
     with pytest.raises(ValueError, match="max_iters"):
         core.while_loop(None, lambda c: c, 0)
-    for kw in ({"mesh": object()}, {"offload_shardings": object()}):
-        with pytest.raises(NotImplementedError, match="dist"):
-            core.while_loop(None, lambda c: c, 0, max_iters=2, **kw)
-        with pytest.raises(NotImplementedError, match="dist"):
-            core.fori_loop(0, 2, lambda i, c: c, 0, **kw)
+    for mesh in ({"data": 2}, object()):
+        assert float(core.fori_loop(0, 3, lambda i, c: c + 1,
+                                    torch.tensor(0.0), mesh=mesh)) == 3.0
+    x = torch.zeros(4)
+    assert core.while_loop(None, lambda c: c + 1, x, max_iters=2,
+                           offload_shardings=(Replicate(),),
+                           save_policy="offload").sum() == 8
+    for bad in ((Shard(0),), object()):
+        with pytest.raises(ValueError, match="offload_shardings"):
+            core.while_loop(None, lambda c: c, x, max_iters=2,
+                            offload_shardings=bad)
+        with pytest.raises(ValueError, match="offload_shardings"):
+            core.fori_loop(0, 2, lambda i, c: c, x, offload_shardings=bad)
 
 
 def test_requires_max_iters_for_grad():

@@ -203,6 +203,38 @@ def test_vector_predicate_and_counted_loop_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 3, 4, 10])
+def test_parallel_iterations_unrolls_the_while_node(cuda_device, window):
+    """A counted loop of 10 with ``parallel_iterations=window``: its
+    WHILE node takes 10 // window iterations, each running ``window``
+    bodies, a remainder step after it runs the other 10 % window, and
+    the carry comes out bit for bit as with window 1."""
+    n = 10
+    w, x1 = _mm_loop(cuda_device, n)[:2]
+    with torch.no_grad():
+        torch.tanh(x1 @ w)                   # lazy init outside capture
+    outs = {}
+    for par in (1, window):
+        x = x1.clone()
+        k = _i32(0, cuda_device)
+
+        def body(c):
+            return torch.tanh(c[0] @ w), c[1] + 1
+
+        with torch.no_grad():
+            core.while_loop(None, body, (x, k), max_iters=n, impl="graph",
+                            parallel_iterations=par)
+            loop = core.while_loop.last_loop
+            outs[par] = (x.clone(), int(k), loop.iterations(),
+                         loop.remainder)
+        device_loop.release(body)
+    assert outs[window][1] == outs[1][1] == n
+    assert outs[window][2] == -(-n // window) and outs[1][2] == n
+    assert outs[window][3] == n % window and outs[1][3] == 0
+    assert torch.equal(outs[window][0], outs[1][0])
+
+
+@pytest.mark.cuda
 def test_graph_cond_runs_exactly_one_branch(cuda_device):
     """In-place branches, branches that return new tensors, a nested
     cond, and a branch that allocates and copies."""

@@ -256,3 +256,21 @@ def test_training_modules_are_checked_and_import_no_jax():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
         check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_dist_modules_are_checked_and_import_no_jax():
+    """The multi-device slice (``dist/`` and the mesh launchers) is
+    among the checked files, and importing it loads no jax (a fresh
+    interpreter)."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"dist/__init__.py", "dist/sharding.py", "dist/pipeline.py",
+            "launch/mesh.py", "launch/distributed.py"} <= files
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, repro_torch.dist, "
+         "repro_torch.launch.mesh, repro_torch.launch.distributed; print("
+         "sorted(m for m in sys.modules if m.split('.')[0] in "
+         f"{FORBIDDEN!r}))"], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr

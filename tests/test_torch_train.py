@@ -288,15 +288,26 @@ def test_grad_accum_equals_full_batch():
 
 
 def test_multi_device_schedules_are_refused():
+    """The multi-device schedules run now (tests/test_torch_dist_train.py);
+    what they cannot run is refused: an unknown schedule, microbatch
+    rows that do not divide over the stages, a mesh larger than the
+    world, and checkpoints of a sharded run."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_loop.make_train_step(cfg, adamw.AdamWConfig(),
-                                   accum="pipeline")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_loop.make_train_step(cfg, adamw.AdamWConfig(), mesh="4,2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    params = bridge.init_params(cfg, seed=0, device="cpu",
+                                keep_param_dtype=True)
+    with pytest.raises(ValueError, match="unknown accum"):
+        train_loop.make_train_step(cfg, adamw.AdamWConfig(), accum="x")
+    step = train_loop.make_train_step(
+        dataclasses.replace(cfg, grad_accum=2), adamw.AdamWConfig(),
+        accum="pipeline", accum_stages=3)
+    with pytest.raises(ValueError, match="divisible by stages"):
+        step(params, adamw.init(params), _batch(cfg))
+    with pytest.raises(ValueError, match="the world has 1"):
         launch_train.main(["--arch", ARCH, "--smoke", "--mesh", "2,2",
                            "--device", "cpu"])
+    with pytest.raises(ValueError, match="--ckpt-dir with --mesh"):
+        launch_train.main(["--arch", ARCH, "--smoke", "--mesh", "1,1",
+                           "--device", "cpu", "--ckpt-dir", "unused"])
 
 
 def test_flash_path_refuses_training():
