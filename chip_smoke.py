@@ -228,7 +228,8 @@ Phases, each printing its own lines:
     QUICK_TOL; ``train_lm --full`` (smollm-135m at its published width)
     20 steps through the Trainer and 20 as two in-graph loops of 10, the
     loss finite and falling, ms a step printed; ``elastic_restart``
-    phases 1-2 at that width within 1e-5 (whether exactly 0 is printed);
+    phases 1-2 at that width within 1e-5 (whether exactly 0 is printed;
+    its phase 3, 8 gloo CPU ranks, runs in the CPU tests);
 26. (run after phase 23) prefill/decode disaggregation at llama3.2-1b
     full width (bf16): ``bench_disagg``'s mix (32 requests, 7 prompts of
     8 tokens to 1 of 512, budgets 6-22, EOS -1; block 16, chunk 128,
@@ -368,12 +369,37 @@ Phases, each printing its own lines:
     ``parallel_iterations=1``, in ceil(1001 / 4) = 251 loop steps (250
     WHILE-node iterations of 4 bodies, then a remainder step of 1 after
     the WHILE node) against 1001 (read from the graph's device
-    counter), each replay timed.
+    counter), each replay timed;
+39. (run after phase 26) phase 4's pool and requests (llama3.2-1b full
+    width, bf16) through ``DecodeScheduler(rules=, mesh=)`` on a (1,)
+    data mesh over NCCL at world size 1, against the mesh-less
+    scheduler: the streams bit for bit, both ``cuda-graph:while``, the
+    pool "single", the same device launch counts; tok/s of both printed;
+40. phase 26's disaggregation on disjoint slices: two ranks spawned on
+    ``cuda:0`` (``launch.distributed.run_local``; NCCL refuses two ranks
+    on one card, so gloo over a ``FileStore``), split 1 + 1
+    (``carve_slices(1)``), llama3.2-1b full width on phase 26's mix, each
+    rank drawing its own weights: every request finishes, 32 transfers,
+    ``paged_attention`` launched on the decode rank and
+    ``flash_prefill`` on the prefill rank, nothing gathers, both pools
+    drain; in fp32 the streams equal phase 26's colocated fp32 streams
+    32/32; tok/s, the bytes and the transfer ms p50/p99 (the decode
+    rank's host wall of each shipment's broadcasts) printed beside phase
+    26's figures. The two ranks time-share the card: this is the
+    split's cost on one card, not multi-device speed;
+41. (run after phase 38) ``launch.train --mesh 1,1,1 --ckpt-dir`` at
+    smollm-135m full width (fp32 masters, B=8, S=256) on NCCL at world
+    size 1: 4 steps checkpointed at 2 and 4; with step 4's checkpoint
+    removed, a fresh launch resumes at 2, and its parameters at step 4
+    equal the uninterrupted run's bit for bit (deterministic algorithms
+    on for the phase: the embedding's backward adds its rows in one
+    order).
 
-The llama3.2-1b weights are freed before phase 26 (which makes and frees
-its own) and falcon-mamba's are made (phase 23 frees its own before the
+llama3.2-1b's bf16 weights (``attn_impl="cuda"``) are drawn once for
+phases 4, 17, 19, 20, 26 and 39 and freed after 39; phase 40's ranks
+draw their own. falcon-mamba's are made (phase 23 frees its own before the
 next), phases 27-35 make and free their own, and
-falcon-mamba's are freed before the LSTM phases, and each of the last three
+falcon-mamba's are freed before the LSTM phases, and each of the last
 phases frees what it made. Then
 one JSON line of kernel records (``paged_attention`` and
 ``flash_prefill`` also give ``path_launches``: their launches in each
@@ -539,6 +565,35 @@ LOOP_WINDOW = 4             # phase 38: parallel_iterations
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def profile_rows(prof):
+    """``profile_rows(prof)``'s rows, as far as this script reads them
+    (``key``, ``count``, ``device_type`` and, for a device event,
+    ``self_device_time_total`` in us), summed from the profiler's raw
+    events. ``key_averages`` first builds a Python event tree with
+    memory attribution, which took about a minute for a profiled
+    host-read serving run of 8 requests on the H100 (about 700,000
+    events), ten times the run: the profiled runs' set-up, not their
+    figures."""
+    import types
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or e.is_hidden_event():
+            continue
+        dt = e.device_type()
+        row = agg.get((name, dt))
+        if row is None:
+            row = agg[(name, dt)] = types.SimpleNamespace(
+                key=name, count=0, device_type=dt,
+                self_device_time_total=0.0)
+        row.count += 1
+        if dt != DeviceType.CPU:
+            row.self_device_time_total += e.duration_ns() / 1e3
+    return list(agg.values())
 
 
 def kernel_record(name, err, times, plain_ms, b_ms, b_by):
@@ -1030,7 +1085,7 @@ def phase_loop_overhead():
         f"{rate['graph'] / rate['host-read']:.2f}x, graph / Python "
         f"{rate['graph'] / rate['python']:.2f}x; capture and first replay "
         f"{first_s * 1e3:.1f} ms; max |difference| {err:.2e}")
-    for r in sorted(prof.key_averages(),
+    for r in sorted(profile_rows(prof),
                     key=lambda r: -r.self_device_time_total)[:4]:
         if r.self_device_time_total:
             log(f"[loop]   Python loop's device time by kernel: "
@@ -1541,7 +1596,7 @@ def profile_admission(params, cfg, reqs):
                              ProfilerActivity.CUDA]) as prof:
         engine.prefill(params, cfg, tokens, None)
         torch.cuda.synchronize()
-    kernels = [r for r in prof.key_averages()
+    kernels = [r for r in profile_rows(prof)
                if r.device_type == torch.autograd.DeviceType.CUDA]
 
     def total(pick):
@@ -1650,8 +1705,7 @@ def phase_serve():
     from repro_torch import bridge
     from repro_torch.configs import get_config
 
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
-    params = bridge.init_params(cfg, seed=0, device="cuda")
+    cfg, params = llama_bf16()
     reqs = serving_requests(cfg)
     launches, runs = serve_in_turns(
         "serve", cfg, lambda loop: make_scheduler(params, cfg, loop), reqs)
@@ -1683,7 +1737,7 @@ def profile_serving(sched, reqs, tag, device=True):
         drive(sched, reqs)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = prof.key_averages()
+    rows = profile_rows(prof)
     n_kernel = sum(r.count for r in rows if r.key in (
         "cudaLaunchKernel", "cuLaunchKernelEx", "cuLaunchKernel",
         "cudaLaunchKernelExC"))
@@ -1797,8 +1851,7 @@ def phase_spec_serve():
     from repro_torch import bridge
     from repro_torch.configs import get_config
 
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
-    params = bridge.init_params(cfg, seed=0, device="cuda")
+    cfg, params = llama_bf16()
     first = None
     for name, reqs in (("serving", serving_requests(cfg)),
                        ("repetitive", repetitive_requests(cfg))):
@@ -1909,8 +1962,7 @@ def phase_sampled():
     from repro_torch.configs import get_config
     from repro_torch.serve.sampling import SamplingParams
 
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
-    params = bridge.init_params(cfg, seed=0, device="cuda")
+    cfg, params = llama_bf16()
     reqs = serving_requests(cfg)[:8]
     greedy = None
     for name, sp, spec in (
@@ -2080,7 +2132,7 @@ def cow_cost(sched, iters=64):
                                      ProfilerActivity.CUDA]) as prof:
                 body(carry)
                 torch.cuda.synchronize()
-        n = sum(r.count for r in prof.key_averages() if r.key in (
+        n = sum(r.count for r in profile_rows(prof) if r.key in (
             "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
             "cudaLaunchKernelExC"))
         out[name] = (ms, nodes, eager_ms, n)
@@ -2114,8 +2166,7 @@ def phase_prefix_cache():
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
-    params = bridge.init_params(cfg, seed=0, device="cuda")
+    cfg, params = llama_bf16()
     counters = launch_counters()
     for kind in ("system", "pool4"):
         reqs = prefix_requests(cfg, kind)
@@ -3011,7 +3062,7 @@ def profile_pass(fn, label, iters):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [r for r in prof.key_averages()
+    rows = [r for r in profile_rows(prof)
             if r.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(r.self_device_time_total for r in rows)
     log(f"[profile] {label}: device busy {dev_us / 1e3:.1f} ms of "
@@ -3487,9 +3538,10 @@ def phase_train():
         seen = {}
         resume = train_loop.Trainer.maybe_resume
 
-        def held_resume(trainer, params, opt_state):
+        def held_resume(trainer, params, opt_state, shardings=None):
             t0 = time.perf_counter()
-            step, params, opt_state = resume(trainer, params, opt_state)
+            step, params, opt_state = resume(trainer, params, opt_state,
+                                             shardings)
             torch.cuda.synchronize()
             seen["secs"] = time.perf_counter() - t0
             state = pytree.tree_leaves({"params": params, "opt": opt_state})
@@ -3698,7 +3750,9 @@ def phase_examples():
             f"{r['ms_per_step']:.2f} ms a step ({r['lowering']}), loss "
             f"{losses[0]:.4f} -> {losses[-1]:.4f}")
         del r
-    e = elastic_restart.main(["--full"])
+    # phase 3 (8 gloo CPU ranks restoring onto a (4, 2) mesh) runs in the
+    # CPU tests; phase 41 restores a sharded run on the card
+    e = elastic_restart.main(["--full", "--no-mesh-restore"])
     log(f"[examples] elastic_restart --full: max |difference| "
         f"{e['max_diff']:.3e} (exactly 0: {e['max_diff'] == 0})")
 
@@ -3953,8 +4007,7 @@ def phase_disagg():
     from repro_torch import bridge
     from repro_torch.configs import get_config
     smi = card_label()
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="cuda")
-    params = bridge.init_params(cfg, seed=0, device="cuda")
+    cfg, params = llama_bf16()
     reqs = disagg_requests()
     colo = make_scheduler(params, cfg, max_new_cap=max(DISAGG_BUDGETS))
     dis = make_disagg(params, cfg)
@@ -4045,7 +4098,7 @@ def phase_disagg():
     params = bridge.init_params(f32, seed=0, device="cuda")
     colo = make_scheduler(params, f32, max_new_cap=max(DISAGG_BUDGETS))
     dis = make_disagg(params, f32)
-    want = drive(colo, reqs)
+    want = fp32_streams = drive(colo, reqs)
     got = drive(dis, reqs)
     same = sum(bool((got[i] == want[i]).all()) for i in range(len(reqs)))
     if same != len(reqs):
@@ -4089,9 +4142,11 @@ def phase_disagg():
     for s in (tight, ref):
         s.close()
     torch.cuda.synchronize()
-    return {t: runs[i][1][t][0] for i, t in ((0, "colocated"),
-                                              (1, "prefill tier"),
-                                              (1, "decode tier"))}
+    # what phase 40 is held to and printed beside
+    return {"fp32_streams": fp32_streams,
+            "colocated_tok_s": [r["tok_s"] for t, r in runs
+                                if t == "colocated"],
+            "disagg_tok_s": [r["tok_s"] for t, r in runs if t == "disagg"]}
 
 
 # ------------------------------------------------- the MoE and VLM families
@@ -4792,7 +4847,7 @@ def hybrid_admission_ms(params, cfg, reqs):
         engine.prefill(params, cfg, tokens, cache)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev = sum(r.self_device_time_total for r in prof.key_averages()
+    dev = sum(r.self_device_time_total for r in profile_rows(prof)
               if r.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     return dev, wall
 
@@ -4972,7 +5027,7 @@ def whisper_admission_ms(params, cfg, reqs):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        dev = sum(r.self_device_time_total for r in prof.key_averages()
+        dev = sum(r.self_device_time_total for r in profile_rows(prof)
                   if r.device_type == torch.autograd.DeviceType.CUDA) / 1e3
         return dev, wall
 
@@ -5405,6 +5460,246 @@ def phase_dist_loop():
         raise AssertionError("parallel_iterations changed the carry")
 
 
+# ------------------------------------------- multi-device part two (39-41)
+
+_LLAMA = {}
+
+
+def llama_bf16():
+    """llama3.2-1b at full width, bf16, ``attn_impl="cuda"``, its weights
+    from seed 0, drawn once for the phases that serve it as is (4, 17,
+    19, 20, 26 and 39) and freed after phase 39 (``release_llama``)."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    if not _LLAMA:
+        cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                                  attn_impl="cuda")
+        _LLAMA["cfg"] = cfg
+        _LLAMA["params"] = bridge.init_params(cfg, seed=0, device="cuda")
+    return _LLAMA["cfg"], _LLAMA["params"]
+
+
+def release_llama():
+    _LLAMA.clear()
+
+
+def world_of_one():
+    """A process group of one rank over NCCL (a ``FileStore`` in a
+    temporary directory), as phase 36 makes it; a context manager."""
+    import contextlib
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import distributed
+
+    @contextlib.contextmanager
+    def group():
+        with tempfile.TemporaryDirectory() as tmp:
+            store = dist.FileStore(os.path.join(tmp, "store"), 1)
+            distributed.init_distributed(store=store, world_size=1, rank=0,
+                                         device_type="cuda")
+            try:
+                yield
+            finally:
+                dist.destroy_process_group()
+    return group()
+
+
+def phase_mesh_serve():
+    """Phase 4's pool and requests (llama3.2-1b full width, bf16, 8
+    slots, chunked, paged, both kernels) through ``DecodeScheduler(rules=,
+    mesh=)`` on a (1,) data mesh over NCCL at world size 1, against the
+    mesh-less scheduler: tokens bit for bit, the same lowering, tok/s of
+    both."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model_zoo
+    cfg, params = llama_bf16()
+    reqs = serving_requests(cfg)
+    smi = card_label()
+    with world_of_one():
+        mesh = mesh_lib.make_mesh((1,), ("data",), "cuda")
+        rules = model_zoo.make_rules(cfg, mesh)
+        got = {}
+        for tag, kw in (("mesh-less", {}),
+                        ("mesh", dict(rules=rules, mesh=mesh))):
+            s = make_scheduler(params, cfg, **kw)
+            s.warmup()
+            drive(s, reqs[:2])                        # the first segments
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            streams = drive(s, reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tokens = sum(len(t) for t in streams.values())
+            got[tag] = (streams, s.loop_impl, s.pool_layout, tokens / wall,
+                        s.device_launches)
+            s.close()
+        log(f"[mesh-serve] {smi}: {cfg.name} bf16, 8 slots, {len(reqs)} "
+            f"requests, backend {dist.get_backend()}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: "
+            + "; ".join(f"{tag} {v[3]:.1f} tok/s ({v[1]}, pool {v[2]}, "
+                        f"paged_attention {v[4]['paged_attention']}, "
+                        f"flash_prefill {v[4]['flash_prefill']})"
+                        for tag, v in got.items()))
+    a, b = got["mesh-less"], got["mesh"]
+    same = sum(bool(np.array_equal(a[0][i], b[0][i])) for i in a[0])
+    log(f"[mesh-serve] streams equal: {same}/{len(reqs)}; lowering "
+        f"{a[1]} / {b[1]}")
+    if same != len(reqs) or a[1] != "cuda-graph:while" or b[1] != a[1] \
+            or b[2] != "single" or b[4] != a[4]:
+        raise AssertionError("the mesh of one serves otherwise than no mesh")
+
+
+def disagg_mesh_rank(want32):
+    """One rank of phase 40: its tier of the 1 + 1 split, bf16 then fp32
+    (weights drawn from seed 0 in each)."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as sh
+    pf, de = sh.carve_slices(1)
+    meshes = dict(prefill_mesh=sh.slice_mesh(pf, device_type="cuda"),
+                  decode_mesh=sh.slice_mesh(de, device_type="cuda"))
+    reqs = disagg_requests()
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                                  attn_impl="cuda", compute_dtype=dtype)
+        params = bridge.init_params(cfg, seed=0, device="cuda")
+        d = make_disagg(params, cfg, **meshes)
+        tier = d.prefill if d.prefill is not None else d.decode
+        d.warmup()
+        for plen in (8, 512):                 # both widths, ship, splice
+            d.submit(np.full((1, plen), 2, np.int32), max_new=1,
+                     request_id=10_000 + plen)
+            d.run_until_drained()
+        d.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = drive(d, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_drained(f"disagg mesh {d._role} tier", tier)
+        if dtype == "bfloat16":
+            out.update(
+                role=d._role, finished=len(streams), wall_s=wall,
+                tok_s=sum(len(t) for t in streams.values()) / wall,
+                transfers=d.transfers, transfer_bytes=d.transfer_bytes,
+                transfer_ms=list(d.transfer_ms),
+                transfer_impl=d.transfer_impl,
+                launches=tier.device_launches, loop=tier.loop_impl,
+                reads=(tier.host_reads, tier.segments),
+                layout=tier.pool_layout)
+        else:
+            out["fp32_equal"] = sum(
+                bool(np.array_equal(streams[i], want32[i])) for i in want32)
+        d.close()
+        del d, tier, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_disagg_mesh(colocated):
+    """The disaggregation of phase 26 on disjoint slices: two ranks
+    spawned on ``cuda:0`` (NCCL refuses two ranks on one card), joined
+    by gloo over a ``FileStore``, split 1 + 1 (``carve_slices(1)``), at
+    llama3.2-1b full width on phase 26's mix. Gates: every request
+    finishes, ``transfers == 32``, ``paged_attention`` launched on the
+    decode rank and ``flash_prefill`` on the prefill rank, nothing
+    gathers, both pools drain; in fp32 the streams equal phase 26's
+    colocated fp32 streams. The two ranks time-share the one card, so
+    the numbers are the split's cost on one card, not multi-device
+    speed."""
+    import numpy as np
+    from repro_torch.launch.distributed import run_local
+    smi = card_label()
+    ranks = run_local(disagg_mesh_rank, 2, colocated["fp32_streams"],
+                      device_type="cuda", backend="gloo", timeout=600)
+    pf = next(r for r in ranks if r["role"] == "prefill")
+    de = next(r for r in ranks if r["role"] == "decode")
+    n = len(disagg_requests())
+    ms = np.asarray(de["transfer_ms"])
+    log(f"[disagg-mesh] {smi}: 1 + 1 ranks on one card ({de['backend']}, "
+        f"time-shared), {de['transfer_impl']}: {de['finished']} of {n} "
+        f"finished, {de['tok_s']:.1f} tok/s over {de['wall_s']:.2f} s "
+        f"(phase 26 on one process: colocated "
+        + ", ".join(f"{x:.1f}" for x in colocated["colocated_tok_s"])
+        + ", disaggregated "
+        + ", ".join(f"{x:.1f}" for x in colocated["disagg_tok_s"])
+        + f" tok/s); {de['transfers']} transfers, "
+        f"{de['transfer_bytes'] / 1e6:.2f} MB, transfer ms p50/p99 "
+        f"{np.percentile(ms, 50):.3f}/{np.percentile(ms, 99):.3f} (host "
+        f"wall of the two broadcasts on the decode rank); prefill rank "
+        f"{pf['launches']}, {pf['loop']}, pool {pf['layout']}; decode rank "
+        f"{de['launches']}, {de['loop']}, pool {de['layout']}")
+    log(f"[disagg-mesh] fp32 streams equal phase 26's colocated ones: "
+        f"{de['fp32_equal']}/{n} (decode rank), {pf['fp32_equal']}/{n} "
+        f"(prefill rank's router)")
+    if len(colocated["fp32_streams"]) != n or \
+            de["finished"] != n or pf["finished"] != n or \
+            de["transfers"] != n or \
+            de["launches"]["paged_attention"] == 0 or \
+            pf["launches"]["flash_prefill"] == 0 or \
+            de["launches"]["gather"] or pf["launches"]["gather"] or \
+            de["fp32_equal"] != n or pf["fp32_equal"] != n:
+        raise AssertionError("the 1 + 1 disaggregation failed a gate")
+
+
+def phase_mesh_ckpt():
+    """``launch.train --mesh 1,1,1 --ckpt-dir`` at smollm-135m full width
+    (fp32 masters) on NCCL at world size 1: an uninterrupted run of 4
+    steps checkpoints at 2 and 4; with step 4's checkpoint removed, a
+    fresh run resumes at 2 and trains to 4, and its parameters equal the
+    uninterrupted run's bit for bit (deterministic algorithms on, so that
+    the embedding's backward adds its rows in one order)."""
+    import os
+    import shutil
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_zoo
+    cfg = get_config("smollm-135m")
+    root = checkpoint_root(3 * 4 * model_zoo.count_params(cfg))
+    argv = ["--arch", "smollm-135m", "--steps", "4", "--batch", "8",
+            "--seq", "256", "--mesh", "1,1,1", "--ckpt-dir", root,
+            "--ckpt-every", "2"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        first = launch_train.main(argv)
+        want = [t.full_tensor() for t in pytree.tree_leaves(first["params"])]
+        placements = {str(t.placements) for t in
+                      pytree.tree_leaves(first["params"])}
+        saved = sorted(os.listdir(root))
+        shutil.rmtree(os.path.join(root, "step_000000004"))
+        again = launch_train.main(argv)
+        got = [t.full_tensor() for t in pytree.tree_leaves(again["params"])]
+        wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    log(f"[mesh-ckpt] {card_label()}: smollm-135m fp32 masters, mesh "
+        f"(1, 1, 1) over NCCL at world size 1 (placements {placements}): "
+        f"checkpoints {saved}; resumed at step {again['start']} of 4: "
+        f"{same}/{len(want)} leaves bit-equal to the uninterrupted run's; "
+        f"{wall:.1f} s")
+    if again["start"] != 2 or saved != ["step_000000002",
+                                        "step_000000004"] \
+            or same != len(want):
+        raise AssertionError("the sharded resume is not exact")
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels-only"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
@@ -5450,7 +5745,12 @@ def main() -> int:
     timed(phase_adaptive, {k: launches[k] for k in ("paged_attention",
                                                     "flash_prefill")})
     free_device_memory("the disaggregation phase")
-    timed(phase_disagg)
+    colocated = timed(phase_disagg)
+    free_device_memory("the mesh serving phase")
+    timed(phase_mesh_serve)
+    release_llama()
+    free_device_memory("the 1 + 1 disaggregation")
+    timed(phase_disagg_mesh, colocated)
     free_device_memory("the MoE serving phase")
     paths = {"llama3.2-1b": launches,
              "qwen2-moe-a2.7b": timed(phase_moe_serve)}
@@ -5493,6 +5793,8 @@ def main() -> int:
     free_device_memory("the pipelined accumulation")
     timed(phase_pipelined_accum)
     timed(phase_dist_loop)
+    free_device_memory("the sharded checkpoint")
+    timed(phase_mesh_ckpt)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] in ("paged_attention", "flash_prefill"):

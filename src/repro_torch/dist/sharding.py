@@ -41,6 +41,8 @@ __all__ = [
     "distribute_local",
     "distribute_tree",
     "carve_slices", "slice_mesh", "transfer_sharding",
+    "NamedSharding", "named_shardings", "data_axes", "data_index",
+    "gather_objects", "gather_shards", "shard_leader",
 ]
 
 # --------------------------- logical axes -----------------------------------
@@ -525,3 +527,101 @@ def transfer_sharding(rules: ShardingRules, mesh, dims) -> tuple:
     column dims replicated; on a data-only slice every axis drops."""
     return rules.sharding((LAYERS, None, None, None, CACHE_KV, CACHE_HD),
                           mesh, dims=tuple(dims))
+
+
+# --------------------------- a sharded pool's host view ----------------------
+# A serving pool sharded over the data axes (``serve/scheduler.py``) runs
+# its host logic on every rank alike, on the whole pool; each rank holds
+# and computes its own shard. What the host reads comes from all shards,
+# gathered in one collective, in the same order on every rank.
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """The port's ``jax.sharding.NamedSharding``: a mesh and one DTensor
+    placement per mesh dim (``ShardingRules.sharding``'s tuple)."""
+
+    mesh: Any
+    placements: tuple
+
+
+def named_shardings(placements: Any, mesh) -> Any:
+    """A tree of placement tuples (``logical_to_sharding``) as a tree of
+    ``NamedSharding`` on ``mesh``; ``None`` leaves stay ``None``."""
+    if isinstance(placements, dict):
+        return {k: named_shardings(v, mesh) for k, v in placements.items()}
+    if isinstance(placements, tuple) and hasattr(placements, "_fields"):
+        return type(placements)(*(named_shardings(getattr(placements, n),
+                                                  mesh)
+                                  for n in placements._fields))
+    return None if placements is None else NamedSharding(mesh,
+                                                         tuple(placements))
+
+
+def data_axes(rules: ShardingRules) -> Tuple[str, ...]:
+    """The mesh axes the serving ``SLOT``/``BLOCK`` axes bind to
+    (outermost first; empty off a mesh)."""
+    ax = rules.mesh_axes(SLOT) if rules is not None else None
+    if ax is None:
+        return ()
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def data_index(mesh, axes, coord=None) -> int:
+    """The linear index over ``axes`` (outermost first) of a mesh
+    coordinate (default: this rank's), which is the order in which DTensor
+    lays out a dim split over those axes."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate() if coord is None else coord
+    r = 0
+    for a in axes:
+        d = names.index(a)
+        r = r * mesh.size(d) + int(coord[d])
+    return r
+
+
+def gather_objects(mesh, obj) -> Any:
+    """Every rank's ``obj``, gathered over ``mesh``: nested lists indexed
+    by mesh coordinate (``out[i0][i1]...``). One ``all_gather_object`` a
+    mesh dim, over the groups the mesh already holds, so only the mesh's
+    own ranks take part (a slice of a larger fleet gathers alone)."""
+    import torch.distributed as dist
+    out = obj
+    for d in reversed(range(mesh.ndim)):
+        got = [None] * mesh.size(d)
+        dist.all_gather_object(got, out, group=mesh.get_group(d))
+        out = got
+    return out
+
+
+def gather_shards(mesh, axes, obj) -> list:
+    """Each data shard's ``obj`` (the ranks whose coordinate on ``axes``
+    has that linear index and whose other coordinates are this rank's),
+    in shard order: the replicated host view of a pool sharded over the
+    data axes. Every rank of the mesh calls it, in the same order."""
+    import itertools
+    full = gather_objects(mesh, obj)
+    names = list(mesh.mesh_dim_names)
+    mine = mesh.get_coordinate()
+    sizes = [mesh.size(names.index(a)) for a in axes]
+    out = []
+    for idx in itertools.product(*(range(s) for s in sizes)):
+        coord = list(mine)
+        for a, i in zip(axes, idx):
+            coord[names.index(a)] = i
+        v = full
+        for c in coord:
+            v = v[c]
+        out.append(v)
+    return out
+
+
+def shard_leader(mesh, axes, shard: int) -> int:
+    """The global rank that speaks for data shard ``shard``: the lowest
+    rank among those holding it (its replicas over the other axes hold
+    the same values)."""
+    ranks = mesh.mesh.reshape(-1).tolist()
+    coords = [[int(c) for c in torch.nonzero(mesh.mesh == r)[0].tolist()]
+              for r in ranks]
+    return min(r for r, c in zip(ranks, coords)
+               if data_index(mesh, axes, c) == shard)

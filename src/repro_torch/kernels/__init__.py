@@ -42,6 +42,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -104,8 +105,18 @@ def count_launch(name: str) -> None:
 def on_cuda(t: torch.Tensor) -> bool:
     """Dispatch probe: does this tensor live on a CUDA device? The
     counterpart of the JAX package's ``on_tpu``; every ``ops.py`` and
-    everything that reports which path ran keys off it."""
+    everything that reports which path ran keys off it. A DTensor is
+    refused: a kernel and its plain version read one rank's local
+    tensors (``to_local()``), never a sharded view."""
+    _refuse_dtensor(t)
     return t.device.type == "cuda"
+
+
+def _refuse_dtensor(t) -> None:
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is not None and isinstance(t, mod.DTensor):
+        raise TypeError("a kernel reads a rank's local tensors: pass "
+                        "DTensor.to_local(), not the DTensor")
 
 
 def _nvcc() -> str:
@@ -202,6 +213,7 @@ def stream_ptr() -> ctypes.c_void_p:
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    _refuse_dtensor(t)
     return ctypes.c_void_p(t.data_ptr())
 
 

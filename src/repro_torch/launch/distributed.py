@@ -51,7 +51,8 @@ GRACE_S = 5.0
 def init_distributed(init_method: Optional[str] = None,
                      world_size: Optional[int] = None,
                      rank: Optional[int] = None, *, store=None,
-                     device_type: str = "cuda") -> bool:
+                     device_type: str = "cuda",
+                     backend: Optional[str] = None) -> bool:
     """Initialise the default process group iff this is a multi-process
     job. Returns ``is_multi_process()``.
 
@@ -60,14 +61,16 @@ def init_distributed(init_method: Optional[str] = None,
     ``rank``) force initialisation, a world of one included (a
     ``DeviceMesh`` needs a group); otherwise torchrun's variables are
     read (``env://``), and their absence means one process and no
-    group. A second call reports the existing state.
+    group. A second call reports the existing state. ``backend``
+    overrides the device's (two ranks on one card must use gloo: NCCL
+    refuses two ranks on one device).
     """
     if dist.is_initialized():
         return is_multi_process()
     explicit = init_method is not None or store is not None
     if not explicit and not all(os.environ.get(k) for k in _ENV_KEYS):
         return False
-    backend = {"cuda": "nccl", "cpu": "gloo"}[device_type]
+    backend = backend or {"cuda": "nccl", "cpu": "gloo"}[device_type]
     if device_type == "cuda":
         from repro_torch import resolve_device
         resolve_device("cuda")
@@ -95,14 +98,14 @@ def is_multi_process() -> bool:
 
 # ---------------------------------------------------------------- launcher
 
-def _rank_main(fn, rank, world_size, store_path, device_type, args,
-               results) -> None:
+def _rank_main(fn, rank, world_size, store_path, device_type, backend,
+               args, results) -> None:
     torch.set_num_threads(1)
     store = None
     try:
         store = dist.FileStore(store_path, world_size)
         init_distributed(store=store, world_size=world_size, rank=rank,
-                         device_type=device_type)
+                         device_type=device_type, backend=backend)
         out = fn(*args)
         dist.barrier()
         results.put((rank, True, out))
@@ -123,8 +126,8 @@ def _rank_main(fn, rank, world_size, store_path, device_type, args,
 
 
 def run_local(fn: Callable, world_size: int, *args,
-              device_type: str = "cpu", timeout: float = 600.0
-              ) -> List[Any]:
+              device_type: str = "cpu", timeout: float = 600.0,
+              backend: Optional[str] = None) -> List[Any]:
     """Run ``fn(*args)`` on ``world_size`` local ranks and return their
     results in rank order.
 
@@ -134,7 +137,8 @@ def run_local(fn: Callable, world_size: int, *args,
     ``fn`` is a module-level function. If a rank raises, or the ranks
     are not done within ``timeout`` seconds, the others get ``GRACE_S``
     seconds to end, are then stopped, and this raises with every
-    traceback received.
+    traceback received. ``backend`` overrides the device's
+    (``init_distributed``).
     """
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
@@ -144,22 +148,32 @@ def run_local(fn: Callable, world_size: int, *args,
         store_path = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(fn, r, world_size, store_path,
-                                   device_type, args, results))
+                                   device_type, backend, args, results))
                  for r in range(world_size)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout
         try:
             while len(got) + len(failed) < world_size:
-                wait = deadline - time.monotonic()
                 if failed:
-                    wait = min(wait, GRACE_S)
+                    deadline = min(deadline, time.monotonic() + GRACE_S)
+                wait = deadline - time.monotonic()
                 if wait <= 0:
                     break
                 try:
-                    rank, ok, payload = results.get(timeout=wait)
+                    rank, ok, payload = results.get(timeout=min(wait, 1.0))
                 except queue.Empty:
-                    break
+                    # a rank that died before it could report (it failed
+                    # to start, say) ends the wait
+                    dead = [r for r, p in enumerate(procs)
+                            if p.exitcode not in (None, 0)
+                            and r not in got and r not in failed]
+                    if dead and results.empty():
+                        for r in dead:
+                            failed[r] = (f"exited with code "
+                                         f"{procs[r].exitcode} before "
+                                         f"reporting")
+                    continue
                 (got if ok else failed)[rank] = payload
             for p in procs:
                 p.join(timeout=GRACE_S if not failed else 1.0)

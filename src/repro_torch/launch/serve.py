@@ -88,14 +88,28 @@ and wall time.
 slots (0: ``--slots``) chunk-prefills the prompts, each finished prompt's
 KV blocks are copied on a side stream into a fresh buffer and spliced
 into the decode tier of ``--slots`` slots one round later. It implies
-``--kv paged --prefill chunked``; both tiers share the one card (and its
-weights), as the JAX package's tiers share one device;
-``--prefill-devices`` above 1 (submeshes, slice 7c) is refused, as is the
-model drafter (``--spec-drafter model``):
+``--kv paged --prefill chunked``; in one process both tiers share the one
+card (and its weights), as the JAX package's tiers share one device
+without a mesh. The model drafter (``--spec-drafter model``) is refused:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --slots 8 --prompt-len 512 --requests 16 --attn-impl cuda \
         --chunk-tokens 128 --disagg --prefill-slots 2
+
+On a job of several ranks (torchrun, or ``launch.distributed``) the
+tiers live on disjoint slices: the leading ``--prefill-devices`` ranks
+(half by default) hold the prefill tier, the rest the decode tier, each
+tier's pool placed on its slice's mesh (``DecodeScheduler(rules=,
+mesh=)``), and each finished prompt's blocks go from the prefill rank
+that holds the row to the decode slice in a broadcast; every rank runs
+the router alike and admits on the first rank's clock, and rank 0
+prints the report, which names the split and the transfer path. On
+gloo CPU ranks (no network: a ``FileStore``):
+
+    PYTHONPATH=src python -m repro_torch.launch.distributed --ranks 8 \
+        --device cpu repro_torch.launch.serve --arch smollm-135m --smoke \
+        --slots 4 --prompt-len 16 --requests 8 --kv-block 4 --disagg \
+        --prefill-devices 4 --device cpu
 
 ``--prefill oneshot`` (the default) admits prompts through one prefill
 per admission round; a pure-SSM model and the hybrid (``--arch
@@ -125,6 +139,8 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.dist import sharding as sh
+from repro_torch.launch import distributed
 from repro_torch.serve import disagg as disagg_lib
 from repro_torch.serve import engine
 from repro_torch.serve import sampling as sampling_lib
@@ -272,6 +288,7 @@ def serve_arrivals(args, cfg, sched, workload):
     seconds, tokens, tok/s over busy time, latency p50/p99, the streams,
     each request's mean depth and ``TokenClock.summary()``."""
     prompts = make_prompts(args, cfg, len(workload))
+    agree = getattr(sched, "agree", lambda v: v)
     sched.submit(np.full((1, args.prompt_len), 2, np.int32), max_new=2,
                  request_id=-1)
     sched.run_until_drained()
@@ -283,7 +300,8 @@ def serve_arrivals(args, cfg, sched, workload):
     next_req = 0
     idle_s = 0.0          # open-loop arrival gaps: excluded from tok/s
     while len(finish_wall) < len(workload):
-        now = time.perf_counter() - t0
+        # a fleet's ranks admit alike: on its first rank's clock
+        now = agree(time.perf_counter() - t0)
         while next_req < len(workload) and workload[next_req][0] <= now:
             rid = sched.submit(prompts[next_req],
                                max_new=workload[next_req][1],
@@ -298,7 +316,7 @@ def serve_arrivals(args, cfg, sched, workload):
                 idle_s += gap
             continue
         finished = sched.step(expect_arrivals=next_req < len(workload))
-        now = time.perf_counter() - t0
+        now = agree(time.perf_counter() - t0)
         clock.observe(sched, finished, now)
         for f in finished:
             finish_wall[f.request_id] = now
@@ -316,12 +334,24 @@ def serve_arrivals(args, cfg, sched, workload):
 
 def run_disagg(args, cfg, params, workload):
     """The open-loop arrivals (``serve_arrivals``) through the two-tier
-    ``DisaggScheduler``; both tiers on the one card."""
-    if args.prefill_devices > 1:
+    ``DisaggScheduler``: in one process both tiers on the one device; on
+    a job of several ranks the leading ``--prefill-devices`` ranks (half
+    by default) hold the prefill tier and the rest the decode tier
+    (``sharding.carve_slices``)."""
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+    meshes = {}
+    if world > 1:
+        pf, de = sh.carve_slices(args.prefill_devices or world // 2)
+        kind = params["embed"].device.type
+        meshes = {"prefill_mesh": sh.slice_mesh(pf, device_type=kind),
+                  "decode_mesh": sh.slice_mesh(de, device_type=kind)}
+    elif args.prefill_devices > 1:
         raise SystemExit(
-            "--prefill-devices > 1 carves the fleet into submeshes, slice "
-            "7c of the port (ROADMAP.md queue 1 item 7); on one card both "
-            "tiers share the device")
+            f"--prefill-devices {args.prefill_devices} carves that many of "
+            f"the job's ranks into the prefill tier; this job has one "
+            f"rank: run it under torchrun or launch.distributed --ranks M "
+            f"with M > {args.prefill_devices}")
     if args.spec_k and args.spec_drafter == "model":
         raise SystemExit("--disagg composes with the ngram drafter only (a "
                          "draft model would need its own cache shipped "
@@ -336,9 +366,11 @@ def run_disagg(args, cfg, params, workload):
         seed=args.seed, kv_block=args.kv_block,
         decode_kv_blocks=args.kv_blocks, chunk_tokens=args.chunk_tokens,
         prefix_cache=args.prefix_cache, speculative=spec,
-        segment_steps=args.segment_steps)
+        segment_steps=args.segment_steps, **meshes)
     run = serve_arrivals(args, cfg, sched, workload)
     out = {**run, "steps": sched.total_steps,
+           "prefill_devices": (sched.prefill_mesh.size() if meshes else 1),
+           "decode_devices": (sched.decode_mesh.size() if meshes else 1),
            "prefill_steps": sched.prefill_steps,
            "attn_impl": sched.attn_impl,
            "prefill_impl": sched.prefill_impl,
@@ -348,8 +380,12 @@ def run_disagg(args, cfg, params, workload):
            "transfer_bytes": sched.transfer_bytes,
            "preemptions": sched.preemptions,
            "replay_mismatches": sched.replay_mismatches,
-           "host_reads": (sched.prefill.host_reads, sched.decode.host_reads),
-           "segments": (sched.prefill.segments, sched.decode.segments)}
+           "host_reads": (sched._tier("prefill", "host_reads",
+                                      "pf_host_reads"),
+                          sched._tier("decode", "host_reads",
+                                      "de_host_reads")),
+           "segments": (sched._tier("prefill", "segments", "pf_segments"),
+                        sched._tier("decode", "segments", "de_segments"))}
     sched.close()
     return out
 
@@ -585,8 +621,9 @@ def main(argv=None):
     ap.add_argument("--prefill-slots", type=int, default=0,
                     help="--disagg: the prefill tier's slots (0 = --slots)")
     ap.add_argument("--prefill-devices", type=int, default=0,
-                    help="--disagg: devices of the prefill tier; above 1 "
-                         "(submeshes, slice 7c) is refused")
+                    help="--disagg on a job of several ranks: the leading "
+                         "ranks that hold the prefill tier (0: half); the "
+                         "rest hold the decode tier")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (the kernels' plain "
                          "versions)")
@@ -601,6 +638,11 @@ def main(argv=None):
             exit_threshold=args.exit_threshold,
             exit_min_layers=args.exit_min_layers,
             mod_capacity=args.mod_capacity, mod_every=args.mod_every)
+    if args.disagg:
+        # a torchrun job's group (a no-op in one process, and under
+        # launch.distributed, which has made it)
+        distributed.init_distributed(
+            device_type=torch.device(args.device).type)
     params = bridge.init_params(cfg, seed=0, device=args.device)
     workload = build_workload(args, np.random.default_rng(args.seed))
     if args.stream:
@@ -609,7 +651,15 @@ def main(argv=None):
         return s
     if args.disagg:
         d = run_disagg(args, cfg, params, workload)
-        print(f"[serve] disagg, both tiers on one {args.device} device "
+        if torch.distributed.is_initialized() and \
+                torch.distributed.get_rank() != 0:
+            return d                   # rank 0 reports for the fleet
+        where = (f"both tiers on one {args.device} device"
+                 if d["transfer_impl"] in ("cuda-copy:side-stream",
+                                           "torch-copy:cpu") else
+                 f"prefill on {d['prefill_devices']} and decode on "
+                 f"{d['decode_devices']} {args.device} ranks")
+        print(f"[serve] disagg, {where} "
               f"(decode {d['attn_impl']}, prefill {d['prefill_impl']}, "
               f"transfer {d['transfer_impl']}, loop {d['loop_impl']}): "
               f"{d['tokens']} tokens, {d['wall_s']:.2f}s wall "

@@ -40,8 +40,19 @@ with ``launch.distributed`` (gloo ranks on the CPU need no network):
         --smoke --steps 3 --mesh 2,4 --device cpu
 
 A mesh whose size is not the world size raises; a mesh of one device
-on a single process gets a group of one. Checkpoints of a sharded run
-are not written (``--ckpt-dir`` with ``--mesh`` is refused).
+on a single process gets a group of one. ``--ckpt-dir`` with ``--mesh``
+checkpoints the sharded run (every rank gathers, rank 0 writes the one
+host file) and resumes onto the mesh given, whatever mesh wrote the
+checkpoint (``Trainer.maybe_resume`` with the masters' and moments'
+placements on it), as the JAX launcher does:
+
+    PYTHONPATH=src python -m repro_torch.launch.distributed --ranks 8 \
+        --device cpu repro_torch.launch.train --arch smollm-135m \
+        --smoke --steps 2 --mesh 2,4 --ckpt-dir /tmp/ck --ckpt-every 2 \
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.distributed --ranks 8 \
+        --device cpu repro_torch.launch.train --arch smollm-135m \
+        --smoke --steps 4 --mesh 4,2 --ckpt-dir /tmp/ck --device cpu
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import torch
 from repro_torch import bridge, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.dist import sharding as sh
 from repro_torch.launch import distributed
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model_zoo
@@ -132,7 +144,15 @@ def _train(args, cfg, device, rules, log):
         train_loop.TrainerConfig(ckpt_dir=args.ckpt_dir,
                                  ckpt_every=args.ckpt_every, log_every=10),
         log_fn=log)
-    start, params, opt_state = trainer.maybe_resume(params, opt_state)
+    shardings = None
+    if rules is not None:
+        placed = sh.named_shardings(sh.logical_to_sharding(
+            model_zoo.param_axes(cfg), rules), rules.mesh)
+        shardings = {"params": placed,
+                     "opt": adamw.AdamWState(step=None, mu=placed,
+                                             nu=placed)}
+    start, params, opt_state = trainer.maybe_resume(params, opt_state,
+                                                    shardings)
     if start >= args.steps:
         log("[launch.train] checkpoint is already past --steps; done")
         return None
@@ -151,9 +171,6 @@ def _quiet(_: str) -> None:
 def _mesh_rules(args, cfg, device):
     """The ``ShardingRules`` of ``--mesh`` on the job's ranks, with the
     JAX launcher's notes on the stage axis."""
-    if args.ckpt_dir:
-        raise ValueError("--ckpt-dir with --mesh: checkpoints of sharded "
-                         "masters are not written by this port")
     shape = tuple(int(x) for x in args.mesh.split(","))
     axes = ("data", "model", "stage")[:len(shape)]
     distributed.init_distributed(device_type=device.type)

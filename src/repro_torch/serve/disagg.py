@@ -1,11 +1,13 @@
-"""Prefill/decode disaggregation on one card: a two-tier router over a
-prefill scheduler and a decode scheduler, with the finished prompts' KV
-blocks shipped between their pools.
+"""Prefill/decode disaggregation: a two-tier router over a prefill
+scheduler and a decode scheduler, with the finished prompts' KV blocks
+shipped between their pools, in one process on one card or on disjoint
+slices of a fleet of ranks.
 
 Port of ``repro/serve/disagg.py``. The JAX package puts the two tiers on
 disjoint submeshes of a device fleet and ships blocks with an async
-``jax.device_put``; this port runs on one card, so both tiers share its
-memory and its SMs, and a shipment is a device copy:
+``jax.device_put``. In one process (``prefill_mesh=None``,
+``decode_mesh=None``) both tiers share the card's memory and its SMs,
+and a shipment is a device copy:
 
 - the **prefill tier**, a ``DecodeScheduler`` with ``prefill_only=True``
   (chunked ``flash_prefill`` admission into a paged pool): a row whose
@@ -30,8 +32,31 @@ copy runs in the call).
 
 Both tiers read the one set of weights on the card: with ``mesh=None``
 the reference hands both tiers the same parameters too, and a copy would
-only double their memory. ``prefill_mesh``/``decode_mesh`` other than
-None are tiers on submeshes, slice 7c of ROADMAP.md, and refused.
+only double their memory.
+
+On a fleet (``prefill_mesh``/``decode_mesh``: two ``DeviceMesh`` over
+disjoint ranks of the default group, ``sharding.carve_slices`` and
+``slice_mesh``), every rank of the two slices builds the router, and
+each tier's scheduler is built only on its slice's ranks, with that
+slice's rules (``_slice_rules``) and mesh, so its pool lies on its
+slice (``DecodeScheduler(rules=, mesh=)``) and reads the rank's own
+replica of the weights. The router runs alike on every rank
+(``_step_mesh``): a round feeds the prefill tier, runs its segment and
+harvests it on the prefill slice while the decode slice splices earlier
+rounds' shipments (preempting for an urgent head) and runs its segment;
+then one gather (``_exchange``) tells every rank the round's facts, the
+prefill slice's leader's (how many it admitted, the harvested rows with
+``t0``, ``plen`` and the rank that holds each row) and the decode
+slice's leader's (what it spliced, its preemption victims, what
+finished, its counts), which each rank applies in the single-process
+order. Then each harvested row's wire buffer goes from the prefill rank
+that holds it to every decode rank in one broadcast in a group of the
+two (``_wire``: through pinned host memory under gloo, which carries no
+CUDA tensor in point-to-point ops, ``bcast:gloo-host``; from the device
+under NCCL, ``bcast:nccl``), and splices strictly one round later, as
+in the reference. ``transfer_ms`` keeps the decode leader's host wall of
+each shipment's broadcasts. A launcher admits on the fleet's first
+rank's clock (``agree``).
 
 Kept from the reference: the priority backlog (sorted by priority,
 deadline, request id); the rule that a shipment dispatched in a round
@@ -69,15 +94,23 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..models import model_zoo
+from . import engine
 from . import kv_cache as kvc
 from . import sampling as sampling_lib
 from . import scheduler as sched_lib
 
 __all__ = ["DisaggScheduler"]
 
-_MULTI_DEVICE = ("the tiers on submeshes are slice 7c of the port "
-                 "(ROADMAP.md queue 1 item 7); on one card both tiers "
-                 "share it: pass prefill_mesh=None and decode_mesh=None")
+
+
+def _slice_rules(cfg, mesh):
+    """``ShardingRules`` for one slice mesh (None off a mesh)."""
+    return None if mesh is None else model_zoo.make_rules(cfg, mesh)
+
+
+def _ranks(mesh) -> List[int]:
+    return [int(r) for r in mesh.mesh.reshape(-1).tolist()]
 
 
 @dataclasses.dataclass
@@ -95,7 +128,8 @@ class _Shipment:
 
 
 class DisaggScheduler:
-    """Two-tier router over a prefill tier and a decode tier on one card.
+    """Two-tier router over a prefill tier and a decode tier, in one
+    process or on disjoint slices of a fleet.
 
     Args:
       params, cfg: the model; both tiers read these parameters.
@@ -104,8 +138,11 @@ class DisaggScheduler:
       prompt_len, max_new_cap, eos_id, sampling, seed: as the colocated
         scheduler's; ``seed`` is shared by the tiers (both derive request
         keys from it).
-      prefill_mesh / decode_mesh: refused unless None (submeshes, slice
-        7c).
+      prefill_mesh / decode_mesh: both None (both tiers in this
+        process), or two ``DeviceMesh`` over disjoint ranks of the
+        default group (``sharding.carve_slices``/``slice_mesh``): every
+        rank of the two builds the router, and each tier's scheduler is
+        built only on its slice's ranks (module docstring).
       kv_block, chunk_tokens: block and chunk geometry (shared: the wire
         format is block-granular).
       prefill_kv_blocks / decode_kv_blocks: each tier's pool.
@@ -138,8 +175,9 @@ class DisaggScheduler:
                  segment_steps: int = 8,
                  prefill_segment_steps: Optional[int] = None,
                  prefix_len: int = 0):
-        if prefill_mesh is not None or decode_mesh is not None:
-            raise NotImplementedError(_MULTI_DEVICE)
+        if (prefill_mesh is None) != (decode_mesh is None):
+            raise ValueError("pass both prefill_mesh and decode_mesh (two "
+                             "disjoint slices), or neither")
         if segment_steps < 1:
             raise ValueError("segment_steps must be >= 1")
         if prefill_segment_steps is not None and prefill_segment_steps < 1:
@@ -152,48 +190,258 @@ class DisaggScheduler:
                 "would also need shipping between the tiers")
         self.cfg = cfg
         self.prefix_len = int(prefix_len)
+        self.prompt_len, self.max_new_cap = int(prompt_len), int(max_new_cap)
         self.segment_steps = int(segment_steps)
         self.prefill_segment_steps = int(prefill_segment_steps
                                          or segment_steps)
-        # max_new_cap=1 sizes the prefill pool to prompts; prefill_only
-        # retires rows instead of decoding them. The prefill tier works
-        # on a stream of its own (the scheduler keeps the stream current
-        # when it is built), so that its segments may overlap the
-        # decode tier's on the card.
-        dev = params["embed"].device
-        pf_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
-                     else None)
-        with (torch.cuda.stream(pf_stream) if pf_stream is not None
-              else contextlib.nullcontext()):
-            self.prefill = sched_lib.DecodeScheduler(
-                params, cfg, n_slots=n_prefill_slots, prompt_len=prompt_len,
-                max_new_cap=1, eos_id=eos_id, sampling=sampling, seed=seed,
-                kv="paged", kv_block=kv_block, kv_blocks=prefill_kv_blocks,
-                prefill="chunked", chunk_tokens=chunk_tokens,
-                prefix_cache=prefix_cache, prefill_only=True,
-                prefix_len=self.prefix_len)
-        self.decode = sched_lib.DecodeScheduler(
-            params, cfg, n_slots=n_decode_slots,
-            prompt_len=prompt_len + self.prefix_len,
-            max_new_cap=max_new_cap, eos_id=eos_id, sampling=sampling,
-            seed=seed, kv="paged", kv_block=kv_block,
-            kv_blocks=decode_kv_blocks, prefill="chunked",
-            chunk_tokens=chunk_tokens, speculative=speculative)
-        self.device = self.decode.device
+        self.prefill_mesh, self.decode_mesh = prefill_mesh, decode_mesh
+        self._meshed = prefill_mesh is not None
+        self._role = "both"
+        if self._meshed:
+            self._join_fleet(prefill_mesh, decode_mesh)
         # one wire shape for every prompt: columns for the longest
         self.ship_cols = int(kvc.blocks_needed(prompt_len + self.prefix_len,
                                                kv_block))
+        dev = params["embed"].device
+        self.device = dev
+        self.prefill = self.decode = None
+        if self._role in ("both", "prefill"):
+            # max_new_cap=1 sizes the prefill pool to prompts;
+            # prefill_only retires rows instead of decoding them. In one
+            # process the prefill tier works on a stream of its own (the
+            # scheduler keeps the stream current when it is built), so
+            # that its segments may overlap the decode tier's on the card.
+            pf_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                         and not self._meshed else None)
+            with (torch.cuda.stream(pf_stream) if pf_stream is not None
+                  else contextlib.nullcontext()):
+                self.prefill = sched_lib.DecodeScheduler(
+                    params, cfg, n_slots=n_prefill_slots,
+                    prompt_len=prompt_len, max_new_cap=1, eos_id=eos_id,
+                    sampling=sampling, seed=seed, kv="paged",
+                    kv_block=kv_block, kv_blocks=prefill_kv_blocks,
+                    prefill="chunked", chunk_tokens=chunk_tokens,
+                    prefix_cache=prefix_cache, prefill_only=True,
+                    prefix_len=self.prefix_len,
+                    rules=_slice_rules(cfg, prefill_mesh),
+                    mesh=prefill_mesh)
+        if self._role in ("both", "decode"):
+            self.decode = sched_lib.DecodeScheduler(
+                params, cfg, n_slots=n_decode_slots,
+                prompt_len=prompt_len + self.prefix_len,
+                max_new_cap=max_new_cap, eos_id=eos_id, sampling=sampling,
+                seed=seed, kv="paged", kv_block=kv_block,
+                kv_blocks=decode_kv_blocks, prefill="chunked",
+                chunk_tokens=chunk_tokens, speculative=speculative,
+                rules=_slice_rules(cfg, decode_mesh), mesh=decode_mesh)
         self._side = (torch.cuda.Stream(self.device)
-                      if self.device.type == "cuda" else None)
+                      if self.device.type == "cuda" and not self._meshed
+                      else None)
+        # the request checks of the tier this rank may not hold
+        self._kv_block = int(kv_block)
+        self._decode_kv_blocks = (
+            n_decode_slots * int(kvc.blocks_needed(
+                prompt_len + self.prefix_len + max_new_cap + 1, kv_block))
+            if decode_kv_blocks is None else int(decode_kv_blocks))
+        self._next_rid = 0
+        # what the other slice told this rank in the last round's
+        # exchange (``_exchange``), and the transfer times measured here
+        self._facts: Dict[str, Any] = {}
+        self._victims: List[tuple] = []
+        self.transfer_ms: List[float] = []
         # router state
         self.queue: List[sched_lib._Queued] = []   # the priority backlog
         self._in_transit: List[_Shipment] = []
         self._orig_max_new: Dict[int, int] = {}
         self._snapshots: Dict[int, np.ndarray] = {}
+        self._pending_feed: List[sched_lib._Queued] = []   # prefilling
         self._round = 0
         self._prefill_inflight = False   # a launched, unharvested segment
         self._export_events: List[tuple] = []
         self.reset_stats()
+
+    # ---------------- the fleet (tiers on disjoint slices) -------------
+
+    def _join_fleet(self, prefill_mesh, decode_mesh) -> None:
+        """This rank's role, the group the router's exchange runs in, and
+        one group a prefill rank to carry its shipments to the decode
+        slice (every rank of the fleet creates them, in one order)."""
+        import torch.distributed as dist
+        pf, de = _ranks(prefill_mesh), _ranks(decode_mesh)
+        if set(pf) & set(de):
+            raise ValueError(f"the tiers' slices must be disjoint; prefill "
+                             f"ranks {pf}, decode ranks {de}")
+        fleet = sorted(pf + de)
+        me = dist.get_rank()
+        if me not in fleet:
+            raise ValueError(f"rank {me} is in neither slice")
+        self._pf_ranks, self._de_ranks = pf, de
+        self._role = "prefill" if me in pf else "decode"
+        self._group = (None if fleet == list(range(dist.get_world_size()))
+                       else dist.new_group(fleet))
+        self._wires = {p: dist.new_group([p] + de) for p in pf}
+        self._backend = dist.get_backend()
+
+    def _exchange(self, facts: dict) -> List[dict]:
+        """Every fleet rank's facts of this round, in one gather (the
+        slices' leaders speak; the others send None)."""
+        import torch.distributed as dist
+        got = [None] * (len(self._pf_ranks) + len(self._de_ranks))
+        dist.all_gather_object(got, facts, group=self._group)
+        return got
+
+    def agree(self, value):
+        """``value`` as the fleet's first rank has it (a clock reading that
+        decides arrivals, say); the value itself off a mesh."""
+        if not self._meshed:
+            return value
+        import torch.distributed as dist
+        box = [value]
+        dist.broadcast_object_list(box, src=min(self._pf_ranks
+                                                + self._de_ranks),
+                                   group=self._group)
+        return box[0]
+
+    def _wire(self, owner: int, k, v):
+        """Carry one shipment's buffers from ``owner`` (a prefill rank) to
+        every decode rank: a broadcast in the group of the two, through
+        host memory under gloo (which carries no CUDA tensor in
+        point-to-point ops; a pinned copy on each side), straight from
+        the device under NCCL. Returns the buffers on a decode rank (on
+        the host under gloo), None elsewhere; the decode leader times
+        it."""
+        import time
+        import torch.distributed as dist
+        cfg, shape = self.cfg, self._wire_shape()
+        host = self._backend == "gloo"
+        me = dist.get_rank()
+        if me != owner and me not in self._de_ranks:
+            return None                   # another prefill rank's row
+        t0 = time.perf_counter()
+        out = []
+        for buf in (k, v):
+            if me == owner:
+                buf = buf.cpu() if host else buf.contiguous()
+            else:
+                buf = torch.empty(shape, dtype=cfg.dtype("compute"),
+                                  device="cpu" if host else self.device)
+            if host and buf.device.type == "cpu" and \
+                    self.device.type == "cuda":
+                buf = buf.pin_memory()
+            dist.broadcast(buf, src=owner, group=self._wires[owner])
+            out.append(buf)
+        if me == self._de_ranks[0]:
+            self.transfer_ms.append((time.perf_counter() - t0) * 1e3)
+        return None if me in self._pf_ranks else tuple(out)
+
+    def _step_mesh(self, expect_arrivals: bool,
+                   max_steps: Optional[int]
+                   ) -> List[sched_lib.FinishedRequest]:
+        """One round on disjoint slices (``step``'s order, each tier on its
+        own ranks): the prefill slice feeds its tier, runs a segment and
+        harvests it; the decode slice splices earlier rounds' shipments
+        (preempting for an urgent head) and runs a segment; then one
+        exchange tells every rank the round's facts, which each applies
+        alike, and this round's shipments go out on the wire, to splice
+        in a later round."""
+        self._round += 1
+        self.queue.sort(key=lambda q: (q.priority, q.deadline,
+                                       q.request_id))
+        facts: Dict[str, Any] = {}
+        finished: List[sched_lib.FinishedRequest] = []
+        if self.prefill is not None:
+            feed = [dataclasses.replace(q, max_new=1) for q in self.queue]
+            self.prefill.queue.extend(feed)
+            launched = self.prefill.dispatch_segment(
+                expect_arrivals=True, max_steps=self.prefill_segment_steps)
+            n_admitted = len(feed) - len(self.prefill.queue)
+            self.prefill.queue.clear()
+            recs = self.prefill.harvest_prefilled() if launched else []
+            facts = {"n_admitted": n_admitted, "recs": [
+                (r["slot"], r["req"].request_id, r["t0"], r["plen"],
+                 self.prefill.slot_leader(r["slot"])) for r in recs],
+                **self._tier_facts(self.prefill, "pf")}
+            # rows harvested here are in flight, no longer resident
+            facts["pf_active"] -= len(recs)
+        else:
+            spliced = self._splice_arrivals()
+            more = bool(self.queue or self._in_transit
+                        or self._facts.get("pf_active", 0))
+            cap = max_steps if max_steps is not None else (
+                self.segment_steps if more else None)
+            finished = self.decode.step(
+                expect_arrivals=more or expect_arrivals, max_steps=cap)
+            facts = {"spliced": spliced, "victims": self._victims,
+                     "finished": finished,
+                     "de_resident": self.decode.resident(),
+                     **self._tier_facts(self.decode, "de")}
+            self._victims = []
+        leaders = self._exchange(
+            facts if self._is_leader() else None)
+        pf = next(f for f in leaders if f and "recs" in f)
+        de = next(f for f in leaders if f and "spliced" in f)
+        self._facts = {k: v for f in (pf, de) for k, v in f.items()
+                       if k.startswith(("pf_", "de_"))}
+        # apply the round alike on every rank, in the single-process order
+        self._pending_feed += self.queue[:pf["n_admitted"]]
+        del self.queue[:pf["n_admitted"]]
+        if self.decode is None:
+            self._in_transit = [t for t in self._in_transit
+                                if t.req.request_id not in de["spliced"]]
+        self._requeue_victims(de["victims"])
+        byid = {q.request_id: q for q in self._pending_feed}
+        for slot, rid, t0, plen, owner in pf["recs"]:
+            q, k, v = byid[rid], None, None
+            if self.prefill is not None and owner == self._my_rank():
+                k, v = self.prefill.export_slot(slot, self.ship_cols)
+            got = self._wire(owner, k, v)
+            if got is not None:
+                k, v = got
+            self.transfers += 1
+            self.transfer_bytes += 2 * int(np.prod(self._wire_shape())) \
+                * self.cfg.dtype("compute").itemsize
+            self._in_transit.append(_Shipment(q, t0, plen, k, v,
+                                              self._round))
+        if self.prefill is not None and pf["recs"]:
+            self.prefill.release_slots([r[0] for r in pf["recs"]])
+        self._pending_feed = [q for q in self._pending_feed
+                              if q.request_id not in
+                              {r[1] for r in pf["recs"]}]
+        finished = de["finished"]
+        self._close_round(finished)
+        return finished
+
+    def _wire_shape(self):
+        """A shipment's buffer shape, ``export_rows``' for one row."""
+        cfg = self.cfg
+        return (engine._attn_layer_count(cfg), 1, self.ship_cols,
+                self._kv_block, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    def _is_leader(self) -> bool:
+        me = self._my_rank()
+        return me in (self._pf_ranks[0], self._de_ranks[0])
+
+    @staticmethod
+    def _my_rank() -> int:
+        import torch.distributed as dist
+        return dist.get_rank()
+
+    @staticmethod
+    def _tier_facts(tier, tag: str) -> dict:
+        """What the other slice reads of a tier: counts for ``pending``
+        and the report, and the paths that ran."""
+        return {f"{tag}_active": tier.active_count,
+                f"{tag}_pending": tier.pending,
+                f"{tag}_steps": tier.total_steps,
+                f"{tag}_segments": tier.segments,
+                f"{tag}_host_reads": tier.host_reads,
+                f"{tag}_tokens": tier.tokens_emitted,
+                f"{tag}_peak": tier.peak_resident,
+                f"{tag}_attn_impl": tier.attn_impl,
+                f"{tag}_prefill_impl": tier.prefill_impl,
+                f"{tag}_loop_impl": tier.loop_impl,
+                f"{tag}_layout": tier.pool_layout,
+                f"{tag}_gathers": kvc.PagedView.gather_calls}
 
     # ---------------- shipping ----------------------------------------
 
@@ -238,8 +486,9 @@ class DisaggScheduler:
         """Splice in-transit shipments, most urgent first, into free
         decode slots, preempting lower-priority residents when the head
         shipment does not fit. A shipment dispatched in this round
-        stays in flight: it splices in a later one."""
-        spliced = 0
+        stays in flight: it splices in a later one. Returns the spliced
+        request ids."""
+        spliced: List[int] = []
         while self._in_transit:
             i = min(range(len(self._in_transit)),
                     key=lambda j: (self._in_transit[j].req.priority,
@@ -249,7 +498,7 @@ class DisaggScheduler:
             if t.round >= self._round:
                 break
             need = self.decode.blocks_for(t.plen, t.req.max_new)
-            if self.decode.free_slots < 1 or self.decode.free_blocks < need:
+            if not self.decode.fits(need):
                 if not self._maybe_preempt(t.req.priority, need):
                     break
             if self._side is not None:
@@ -258,7 +507,7 @@ class DisaggScheduler:
             self.decode.splice_requests([t.req], [t.t0], [t.plen], t.k, t.v,
                                         ready=t.ready)
             del self._in_transit[i]
-            spliced += 1
+            spliced.append(t.req.request_id)
         return spliced
 
     def _maybe_preempt(self, priority: int, need: int) -> bool:
@@ -280,22 +529,24 @@ class DisaggScheduler:
         victims.sort(key=lambda s: (-dec._slot_req[s].priority,
                                     -int(reclaim[s]), int(n_emitted[s]), s))
         plan: List[int] = []
-        slots_free, blocks_free = dec.free_slots, dec.free_blocks
         for s in victims:
-            if slots_free >= 1 and blocks_free >= need:
+            if dec.fits(need, plan):
                 break
             plan.append(s)
-            slots_free += 1
-            blocks_free = dec.free_blocks + dec.blocks_freed(plan)
-        if slots_free < 1 or blocks_free < need:
+        if not dec.fits(need, plan):
             return False
-        for p in dec.preempt_slots(plan):
-            self._snapshots[p.request_id] = p.tokens
-            self.queue.append(sched_lib._Queued(
-                p.request_id, p.prompt, p.max_new, p.key, p.priority,
-                p.deadline, p.prefix_embeds))
-        self.preemptions += len(plan)
+        self._victims += [(p.request_id, p.tokens, sched_lib._Queued(
+            p.request_id, p.prompt, p.max_new, p.key, p.priority,
+            p.deadline, p.prefix_embeds)) for p in dec.preempt_slots(plan)]
         return True
+
+    def _requeue_victims(self, victims) -> None:
+        """Victims re-enter the backlog, their snapshots kept for the
+        replay check (after the round's splices, before the next sort)."""
+        for rid, tokens, q in victims:
+            self._snapshots[rid] = tokens
+            self.queue.append(q)
+        self.preemptions += len(victims)
 
     # ---------------- submission --------------------------------------
 
@@ -304,27 +555,47 @@ class DisaggScheduler:
                priority: int = 0, deadline: float = float("inf"),
                prefix_embeds=None) -> int:
         """Queue one request into the backlog. The prefill tier's
-        ``submit`` validates the prompt (and a VLM's ``prefix_embeds``)
-        and assigns the id; the decode-tier residency check is the
-        router's."""
-        if not 1 <= max_new <= self.decode.max_new_cap:
-            raise ValueError(
-                f"max_new must be in [1, {self.decode.max_new_cap}]")
+        ``submit`` validates the prompt (and a VLM's ``prefix_embeds``);
+        the router assigns the id and checks what the decode tier needs,
+        alike on every rank of a fleet (a decode rank holds no prefill
+        tier, and checks the prompt's shape itself)."""
+        if not 1 <= max_new <= self.max_new_cap:
+            raise ValueError(f"max_new must be in [1, {self.max_new_cap}]")
         prompt = np.asarray(prompt)
-        if prompt.ndim == 2:
-            need = self.decode.blocks_for(prompt.shape[1] + self.prefix_len,
-                                          max_new)
-            if need > self.decode.kv_blocks:
-                raise ValueError(
-                    f"request needs {need} decode-tier blocks but the "
-                    f"pool has kv_blocks={self.decode.kv_blocks}")
+        if prompt.ndim != 2 or prompt.shape[0] != 1 or \
+                not 1 <= prompt.shape[1] <= self.prompt_len:
+            raise ValueError(f"prompt must be (1, L) with 1 <= L <= "
+                             f"{self.prompt_len}; got {prompt.shape}")
+        if self.cfg.family not in ("dense", "vlm") and \
+                prompt.shape[1] != self.prompt_len:
+            raise ValueError(f"family {self.cfg.family!r} requires "
+                             f"exact-length prompts (1, {self.prompt_len})")
+        need = int(kvc.blocks_needed(prompt.shape[1] + self.prefix_len
+                                     + max_new + 1, self._kv_block))
+        if need > self._decode_kv_blocks:
+            raise ValueError(
+                f"request needs {need} decode-tier blocks but the pool "
+                f"has kv_blocks={self._decode_kv_blocks}")
         if self.pending == 0:
             self.reset_stats()
-        rid = self.prefill.submit(prompt, max_new=1, request_id=request_id,
-                                  key=key, priority=priority,
-                                  deadline=deadline,
-                                  prefix_embeds=prefix_embeds)
-        q = self.prefill.queue.pop()
+        rid = self._next_rid if request_id is None else int(request_id)
+        self._next_rid = max(self._next_rid, rid) + 1
+        if self.prefill is not None:
+            self.prefill.submit(prompt, max_new=1, request_id=rid, key=key,
+                                priority=priority, deadline=deadline,
+                                prefix_embeds=prefix_embeds)
+            q = self.prefill.queue.pop()
+        else:
+            if self.prefix_len and (prefix_embeds is None or np.shape(
+                    prefix_embeds)[:2] != (1, self.prefix_len)):
+                raise ValueError(f"every request needs prefix_embeds (1, "
+                                 f"{self.prefix_len}, d)")
+            if key is not None:
+                key = np.asarray(key, np.int64).reshape(2) & 0xFFFFFFFF
+            q = sched_lib._Queued(
+                rid, prompt.astype(np.int32), 1, key, int(priority),
+                float(deadline), None if prefix_embeds is None
+                else np.asarray(prefix_embeds))
         self.queue.append(dataclasses.replace(q, max_new=int(max_new)))
         self._orig_max_new[rid] = int(max_new)
         return rid
@@ -332,7 +603,12 @@ class DisaggScheduler:
     @property
     def pending(self) -> int:
         """Requests not finished: backlogged, prefilling, in flight
-        between the tiers, or decoding."""
+        between the tiers, or decoding (on a fleet, the tiers' counts as
+        the last round's exchange gave them)."""
+        if self._meshed:
+            return (len(self.queue) + self._facts.get("pf_active", 0)
+                    + len(self._in_transit)
+                    + self._facts.get("de_pending", 0))
         return (len(self.queue) + self.prefill.active_count
                 + len(self._in_transit) + self.decode.pending)
 
@@ -355,7 +631,13 @@ class DisaggScheduler:
            queue each finished row, then release the rows;
         5. hold replayed streams to their preemption snapshots.
 
+        On a fleet (``prefill_mesh``/``decode_mesh``) the round is
+        ``_step_mesh``: the same order, each tier on its own slice, the
+        prefill harvest waited for.
+
         Returns the requests that finished decoding this round."""
+        if self._meshed:
+            return self._step_mesh(expect_arrivals, max_steps)
         self._round += 1
         if not self._prefill_inflight:
             self.queue.sort(key=lambda q: (q.priority, q.deadline,
@@ -369,6 +651,8 @@ class DisaggScheduler:
             del self.queue[:n_admitted]
             self._prefill_inflight = launched
         self._splice_arrivals()
+        self._requeue_victims(self._victims)
+        self._victims = []
         more = bool(self.queue or self._in_transit
                     or self.prefill.active_count)
         cap = max_steps if max_steps is not None else (
@@ -386,6 +670,12 @@ class DisaggScheduler:
             self._ship(rec)
         if recs:
             self.prefill.release_slots([r["slot"] for r in recs])
+        self._close_round(finished)
+        return finished
+
+    def _close_round(self, finished) -> None:
+        """Hold replayed streams to their preemption snapshots; count the
+        finished."""
         for f in finished:
             snap = self._snapshots.pop(f.request_id, None)
             if snap is not None and len(snap):
@@ -394,7 +684,6 @@ class DisaggScheduler:
                     self.replay_mismatches += 1
             self._orig_max_new.pop(f.request_id, None)
             self.completed += 1
-        return finished
 
     def run_until_drained(self) -> List[sched_lib.FinishedRequest]:
         """Drive rounds until the whole pipeline is empty."""
@@ -408,37 +697,55 @@ class DisaggScheduler:
         return results
 
     def _progress(self):
-        return (self.pending, self.decode.total_steps,
-                self.prefill.total_steps, self.transfers,
-                self.prefill.segments, self.decode.segments)
+        return (self.pending, self.total_steps, self.prefill_steps,
+                self.transfers, self._round if self._meshed else 0,
+                self._tier("prefill", "segments", "pf_segments"),
+                self._tier("decode", "segments", "de_segments"))
+
+    def _tier(self, tier: str, attr: str, fact: str):
+        """A tier's ``attr`` where this rank holds the tier, else what the
+        last exchange said of it."""
+        t = getattr(self, tier)
+        return getattr(t, attr) if t is not None else self._facts.get(
+            fact, 0)
+
+    def _tiers(self):
+        return [t for t in (self.prefill, self.decode) if t is not None]
 
     def warmup(self) -> None:
-        """Capture both tiers' segments before serving."""
-        self.prefill.warmup()
-        self.decode.warmup()
+        """Capture the tiers' segments before serving (on a fleet, the
+        tier this rank holds)."""
+        for t in self._tiers():
+            t.warmup()
 
     def close(self) -> None:
-        """Free both tiers' captured segments."""
-        self.prefill.close()
-        self.decode.close()
+        """Free the tiers' captured segments."""
+        for t in self._tiers():
+            t.close()
 
     # ---------------- counters ----------------------------------------
 
     def reset_stats(self) -> None:
-        self.prefill.reset_stats()
-        self.decode.reset_stats()
+        for t in self._tiers():
+            t.reset_stats()
         self.transfers = 0
         self.transfer_bytes = 0
         self.preemptions = 0
         self.replay_mismatches = 0
         self.completed = 0
         self._export_events = []
+        self.transfer_ms = []
+        # the other slice's counters restart with this rank's
+        for k in list(self._facts):
+            if not k.endswith(("_impl", "_layout")):
+                self._facts[k] = 0
 
     @property
     def export_ms(self) -> float:
         """Device milliseconds of the exports since the run began (CUDA
         events around each on the side stream; waits for the last). 0.0
-        on the CPU."""
+        on the CPU and on a fleet (whose shipments ``transfer_ms``
+        times)."""
         total = 0.0
         for start, end in self._export_events:
             end.synchronize()
@@ -447,43 +754,53 @@ class DisaggScheduler:
 
     @property
     def transfer_impl(self) -> str:
-        """How prefilled K/V reaches the decode kernel: a device copy on
-        a side stream of the one card (``torch-copy:cpu`` on the CPU,
-        where it runs in the call)."""
+        """How prefilled K/V reaches the decode kernel: in one process a
+        device copy on a side stream of the one card
+        (``torch-copy:cpu`` on the CPU, where it runs in the call); on a
+        fleet a broadcast from the prefill rank that holds the row to the
+        decode slice, staged through host memory under gloo
+        (``bcast:gloo-host``), from the device under NCCL
+        (``bcast:nccl``)."""
+        if self._meshed:
+            return ("bcast:gloo-host" if self._backend == "gloo"
+                    else f"bcast:{self._backend}")
         return ("cuda-copy:side-stream" if self._side is not None
                 else "torch-copy:cpu")
 
     @property
     def attn_impl(self) -> str:
-        return self.decode.attn_impl
+        return self._tier("decode", "attn_impl", "de_attn_impl")
 
     @property
     def prefill_impl(self) -> str:
-        return self.prefill.prefill_impl
+        return self._tier("prefill", "prefill_impl", "pf_prefill_impl")
 
     @property
     def loop_impl(self) -> str:
-        return self.decode.loop_impl
+        return self._tier("decode", "loop_impl", "de_loop_impl")
 
     @property
     def total_steps(self) -> int:
         """Decode-tier loop iterations (the delivery clock; the prefill
         tier's are ``prefill_steps``)."""
-        return self.decode.total_steps
+        return self._tier("decode", "total_steps", "de_steps")
 
     @property
     def prefill_steps(self) -> int:
-        return self.prefill.total_steps
+        return self._tier("prefill", "total_steps", "pf_steps")
 
     @property
     def tokens_emitted(self) -> int:
-        return self.decode.tokens_emitted
+        return self._tier("decode", "tokens_emitted", "de_tokens")
 
     @property
     def peak_resident(self) -> int:
-        return self.decode.peak_resident
+        return self._tier("decode", "peak_resident", "de_peak")
 
     def resident(self) -> Dict[int, np.ndarray]:
         """The decode tier's resident requests and their emissions, as
-        of its last harvest (what has reached the host)."""
-        return self.decode.resident()
+        of its last harvest (what has reached the host; on a rank that
+        holds no decode tier, as the last exchange gave them)."""
+        if self.decode is not None:
+            return self.decode.resident()
+        return dict(self._facts.get("de_resident") or {})

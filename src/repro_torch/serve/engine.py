@@ -42,6 +42,7 @@ import torch
 
 from .. import resolve_device
 from ..configs import ModelConfig, require_ported
+from ..dist import sharding as sh
 from ..kernels import ARCH_TAG
 from ..models import adaptive, encdec, layers, ssm as ssm_lib, transformer
 from . import kv_cache as kvc
@@ -111,12 +112,33 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return out
 
 
-def _logits_head(params, cfg: ModelConfig, x):
+def cache_shardings(cfg: ModelConfig, rules, mesh=None, *, cache,
+                    row_axis: Optional[str] = sh.BATCH) -> Dict[str, Any]:
+    """DTensor placements matching a ``make_cache`` tree under ``rules``
+    (the JAX package's ``cache_shardings``): a ``KVCache`` node gives its
+    own (``shardings``), the SSM state and the audio family's cross K/V
+    put their row dim (axis 1) on ``row_axis`` (the scheduler passes
+    ``SLOT``). ``cache`` is the tree to mirror, at the global row count
+    (a cache on the "meta" device costs nothing)."""
+    out: Dict[str, Any] = {}
+    for key, node in cache.items():
+        if hasattr(node, "shardings"):
+            out[key] = node.shardings(rules, mesh, row_axis=row_axis)
+        else:
+            out[key] = {leaf: rules.sharding(
+                (sh.LAYERS, row_axis) + (None,) * (t.dim() - 2), mesh,
+                dims=tuple(t.shape)) for leaf, t in node.items()}
+    return out
+
+
+def _logits_head(params, cfg: ModelConfig, x, rules=None):
     """Final norm + (tied / untied) unembed; the audio family's is its
-    layer norm with bias, then the tied embedding."""
+    layer norm with bias, then the tied embedding. ``rules`` lays the
+    logits out (BATCH, -, VOCAB) on a mesh; a no-op off one."""
     x = layers.apply_norm(cfg.norm, x, params, "ln_final")
-    return x.to(cfg.dtype("compute")) @ transformer.unembed_weight(params,
-                                                                   cfg)
+    logits = x.to(cfg.dtype("compute")) @ transformer.unembed_weight(
+        params, cfg)
+    return sh.constrain(logits, rules, (sh.BATCH, None, sh.VOCAB))
 
 
 def _decode_positions(cur_len, device):
@@ -218,7 +240,8 @@ def _decode_audio(params, cfg, x, cache, cur_len):
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
-                write_mask=None, live=None, with_depth: bool = False):
+                write_mask=None, live=None, with_depth: bool = False,
+                rules=None):
     """One new token against a cache of ``cur_len - 1`` positions.
 
     token: (B, 1) int. Returns logits (B, 1, padded_vocab), or ``(logits,
@@ -232,7 +255,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
     points into their own prompt. ``live`` (B,) bool (adaptive depth
     only): the rows that keep the adaptive layer loop alive; retired and
     mid-prefill slots pass False, start halted and extend no loop (None:
-    every row)."""
+    every row). ``rules`` lays the logits out on a mesh, as in the JAX
+    package; off a mesh (and on a rank's local rows) a no-op."""
     if write_mask is not None and cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"write_mask is only supported for attention "
                          f"families; got family {cfg.family!r}")
@@ -252,7 +276,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
     else:
         x, depth = _decode_attn_families(params, cfg, x, cache, cur_len,
                                          write_mask, live)
-    logits = _logits_head(params, cfg, x)
+    logits = _logits_head(params, cfg, x, rules)
     if not with_depth:
         return logits
     if depth is None:
@@ -268,7 +292,8 @@ def _prefix_len(cfg: ModelConfig, prefix_embeds) -> int:
                              and prefix_embeds is not None) else 0
 
 
-def _prefill_audio(params, cfg, tokens, cache, frames, rows, mask):
+def _prefill_audio(params, cfg, tokens, cache, frames, rows, mask,
+                   rules=None):
     """The audio family's one-shot prefill: the encoder over ``frames``,
     its cross K/V (returned fresh), then the decoder in mode
     ``prefill``, writing the prompt's self K/V in place at ``rows``."""
@@ -285,11 +310,11 @@ def _prefill_audio(params, cfg, tokens, cache, frames, rows, mask):
     for i, lp in enumerate(transformer.layer_params(params["decoder"])):
         x = encdec._dec_block(lp, x, cfg, enc_out, mode="prefill",
                               self_kv=node.view(i, rows=rows, mask=mask))
-    return _logits_head(params, cfg, x), {"cross": cross}
+    return _logits_head(params, cfg, x, rules), {"cross": cross}
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
-            mask=None, prefix_embeds=None, frames=None):
+            mask=None, prefix_embeds=None, frames=None, rules=None):
     """Prime the cache with a full prompt (one-shot). A VLM's
     ``prefix_embeds`` (B, n_patches, d_model) go in front of the tokens;
     the audio family's encoder reads ``frames`` (B, n_frames, d_model).
@@ -303,10 +328,10 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
     hybrid runs its shared block in prefill mode at each application,
     writing cache layer ``a``, and returns its mamba2 state fresh; the
     audio family returns its cross K/V fresh, ``{"cross": {"k": (L, B,
-    n_frames, KV, hd), "v": ...}}``."""
+    n_frames, KV, hd), "v": ...}}``. ``rules`` as in ``decode_step``."""
     if cfg.family == "audio":
         return _prefill_audio(params, cfg, tokens, cache, frames, rows,
-                              mask)
+                              mask, rules)
     x = params["embed"][tokens]
     if _prefix_len(cfg, prefix_embeds):
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -338,17 +363,17 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
                     kv_cache=node.view(app, rows=rows, mask=mask))
                 x = mixers(x, seg)
         fresh = {"ssm": {"conv": torch.stack(convs), "h": torch.stack(hs)}}
-        return _logits_head(params, cfg, x), fresh
+        return _logits_head(params, cfg, x, rules), fresh
     node = cache["attn"].ensure_private(rows, start=0, width=S, mask=mask)
     for i, lp in enumerate(lps):
         x = transformer.attn_block(
             lp, x, cfg, positions=positions, mode="prefill",
             kv_cache=node.view(i, rows=rows, mask=mask))
-    return _logits_head(params, cfg, x), {}
+    return _logits_head(params, cfg, x, rules), {}
 
 
 def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
-                  chunk: int, mask=None, prefix_embeds=None):
+                  chunk: int, mask=None, prefix_embeds=None, rules=None):
     """Advance prefill by one ``chunk``-token slice of each row's prompt
     stream (a VLM's ``prefix_embeds`` (n, n_patches, d_model) at stream
     positions ``[0, n_patches)``, then the tokens).
@@ -364,7 +389,8 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
     through the block table (flash-prefill kernel) when
     ``cfg.attn_impl == "cuda"`` and the cache is paged.
 
-    Returns logits (n, chunk, padded_vocab)."""
+    Returns logits (n, chunk, padded_vocab). ``rules`` as in
+    ``decode_step``."""
     if cfg.family not in ATTN_FAMILIES + ("audio",):
         raise ValueError(
             f"chunked prefill requires an attention-family cache; family "
@@ -392,16 +418,16 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
                 lp, x, cfg, mode="chunk", self_kv=node.view(i, mask=mask),
                 cross_kv=kvc.CrossView(cross["k"][i], cross["v"][i]),
                 chunk_off=offsets)
-        return _logits_head(params, cfg, x)
+        return _logits_head(params, cfg, x, rules)
     for i, lp in enumerate(transformer.layer_params(params["layers"])):
         x = transformer.attn_block(
             lp, x, cfg, positions=pos, mode="chunk",
             kv_cache=node.view(i, mask=mask), chunk_off=offsets)
-    return _logits_head(params, cfg, x)
+    return _logits_head(params, cfg, x, rules)
 
 
 def verify_step(params, cfg: ModelConfig, tokens, cache, cur_len, *,
-                write_mask=None):
+                write_mask=None, rules=None):
     """Score a W-token speculative window in ONE forward.
 
     tokens: (B, W) int, ``[pending, d_1..d_{W-1}]`` per row; the window
@@ -414,7 +440,8 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, cur_len, *,
     per-row offsets (mode ``verify``: ``write_chunk``, then decode-exact
     ``verify_attention``), overwriting stale lanes of rejected drafts
     before a query can see them. ``write_mask`` gates rows as in
-    ``decode_step``. Attention-decoder families only."""
+    ``decode_step``, and so does ``rules``. Attention-decoder families
+    only."""
     if cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"verify_step requires an attention-decoder "
                          f"family (dense/moe/vlm); got {cfg.family!r}")
@@ -429,7 +456,7 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, cur_len, *,
         x = transformer.attn_block(
             lp, x, cfg, positions=positions, mode="verify",
             kv_cache=node.view(i, mask=write_mask), chunk_off=off)
-    return _logits_head(params, cfg, x)
+    return _logits_head(params, cfg, x, rules)
 
 
 # =========================== paths that ran =================================

@@ -62,6 +62,7 @@ import torch
 
 from .. import core, resolve_device
 from ..core import device_loop
+from ..dist import sharding as sh
 from ..kernels import count_launch
 
 __all__ = ["DenseKVCache", "PagedKVCache", "DenseView", "CrossView",
@@ -303,6 +304,16 @@ class DenseKVCache:
         """Block shipping is paged only (``PagedKVCache.export_rows``)."""
         raise NotImplementedError("a dense cache ships no blocks: "
                                   "disaggregation needs kv='paged'")
+
+    def shardings(self, rules, mesh=None, row_axis: str = sh.BATCH):
+        """DTensor placements of ``{"k", "v"}`` under ``rules``: (LAYERS,
+        row, -, CACHE_KV, CACHE_HD), as the JAX package's. Sized by the
+        cache's rows without the trash row, which each shard holds for
+        itself."""
+        dims = (self.k.shape[0], self.n_rows) + tuple(self.k.shape[2:])
+        s = rules.sharding((sh.LAYERS, row_axis, None, sh.CACHE_KV,
+                            sh.CACHE_HD), mesh, dims=dims)
+        return {"k": s, "v": s}
 
     def import_rows(self, rows, k_data, v_data, mask=None):
         """Block shipping is paged only (``PagedKVCache.import_rows``)."""
@@ -576,6 +587,22 @@ class PagedKVCache:
         self.v_pool[:, flat] = v_data.to(self.v_pool.dtype).reshape(
             (L, n * n_cols) + tuple(v_data.shape[3:]))
         return self
+
+    def shardings(self, rules, mesh=None, row_axis: str = sh.BATCH):
+        """DTensor placements of the cache's tensors under ``rules``, as
+        the JAX package's: the block pools (LAYERS, BLOCK, -, CACHE_KV,
+        CACHE_HD), ``owner`` and ``refcount`` over ``BLOCK``, the table's
+        rows over ``row_axis``. Sized by the pool's blocks without the
+        trash block, which each shard holds for itself."""
+        L, _, block, KV, hd = self.k_pool.shape
+        pool = rules.sharding((sh.LAYERS, sh.BLOCK, None, sh.CACHE_KV,
+                               sh.CACHE_HD), mesh,
+                              dims=(L, self.n_blocks, block, KV, hd))
+        vec = rules.sharding((sh.BLOCK,), mesh, dims=(self.n_blocks,))
+        return {"k_pool": pool, "v_pool": pool,
+                "table": rules.sharding((row_axis, None), mesh,
+                                        dims=tuple(self.table.shape)),
+                "owner": vec, "refcount": vec}
 
     def _copy_on_write(self, rows, ccol, safe, needs) -> None:
         """Copy the blocks ``needs`` marks (lanes: rows x candidate

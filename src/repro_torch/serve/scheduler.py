@@ -171,9 +171,42 @@ The scheduler keeps the device and stream it was built on and makes
 them current whenever it works (``step``, ``warmup``, ``preempt_slots``),
 so a front-end may step it from a worker thread.
 
+A mesh (``rules=`` and ``mesh=``, the JAX package's SPMD pool). The pool
+is placed as ``pool_shardings`` says: slot registers, dense cache rows,
+the SSM and cross state over ``SLOT``, a paged cache's block pools (and
+``owner``/``refcount``) over ``BLOCK``, the table over ``SLOT``; both bind
+to the data axes. ``sharded_pool`` holds those DTensors. On a mesh of
+one device the pool is placed exactly as off a mesh. On a larger one:
+
+- Each data shard (rank) holds a contiguous range of ``n_slots / D``
+  slots and ``kv_blocks / D`` blocks, and its rows' tables point into its
+  own blocks only, so the kernels and their plain versions read one
+  rank's local tensors (``pool`` is this rank's shard; the DTensors of
+  ``sharded_pool`` view the same storage). Each shard keeps its own
+  trash row and block.
+- Every rank runs the same host logic on the whole pool: admission
+  places a request in the lowest free slot whose shard has room for its
+  fresh blocks (the free-block mirror is per shard), and what the host
+  reads (the harvest, the segment's flags, ``reclaimable``) is gathered
+  from every shard in one collective (``sharding.gather_shards``), in
+  the same order on every rank.
+- The segment runs the host-read lowering (a CUDA graph cannot capture
+  the collective each iteration needs), and ``loop_impl`` says so; each
+  iteration's flags are the whole pool's, so every rank runs the same
+  branches (a rank with no row in a branch runs it masked).
+- A prefix-cache hit maps blocks of the admitting shard; a hit on
+  another shard's block (and every hit after it in the run) is copied
+  into a fresh block of the admitting shard at admission, and
+  ``cross_rank_block_copies`` counts the cross-shard ones.
+- The pool is replicated (every rank runs every row) when the data axes
+  do not divide ``n_slots`` and ``kv_blocks``, and for the MoE family,
+  whose decode routes every slot as one group. A model axis replicates
+  the pool too: each rank holds whole K/V heads and whole weights (a
+  DTensor parameter is gathered whole at construction).
+
 Per-request greedy outputs equal ``engine.generate_batch_sync``'s, and
-are identical between ``kv="dense"`` and ``kv="paged"``, and with the
-prefix cache on and off.
+are identical between ``kv="dense"`` and ``kv="paged"``, with the prefix
+cache on and off, and on a mesh and off one.
 """
 
 from __future__ import annotations
@@ -191,6 +224,7 @@ import torch.utils._pytree as pytree
 
 from .. import core, kernels
 from ..core import device_loop
+from ..dist import sharding as sh
 from ..kernels.flash_prefill import kernel as fp_kernel
 from ..kernels.paged_attention import kernel as pa_kernel
 from ..models import transformer
@@ -373,12 +407,14 @@ class _PrefixIndex:
             ids.append(e.block_id)
         return keys, ids
 
-    def pick_victim(self, reserved) -> Optional[bytes]:
+    def pick_victim(self, reserved, where=None) -> Optional[bytes]:
         """The LRU READY entry with no resident reference, not in
-        ``reserved``."""
+        ``reserved`` (and whose block ``where`` accepts: a sharded pool
+        evicts in the admitting shard)."""
         for h, e in self.entries.items():
             if h in reserved or not e.ready or e.row_refs > 0 \
-                    or e.block_id < 0:
+                    or e.block_id < 0 \
+                    or (where is not None and not where(e.block_id)):
                 continue
             return h
         return None
@@ -399,6 +435,52 @@ class _PrefixIndex:
 
     def __len__(self) -> int:
         return len(self.entries)
+
+
+# =========================== shardings ======================================
+
+# SlotPool fields that are per-rank counters and arguments, not slot state
+_COUNTER_FIELDS = ("steps", "slot_steps", "chunk_steps", "decode_steps",
+                   "launches", "limits", "seg_start")
+
+
+def pool_shardings(cfg, n_slots: int, max_len: int, max_new_cap: int,
+                   rules, mesh=None, *, kv: str = "dense",
+                   kv_block: int = 16, kv_blocks: Optional[int] = None,
+                   prompt_len: int = 0, prefix_len: int = 0,
+                   draft_cfg=None) -> Dict[str, Any]:
+    """DTensor placements of a ``SlotPool`` under ``rules``, one entry per
+    slot-state field (the JAX package's ``pool_shardings``): per-slot
+    registers, dense cache rows and the chunked-mode prompt buffers over
+    ``SLOT``; a paged cache's block pool over ``BLOCK``
+    (``PagedKVCache.shardings``). ``prompt_len``/``prefix_len`` size the
+    chunked-prefill buffers (0 in a one-shot pool). Counts that do not
+    divide fall back to replicated through the dims-aware spec. The
+    caches are mirrored on the "meta" device, at no cost."""
+    cache = engine.make_cache(cfg, n_slots, max_len, kv_impl=kv,
+                              kv_block=kv_block, kv_blocks=kv_blocks,
+                              device="meta")
+    vec = rules.sharding((sh.SLOT,), mesh, dims=(n_slots,))
+
+    def rows(*rest):
+        return rules.sharding((sh.SLOT,) + (None,) * len(rest), mesh,
+                              dims=(n_slots,) + rest)
+
+    draft = {}
+    if draft_cfg is not None:
+        draft = engine.cache_shardings(
+            draft_cfg, rules, mesh, row_axis=sh.SLOT,
+            cache=engine.make_cache(draft_cfg, n_slots, max_len,
+                                    device="meta"))
+    return dict(
+        cache=engine.cache_shardings(cfg, rules, mesh, cache=cache,
+                                     row_axis=sh.SLOT),
+        next_token=vec, cur_len=vec, n_emitted=vec, budget=vec,
+        active=vec, done=vec, request_id=vec, keys=rows(2),
+        out=rows(max_new_cap), prompt=rows(prompt_len), plen=vec,
+        pf_pos=vec, prefilling=vec, prefix=rows(prefix_len, cfg.d_model),
+        draft=draft, slot_accepted=vec, slot_windows=vec, slot_layers=vec,
+        slot_decodes=vec, priority=vec, deadline=vec)
 
 
 class DecodeScheduler:
@@ -441,6 +523,10 @@ class DecodeScheduler:
       prefill_only: the prefill tier of a disaggregated deployment
         (module docstring). Needs ``prefill="chunked"`` and
         ``kv="paged"``, and refuses speculation.
+      rules / mesh: a ``ShardingRules`` and its ``DeviceMesh``: the pool
+        is placed over the data axes (module docstring); every rank of
+        the mesh builds the scheduler and drives it alike. Either None:
+        no mesh.
     """
 
     def __init__(self, params, cfg, *, n_slots: int, prompt_len: int,
@@ -454,7 +540,7 @@ class DecodeScheduler:
                  speculative: Optional[spec_lib.SpecConfig] = None,
                  draft_params=None, draft_cfg=None,
                  prefix_cache: bool = False, prefill_only: bool = False,
-                 prefix_len: int = 0):
+                 prefix_len: int = 0, rules=None, mesh=None):
         if n_slots < 1 or max_new_cap < 1:
             raise ValueError("need n_slots >= 1 and max_new_cap >= 1")
         if not 1 <= admit_threshold <= n_slots:
@@ -507,6 +593,21 @@ class DecodeScheduler:
         elif draft_params is not None or draft_cfg is not None:
             raise ValueError("draft_params/draft_cfg need "
                              "speculative=SpecConfig(drafter='model')")
+        self.rules, self.mesh = rules, mesh
+        self._meshed = (rules is not None and mesh is not None
+                        and mesh.size() > 1)
+        if self._meshed:
+            if loop == "graph":
+                raise ValueError(
+                    "a pool on a mesh of more than one device runs the "
+                    "host-read segment (each iteration's flags are "
+                    "gathered from every shard, which a captured graph "
+                    "cannot do): pass loop=None or 'host'")
+            loop = "host"
+            # every rank holds whole weights (module docstring)
+            params = pytree.tree_map(
+                lambda t: t.full_tensor() if sh.is_dtensor(t) else t,
+                params)
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         if loop is None:
@@ -529,6 +630,17 @@ class DecodeScheduler:
         self.kv, self.kv_block = kv, kv_block
         self.kv_blocks = (n_slots * kvc.blocks_needed(self.max_len, kv_block)
                           if kv_blocks is None else int(kv_blocks))
+        # the pool's split over the data axes: ``_shards`` ranks' worth
+        # (1: whole on every rank), this rank's shard, and its slots and
+        # blocks
+        self._axes = sh.data_axes(rules) if self._meshed else ()
+        D = rules.axis_size(sh.SLOT) if self._meshed else 1
+        split = (D > 1 and n_slots % D == 0 and self.kv_blocks % D == 0
+                 and cfg.family != "moe")
+        self._shards = D if split else 1
+        self._shard = sh.data_index(mesh, self._axes) if split else 0
+        self._n_loc = n_slots // self._shards
+        self._kv_loc = self.kv_blocks // self._shards
         self._kv_key = engine.kv_key(cfg)
         # Right padding is exact only for pure-attention prefills
         # (causal masking keeps real tokens blind to pad lanes); an SSM
@@ -544,7 +656,8 @@ class DecodeScheduler:
         # in step with the device so admission never reads the device
         self._busy = np.zeros(n_slots, bool)
         self._slot_blocks = np.zeros(n_slots, np.int64)
-        self._free_blocks = self.kv_blocks
+        # free blocks of each shard (one entry off a mesh)
+        self._free_blocks = np.full(self._shards, self._kv_loc, np.int64)
         # each resident slot's request (preemption re-queues from it; the
         # SLO layer reads its priority)
         self._slot_req: List[Optional[_Queued]] = [None] * n_slots
@@ -565,6 +678,7 @@ class DecodeScheduler:
         self._unfilled = False     # registrations whose block id is unread
         self.prefix_hit_blocks = 0     # blocks mapped instead of prefilled
         self.prefix_evictions = 0
+        self.cross_rank_block_copies = 0   # hit blocks copied across shards
         self.peak_resident = 0         # most co-resident requests, taken
         #                                right after each admission
         self.preemptions = 0
@@ -584,6 +698,8 @@ class DecodeScheduler:
         self._loop: Optional[device_loop.DeviceLoop] = None
         self.capture_seconds = 0.0     # wall time of the segment's capture
         self.pool = self._init_pool()
+        # the pool as DTensors on the mesh (the same storage), or the pool
+        self.sharded_pool = self._place_pool()
         # the table as each admission left it (prefix cache only): the
         # harvest reads registered block ids from it, since a slot that
         # retires within its first segment has its table row cleared
@@ -603,7 +719,8 @@ class DecodeScheduler:
     # ---------------- pool construction ----------------
 
     def _init_pool(self) -> SlotPool:
-        n, dev = self.n_slots, self.device
+        """This rank's pool: its shard of the slots and blocks."""
+        n, dev = self._n_loc, self.device
 
         def z(*shape, dtype=torch.int32, fill=0):
             return torch.full(shape, fill, dtype=dtype, device=dev)
@@ -611,7 +728,7 @@ class DecodeScheduler:
         return SlotPool(
             cache=engine.make_cache(self.cfg, n, self.max_len,
                                     kv_impl=self.kv, kv_block=self.kv_block,
-                                    kv_blocks=self.kv_blocks,
+                                    kv_blocks=self._kv_loc,
                                     kv_sharing=self.prefix_cache,
                                     device=dev),
             next_token=z(n), cur_len=z(n, fill=1), n_emitted=z(n),
@@ -631,6 +748,52 @@ class DecodeScheduler:
             slot_decodes=z(n), priority=z(n),
             deadline=z(n, dtype=torch.float32, fill=float("inf")),
             limits=z(2), seg_start=z())
+
+    def _place_pool(self) -> SlotPool:
+        """``pool`` with every slot-state tensor as a DTensor over the
+        mesh, viewing the same storage: ``pool_shardings``' placements on
+        the data axes, replicated over the other axes and wherever the
+        pool is replicated (module docstring). The counters stay this
+        rank's plain tensors. Off a mesh (or on one device): ``pool``."""
+        if not self._meshed:
+            return self.pool
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh, names = self.mesh, list(self.mesh.mesh_dim_names)
+        chunked = self._chunked
+        want = pool_shardings(
+            self.cfg, self.n_slots, self.max_len, self.max_new_cap,
+            self.rules, mesh, kv=self.kv, kv_block=self.kv_block,
+            kv_blocks=self.kv_blocks,
+            prompt_len=self.prompt_len if chunked else 0,
+            prefix_len=self.prefix_len if chunked else 0,
+            draft_cfg=self.draft_cfg)
+
+        def view(local, placements):
+            pl = [p if (self._shards > 1 and names[i] in self._axes)
+                  else Replicate() for i, p in enumerate(placements)]
+            shape = list(local.shape)
+            for i, p in enumerate(pl):
+                if p.is_shard():
+                    shape[p.dim] *= mesh.size(i)
+            shape = torch.Size(shape)
+            return DTensor.from_local(
+                local, mesh, pl, run_check=False, shape=shape,
+                stride=torch.empty(shape, device="meta").stride())
+
+        def tree(local, placements):
+            if isinstance(local, dict):
+                return {k: tree(v, placements[k]) for k, v in local.items()}
+            if hasattr(local, "shardings"):    # a KVCache node
+                return {k: view(getattr(local, k), placements[k])
+                        for k in placements}
+            return view(local, placements)
+
+        out = {}
+        for f in dataclasses.fields(SlotPool):
+            local = getattr(self.pool, f.name)
+            out[f.name] = (local if f.name in _COUNTER_FIELDS
+                           else tree(local, want[f.name]))
+        return SlotPool(**out)
 
     # ---------------- device-side steps -------------------------------
 
@@ -683,7 +846,7 @@ class DecodeScheduler:
         Unmasked rows keep their slot: no K/V write (masked in the
         prefill) and their own state (SSM state, cross K/V) spliced
         back."""
-        p, n = self.pool, self.n_slots
+        p, n = self.pool, self._n_loc
         pl = self.prefix_len
         self._reserve(slots, true_lens + pl + max_news + 1, mask)
         logits, fresh = engine.prefill(self.params, self.cfg, prompts,
@@ -782,7 +945,7 @@ class DecodeScheduler:
         chunk covers its last prompt position samples its first token
         there and turns RUNNING. Registers are written in place (a
         captured graph keeps their addresses)."""
-        p, C, n = self.pool, self.chunk_tokens, self.n_slots
+        p, C, n = self.pool, self.chunk_tokens, self._n_loc
         logits = engine.prefill_chunk(
             self.params, self.cfg, p.prompt, p.cache, p.pf_pos, chunk=C,
             mask=p.prefilling,
@@ -831,7 +994,7 @@ class DecodeScheduler:
         early exit only the emitting rows keep the layer loop alive; the
         depth of each emitted token goes to the slot's counters.
         Registers are written in place."""
-        p, n = self.pool, self.n_slots
+        p, n = self.pool, self._n_loc
         tok, emit = p.next_token, p.active
         rows = torch.arange(n, device=self.device)
         idx = p.n_emitted.clamp(0, self.max_new_cap - 1).long()
@@ -867,7 +1030,7 @@ class DecodeScheduler:
         model with early exit drafts at adaptive depth; the verify runs
         the target at full depth, so each emitted token counts
         ``n_layers`` blocks. Registers are written in place."""
-        p, n, k = self.pool, self.n_slots, self.speculative.k
+        p, n, k = self.pool, self._n_loc, self.speculative.k
         cap, eos = self.max_new_cap, self.eos_id
         emit, t0 = p.active, p.next_token
         dev = self.device
@@ -953,7 +1116,7 @@ class DecodeScheduler:
         """The JAX package's ``cond_fn``: some slot busy, fewer than
         ``want`` idle, fewer than ``max_steps`` iterations this segment."""
         busy = p.active | p.prefilling
-        idle = self.n_slots - busy.sum()
+        idle = self._n_loc - busy.sum()
         return busy.any() & (idle < p.limits[0]) & \
             (p.steps - p.seg_start < p.limits[1])
 
@@ -991,9 +1154,24 @@ class DecodeScheduler:
         p = self.pool
         decode = (p.active.any() if self.prefill_only else
                   (p.active | self._finishing(p)).any())
-        flags = torch.stack([self._seg_cond(p), p.prefilling.any(), decode])
         self.host_reads += 1
-        return device_loop.read_host(flags)[0].tolist()
+        if self._shards == 1:
+            flags = torch.stack([self._seg_cond(p), p.prefilling.any(),
+                                 decode])
+            return device_loop.read_host(flags)[0].tolist()
+        # a sharded pool: the whole pool's predicate and branches, from
+        # every shard's busy count and branch decisions
+        local = torch.stack([(p.active | p.prefilling).sum().int(),
+                             p.prefilling.any().int(), decode.int(),
+                             (p.steps - p.seg_start).int()])
+        (vals,) = device_loop.read_host(local)
+        got = np.stack(sh.gather_shards(self.mesh, self._axes,
+                                        vals.astype(np.int64)))
+        busy = int(got[:, 0].sum())
+        want, max_steps = (int(v) for v in self._limits.numpy())
+        go = busy > 0 and self.n_slots - busy < want \
+            and int(vals[3]) < max_steps
+        return [go, bool(got[:, 1].any()), bool(got[:, 2].any())]
 
     def _segment_host(self) -> None:
         """The segment with its decisions on the host."""
@@ -1079,8 +1257,9 @@ class DecodeScheduler:
 
     @property
     def free_blocks(self) -> int:
-        """Host mirror of the paged free-list (pool capacity for dense)."""
-        return int(self._free_blocks)
+        """Host mirror of the paged free-list (pool capacity for dense),
+        summed over the shards."""
+        return int(self._free_blocks.sum())
 
     @property
     def active_count(self) -> int:
@@ -1130,10 +1309,12 @@ class DecodeScheduler:
         if not 1 <= max_new <= self.max_new_cap:
             raise ValueError(f"max_new must be in [1, {self.max_new_cap}]")
         need = self.blocks_for(prompt.shape[1], max_new)
-        if need > self.kv_blocks:
+        if need > self._kv_loc:
             raise ValueError(
                 f"request needs {need} cache blocks but the paged pool "
-                f"only has kv_blocks={self.kv_blocks}")
+                f"only has kv_blocks={self.kv_blocks}"
+                + (f" ({self._kv_loc} a shard)" if self._shards > 1
+                   else ""))
         # a pool sized with prefix_len needs the prefix on every request:
         # one admission batch shares one prefill
         if self.prefix_len > 0:
@@ -1182,54 +1363,186 @@ class DecodeScheduler:
             b <<= 1
         return min(b, self.prompt_len)
 
+    # ---------------- shards (a pool split over the data axes) ---------
+
+    def _slot_shard(self, slot: int) -> int:
+        return int(slot) // self._n_loc
+
+    def _block_shard(self, block_id: int) -> int:
+        return int(block_id) // self._kv_loc
+
+    def _free_slot_order(self, taken=()) -> List[int]:
+        """The candidate slots of an admission: the lowest free slot of
+        each shard, in slot order (off a mesh: the lowest free slot)."""
+        out, seen = [], set()
+        for s in np.nonzero(~self._busy)[0]:
+            s = int(s)
+            r = self._slot_shard(s)
+            if s in taken or r in seen:
+                continue
+            seen.add(r)
+            out.append(s)
+        return out
+
+    def _local_rows(self, slots, k: int):
+        """This shard's part of an admission of ``k`` requests into
+        ``slots[:k]`` (a permutation of the slot ids): the rows of the
+        admission's host arrays that land here (index ``n``: an extra
+        default row), then the local slot ids and the mask of a local
+        admission, the admitted rows first. Off a mesh: the arrays as
+        they are."""
+        n = self.n_slots
+        if self._shards == 1:
+            mask = np.arange(n) < k
+            return np.arange(n), np.asarray(slots, np.int32), mask
+        lo = self._shard * self._n_loc
+        mine = [i for i in range(k) if lo <= slots[i] < lo + self._n_loc]
+        used = {int(slots[i]) - lo for i in mine}
+        rest = [j for j in range(self._n_loc) if j not in used]
+        idx = np.asarray(mine + [n] * len(rest), np.int64)
+        local = np.asarray([int(slots[i]) - lo for i in mine] + rest,
+                           np.int32)
+        mask = np.arange(self._n_loc) < len(mine)
+        return idx, local, mask
+
+    def _local_blocks(self, ids, width: int) -> np.ndarray:
+        """The ids in ``ids`` (global block ids) on this shard, as local
+        ids, padded with -1 to ``width``."""
+        lo = self._shard * self._kv_loc
+        out = np.full(width, -1, np.int32)
+        mine = [int(b) - lo for b in ids
+                if b >= 0 and self._block_shard(b) == self._shard]
+        out[:len(mine)] = mine
+        return out
+
+    def _local_mask(self, slots) -> torch.Tensor:
+        """This shard's part of a mask over the global ``slots``, on the
+        device."""
+        mask = np.zeros(self.n_slots, bool)
+        mask[list(slots)] = True
+        lo = self._shard * self._n_loc
+        return torch.from_numpy(mask[lo:lo + self._n_loc]).to(self.device)
+
+    def _host_view(self, vals, kinds):
+        """The host's view of arrays read from this rank's shard: with the
+        pool split, every shard's arrays gathered in one collective and
+        combined by ``kinds`` ("rows": concatenated in slot order, "table":
+        rows of local block ids, concatenated and made global, "sum":
+        added, "mine": this rank's, the same on every rank or its own);
+        off a split, ``vals``."""
+        if self._shards == 1:
+            return list(vals)
+        got = sh.gather_shards(self.mesh, self._axes, list(vals))
+        out = []
+        for j, kind in enumerate(kinds):
+            parts = [g[j] for g in got]
+            if kind == "rows":
+                out.append(np.concatenate(parts))
+            elif kind == "table":
+                out.append(np.concatenate([
+                    np.where(t >= 0, t + r * self._kv_loc, t)
+                    for r, t in enumerate(parts)]))
+            elif kind == "sum":
+                out.append(sum(parts))
+            else:
+                out.append(vals[j])
+        return out
+
+    def _copy_hits(self, copies) -> None:
+        """Copy hit blocks into the admitting shard: ``copies`` lists
+        (source global block id, slot, table column), the same on every
+        rank. Each source shard's blocks travel in one gather of the
+        mesh; the destination writes them into the blocks its ``alloc``
+        gave the columns (on the device, no read)."""
+        if not copies:
+            return
+        node = self.pool.cache[self._kv_key]
+        lo_b = self._shard * self._kv_loc
+        mine = [(b - lo_b) for b, _, _ in copies
+                if self._block_shard(b) == self._shard]
+        payload = None
+        if mine:
+            ids = torch.tensor(mine, dtype=torch.long, device=self.device)
+            payload = (node.k_pool[:, ids].cpu(), node.v_pool[:, ids].cpu())
+        got = sh.gather_shards(self.mesh, self._axes, payload)
+        taken = [0] * self._shards
+        lo_s = self._shard * self._n_loc
+        for b, slot, col in copies:
+            src = self._block_shard(b)
+            j = taken[src]
+            taken[src] += 1
+            if self._slot_shard(slot) != self._shard:
+                continue
+            k, v = got[src]
+            dst = node.table[slot - lo_s, col].long()
+            node.k_pool[:, dst] = k[:, j].to(self.device)
+            node.v_pool[:, dst] = v[:, j].to(self.device)
+
     def _plan_hits(self, q: _Queued, need: int, blocks_free: int,
-                   victims: List[bytes], reserved: set):
-        """Prefix-cache planning for the request at the queue's head:
-        the READY run it maps (capped at ``(plen - 1) // block``: one
-        position at least prefills in-row, and every written block is
-        fresh, so the scheduler's path never copies on write) and the
-        LRU entries to evict until its fresh blocks fit (``victims`` and
-        ``reserved`` grow). Pure on the index. Returns (plan, fresh
-        blocks needed, blocks free)."""
+                   victims: List[bytes], reserved: set, shard: int = 0):
+        """Prefix-cache planning for the request at the queue's head, in
+        ``shard``: the READY run it hits (capped at ``(plen - 1) //
+        block``: one position at least prefills in-row, and every written
+        block is fresh, so the scheduler's path never copies on write),
+        how much of it the row maps (the leading blocks that live in
+        ``shard``; the rest is copied in at admission), and the LRU
+        entries of ``shard`` to evict until its fresh blocks fit
+        (``victims`` and ``reserved`` grow). Pure on the index. Returns
+        (plan, fresh blocks needed, blocks free)."""
         idx = self._prefix_index
         plen = self.prefix_len + q.prompt.shape[1]
         hs = idx.hashes(q.prompt[0], self.prefix_len,
                         idx.seed(q.prefix_embeds))
         hit_keys, hit_ids = idx.lookup(hs, (plen - 1) // self.kv_block,
                                        set(victims))
-        need -= len(hit_keys)
+        mapped = 0
+        while mapped < len(hit_ids) and \
+                self._block_shard(hit_ids[mapped]) == shard:
+            mapped += 1
+        need -= mapped
         while need > blocks_free:
-            v = idx.pick_victim(reserved | set(hit_keys))
+            v = idx.pick_victim(reserved | set(hit_keys),
+                                lambda b: self._block_shard(b) == shard)
             if v is None:
                 break
             victims.append(v)
             reserved.add(v)
             blocks_free += 1          # each victim frees its pinned block
-        return {"hs": hs, "hit_keys": hit_keys, "hit_ids": hit_ids}, \
-            need, blocks_free
+        return {"hs": hs, "hit_keys": hit_keys, "hit_ids": hit_ids,
+                "mapped": mapped}, need, blocks_free
 
-    def _commit_hits(self, plans, victims, shared, pin, pf0, evict):
-        """Prefix-cache commit: the plan is final. Evict the victims
-        (their pins go in ``evict``), take references on the hit
-        entries (``shared``, ``pf0``), and register every full block past
-        each hit run PENDING (``pin``). Returns each request's (key,
-        column) registrations."""
+    def _commit_hits(self, plans, slots, victims, shared, pin, pf0):
+        """Prefix-cache commit: the plan is final. Evict the victims,
+        take references on the hit entries each row maps (``shared``, in
+        its shard's local ids) and touch the ones it copies, set ``pf0``,
+        and register every full block past each hit run PENDING
+        (``pin``). Returns each request's (key, column) registrations,
+        the evicted block ids and the copies to make (``_copy_hits``)."""
         idx = self._prefix_index
-        for j, h in enumerate(victims):
-            evict[j] = idx.evict(h)
-        self._free_blocks += len(victims)
+        evicted = [idx.evict(h) for h in victims]
+        for b in evicted:
+            self._free_blocks[self._block_shard(b)] += 1
         self.prefix_evictions += len(victims)
         regs: List[List[tuple]] = []
+        copies: List[tuple] = []
         for i, plan in enumerate(plans):
-            for h in plan["hit_keys"]:
-                idx.entries[h].row_refs += 1
+            slot, mapped = int(slots[i]), plan["mapped"]
+            lo = self._slot_shard(slot) * self._kv_loc
+            for j, h in enumerate(plan["hit_keys"]):
+                if j < mapped:
+                    idx.entries[h].row_refs += 1
                 idx.touch(h)
             hits = len(plan["hit_ids"])
-            shared[i, :hits] = plan["hit_ids"]
+            shared[i, :mapped] = [b - lo for b in plan["hit_ids"][:mapped]]
+            for c in range(mapped, hits):
+                b = plan["hit_ids"][c]
+                copies.append((b, slot, c))
+                if self._block_shard(b) != self._slot_shard(slot):
+                    self.cross_rank_block_copies += 1
             pf0[i] = hits * self.kv_block
             self.prefix_hit_blocks += hits
             mine = []
-            for c in range(len(plan["hit_keys"]), len(plan["hs"])):
+            for c in range(hits, len(plan["hs"])):
                 h = plan["hs"][c]
                 if h in idx.entries:
                     continue       # an in-flight twin registered it
@@ -1237,37 +1550,54 @@ class DecodeScheduler:
                 pin[i, c] = True
                 mine.append((h, c))
             regs.append(mine)
-        return regs
+        return regs, evicted, copies
 
     def _admit_queued(self) -> int:
         """Fill free slots from the queue, FIFO, while each request's
         fresh blocks fit the free-list (head-of-line blocking keeps
-        order). With the prefix cache, a planning pass that mutates
-        nothing (hits, evictions) comes first, so that coalescing or
-        blocking can abandon it, and the commit pass after.
-        ``admit_threshold > 1`` coalesces: while some slot is busy, a
-        batch smaller than the threshold (and than what the queue
-        holds) waits for a later round."""
+        order); a request takes the lowest free slot whose shard fits
+        it. With the prefix cache, a planning pass that mutates nothing
+        (hits, evictions) comes first, so that coalescing or blocking can
+        abandon it, and the commit pass after. ``admit_threshold > 1``
+        coalesces: while some slot is busy, a batch smaller than the
+        threshold (and than what the queue holds) waits for a later
+        round."""
         if not self.queue or self.free_slots == 0:
             return 0
         batch: List[_Queued] = []
         plans: List[Optional[dict]] = []
+        chosen: List[int] = []
         victims: List[bytes] = []        # keys planned for eviction
         reserved: set = set()            # keys this round must not evict
-        blocks_free = self._free_blocks
+        blocks_free = self._free_blocks.copy()
         while self.queue and len(batch) < self.free_slots:
             q = self.queue[0]
             need = self.blocks_for(q.prompt.shape[1], q.max_new)
-            plan = None
-            if self.prefix_cache:
-                plan, need, blocks_free = self._plan_hits(
-                    q, need, blocks_free, victims, reserved)
-            if need > blocks_free:
+            pick = first = None
+            for slot in self._free_slot_order(chosen):
+                r = self._slot_shard(slot)
+                plan, vic, res = None, list(victims), set(reserved)
+                n_r, free_r = need, int(blocks_free[r])
+                if self.prefix_cache:
+                    plan, n_r, free_r = self._plan_hits(q, need, free_r,
+                                                        vic, res, r)
+                first = first or (vic, res)
+                if n_r <= free_r:
+                    pick = (slot, r, plan, vic, res, n_r, free_r)
+                    break
+            if pick is None:
+                # the head blocks; what its plan evicted in the first
+                # shard tried is evicted all the same, as in the JAX
+                # package (its plan evicts before it gives up)
+                if first is not None:
+                    victims, reserved = first
                 break
-            blocks_free -= need
+            slot, r, plan, victims, reserved, n_r, free_r = pick
+            blocks_free[r] = free_r - n_r
             if plan is not None:
                 reserved.update(plan["hit_keys"])
             plans.append(plan)
+            chosen.append(slot)
             batch.append(self.queue.pop(0))
         k = len(batch)
         if k == 0:
@@ -1279,18 +1609,19 @@ class DecodeScheduler:
         n = self.n_slots
         L = (self.prompt_len if self._chunked
              else max(self._bucket(q.prompt.shape[1]) for q in batch))
-        free = np.nonzero(~self._busy)[0]
-        slots = np.concatenate([free, np.nonzero(self._busy)[0]])
-        mask = np.zeros(n, bool)
-        mask[:k] = True
-        prompts = np.zeros((n, L), np.int32)
-        plens = np.full(n, L, np.int32)
-        rids = np.full(n, -1, np.int32)
-        max_news = np.zeros(n, np.int32)
-        keys = np.zeros((n, 2), np.int64)
-        derive = np.zeros(n, bool)
-        prios = np.zeros(n, np.int32)
-        deadlines = np.full(n, np.inf, np.float32)
+        rest = [int(s) for s in np.nonzero(~self._busy)[0]
+                if int(s) not in chosen]
+        slots = np.asarray(chosen + rest
+                           + [int(s) for s in np.nonzero(self._busy)[0]])
+        # one row a slot, and a default row (index n) for local padding
+        prompts = np.zeros((n + 1, L), np.int32)
+        plens = np.full(n + 1, L, np.int32)
+        rids = np.full(n + 1, -1, np.int32)
+        max_news = np.zeros(n + 1, np.int32)
+        keys = np.zeros((n + 1, 2), np.int64)
+        derive = np.zeros(n + 1, bool)
+        prios = np.zeros(n + 1, np.int32)
+        deadlines = np.full(n + 1, np.inf, np.float32)
         for i, q in enumerate(batch):
             tl = q.prompt.shape[1]
             prompts[i, :tl] = q.prompt[0]
@@ -1303,46 +1634,57 @@ class DecodeScheduler:
                 derive[i] = True
             else:
                 keys[i] = q.key
+        rows, local_slots, mask = self._local_rows(slots, k)
 
         def dev(a):
-            return torch.from_numpy(a).to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
         if self._chunked:
             plens += np.int32(self.prefix_len)    # stream lengths
-        args = [dev(prompts), dev(plens), dev(slots.astype(np.int32)),
-                dev(rids), dev(max_news), dev(keys), dev(derive), dev(mask),
-                dev(prios), dev(deadlines)]
+        args = [dev(prompts[rows]), dev(plens[rows]), dev(local_slots),
+                dev(rids[rows]), dev(max_news[rows]), dev(keys[rows]),
+                dev(derive[rows]), dev(mask), dev(prios[rows]),
+                dev(deadlines[rows])]
         prefix = None
         if self.prefix_len:
-            pe = np.zeros((n, self.prefix_len, self.cfg.d_model), np.float32)
+            pe = np.zeros((n + 1, self.prefix_len, self.cfg.d_model),
+                          np.float32)
             for i, q in enumerate(batch):
                 pe[i] = q.prefix_embeds[0]
-            prefix = dev(pe).to(self.cfg.dtype("compute"))
+            prefix = dev(pe[rows]).to(self.cfg.dtype("compute"))
         frames = None
         if self.cfg.family == "audio":
             # zero frames for the rows that admit no request
-            fr = np.zeros((n, self.cfg.n_frames, self.cfg.d_model),
+            fr = np.zeros((n + 1, self.cfg.n_frames, self.cfg.d_model),
                           np.float32)
             for i, q in enumerate(batch):
                 fr[i] = q.frames[0]
-            frames = dev(fr)
+            frames = dev(fr[rows])
         regs: List[List[tuple]] = [[] for _ in batch]
+        here = bool(mask.any())
         if not self._chunked:
-            self._admit(*args, prefix, frames)
+            if here:
+                self._admit(*args, prefix, frames)
         elif not self.prefix_cache:
-            self._assign(*args, prefix)
+            if here:
+                self._assign(*args, prefix)
         else:
             bpr = int(kvc.blocks_needed(self.max_len, self.kv_block))
-            shared = np.full((n, bpr), -1, np.int32)
-            pin = np.zeros((n, bpr), bool)
-            pf0 = np.zeros(n, np.int32)
-            evict = np.full(self.kv_blocks, -1, np.int32)
-            regs = self._commit_hits(plans, victims, shared, pin, pf0, evict)
-            self._assign(*args, prefix, dev(shared), dev(pin), dev(pf0),
-                         dev(evict), draft_from=int(pf0.max()))
+            shared = np.full((n + 1, bpr), -1, np.int32)
+            pin = np.zeros((n + 1, bpr), bool)
+            pf0 = np.zeros(n + 1, np.int32)
+            regs, evicted, copies = self._commit_hits(plans, chosen,
+                                                      victims, shared, pin,
+                                                      pf0)
+            evict = self._local_blocks(evicted, self._kv_loc)
+            if here or (evict >= 0).any():
+                self._assign(*args, prefix, dev(shared[rows]),
+                             dev(pin[rows]), dev(pf0[rows]), dev(evict),
+                             draft_from=int(pf0[rows].max()))
+            self._copy_hits(copies)
             self._unfilled = self._unfilled or any(regs)
         for i, q in enumerate(batch):
-            slot = int(free[i])
+            slot = chosen[i]
             need = self.blocks_for(q.prompt.shape[1], q.max_new)
             self._busy[slot] = True
             self._slot_req[slot] = q
@@ -1350,8 +1692,9 @@ class DecodeScheduler:
             self._h_depth[:, slot] = 0
             self._h_prefilling[slot] = self._chunked
             if self.prefix_cache:
-                need -= len(plans[i]["hit_keys"])     # fresh blocks only
-                self._slot_hits[slot] = list(plans[i]["hit_keys"])
+                mapped = plans[i]["mapped"]
+                need -= mapped                        # fresh blocks only
+                self._slot_hits[slot] = list(plans[i]["hit_keys"][:mapped])
                 self._slot_regs[slot] = regs[i]
                 # registered blocks stay pinned by the index after this
                 # slot retires; only the rest return at harvest
@@ -1360,7 +1703,7 @@ class DecodeScheduler:
                 self._slot_blocks[slot] = need
                 # one reference a block: all of the row's are reclaimable
                 self._h_reclaim[slot] = need
-            self._free_blocks -= need
+            self._free_blocks[self._slot_shard(slot)] -= need
         self._reclaim_fresh = not self.prefix_cache
         self.peak_resident = max(self.peak_resident, self.active_count)
         return k
@@ -1372,19 +1715,24 @@ class DecodeScheduler:
         prefix blocks the table that admission left, and ``more``.
         Updates the host mirrors and counters; returns ``done``, the
         emissions, ``n_emitted``, the request ids and ``more``'s
-        values."""
+        values. A split pool gathers every shard's (``_host_view``)."""
         p = self.pool
         extra = [p.prefilling]
+        kinds = ["rows"] * 4 + ["mine"] + ["rows"] * 4 + \
+            ["mine", "sum", "mine", "mine", "rows"]
         paged = self.kv == "paged" and self._kv_key is not None
         if paged:
             extra.append(p.cache[self._kv_key].reclaimable())
+            kinds.append("rows")
         if self._unfilled:
             extra.append(self._reg_table)
+            kinds.append("table")
         vals = device_loop.read_host(
             p.done, p.out, p.n_emitted, p.request_id, p.launches,
             p.slot_accepted, p.slot_windows, p.slot_layers, p.slot_decodes,
             p.steps, p.slot_steps, p.chunk_steps, p.decode_steps, *extra,
             *more)
+        vals = self._host_view(vals, kinds + ["rows"] * len(more))
         self.host_reads += 1
         if more:
             vals, wanted = vals[:-len(more)], vals[-len(more):]
@@ -1439,7 +1787,8 @@ class DecodeScheduler:
             self._slot_req[slot] = None
             # the device freed these blocks at retirement; the host
             # mirror learns here, before the next admission
-            self._free_blocks += int(self._slot_blocks[slot])
+            self._free_blocks[self._slot_shard(slot)] += \
+                int(self._slot_blocks[slot])
             self._slot_blocks[slot] = 0
             if self.prefix_cache:
                 # a done slot's registrations are READY, and it no longer
@@ -1502,19 +1851,65 @@ class DecodeScheduler:
         leaves with the plan (the admission may evict it, a block each;
         an entry the head maps instead needs no fresh block, which
         counts the same). From host state: no read."""
-        freed = sum(int(self._slot_blocks[s]) for s in plan)
+        return int(self._freed_by_shard(plan).sum())
+
+    def _freed_by_shard(self, plan) -> np.ndarray:
+        """``blocks_freed`` of each shard."""
+        out = np.zeros(self._shards, np.int64)
+        for s in plan:
+            out[self._slot_shard(s)] += int(self._slot_blocks[s])
         if not self.prefix_cache:
-            return freed
-        evicted, refs = set(), collections.Counter()
+            return out
+        evicted, refs = {}, collections.Counter()
         for s in plan:
             evict, keep, hits = self._slot_refs(
                 s, ready=not self._h_prefilling[s])
-            evicted.update(evict)
+            # a registration's block lives in its row's shard
+            evicted.update((h, self._slot_shard(s)) for h in evict)
             refs.update(keep + hits)
+        for r in evicted.values():
+            out[r] += 1
         entries = self._prefix_index.entries
-        return freed + len(evicted) + sum(
-            1 for h, n in refs.items() if h not in evicted
-            and entries[h].block_id >= 0 and entries[h].row_refs == n)
+        for h, n in refs.items():
+            e = entries[h]
+            if h not in evicted and e.block_id >= 0 and e.row_refs == n:
+                out[self._block_shard(e.block_id)] += 1
+        return out
+
+    def fits(self, need: int, plan=()) -> bool:
+        """Would a request holding ``need`` blocks be admitted once the
+        resident rows in ``plan`` are preempted: a free slot in a shard
+        with ``need`` free blocks (off a mesh: a free slot and ``need``
+        free blocks). From host state: no read; the SLO layer and the
+        disaggregated router gate on it."""
+        slots = np.zeros(self._shards, np.int64)
+        for s in np.nonzero(~self._busy)[0]:
+            slots[self._slot_shard(s)] += 1
+        for s in plan:
+            slots[self._slot_shard(s)] += 1
+        blocks = self._free_blocks + self._freed_by_shard(plan)
+        return bool(((slots >= 1) & (blocks >= need)).any())
+
+    def slot_leader(self, slot: int) -> int:
+        """The global rank that holds ``slot``'s row and speaks for it
+        (the lowest of its replicas); 0 off a mesh."""
+        if self.mesh is None:
+            return 0
+        if self._shards == 1:
+            return int(self.mesh.mesh.min())
+        return sh.shard_leader(self.mesh, self._axes,
+                               self._slot_shard(slot))
+
+    def export_slot(self, slot: int, n_cols: int):
+        """The K/V behind ``slot``'s leading ``n_cols`` table columns as
+        fresh wire buffers (``PagedKVCache.export_rows``), on a rank that
+        holds the row; None on the others."""
+        r = self._slot_shard(slot)
+        if r != self._shard:
+            return None
+        rows = torch.full((1,), slot - r * self._n_loc, dtype=torch.int64,
+                          device=self.device)          # a fill: no copy
+        return self.pool.cache[self._kv_key].export_rows(rows, n_cols)
 
     @contextlib.contextmanager
     def _on_device(self):
@@ -1602,8 +1997,8 @@ class DecodeScheduler:
             return np.zeros(self.n_slots, np.int64)
         if not self._reclaim_fresh:
             with self._on_device():
-                (rec,) = device_loop.read_host(
-                    self.pool.cache[self._kv_key].reclaimable())
+                (rec,) = self._host_view(device_loop.read_host(
+                    self.pool.cache[self._kv_key].reclaimable()), ["rows"])
             self.host_reads += 1
             self._h_reclaim[:] = rec
             self._reclaim_fresh = True
@@ -1631,22 +2026,21 @@ class DecodeScheduler:
                     # an admission since the last harvest registered
                     # blocks: their ids are read here, the one read
                     # beyond the harvest
-                    (table,) = device_loop.read_host(self._reg_table)
+                    (table,) = self._host_view(
+                        device_loop.read_host(self._reg_table), ["table"])
                     self.host_reads += 1
                     self._fill_block_ids(table)
                 evicted: List[int] = []
                 for s in slots:
                     evicted += self._drop_slot_refs(
                         s, ready=not self._h_prefilling[s])
-                evict = np.full(self.kv_blocks, -1, np.int32)
-                evict[:len(evicted)] = evicted
-                evict = torch.from_numpy(evict).to(self.device)
+                evict = torch.from_numpy(self._local_blocks(
+                    evicted, self._kv_loc)).to(self.device)
                 # each evicted pin was its block's last reference beside
                 # the row's own (freed below): fully free again
-                self._free_blocks += len(evicted)
-            mask = np.zeros(self.n_slots, bool)
-            mask[slots] = True
-            self._preempt(torch.from_numpy(mask).to(self.device), evict)
+                for b in evicted:
+                    self._free_blocks[self._block_shard(b)] += 1
+            self._preempt(self._local_mask(slots), evict)
         got: List[PreemptedRequest] = []
         for s in slots:
             q = self._slot_req[s]
@@ -1660,7 +2054,8 @@ class DecodeScheduler:
             self._h_n_emitted[s] = 0
             self._h_depth[:, s] = 0
             self._h_prefilling[s] = False
-            self._free_blocks += int(self._slot_blocks[s])
+            self._free_blocks[self._slot_shard(s)] += \
+                int(self._slot_blocks[s])
             self._slot_blocks[s] = 0
             self._h_reclaim[s] = 0
         # shared blocks change other rows' counts: read them when needed
@@ -1701,14 +2096,13 @@ class DecodeScheduler:
         for s in slots:
             if not 0 <= s < self.n_slots or not self._busy[s]:
                 raise ValueError(f"slot {s} is not resident")
-        mask = np.zeros(self.n_slots, bool)
-        mask[slots] = True
         with self._on_device():
-            self._preempt(torch.from_numpy(mask).to(self.device), None)
+            self._preempt(self._local_mask(slots), None)
         for s in slots:
             self._busy[s] = False
             self._slot_req[s] = None
-            self._free_blocks += int(self._slot_blocks[s])
+            self._free_blocks[self._slot_shard(s)] += \
+                int(self._slot_blocks[s])
             self._slot_blocks[s] = 0
             self._h_reclaim[s] = 0
             self._h_prefilling[s] = False
@@ -1742,19 +2136,30 @@ class DecodeScheduler:
                 f"rows={k_data.shape[1]}")
         needs = [self.blocks_for(int(plens[i]), reqs[i].max_new)
                  for i in range(k)]
-        if sum(needs) > self._free_blocks:
-            raise RuntimeError(f"splice needs {sum(needs)} blocks; free="
-                               f"{self._free_blocks} (the caller gates "
-                               f"admission)")
+        # each request in the lowest free slot whose shard has its blocks
+        blocks_free = self._free_blocks.copy()
+        chosen: List[int] = []
+        for need in needs:
+            fit = [s for s in self._free_slot_order(chosen)
+                   if blocks_free[self._slot_shard(s)] >= need]
+            if not fit:
+                raise RuntimeError(
+                    f"splice needs {need} blocks in a shard with a free "
+                    f"slot; free per shard={self._free_blocks.tolist()} "
+                    f"(the caller gates admission with fits())")
+            chosen.append(fit[0])
+            blocks_free[self._slot_shard(fit[0])] -= need
         n, L = self.n_slots, self.prompt_len
-        free = np.nonzero(~self._busy)[0]
-        slots = np.concatenate([free, np.nonzero(self._busy)[0]])
-        # the registers of all n rows in one int64 buffer: prompt, plen,
-        # slot, rid, max_new, key words, derive, mask, priority, t0 and
-        # the deadline's float32 bits
-        host = np.zeros((n, L + 11), np.int64)
+        free = chosen + [int(s) for s in np.nonzero(~self._busy)[0]
+                         if int(s) not in chosen]
+        slots = np.asarray(free + [int(s) for s in
+                                   np.nonzero(self._busy)[0]])
+        rows, local_slots, local_mask = self._local_rows(slots, k)
+        # the registers of all n rows in one int64 buffer (and a default
+        # row n): prompt, plen, slot, rid, max_new, key words, derive,
+        # mask, priority, t0 and the deadline's float32 bits
+        host = np.zeros((n + 1, L + 11), np.int64)
         host[:, L] = L
-        host[:, L + 1] = slots
         host[:, L + 2] = -1
         host[:, L + 10] = np.float32(np.inf).view(np.int32)
         for i, q in enumerate(reqs):
@@ -1771,9 +2176,41 @@ class DecodeScheduler:
             host[i, L + 8] = q.priority
             host[i, L + 9] = int(t0s[i])
             host[i, L + 10] = np.float32(q.deadline).view(np.int32)
+        host = host[rows]
+        host[:, L + 1] = local_slots
+        mine = rows[local_mask]        # this shard's shipment rows
         with self._on_device():
             if ready is not None:
                 torch.cuda.current_stream(self.device).wait_event(ready)
+            if len(mine) == 0:
+                host = None                  # nothing lands in this shard
+        if host is not None:
+            self._splice_local(host, mine, k_data, v_data)
+        filled = []
+        for i, q in enumerate(reqs):
+            slot = chosen[i]
+            self._busy[slot] = True
+            self._slot_req[slot] = q
+            self._slot_blocks[slot] = needs[i]
+            self._h_reclaim[slot] = needs[i]
+            self._free_blocks[self._slot_shard(slot)] -= needs[i]
+            self._h_n_emitted[slot] = 0
+            self._h_depth[:, slot] = 0
+            self._h_prefilling[slot] = False
+            filled.append(slot)
+        self.peak_resident = max(self.peak_resident, self.active_count)
+        return filled
+
+    def _splice_local(self, host, mine, k_data, v_data) -> None:
+        """The splice's device work in this shard: ``host`` the packed
+        registers of its rows (its admitted rows first), ``mine`` their
+        rows of the shipment."""
+        L, m = self.prompt_len, len(mine)
+        if list(mine) != list(range(k_data.shape[1])):
+            sel = torch.as_tensor(mine, dtype=torch.long,
+                                  device=k_data.device)
+            k_data, v_data = k_data[:, sel], v_data[:, sel]
+        with self._on_device():
             d = torch.from_numpy(host)
             if self._stream is not None:
                 d = d.pin_memory()
@@ -1786,7 +2223,8 @@ class DecodeScheduler:
             deadlines = i32[:, L + 10].contiguous().view(torch.float32)
             self._reserve(slot_ix, plen + max_news + 1, mask)
             self.pool.cache[self._kv_key].import_rows(
-                slot_ix[:k], k_data, v_data, mask=mask[:k])
+                slot_ix[:m], k_data.to(self.device),
+                v_data.to(self.device), mask=mask[:m])
             zeros = torch.zeros_like(rids)
             self._register(slot_ix, mask, next_token=t0, cur_len=plen + 1,
                            n_emitted=zeros, budget=max_news,
@@ -1798,20 +2236,6 @@ class DecodeScheduler:
                            prefilling=zeros.bool(), priority=prios,
                            deadline=deadlines, slot_layers=zeros,
                            slot_decodes=zeros)
-        filled = []
-        for i, q in enumerate(reqs):
-            slot = int(free[i])
-            self._busy[slot] = True
-            self._slot_req[slot] = q
-            self._slot_blocks[slot] = needs[i]
-            self._h_reclaim[slot] = needs[i]
-            self._free_blocks -= needs[i]
-            self._h_n_emitted[slot] = 0
-            self._h_depth[:, slot] = 0
-            self._h_prefilling[slot] = False
-            filled.append(slot)
-        self.peak_resident = max(self.peak_resident, self.active_count)
-        return filled
 
     def resubmit(self, p: PreemptedRequest) -> None:
         """Re-queue a preempted request at the FRONT of the queue with
@@ -1851,6 +2275,7 @@ class DecodeScheduler:
         self.tokens_emitted = 0
         self.host_reads = self.segments = self.graph_replays = 0
         self.prefix_hit_blocks = self.prefix_evictions = 0
+        self.cross_rank_block_copies = 0
         self.peak_resident = self.preemptions = 0
 
     @property
@@ -1953,6 +2378,17 @@ class DecodeScheduler:
         and ``flash_verify`` (zeros under the host-read loop, whose
         launches the wrappers count in Python)."""
         return {k: int(v) for k, v in zip(_COUNTED, self._launches)}
+
+    @property
+    def pool_layout(self) -> str:
+        """How the pool lies on the mesh: "single" (no mesh, or a mesh of
+        one), "sharded:<axes>x<D>" (each data shard holds n_slots / D
+        slots) or "replicated" (every rank the whole pool)."""
+        if not self._meshed:
+            return "single"
+        if self._shards > 1:
+            return f"sharded:{','.join(self._axes)}x{self._shards}"
+        return "replicated"
 
     @property
     def transfer_impl(self) -> str:

@@ -289,7 +289,7 @@ class SLOScheduler:
             return []
         head = self._backlog[0]
         need = inner.blocks_for(head.prompt.shape[1], head.max_new)
-        if inner.free_slots >= 1 and inner.free_blocks >= need:
+        if inner.fits(need):
             return []               # admissible as-is
         # eligible victims: resident, strictly less urgent than head
         victims = [s for s in range(inner.n_slots)
@@ -306,15 +306,11 @@ class SLOScheduler:
                                     -int(reclaim[s]),
                                     len(inner.emitted(s)), s))
         plan: List[int] = []
-        slots_free = inner.free_slots
-        blocks_free = inner.free_blocks
         for s in victims:
-            if slots_free >= 1 and blocks_free >= need:
+            if inner.fits(need, plan):
                 break
             plan.append(s)
-            slots_free += 1
-            blocks_free = inner.free_blocks + inner.blocks_freed(plan)
-        if slots_free < 1 or blocks_free < need:
+        if not inner.fits(need, plan):
             return []               # infeasible: evicting buys nothing
         events = []
         for p in inner.preempt_slots(plan):

@@ -313,6 +313,18 @@ class TrainerConfig:
     log_every: int = 10
 
 
+def _any_rank(flag: bool) -> bool:
+    """Is ``flag`` set on any rank of the default group?"""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32,
+                     device="cuda" if dist.get_backend() == "nccl"
+                     else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 class Trainer:
     """Fault-tolerant runner around a train step. ``history`` keeps
     (step, loss, seconds) of every step it ran; the SIGTERM handler it
@@ -338,15 +350,22 @@ class Trainer:
         except ValueError:  # not on the main thread (tests)
             return None
 
-    def maybe_resume(self, params, opt_state) -> Tuple[int, Any, Any]:
-        """Resume from the latest checkpoint if one exists."""
+    def maybe_resume(self, params, opt_state, shardings=None
+                     ) -> Tuple[int, Any, Any]:
+        """Resume from the latest checkpoint if one exists. ``shardings``
+        (a tree over ``{"params", "opt"}`` of ``sharding.NamedSharding``,
+        ``checkpoint.restore``'s) lays the restored state out on a mesh;
+        without it a DTensor leaf is restored as it is laid out, so a
+        sharded run resumes onto its own mesh, whatever mesh wrote the
+        checkpoint."""
         if not self.tcfg.ckpt_dir:
             return 0, params, opt_state
         step = ckpt_lib.latest_step(self.tcfg.ckpt_dir)
         if step is None:
             return 0, params, opt_state
         state = ckpt_lib.restore(self.tcfg.ckpt_dir, step,
-                                 {"params": params, "opt": opt_state})
+                                 {"params": params, "opt": opt_state},
+                                 shardings)
         self.log(f"[trainer] resumed from step {step}")
         return step, state["params"], state["opt"]
 
@@ -361,6 +380,9 @@ class Trainer:
 
     def _run(self, params, opt_state, start_step, steps):
         metrics = {}
+        # a sharded run saves from every rank (one writer): a SIGTERM that
+        # reached any rank stops them all at the same step
+        sharded = ckpt_lib._distributed({"params": params})
         for step in range(start_step, start_step + steps):
             batch = self.data.batch_at(step)
             t0 = time.perf_counter()
@@ -386,6 +408,8 @@ class Trainer:
                     self.tcfg.ckpt_dir, step + 1,
                     {"params": params, "opt": opt_state},
                     keep_last=self.tcfg.keep_last)
+            if sharded:
+                self._preempted = _any_rank(self._preempted)
             if self._preempted:
                 self.log(f"[trainer] SIGTERM at step {step}; checkpointing")
                 self.saver.wait()

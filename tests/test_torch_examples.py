@@ -1,5 +1,5 @@
 """The port's single-device examples against the JAX package's:
-``quickstart``, ``train_lm`` and ``elastic_restart`` (phases 1 and 2).
+``quickstart``, ``train_lm`` and ``elastic_restart``.
 ``dqn_in_graph`` has its own file (``test_torch_dqn.py``).
 
 Tolerances:
@@ -13,7 +13,7 @@ Tolerances:
   Trainer's losses at its steps);
 - ``elastic_restart``: the resumed run's parameters within 1e-5 of the
   uninterrupted run's (the reference's bar; on the CPU exactly 0), and
-  phase 3 reported as not run.
+  phase 3's restore onto a (4, 2) mesh of 8 gloo ranks exact.
 
 JAX is imported only inside the tests that hold the port to it.
 """
@@ -128,7 +128,9 @@ def test_elastic_restart_resumes_within_tolerance(smollm_fp32, capsys):
     assert out["max_diff"] < elastic_restart.RESUME_TOL
     text = capsys.readouterr().out
     assert "phase2: resumed step 4 -> 6" in text
-    assert "phase3: not run" in text and "queue 1 item 7" in text
+    assert "phase3: restored step 4 onto a (4,2) mesh spanning 8 ranks" \
+        in text
+    assert out["mesh_ranks"] == 8
 
 
 def test_elastic_restart_main_on_cpu():

@@ -287,11 +287,12 @@ def test_grad_accum_equals_full_batch():
     _assert_trees_close(p1, p2, rtol=0, atol=1e-5)
 
 
-def test_multi_device_schedules_are_refused():
+def test_multi_device_schedules_are_refused(tmp_path):
     """The multi-device schedules run now (tests/test_torch_dist_train.py);
     what they cannot run is refused: an unknown schedule, microbatch
     rows that do not divide over the stages, a mesh larger than the
-    world, and checkpoints of a sharded run."""
+    world. Checkpoints of a sharded run are written now (here on a mesh
+    of one; tests/test_torch_ckpt_mesh.py holds 8 ranks)."""
     _, cfg = _cfgs()
     params = bridge.init_params(cfg, seed=0, device="cpu",
                                 keep_param_dtype=True)
@@ -305,9 +306,12 @@ def test_multi_device_schedules_are_refused():
     with pytest.raises(ValueError, match="the world has 1"):
         launch_train.main(["--arch", ARCH, "--smoke", "--mesh", "2,2",
                            "--device", "cpu"])
-    with pytest.raises(ValueError, match="--ckpt-dir with --mesh"):
-        launch_train.main(["--arch", ARCH, "--smoke", "--mesh", "1,1",
-                           "--device", "cpu", "--ckpt-dir", "unused"])
+    out = launch_train.main(["--arch", ARCH, "--smoke", "--mesh", "1,1",
+                             "--device", "cpu", "--ckpt-dir", str(tmp_path),
+                             "--steps", "2", "--ckpt-every", "2",
+                             "--batch", "2", "--seq", "8"])
+    assert out["start"] == 0
+    assert sorted(os.listdir(tmp_path)) == ["step_000000002"]
 
 
 def test_flash_path_refuses_training():
