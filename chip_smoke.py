@@ -393,7 +393,26 @@ Phases, each printing its own lines:
     removed, a fresh launch resumes at 2, and its parameters at step 4
     equal the uninterrupted run's bit for bit (deterministic algorithms
     on for the phase: the embedding's backward adds its rows in one
-    order).
+    order);
+42. (run last) the model axis in the training step: qwen2-moe-a2.7b at
+    full width and ``MOE_TRAIN_LAYERS`` layers in fp32 compute (B=2,
+    S=512, phase 30's shapes) on a (1, 2) data x model mesh of two ranks
+    spawned on ``cuda:0`` and joined by gloo, as phase 40's (its 60
+    experts and padded vocab of 152064 split 2 ways: ``EXPERT`` binds, so
+    each rank holds 30 experts, and the vocab-parallel cross entropy
+    runs on 76032 columns a rank), against the one-rank step run first
+    in this process and freed before the ranks start: the loss to 1e-5
+    relative, the gradient norm to 1e-4, the updated router, expert and
+    unembedding leaves by ``step_gap``'s rule, each rank's local
+    ``w_gate`` (30, 2048, 1408) a layer and 76032 unembedding columns,
+    in the masters and inside the expert computation and the CE (the
+    gate that no weight is whole; ``sharding.COUNTS["whole_gathers"]``,
+    the weights handed to them whole, reads 0); per rank its peak GiB
+    beside the one-rank step's, its expert bytes and the wall of two
+    steps printed, with the collectives gloo carries through host memory
+    (``launch.distributed.STAGED``). The ranks time-share the card over
+    gloo's host path: the wall is the schedule's cost on one card, not
+    multi-device speed.
 
 llama3.2-1b's bf16 weights (``attn_impl="cuda"``) are drawn once for
 phases 4, 17, 19, 20, 26 and 39 and freed after 39; phase 40's ranks
@@ -558,6 +577,11 @@ MESH_LR = 1e-3              # phases 36-37: AdamW's rate, constant
 PIPE_BATCH = (16, 128)      # phase 37: 4 microbatches x 4 stage chunks of
 #                             one row each
 PIPE_STAGES = 4             # phase 37: accum_stages (and grad_accum)
+EP_MESH = (1, 2)            # phase 42: data x model, two gloo ranks
+EP_BATCH = (2, 512)         # phase 42: phase 30's B, S
+EP_LEAVES = (("layers", "moe", "router"), ("layers", "moe", "w_gate"),
+             ("layers", "moe", "w_up"), ("layers", "moe", "w_down"),
+             ("unembed",))  # phase 42: the updated leaves held to one rank's
 WINDOW_ITERS = 1001         # phase 38: a counted loop whose window of 4
 #                             leaves a remainder step of 1
 LOOP_WINDOW = 4             # phase 38: parallel_iterations
@@ -5700,6 +5724,193 @@ def phase_mesh_ckpt():
         raise AssertionError("the sharded resume is not exact")
 
 
+def ep_setup():
+    """(config, AdamW config, batch) of phase 42."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw, schedule
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              n_layers=MOE_TRAIN_LAYERS,
+                              compute_dtype="float32")
+    B, S = EP_BATCH
+    return (cfg, adamw.AdamWConfig(lr=MESH_LR, schedule=schedule.constant()),
+            SyntheticLM(cfg.vocab, S, B, seed=0).batch_at(0))
+
+
+def leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def expert_parallel_rank(ref_path):
+    """One rank of phase 42: the step on the (1, 2) mesh from weights
+    drawn from seed 0, its updated leaves held to the one-rank step's
+    (read from ``ref_path``, this rank's slice of each), and a second
+    step timed."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import distributed
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+    cfg, opt_cfg, batch = ep_setup()
+    mesh = mesh_lib.make_mesh(EP_MESH, ("data", "model"), "cuda")
+    rules = model_zoo.make_rules(cfg, mesh)
+    params = bridge.init_params(cfg, seed=0, device="cuda",
+                                keep_param_dtype=True)
+    placed = train_loop.place_params(params, cfg, rules)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = train_loop.make_train_step(cfg, opt_cfg, rules)
+    seen, cols = set(), set()
+    plain, plain_nll = moe.expert_swiglu, model_zoo._VocabParallelNLL
+
+    def swiglu(be, w_gate, *rest):
+        seen.add(tuple(w_gate.shape))
+        return plain(be, w_gate, *rest)
+
+    class Recorded(plain_nll):
+        @staticmethod
+        def forward(ctx, x, labels, w, *rest):
+            cols.add(tuple(w.shape))
+            return plain_nll.forward(ctx, x, labels, w, *rest)
+
+    moe.expert_swiglu, model_zoo._VocabParallelNLL = swiglu, Recorded
+    walls = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        sh.reset_counts()
+        opt = adamw.init(placed)
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, opt, m = step(placed, opt, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated()
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+                ref = torch.load(ref_path, mmap=True)
+                bad, worst = {}, {}
+                for path in EP_LEAVES:
+                    a = leaf(new, path)
+                    want, tiny = ref["/".join(path)]
+                    at = tuple(slice(sh.local_offset(a, d),
+                                     sh.local_offset(a, d) + n)
+                               for d, n in enumerate(a.to_local().shape))
+                    d = (a.to_local() - want[at].cuda()).abs()
+                    tol = torch.where(tiny[at].cuda(), 2 * MESH_LR, 1e-5)
+                    bad["/".join(path)] = int((d > tol).sum())
+                    worst["/".join(path)] = float(d.max())
+                del ref
+                local = {"/".join(p): tuple(leaf(new, p).to_local().shape)
+                         for p in EP_LEAVES}
+                expert_bytes = sum(
+                    leaf(new, p).to_local().numel() * 4 for p in EP_LEAVES
+                    if p[-1].startswith("w_"))
+            placed = new
+    finally:
+        moe.expert_swiglu, model_zoo._VocabParallelNLL = plain, plain_nll
+    return dict(rank=dist.get_rank(), backend=dist.get_backend(),
+                staged=list(distributed.STAGED), loss=loss, grad_norm=gnorm,
+                bad=bad, worst=worst, counts=dict(sh.COUNTS), local=local,
+                seen=sorted(seen), cols=sorted(cols), peak=peak,
+                expert_bytes=expert_bytes,
+                walls=walls,
+                routes={a: rules.mesh_axes(a) for a in (
+                    sh.EXPERT, sh.EXPERT_MLP, sh.VOCAB)})
+
+
+def phase_expert_parallel():
+    """qwen2-moe-a2.7b's train step on a (1, 2) data x model mesh of two
+    gloo ranks on ``cuda:0`` (``EXPERT`` and the vocab-parallel CE bound
+    to ``model``) against the one-rank step, which runs first here and
+    is freed before the ranks start (each takes about half of its
+    memory)."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch import bridge
+    from repro_torch.launch.distributed import run_local
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_loop
+    smi = card_label()
+    cfg, opt_cfg, batch = ep_setup()
+    torch.cuda.reset_peak_memory_stats()
+    params = bridge.init_params(cfg, seed=0, device="cuda",
+                                keep_param_dtype=True)
+    step = train_loop.make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, opt, m = step(params, adamw.init(params), batch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated()
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    ref = {}
+    for path in EP_LEAVES:
+        mu = leaf(opt.mu, path)
+        ref["/".join(path)] = (leaf(new, path).cpu(),
+                               (mu.abs() < 1e-4 * mu.abs().max()).cpu())
+    whole_expert_bytes = sum(leaf(params, p).numel() * 4 for p in EP_LEAVES
+                             if p[-1].startswith("w_"))
+    del params, new, opt, m, step, mu
+    free_device_memory("the expert-parallel ranks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
+        path = os.path.join(tmp, "one_rank.pt")
+        torch.save(ref, path)
+        del ref
+        t0 = time.perf_counter()
+        ranks = run_local(expert_parallel_rank, 2, path, device_type="cuda",
+                          backend="gloo", timeout=600)
+        wall = time.perf_counter() - t0
+    E, D, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    m = EP_MESH[1]
+    log(f"[expert-parallel] {smi}: {cfg.name} full width, "
+        f"{MOE_TRAIN_LAYERS} layers ({model_zoo.count_params(cfg) / 1e9:.3f}B"
+        f" params), fp32, B={EP_BATCH[0]} S={EP_BATCH[1]}, mesh "
+        f"data x model {EP_MESH}, two ranks on cuda:0 over "
+        f"{ranks[0]['backend']} (time-shared), staged through host memory: "
+        f"{ranks[0]['staged'] or 'nothing'}; routes {ranks[0]['routes']}; "
+        f"one rank: loss {loss:.7f}, grad norm {gnorm:.6f}, step "
+        f"{one_s * 1e3:.1f} ms, peak {one_peak / 2**30:.2f} GiB, expert "
+        f"masters {whole_expert_bytes / 1e9:.3f} GB; launch and both ranks "
+        f"{wall:.1f} s")
+    for r in ranks:
+        log(f"[expert-parallel] {smi}: rank {r['rank']}: loss "
+            f"{r['loss']:.7f}, grad norm {r['grad_norm']:.6f}; peak "
+            f"{r['peak'] / 2**30:.2f} GiB (one rank: "
+            f"{one_peak / 2**30:.2f} GiB); expert masters held "
+            f"{r['expert_bytes'] / 1e9:.3f} GB; step walls "
+            f"{', '.join(f'{w * 1e3:.1f}' for w in r['walls'])} ms; "
+            f"local {r['local']}; w_gate inside the experts {r['seen']}, "
+            f"the unembedding inside the CE {r['cols']}; "
+            f"counts {r['counts']}; entries off the bound {r['bad']}, "
+            f"largest differences {r['worst']}")
+    for r in ranks:
+        if abs(r["loss"] - loss) > 1e-5 * abs(loss) or \
+                abs(r["grad_norm"] - gnorm) > 1e-4 * abs(gnorm) or \
+                any(r["bad"].values()) or \
+                r["counts"]["whole_gathers"] or \
+                not r["counts"]["split_all_reduces"] or \
+                r["local"]["layers/moe/w_gate"][1:] != (E // m, D, F) or \
+                r["seen"] != [(E // m, D, F)] or \
+                r["cols"] != [(D, cfg.padded_vocab // m)] or \
+                r["local"]["unembed"] != (D, cfg.padded_vocab // m) or \
+                r["routes"]["expert"] != "model" or \
+                r["routes"]["vocab"] != "model":
+            raise AssertionError(f"the expert-parallel step failed a gate "
+                                 f"on rank {r['rank']}")
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels-only"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
@@ -5795,6 +6006,8 @@ def main() -> int:
     timed(phase_dist_loop)
     free_device_memory("the sharded checkpoint")
     timed(phase_mesh_ckpt)
+    free_device_memory("the expert-parallel step")
+    timed(phase_expert_parallel)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] in ("paged_attention", "flash_prefill"):

@@ -18,6 +18,11 @@ axis binds to "model" only when the model dimension that carries it
 divides the axis size, and ``spec(..., dims=)`` and ``constrain`` drop
 an axis that does not divide the operand's dimension, so a
 sharding annotation is always safe; off a mesh it is a no-op.
+
+Where DTensor's propagation cannot follow the model (the MoE's routing,
+the CE's label logits, the chunked attention), the model runs plain
+tensors on each rank's part (``split_rows``, ``split_mean``,
+``local_heads``), with explicit collectives inside autograd.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ __all__ = [
     "STATE", "LAYERS", "CACHE_KV", "CACHE_HD", "STAGE", "SLOT", "BLOCK",
     "PartitionSpec", "P", "ShardingRules", "mesh_shape", "resolve_rules",
     "is_dtensor",
-    "constrain", "local_rows", "local_mean", "local_heads",
+    "constrain", "local_heads",
+    "split_rows", "split_mean", "ModelSplit", "NO_SPLIT", "local_offset",
+    "COUNTS", "reset_counts",
     "keep_grad_layout",
     "logical_to_sharding",
     "distribute_local",
@@ -281,78 +288,225 @@ def constrain(x, rules: Optional[ShardingRules], logical_spec):
         logical_spec, dims=tuple(x.shape)))
 
 
-def _on_local_rows(rows, whole):
+# --------------------------- rows on their ranks -----------------------------
+# The MoE block's routing and experts and the chunked cross entropy run on
+# plain tensors, each rank on its own rows (DTensor has no strategy for the
+# routing's ``searchsorted``, and its vocab-parallel gather of the label
+# logits fails on (B, S, V) logits). ``split_rows`` and ``split_mean``
+# hand them each rank's slices of their weights: where the model axis
+# splits those (``EXPERT``, ``EXPERT_MLP``, ``VOCAB``), the ranks' parts
+# are summed with explicit collectives inside autograd (Megatron's f and
+# g); no weight is gathered.
+
+# ``whole_gathers``/``whole_gather_bytes``: the weights that ``split_rows``
+# or ``split_mean`` hand their function whole on a mesh of more than one
+# rank (every rank holds all of it, as a gather would leave it), and their
+# bytes; 0 where the mesh splits every weight, the weights' count where
+# the rules bind none of their axes. ``split_all_reduces``: the
+# all-reduces over the dims that split the weights (forward and
+# backward, each mesh dim one).
+COUNTS = {"whole_gathers": 0, "whole_gather_bytes": 0,
+          "split_all_reduces": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def _row_layout(rows, keep=()):
     """(mesh, the rows' layout as they came, the layout they run in, the
-    partial layout of a sum over them, the local rows, the whole
-    tensors) for ``local_rows``/``local_mean``: the rows keep the first
-    one's splits of dim 0, and are split further over every other mesh
-    dim that divides what is left of them, so that no two ranks run
-    the same rows; they are replicated over the rest. A whole tensor's
-    gradient is marked partial over the dims that split the rows (each
-    rank's rows give a part of it)."""
+    partial layout of a sum over them): the rows keep the first one's
+    splits of dim 0, except over the mesh dims in ``keep``, which
+    replicate them, and are split further over every other mesh dim
+    that divides what is left of them, so that no two ranks with the same
+    ``keep`` coordinates run the same rows. A sum over the rows is
+    partial over the dims that split them."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = rows[0].device_mesh
     came = [p if p.is_shard(0) else Replicate() for p in rows[0].placements]
+    layout = [Replicate() if i in keep else p for i, p in enumerate(came)]
     n = rows[0].shape[0]         # rows a rank holds; 0: split unevenly
-    for i, p in enumerate(came):
+    for i, p in enumerate(layout):
         if p.is_shard(0):
             n = n // mesh.size(i) if n % mesh.size(i) == 0 else 0
-    layout = list(came)
-    for i, p in enumerate(came):
-        if not p.is_shard(0) and mesh.size(i) > 1 and n \
-                and n % mesh.size(i) == 0:
+    for i, p in enumerate(layout):
+        if i not in keep and not p.is_shard(0) and mesh.size(i) > 1 \
+                and n and n % mesh.size(i) == 0:
             layout[i] = Shard(0)
             n //= mesh.size(i)
     summed = [Partial() if p.is_shard(0) else Replicate() for p in layout]
-    local = [r.redistribute(mesh, layout).to_local() for r in rows]
-    full = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
-        grad_placements=summed) if is_dtensor(w) else w for w in whole]
-    return mesh, came, layout, summed, local, full
+    return mesh, came, layout, summed
 
 
-def local_rows(fn, rows, whole=()):
-    """``fn(*rows, *whole)`` on this rank's rows: a tensor whose dim 0
-    is the rows'.
+def _local(rows, mesh, layout):
+    return [r.redistribute(mesh, layout).to_local(grad_placements=layout)
+            for r in rows]
 
-    Off a mesh that is ``fn`` as it is. On a mesh the ``rows`` (DTensors
-    with the batch on dim 0) keep the first one's splits of dim 0, and
-    are split over the other mesh dims too where their count divides,
-    the ``whole`` tensors are gathered whole, ``fn`` runs on plain
-    tensors and its result comes back laid out as the rows came. The
-    MoE block's routing and experts run so (DTensor has no strategy for
-    the routing's ``searchsorted``)."""
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """What a function under ``split_rows``/``split_mean`` knows of the
+    mesh dims that split its weights: their process groups (none: the
+    weights are whole) and, for each weight, where its local slice starts
+    in each of its dims (none: at 0)."""
+
+    groups: tuple = ()
+    offsets: tuple = ()
+
+    def offset(self, i: int, dim: int) -> int:
+        """Where weight ``i``'s local slice starts in its dim ``dim``."""
+        return self.offsets[i][dim] if self.offsets else 0
+
+    def all_reduce(self, t, op: str = "sum"):
+        """``t`` summed (``op="max"``: its maximum) over the ranks that
+        split the weights, in place; ``t`` itself where none do."""
+        import torch.distributed as dist
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        for g in self.groups:
+            COUNTS["split_all_reduces"] += 1
+            dist.all_reduce(t, op=red, group=g)
+        return t
+
+
+NO_SPLIT = ModelSplit()
+
+
+class _FromRows(torch.autograd.Function):
+    """Megatron's f: ``x`` as it is; its cotangent, a partial sum over
+    the ranks that split the weights, summed in the backward."""
+
+    @staticmethod
+    def forward(ctx, split, x):
+        ctx.split = split
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.split.all_reduce(g.contiguous().clone())
+
+
+class _SumParts(torch.autograd.Function):
+    """Megatron's g: the ranks' partial results summed; the cotangent,
+    whole on every rank, passes on as it is."""
+
+    @staticmethod
+    def forward(ctx, split, x):
+        return split.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+def local_offset(x, dim: int) -> int:
+    """Where this rank's slice of a DTensor starts in its dim ``dim`` (0
+    for a plain tensor). Shards split evenly, outermost mesh dim first,
+    as DTensor's own layout does."""
+    if not is_dtensor(x):
+        return 0
+    mesh, off, n = x.device_mesh, 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n //= mesh.size(i)
+            off += mesh.get_local_rank(i) * n
+    return off
+
+
+def _split(mesh, weights):
+    """(the mesh dims that split any of the weights, their
+    ``ModelSplit``)."""
+    dims = sorted({i for w in weights if is_dtensor(w)
+                   for i, p in enumerate(w.placements) if p.is_shard()})
+    if not dims:
+        return dims, NO_SPLIT
+    return dims, ModelSplit(
+        groups=tuple(mesh.get_group(i) for i in dims),
+        offsets=tuple(tuple(local_offset(w, d) for d in range(w.dim()))
+                      for w in weights))
+
+
+def _slices(weights, mesh, dims, summed):
+    """Each weight's local slice; its gradient keeps the weight's splits
+    and is partial over the dims that split the rows, and over the split
+    dims where this weight is whole (each rank's part of it). A weight
+    whole on a mesh of more than one rank is counted in ``COUNTS``."""
+    from torch.distributed.tensor import Partial
+    out = []
+    for w in weights:
+        if is_dtensor(w):
+            grad = [p if p.is_shard() else Partial() if i in dims
+                    else summed[i] for i, p in enumerate(w.placements)]
+            local = w.to_local(grad_placements=grad)
+        else:
+            local = w
+        if mesh.size() > 1 and local.shape == w.shape:
+            COUNTS["whole_gathers"] += 1
+            COUNTS["whole_gather_bytes"] += w.numel() * w.element_size()
+        out.append(local)
+    return out
+
+
+def split_rows(fn, rows, weights):
+    """``fn(split, *rows, *weights)`` on this rank's rows and its slices
+    of the weights, where ``fn`` returns this rank's part of a sum (a
+    tensor whose dim 0 is the rows').
+
+    Off a mesh that is ``fn(NO_SPLIT, ...)`` on the tensors as they are.
+    On a mesh the ``rows`` (DTensors with the batch on dim 0) keep their
+    data splits and are replicated over the mesh dims that split the
+    weights (``_row_layout(keep=)``), and split over every other mesh dim
+    that divides them; ``fn`` runs on plain tensors, each rank on its own
+    slices (``split.offset`` says where they start); the parts are summed
+    over the dims that split the weights (one all-reduce each,
+    ``_SumParts``), and the rows' cotangents, partial there too, likewise
+    in the backward (``_FromRows``); the result comes back laid out as
+    the rows came. The weights' gradients stay split. The MoE block's
+    experts run so: ``EXPERT`` gives each rank its experts' rows,
+    ``EXPERT_MLP`` its columns of every expert's hidden width; with
+    neither bound the weights are whole and the groups split over the
+    model axis too."""
     if not is_dtensor(rows[0]):
-        return fn(*rows, *whole)
+        return fn(NO_SPLIT, *rows, *weights)
     from torch.distributed.tensor import DTensor
-    mesh, came, layout, _, local, full = _on_local_rows(rows, whole)
-    out = fn(*local, *full)
+    mesh = rows[0].device_mesh
+    dims, split = _split(mesh, weights)
+    mesh, came, layout, summed = _row_layout(rows, keep=dims)
+    local = _local(rows, mesh, layout)
+    if split.groups:
+        local = [_FromRows.apply(split, t) if t.requires_grad else t
+                 for t in local]
+    out = fn(split, *local, *_slices(weights, mesh, dims, summed))
+    if split.groups:
+        out = _SumParts.apply(split, out)
     shape = torch.Size((rows[0].shape[0],) + tuple(out.shape[1:]))
-    out = DTensor.from_local(out, mesh, layout, run_check=False,
-                             shape=shape,
-                             stride=torch.empty(shape,
-                                                device="meta").stride())
+    out = DTensor.from_local(out, mesh, layout, run_check=False, shape=shape,
+                             stride=torch.empty(shape, device="meta").stride())
     return out.redistribute(mesh, came)
 
 
-def local_mean(fn, rows, whole=()):
-    """``sum / count`` over the global batch, where ``fn(*rows, *whole)``
-    returns this rank's (sum, count) in plain tensors.
+def split_mean(fn, rows, weights):
+    """``sum / count`` over the global batch, where ``fn(split, *rows,
+    *weights)`` returns this rank's (sum, count) in plain tensors, each
+    whole over the mesh dims that split the weights: ``fn`` issues its
+    own collectives over ``split.groups``, forward and backward.
 
-    Off a mesh that is ``fn`` on the tensors as they are. On a mesh it
-    runs as ``local_rows`` does and the sums of the ranks along the mesh
-    dims that split the rows are added (an all-reduce, differentiable).
-    The model's chunked cross entropy runs so: DTensor's vocab-parallel
-    gather of the label logits (a masked partial) fails on (B, S, V)
-    logits, and the backward of a vocab-sharded (B, S, D) @ (D, V) can
-    leave dx's rows split over two mesh axes.
-    """
+    Off a mesh that is ``fn(NO_SPLIT, ...)`` on the tensors as they are.
+    On a mesh the rows are laid out as in ``split_rows``, each rank
+    passes its weight slices, and the sums of the ranks along the dims
+    that split the rows are added (an all-reduce, differentiable). The
+    chunked cross entropy runs so; where ``VOCAB`` splits the
+    unembedding its rows are replicated over the model axis."""
     if not is_dtensor(rows[0]):
-        s, c = fn(*rows, *whole)
+        s, c = fn(NO_SPLIT, *rows, *weights)
         return s / torch.clamp(c, min=1.0)
     from torch.distributed.tensor import DTensor
-    mesh, _, _, summed, local, full = _on_local_rows(rows, whole)
+    mesh = rows[0].device_mesh
+    dims, split = _split(mesh, weights)
+    mesh, _, layout, summed = _row_layout(rows, keep=dims)
     s, c = (DTensor.from_local(t, mesh, summed, run_check=False)
-            for t in fn(*local, *full))
+            for t in fn(split, *_local(rows, mesh, layout),
+                        *_slices(weights, mesh, dims, summed)))
     return s / torch.clamp(c, min=1.0)
 
 

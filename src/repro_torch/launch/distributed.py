@@ -9,6 +9,15 @@ torchrun job and the local launcher without branching at the call
 site. It is idempotent. The backend follows the device: NCCL for
 "cuda", gloo for "cpu"; nothing falls back from one to the other.
 
+Under gloo on CUDA tensors (two ranks on one card, where NCCL refuses)
+gloo carries every collective that the port issues except one:
+the functional all-gather (``_c10d_functional.all_gather_into_tensor``,
+which DTensor's ``Shard -> Replicate`` uses) ends the process with a
+segmentation fault (torch 2.11, CUDA 12.8). ``init_distributed``
+then stages that one through pinned host memory (``stage_all_gather``),
+for gloo groups only; ``STAGED`` names what is staged, and nothing else
+is.
+
 ``run_local`` is the port's stand-in for the JAX package's forced
 host devices: it runs a function on N local ranks (spawned processes,
 one torch thread each), joined by gloo (or NCCL) over a ``FileStore``
@@ -38,7 +47,8 @@ from typing import Any, Callable, List, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["init_distributed", "is_multi_process", "run_local", "main"]
+__all__ = ["init_distributed", "is_multi_process", "run_local", "main",
+           "stage_all_gather", "STAGED"]
 
 # The variables that mark a torchrun job.
 _ENV_KEYS = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
@@ -46,6 +56,45 @@ _ENV_KEYS = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
 COLLECTIVE_TIMEOUT_S = 300
 # How long the other ranks get to end once one has failed or timed out.
 GRACE_S = 5.0
+# The collectives staged through pinned host memory in this process.
+STAGED: List[str] = []
+_STAGING_LIB = None
+
+
+def stage_all_gather() -> None:
+    """Route the functional all-gather of CUDA tensors over gloo groups
+    through pinned host memory: a CUDA kernel of ``_c10d_functional.
+    all_gather_into_tensor`` that copies the input to the host, runs the
+    op's own kernel there and copies the result back. It refuses a group
+    of another backend (an NCCL group's all-gather is not staged). For a
+    process whose default group is gloo on CUDA tensors
+    (``init_distributed`` calls it); idempotent."""
+    global _STAGING_LIB
+    if _STAGING_LIB is not None:
+        return
+    ops = torch.ops._c10d_functional
+
+    def all_gather(inp, group_size, group_name):
+        if _group_backend(group_name) != "gloo":
+            raise RuntimeError(
+                f"all_gather_into_tensor is staged for gloo groups only; "
+                f"group {group_name!r} is "
+                f"{_group_backend(group_name)!r}")
+        host = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True)
+        out = ops.wait_tensor(ops.all_gather_into_tensor(
+            host.copy_(inp), group_size, group_name))
+        return out.to(inp.device)
+
+    _STAGING_LIB = torch.library.Library("_c10d_functional", "IMPL")
+    _STAGING_LIB.impl("all_gather_into_tensor", all_gather, "CUDA")
+    STAGED.append("all_gather_into_tensor:pinned-host")
+
+
+def _group_backend(group_name: str) -> str:
+    """The backend of the process group registered as ``group_name``."""
+    from torch.distributed import distributed_c10d
+    return dist.get_backend(
+        distributed_c10d._resolve_process_group(group_name))
 
 
 def init_distributed(init_method: Optional[str] = None,
@@ -88,6 +137,8 @@ def init_distributed(init_method: Optional[str] = None,
                                 rank=rank, timeout=timeout)
     else:
         dist.init_process_group(backend, timeout=timeout)
+    if backend == "gloo" and device_type == "cuda":
+        stage_all_gather()
     return is_multi_process()
 
 
@@ -137,7 +188,8 @@ def run_local(fn: Callable, world_size: int, *args,
     ``fn`` is a module-level function. If a rank raises, or the ranks
     are not done within ``timeout`` seconds, the others get ``GRACE_S``
     seconds to end, are then stopped, and this raises with every
-    traceback received. ``backend`` overrides the device's
+    traceback received. Ranks that all reported have what is left of
+    ``timeout`` (at least ``GRACE_S``) to exit. ``backend`` overrides the device's
     (``init_distributed``).
     """
     import multiprocessing as mp
@@ -175,8 +227,11 @@ def run_local(fn: Callable, world_size: int, *args,
                                          f"reporting")
                     continue
                 (got if ok else failed)[rank] = payload
+            # ranks that all reported may take a while to leave on a
+            # loaded machine: they get what is left of the timeout
             for p in procs:
-                p.join(timeout=GRACE_S if not failed else 1.0)
+                p.join(timeout=1.0 if failed else
+                       max(GRACE_S, deadline - time.monotonic()))
         finally:
             for p in procs:
                 if p.is_alive():

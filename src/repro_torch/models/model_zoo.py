@@ -80,6 +80,54 @@ def cross_entropy(logits, labels, vocab: int):
     return per_tok.sum() / torch.clamp(valid.sum(), min=1)
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """The summed next-token NLL of one chunk and its count of valid
+    labels, where this rank holds the columns ``[v0, v0 + Vl)`` of the
+    unembedding and the others the rest (``split``'s ranks): x (B, n, D)
+    and w (D, Vl) in the compute dtype, labels (B, n).
+
+    The forward forms the rows' log-sum-exp from two all-reduces over
+    the split: the row maxima (MAX, no gradient, as the JAX package's
+    ``stop_gradient``), then the local ``sum(exp(logits - max))`` and
+    the label logit stacked in one SUM (a rank gives the label logit only
+    where the label falls in its columns; labels outside ``[0, vocab)``
+    are masked, and the padded columns count in the sum, as off the
+    split). The backward is local: ``softmax - onehot`` on the rank's
+    columns, ``dw`` its own slice, ``dx`` a partial that one SUM
+    completes. Recomputed under ``checkpoint``, the forward issues the
+    same collectives in the same order on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, labels, w, v0, vocab, split):
+        logits = (x @ w).float()
+        Vl = logits.shape[-1]
+        m = split.all_reduce(logits.amax(dim=-1), "max")
+        e = torch.exp(logits - m[..., None])
+        j = labels.long() - v0
+        mine = (j >= 0) & (j < Vl)
+        ll = torch.where(mine, torch.gather(
+            logits, -1, j.clamp(0, Vl - 1)[..., None])[..., 0], 0.0)
+        se, ll = split.all_reduce(torch.stack([e.sum(dim=-1), ll]))
+        valid = (labels >= 0) & (labels < vocab)
+        per_tok = torch.where(valid, torch.log(se) + m - ll, 0.0)
+        ctx.save_for_backward(x, w, e, se, j, mine & valid, valid)
+        ctx.split = split
+        count = valid.sum().float()
+        ctx.mark_non_differentiable(count)
+        return per_tok.sum(), count
+
+    @staticmethod
+    def backward(ctx, g, _):
+        x, w, e, se, j, hit, valid = ctx.saved_tensors
+        dl = e / se[..., None]
+        rows = hit.nonzero(as_tuple=True)
+        dl[rows + (j[rows],)] -= 1.0
+        dl = (dl * torch.where(valid, g, 0.0)[..., None]).to(x.dtype)
+        dx = ctx.split.all_reduce((dl @ w.T).contiguous())
+        dw = torch.einsum("bnd,bnv->dv", x, dl)
+        return dx, None, dw, None, None, None
+
+
 def _chunked_ce(x, labels, w, cfg: ModelConfig, chunk: int = CE_CHUNK):
     """Unembed + CE in sequence chunks of ``chunk`` positions (labels of
     the padded tail are -1): the (B, S, V) fp32 logits are never whole
@@ -87,18 +135,26 @@ def _chunked_ce(x, labels, w, cfg: ModelConfig, chunk: int = CE_CHUNK):
     under a non-reentrant ``checkpoint``, so the backward recomputes its
     logits instead of keeping them.
 
-    On a mesh (DTensor features) it runs on each rank's rows with the
-    unembedding gathered whole, and the ranks' sums are added
-    (``sharding.local_mean``)."""
+    On a mesh (DTensor features) it runs on each rank's rows and the
+    ranks' sums are added (``sharding.split_mean``). Where ``VOCAB``
+    splits the unembedding over the model axis, the rows are replicated
+    over it and each rank multiplies by its own columns only, the log-sum-
+    exp formed across the ranks (``_VocabParallelNLL``); the unembedding
+    is never whole. Elsewhere it is replicated and the rows split over
+    every mesh dim that divides them."""
     cdt = cfg.dtype("compute")
 
-    def sums(x, labels, w):
+    def sums(split, x, labels, w):
         B, S, _ = x.shape
         n = min(chunk, S)
+        v0 = split.offset(0, 1)
 
         def one(xi, li):
             # each chunk casts the weight, as the JAX package does, so the
             # chunks' cotangents of fp32 masters add in fp32
+            if split.groups:
+                return _VocabParallelNLL.apply(xi.to(cdt), li, w.to(cdt),
+                                               v0, cfg.vocab, split)
             per_tok, valid = _token_nll(xi.to(cdt) @ w.to(cdt), li,
                                         cfg.vocab)
             return per_tok.sum(), valid.sum().float()
@@ -116,7 +172,7 @@ def _chunked_ce(x, labels, w, cfg: ModelConfig, chunk: int = CE_CHUNK):
             c_.append(k)
         return torch.stack(s_).sum(), torch.stack(c_).sum()
 
-    return sh.local_mean(sums, (x, labels), (w,))
+    return sh.split_mean(sums, (x, labels), (w,))
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor,

@@ -27,6 +27,22 @@ Everything is capturable in a CUDA graph: ``C`` is a Python int from
 the static group length, and no op reads the device or sizes an output
 by data.
 
+On a mesh in training (DTensor inputs) the layout is the JAX package's
+``(BATCH, EXPERT, None, None)`` constraint on the dispatch buffer and
+the expert output: the groups split over the data axes only and are
+replicated over ``model``; each model rank routes its own groups (the
+same integer maps as off the mesh) and holds only its slice of the
+expert pool (``sharding.split_rows``). Where ``EXPERT`` binds to
+``model`` that is its E/m experts' rows: it dispatches to, runs and
+combines only their slots, and an entry routed to another rank's
+expert reads a zero row. Where ``EXPERT_MLP`` binds instead (the pool
+does not divide), it is its F/m columns of every expert's hidden width
+(``w_down``'s matching rows), over every slot. Either way a rank's
+output is a partial sum, and one all-reduce over ``model`` completes
+it (its backward, the rows' cotangents, likewise); the weights'
+gradients stay split. With neither bound the pool is replicated and
+the groups split over ``model`` too.
+
 ``torch.topk`` does not promise JAX's lower-index-first order on tied
 router probabilities. Parity runs in fp32, where exact ties in a
 softmax of random projections do not occur in practice.
@@ -108,6 +124,15 @@ class _CombineGather(torch.autograd.Function):
         return _take_rows(g_pad, slot_entry), None, None
 
 
+def expert_swiglu(be, w_gate, w_up, w_down):
+    """The dense per-expert SwiGLU over every expert's ``C`` rows, E a
+    batch dim: be (G, E, C, D) -> (G, E, C, D). Under a split of the
+    hidden width each rank's result is its part of the sum over F."""
+    g = F.silu(torch.einsum("gecd,edf->gecf", be, w_gate))
+    u = torch.einsum("gecd,edf->gecf", be, w_up)
+    return torch.einsum("gecf,efd->gecd", g * u, w_down)
+
+
 def _group_capacity(group_tokens: int, cfg) -> int:
     m = cfg.moe
     c = int(group_tokens * m.top_k * m.capacity_factor / m.n_experts)
@@ -168,30 +193,41 @@ def moe_mlp(p: Dict, x, cfg, *, need_aux: bool = True
     gate, expert_idx = torch.topk(probs, K, dim=-1)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
-    def experts(xg, gate, expert_idx, w_gate, w_up, w_down):
+    def experts(split, xg, gate, expert_idx, w_gate, w_up, w_down):
         G = xg.shape[0]
         slot_token, slot_entry, token_slot, dropped = route(expert_idx, E,
                                                             C)
-        # dispatch: one gather (G, E * (C + 1), D); sentinel rows read 0
+        El = w_gate.shape[0]         # this rank's experts (E off a split)
+        if El < E:
+            # keep this rank's experts' slots; an entry routed to another
+            # rank's expert reads the first local drop row, which holds
+            # zeros, and counts as dropped here
+            lo = split.offset(0, 0) * (C + 1)
+            hi = lo + El * (C + 1)
+            slot_token = slot_token[:, lo:hi]
+            slot_entry = slot_entry[:, lo:hi]
+            mine = (token_slot >= lo) & (token_slot < hi)
+            token_slot = torch.where(mine, token_slot - lo, C)
+            dropped = dropped | ~mine
+        # dispatch: one gather (G, El * (C + 1), D); sentinel rows read 0
         xg_pad = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
         buf = _DispatchGather.apply(xg_pad, slot_token, token_slot, dropped)
-        be = buf.reshape(G, E, C + 1, D)[:, :, :C]            # (G, E, C, D)
-
-        # dense per-expert SwiGLU over every expert's C rows
-        g = F.silu(torch.einsum("gecd,edf->gecf", be, w_gate))
-        u = torch.einsum("gecd,edf->gecf", be, w_up)
-        h = torch.einsum("gecf,efd->gecd", g * u, w_down)
+        be = buf.reshape(G, El, C + 1, D)[:, :, :C]          # (G, El, C, D)
+        h = expert_swiglu(be, w_gate, w_up, w_down)
 
         # combine: one gather (G, S, K, D), the gate-weighted sum over K
-        h_flat = torch.cat([h, h.new_zeros(G, E, 1, D)], dim=2).reshape(
-            G, E * (C + 1), D)
+        h_flat = torch.cat([h, h.new_zeros(G, El, 1, D)], dim=2).reshape(
+            G, El * (C + 1), D)
         contrib = _CombineGather.apply(h_flat, token_slot, slot_entry)
         gate_eff = gate.masked_fill(dropped, 0.0).to(h.dtype)
         return torch.einsum("gskd,gsk->gsd", contrib, gate_eff)
 
-    # on a mesh, each rank routes its own rows (groups) through the
-    # expert weights gathered whole
-    out = sh.local_rows(experts, (xg, gate, expert_idx),
+    # on a mesh each rank routes its own groups (split over the data axes
+    # only) through its slice of the experts: under EXPERT its experts'
+    # rows, under EXPERT_MLP its columns of every expert's hidden width;
+    # the ranks' parts are summed over the model axis. With neither bound
+    # the weights are replicated and the groups split over it too
+    out = sh.split_rows(experts, (xg, gate, expert_idx),
                         (p["w_gate"], p["w_up"], p["w_down"]))
 
     if m.n_shared_experts:

@@ -114,6 +114,41 @@ def place_params(tree, cfg, rules: sh.ShardingRules):
         rules.mesh)
 
 
+def loss_and_grads(params, cfg, batch: Dict, rules=None):
+    """(loss, metrics, gradients) of one batch of tensors: the train
+    step's forward and backward without the update. On a mesh
+    (``params`` DTensors from ``place_params``) the batch's rows are
+    split over the data axes of the masters' mesh, and the gradients
+    come back in their masters' placements."""
+    leaves, spec = pytree.tree_flatten(params)
+    sharded = sh.is_dtensor(leaves[0])
+    live = [p.detach().requires_grad_() for p in leaves]
+    ctx = contextlib.nullcontext()
+    if sharded:
+        # tensors the model makes (masks, positions, chunk pads) meet
+        # DTensors as replicated ones
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        ctx = implicit_replication()
+        on = leaves[0].device_mesh
+        batch = {k: sh.distribute_local(v, on, rules.sharding(
+            (sh.BATCH,) + (None,) * (v.dim() - 1), mesh=on,
+            dims=tuple(v.shape))) for k, v in batch.items()}
+    with torch.enable_grad(), ctx:
+        loss, metrics = model_zoo.loss_fn(
+            bridge.compute_params(pytree.tree_unflatten(live, spec), cfg),
+            cfg, batch)
+        grads = torch.autograd.grad(loss, live)
+    if sharded:
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 for g, p in zip(grads, leaves)]
+        loss = loss.full_tensor()
+        metrics = {k: v.full_tensor() if sh.is_dtensor(v) else v
+                   for k, v in metrics.items()}
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            pytree.tree_unflatten(list(grads), spec))
+
+
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, rules=None,
                     donate: bool = True, accum: str = "auto",
                     accum_stages: Optional[int] = None) -> Callable:
@@ -150,37 +185,6 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, rules=None,
     n_stages = (accum_stages if accum_stages is not None
                 else pipeline_lib.stage_count(mesh))
 
-    def place_batch(batch, on):
-        return {k: sh.distribute_local(v, on, rules.sharding(
-            (sh.BATCH,) + (None,) * (v.dim() - 1), mesh=on,
-            dims=tuple(v.shape))) for k, v in batch.items()}
-
-    def grads_of(params, batch):
-        leaves, spec = pytree.tree_flatten(params)
-        sharded = sh.is_dtensor(leaves[0])
-        live = [p.detach().requires_grad_() for p in leaves]
-        ctx = contextlib.nullcontext()
-        if sharded:
-            # tensors the model makes (masks, positions, chunk pads)
-            # meet DTensors as replicated ones
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
-            ctx = implicit_replication()
-            batch = place_batch(batch, leaves[0].device_mesh)
-        with torch.enable_grad(), ctx:
-            loss, metrics = model_zoo.loss_fn(
-                bridge.compute_params(pytree.tree_unflatten(live, spec), cfg),
-                cfg, batch)
-            grads = torch.autograd.grad(loss, live)
-        if sharded:
-            grads = [g.redistribute(p.device_mesh, p.placements)
-                     for g, p in zip(grads, leaves)]
-            loss = loss.full_tensor()
-            metrics = {k: v.full_tensor() if sh.is_dtensor(v) else v
-                       for k, v in metrics.items()}
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                pytree.tree_unflatten(list(grads), spec))
-
     def zeros_f32(p, lead=()):
         """fp32 zeros of ``lead + p.shape``, a DTensor placed as ``p``
         (its shards one dim further in) when ``p`` is one."""
@@ -200,7 +204,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, rules=None,
     def accum_fori(params, micro):
         def body(i, acc):
             gsum, lsum = acc
-            loss, _, g = grads_of(params, {k: v[i] for k, v in micro.items()})
+            loss, _, g = loss_and_grads(
+                params, cfg, {k: v[i] for k, v in micro.items()}, rules)
             return (pytree.tree_map(torch.add, gsum, g), lsum + loss)
 
         gz = pytree.tree_map(zeros_f32, params)
@@ -227,8 +232,9 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, rules=None,
         # the slot's microbatch into the slot's carry
         def stage_fn(k, c):
             k = int(k)
-            loss, _, g = grads_of(params, {
-                n: v[k * chunk:(k + 1) * chunk] for n, v in c["mb"].items()})
+            loss, _, g = loss_and_grads(params, cfg, {
+                n: v[k * chunk:(k + 1) * chunk] for n, v in c["mb"].items()},
+                rules)
             return {"mb": c["mb"], "g": pytree.tree_map(torch.add, c["g"], g),
                     "loss": c["loss"] + loss}
 
@@ -252,7 +258,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, rules=None,
     def train_step(params, opt_state, batch):
         batch = batch_to_device(batch, pytree.tree_leaves(params)[0].device)
         if n_micro == 1:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = loss_and_grads(params, cfg, batch, rules)
         else:
             micro = {k: v.reshape(n_micro, v.shape[0] // n_micro,
                                   *v.shape[1:]) for k, v in batch.items()}

@@ -4,13 +4,13 @@ ranks against the one-rank step.
 The model code is single-device code on every family; on a mesh the
 masters are DTensors placed by their logical axes and DTensor's
 propagation places the activations, with the chunked attention on each
-rank's rows and heads, the MoE routing and experts on its rows, and the
-chunked cross entropy on its rows (``dist.sharding.local_heads``,
-``local_rows``, ``local_mean``). One launch runs one fp32 step of each
+rank's rows and heads, the MoE routing and experts on its rows and its
+slice of the experts, and the chunked cross entropy on its rows and its
+columns of the unembedding (``dist.sharding.local_heads``,
+``split_rows``, ``split_mean``). One launch runs one fp32 step of each
 family at smoke width (B=8, S=8, with a VLM's patches and the audio
 family's frames) on the mesh and on the rank alone. Eight rows leave
-four on a data rank, so the MoE's groups and the CE's rows split over
-the model axis too. The loss is held to 1e-5 relative, the gradient
+four on a data rank. The loss is held to 1e-5 relative, the gradient
 norm to 1e-4, and every updated parameter to 1e-5, except where an
 entry's gradient is below 1e-4 of its leaf's largest (there the first
 update, about ``lr * sign(g)``, may differ by up to ``2 * lr``), as in
