@@ -412,7 +412,28 @@ Phases, each printing its own lines:
     steps printed, with the collectives gloo carries through host memory
     (``launch.distributed.STAGED``). The ranks time-share the card over
     gloo's host path: the wall is the schedule's cost on one card, not
-    multi-device speed.
+    multi-device speed;
+43. (run last) the model axis in serving: llama3.2-1b at full width (16
+    layers, 32/8 heads) in fp32 compute, ``attn_impl="cuda"``, through
+    ``DecodeScheduler(rules=, mesh=)`` on a (1, 2) data x model mesh of
+    two gloo ranks on ``cuda:0`` (spawned as phase 42's), each rank on
+    its slices of the weights (``sharding.serve_slices``: 16 query and 4
+    K/V heads, half the MLP's columns and of the vocabulary) and its 4
+    K/V heads of the pool: 8 slots, paged, block 16, chunked (128), 8
+    prompts of 512 tokens, 32 new tokens each, greedy; against the
+    one-rank scheduler (host-read segments, run first in this process
+    and freed before the ranks start). Gates: the streams equal (where
+    one diverges, the one-rank run's top-2 logit gap at that token,
+    printed, must be under 1e-4 relative); ``COUNTS["whole_gathers"] ==
+    0``; each rank's parameter and K/V bytes half the one-rank pool's
+    (within 2%); each rank launches ``paged_attention`` and
+    ``flash_prefill`` on 16/4 local heads, counted from 0 just before
+    the run. Tok/s of both runs is printed: two gloo ranks time-sharing
+    one card, not multi-device speed. Phase 3 also holds both block-table
+    kernels (and the verify entry) to their plain versions at every
+    ``q_head0`` of internvl2-1b's 14/2 heads split 7 ways (the
+    ``q_head0`` path of a model axis that splits the query heads and not
+    the K/V heads), bf16 and fp32, and times the straddling range.
 
 llama3.2-1b's bf16 weights (``attn_impl="cuda"``) are drawn once for
 phases 4, 17, 19, 20, 26 and 39 and freed after 39; phase 40's ranks
@@ -424,7 +445,8 @@ one JSON line of kernel records (``paged_attention`` and
 ``flash_prefill`` also give ``path_launches``: their launches in each
 serving path's first graph run, llama3.2-1b, qwen2-moe-a2.7b,
 internvl2-1b, both early-exit runs at inf, zamba2-1.2b and
-whisper-small, the counts set to 0 just before it) and, last, the
+whisper-small, the counts set to 0 just before it, and phase 43's rank
+0) and, last, the
 device line. Any
 failed check raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA device is present.
@@ -579,6 +601,10 @@ PIPE_BATCH = (16, 128)      # phase 37: 4 microbatches x 4 stage chunks of
 PIPE_STAGES = 4             # phase 37: accum_stages (and grad_accum)
 EP_MESH = (1, 2)            # phase 42: data x model, two gloo ranks
 EP_BATCH = (2, 512)         # phase 42: phase 30's B, S
+MODEL_MESH = (1, 2)          # phase 43: data x model, two gloo ranks
+MODEL_SERVE = (8, 512, 32)   # phase 43: requests, prompt tokens, new tokens
+MODEL_GAP = 1e-4             # phase 43: a diverging stream's top-2 gap bound
+HEAD_SPLIT = (14, 2, 64, 7)  # phase 3: internvl2-1b's H, KV, hd over 7 ranks
 EP_LEAVES = (("layers", "moe", "router"), ("layers", "moe", "w_gate"),
              ("layers", "moe", "w_up"), ("layers", "moe", "w_down"),
              ("unembed",))  # phase 42: the updated leaves held to one rank's
@@ -932,6 +958,95 @@ def check_verify(fns):
                                          "plain version")
 
 
+def check_head_ranges(fns):
+    """Both block-table kernels and the verify entry at every ``q_head0``
+    of internvl2-1b's 14/2 heads split 7 ways (``HEAD_SPLIT``: two query
+    heads a rank against both K/V heads; ranks 3's heads 6-7 straddle the
+    two), bf16 and fp32, ragged lengths: each rank's call against the
+    plain version on its heads, and that against the whole call's heads.
+    Then the straddling range and the whole call timed at the serving
+    phase's shapes in bf16 (device time, CUDA-graph replays). Returns
+    ``{kind: {...}}`` for the records."""
+    import torch
+    H, KV, hd, m = HEAD_SPLIT
+    n = H // m
+    lens = {"decode": [0, 1, 63, 64, 65, 500, 1999, 2048],
+            "prefill": [0, 1, 5, 128, 300, 1000, 1900, 2048 - 64],
+            "verify": [0, 63, 64, 65, 127, 500, 1000, 2040]}
+    serving = {"decode": [513 + 8 * i for i in range(8)],
+               "prefill": [0, 128, 256, 384] * 2,
+               "verify": [512 + 8 * i for i in range(8)]}
+    out, seed = {}, 700
+    for kind in ("decode", "prefill", "verify"):
+        kern, plain = fns[kind]
+        shape = "decode" if kind == "decode" else "prefill"
+        C = VERIFY_W if kind == "verify" else 128
+        worst = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            seed += 1
+            q, *rest = make_case(shape, seed, H, KV, hd, dtype, lens[kind],
+                                 C=C)
+            whole = plain(q, *rest)
+            errs, ok = [], True
+            for r in range(m):
+                heads = slice(r * n, (r + 1) * n)
+                ql = q[:, :, heads].contiguous()
+                got = kern(ql, *rest, q_head0=r * n, n_heads=H)
+                torch.cuda.synchronize()
+                ref = plain(ql, *rest, q_head0=r * n, n_heads=H)
+                errs.append((got.float() - ref.float()).abs().max().item())
+                ok = ok and torch.allclose(got.float(), ref.float(),
+                                           atol=TOL[dname], rtol=TOL[dname])
+                ok = ok and torch.allclose(ref.float(),
+                                           whole[:, :, heads].float(),
+                                           atol=TOL[dname], rtol=TOL[dname])
+            worst = max(worst, max(errs))
+            log(f"[kernels] check {kind:7s} head ranges H={H} KV={KV} "
+                f"hd={hd} over {m} ranks ({n} heads from q_head0 "
+                f"{', '.join(str(r * n) for r in range(m))}) {dname:8s}: "
+                f"max |kernel - plain| per rank "
+                f"{', '.join(f'{e:.2e}' for e in errs)} (tol "
+                f"{TOL[dname]:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{kind} disagrees with its plain "
+                                     f"version on a head range")
+        copies = [make_case(shape, 800 + i, H, KV, hd, torch.bfloat16,
+                            serving[kind], max_len=577, C=C)
+                  for i in range(8)]
+        r = m // 2
+        local = [c[0][:, :, r * n:(r + 1) * n].contiguous() for c in copies]
+        at = dict(q_head0=r * n, n_heads=H)
+        ms_range = graph_ms(lambda i: kern(local[i], *copies[i][1:], **at),
+                            8)
+        ms_whole = graph_ms(lambda i: kern(*copies[i]), 8)
+        plain_ms = time_ms(lambda i: plain(local[i], *copies[i][1:], **at),
+                           8, iters=10)
+        # the library yardstick: SDPA on the range's heads, K/V repeated
+        # to every query head (sdpa_operands) and cut to the range
+        heads = slice(r * n, (r + 1) * n)
+        dense = [tuple(t[:, heads].contiguous() for t in d[:3]) + d[3:]
+                 for d in (sdpa_operands(shape, *c) for c in copies)]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = graph_ms(lambda i: sdpa(dense[i][0], dense[i][1],
+                                         dense[i][2], attn_mask=dense[i][3]),
+                          8)
+        b_ms, b_by = bound(shape, local[0], *copies[0][1:])
+        log(f"[kernels] time {kind} head range {r * n}-{(r + 1) * n - 1} "
+            f"of {H} (K/V heads {r * n // (H // KV)}-"
+            f"{((r + 1) * n - 1) // (H // KV)}) at serving shapes, bf16, "
+            f"q {tuple(local[0].shape)}: device {ms_range:.4f} ms, sdpa "
+            f"{lib_ms:.4f} ms, plain (eager) {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); the whole {H}-head call "
+            f"{ms_whole:.4f} ms")
+        out[kind] = {"H": H, "KV": KV, "hd": hd, "ranks": m,
+                     "max_abs_err": worst, "range_ms": ms_range,
+                     "whole_ms": ms_whole, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
+    return out
+
+
 def phase_kernels():
     """Kernel against plain version at the four geometries, both dtypes
     and blocks of 16 and 8, and the verify entry on speculative windows;
@@ -1005,6 +1120,11 @@ def phase_kernels():
                 **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms",
                                      "eager_ms", "library_eager_ms")}})
+    # after the timings, which it would otherwise precede with its own
+    # allocations
+    ranges = check_head_ranges(fns)
+    for rec, kind in zip(records, ("decode", "prefill", "verify")):
+        rec["head_range"] = ranges[kind]
     return records
 
 
@@ -5911,6 +6031,215 @@ def phase_expert_parallel():
                                  f"on rank {r['rank']}")
 
 
+def model_requests(cfg):
+    """Phase 43's requests: ``MODEL_SERVE``'s count of prompts (phase 4's
+    draws) with its new tokens each."""
+    n, prompt, new = MODEL_SERVE
+    return [(p, new) for p, _ in serving_requests(cfg, n=n,
+                                                  prompt_len=prompt)]
+
+
+def model_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3.2-1b"),
+                               compute_dtype="float32", attn_impl="cuda")
+
+
+def pool_bytes(sched):
+    """(parameter bytes, K/V pool bytes) a scheduler holds."""
+    import torch.utils._pytree as pytree
+    node = sched.pool.cache["attn"]
+    return (sum(t.numel() * t.element_size()
+                for t in pytree.tree_leaves(sched.params)),
+            sum(t.numel() * t.element_size()
+                for t in (node.k_pool, node.v_pool)))
+
+
+def record_gaps(sched):
+    """``{(request id, emission index): top-2 gap}`` of every token a
+    host-read scheduler samples, the gap relative to the top logit,
+    filled while it runs (``sampling.sample_slots`` and the scheduler's
+    chunk and decode steps wrapped); returns (the dict, a restore
+    function)."""
+    from repro_torch.serve import sampling
+    gaps, mode, plain = {}, {"now": None}, sampling.sample_slots
+    steps = {k: getattr(sched, k) for k in ("_chunk", "_decode")}
+
+    def sample(logits, keys, sp):
+        top = logits.float().topk(2, dim=-1).values
+        rel = ((top[:, 0] - top[:, 1])
+               / top[:, 0].abs().clamp_min(1e-30)).tolist()
+        p = sched.pool
+        idx = ([0] * len(rel) if mode["now"] == "_chunk"
+               else p.n_emitted.tolist())
+        for rid, j, g in zip(p.request_id.tolist(), idx, rel):
+            gaps[(rid, j)] = g
+        return plain(logits, keys, sp)
+
+    def wrap(name):
+        def run(*a, **kw):
+            mode["now"] = name
+            return steps[name](*a, **kw)
+        return run
+
+    sampling.sample_slots = sample
+    for name in steps:
+        setattr(sched, name, wrap(name))
+
+    def restore():
+        sampling.sample_slots = plain
+        for name in steps:
+            delattr(sched, name)
+    return gaps, restore
+
+
+def model_serve_rank():
+    """One rank of phase 43: the (1, 2) data x model pool on its slices
+    of the weights (seed 0, drawn whole on the card and freed once
+    sliced), its kernel launches and their head counts counted from 0
+    just before the run."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.dist import sharding as sh
+    from repro_torch.kernels.flash_prefill import kernel as fp_kernel
+    from repro_torch.kernels.flash_prefill import ops as fp_ops
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch import distributed
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model_zoo
+    cfg = model_cfg()
+    mesh = mesh_lib.make_mesh(MODEL_MESH, ("data", "model"), "cuda")
+    rules = model_zoo.make_rules(cfg, mesh)
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    sh.reset_counts()
+    sched = make_scheduler(params, cfg, max_new_cap=MODEL_SERVE[2],
+                           rules=rules, mesh=mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    heads = set()
+    kernels = {"paged_attention": (pa_ops, pa_kernel.paged_attention),
+               "flash_prefill": (fp_ops, fp_kernel.flash_prefill)}
+
+    def seen(fn):
+        def call(q, k_pool, *rest, **kw):
+            heads.add((q.shape[2], k_pool.shape[2]))
+            return fn(q, k_pool, *rest, **kw)
+        return call
+
+    for mod, fn in kernels.values():
+        mod._kernel = seen(fn)
+    try:
+        reqs = model_requests(cfg)
+        for _, fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = drive(sched, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, (_, fn) in kernels.items()}
+    finally:
+        for mod, fn in kernels.values():
+            mod._kernel = fn
+    return dict(rank=dist.get_rank(), backend=dist.get_backend(),
+                staged=list(distributed.STAGED),
+                streams={r: [int(t) for t in s] for r, s in streams.items()},
+                wall=wall, launches=launches, heads=sorted(heads),
+                bytes=pool_bytes(sched), held=held, counts=dict(sh.COUNTS),
+                layout=(sched.model_layout, sched.pool_layout,
+                        sched.loop_impl))
+
+
+def phase_model_serve():
+    """llama3.2-1b at full width in fp32 on a (1, 2) data x model mesh of
+    two gloo ranks on ``cuda:0`` against the one-rank scheduler, which
+    runs first here (host-read segments, each sampled token's top-2 gap
+    kept) and is freed before the ranks start. Returns rank 0's kernel
+    launches."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.launch.distributed import run_local
+    smi = card_label()
+    cfg = model_cfg()
+    reqs = model_requests(cfg)
+    params = bridge.init_params(cfg, seed=0, device="cuda")
+    sched = make_scheduler(params, cfg, loop="host",
+                           max_new_cap=MODEL_SERVE[2])
+    gaps, restore = record_gaps(sched)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = {r: [int(t) for t in s] for r, s in drive(sched, reqs).items()}
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+    finally:
+        restore()
+    one_bytes = pool_bytes(sched)
+    del params, sched
+    free_device_memory("the model-axis serving ranks")
+    t0 = time.perf_counter()
+    ranks = run_local(model_serve_rank, 2, device_type="cuda",
+                      backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    tokens = sum(len(t) for t in want.values())
+    log(f"[model-serve] {smi}: {cfg.name} full width ({cfg.n_layers} "
+        f"layers, {cfg.n_heads}/{cfg.n_kv_heads} heads), fp32, 8 slots, "
+        f"paged, chunked ({MODEL_SERVE[0]} prompts of {MODEL_SERVE[1]}, "
+        f"{MODEL_SERVE[2]} new tokens); one rank (host-read): "
+        f"{tokens / one_wall:.1f} tok/s, {one_bytes[0] / 1e9:.3f} GB of "
+        f"parameters, {one_bytes[1] / 1e9:.4f} GB of K/V; mesh data x "
+        f"model {MODEL_MESH}, two ranks on cuda:0 over "
+        f"{ranks[0]['backend']} (time-shared, not multi-device speed), "
+        f"staged through host memory: {ranks[0]['staged'] or 'nothing'}; "
+        f"launch and both ranks {wall:.1f} s")
+    failed = []
+    for r in ranks:
+        same, worst = 0, []
+        for rid, toks in want.items():
+            got = r["streams"][rid]
+            if got == toks:
+                same += 1
+                continue
+            j = next((i for i, (a, b) in enumerate(zip(got, toks))
+                      if a != b), min(len(got), len(toks)))
+            worst.append((rid, j, gaps.get((rid, j), float("inf"))))
+        p_ratio = r["bytes"][0] / one_bytes[0]
+        kv_ratio = r["bytes"][1] / one_bytes[1]
+        log(f"[model-serve] {smi}: rank {r['rank']}: "
+            f"{tokens / r['wall']:.1f} tok/s (gloo, two ranks time-sharing "
+            f"one card); layouts {r['layout']}; streams equal "
+            f"{same}/{len(want)}"
+            + (f", diverging (request, token, one-rank top-2 gap): "
+               f"{[(a, b, f'{g:.2e}') for a, b, g in worst]}"
+               if worst else "")
+            + f"; parameters {r['bytes'][0] / 1e9:.3f} GB "
+            f"({p_ratio:.4f} of one rank's), K/V {r['bytes'][1] / 1e9:.4f} "
+            f"GB ({kv_ratio:.4f}); device memory held "
+            f"{r['held'] / 2**30:.2f} GiB; kernel launches {r['launches']} "
+            f"on (q heads, K/V heads) {r['heads']}; counts {r['counts']}")
+        local = (cfg.n_heads // MODEL_MESH[1],
+                 cfg.n_kv_heads // MODEL_MESH[1])
+        if any(g >= MODEL_GAP for _, _, g in worst) or \
+                r["counts"]["whole_gathers"] or \
+                not r["counts"]["split_all_reduces"] or \
+                not r["counts"]["vocab_gathers"] or \
+                abs(p_ratio - 0.5) > 0.01 or abs(kv_ratio - 0.5) > 0.01 or \
+                r["heads"] != [local] or \
+                not all(r["launches"].values()) or \
+                r["layout"][0] != f"split:modelx{MODEL_MESH[1]}":
+            failed.append(r["rank"])
+    if failed:
+        raise AssertionError(f"the model-axis serving phase failed a gate on "
+                             f"ranks {failed}")
+    return ranks[0]["launches"]
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels-only"]):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
@@ -6008,6 +6337,8 @@ def main() -> int:
     timed(phase_mesh_ckpt)
     free_device_memory("the expert-parallel step")
     timed(phase_expert_parallel)
+    free_device_memory("the model-axis serving phase")
+    paths["llama3.2-1b:modelx2"] = timed(phase_model_serve)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["name"] in ("paged_attention", "flash_prefill"):

@@ -22,7 +22,10 @@ sharding annotation is always safe; off a mesh it is a no-op.
 Where DTensor's propagation cannot follow the model (the MoE's routing,
 the CE's label logits, the chunked attention), the model runs plain
 tensors on each rank's part (``split_rows``, ``split_mean``,
-``local_heads``), with explicit collectives inside autograd.
+``local_heads``), with explicit collectives inside autograd. Serving on
+a model axis runs the whole model so: each rank holds its slices of the
+weights as plain tensors (``serve_slices``) and its ``ServeSplit`` sums
+the parts and gathers the logits.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ __all__ = [
     "constrain", "local_heads",
     "split_rows", "split_mean", "ModelSplit", "NO_SPLIT", "local_offset",
     "COUNTS", "reset_counts",
+    "ServeSplit", "WHOLE", "serve_slices", "whole_params",
     "keep_grad_layout",
     "logical_to_sharding",
     "distribute_local",
@@ -302,11 +306,14 @@ def constrain(x, rules: Optional[ShardingRules], logical_spec):
 # or ``split_mean`` hand their function whole on a mesh of more than one
 # rank (every rank holds all of it, as a gather would leave it), and their
 # bytes; 0 where the mesh splits every weight, the weights' count where
-# the rules bind none of their axes. ``split_all_reduces``: the
-# all-reduces over the dims that split the weights (forward and
-# backward, each mesh dim one).
+# the rules bind none of their axes. In serving, the weights that the
+# rules split over ``model`` and a rank holds whole (``serve_slices``,
+# ``whole_params``). ``split_all_reduces``: the all-reduces over the dims
+# that split the weights (forward and backward, each mesh dim one; in
+# serving each sum of the ranks' parts). ``vocab_gathers``: the serving
+# logits gathered over the model axis.
 COUNTS = {"whole_gathers": 0, "whole_gather_bytes": 0,
-          "split_all_reduces": 0}
+          "split_all_reduces": 0, "vocab_gathers": 0}
 
 
 def reset_counts() -> None:
@@ -585,6 +592,188 @@ def keep_grad_layout(x):
     if not is_dtensor(x) or not x.requires_grad:
         return x
     return _KeepGradLayout.apply(x)
+
+
+# --------------------------- serving on the model axis -----------------------
+# Serving runs the model on plain tensors, each rank on its slices of the
+# weights and of the K/V cache (Megatron's layout, as the JAX package's
+# GSPMD places them): the query heads and the K/V heads where ``HEADS`` and
+# ``KV_HEADS`` bind, the MLP's hidden columns (``MLP``), the experts or their
+# hidden columns (``EXPERT``, ``EXPERT_MLP``) and the vocabulary
+# (``VOCAB``). A sublayer whose contraction runs over a split dim leaves
+# each rank a part of the sum, which one all-reduce over the model axis
+# completes; the embedding lookup is masked to the rank's rows and summed
+# likewise, and the logits' columns are gathered, so that sampling sees
+# whole logits, the same bits on every rank.
+
+
+def _model_dim(rules: ShardingRules, axes, dims) -> Optional[int]:
+    """The dim of a leaf (logical ``axes``, whole shape ``dims``) that
+    the rules bind to the model axis, or None."""
+    for d, entry in enumerate(rules.spec(axes, dims=dims)):
+        if entry == _MODEL_AXIS or (isinstance(entry, tuple)
+                                    and _MODEL_AXIS in entry):
+            return d
+    return None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ServeSplit:
+    """The serving counterpart of ``ModelSplit``: what a model running on
+    one rank's plain slices knows of the mesh's model axis. ``group`` is
+    the process group over ``model`` (None off a model axis), ``size`` and
+    ``rank`` this rank's place on it, and ``offsets`` the parameter tree
+    with each leaf's offsets (where its local slice starts in each dim).
+    A model run on whole weights gets ``WHOLE``, whose every method is the
+    identity."""
+
+    group: Any = None
+    size: int = 1
+    rank: int = 0
+    offsets: Any = None
+
+    def offset(self, local: int, whole: int) -> int:
+        """Where this rank's slice of a dim of ``whole`` entries starts,
+        given that it holds ``local`` of them (0 where it holds all)."""
+        if local == whole:
+            return 0
+        if local * self.size != whole:
+            raise ValueError(f"a slice of {local} of {whole} entries does "
+                             f"not split evenly over a model axis of "
+                             f"{self.size}")
+        return self.rank * local
+
+    def sum_parts(self, t, parts: bool):
+        """``t``, where ``parts``, a rank's part of a sum over a split
+        dim, summed over the model axis (one all-reduce, in place on a
+        contiguous ``t``); else ``t`` itself."""
+        if not parts:
+            return t
+        if self.group is None:
+            raise ValueError("a part of a sum over a split weight needs "
+                             "the model group (sharding.serve_slices)")
+        COUNTS["split_all_reduces"] += 1
+        return self._all_reduce(t.contiguous())
+
+    def embed(self, table, tokens, vocab: int):
+        """``table[tokens]`` for an embedding of ``vocab`` rows of which
+        the rank holds ``table`` (rows ``[off, off + Vp/m)`` under
+        ``VOCAB``): the lookup masked to its rows, then summed over the
+        model axis (each token's row is nonzero on one rank only, so the
+        sum is exact)."""
+        n = table.shape[0]
+        if n == vocab:
+            return table[tokens]
+        local = tokens.long() - self.offset(n, vocab)
+        mine = (local >= 0) & (local < n)
+        x = torch.where(mine[..., None], table[local.clamp(0, n - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        return self.sum_parts(x, True)
+
+    def gather_vocab(self, logits, vocab: int):
+        """Logits ``(..., Vp/m)`` of the rank's vocabulary columns as the
+        whole ``(..., vocab)``, gathered over the model axis in rank
+        order (the functional all-gather, which ``launch.distributed``
+        stages through host memory under gloo on CUDA tensors); whole
+        logits as they are."""
+        n = logits.shape[-1]
+        if n == vocab:
+            return logits
+        self.offset(n, vocab)
+        COUNTS["vocab_gathers"] += 1
+        got = self._all_gather(logits.reshape(-1, n).T.contiguous())
+        return got.T.reshape(logits.shape[:-1] + (vocab,)).contiguous()
+
+    # the two collectives, over the model group
+    def _all_reduce(self, t):
+        """``t`` summed over the ranks, in place."""
+        import torch.distributed as dist
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def _all_gather(self, t):
+        """The ranks' ``t`` (n, rows) stacked in rank order (size * n,
+        rows)."""
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.all_gather_into_tensor(
+            t, self.size, self.group.group_name))
+
+
+WHOLE = ServeSplit()
+
+
+def serve_slices(params: Any, axes: Any, rules: ShardingRules, mesh):
+    """``(local, split)``: this rank's slices of a parameter tree for
+    serving on ``mesh``'s model axis, as plain tensors, and their
+    ``ServeSplit``. Each leaf keeps the dim that the rules bind to
+    ``model`` (``axes``: ``model_zoo.param_axes``) cut to the rank's
+    slice and every other dim whole.
+
+    Nothing is gathered. A DTensor leaf gives its local tensor: placed by
+    the rules it already is the slice; replicated over ``model`` it is
+    whole here and the slice is cut from it. A plain leaf (every rank
+    holds it whole) is cut likewise. A leaf placed any other way (split
+    over another axis, or over another dim than the rule's) cannot be
+    had without a gather: that raises and names the rule.
+    ``COUNTS["whole_gathers"]`` counts the leaves that the rules split
+    but that a rank would still hold whole (none here)."""
+    names = list(mesh.mesh_dim_names)
+    dm = names.index(_MODEL_AXIS)
+    m, rank = mesh.size(dm), mesh.get_local_rank(dm)
+
+    def one(t, ax, path):
+        whole = tuple(t.shape)
+        d = _model_dim(rules, ax, whole)
+        if is_dtensor(t):
+            for i, p in enumerate(t.placements):
+                if (i == dm and p.is_shard() and p.dim != d) or \
+                        (i != dm and not p.is_replicate()):
+                    raise ValueError(
+                        f"{path}: placed {p} over mesh axis {names[i]!r}; "
+                        f"serving holds a rank's slice under the rule "
+                        f"{ax} -> {rules.spec(ax, dims=whole)}, which only "
+                        f"a gather could make of it")
+            cut = not t.placements[dm].is_shard()
+            t = t.to_local()
+        else:
+            cut = True
+        if d is not None and cut:
+            # a copy: a view would keep the whole tensor's storage alive
+            t = t.chunk(m, dim=d)[rank].clone(
+                memory_format=torch.contiguous_format)
+        local = t.contiguous()
+        if d is not None and local.shape[d] == whole[d]:
+            COUNTS["whole_gathers"] += 1
+            COUNTS["whole_gather_bytes"] += local.numel() * local.element_size()
+        return local, tuple(rank * local.shape[i] if i == d else 0
+                            for i in range(local.dim()))
+
+    def walk(t, ax, path):
+        if isinstance(t, dict):
+            got = {k: walk(v, ax[k], f"{path}/{k}") for k, v in t.items()}
+            return ({k: v[0] for k, v in got.items()},
+                    {k: v[1] for k, v in got.items()})
+        return one(t, ax, path.lstrip("/"))
+
+    local, offsets = walk(params, axes, "")
+    return local, ServeSplit(group=mesh.get_group(dm), size=m, rank=rank,
+                             offsets=offsets)
+
+
+def whole_params(params: Any, axes: Any, rules: ShardingRules) -> Any:
+    """Every DTensor leaf of a parameter tree gathered whole
+    (``full_tensor``, a collective), for a model that runs on whole
+    weights on a mesh; ``COUNTS["whole_gathers"]`` counts each leaf that
+    the rules would split over ``model`` and the rank now holds whole."""
+    def one(t, ax):
+        if isinstance(t, dict):
+            return {k: one(v, ax[k]) for k, v in t.items()}
+        if _model_dim(rules, ax, tuple(t.shape)) is not None:
+            COUNTS["whole_gathers"] += 1
+            COUNTS["whole_gather_bytes"] += t.numel() * t.element_size()
+        return t.full_tensor() if is_dtensor(t) else t
+    return one(params, axes)
 
 
 def logical_to_sharding(axes: Any, rules: ShardingRules,

@@ -227,13 +227,15 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def validate_block_table_call(q, k_pool, v_pool, table, pos, what,
-                              align=16):
+                              align=16, q_head0=0, n_heads=None):
     """Checks shared by both block-table kernels (one CUDA device, the
-    dtypes, contiguity, alignment, hd in (64, 128), the shapes); returns
-    (block, KV, bpr). q and the pools must be ``align``-byte aligned, the
-    width of the kernel's copies of them (16 for ``cp.async`` and 16-byte
-    loads); the int32 table and lengths, which the kernels read one int
-    at a time, 4-byte aligned."""
+    dtypes, contiguity, alignment, hd in (64, 128), the shapes, the head
+    range); returns (block, KV, bpr, n_heads). q and the pools must be
+    ``align``-byte aligned, the width of the kernel's copies of them (16
+    for ``cp.async`` and 16-byte loads); the int32 table and lengths,
+    which the kernels read one int at a time, 4-byte aligned. q's H heads
+    are ``[q_head0, q_head0 + H)`` of ``n_heads`` (default: H), which the
+    pools' KV heads must divide."""
     tensors = (q, k_pool, v_pool, table, pos)
     if any(t.device != q.device or t.device.type != "cuda"
            for t in tensors):
@@ -257,11 +259,16 @@ def validate_block_table_call(q, k_pool, v_pool, table, pos, what,
         raise ValueError(f"{what}: pools must both be (n_blocks, block, "
                          f"KV, hd)")
     _, block, KV, phd = k_pool.shape
-    if phd != hd or hd not in (64, 128) or H % KV:
+    n_heads = H if n_heads is None else int(n_heads)
+    if phd != hd or hd not in (64, 128) or n_heads % KV:
         raise ValueError(f"{what}: needs hd in (64, 128) matching the "
-                         f"pools and H % KV == 0; got q {tuple(q.shape)}, "
-                         f"pools {tuple(k_pool.shape)}")
+                         f"pools and n_heads % KV == 0; got q "
+                         f"{tuple(q.shape)}, {n_heads} heads, pools "
+                         f"{tuple(k_pool.shape)}")
+    if not 0 <= q_head0 <= n_heads - H:
+        raise ValueError(f"{what}: the head range [{q_head0}, "
+                         f"{q_head0 + H}) lies outside {n_heads} heads")
     if table.dim() != 2 or table.shape[0] != B or pos.shape != (B,):
         raise ValueError(f"{what}: table must be (B, bpr) and lengths "
                          f"(B,) for B = {B}")
-    return block, KV, table.shape[1]
+    return block, KV, table.shape[1], n_heads

@@ -52,6 +52,17 @@
 // a (row, KV head); tiles of 32 positions staged in shared memory as
 // fp32, one warp per query row with a lane per key, the accumulator in
 // registers, every multiply on the fp32 pipes.
+//
+// A head range (both routes). On a serving mesh whose model axis splits
+// the query heads and not the K/V heads, q holds H of a model's n_heads
+// query heads, [q_head0, q_head0 + H), against every K/V head of the
+// pools (groups of G = n_heads / KV). The grid's second dim then walks
+// the K/V heads the range touches; a CTA's c-major rows are the chunk
+// positions times the range's query heads of its K/V head (cnt of them;
+// local head j reads K/V head (q_head0 + j) / G, and a range may
+// straddle two K/V heads), and a CTA past its K/V head's last row exits.
+// With q_head0 = 0 and n_heads = H, cnt = G and the mapping is the plain
+// one, with the same arithmetic.
 #include "block_table_attention.cuh"
 #include "mma_bf16.cuh"
 
@@ -81,7 +92,8 @@ __global__ void __launch_bounds__(kMmaThreads, HD == 64 ? 4 : 1)
     const __nv_bfloat16* __restrict__ k_pool,
     const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ table,
     const int* __restrict__ q_off, __nv_bfloat16* __restrict__ out, int C,
-    int H, int KV, BlockSize bs, int bpr, float scale) {
+    int H, int KV, int G, int q_head0, BlockSize bs, int bpr,
+    float scale) {
   constexpr int RS = HD + kPad;  // shared row stride, elements
   constexpr int KC = HD / 16;    // k16 chunks of a q row
   constexpr int NT = kKeys / 8;  // n8 tiles of a score row
@@ -91,24 +103,30 @@ __global__ void __launch_bounds__(kMmaThreads, HD == 64 ? 4 : 1)
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][64][RS]
   __nv_bfloat16* vs = ks + kStages * kKeys * RS;
 
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int G = H / KV, rows = C * G;
+  const int b = blockIdx.x;
+  const int h = q_head0 / G + blockIdx.y;      // this CTA's K/V head
+  const int j0 = max(0, h * G - q_head0);      // its first local q head
+  const int cnt = min(H, (h + 1) * G - q_head0) - j0;   // and their count
+  const int rows = C * cnt;
   const int row0 = blockIdx.z * kRows;
+  if (row0 >= rows) return;  // past this K/V head's rows
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int T_len = bpr * bs.size;
   const int off = q_off[b];
   const int ra = row0 + 16 * warp + g, rb = ra + 8;  // this thread's rows
-  const int lim_a = min(off + ra / G, T_len - 1);
-  const int lim_b = min(off + rb / G, T_len - 1);
-  const int lim_lo = min(off + row0 / G, T_len - 1);  // the CTA's first row
+  const int lim_a = min(off + ra / cnt, T_len - 1);
+  const int lim_b = min(off + rb / cnt, T_len - 1);
+  const int lim_lo = min(off + row0 / cnt, T_len - 1);  // the CTA's first row
   // one past the CTA's last visible position
-  const int n_pos = min(off + (min(row0 + kRows, rows) - 1) / G + 1, T_len);
+  const int n_pos =
+      min(off + (min(row0 + kRows, rows) - 1) / cnt + 1, T_len);
   const int* trow = table + (long long)b * bpr;
 
   auto q_row = [&](int r) -> const __nv_bfloat16* {
-    return r < rows ? q + ((long long)(b * C + r / G) * H + h * G + r % G) * HD
-                    : nullptr;
+    return r < rows
+               ? q + ((long long)(b * C + r / cnt) * H + j0 + r % cnt) * HD
+               : nullptr;
   };
   const __nv_bfloat16* qra = q_row(ra);
   const __nv_bfloat16* qrb = q_row(rb);
@@ -269,16 +287,19 @@ __global__ void __launch_bounds__(kMmaThreads, HD == 64 ? 4 : 1)
 template <int HD>
 int launch_mma(const void* q, const void* k_pool, const void* v_pool,
                const void* table, const void* q_off, void* out, int B, int C,
-               int H, int KV, int block, int bpr, cudaStream_t s) {
+               int H, int KV, int G, int q_head0, int block, int bpr,
+               cudaStream_t s) {
   constexpr int smem = mma_smem<HD>();
   static bool raised = false;
   const int err = allow_smem(prefill_mma_kernel<HD>, smem, raised);
   if (err != 0) return err;
-  const dim3 grid(B, KV, (C * (H / KV) + kRows - 1) / kRows);
+  const int n_kv = (q_head0 + H - 1) / G - q_head0 / G + 1;
+  const int cover = G < H ? G : H;
+  const dim3 grid(B, n_kv, (C * cover + kRows - 1) / kRows);
   prefill_mma_kernel<HD><<<grid, kMmaThreads, smem, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool,
       (const __nv_bfloat16*)v_pool, (const int*)table, (const int*)q_off,
-      (__nv_bfloat16*)out, C, H, KV, BlockSize::of(block), bpr,
+      (__nv_bfloat16*)out, C, H, KV, G, q_head0, BlockSize::of(block), bpr,
       kLog2e / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
@@ -294,15 +315,18 @@ __global__ void __launch_bounds__(FT) prefill_fp32_kernel(
     const float* __restrict__ q, const float* __restrict__ k_pool,
     const float* __restrict__ v_pool, const int* __restrict__ table,
     const int* __restrict__ q_off, float* __restrict__ out, int C, int H,
-    int KV, BlockSize bs, int bpr, float scale) {
+    int KV, int G, int q_head0, BlockSize bs, int bpr, float scale) {
   static_assert((RT * HD) % FT == 0, "accumulator split");
   constexpr int PER = RT * HD / FT;
   constexpr int NW = FT / 32;
 
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int G = H / KV;
+  const int b = blockIdx.x;
+  const int h = q_head0 / G + blockIdx.y;      // this CTA's K/V head
+  const int j0 = max(0, h * G - q_head0);      // its first local q head
+  const int cnt = min(H, (h + 1) * G - q_head0) - j0;   // and their count
   const int r0 = blockIdx.z * RT;
-  const int nr = min(RT, C * G - r0);
+  const int nr = min(RT, C * cnt - r0);
+  if (nr <= 0) return;  // past this K/V head's rows
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   __shared__ float q_s[RT][HD];
@@ -314,14 +338,14 @@ __global__ void __launch_bounds__(FT) prefill_fp32_kernel(
 
   const int off = q_off[b];
   // one past the last key position any row of this tile sees
-  const int n_pos = min(off + (r0 + nr - 1) / G + 1, bpr * bs.size);
+  const int n_pos = min(off + (r0 + nr - 1) / cnt + 1, bpr * bs.size);
 
   for (int i = tid; i < RT * HD; i += FT) {
     const int r = i / HD, d = i % HD;
     float x = 0.f;
     if (r < nr) {
-      const int c = (r0 + r) / G, g = (r0 + r) % G;
-      x = q[((long long)(b * C + c) * H + h * G + g) * HD + d] * scale;
+      const int c = (r0 + r) / cnt, g = (r0 + r) % cnt;
+      x = q[((long long)(b * C + c) * H + j0 + g) * HD + d] * scale;
     }
     q_s[r][d] = x;
   }
@@ -358,7 +382,7 @@ __global__ void __launch_bounds__(FT) prefill_fp32_kernel(
     for (int r = warp; r < RT; r += NW) {
       const int pos = t0 + lane;
       float s = NEG_INF;
-      if (r < nr && pos < n_pos && pos <= off + (r0 + r) / G) {
+      if (r < nr && pos < n_pos && pos <= off + (r0 + r) / cnt) {
         float dot = 0.f;
 #pragma unroll 16
         for (int d = 0; d < HD; ++d) dot += q_s[r][d] * k_s[lane][d];
@@ -402,8 +426,8 @@ __global__ void __launch_bounds__(FT) prefill_fp32_kernel(
     const int i = tid + e * FT;
     const int r = i / HD, d = i % HD;
     if (r < nr) {
-      const int c = (r0 + r) / G, g = (r0 + r) % G;
-      out[((long long)(b * C + c) * H + h * G + g) * HD + d] =
+      const int c = (r0 + r) / cnt, g = (r0 + r) % cnt;
+      out[((long long)(b * C + c) * H + j0 + g) * HD + d] =
           acc[e] / fmaxf(l_s[r], 1e-30f);
     }
   }
@@ -412,12 +436,15 @@ __global__ void __launch_bounds__(FT) prefill_fp32_kernel(
 template <int HD>
 int launch_fp32(const void* q, const void* k_pool, const void* v_pool,
                 const void* table, const void* q_off, void* out, int B,
-                int C, int H, int KV, int block, int bpr, cudaStream_t s) {
-  const dim3 grid(B, KV, (C * (H / KV) + RT - 1) / RT);
+                int C, int H, int KV, int G, int q_head0, int block, int bpr,
+                cudaStream_t s) {
+  const int n_kv = (q_head0 + H - 1) / G - q_head0 / G + 1;
+  const int cover = G < H ? G : H;
+  const dim3 grid(B, n_kv, (C * cover + RT - 1) / RT);
   prefill_fp32_kernel<HD><<<grid, FT, 0, s>>>(
       (const float*)q, (const float*)k_pool, (const float*)v_pool,
-      (const int*)table, (const int*)q_off, (float*)out, C, H, KV,
-      BlockSize::of(block), bpr, 1.0f / sqrtf((float)HD));
+      (const int*)table, (const int*)q_off, (float*)out, C, H, KV, G,
+      q_head0, BlockSize::of(block), bpr, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
@@ -425,18 +452,22 @@ int launch_fp32(const void* q, const void* k_pool, const void* v_pool,
 }  // namespace repro
 
 // dtype: 0 = float32 (fp32 route), 1 = bfloat16 (tensor cores); hd 64
-// or 128. Returns the launch status.
+// or 128. q holds the H query heads [q_head0, q_head0 + H) of n_heads
+// (n_heads = H, q_head0 = 0: all of them). Returns the launch status.
 extern "C" int flash_prefill_launch(const void* q, const void* k_pool,
                                     const void* v_pool, const void* table,
                                     const void* q_off, void* out, int B,
                                     int C, int H, int KV, int hd, int block,
-                                    int bpr, int dtype, void* stream) {
-  if (B <= 0 || C <= 0 || KV <= 0 || H % KV != 0 || block <= 0 || bpr <= 0)
+                                    int bpr, int n_heads, int q_head0,
+                                    int dtype, void* stream) {
+  if (B <= 0 || C <= 0 || H <= 0 || KV <= 0 || n_heads % KV != 0 ||
+      q_head0 < 0 || q_head0 + H > n_heads || block <= 0 || bpr <= 0)
     return (int)cudaErrorInvalidValue;
+  const int G = n_heads / KV;
   cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_LAUNCH(route, HDV)                                          \
   return repro::route<HDV>(q, k_pool, v_pool, table, q_off, out, B, C, H, \
-                           KV, block, bpr, s)
+                           KV, G, q_head0, block, bpr, s)
   if (dtype == 0 && hd == 64) REPRO_LAUNCH(launch_fp32, 64);
   if (dtype == 0 && hd == 128) REPRO_LAUNCH(launch_fp32, 128);
   if (dtype == 1 && hd == 64) REPRO_LAUNCH(launch_mma, 64);

@@ -45,6 +45,15 @@
 //   over the partials with l_s > 0. An empty partial (l = 0, acc unwritten)
 //   carries no weight, so a row with cur_len == 0 returns exactly 0. The
 //   wrapper counts the two launches as one call.
+// - A head range. On a serving mesh whose model axis splits the query
+//   heads and not the K/V heads, q holds H of a model's n_heads query
+//   heads, [q_head0, q_head0 + H), against every K/V head of the pools
+//   (groups of G = n_heads / KV). The grid's second dim then walks the
+//   K/V heads the range touches, each CTA's rows are the range's query
+//   heads of its K/V head (local head j reads K/V head (q_head0 + j) /
+//   G; a range may straddle two K/V heads), and a row tile past its K/V
+//   head's last one exits. With q_head0 = 0 and n_heads = H the mapping
+//   is the plain one, with the same arithmetic.
 #include "block_table_attention.cuh"
 
 namespace repro {
@@ -97,18 +106,22 @@ __global__ void __launch_bounds__(kThreads, NR == 8 ? 3 : 5)
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int* __restrict__ table,
     const int* __restrict__ cur_len, float* __restrict__ part, int H,
-    int KV, BlockSize bs, int bpr, int n_splits, float scale) {
+    int KV, int G, int q_head0, BlockSize bs, int bpr, int n_splits,
+    float scale) {
   using L = Lanes<T, HD>;
   constexpr int E = L::kElt, LP = L::kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = ks + kSplit * HD;
 
-  const int b = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.x;
+  const int h = q_head0 / G + blockIdx.y;      // this CTA's K/V head
+  const int j0 = max(0, h * G - q_head0);      // its first local q head
+  const int cnt = min(H, (h + 1) * G - q_head0) - j0;   // and their count
   const int split = blockIdx.z % n_splits;
-  const int G = H / KV;
   const int g0 = (blockIdx.z / n_splits) * NR;
-  const int nr = min(NR, G - g0);
+  const int nr = min(NR, cnt - g0);
+  if (nr <= 0) return;  // a tile past this K/V head's query heads
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = tid / LP, li = tid % LP;
   const int p0 = split * kSplit;
@@ -117,7 +130,7 @@ __global__ void __launch_bounds__(kThreads, NR == 8 ? 3 : 5)
 
   const long long n_part = (long long)gridDim.x * H * n_splits;
   float* part_ml = part + n_part * HD;
-  const long long head0 = (long long)b * H + h * G + g0;
+  const long long head0 = (long long)b * H + j0 + g0;
 
   if (n <= 0) {  // nothing to read: an empty partial
     if (tid < nr) {
@@ -287,17 +300,18 @@ __global__ void __launch_bounds__(HD) decode_combine_kernel(
 template <typename T, int HD, int NR>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* table, const void* cur_len, void* out, void* part,
-           int B, int H, int KV, int block, int bpr, int n_splits,
-           int row_tiles, cudaStream_t s) {
+           int B, int H, int KV, int G, int q_head0, int block, int bpr,
+           int n_splits, int row_tiles, cudaStream_t s) {
   constexpr int smem = split_smem<T, HD, NR>();
   static bool raised = false;
   int err = allow_smem(decode_split_kernel<T, HD, NR>, smem, raised);
   if (err != 0) return err;
-  const dim3 grid(B, KV, n_splits * row_tiles);
+  const int n_kv = (q_head0 + H - 1) / G - q_head0 / G + 1;
+  const dim3 grid(B, n_kv, n_splits * row_tiles);
   decode_split_kernel<T, HD, NR><<<grid, kThreads, smem, s>>>(
       (const T*)q, (const T*)k_pool, (const T*)v_pool, (const int*)table,
-      (const int*)cur_len, (float*)part, H, KV, BlockSize::of(block), bpr,
-      n_splits, kLog2e / sqrtf((float)HD));
+      (const int*)cur_len, (float*)part, H, KV, G, q_head0,
+      BlockSize::of(block), bpr, n_splits, kLog2e / sqrtf((float)HD));
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   decode_combine_kernel<T, HD><<<B * H, HD, 0, s>>>((const float*)part,
@@ -309,11 +323,13 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 template <typename T, int HD>
 int launch_rows(const void* q, const void* k_pool, const void* v_pool,
                 const void* table, const void* cur_len, void* out,
-                void* part, int B, int H, int KV, int block, int bpr,
-                int n_splits, int rows, int row_tiles, cudaStream_t s) {
+                void* part, int B, int H, int KV, int G, int q_head0,
+                int block, int bpr, int n_splits, int rows, int row_tiles,
+                cudaStream_t s) {
 #define REPRO_ROWS(NR)                                                     \
   return launch<T, HD, NR>(q, k_pool, v_pool, table, cur_len, out, part, \
-                           B, H, KV, block, bpr, n_splits, row_tiles, s)
+                           B, H, KV, G, q_head0, block, bpr, n_splits,    \
+                           row_tiles, s)
   if (rows == 1) REPRO_ROWS(1);
   if (rows == 2) REPRO_ROWS(2);
   if (rows == 4) REPRO_ROWS(4);
@@ -327,28 +343,35 @@ int launch_rows(const void* q, const void* k_pool, const void* v_pool,
 
 // The launch plan is the wrapper's split_plan: split must be 64 and
 // n_splits ceil(bpr * block / 64); rows (1, 2, 4 or 8 query rows a CTA)
-// times row_tiles must cover G = H / KV with no tile left empty; part is
-// fp32 scratch of B * H * n_splits * (hd + 2) elements. Returns the first
-// launch error, else 0.
+// times row_tiles must cover min(G, H) (G = n_heads / KV) with no tile
+// left empty; q holds the H query heads [q_head0, q_head0 + H) of
+// n_heads (n_heads = H, q_head0 = 0: all of them); part is fp32 scratch
+// of B * H * n_splits * (hd + 2) elements. Returns the first launch
+// error, else 0.
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool, const void* table,
                                       const void* cur_len, void* out,
                                       void* part, int B, int H, int KV,
                                       int hd, int block, int bpr,
                                       int split, int n_splits, int rows,
-                                      int row_tiles, int dtype,
+                                      int row_tiles, int n_heads,
+                                      int q_head0, int dtype,
                                       void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || block <= 0 || bpr <= 0 ||
-      rows <= 0 || row_tiles <= 0 || split != repro::kSplit ||
+  if (B <= 0 || H <= 0 || KV <= 0 || n_heads % KV != 0 || q_head0 < 0 ||
+      q_head0 + H > n_heads || block <= 0 || bpr <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int G = n_heads / KV, cover = G < H ? G : H;
+  if (rows <= 0 || row_tiles <= 0 || split != repro::kSplit ||
       n_splits != (bpr * block + repro::kSplit - 1) / repro::kSplit ||
-      rows * (row_tiles - 1) >= H / KV || rows * row_tiles < H / KV ||
+      rows * (row_tiles - 1) >= cover || rows * row_tiles < cover ||
       (long long)n_splits * row_tiles > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_LAUNCH(T, HDV)                                               \
   return repro::launch_rows<T, HDV>(q, k_pool, v_pool, table, cur_len,    \
-                                    out, part, B, H, KV, block, bpr,      \
-                                    n_splits, rows, row_tiles, s)
+                                    out, part, B, H, KV, G, q_head0,      \
+                                    block, bpr, n_splits, rows,           \
+                                    row_tiles, s)
   if (dtype == 0 && hd == 64) REPRO_LAUNCH(float, 64);
   if (dtype == 0 && hd == 128) REPRO_LAUNCH(float, 128);
   if (dtype == 1 && hd == 64) REPRO_LAUNCH(__nv_bfloat16, 64);

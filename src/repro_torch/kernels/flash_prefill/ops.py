@@ -9,19 +9,23 @@ from .kernel import flash_verify as _verify_kernel
 from .ref import flash_prefill_ref
 
 
-def flash_prefill(q, k_pool, v_pool, table, q_off):
+def flash_prefill(q, k_pool, v_pool, table, q_off, q_head0=0,
+                  n_heads=None):
     if on_cuda(q):
-        return _kernel(q, k_pool, v_pool, table, q_off)
-    return flash_prefill_ref(q, k_pool, v_pool, table, q_off)
+        return _kernel(q, k_pool, v_pool, table, q_off, q_head0, n_heads)
+    return flash_prefill_ref(q, k_pool, v_pool, table, q_off, q_head0,
+                             n_heads)
 
 
-def flash_verify(q, k_pool, v_pool, table, q_off):
+def flash_verify(q, k_pool, v_pool, table, q_off, q_head0=0, n_heads=None):
     """A speculative window ``q (B, W, H, hd)`` at ``q_off = cur_len - 1``;
     the chunk kernel's semantics, so its plain version is
     ``flash_prefill_ref``."""
     if on_cuda(q):
-        return _verify_kernel(q, k_pool, v_pool, table, q_off)
-    return flash_prefill_ref(q, k_pool, v_pool, table, q_off)
+        return _verify_kernel(q, k_pool, v_pool, table, q_off, q_head0,
+                              n_heads)
+    return flash_prefill_ref(q, k_pool, v_pool, table, q_off, q_head0,
+                             n_heads)
 
 
 __all__ = ["flash_prefill", "flash_verify", "flash_prefill_ref"]

@@ -15,16 +15,20 @@ import math
 
 import torch
 
-from ..paged_attention.ref import NEG_INF, gather_kv
+from ..paged_attention.ref import NEG_INF, gather_kv, range_kv
 
 
-def flash_prefill_ref(q, k_pool, v_pool, table, q_off):
+def flash_prefill_ref(q, k_pool, v_pool, table, q_off, q_head0=0,
+                      n_heads=None):
     """q: (B, C, H, hd); pools: (n_blocks, block, KV, hd); table:
-    (B, bpr) int32; q_off: (B,) int32 -> (B, C, H, hd) in q's dtype."""
+    (B, bpr) int32; q_off: (B,) int32 -> (B, C, H, hd) in q's dtype.
+    ``q_head0``/``n_heads``: a head range, as in ``paged_attention_ref``
+    (q holds heads ``[q_head0, q_head0 + H)`` of ``n_heads``)."""
     B, C, H, hd = q.shape
-    KV = k_pool.shape[2]
+    kg, vg = range_kv(*gather_kv(k_pool, v_pool, table), H, q_head0,
+                      n_heads)
+    KV = kg.shape[2]
     G = H // KV
-    kg, vg = gather_kv(k_pool, v_pool, table)
     T = kg.shape[1]
     qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, C, KV, G, hd)
     s = torch.einsum("bckgd,btkd->bkgct", qf, kg.float())

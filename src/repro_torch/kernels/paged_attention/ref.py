@@ -9,6 +9,11 @@ returns 0, as the kernel (and the JAX package's Pallas kernel) does; the
 JAX package's ``paged_attention_ref`` returns the mean of the masked
 lanes there instead, so parity with that oracle holds for
 ``cur_len >= 1``.
+
+A head range (``q_head0``, ``n_heads``): q holds the query heads
+``[q_head0, q_head0 + H)`` of ``n_heads`` against every K/V head of the
+pools, and local head j reads K/V head ``(q_head0 + j) // (n_heads //
+KV)``; the whole range is the plain call, with the same arithmetic.
 """
 
 from __future__ import annotations
@@ -18,6 +23,19 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+
+def range_kv(kg, vg, H, q_head0=0, n_heads=None):
+    """Gathered K/V ``(B, T, KV, hd)`` laid out per local query head of a
+    head range (one K/V head each, so G = 1); the whole range as it is."""
+    if n_heads is None or (q_head0 == 0 and n_heads == H):
+        return kg, vg
+    KV = kg.shape[2]
+    if n_heads % KV or not 0 <= q_head0 <= n_heads - H:
+        raise ValueError(f"head range [{q_head0}, {q_head0 + H}) of "
+                         f"{n_heads} heads over {KV} K/V heads")
+    idx = (q_head0 + torch.arange(H, device=kg.device)) // (n_heads // KV)
+    return kg.index_select(2, idx), vg.index_select(2, idx)
 
 
 def gather_kv(k_pool, v_pool, table):
@@ -31,13 +49,16 @@ def gather_kv(k_pool, v_pool, table):
     return kg, vg
 
 
-def paged_attention_ref(q, k_pool, v_pool, table, cur_len):
+def paged_attention_ref(q, k_pool, v_pool, table, cur_len, q_head0=0,
+                        n_heads=None):
     """q: (B, 1, H, hd); pools: (n_blocks, block, KV, hd); table:
-    (B, bpr) int32; cur_len: (B,) int32 -> (B, 1, H, hd) in q's dtype."""
+    (B, bpr) int32; cur_len: (B,) int32 -> (B, 1, H, hd) in q's dtype.
+    ``q_head0``/``n_heads``: a head range (module docstring)."""
     B, _, H, hd = q.shape
-    KV = k_pool.shape[2]
+    kg, vg = range_kv(*gather_kv(k_pool, v_pool, table), H, q_head0,
+                      n_heads)
+    KV = kg.shape[2]
     G = H // KV
-    kg, vg = gather_kv(k_pool, v_pool, table)
     T = kg.shape[1]
     qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, KV, G, hd)
     s = torch.einsum("bkgd,btkd->bkgt", qf, kg.float())

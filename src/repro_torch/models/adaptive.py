@@ -101,30 +101,35 @@ def _unembed_weight(params, cfg):
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
 
 
-def exit_margin(params, cfg, x) -> torch.Tensor:
+def exit_margin(params, cfg, x, split=sh.WHOLE) -> torch.Tensor:
     """(B,) fp32 confidence margin of the shared unembed exit head: the
     model's own final norm and unembed on the mid-stack hidden state,
     top1 - top2 of the logits at the last position, over the padded
-    vocab as the JAX package takes it. Reads ``x``, never writes it."""
+    vocab as the JAX package takes it. On a rank's vocabulary columns
+    (``split``) the top-2 reads the logits gathered whole, so every rank
+    decides alike. Reads ``x``, never writes it."""
     cdt = cfg.dtype("compute")
     h = layers.apply_norm(cfg.norm, x[:, -1], params, "ln_final")
     logits = h.to(cdt) @ _unembed_weight(params, cfg).to(cdt)
+    logits = split.gather_vocab(logits, cfg.padded_vocab)
     top2 = torch.topk(logits.float(), 2, dim=-1).values
     return top2[:, 0] - top2[:, 1]
 
 
-def make_halt_fn(params, cfg):
+def make_halt_fn(params, cfg, split=sh.WHOLE):
     """The per-layer halt check for ``transformer.decode_layers`` (None
     when early exit is off). ``halt_fn(x, i) -> (B,) bool`` marks rows
     allowed to halt after layer ``i`` (a Python int): margin above
     ``cfg.exit_threshold`` and at least ``cfg.exit_min_layers`` blocks
-    applied. ``decode_layers`` ORs it into its halt vector."""
+    applied. ``decode_layers`` ORs it into its halt vector. ``split`` as
+    in ``exit_margin``."""
     if not cfg.early_exit:
         return None
     thr, min_layers = float(cfg.exit_threshold), cfg.exit_min_layers
 
     def halt_fn(x, i):
-        return (i + 1 >= min_layers) & (exit_margin(params, cfg, x) > thr)
+        return (i + 1 >= min_layers) & (exit_margin(params, cfg, x, split)
+                                         > thr)
 
     return halt_fn
 

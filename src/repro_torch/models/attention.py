@@ -15,6 +15,14 @@ decode and verify.
 through the block table and the dense ``(rows, max_len, KV, hd)``
 layout is never built. Dense views, and ``attn_impl="gather"``, gather
 (the JAX package's ``"xla"`` path).
+
+A head range (``q_head0``, ``n_heads``): q holds H of a model's
+``n_heads`` query heads, ``[q_head0, q_head0 + H)``, against all of its
+K/V heads, as a rank does on a serving mesh's model axis where the query
+heads split and the K/V heads do not; local head j reads K/V head
+``(q_head0 + j) // (n_heads // KV)``. The kernels take the range; the
+gather paths lay the K/V heads out per local query head
+(``heads_kv``). ``n_heads=None`` (or the whole range) is the plain call.
 """
 
 from __future__ import annotations
@@ -36,6 +44,19 @@ def _pad_to(x, mult: int, dim: int):
     shape = list(x.shape)
     shape[dim] = pad
     return torch.cat([x, x.new_zeros(shape)], dim=dim), n
+
+
+def heads_kv(k, v, H: int, q_head0: int = 0, n_heads=None):
+    """K/V ``(..., KV, hd)`` as H local query heads of the range
+    ``[q_head0, q_head0 + H)`` of ``n_heads`` see them: unchanged for the
+    whole range, else one K/V head per local query head (local head j's
+    is K/V head ``(q_head0 + j) // (n_heads // KV)``), so that the plain
+    group arithmetic (G = H // KV) applies with G = 1."""
+    if n_heads is None or (q_head0 == 0 and n_heads == H):
+        return k, v
+    KV = k.shape[-2]
+    idx = (q_head0 + torch.arange(H, device=k.device)) // (n_heads // KV)
+    return k.index_select(-2, idx), v.index_select(-2, idx)
 
 
 def _online_block(acc, m, l, s, vs, eq_pv: str):
@@ -99,7 +120,7 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
 
 
 def prefill_attention(q, kv, *, q_off, attn_impl: str = "gather",
-                      k_chunk: int = 1024):
+                      k_chunk: int = 1024, q_head0: int = 0, n_heads=None):
     """Chunked-prefill attention: a C-token chunk against a cache view
     whose lanes already hold the row's prior K/V and this chunk's own
     (callers ``write_chunk`` first). q: (B, C, H, D); q_off: (B,) int32,
@@ -108,15 +129,17 @@ def prefill_attention(q, kv, *, q_off, attn_impl: str = "gather",
 
     The gather path runs the same blockwise online softmax as
     ``chunked_attention`` (same ``k_chunk`` boundaries, same op order),
-    so each real query's output equals one-shot prefill's."""
+    so each real query's output equals one-shot prefill's.
+    ``q_head0``/``n_heads``: a head range (module docstring)."""
     if attn_impl == "cuda":
         state = kv.paged_state()
         if state is not None:
             from ..kernels.flash_prefill.ops import flash_prefill
             k_pool, v_pool, table = state
-            return flash_prefill(q, k_pool, v_pool, table, q_off)
-    k_cache, v_cache = kv.gather()
+            return flash_prefill(q, k_pool, v_pool, table, q_off,
+                                 q_head0=q_head0, n_heads=n_heads)
     B, C, H, D = q.shape
+    k_cache, v_cache = heads_kv(*kv.gather(), H, q_head0, n_heads)
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
     dev = q.device
@@ -140,7 +163,8 @@ def prefill_attention(q, kv, *, q_off, attn_impl: str = "gather",
     return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, D).to(q.dtype)
 
 
-def verify_attention(q, kv, *, q_off, attn_impl: str = "gather"):
+def verify_attention(q, kv, *, q_off, attn_impl: str = "gather",
+                     q_head0: int = 0, n_heads=None):
     """A speculative verify window against a cache view whose lanes
     already hold the window's own K/V (callers ``write_chunk`` at
     ``q_off`` first). q: (B, W, H, D); q_off: (B,) int32, the position of
@@ -154,15 +178,16 @@ def verify_attention(q, kv, *, q_off, attn_impl: str = "gather"):
     stale lanes past ``q_off + j`` (rejected drafts) are masked before
     the softmax, and ``p`` stays fp32 through PV. ``attn_impl="cuda"``
     with a paged view launches the chunk kernel's ``flash_verify``
-    entry."""
+    entry. ``q_head0``/``n_heads``: a head range (module docstring)."""
     if attn_impl == "cuda":
         state = kv.paged_state()
         if state is not None:
             from ..kernels.flash_prefill.ops import flash_verify
             k_pool, v_pool, table = state
-            return flash_verify(q, k_pool, v_pool, table, q_off)
-    k_cache, v_cache = kv.gather()
+            return flash_verify(q, k_pool, v_pool, table, q_off,
+                                q_head0=q_head0, n_heads=n_heads)
     B, W, H, D = q.shape
+    k_cache, v_cache = heads_kv(*kv.gather(), H, q_head0, n_heads)
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
     qg = (q * (1.0 / math.sqrt(D))).reshape(B, W, KV, G, D)
@@ -175,14 +200,16 @@ def verify_attention(q, kv, *, q_off, attn_impl: str = "gather"):
     return out.reshape(B, W, H, D).to(q.dtype)
 
 
-def decode_attention(q, kv, *, cur_len, attn_impl: str = "gather"):
+def decode_attention(q, kv, *, cur_len, attn_impl: str = "gather",
+                     q_head0: int = 0, n_heads=None):
     """Single-position attention against a cache view. q: (B, 1, H, D);
     cur_len: valid cache positions (the current token included), an int
     or a (B,) int32 tensor of per-row depths.
 
     ``attn_impl="cuda"`` with a paged view launches the paged-attention
     kernel; anything else gathers. The gather path keeps ``p`` in fp32
-    through the PV product, as the JAX package does."""
+    through the PV product, as the JAX package does.
+    ``q_head0``/``n_heads``: a head range (module docstring)."""
     B, _, H, D = q.shape
     if attn_impl == "cuda":
         state = kv.paged_state()
@@ -192,8 +219,9 @@ def decode_attention(q, kv, *, cur_len, attn_impl: str = "gather"):
             cur = (cur_len if torch.is_tensor(cur_len) else
                    torch.full((B,), cur_len, dtype=torch.int32,
                               device=q.device))
-            return paged_attention(q, k_pool, v_pool, table, cur)
-    k_cache, v_cache = kv.gather()
+            return paged_attention(q, k_pool, v_pool, table, cur,
+                                   q_head0=q_head0, n_heads=n_heads)
+    k_cache, v_cache = heads_kv(*kv.gather(), H, q_head0, n_heads)
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
     qg = (q * (1.0 / math.sqrt(D))).reshape(B, KV, G, D)

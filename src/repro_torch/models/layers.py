@@ -75,7 +75,10 @@ def rope(x, positions, theta: float):
 
 def swiglu(x, w_gate, w_up, w_down, compute_dtype):
     """SwiGLU MLP: (silu(x @ w_gate) * (x @ w_up)) @ w_down. The weights
-    are already in ``compute_dtype`` (cast once at load)."""
+    are already in ``compute_dtype`` (cast once at load). On a rank's
+    columns of the hidden width (``MLP`` on a serving mesh's model axis)
+    the result is its part of the sum over that width, which the caller
+    sums over the axis (``sharding.ServeSplit.sum_parts``)."""
     x = x.to(compute_dtype)
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 

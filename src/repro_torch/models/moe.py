@@ -43,6 +43,14 @@ it (its backward, the rows' cotangents, likewise); the weights'
 gradients stay split. With neither bound the pool is replicated and
 the groups split over ``model`` too.
 
+Serving on a mesh's model axis runs on plain tensors, each rank on its
+slices of the weights (``sharding.serve_slices``): every rank routes
+every group (the decode's one batch-wide group included) with the same
+integer maps, so capacity and drops are the one-rank run's, and runs
+``experts`` on its experts' rows or hidden columns as above; the
+experts' part and the shared experts' part (their ``MLP`` columns) are
+summed over the axis in one all-reduce.
+
 ``torch.topk`` does not promise JAX's lower-index-first order on tied
 router probabilities. Parity runs in fp32, where exact ties in a
 softmax of random projections do not occur in practice.
@@ -171,12 +179,14 @@ def route(expert_idx, E: int, C: int):
         (token_slot % (C + 1)) == C
 
 
-def moe_mlp(p: Dict, x, cfg, *, need_aux: bool = True
+def moe_mlp(p: Dict, x, cfg, *, need_aux: bool = True, split=sh.WHOLE
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (out, aux). Groups are sequences (dim B); decode
     (S == 1, B > 1) is ONE batch-wide group. ``aux`` holds
     ``moe_load_balance`` (Switch-style) and ``moe_z_loss`` (router
-    z-loss), or nothing when ``need_aux`` is False (serving)."""
+    z-loss), or nothing when ``need_aux`` is False (serving). ``split``:
+    the weights are a rank's slices on a serving mesh's model axis
+    (module docstring)."""
     m = cfg.moe
     B0, S0, D0 = x.shape
     regrouped = S0 == 1 and B0 > 1
@@ -222,17 +232,35 @@ def moe_mlp(p: Dict, x, cfg, *, need_aux: bool = True
         gate_eff = gate.masked_fill(dropped, 0.0).to(h.dtype)
         return torch.einsum("gskd,gsk->gsd", contrib, gate_eff)
 
-    # on a mesh each rank routes its own groups (split over the data axes
-    # only) through its slice of the experts: under EXPERT its experts'
-    # rows, under EXPERT_MLP its columns of every expert's hidden width;
-    # the ranks' parts are summed over the model axis. With neither bound
-    # the weights are replicated and the groups split over it too
-    out = sh.split_rows(experts, (xg, gate, expert_idx),
-                        (p["w_gate"], p["w_up"], p["w_down"]))
+    weights = (p["w_gate"], p["w_up"], p["w_down"])
+    El, Fl = p["w_gate"].shape[-3], p["w_gate"].shape[-1]
+    served = El < E or Fl < m.d_ff_expert
+    if served:
+        # serving: this rank's plain slices, their offsets in the pool
+        ms = sh.ModelSplit(offsets=tuple(
+            (split.offset(w.shape[0], E),) + (0,) * (w.dim() - 1)
+            for w in weights))
+        out = experts(ms, xg, gate, expert_idx, *weights)
+    else:
+        # on a mesh each rank routes its own groups (split over the data
+        # axes only) through its slice of the experts: under EXPERT its
+        # experts' rows, under EXPERT_MLP its columns of every expert's
+        # hidden width; the ranks' parts are summed over the model axis.
+        # With neither bound the weights are replicated and the groups
+        # split over it too
+        out = sh.split_rows(experts, (xg, gate, expert_idx), weights)
 
     if m.n_shared_experts:
-        out = out + layers.swiglu(xg, p["shared_gate"], p["shared_up"],
-                                  p["shared_down"], cdt)
+        shared = layers.swiglu(xg, p["shared_gate"], p["shared_up"],
+                               p["shared_down"], cdt)
+        cols = p["shared_down"].shape[-2] < m.d_ff_shared
+        if served and cols:
+            out = split.sum_parts(out + shared, True)
+        else:
+            out = (split.sum_parts(out, served)
+                   + split.sum_parts(shared, cols))
+    else:
+        out = split.sum_parts(out, served)
 
     aux: Dict[str, torch.Tensor] = {}
     if need_aux:

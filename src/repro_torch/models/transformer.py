@@ -226,15 +226,36 @@ def resolved_full_attn_impl(cfg, seq_len: int, device) -> str:
             else "torch-plain-flash:" + dev.type)
 
 
+def head_range(p, cfg, split=sh.WHOLE):
+    """``(q_head0, n_heads)`` of an attention sublayer's weights ``p`` as
+    a rank holds them: where ``HEADS`` splits the query heads over the
+    model axis and ``KV_HEADS`` leaves the K/V heads whole (GQA whose K/V
+    heads do not divide the axis), the rank's H/m query heads are the
+    whole model's ``[q_head0, q_head0 + H/m)`` against every K/V head;
+    elsewhere the rank's query and K/V heads form whole groups, ``(0,
+    H)``."""
+    H, KV = p["wq"].shape[-2], p["wk"].shape[-2]
+    if H == cfg.n_heads or KV < cfg.n_kv_heads:
+        return 0, H
+    return split.offset(H, cfg.n_heads), cfg.n_heads
+
+
 def attn_apply(p, x, cfg, *, positions, mode: str = "full",
-               kv_cache=None, cur_len=None, chunk_off=None):
+               kv_cache=None, cur_len=None, chunk_off=None,
+               split=sh.WHOLE):
     """One attention sublayer; returns its output (B, S, d_model) in
     x's dtype. ``kv_cache`` is a cache layer view (``serve.kv_cache``)
-    in the prefill, chunk, verify and decode modes."""
+    in the prefill, chunk, verify and decode modes.
+
+    The head counts are the weights': on a rank's slices of a serving
+    mesh's model axis (``split``) it attends on its query heads against
+    its K/V heads (``head_range``), and its output projection, a part of
+    the sum over every head, is summed over the model axis."""
     cdt = cfg.dtype("compute")
     xc = x.to(cdt)
     B, S, D = xc.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    H, KV, hd = p["wq"].shape[-2], p["wk"].shape[-2], cfg.resolved_head_dim
+    q0, n_heads = head_range(p, cfg, split)
     q = (xc @ p["wq"].reshape(D, H * hd)).reshape(B, S, H, hd)
     k = (xc @ p["wk"].reshape(D, KV * hd)).reshape(B, S, KV, hd)
     v = (xc @ p["wv"].reshape(D, KV * hd)).reshape(B, S, KV, hd)
@@ -252,23 +273,28 @@ def attn_apply(p, x, cfg, *, positions, mode: str = "full",
         out = sh.local_heads(lambda q, k, v: attn_lib.chunked_attention(
             q, k, v, causal=True, q_chunk=cfg.attn_q_chunk,
             k_chunk=cfg.attn_k_chunk,
-            skip_masked_blocks=cfg.attn_skip_masked_blocks), q, k, v)
+            skip_masked_blocks=cfg.attn_skip_masked_blocks),
+            q, *attn_lib.heads_kv(k, v, H, q0, n_heads))
     elif mode == "chunk":
         kv_cache.write_chunk(k, v, chunk_off)
         out = attn_lib.prefill_attention(q, kv_cache, q_off=chunk_off,
                                          attn_impl=cfg.attn_impl,
-                                         k_chunk=cfg.attn_k_chunk)
+                                         k_chunk=cfg.attn_k_chunk,
+                                         q_head0=q0, n_heads=n_heads)
     elif mode == "verify":
         kv_cache.write_chunk(k, v, chunk_off)
         out = attn_lib.verify_attention(q, kv_cache, q_off=chunk_off,
-                                        attn_impl=cfg.attn_impl)
+                                        attn_impl=cfg.attn_impl,
+                                        q_head0=q0, n_heads=n_heads)
     elif mode == "decode":
         kv_cache.append(k, v, cur_len)
         out = attn_lib.decode_attention(q, kv_cache, cur_len=cur_len,
-                                        attn_impl=cfg.attn_impl)
+                                        attn_impl=cfg.attn_impl,
+                                        q_head0=q0, n_heads=n_heads)
     else:
         raise ValueError(mode)
     out = out.to(cdt).reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
+    out = split.sum_parts(out, H < cfg.n_heads)
     return out.to(x.dtype)
 
 
@@ -290,23 +316,30 @@ tag_attn_out.register_autograd(lambda ctx, grad: grad)
 
 
 def attn_block(p, x, cfg, *, positions, mode="full", kv_cache=None,
-               cur_len=None, chunk_off=None, with_aux: bool = False):
+               cur_len=None, chunk_off=None, with_aux: bool = False,
+               split=sh.WHOLE):
     """Pre-norm attention + (MoE | SwiGLU MLP) block; returns the new x,
     or ``(x, aux)`` with ``with_aux`` (the MoE auxiliary losses; ``{}``
-    for the other families)."""
+    for the other families). On a rank's slices of a serving mesh's
+    model axis (``split``) each sublayer's part is summed over the axis:
+    the attention's after ``wo``, the MLP's after ``w_down`` where
+    ``MLP`` splits its hidden width, the MoE's after its experts."""
     h = layers.apply_norm(cfg.norm, x, p, "ln_attn")
     a = attn_apply(p["attn"], h, cfg, positions=positions, mode=mode,
-                   kv_cache=kv_cache, cur_len=cur_len, chunk_off=chunk_off)
+                   kv_cache=kv_cache, cur_len=cur_len, chunk_off=chunk_off,
+                   split=split)
     if cfg.remat == "attn_out":   # only there: other modes' graphs unchanged
         a = tag_attn_out(a)
     x = x + sh.keep_grad_layout(a)
     h = layers.apply_norm(cfg.norm, x, p, "ln_mlp")
     aux: Dict[str, torch.Tensor] = {}
     if cfg.family == "moe":
-        m, aux = moe_lib.moe_mlp(p["moe"], h, cfg, need_aux=with_aux)
+        m, aux = moe_lib.moe_mlp(p["moe"], h, cfg, need_aux=with_aux,
+                                 split=split)
     else:
         m = layers.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                           p["mlp"]["w_down"], cfg.dtype("compute"))
+        m = split.sum_parts(m, p["mlp"]["w_down"].shape[-2] < cfg.d_ff)
     x = x + sh.keep_grad_layout(m.to(x.dtype))
     return (x, aux) if with_aux else x
 
@@ -322,7 +355,7 @@ def kv_project_append(p, h, cfg, kv_cache, positions, cur_len) -> None:
     cdt = cfg.dtype("compute")
     xc = h.to(cdt)
     B, S, D = xc.shape
-    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    KV, hd = p["wk"].shape[-2], cfg.resolved_head_dim
     k = (xc @ p["wk"].reshape(D, KV * hd)).reshape(B, S, KV, hd)
     v = (xc @ p["wv"].reshape(D, KV * hd)).reshape(B, S, KV, hd)
     if cfg.qkv_bias:

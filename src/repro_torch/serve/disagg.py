@@ -94,6 +94,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..dist import sharding as sh
 from ..models import model_zoo
 from . import engine
 from . import kv_cache as kvc
@@ -198,6 +199,12 @@ class DisaggScheduler:
         self._meshed = prefill_mesh is not None
         self._role = "both"
         if self._meshed:
+            for m in (prefill_mesh, decode_mesh):
+                if sh.mesh_shape(m).get("model", 1) > 1:
+                    raise ValueError(
+                        "a disaggregated tier's slice must be data-only: "
+                        "the wire ships a row's whole K/V heads, which a "
+                        "model axis splits over the slice's ranks")
             self._join_fleet(prefill_mesh, decode_mesh)
         # one wire shape for every prompt: columns for the longest
         self.ship_cols = int(kvc.blocks_needed(prompt_len + self.prefix_len,

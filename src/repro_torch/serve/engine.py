@@ -90,6 +90,7 @@ def _attn_layer_count(cfg: ModelConfig) -> int:
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                kv_impl: str = "dense", kv_block: int = 16,
                kv_blocks: Optional[int] = None, kv_sharing: bool = False,
+               kv_heads: Optional[int] = None,
                device="cuda") -> Dict[str, Any]:
     """``{"attn": KVCache}`` for the attention-decoder families,
     ``{"ssm": {"conv", "h"}}`` for pure SSM, both for the hybrid,
@@ -97,7 +98,9 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``kv_impl`` selects the K/V layout ("dense" | "paged"),
     ``kv_block``/``kv_blocks`` size the paged pool (``kv_blocks=None``:
     dense-equivalent capacity), ``kv_sharing`` lets its rows share
-    blocks (the prefix cache)."""
+    blocks (the prefix cache), ``kv_heads`` is a rank's K/V heads under
+    a split of ``CACHE_KV`` over the model axis (``local_kv_heads``;
+    default: all of them)."""
     require_ported(cfg)
     out = {}
     if cfg.family in ("ssm", "hybrid"):
@@ -108,8 +111,15 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         out[kv_key(cfg)] = kvc.make_kv_cache(
             cfg, _attn_layer_count(cfg), batch, max_len, impl=kv_impl,
             block=kv_block, n_blocks=kv_blocks, sharing=kv_sharing,
-            device=device)
+            kv_heads=kv_heads, device=device)
     return out
+
+
+def local_kv_heads(params, cfg: ModelConfig) -> int:
+    """The K/V heads of an attention-decoder family's parameters as a
+    rank holds them: ``cfg.n_kv_heads``, or its share under a split of
+    ``KV_HEADS`` over the model axis (``sharding.serve_slices``)."""
+    return params["layers"]["attn"]["wk"].shape[2]
 
 
 def cache_shardings(cfg: ModelConfig, rules, mesh=None, *, cache,
@@ -131,14 +141,31 @@ def cache_shardings(cfg: ModelConfig, rules, mesh=None, *, cache,
     return out
 
 
-def _logits_head(params, cfg: ModelConfig, x, rules=None):
+def _logits_head(params, cfg: ModelConfig, x, rules=None, split=sh.WHOLE):
     """Final norm + (tied / untied) unembed; the audio family's is its
     layer norm with bias, then the tied embedding. ``rules`` lays the
-    logits out (BATCH, -, VOCAB) on a mesh; a no-op off one."""
+    logits out (BATCH, -, VOCAB) on a mesh; a no-op off one. On a rank's
+    vocabulary columns (``split``) the logits are gathered whole over
+    the model axis, the same on every rank."""
     x = layers.apply_norm(cfg.norm, x, params, "ln_final")
     logits = x.to(cfg.dtype("compute")) @ transformer.unembed_weight(
         params, cfg)
+    logits = split.gather_vocab(logits, cfg.padded_vocab)
     return sh.constrain(logits, rules, (sh.BATCH, None, sh.VOCAB))
+
+
+def _embed(params, cfg: ModelConfig, tokens, split=sh.WHOLE):
+    """The token embeddings: the vocab-parallel lookup on a rank's
+    embedding rows (``split``), else the plain one."""
+    return split.embed(params["embed"], tokens, cfg.padded_vocab)
+
+
+def _check_split(cfg: ModelConfig, split) -> None:
+    if split.size > 1 and cfg.family not in ATTN_FAMILIES:
+        raise ValueError(
+            f"the model axis splits the weights of the attention-decoder "
+            f"families (dense/moe/vlm) only; family {cfg.family!r} runs on "
+            f"whole weights")
 
 
 def _decode_positions(cur_len, device):
@@ -150,7 +177,7 @@ def _decode_positions(cur_len, device):
 
 
 def _decode_attn_families(params, cfg, x, cache, cur_len, write_mask,
-                          live=None):
+                          live=None, split=sh.WHOLE):
     """The layer loop of a decode step; returns ``(x, depth)``. Without
     adaptive depth it is a Python loop over the layers and depth is
     None (every row ran every layer); with it,
@@ -165,18 +192,20 @@ def _decode_attn_families(params, cfg, x, cache, cur_len, write_mask,
         for i, lp in enumerate(lps):
             x = transformer.attn_block(
                 lp, x, cfg, positions=positions, mode="decode",
-                kv_cache=node.view(i, mask=write_mask), cur_len=cur_len)
+                kv_cache=node.view(i, mask=write_mask), cur_len=cur_len,
+                split=split)
         return x, None
 
     def block_fn(lp, xx, i):
         x2 = transformer.attn_block(
             lp, xx, cfg, positions=positions, mode="decode",
-            kv_cache=node.view(i, mask=write_mask), cur_len=cur_len)
+            kv_cache=node.view(i, mask=write_mask), cur_len=cur_len,
+            split=split)
         if adaptive.mod_on(cfg):
             return adaptive.mod_apply_decode(lp["router"], xx, x2, i, cfg)
         return x2, None
 
-    halt_fn = adaptive.make_halt_fn(params, cfg)
+    halt_fn = adaptive.make_halt_fn(params, cfg, split)
     kv_fill_fn = None
     if halt_fn is not None:
         # skipped-layer K/V: the frozen hidden state projected into each
@@ -241,7 +270,7 @@ def _decode_audio(params, cfg, x, cache, cur_len):
 
 def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
                 write_mask=None, live=None, with_depth: bool = False,
-                rules=None):
+                rules=None, split=sh.WHOLE):
     """One new token against a cache of ``cur_len - 1`` positions.
 
     token: (B, 1) int. Returns logits (B, 1, padded_vocab), or ``(logits,
@@ -256,7 +285,11 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
     only): the rows that keep the adaptive layer loop alive; retired and
     mid-prefill slots pass False, start halted and extend no loop (None:
     every row). ``rules`` lays the logits out on a mesh, as in the JAX
-    package; off a mesh (and on a rank's local rows) a no-op."""
+    package; off a mesh (and on a rank's local rows) a no-op. ``split``
+    (attention-decoder families): the params are a rank's slices on a
+    serving mesh's model axis (``sharding.serve_slices``), the cache
+    holds its K/V heads, and the logits come back whole."""
+    _check_split(cfg, split)
     if write_mask is not None and cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"write_mask is only supported for attention "
                          f"families; got family {cfg.family!r}")
@@ -265,7 +298,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
     elif live is not None:
         raise ValueError("live= requires adaptive depth "
                          "(cfg.early_exit / cfg.mod_capacity)")
-    x = params["embed"][token]
+    x = _embed(params, cfg, token, split)
     depth = None
     if cfg.family == "ssm":
         x = _decode_ssm(params, cfg, x, cache)
@@ -275,8 +308,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
         x = _decode_audio(params, cfg, x, cache, cur_len)
     else:
         x, depth = _decode_attn_families(params, cfg, x, cache, cur_len,
-                                         write_mask, live)
-    logits = _logits_head(params, cfg, x, rules)
+                                         write_mask, live, split)
+    logits = _logits_head(params, cfg, x, rules, split)
     if not with_depth:
         return logits
     if depth is None:
@@ -314,7 +347,8 @@ def _prefill_audio(params, cfg, tokens, cache, frames, rows, mask,
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
-            mask=None, prefix_embeds=None, frames=None, rules=None):
+            mask=None, prefix_embeds=None, frames=None, rules=None,
+            split=sh.WHOLE):
     """Prime the cache with a full prompt (one-shot). A VLM's
     ``prefix_embeds`` (B, n_patches, d_model) go in front of the tokens;
     the audio family's encoder reads ``frames`` (B, n_frames, d_model).
@@ -328,11 +362,13 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
     hybrid runs its shared block in prefill mode at each application,
     writing cache layer ``a``, and returns its mamba2 state fresh; the
     audio family returns its cross K/V fresh, ``{"cross": {"k": (L, B,
-    n_frames, KV, hd), "v": ...}}``. ``rules`` as in ``decode_step``."""
+    n_frames, KV, hd), "v": ...}}``. ``rules`` and ``split`` as in
+    ``decode_step``."""
+    _check_split(cfg, split)
     if cfg.family == "audio":
         return _prefill_audio(params, cfg, tokens, cache, frames, rows,
                               mask, rules)
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens, split)
     if _prefix_len(cfg, prefix_embeds):
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
@@ -368,12 +404,13 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
     for i, lp in enumerate(lps):
         x = transformer.attn_block(
             lp, x, cfg, positions=positions, mode="prefill",
-            kv_cache=node.view(i, rows=rows, mask=mask))
-    return _logits_head(params, cfg, x, rules), {}
+            kv_cache=node.view(i, rows=rows, mask=mask), split=split)
+    return _logits_head(params, cfg, x, rules, split), {}
 
 
 def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
-                  chunk: int, mask=None, prefix_embeds=None, rules=None):
+                  chunk: int, mask=None, prefix_embeds=None, rules=None,
+                  split=sh.WHOLE):
     """Advance prefill by one ``chunk``-token slice of each row's prompt
     stream (a VLM's ``prefix_embeds`` (n, n_patches, d_model) at stream
     positions ``[0, n_patches)``, then the tokens).
@@ -389,8 +426,9 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
     through the block table (flash-prefill kernel) when
     ``cfg.attn_impl == "cuda"`` and the cache is paged.
 
-    Returns logits (n, chunk, padded_vocab). ``rules`` as in
-    ``decode_step``."""
+    Returns logits (n, chunk, padded_vocab). ``rules`` and ``split`` as
+    in ``decode_step``."""
+    _check_split(cfg, split)
     if cfg.family not in ATTN_FAMILIES + ("audio",):
         raise ValueError(
             f"chunked prefill requires an attention-family cache; family "
@@ -401,7 +439,7 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
         chunk, device=offsets.device)[None, :]
     prefix = _prefix_len(cfg, prefix_embeds)
     tid = torch.gather(prompts, 1, (pos - prefix).clamp(0, W - 1))
-    x = params["embed"][tid]
+    x = _embed(params, cfg, tid, split)
     if prefix:
         # a patch embed where pos < prefix, a token embed elsewhere
         pe = torch.gather(prefix_embeds.to(x.dtype), 1,
@@ -422,12 +460,13 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
     for i, lp in enumerate(transformer.layer_params(params["layers"])):
         x = transformer.attn_block(
             lp, x, cfg, positions=pos, mode="chunk",
-            kv_cache=node.view(i, mask=mask), chunk_off=offsets)
-    return _logits_head(params, cfg, x, rules)
+            kv_cache=node.view(i, mask=mask), chunk_off=offsets,
+            split=split)
+    return _logits_head(params, cfg, x, rules, split)
 
 
 def verify_step(params, cfg: ModelConfig, tokens, cache, cur_len, *,
-                write_mask=None, rules=None):
+                write_mask=None, rules=None, split=sh.WHOLE):
     """Score a W-token speculative window in ONE forward.
 
     tokens: (B, W) int, ``[pending, d_1..d_{W-1}]`` per row; the window
@@ -440,8 +479,8 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, cur_len, *,
     per-row offsets (mode ``verify``: ``write_chunk``, then decode-exact
     ``verify_attention``), overwriting stale lanes of rejected drafts
     before a query can see them. ``write_mask`` gates rows as in
-    ``decode_step``, and so does ``rules``. Attention-decoder families
-    only."""
+    ``decode_step``, and so do ``rules`` and ``split``. Attention-decoder
+    families only."""
     if cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"verify_step requires an attention-decoder "
                          f"family (dense/moe/vlm); got {cfg.family!r}")
@@ -449,14 +488,15 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, cur_len, *,
     off = cur_len - 1
     positions = off.long()[:, None] + torch.arange(
         W, device=tokens.device)[None, :]
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens, split)
     # copy-on-write once per window, before any layer writes
     node = cache["attn"].ensure_private(start=off, width=W, mask=write_mask)
     for i, lp in enumerate(transformer.layer_params(params["layers"])):
         x = transformer.attn_block(
             lp, x, cfg, positions=positions, mode="verify",
-            kv_cache=node.view(i, mask=write_mask), chunk_off=off)
-    return _logits_head(params, cfg, x, rules)
+            kv_cache=node.view(i, mask=write_mask), chunk_off=off,
+            split=split)
+    return _logits_head(params, cfg, x, rules, split)
 
 
 # =========================== paths that ran =================================

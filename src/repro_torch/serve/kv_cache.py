@@ -637,11 +637,14 @@ def _no_copy() -> None:
 def make_kv_cache(cfg, n_layers: int, n_rows: int, max_len: int, *,
                   impl: str = "dense", block: int = 16,
                   n_blocks: Optional[int] = None, sharing: bool = False,
-                  device="cuda"):
+                  kv_heads: Optional[int] = None, device="cuda"):
     """Self-attention KV cache for ``cfg``'s head geometry, in the
-    compute dtype; ``sharing`` (paged only) lets rows share blocks."""
+    compute dtype; ``sharing`` (paged only) lets rows share blocks.
+    ``kv_heads``: the K/V heads a rank holds where ``CACHE_KV`` splits
+    them over the model axis (default: all of ``cfg``'s); the block ids,
+    tables, ``owner`` and ``refcount`` do not depend on it."""
     device = resolve_device(device)
-    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    KV, hd = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     dt = cfg.dtype("compute")
     if impl == "dense":
         if sharing:

@@ -198,11 +198,32 @@ one device the pool is placed exactly as off a mesh. On a larger one:
   another shard's block (and every hit after it in the run) is copied
   into a fresh block of the admitting shard at admission, and
   ``cross_rank_block_copies`` counts the cross-shard ones.
-- The pool is replicated (every rank runs every row) when the data axes
-  do not divide ``n_slots`` and ``kv_blocks``, and for the MoE family,
-  whose decode routes every slot as one group. A model axis replicates
-  the pool too: each rank holds whole K/V heads and whole weights (a
-  DTensor parameter is gathered whole at construction).
+- The pool is replicated over the data axes (every rank runs every
+  row) when they do not divide ``n_slots`` and ``kv_blocks``, and for
+  the MoE family, whose decode routes every slot as one group.
+
+A model axis (the dense, VLM and MoE families; ``model_layout`` is
+"split:modelx<m>"). Each rank keeps its slices of the weights as plain
+tensors (``sharding.serve_slices``, which gathers nothing): the query
+and K/V heads where ``HEADS`` and ``KV_HEADS`` bind, the MLP's hidden
+columns, the experts' rows or hidden columns, the vocabulary's rows of
+the embedding and columns of the unembedding. The pool is placed with
+``CACHE_KV`` on ``model``: each rank's cache holds its KV/m heads (all
+of them where the K/V heads do not divide the axis, the query heads
+then being a range of them, ``transformer.head_range``), and its DTensor
+view in ``sharded_pool`` is split over ``model`` there. Block ids,
+tables, ``owner``, ``refcount`` and every slot register are the same
+on the ranks of one data shard, which run the same host logic on the
+same rows; only the heads and columns differ. Each sublayer's part is
+summed over ``model`` (one all-reduce after ``wo``, one after the MLP's
+or the experts' down projection), the embedding lookup is masked to the
+rank's rows and summed likewise, and the logits' columns are gathered,
+so that sampling and the PRNG see whole logits, the same bits on every
+rank, and every rank emits the same streams. The ``ssm``, ``hybrid``
+and ``audio`` families run on whole weights and a replicated pool over
+``model`` (``model_layout`` "replicated"; ``sharding.whole_params``
+gathers a DTensor parameter whole at construction and counts what the
+rules split in ``sharding.COUNTS["whole_gathers"]``).
 
 Per-request greedy outputs equal ``engine.generate_batch_sync``'s, and
 are identical between ``kv="dense"`` and ``kv="paged"``, with the prefix
@@ -227,7 +248,7 @@ from ..core import device_loop
 from ..dist import sharding as sh
 from ..kernels.flash_prefill import kernel as fp_kernel
 from ..kernels.paged_attention import kernel as pa_kernel
-from ..models import transformer
+from ..models import model_zoo, transformer
 from . import engine, kv_cache as kvc
 from . import prng
 from . import sampling as sampling_lib
@@ -524,9 +545,10 @@ class DecodeScheduler:
         (module docstring). Needs ``prefill="chunked"`` and
         ``kv="paged"``, and refuses speculation.
       rules / mesh: a ``ShardingRules`` and its ``DeviceMesh``: the pool
-        is placed over the data axes (module docstring); every rank of
-        the mesh builds the scheduler and drives it alike. Either None:
-        no mesh.
+        is placed over the data axes, and a model axis splits the
+        weights and the K/V heads (module docstring); every rank of the
+        mesh builds the scheduler and drives it alike. Either None: no
+        mesh.
     """
 
     def __init__(self, params, cfg, *, n_slots: int, prompt_len: int,
@@ -604,10 +626,23 @@ class DecodeScheduler:
                     "gathered from every shard, which a captured graph "
                     "cannot do): pass loop=None or 'host'")
             loop = "host"
-            # every rank holds whole weights (module docstring)
-            params = pytree.tree_map(
-                lambda t: t.full_tensor() if sh.is_dtensor(t) else t,
-                params)
+        # the model axis: each rank's slices of the weights, or whole
+        # weights for the families that run on them (module docstring)
+        self._model = (sh.mesh_shape(mesh).get("model", 1)
+                       if self._meshed else 1)
+        self._split_model = (self._model > 1
+                             and cfg.family in engine.ATTN_FAMILIES)
+        self._split = self._draft_split = sh.WHOLE
+        if self._split_model:
+            params, self._split = sh.serve_slices(
+                params, model_zoo.param_axes(cfg), rules, mesh)
+            if draft_params is not None:
+                draft_params, self._draft_split = sh.serve_slices(
+                    draft_params, model_zoo.param_axes(draft_cfg),
+                    model_zoo.make_rules(draft_cfg, mesh), mesh)
+        elif self._meshed:
+            params = sh.whole_params(params, model_zoo.param_axes(cfg),
+                                     rules)
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         if loop is None:
@@ -725,12 +760,18 @@ class DecodeScheduler:
         def z(*shape, dtype=torch.int32, fill=0):
             return torch.full(shape, fill, dtype=dtype, device=dev)
 
+        kv_heads = (engine.local_kv_heads(self.params, self.cfg)
+                    if self._split_model else None)
+        draft_heads = (engine.local_kv_heads(self._draft_params,
+                                             self.draft_cfg)
+                       if self._split_model and self.draft_cfg is not None
+                       else None)
         return SlotPool(
             cache=engine.make_cache(self.cfg, n, self.max_len,
                                     kv_impl=self.kv, kv_block=self.kv_block,
                                     kv_blocks=self._kv_loc,
                                     kv_sharing=self.prefix_cache,
-                                    device=dev),
+                                    kv_heads=kv_heads, device=dev),
             next_token=z(n), cur_len=z(n, fill=1), n_emitted=z(n),
             budget=z(n), active=z(n, dtype=torch.bool),
             done=z(n, dtype=torch.bool), request_id=z(n, fill=-1),
@@ -740,7 +781,7 @@ class DecodeScheduler:
             prefix=z(n, self.prefix_len if self._chunked else 0,
                      self.cfg.d_model, dtype=self.cfg.dtype("compute")),
             draft=(engine.make_cache(self.draft_cfg, n, self.max_len,
-                                     device=dev)
+                                     kv_heads=draft_heads, device=dev)
                    if self.draft_cfg is not None else {}),
             steps=z(), slot_steps=z(), chunk_steps=z(), decode_steps=z(),
             launches=z(len(_COUNTED), dtype=torch.int64),
@@ -752,9 +793,11 @@ class DecodeScheduler:
     def _place_pool(self) -> SlotPool:
         """``pool`` with every slot-state tensor as a DTensor over the
         mesh, viewing the same storage: ``pool_shardings``' placements on
-        the data axes, replicated over the other axes and wherever the
-        pool is replicated (module docstring). The counters stay this
-        rank's plain tensors. Off a mesh (or on one device): ``pool``."""
+        the data axes and, where the weights split over it, on the model
+        axis (the caches' K/V heads under ``CACHE_KV``), replicated over
+        the other axes and wherever the pool is replicated (module
+        docstring). The counters stay this rank's plain tensors. Off a
+        mesh (or on one device): ``pool``."""
         if not self._meshed:
             return self.pool
         from torch.distributed.tensor import DTensor, Replicate
@@ -768,9 +811,13 @@ class DecodeScheduler:
             prefix_len=self.prefix_len if chunked else 0,
             draft_cfg=self.draft_cfg)
 
+        def keep(i):
+            return ((self._shards > 1 and names[i] in self._axes)
+                    or (self._split_model and names[i] == "model"))
+
         def view(local, placements):
-            pl = [p if (self._shards > 1 and names[i] in self._axes)
-                  else Replicate() for i, p in enumerate(placements)]
+            pl = [p if keep(i) else Replicate()
+                  for i, p in enumerate(placements)]
             shape = list(local.shape)
             for i, p in enumerate(pl):
                 if p.is_shard():
@@ -851,7 +898,8 @@ class DecodeScheduler:
         self._reserve(slots, true_lens + pl + max_news + 1, mask)
         logits, fresh = engine.prefill(self.params, self.cfg, prompts,
                                        p.cache, rows=slots, mask=mask,
-                                       prefix_embeds=prefix, frames=frames)
+                                       prefix_embeds=prefix, frames=frames,
+                                       split=self._split)
         # the first token comes from each row's LAST REAL position
         # (bucketed rows are right-padded), at emission index 0
         rows = torch.arange(n, device=self.device)
@@ -913,7 +961,8 @@ class DecodeScheduler:
             engine.prefill_chunk(self._draft_params, self.draft_cfg,
                                  self.pool.prompt, self.pool.draft,
                                  torch.zeros_like(self.pool.pf_pos),
-                                 chunk=int(draft_from), mask=admitted)
+                                 chunk=int(draft_from), mask=admitted,
+                                 split=self._draft_split)
         if self._reg_table is not None:
             admitted = torch.zeros_like(self.pool.active)
             admitted[slots.long()] = mask
@@ -949,13 +998,14 @@ class DecodeScheduler:
         logits = engine.prefill_chunk(
             self.params, self.cfg, p.prompt, p.cache, p.pf_pos, chunk=C,
             mask=p.prefilling,
-            prefix_embeds=p.prefix if self.prefix_len else None)
+            prefix_embeds=p.prefix if self.prefix_len else None,
+            split=self._split)
         if p.draft:
             # the draft model prefills the same chunk into its own cache;
             # its logits are not used (the first token is the target's)
             engine.prefill_chunk(self._draft_params, self.draft_cfg,
                                  p.prompt, p.draft, p.pf_pos, chunk=C,
-                                 mask=p.prefilling)
+                                 mask=p.prefilling, split=self._draft_split)
         fin = self._finishing(p)
         last = (p.plen - 1 - p.pf_pos).clamp(0, C - 1).long()
         rows = torch.arange(n, device=self.device)
@@ -1007,7 +1057,8 @@ class DecodeScheduler:
         logits, depth = engine.decode_step(
             self.params, self.cfg, tok[:, None], p.cache, p.cur_len,
             write_mask=emit if self._chunked else None,
-            live=self._live(emit, self.cfg, warm), with_depth=True)
+            live=self._live(emit, self.cfg, warm), with_depth=True,
+            split=self._split)
         nxt = sampling_lib.sample_slots(
             logits[:, 0], self._keys_at(p.keys, p.n_emitted), self.sampling)
         emitted = emit.int()
@@ -1047,14 +1098,16 @@ class DecodeScheduler:
                 dl = engine.decode_step(
                     self._draft_params, self.draft_cfg, tok[:, None],
                     p.draft, p.cur_len + j, write_mask=emit,
-                    live=self._live(emit, self.draft_cfg, warm))
+                    live=self._live(emit, self.draft_cfg, warm),
+                    split=self._draft_split)
                 tok = torch.argmax(dl[:, 0], dim=-1).to(torch.int32)
                 if j < k:
                     toks.append(tok)
             drafts = torch.stack(toks, dim=1)
         window = torch.cat([t0[:, None], drafts], dim=1)           # (n, k+1)
         logits = engine.verify_step(self.params, self.cfg, window, p.cache,
-                                    p.cur_len, write_mask=emit)
+                                    p.cur_len, write_mask=emit,
+                                    split=self._split)
         # keys of emission indices n_emitted + 1 .. n_emitted + k + 1
         wkeys = (None if self.sampling.greedy else
                  sampling_lib.window_keys(p.keys, p.n_emitted + 1, k + 1))
@@ -2389,6 +2442,19 @@ class DecodeScheduler:
         if self._shards > 1:
             return f"sharded:{','.join(self._axes)}x{self._shards}"
         return "replicated"
+
+    @property
+    def model_layout(self) -> str:
+        """How the weights and K/V heads lie on the mesh's model axis:
+        "single" (no mesh, or no model axis of more than one device),
+        "split:modelx<m>" (each rank its slices of the weights and its
+        K/V heads, module docstring) or "replicated" (every rank whole
+        weights and every head: the ``ssm``, ``hybrid`` and ``audio``
+        families)."""
+        if self._model == 1:
+            return "single"
+        return (f"split:modelx{self._model}" if self._split_model
+                else "replicated")
 
     @property
     def transfer_impl(self) -> str:

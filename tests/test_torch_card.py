@@ -116,6 +116,45 @@ def test_kernel_matches_plain_version(cuda_device, kind, dtype, H, KV, hd,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "prefill", "verify"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,m", [(14, 2, 7), (8, 2, 4), (32, 8, 2)])
+def test_kernel_takes_a_head_range(cuda_device, kind, dtype, H, KV, m):
+    """A rank's query heads on a serving mesh whose model axis splits
+    them and not the K/V heads: at every ``q_head0`` of H heads split m
+    ways (internvl2-1b's 14/2 over 7 ranks: two heads a rank, ranges that
+    straddle the two K/V heads; G = 4 over 4; G = 4 over 2) the kernel on
+    the rank's heads equals its plain version there, and that equals the
+    whole call's heads; with ``q_head0 = 0`` and the whole count the
+    call is the plain one."""
+    C = 5 if kind == "verify" else 40
+    args = _case("decode" if kind == "decode" else "prefill", 6, H, KV, 64,
+                 16, 10, C, dtype, cuda_device, seed=H + m)
+    kern, plain = {"decode": (pa_kernel.paged_attention,
+                              paged_attention_ref),
+                   "prefill": (fp_kernel.flash_prefill, flash_prefill_ref),
+                   "verify": (fp_kernel.flash_verify,
+                              flash_prefill_ref)}[kind]
+    q, rest = args[0], args[1:]
+    whole = plain(q, *rest)
+    torch.testing.assert_close(kern(q, *rest, 0, H).float(), whole.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    n = H // m
+    for r in range(m):
+        ql = q[:, :, r * n:(r + 1) * n].contiguous()
+        before = kern.launches
+        out = kern(ql, *rest, q_head0=r * n, n_heads=H)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        ref = plain(ql, *rest, q_head0=r * n, n_heads=H)
+        torch.testing.assert_close(ref.float(),
+                                   whole[:, :, r * n:(r + 1) * n].float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
     q, kp, vp, table, lens = _case("decode", 2, 8, 2, 32, 16, 2, 1,
                                    "float32", cuda_device)

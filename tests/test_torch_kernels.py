@@ -178,6 +178,30 @@ def test_split_plan_covers_every_position_once(geom, block, max_len):
     assert plan.scratch == (B * H * plan.n_splits * (hd + 2),)
 
 
+@pytest.mark.parametrize("H,KV,m", [(14, 2, 7), (8, 2, 4), (32, 8, 2),
+                                    (32, 8, 4)])
+def test_split_plan_for_a_head_range(H, KV, m):
+    """A rank's H/m query heads from ``q_head0`` (a serving mesh's model
+    axis splitting the query heads and not the K/V heads): the grid walks
+    exactly the K/V heads the range touches, the row tiles cover the most
+    query heads any of them has in the range, and the scratch holds one
+    partial per (row, local head, partition)."""
+    B, hd, bpr, block = 8, 64, 37, 16
+    G, n = H // KV, H // m
+    for r in range(m):
+        q0 = r * n
+        plan = split_plan(B, KV, G, bpr, block, hd, n, q0)
+        touched = sorted({(q0 + j) // G for j in range(n)})
+        most = max(sum((q0 + j) // G == h for j in range(n))
+                   for h in touched)
+        assert plan.grid[:2] == (B, len(touched))
+        assert plan.rows * plan.row_tiles >= most
+        assert plan.rows * (plan.row_tiles - 1) < min(G, n)
+        assert plan.scratch == (B * n * plan.n_splits * (hd + 2),)
+    assert split_plan(B, KV, G, bpr, block, hd, H, 0) == \
+        split_plan(B, KV, G, bpr, block, hd)
+
+
 def _partitioned_decode(q, kp, vp, table, lens, plan):
     """Decode as the split kernel computes it, in plain fp32: per
     partition of the plan a partial (m, l, unnormalised acc) over the
