@@ -433,7 +433,32 @@ Phases, each printing its own lines:
     kernels (and the verify entry) to their plain versions at every
     ``q_head0`` of internvl2-1b's 14/2 heads split 7 ways (the
     ``q_head0`` path of a model axis that splits the query heads and not
-    the K/V heads), bf16 and fp32, and times the straddling range.
+    the K/V heads), bf16 and fp32, and times the straddling range;
+44. (run last) the model axis in serving for the SSM, hybrid and audio
+    families: falcon-mamba-7b (8 of 64 layers: the scan kernel on 4096
+    of the 8192 channels), zamba2-1.2b (12 of 38 layers: 32 of the 64
+    mixer heads, 16/16 of the shared block's heads) and whisper-small
+    (4 + 4 of 12 + 12 layers: 6/6 heads, half the MLP, 1500 frames) at
+    full width in fp32 through ``DecodeScheduler(rules=, mesh=)`` on a
+    (1, 2) data x model mesh of two gloo ranks on ``cuda:0`` (spawned as
+    phase 42's; one launch serves the three in turn), each rank on its
+    slices of the weights and of the SSM state, K/V pool and cross K/V:
+    4 slots, one-shot, 4 requests of 256 tokens (whisper 4-192), 16 new
+    each, greedy, every pool warmed by one short request before its
+    timed run; against the one-rank scheduler (host-read, run first in
+    this process for each family and freed before the ranks start).
+    Gates, each family on each rank: the streams equal (where one
+    diverges, the one-rank run's top-2 gap there under 1e-4 relative);
+    ``COUNTS["whole_gathers"] == 0`` and split all-reduces made;
+    ``model_layout`` "split:modelx2"; the parameter bytes and each cache
+    part's bytes exactly what the rules give (an even half of each split
+    leaf and part; mamba2's B and C parts, its conv window's B and C
+    channels, the norms, its per-head scalars and whisper's ``b_out``
+    whole); ``selective_scan`` (falcon-mamba) or ``paged_attention``
+    (zamba2, whisper) launched, counted from 0 just before the run, and
+    no ``PagedView.gather``. Tok/s of both runs, the bytes and the counts
+    are printed: two gloo ranks time-sharing one card, not multi-device
+    speed.
 
 llama3.2-1b's bf16 weights (``attn_impl="cuda"``) are drawn once for
 phases 4, 17, 19, 20, 26 and 39 and freed after 39; phase 40's ranks
@@ -445,8 +470,9 @@ one JSON line of kernel records (``paged_attention`` and
 ``flash_prefill`` also give ``path_launches``: their launches in each
 serving path's first graph run, llama3.2-1b, qwen2-moe-a2.7b,
 internvl2-1b, both early-exit runs at inf, zamba2-1.2b and
-whisper-small, the counts set to 0 just before it, and phase 43's rank
-0) and, last, the
+whisper-small, the counts set to 0 just before it, and the rank 0 of
+phase 43 and of each of phase 44's three paths, where
+``selective_scan`` also gives its launches on those three) and, last, the
 device line. Any
 failed check raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA device is present.
@@ -604,6 +630,12 @@ EP_BATCH = (2, 512)         # phase 42: phase 30's B, S
 MODEL_MESH = (1, 2)          # phase 43: data x model, two gloo ranks
 MODEL_SERVE = (8, 512, 32)   # phase 43: requests, prompt tokens, new tokens
 MODEL_GAP = 1e-4             # phase 43: a diverging stream's top-2 gap bound
+FAMILY_MESH = (1, 2)         # phase 44: data x model, two gloo ranks
+FAMILY_SERVE = (4, 256, 16)  # phase 44: requests, prompt tokens, new tokens
+FAMILY_LAYERS = {            # phase 44's depths, cut for time (PERF.md §4)
+    "falcon-mamba-7b": 8,            # of 64
+    "zamba2-1.2b": 12,               # of 38, as phase 32's fp32 runs
+    "whisper-small": 4}              # of 12 + 12, as phase 34
 HEAD_SPLIT = (14, 2, 64, 7)  # phase 3: internvl2-1b's H, KV, hd over 7 ranks
 EP_LEAVES = (("layers", "moe", "router"), ("layers", "moe", "w_gate"),
              ("layers", "moe", "w_up"), ("layers", "moe", "w_down"),
@@ -6060,26 +6092,34 @@ def record_gaps(sched):
     """``{(request id, emission index): top-2 gap}`` of every token a
     host-read scheduler samples, the gap relative to the top logit,
     filled while it runs (``sampling.sample_slots`` and the scheduler's
-    chunk and decode steps wrapped); returns (the dict, a restore
-    function)."""
+    one-shot admission, chunk and decode steps wrapped); returns (the
+    dict, a restore function)."""
     from repro_torch.serve import sampling
     gaps, mode, plain = {}, {"now": None}, sampling.sample_slots
-    steps = {k: getattr(sched, k) for k in ("_chunk", "_decode")}
+    steps = {k: getattr(sched, k) for k in ("_admit", "_chunk", "_decode")}
 
     def sample(logits, keys, sp):
         top = logits.float().topk(2, dim=-1).values
         rel = ((top[:, 0] - top[:, 1])
                / top[:, 0].abs().clamp_min(1e-30)).tolist()
         p = sched.pool
-        idx = ([0] * len(rel) if mode["now"] == "_chunk"
-               else p.n_emitted.tolist())
-        for rid, j, g in zip(p.request_id.tolist(), idx, rel):
+        if mode["now"] == "_admit":
+            # the admitted rows' request ids (args 3 and 7 of _admit)
+            rids, mask = (t.tolist() for t in mode["args"])
+            rows = [(rid, 0, g) for rid, m, g in zip(rids, mask, rel) if m]
+        else:
+            idx = ([0] * len(rel) if mode["now"] == "_chunk"
+                   else p.n_emitted.tolist())
+            rows = zip(p.request_id.tolist(), idx, rel)
+        for rid, j, g in rows:
             gaps[(rid, j)] = g
         return plain(logits, keys, sp)
 
     def wrap(name):
         def run(*a, **kw):
             mode["now"] = name
+            if name == "_admit":
+                mode["args"] = (a[3], a[7])
             return steps[name](*a, **kw)
         return run
 
@@ -6200,15 +6240,7 @@ def phase_model_serve():
         f"launch and both ranks {wall:.1f} s")
     failed = []
     for r in ranks:
-        same, worst = 0, []
-        for rid, toks in want.items():
-            got = r["streams"][rid]
-            if got == toks:
-                same += 1
-                continue
-            j = next((i for i, (a, b) in enumerate(zip(got, toks))
-                      if a != b), min(len(got), len(toks)))
-            worst.append((rid, j, gaps.get((rid, j), float("inf"))))
+        same, worst = diverging(r["streams"], want, gaps)
         p_ratio = r["bytes"][0] / one_bytes[0]
         kv_ratio = r["bytes"][1] / one_bytes[1]
         log(f"[model-serve] {smi}: rank {r['rank']}: "
@@ -6238,6 +6270,288 @@ def phase_model_serve():
         raise AssertionError(f"the model-axis serving phase failed a gate on "
                              f"ranks {failed}")
     return ranks[0]["launches"]
+
+
+def family_cfg(arch):
+    """Phase 44's config of ``arch``: full width in fp32, its depth cut
+    to ``FAMILY_LAYERS``, the kernels asked for (the scan for mamba1,
+    the paged decode for attention)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                              n_layers=FAMILY_LAYERS[arch])
+    if cfg.family == "ssm":
+        return dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, scan_impl="cuda"))
+    if cfg.family == "audio":
+        cfg = dataclasses.replace(cfg, encoder_layers=FAMILY_LAYERS[arch])
+    return dataclasses.replace(cfg, attn_impl="cuda")
+
+
+def family_requests(cfg):
+    """Phase 44's requests: ``FAMILY_SERVE``'s count of prompts of its
+    length (whisper: 4 to ``WHISPER_PROMPT`` tokens with their frames),
+    each with its new tokens."""
+    n, prompt, new = FAMILY_SERVE
+    if cfg.family == "audio":
+        return [(p, new, f) for p, _, f in whisper_requests(cfg, n=n)]
+    return moe_requests(cfg, n=n, prompt_len=prompt, max_new=new)
+
+
+def make_family_scheduler(params, cfg, **kw):
+    """Phase 44's pool: one-shot admission, 4 slots, the paged cache in
+    blocks of 16 where the family has K/V, EOS -1."""
+    from repro_torch.serve import scheduler as sched_lib
+    n, prompt, new = FAMILY_SERVE
+    paged = dict(kv="paged", kv_block=16) if cfg.family != "ssm" else {}
+    return sched_lib.DecodeScheduler(
+        params, cfg, n_slots=n, max_new_cap=new, eos_id=-1,
+        prompt_len=WHISPER_PROMPT if cfg.family == "audio" else prompt,
+        prefill="oneshot", **paged, **kw)
+
+
+def tree_bytes(tree):
+    import torch.utils._pytree as pytree
+    return sum(t.numel() * t.element_size()
+               for t in pytree.tree_leaves(tree))
+
+
+def cache_bytes(sched):
+    """The bytes of each part of a pool's cache: a K/V pool's blocks
+    (``attn``, ``self``), each leaf of the SSM state and the cross K/V
+    (``ssm/conv``, ``cross/k``, ...)."""
+    out = {}
+    for key, node in sched.pool.cache.items():
+        if hasattr(node, "k_pool"):
+            out[key] = tree_bytes([node.k_pool, node.v_pool])
+        else:
+            out.update({f"{key}/{leaf}": tree_bytes([t])
+                        for leaf, t in node.items()})
+    return out
+
+
+def rank_bytes(params, cfg, m):
+    """A rank's parameter bytes under ``cfg``'s rules on a model axis of
+    ``m``: each leaf the rules split an m-th; each part of a leaf of parts
+    (``model_zoo.serve_parts``) an m-th where it splits, whole where not;
+    every other leaf whole."""
+    import torch.utils._pytree as pytree
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import model_zoo
+    rules = model_zoo.make_rules(cfg, {"data": 1, "model": m})
+    axes = {pytree.keystr(k): a for k, a in pytree.tree_flatten_with_path(
+        model_zoo.param_axes(cfg),
+        is_leaf=lambda a: isinstance(a, tuple))[0]}
+    parts = {"".join(f"[{k!r}]" for k in path.split("/")): v
+             for path, v in model_zoo.serve_parts(cfg).items()}
+    total = 0
+    for path, t in pytree.tree_flatten_with_path(params)[0]:
+        key, n = pytree.keystr(path), t.numel() * t.element_size()
+        if key in parts:
+            d = sh._model_dim(rules, axes[key], None)
+            total += n // t.shape[d] * sum(w // m if split else w
+                                           for w, split in parts[key])
+        elif sh._model_dim(rules, axes[key], tuple(t.shape)) is not None:
+            total += n // m
+        else:
+            total += n
+    return total
+
+
+def rank_cache_bytes(whole, cfg, m):
+    """A rank's cache bytes on a model axis of ``m`` from the one-rank
+    pool's (``cache_bytes``): an m-th of each K/V pool, of the cross K/V
+    and of the SSM state, but mamba2's conv window, which keeps the whole
+    B and C channels (Di/m + 2N of Di + 2N)."""
+    out = {}
+    for key, n in whole.items():
+        if key == "ssm/conv" and cfg.ssm.kind == "mamba2":
+            di, N = cfg.d_inner, cfg.ssm.d_state
+            out[key] = n // (di + 2 * N) * (di // m + 2 * N)
+        else:
+            out[key] = n // m
+    return out
+
+
+FAMILY_KERNELS = ("selective_scan", "paged_attention", "flash_prefill")
+
+
+def warm(sched, reqs):
+    """The first request with 2 new tokens through a pool, outside the
+    timed run: the first use of an op in a process costs up to 8.8 s
+    (whisper-small's first drive on the H100, PERF.md §6), which the
+    run's tok/s would count. Returns its wall seconds, reported apart."""
+    import torch
+    prompt, _, *frames = reqs[0]
+    t0 = time.perf_counter()
+    sched.submit(prompt, max_new=2, request_id=len(reqs),
+                 **({"frames": frames[0]} if frames else {}))
+    sched.run_until_drained()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def family_serve_rank():
+    """One rank of phase 44: the three families in turn on the (1, 2)
+    data x model mesh, each on its slices of the weights (seed 0, drawn
+    whole on the card and freed once sliced), its kernel launches counted
+    from 0 just before the run."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import distributed
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model_zoo
+    mesh = mesh_lib.make_mesh(FAMILY_MESH, ("data", "model"), "cuda")
+    counters = launch_counters()
+    out = {}
+    for arch in FAMILY_LAYERS:
+        cfg = family_cfg(arch)
+        params = bridge.init_params(cfg, seed=0, device="cuda")
+        sh.reset_counts()
+        sched = make_family_scheduler(
+            params, cfg, rules=model_zoo.make_rules(cfg, mesh), mesh=mesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        reqs = family_requests(cfg)
+        first = warm(sched, reqs)
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = drive(sched, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[arch] = dict(
+            streams={r: [int(t) for t in s] for r, s in streams.items()},
+            wall=wall, first=first, counts=dict(sh.COUNTS),
+            layout=sched.model_layout,
+            launches={k: getattr(*counters[k]) for k in FAMILY_KERNELS},
+            gathers=getattr(*counters["gather"]),
+            params=tree_bytes(sched.params), cache=cache_bytes(sched))
+        del sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(rank=dist.get_rank(), backend=dist.get_backend(),
+                staged=list(distributed.STAGED), families=out)
+
+
+def diverging(got, want, gaps):
+    """(streams equal, [(request, first differing token, the one-rank
+    top-2 gap there)])."""
+    same, worst = 0, []
+    for rid, toks in want.items():
+        mine = got[rid]
+        if mine == toks:
+            same += 1
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(mine, toks)) if a != b),
+                 min(len(mine), len(toks)))
+        worst.append((rid, j, gaps.get((rid, j), float("inf"))))
+    return same, worst
+
+
+def phase_family_model_serve():
+    """falcon-mamba-7b, zamba2-1.2b and whisper-small at full width in
+    fp32 (depths cut to ``FAMILY_LAYERS``) on a (1, 2) data x model mesh
+    of two gloo ranks on ``cuda:0`` against the one-rank scheduler, which
+    runs first here for each family (host-read segments, each sampled
+    token's top-2 gap kept) and is freed before the ranks start. One
+    launch of the ranks serves the three in turn. Every pool is warmed
+    by one short request before its timed run. Returns rank 0's kernel
+    launches of each family's path."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.launch.distributed import run_local
+    smi = card_label()
+    m = FAMILY_MESH[1]
+    one = {}
+    for arch in FAMILY_LAYERS:
+        cfg = family_cfg(arch)
+        params = bridge.init_params(cfg, seed=0, device="cuda")
+        sched = make_family_scheduler(params, cfg, loop="host")
+        reqs = family_requests(cfg)
+        first = warm(sched, reqs)
+        gaps, restore = record_gaps(sched)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = {r: [int(t) for t in s]
+                    for r, s in drive(sched, reqs).items()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        cache = cache_bytes(sched)
+        one[arch] = dict(want=want, gaps=gaps, wall=wall, first=first,
+                         params=tree_bytes(params),
+                         rank_params=rank_bytes(params, cfg, m),
+                         cache=cache, rank_cache=rank_cache_bytes(cache, cfg,
+                                                                  m))
+        del params, sched, restore     # restore's closure holds sched
+        free_device_memory(f"the next of phase 44's one-rank runs ({arch} "
+                           f"done)")
+    t0 = time.perf_counter()
+    ranks = run_local(family_serve_rank, 2, device_type="cuda",
+                      backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    log(f"[family-serve] {smi}: mesh data x model {FAMILY_MESH}, two ranks "
+        f"on cuda:0 over {ranks[0]['backend']} (time-shared, not "
+        f"multi-device speed), staged through host memory: "
+        f"{ranks[0]['staged'] or 'nothing'}; {FAMILY_SERVE[0]} requests "
+        f"of {FAMILY_SERVE[1]} tokens (whisper 4-{WHISPER_PROMPT}), "
+        f"{FAMILY_SERVE[2]} new each, fp32, one-shot, 4 slots; launch and "
+        f"both ranks {wall:.1f} s")
+    failed = []
+    for arch, ref in one.items():
+        cfg = family_cfg(arch)
+        tokens = sum(len(t) for t in ref["want"].values())
+        log(f"[family-serve] {smi}: {arch} ({cfg.n_layers} layers"
+            + (f", d_inner {cfg.d_inner}" if cfg.ssm else "")
+            + (f", {cfg.n_heads}/{cfg.n_kv_heads} heads"
+               if cfg.n_heads else "")
+            + f"): one rank (host-read) {tokens / ref['wall']:.1f} tok/s "
+            f"(the warm-up request before it {ref['first']:.2f} s), "
+            f"parameters {ref['params'] / 1e9:.4f} GB, cache bytes "
+            f"{ref['cache']}")
+        for r in ranks:
+            got = r["families"][arch]
+            same, worst = diverging(got["streams"], ref["want"], ref["gaps"])
+            ratios = {k: f"{v / ref['cache'][k]:.4f}"
+                      for k, v in got["cache"].items()}
+            log(f"[family-serve] {smi}: {arch} rank {r['rank']}: "
+                f"{tokens / got['wall']:.1f} tok/s (gloo, two ranks "
+                f"time-sharing one card; the warm-up request before it "
+                f"{got['first']:.2f} s); layout {got['layout']}; streams "
+                f"equal {same}/{len(ref['want'])}"
+                + (f", diverging (request, token, one-rank top-2 gap): "
+                   f"{[(a, b, f'{g:.2e}') for a, b, g in worst]}"
+                   if worst else "")
+                + f"; parameters {got['params']} B "
+                f"({got['params'] / ref['params']:.4f} of one rank's; the "
+                f"rules give {ref['rank_params']} B); cache {got['cache']} "
+                f"(ratios {ratios}; the rules give {ref['rank_cache']}); "
+                f"launches {got['launches']}, gathers {got['gathers']}; "
+                f"counts {got['counts']}")
+            kernel = ("selective_scan" if cfg.family == "ssm"
+                      else "paged_attention")
+            if any(g >= MODEL_GAP for _, _, g in worst) or \
+                    got["counts"]["whole_gathers"] or \
+                    not got["counts"]["split_all_reduces"] or \
+                    got["layout"] != f"split:modelx{m}" or \
+                    got["params"] != ref["rank_params"] or \
+                    got["cache"] != ref["rank_cache"] or \
+                    not got["launches"][kernel] or got["gathers"]:
+                failed.append((arch, r["rank"]))
+    if failed:
+        raise AssertionError(f"the model-axis serving of the SSM, hybrid and "
+                             f"audio families failed a gate on (family, "
+                             f"rank) {failed}")
+    return {f"{arch}:modelx{m}": ranks[0]["families"][arch]["launches"]
+            for arch in FAMILY_LAYERS}
 
 
 def main() -> int:
@@ -6292,7 +6606,7 @@ def main() -> int:
     free_device_memory("the 1 + 1 disaggregation")
     timed(phase_disagg_mesh, colocated)
     free_device_memory("the MoE serving phase")
-    paths = {"llama3.2-1b": launches,
+    paths = {"llama3.2-1b": dict(launches),  # its own run's counts
              "qwen2-moe-a2.7b": timed(phase_moe_serve)}
     free_device_memory("the MoE parity phase")
     timed(phase_moe_parity)
@@ -6339,12 +6653,16 @@ def main() -> int:
     timed(phase_expert_parallel)
     free_device_memory("the model-axis serving phase")
     paths["llama3.2-1b:modelx2"] = timed(phase_model_serve)
+    free_device_memory("the model-axis serving of the SSM, hybrid and "
+                       "audio families")
+    paths.update(timed(phase_family_model_serve))
     for rec in records:
         rec["launches"] = launches[rec["name"]]
-        if rec["name"] in ("paged_attention", "flash_prefill"):
+        if rec["name"] in FAMILY_KERNELS:
             # each serving path's own run, counts set to 0 just before it
             rec["path_launches"] = {arch: got[rec["name"]]
-                                    for arch, got in paths.items()}
+                                    for arch, got in paths.items()
+                                    if rec["name"] in got}
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -46,7 +46,7 @@ __all__ = [
     "constrain", "local_heads",
     "split_rows", "split_mean", "ModelSplit", "NO_SPLIT", "local_offset",
     "COUNTS", "reset_counts",
-    "ServeSplit", "WHOLE", "serve_slices", "whole_params",
+    "ServeSplit", "WHOLE", "serve_slices",
     "keep_grad_layout",
     "logical_to_sharding",
     "distribute_local",
@@ -307,10 +307,11 @@ def constrain(x, rules: Optional[ShardingRules], logical_spec):
 # rank (every rank holds all of it, as a gather would leave it), and their
 # bytes; 0 where the mesh splits every weight, the weights' count where
 # the rules bind none of their axes. In serving, the weights that the
-# rules split over ``model`` and a rank holds whole (``serve_slices``,
-# ``whole_params``). ``split_all_reduces``: the all-reduces over the dims
+# rules split over ``model`` and a rank holds whole (``serve_slices``).
+# ``split_all_reduces``: the all-reduces over the dims
 # that split the weights (forward and backward, each mesh dim one; in
-# serving each sum of the ranks' parts). ``vocab_gathers``: the serving
+# serving each sum of the ranks' parts, and each norm's sum of squares over
+# a split width). ``vocab_gathers``: the serving
 # logits gathered over the model axis.
 COUNTS = {"whole_gathers": 0, "whole_gather_bytes": 0,
           "split_all_reduces": 0, "vocab_gathers": 0}
@@ -600,10 +601,12 @@ def keep_grad_layout(x):
 # GSPMD places them): the query heads and the K/V heads where ``HEADS`` and
 # ``KV_HEADS`` bind, the MLP's hidden columns (``MLP``), the experts or their
 # hidden columns (``EXPERT``, ``EXPERT_MLP``) and the vocabulary
-# (``VOCAB``). A sublayer whose contraction runs over a split dim leaves
-# each rank a part of the sum, which one all-reduce over the model axis
-# completes; the embedding lookup is masked to the rank's rows and summed
-# likewise, and the logits' columns are gathered, so that sampling sees
+# (``VOCAB``), the SSM mixers' channels (``INNER``) and the state and cross
+# K/V that go with them. A sublayer whose contraction runs over a split
+# dim leaves each rank a part of the sum, which one all-reduce over the
+# model axis completes; a norm over a split width adds the ranks' sums of
+# squares likewise; the embedding lookup is masked to the rank's rows and
+# summed, and the logits' columns are gathered, so that sampling sees
 # whole logits, the same bits on every rank.
 
 
@@ -623,7 +626,9 @@ class ServeSplit:
     one rank's plain slices knows of the mesh's model axis. ``group`` is
     the process group over ``model`` (None off a model axis), ``size`` and
     ``rank`` this rank's place on it, and ``offsets`` the parameter tree
-    with each leaf's offsets (where its local slice starts in each dim).
+    with each leaf's offsets (where its local slice starts in each dim; in
+    the model dim of a leaf cut by its parts, where each of the rank's
+    pieces starts in the whole leaf).
     A model run on whole weights gets ``WHOLE``, whose every method is the
     identity."""
 
@@ -654,6 +659,25 @@ class ServeSplit:
                              "the model group (sharding.serve_slices)")
         COUNTS["split_all_reduces"] += 1
         return self._all_reduce(t.contiguous())
+
+    def rms_norm(self, x, weight, width: int, eps: float = 1e-6):
+        """``layers.rms_norm`` of rows of ``width`` entries of which the
+        rank holds ``x``'s last dim (and the same entries of ``weight``):
+        each rank's sum of squares, added over the model axis (one
+        all-reduce), gives the mean over the whole width. Whole rows
+        take the mean as ``layers.rms_norm`` does."""
+        dt = x.dtype
+        x = x.float()
+        if x.shape[-1] == width:
+            ms = torch.mean(x * x, dim=-1, keepdim=True)
+        else:
+            self.offset(x.shape[-1], width)
+            ms = self.sum_parts((x * x).sum(dim=-1, keepdim=True),
+                                True) / width
+        x = x * torch.rsqrt(ms + eps)
+        if weight is not None:
+            x = x * weight.float()
+        return x.to(dt)
 
     def embed(self, table, tokens, vocab: int):
         """``table[tokens]`` for an embedding of ``vocab`` rows of which
@@ -703,41 +727,80 @@ class ServeSplit:
 WHOLE = ServeSplit()
 
 
-def serve_slices(params: Any, axes: Any, rules: ShardingRules, mesh):
+def serve_slices(params: Any, axes: Any, rules: ShardingRules, mesh,
+                 parts: Optional[Mapping[str, tuple]] = None):
     """``(local, split)``: this rank's slices of a parameter tree for
     serving on ``mesh``'s model axis, as plain tensors, and their
     ``ServeSplit``. Each leaf keeps the dim that the rules bind to
     ``model`` (``axes``: ``model_zoo.param_axes``) cut to the rank's
     slice and every other dim whole.
 
+    ``parts`` (``model_zoo.serve_parts``) names the leaves that
+    concatenate several tensors along that dim (a mixer's input
+    projection and conv), by their path (``"layers/ssm/in_proj"``), each
+    as its parts ``((width, split), ...)`` in order: each part that
+    splits is cut on its own and the others stay whole, so that the
+    rank's leaf is the concatenation of its parts' slices (a contiguous
+    cut of the whole would give one rank all of one part). A part that
+    splits must divide the axis: cutting it unevenly would split a head,
+    and that raises and names the rule.
+
     Nothing is gathered. A DTensor leaf gives its local tensor: placed by
     the rules it already is the slice; replicated over ``model`` it is
     whole here and the slice is cut from it. A plain leaf (every rank
     holds it whole) is cut likewise. A leaf placed any other way (split
-    over another axis, or over another dim than the rule's) cannot be
-    had without a gather: that raises and names the rule.
-    ``COUNTS["whole_gathers"]`` counts the leaves that the rules split
-    but that a rank would still hold whole (none here)."""
+    over another axis, or over another dim than the rule's, or a leaf of
+    parts split contiguously) cannot be had without a gather: that
+    raises and names the rule. ``COUNTS["whole_gathers"]`` counts the
+    leaves that the rules split but that a rank would still hold whole
+    (none here). On a mesh without a model axis every leaf is whole and
+    the split is ``WHOLE``'s."""
     names = list(mesh.mesh_dim_names)
-    dm = names.index(_MODEL_AXIS)
-    m, rank = mesh.size(dm), mesh.get_local_rank(dm)
+    if _MODEL_AXIS not in names:
+        dm, m, rank = None, 1, 0
+    else:
+        dm = names.index(_MODEL_AXIS)
+        m, rank = mesh.size(dm), mesh.get_local_rank(dm)
+    parts = parts or {}
 
     def one(t, ax, path):
         whole = tuple(t.shape)
-        d = _model_dim(rules, ax, whole)
+        cut_by = parts.get(path)
+        # a leaf of parts binds by its rule: its parts are checked below
+        d = _model_dim(rules, ax, None if cut_by else whole)
         if is_dtensor(t):
             for i, p in enumerate(t.placements):
-                if (i == dm and p.is_shard() and p.dim != d) or \
-                        (i != dm and not p.is_replicate()):
+                if (i == dm and p.is_shard() and (p.dim != d or cut_by)) \
+                        or (i != dm and not p.is_replicate()):
                     raise ValueError(
                         f"{path}: placed {p} over mesh axis {names[i]!r}; "
                         f"serving holds a rank's slice under the rule "
                         f"{ax} -> {rules.spec(ax, dims=whole)}, which only "
                         f"a gather could make of it")
-            cut = not t.placements[dm].is_shard()
+            cut = dm is None or not t.placements[dm].is_shard()
             t = t.to_local()
         else:
             cut = True
+        if d is not None and cut and cut_by:
+            widths = [w for w, _ in cut_by]
+            if sum(widths) != whole[d]:
+                raise ValueError(f"{path}: parts {cut_by} do not add up to "
+                                 f"its dim {d} of {whole[d]}")
+            for w, split in cut_by:
+                if split and w % m:
+                    raise ValueError(
+                        f"{path}: a part of {w} entries does not split over "
+                        f"the model axis of {m} under the rule {ax} -> "
+                        f"{rules.spec(ax)}; cutting it would split a head")
+            pieces = torch.split(t, widths, dim=d)
+            t = torch.cat([p.chunk(m, dim=d)[rank] if split else p
+                           for p, (_, split) in zip(pieces, cut_by)], dim=d)
+            starts, at = [], 0
+            for w, split in cut_by:
+                starts.append(at + (rank * w // m if split else 0))
+                at += w
+            return t.contiguous(), tuple(
+                tuple(starts) if i == d else 0 for i in range(t.dim()))
         if d is not None and cut:
             # a copy: a view would keep the whole tensor's storage alive
             t = t.chunk(m, dim=d)[rank].clone(
@@ -757,23 +820,10 @@ def serve_slices(params: Any, axes: Any, rules: ShardingRules, mesh):
         return one(t, ax, path.lstrip("/"))
 
     local, offsets = walk(params, axes, "")
+    if dm is None:
+        return local, WHOLE
     return local, ServeSplit(group=mesh.get_group(dm), size=m, rank=rank,
                              offsets=offsets)
-
-
-def whole_params(params: Any, axes: Any, rules: ShardingRules) -> Any:
-    """Every DTensor leaf of a parameter tree gathered whole
-    (``full_tensor``, a collective), for a model that runs on whole
-    weights on a mesh; ``COUNTS["whole_gathers"]`` counts each leaf that
-    the rules would split over ``model`` and the rank now holds whole."""
-    def one(t, ax):
-        if isinstance(t, dict):
-            return {k: one(v, ax[k]) for k, v in t.items()}
-        if _model_dim(rules, ax, tuple(t.shape)) is not None:
-            COUNTS["whole_gathers"] += 1
-            COUNTS["whole_gather_bytes"] += t.numel() * t.element_size()
-        return t.full_tensor() if is_dtensor(t) else t
-    return one(params, axes)
 
 
 def logical_to_sharding(axes: Any, rules: ShardingRules,

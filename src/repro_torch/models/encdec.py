@@ -16,6 +16,13 @@ JAX module's ``constrain`` calls have no counterpart: on a mesh,
 DTensor's propagation places the activations (``train_loop``), and its
 sequence-parallel attention route is a layout choice not ported
 (ROADMAP.md).
+
+On a serving mesh's model axis (``split``, ``sharding.serve_slices``)
+``encode``, ``_dec_block`` and ``cross_kv`` run on a rank's slices: its
+heads of every attention (the cross K/V of its K/V heads), its columns
+of each MLP's hidden width. Each sublayer's part is summed over the axis,
+the attention's after ``wo`` and the MLP's after ``w_out``, before its
+bias ``b_out`` (whole on every rank) is added, once.
 """
 
 from __future__ import annotations
@@ -93,16 +100,23 @@ def _q(p, x, cfg):
     return _heads(x.to(cfg.dtype("compute")), p["wq"])
 
 
-def _proj_out(p, out, cfg, x):
+def _proj_out(p, out, cfg, x, split=sh.WHOLE):
+    """The output projection; on a rank's heads a part of the sum over
+    every head, summed over the model axis."""
     B, S, H, hd = out.shape
     o = out.to(cfg.dtype("compute")).reshape(B, S, H * hd)
-    return sh.keep_grad_layout((o @ p["wo"].reshape(H * hd, -1)).to(x.dtype))
+    o = split.sum_parts(o @ p["wo"].reshape(H * hd, -1), H < cfg.n_heads)
+    return sh.keep_grad_layout(o.to(x.dtype))
 
 
-def _mlp(p, h, cfg):
-    return sh.keep_grad_layout(layers.gelu_mlp(
-        h, p["w_in"], p["b_in"], p["w_out"], p["b_out"],
-        cfg.dtype("compute")))
+def _mlp(p, h, cfg, split=sh.WHOLE):
+    """The GELU MLP; on a rank's hidden columns its ``w_out`` product is
+    a part of the sum, summed over the model axis before ``b_out`` is
+    added."""
+    m = layers.gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"], None,
+                        cfg.dtype("compute"))
+    m = split.sum_parts(m, p["w_out"].shape[-2] < cfg.d_ff)
+    return sh.keep_grad_layout(m + p["b_out"])
 
 
 def _attend(q, k, v, cfg, **kw):
@@ -112,8 +126,9 @@ def _attend(q, k, v, cfg, **kw):
         q, k, v)
 
 
-def encode(params, cfg, frames):
-    """frames: (B, F, D) stub embeddings -> (B, F, D) encoder output."""
+def encode(params, cfg, frames, split=sh.WHOLE):
+    """frames: (B, F, D) stub embeddings -> (B, F, D) encoder output
+    (whole on every rank of a model axis)."""
     cdt = cfg.dtype("compute")
     F = frames.shape[1]
     x = frames.to(cdt) + layers.sinusoidal_positions(F, cfg.d_model, cdt,
@@ -123,16 +138,17 @@ def encode(params, cfg, frames):
         h = layers.layer_norm(x, lp["ln1"], lp["ln1_b"])
         q, k, v = _qkv(lp["attn"], h, cfg)
         a = _attend(q, k, v, cfg, causal=False)
-        x = x + _proj_out(lp["attn"], a, cfg, x)
+        x = x + _proj_out(lp["attn"], a, cfg, x, split)
         h = layers.layer_norm(x, lp["ln2"], lp["ln2_b"])
-        return x + _mlp(lp["mlp"], h, cfg).to(x.dtype)
+        return x + _mlp(lp["mlp"], h, cfg, split).to(x.dtype)
 
     x = transformer._run_layers(params["encoder"], x, cfg, block)
     return layers.layer_norm(x, params["enc_ln"], params["enc_ln_b"])
 
 
 def _dec_block(lp, x, cfg, enc_out=None, *, mode="full", self_kv=None,
-               cross_kv=None, cur_len=None, chunk_off=None):
+               cross_kv=None, cur_len=None, chunk_off=None,
+               split=sh.WHOLE):
     """One decoder block; returns the new x.
 
     ``self_kv``/``cross_kv`` are cache layer views (``serve.kv_cache``)
@@ -151,7 +167,9 @@ def _dec_block(lp, x, cfg, enc_out=None, *, mode="full", self_kv=None,
     from ``enc_out``); ``decode`` (one token appended at ``cur_len - 1``
     and attended through ``decode_attention``, the paged-attention
     kernel on a paged view under ``attn_impl="cuda"``; cross-attention
-    through the plain path over all ``n_frames`` positions)."""
+    through the plain path over all ``n_frames`` positions). ``split``:
+    the block's weights and cache views are a rank's heads and columns
+    (module docstring)."""
     h = layers.layer_norm(x, lp["ln1"], lp["ln1_b"])
     q, k, v = _qkv(lp["self_attn"], h, cfg)
     if mode == "full":
@@ -173,7 +191,7 @@ def _dec_block(lp, x, cfg, enc_out=None, *, mode="full", self_kv=None,
                                       attn_impl=cfg.attn_impl)
     else:
         raise ValueError(mode)
-    x = x + _proj_out(lp["self_attn"], a, cfg, x)
+    x = x + _proj_out(lp["self_attn"], a, cfg, x, split)
 
     # cross-attention to the encoder
     h = layers.layer_norm(x, lp["ln2"], lp["ln2_b"])
@@ -189,10 +207,10 @@ def _dec_block(lp, x, cfg, enc_out=None, *, mode="full", self_kv=None,
     else:
         a = attn_lib.decode_attention(_q(lp["cross_attn"], h, cfg),
                                       cross_kv, cur_len=cross_kv.k.shape[1])
-    x = x + _proj_out(lp["cross_attn"], a, cfg, x)
+    x = x + _proj_out(lp["cross_attn"], a, cfg, x, split)
 
     h = layers.layer_norm(x, lp["ln3"], lp["ln3_b"])
-    return x + _mlp(lp["mlp"], h, cfg).to(x.dtype)
+    return x + _mlp(lp["mlp"], h, cfg, split).to(x.dtype)
 
 
 def forward_features(params, cfg, tokens, frames) -> Tuple[torch.Tensor,
@@ -223,7 +241,8 @@ def forward(params, cfg, tokens, frames) -> Tuple[torch.Tensor, Dict]:
 def cross_kv(params, cfg, enc_out) -> Dict[str, torch.Tensor]:
     """Every decoder layer's cross-attention K/V of ``enc_out``:
     ``{"k", "v"}``, each (L, B, F, KV, hd) in the compute dtype, the
-    same projections the prefill's cross-attention makes."""
+    same projections the prefill's cross-attention makes (KV the rank's
+    heads where its ``wk``/``wv`` are its slices)."""
     e = enc_out.to(cfg.dtype("compute"))
     lps = transformer.layer_params(params["decoder"])
     return {"k": torch.stack([_heads(e, lp["cross_attn"]["wk"])

@@ -114,8 +114,9 @@ def sinusoid_at(pos, d: int, dtype=torch.float32):
 
 
 def gelu_mlp(x, w_in, b_in, w_out, b_out, compute_dtype):
-    """GELU MLP with biases: gelu_tanh(x @ w_in + b_in) @ w_out + b_out.
-    The weights are already in ``compute_dtype`` (cast once at load)."""
+    """GELU MLP with biases: gelu_tanh(x @ w_in + b_in) @ w_out + b_out
+    (``b_out`` None: without it). The weights are already in
+    ``compute_dtype`` (cast once at load)."""
     x = x.to(compute_dtype)
-    h = F.gelu(x @ w_in + b_in, approximate="tanh")
-    return h @ w_out + b_out
+    h = F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out
+    return h if b_out is None else h + b_out

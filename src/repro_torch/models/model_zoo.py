@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig, require_ported
 from ..dist import sharding as sh
-from . import encdec, transformer
+from . import encdec, ssm, transformer
 
 CE_CHUNK = 512
 MOE_AUX_WEIGHTS = {"moe_load_balance": 1e-2, "moe_z_loss": 1e-3}
@@ -210,6 +210,17 @@ def param_axes(cfg: ModelConfig):
     from ..bridge import _ParamSource
     require_ported(cfg)
     return build_fn(cfg)(cfg, _ParamSource(cfg, mode="axes"))
+
+
+def serve_parts(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The leaves of the parameter tree that concatenate several tensors
+    along the dim the rules split over ``model``, by path, each as its
+    parts (``ssm.serve_parts``; ``sharding.serve_slices`` cuts them part
+    by part): the mamba mixers' of the ``ssm`` and ``hybrid`` families,
+    none elsewhere."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return {}
+    return {f"layers/ssm/{k}": v for k, v in ssm.serve_parts(cfg).items()}
 
 
 def make_rules(cfg: ModelConfig, mesh) -> sh.ShardingRules:

@@ -45,6 +45,22 @@ one chunk.
 Decode (``mamba1_step``, ``mamba2_step``) is one state update per
 token; ``mixer_forward``, ``mixer_step`` and ``init_state`` pick the
 mixer by ``cfg.ssm.kind``.
+
+On a serving mesh's model axis (``split``, ``sharding.serve_slices``)
+each mixer runs on a rank's slices of its weights, where ``INNER``
+splits them: mamba1 on its Di/m channels (its x and z from its own
+``in_proj`` columns, the conv, ``dt_proj``, ``A_log``, ``D_skip`` and the
+scan on them; ``x_proj``'s (dt_low, B, C), a part of a sum over the
+channels, summed over the axis before ``dt_proj``); mamba2 on its H/m
+heads (z, x and dt of them; B and C whole on every rank, so its conv
+runs on its x channels and the whole B and C channels; ``A_log``,
+``dt_bias`` and ``D_skip``, whole, read at its head offset; the gated
+RMSNorm's mean over the whole Di from the ranks' sums of squares).
+``out_proj``'s part is summed after the mixer. ``serve_parts`` lists the
+leaves that concatenate several tensors along ``INNER``, which the
+slicer cuts part by part. The state then holds the rank's channels:
+mamba1's conv (B, K-1, Di/m) and h (B, Di/m, N), mamba2's conv (B, K-1,
+Di/m + 2N) and h (B, H/m, P, N).
 """
 
 from __future__ import annotations
@@ -57,7 +73,6 @@ import torch.nn.functional as F
 
 from ..kernels.selective_scan.ops import selective_scan
 from ..dist import sharding as sh
-from . import layers
 
 # leaves the JAX package reads in fp32 whatever the compute dtype
 PARAM_DTYPE_LEAVES = ("A_log", "dt_bias", "D_skip")
@@ -85,6 +100,21 @@ def mamba1_params(b, cfg):
     }
 
 
+def serve_parts(cfg) -> Dict[str, tuple]:
+    """The mixer's leaves that concatenate several tensors along their
+    ``INNER`` dim, each as its parts ``((width, split over model),
+    ...)`` in order (``sharding.serve_slices``): mamba1's ``in_proj`` is
+    ``[x | z]``; mamba2's is ``[z | x | B | C | dt]``, and its conv's
+    channels ``[x | B | C]``, B and C (N each) whole on every rank and dt
+    one entry a head."""
+    s, di = cfg.ssm, cfg.d_inner
+    if s.kind == "mamba1":
+        return {"in_proj": ((di, True), (di, True))}
+    xbc = ((di, True), (s.d_state, False), (s.d_state, False))
+    return {"in_proj": ((di, True),) + xbc + ((di // s.head_dim, True),),
+            "conv_w": xbc, "conv_b": xbc}
+
+
 def _causal_conv(x, w, b):
     """Depthwise causal conv via K shifted adds. x: (B, S, Di); w:
     (K, Di)."""
@@ -103,11 +133,14 @@ def _conv_step(conv_state, x_t, w, b):
     return window[:, 1:], y
 
 
-def _ssm_inputs_m1(p, x, cfg):
-    """Shared preamble: (dt, B, C) from the conv'd activations, fp32."""
+def _ssm_inputs_m1(p, x, cfg, split=sh.WHOLE):
+    """Shared preamble: (dt, B, C) from the conv'd activations, fp32. On
+    a rank's channels ``x_proj``'s product is a part of the sum over
+    every channel, summed over the model axis."""
     s = cfg.ssm
     dt_rank = p["dt_proj"].shape[0]
-    dbc = x @ p["x_proj"].to(x.dtype)
+    dbc = split.sum_parts(x @ p["x_proj"].to(x.dtype),
+                          p["x_proj"].shape[0] < cfg.d_inner)
     dt_low, B_, C_ = torch.split(dbc, [dt_rank, s.d_state, s.d_state],
                                  dim=-1)
     dt = F.softplus((dt_low @ p["dt_proj"].to(x.dtype)).float()
@@ -208,10 +241,19 @@ _SCANS = {"assoc": _chunked(_scan_assoc), "blocked": _chunked(_scan_blocked),
           "cuda": _scan_cuda}
 
 
-def mamba1_forward(p: Dict, x, cfg, return_state: bool = False):
+def _out(p, y, cfg, split):
+    """``out_proj``, whose product on a rank's channels is a part of the
+    sum over every channel, summed over the model axis."""
+    return split.sum_parts(y @ p["out_proj"].to(y.dtype),
+                           p["out_proj"].shape[0] < cfg.d_inner)
+
+
+def mamba1_forward(p: Dict, x, cfg, return_state: bool = False,
+                   split=sh.WHOLE):
     """Full-sequence mamba1 mixer. x: (B, S, D) -> (B, S, D); with
     ``return_state`` also the state after the last position,
-    ``{"conv": (B, K-1, Di) compute dtype, "h": (B, Di, N) fp32}``."""
+    ``{"conv": (B, K-1, Di) compute dtype, "h": (B, Di, N) fp32}`` (Di
+    the rank's channels on a model axis, module docstring)."""
     s = cfg.ssm
     Bn = x.shape[0]
     cdt = cfg.dtype("compute")
@@ -220,7 +262,7 @@ def mamba1_forward(p: Dict, x, cfg, return_state: bool = False):
     xs_pre, z = xz.chunk(2, dim=-1)
     xs = F.silu(_causal_conv(xs_pre, p["conv_w"].to(cdt),
                              p["conv_b"].to(cdt)))
-    dt, B_, C_ = _ssm_inputs_m1(p, xs, cfg)
+    dt, B_, C_ = _ssm_inputs_m1(p, xs, cfg, split)
     A = -torch.exp(p["A_log"].float())                        # (Di, N)
     xf = xs.float()
 
@@ -229,7 +271,7 @@ def mamba1_forward(p: Dict, x, cfg, return_state: bool = False):
     y, h = _SCANS[s.scan_impl](dt, A, B_, C_, xf, h, cfg)
     y = y + p["D_skip"].float() * xf
     y = y.to(cdt) * F.silu(z)
-    out = (y @ p["out_proj"].to(cdt)).to(x.dtype)
+    out = _out(p, y, cfg, split).to(x.dtype)
     if return_state:
         K = s.d_conv
         pad = F.pad(xs_pre, (0, 0, K - 1, 0))
@@ -237,15 +279,16 @@ def mamba1_forward(p: Dict, x, cfg, return_state: bool = False):
     return out
 
 
-def mamba1_init_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
-    s = cfg.ssm
-    return {"conv": torch.zeros((batch, s.d_conv - 1, cfg.d_inner),
+def mamba1_init_state(cfg, batch: int, device, inner: int = 0
+                      ) -> Dict[str, torch.Tensor]:
+    s, di = cfg.ssm, inner or cfg.d_inner
+    return {"conv": torch.zeros((batch, s.d_conv - 1, di),
                                 dtype=cfg.dtype("compute"), device=device),
-            "h": torch.zeros((batch, cfg.d_inner, s.d_state),
+            "h": torch.zeros((batch, di, s.d_state),
                              dtype=torch.float32, device=device)}
 
 
-def mamba1_step(p: Dict, x_t, state: Dict, cfg
+def mamba1_step(p: Dict, x_t, state: Dict, cfg, split=sh.WHOLE
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single decode step. x_t: (B, D) -> (y, new_state)."""
     cdt = cfg.dtype("compute")
@@ -254,7 +297,7 @@ def mamba1_step(p: Dict, x_t, state: Dict, cfg
     conv_new, xs = _conv_step(state["conv"], xs, p["conv_w"].to(cdt),
                               p["conv_b"].to(cdt))
     xs = F.silu(xs)
-    dt, B_, C_ = _ssm_inputs_m1(p, xs, cfg)                 # (B,Di),(B,N)
+    dt, B_, C_ = _ssm_inputs_m1(p, xs, cfg, split)          # (B,Di),(B,N)
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt[..., None] * A)                         # (B, Di, N)
     dBx = (dt * xs.float())[..., None] * B_[:, None, :]
@@ -262,8 +305,7 @@ def mamba1_step(p: Dict, x_t, state: Dict, cfg
     y = torch.einsum("bdn,bn->bd", h, C_)
     y = y + p["D_skip"].float() * xs.float()
     y = y.to(cdt) * F.silu(z)
-    out = y @ p["out_proj"].to(cdt)
-    return out.to(x_t.dtype), {"conv": conv_new, "h": h}
+    return _out(p, y, cfg, split).to(x_t.dtype), {"conv": conv_new, "h": h}
 
 
 # =========================== Mamba-2 (SSD) =================================
@@ -287,12 +329,22 @@ def mamba2_params(b, cfg):
     }
 
 
-def _split_m2(zxbcdt, cfg):
-    """(z, xBC, dt_raw) of the input projection: widths d_inner,
-    d_inner + 2N and the head count."""
-    di, N = cfg.d_inner, cfg.ssm.d_state
+def _split_m2(zxbcdt, di: int, N: int):
+    """(z, xBC, dt_raw) of the input projection: widths ``di`` (the
+    rank's channels), di + 2N and the rank's head count."""
     return torch.split(zxbcdt, [di, di + 2 * N, zxbcdt.shape[-1] - 2 * di
                                 - 2 * N], dim=-1)
+
+
+def _heads_m2(p, cfg, split):
+    """(the rank's channels di, its heads H, and its heads' ``A_log``,
+    ``dt_bias`` and ``D_skip``: whole leaves, read at the whole model's
+    offset of its first head)."""
+    di = p["out_proj"].shape[0]
+    H = di // cfg.ssm.head_dim
+    h0 = split.offset(H, cfg.d_inner // cfg.ssm.head_dim)
+    return (di, H) + tuple(p[k][h0:h0 + H]
+                           for k in ("A_log", "dt_bias", "D_skip"))
 
 
 def _ssd_chunk(h, la_c, B_c, C_c, dtx_c, causal):
@@ -315,28 +367,30 @@ def _ssd_chunk(h, la_c, B_c, C_c, dtx_c, causal):
     return h_new, y_intra + y_inter
 
 
-def mamba2_forward(p: Dict, x, cfg, return_state: bool = False):
+def mamba2_forward(p: Dict, x, cfg, return_state: bool = False,
+                   split=sh.WHOLE):
     """Full-sequence mamba2 mixer (SSD, chunk by chunk). x: (B, S, D) ->
     (B, S, D); with ``return_state`` also the state after the last
     position, ``{"conv": (B, K-1, Di + 2N) compute dtype, "h": (B, H, P,
-    N) fp32}``."""
+    N) fp32}`` (Di and H the rank's on a model axis, module
+    docstring)."""
     s = cfg.ssm
     Bn, S, _ = x.shape
     cdt = cfg.dtype("compute")
-    di, P, N = cfg.d_inner, s.head_dim, s.d_state
-    H = di // P
+    P, N = s.head_dim, s.d_state
+    di, H, A_log, dt_bias, D_skip = _heads_m2(p, cfg, split)
     Q = min(s.chunk, S)
     if S % Q != 0:
         Q = S      # odd lengths (tests, short prompts): a single chunk
 
     zxbcdt = x.to(cdt) @ p["in_proj"].to(cdt)
-    z, xBC_pre, dt_raw = _split_m2(zxbcdt, cfg)
+    z, xBC_pre, dt_raw = _split_m2(zxbcdt, di, N)
     xBC = F.silu(_causal_conv(xBC_pre, p["conv_w"].to(cdt),
                               p["conv_b"].to(cdt)))
     xs, B_, C_ = torch.split(xBC, [di, N, N], dim=-1)
     xf = xs.reshape(Bn, S, H, P).float()
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())    # (B, S, H)
-    la = dt * -torch.exp(p["A_log"].float())                  # log-decay
+    dt = F.softplus(dt_raw.float() + dt_bias.float())         # (B, S, H)
+    la = dt * -torch.exp(A_log.float())                       # log-decay
     Bf, Cf = B_.float(), C_.float()
     dtx = dt[..., None] * xf                                  # (B, S, H, P)
 
@@ -349,10 +403,10 @@ def mamba2_forward(p: Dict, x, cfg, return_state: bool = False):
                             causal)
         ys.append(y_c)
     y = torch.cat(ys, dim=1)
-    y = y + p["D_skip"].float()[:, None] * xf
+    y = y + D_skip.float()[:, None] * xf
     y = y.reshape(Bn, S, di).to(cdt) * F.silu(z)
-    y = layers.rms_norm(y, p["norm_w"])
-    out = (y.to(cdt) @ p["out_proj"].to(cdt)).to(x.dtype)
+    y = split.rms_norm(y, p["norm_w"], cfg.d_inner)
+    out = _out(p, y.to(cdt), cfg, split).to(x.dtype)
     if return_state:
         K = s.d_conv
         pad = F.pad(xBC_pre, (0, 0, K - 1, 0))
@@ -360,58 +414,61 @@ def mamba2_forward(p: Dict, x, cfg, return_state: bool = False):
     return out
 
 
-def mamba2_init_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
-    s = cfg.ssm
-    H = cfg.d_inner // s.head_dim
-    return {"conv": torch.zeros((batch, s.d_conv - 1,
-                                 cfg.d_inner + 2 * s.d_state),
+def mamba2_init_state(cfg, batch: int, device, inner: int = 0
+                      ) -> Dict[str, torch.Tensor]:
+    s, di = cfg.ssm, inner or cfg.d_inner
+    H = di // s.head_dim
+    return {"conv": torch.zeros((batch, s.d_conv - 1, di + 2 * s.d_state),
                                 dtype=cfg.dtype("compute"), device=device),
             "h": torch.zeros((batch, H, s.head_dim, s.d_state),
                              dtype=torch.float32, device=device)}
 
 
-def mamba2_step(p: Dict, x_t, state: Dict, cfg
+def mamba2_step(p: Dict, x_t, state: Dict, cfg, split=sh.WHOLE
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single decode step. x_t: (B, D) -> (y, new_state)."""
     s = cfg.ssm
     cdt = cfg.dtype("compute")
-    di, P, N = cfg.d_inner, s.head_dim, s.d_state
-    H = di // P
+    P, N = s.head_dim, s.d_state
+    di, H, A_log, dt_bias, D_skip = _heads_m2(p, cfg, split)
     zxbcdt = x_t.to(cdt) @ p["in_proj"].to(cdt)
-    z, xBC, dt_raw = _split_m2(zxbcdt, cfg)
+    z, xBC, dt_raw = _split_m2(zxbcdt, di, N)
     conv_new, xBC = _conv_step(state["conv"], xBC, p["conv_w"].to(cdt),
                                p["conv_b"].to(cdt))
     xBC = F.silu(xBC)
     xs, B_, C_ = torch.split(xBC, [di, N, N], dim=-1)
     xs = xs.reshape(-1, H, P).float()
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())    # (B, H)
-    dA = torch.exp(dt * -torch.exp(p["A_log"].float()))       # (B, H)
+    dt = F.softplus(dt_raw.float() + dt_bias.float())         # (B, H)
+    dA = torch.exp(dt * -torch.exp(A_log.float()))            # (B, H)
     h = (dA[..., None, None] * state["h"]
          + (xs * dt[..., None])[..., None] * B_.float()[:, None, None, :])
     y = torch.einsum("bn,bhpn->bhp", C_.float(), h)
-    y = y + p["D_skip"].float()[:, None] * xs
+    y = y + D_skip.float()[:, None] * xs
     y = y.reshape(-1, di).to(cdt) * F.silu(z)
-    y = layers.rms_norm(y, p["norm_w"])
-    out = y.to(cdt) @ p["out_proj"].to(cdt)
-    return out.to(x_t.dtype), {"conv": conv_new, "h": h}
+    y = split.rms_norm(y, p["norm_w"], cfg.d_inner)
+    return _out(p, y.to(cdt), cfg, split).to(x_t.dtype), {"conv": conv_new,
+                                                           "h": h}
 
 
 # =========================== by kind ========================================
 
-def mixer_forward(p: Dict, x, cfg, return_state: bool = False):
+def mixer_forward(p: Dict, x, cfg, return_state: bool = False,
+                  split=sh.WHOLE):
     """``mamba1_forward`` or ``mamba2_forward`` by ``cfg.ssm.kind``."""
     fwd = mamba1_forward if cfg.ssm.kind == "mamba1" else mamba2_forward
-    return fwd(p, x, cfg, return_state=return_state)
+    return fwd(p, x, cfg, return_state=return_state, split=split)
 
 
-def mixer_step(p: Dict, x_t, state: Dict, cfg):
+def mixer_step(p: Dict, x_t, state: Dict, cfg, split=sh.WHOLE):
     """``mamba1_step`` or ``mamba2_step`` by ``cfg.ssm.kind``."""
     step = mamba1_step if cfg.ssm.kind == "mamba1" else mamba2_step
-    return step(p, x_t, state, cfg)
+    return step(p, x_t, state, cfg, split)
 
 
-def init_state(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
-    """``mamba1_init_state`` or ``mamba2_init_state`` by kind."""
+def init_state(cfg, batch: int, device, inner: int = 0
+               ) -> Dict[str, torch.Tensor]:
+    """``mamba1_init_state`` or ``mamba2_init_state`` by kind; ``inner``
+    is a rank's channels on a model axis (0: ``cfg.d_inner``)."""
     init = (mamba1_init_state if cfg.ssm.kind == "mamba1"
             else mamba2_init_state)
-    return init(cfg, batch, device)
+    return init(cfg, batch, device, inner)

@@ -465,17 +465,19 @@ def _no_layer() -> None:
     """The untaken side of a layer's IF node: the state is in place."""
 
 
-def ssm_block(p, x, cfg, *, mode="full", state=None):
+def ssm_block(p, x, cfg, *, mode="full", state=None, split=sh.WHOLE):
     """Pre-norm mamba block (mamba1 or mamba2 by ``cfg.ssm.kind``);
     returns the new x. Mode ``full`` runs the mixer over the sequence;
     mode ``decode`` takes one token (x: (B, 1, D)) and updates this
     layer's ``state`` (``{"conv", "h"}`` views into the cache) in
-    place."""
+    place. On a rank's slices of a serving mesh's model axis
+    (``split``) the mixer runs on its channels and its output is summed
+    over the axis (``models.ssm``)."""
     h = layers.apply_norm(cfg.norm, x, p, "ln")
     if mode == "full":
-        y = ssm_lib.mixer_forward(p["ssm"], h, cfg)
+        y = ssm_lib.mixer_forward(p["ssm"], h, cfg, split=split)
     elif mode == "decode":
-        y, new = ssm_lib.mixer_step(p["ssm"], h[:, 0], state, cfg)
+        y, new = ssm_lib.mixer_step(p["ssm"], h[:, 0], state, cfg, split)
         state["conv"].copy_(new["conv"])
         state["h"].copy_(new["h"])
         y = y[:, None]

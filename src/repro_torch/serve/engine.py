@@ -25,6 +25,13 @@ positions ``[0, n_patches)`` ahead of its tokens, in ``prefill`` and
 place, so the decode and chunk steps return logits only; ``prefill``
 also returns the SSM state it computed, fresh, for the caller to splice.
 
+On a serving mesh's model axis (``split``, ``sharding.serve_slices``)
+every family runs on a rank's slices of the weights, and its cache holds
+the rank's part: the K/V heads of each ``KVCache`` and of the cross K/V
+(``CACHE_KV``), the SSM state's channels (``INNER``: mamba1's Di/m,
+mamba2's H/m heads, its conv window the rank's x channels and the whole B
+and C), as ``make_cache(kv_heads=, inner=)`` sizes them.
+
 ``decode_step`` accepts an int ``cur_len`` (whole batch in lockstep) or
 a per-row ``(B,)`` int32 tensor (slot pool at mixed depths); the audio
 family adds the sinusoid of each row's position, computed on the device
@@ -49,20 +56,23 @@ from . import kv_cache as kvc
 from . import sampling as sampling_lib
 
 
-def _ssm_struct(cfg: ModelConfig, batch: int, device) -> Dict[str, Any]:
+def _ssm_struct(cfg: ModelConfig, batch: int, device,
+                inner: int = 0) -> Dict[str, Any]:
     """Zeroed SSM state of every layer, the layer dim first: mamba1's
     conv (L, batch, K-1, Di) and h (L, batch, Di, N), mamba2's conv (L,
     batch, K-1, Di + 2N) and h (L, batch, H, P, N); conv in the compute
-    dtype, h fp32."""
-    one = ssm_lib.init_state(cfg, batch, device)
+    dtype, h fp32. ``inner``: a rank's channels Di (0: all)."""
+    one = ssm_lib.init_state(cfg, batch, device, inner)
     return {k: v.new_zeros((cfg.n_layers,) + v.shape)
             for k, v in one.items()}
 
 
-def _cross_struct(cfg: ModelConfig, batch: int, device) -> Dict[str, Any]:
+def _cross_struct(cfg: ModelConfig, batch: int, device,
+                  kv_heads: Optional[int] = None) -> Dict[str, Any]:
     """Zeroed cross-attention K/V of every decoder layer, ``{"k", "v"}``
-    each (L, batch, n_frames, KV, hd) in the compute dtype."""
-    shape = (cfg.n_layers, batch, cfg.n_frames, cfg.n_kv_heads,
+    each (L, batch, n_frames, KV, hd) in the compute dtype (KV a rank's
+    ``kv_heads``, default all)."""
+    shape = (cfg.n_layers, batch, cfg.n_frames, kv_heads or cfg.n_kv_heads,
              cfg.resolved_head_dim)
     return {k: torch.zeros(shape, dtype=cfg.dtype("compute"), device=device)
             for k in ("k", "v")}
@@ -90,7 +100,7 @@ def _attn_layer_count(cfg: ModelConfig) -> int:
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                kv_impl: str = "dense", kv_block: int = 16,
                kv_blocks: Optional[int] = None, kv_sharing: bool = False,
-               kv_heads: Optional[int] = None,
+               kv_heads: Optional[int] = None, inner: int = 0,
                device="cuda") -> Dict[str, Any]:
     """``{"attn": KVCache}`` for the attention-decoder families,
     ``{"ssm": {"conv", "h"}}`` for pure SSM, both for the hybrid,
@@ -100,13 +110,16 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     dense-equivalent capacity), ``kv_sharing`` lets its rows share
     blocks (the prefix cache), ``kv_heads`` is a rank's K/V heads under
     a split of ``CACHE_KV`` over the model axis (``local_kv_heads``;
-    default: all of them)."""
+    default: all of them), in the self and the cross K/V alike, and
+    ``inner`` its SSM channels under a split of ``INNER``
+    (``local_inner``; 0: all of them)."""
     require_ported(cfg)
     out = {}
     if cfg.family in ("ssm", "hybrid"):
-        out["ssm"] = _ssm_struct(cfg, batch, resolve_device(device))
+        out["ssm"] = _ssm_struct(cfg, batch, resolve_device(device), inner)
     if cfg.family == "audio":
-        out["cross"] = _cross_struct(cfg, batch, resolve_device(device))
+        out["cross"] = _cross_struct(cfg, batch, resolve_device(device),
+                                     kv_heads)
     if kv_key(cfg) is not None:
         out[kv_key(cfg)] = kvc.make_kv_cache(
             cfg, _attn_layer_count(cfg), batch, max_len, impl=kv_impl,
@@ -115,11 +128,39 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return out
 
 
-def local_kv_heads(params, cfg: ModelConfig) -> int:
-    """The K/V heads of an attention-decoder family's parameters as a
-    rank holds them: ``cfg.n_kv_heads``, or its share under a split of
-    ``KV_HEADS`` over the model axis (``sharding.serve_slices``)."""
-    return params["layers"]["attn"]["wk"].shape[2]
+def local_kv_heads(params, cfg: ModelConfig) -> Optional[int]:
+    """The K/V heads of a family's self-attention as a rank holds its
+    parameters: ``cfg.n_kv_heads``, or its share under a split of
+    ``KV_HEADS`` over the model axis (``sharding.serve_slices``); None
+    for the pure-SSM family, which has none."""
+    if cfg.family == "ssm":
+        return None
+    wk = (params["shared_attn"]["attn"]["wk"] if cfg.family == "hybrid"
+          else params["decoder"]["self_attn"]["wk"] if cfg.family == "audio"
+          else params["layers"]["attn"]["wk"])
+    return wk.shape[-2]
+
+
+def local_inner(params, cfg: ModelConfig) -> int:
+    """The SSM channels a rank's mixer parameters hold: ``cfg.d_inner``,
+    or its share under a split of ``INNER``; 0 for the families without
+    a mixer."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0
+    return params["layers"]["ssm"]["out_proj"].shape[-2]
+
+
+def _state_axes(cfg: ModelConfig, key: str, leaf: str, row_axis) -> tuple:
+    """The logical axes of a per-row cache leaf (the JAX package's
+    ``_ssm_struct``/``_cross_struct`` axes): the SSM state's channels or
+    heads on ``INNER``, the cross K/V's heads on ``CACHE_KV``."""
+    if key == "cross":
+        return (sh.LAYERS, row_axis, None, sh.CACHE_KV, sh.CACHE_HD)
+    if leaf == "conv":
+        return (sh.LAYERS, row_axis, None, sh.INNER)
+    if cfg.ssm.kind == "mamba1":
+        return (sh.LAYERS, row_axis, sh.INNER, sh.STATE)
+    return (sh.LAYERS, row_axis, sh.INNER, None, sh.STATE)
 
 
 def cache_shardings(cfg: ModelConfig, rules, mesh=None, *, cache,
@@ -128,15 +169,19 @@ def cache_shardings(cfg: ModelConfig, rules, mesh=None, *, cache,
     (the JAX package's ``cache_shardings``): a ``KVCache`` node gives its
     own (``shardings``), the SSM state and the audio family's cross K/V
     put their row dim (axis 1) on ``row_axis`` (the scheduler passes
-    ``SLOT``). ``cache`` is the tree to mirror, at the global row count
-    (a cache on the "meta" device costs nothing)."""
+    ``SLOT``), the state's channels on ``INNER`` and the cross K/V's
+    heads on ``CACHE_KV``. ``cache`` is the tree to mirror, at the global
+    row count (a cache on the "meta" device costs nothing). mamba2's conv
+    window under ``INNER`` holds each rank's x channels beside the whole
+    B and C (``models.ssm``), so its placement reads the ranks' windows
+    side by side, not a cut of one window."""
     out: Dict[str, Any] = {}
     for key, node in cache.items():
         if hasattr(node, "shardings"):
             out[key] = node.shardings(rules, mesh, row_axis=row_axis)
         else:
             out[key] = {leaf: rules.sharding(
-                (sh.LAYERS, row_axis) + (None,) * (t.dim() - 2), mesh,
+                _state_axes(cfg, key, leaf, row_axis), mesh,
                 dims=tuple(t.shape)) for leaf, t in node.items()}
     return out
 
@@ -158,14 +203,6 @@ def _embed(params, cfg: ModelConfig, tokens, split=sh.WHOLE):
     """The token embeddings: the vocab-parallel lookup on a rank's
     embedding rows (``split``), else the plain one."""
     return split.embed(params["embed"], tokens, cfg.padded_vocab)
-
-
-def _check_split(cfg: ModelConfig, split) -> None:
-    if split.size > 1 and cfg.family not in ATTN_FAMILIES:
-        raise ValueError(
-            f"the model axis splits the weights of the attention-decoder "
-            f"families (dense/moe/vlm) only; family {cfg.family!r} runs on "
-            f"whole weights")
 
 
 def _decode_positions(cur_len, device):
@@ -221,7 +258,7 @@ def _decode_attn_families(params, cfg, x, cache, cur_len, write_mask,
                                      live=live)
 
 
-def _decode_ssm(params, cfg, x, cache, layers_=None):
+def _decode_ssm(params, cfg, x, cache, layers_=None, split=sh.WHOLE):
     """The layer loop of a pure-SSM decode step (or of ``layers_``, a
     range of them); each layer updates its slice of the cache's conv and
     h state in place."""
@@ -230,11 +267,11 @@ def _decode_ssm(params, cfg, x, cache, layers_=None):
     for i in (range(len(lps)) if layers_ is None else layers_):
         x = transformer.ssm_block(lps[i], x, cfg, mode="decode",
                                   state={"conv": st["conv"][i],
-                                         "h": st["h"][i]})
+                                         "h": st["h"][i]}, split=split)
     return x
 
 
-def _decode_hybrid(params, cfg, x, cache, cur_len):
+def _decode_hybrid(params, cfg, x, cache, cur_len, split=sh.WHOLE):
     """The hybrid's decode step: one copy-on-write for the step, then at
     application ``a`` the shared block against cache layer ``a`` and
     that segment's mamba2 steps."""
@@ -244,12 +281,13 @@ def _decode_hybrid(params, cfg, x, cache, cur_len):
     for app, seg in enumerate(transformer.hybrid_segments(cfg)):
         x = transformer.attn_block(
             params["shared_attn"], x, cfg, positions=positions,
-            mode="decode", kv_cache=node.view(app), cur_len=cur_len)
-        x = _decode_ssm(params, cfg, x, cache, seg)
+            mode="decode", kv_cache=node.view(app), cur_len=cur_len,
+            split=split)
+        x = _decode_ssm(params, cfg, x, cache, seg, split)
     return x
 
 
-def _decode_audio(params, cfg, x, cache, cur_len):
+def _decode_audio(params, cfg, x, cache, cur_len, split=sh.WHOLE):
     """The audio family's decode step: the sinusoid of each row's
     position (``cur_len - 1``, on the device), one copy-on-write for the
     step, then each decoder layer against its self-attention cache
@@ -264,7 +302,7 @@ def _decode_audio(params, cfg, x, cache, cur_len):
         x = encdec._dec_block(
             lp, x, cfg, mode="decode", self_kv=node.view(i),
             cross_kv=kvc.CrossView(cross["k"][i], cross["v"][i]),
-            cur_len=cur_len)
+            cur_len=cur_len, split=split)
     return x
 
 
@@ -285,11 +323,10 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
     only): the rows that keep the adaptive layer loop alive; retired and
     mid-prefill slots pass False, start halted and extend no loop (None:
     every row). ``rules`` lays the logits out on a mesh, as in the JAX
-    package; off a mesh (and on a rank's local rows) a no-op. ``split``
-    (attention-decoder families): the params are a rank's slices on a
-    serving mesh's model axis (``sharding.serve_slices``), the cache
-    holds its K/V heads, and the logits come back whole."""
-    _check_split(cfg, split)
+    package; off a mesh (and on a rank's local rows) a no-op. ``split``:
+    the params are a rank's slices on a serving mesh's model axis
+    (``sharding.serve_slices``), the cache holds its K/V heads and SSM
+    channels (``make_cache``), and the logits come back whole."""
     if write_mask is not None and cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"write_mask is only supported for attention "
                          f"families; got family {cfg.family!r}")
@@ -301,11 +338,11 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_len, *,
     x = _embed(params, cfg, token, split)
     depth = None
     if cfg.family == "ssm":
-        x = _decode_ssm(params, cfg, x, cache)
+        x = _decode_ssm(params, cfg, x, cache, split=split)
     elif cfg.family == "hybrid":
-        x = _decode_hybrid(params, cfg, x, cache, cur_len)
+        x = _decode_hybrid(params, cfg, x, cache, cur_len, split)
     elif cfg.family == "audio":
-        x = _decode_audio(params, cfg, x, cache, cur_len)
+        x = _decode_audio(params, cfg, x, cache, cur_len, split)
     else:
         x, depth = _decode_attn_families(params, cfg, x, cache, cur_len,
                                          write_mask, live, split)
@@ -326,24 +363,26 @@ def _prefix_len(cfg: ModelConfig, prefix_embeds) -> int:
 
 
 def _prefill_audio(params, cfg, tokens, cache, frames, rows, mask,
-                   rules=None):
+                   rules=None, split=sh.WHOLE):
     """The audio family's one-shot prefill: the encoder over ``frames``,
-    its cross K/V (returned fresh), then the decoder in mode
-    ``prefill``, writing the prompt's self K/V in place at ``rows``."""
+    its cross K/V (returned fresh: a rank's K/V heads under ``split``),
+    then the decoder in mode ``prefill``, writing the prompt's self K/V
+    in place at ``rows``."""
     if frames is None:
         raise ValueError("the audio family's prefill needs frames "
                          f"(B, {cfg.n_frames}, {cfg.d_model})")
     cdt = cfg.dtype("compute")
-    enc_out = encdec.encode(params, cfg, frames)
+    enc_out = encdec.encode(params, cfg, frames, split)
     cross = encdec.cross_kv(params, cfg, enc_out)
     S = tokens.shape[1]
-    x = params["embed"][tokens] + layers.sinusoidal_positions(
+    x = _embed(params, cfg, tokens, split) + layers.sinusoidal_positions(
         S, cfg.d_model, cdt, tokens.device)
     node = cache["self"].ensure_private(rows, start=0, width=S, mask=mask)
     for i, lp in enumerate(transformer.layer_params(params["decoder"])):
         x = encdec._dec_block(lp, x, cfg, enc_out, mode="prefill",
-                              self_kv=node.view(i, rows=rows, mask=mask))
-    return _logits_head(params, cfg, x, rules), {"cross": cross}
+                              self_kv=node.view(i, rows=rows, mask=mask),
+                              split=split)
+    return _logits_head(params, cfg, x, rules, split), {"cross": cross}
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
@@ -364,10 +403,9 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
     audio family returns its cross K/V fresh, ``{"cross": {"k": (L, B,
     n_frames, KV, hd), "v": ...}}``. ``rules`` and ``split`` as in
     ``decode_step``."""
-    _check_split(cfg, split)
     if cfg.family == "audio":
         return _prefill_audio(params, cfg, tokens, cache, frames, rows,
-                              mask, rules)
+                              mask, rules, split)
     x = _embed(params, cfg, tokens, split)
     if _prefix_len(cfg, prefix_embeds):
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -381,7 +419,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
             for i in layers_:
                 h = layers.apply_norm(cfg.norm, x, lps[i], "ln")
                 y, st = ssm_lib.mixer_forward(lps[i]["ssm"], h, cfg,
-                                              return_state=True)
+                                              return_state=True, split=split)
                 x = x + y
                 convs.append(st["conv"])
                 hs.append(st["h"])
@@ -396,10 +434,11 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, rows=None,
                 x = transformer.attn_block(
                     params["shared_attn"], x, cfg, positions=positions,
                     mode="prefill",
-                    kv_cache=node.view(app, rows=rows, mask=mask))
+                    kv_cache=node.view(app, rows=rows, mask=mask),
+                    split=split)
                 x = mixers(x, seg)
         fresh = {"ssm": {"conv": torch.stack(convs), "h": torch.stack(hs)}}
-        return _logits_head(params, cfg, x, rules), fresh
+        return _logits_head(params, cfg, x, rules, split), fresh
     node = cache["attn"].ensure_private(rows, start=0, width=S, mask=mask)
     for i, lp in enumerate(lps):
         x = transformer.attn_block(
@@ -428,7 +467,6 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
 
     Returns logits (n, chunk, padded_vocab). ``rules`` and ``split`` as
     in ``decode_step``."""
-    _check_split(cfg, split)
     if cfg.family not in ATTN_FAMILIES + ("audio",):
         raise ValueError(
             f"chunked prefill requires an attention-family cache; family "
@@ -455,8 +493,8 @@ def prefill_chunk(params, cfg: ModelConfig, prompts, cache, offsets, *,
             x = encdec._dec_block(
                 lp, x, cfg, mode="chunk", self_kv=node.view(i, mask=mask),
                 cross_kv=kvc.CrossView(cross["k"][i], cross["v"][i]),
-                chunk_off=offsets)
-        return _logits_head(params, cfg, x, rules)
+                chunk_off=offsets, split=split)
+        return _logits_head(params, cfg, x, rules, split)
     for i, lp in enumerate(transformer.layer_params(params["layers"])):
         x = transformer.attn_block(
             lp, x, cfg, positions=pos, mode="chunk",

@@ -202,28 +202,34 @@ one device the pool is placed exactly as off a mesh. On a larger one:
   row) when they do not divide ``n_slots`` and ``kv_blocks``, and for
   the MoE family, whose decode routes every slot as one group.
 
-A model axis (the dense, VLM and MoE families; ``model_layout`` is
-"split:modelx<m>"). Each rank keeps its slices of the weights as plain
-tensors (``sharding.serve_slices``, which gathers nothing): the query
-and K/V heads where ``HEADS`` and ``KV_HEADS`` bind, the MLP's hidden
-columns, the experts' rows or hidden columns, the vocabulary's rows of
-the embedding and columns of the unembedding. The pool is placed with
-``CACHE_KV`` on ``model``: each rank's cache holds its KV/m heads (all
-of them where the K/V heads do not divide the axis, the query heads
-then being a range of them, ``transformer.head_range``), and its DTensor
-view in ``sharded_pool`` is split over ``model`` there. Block ids,
+A model axis (every family; ``model_layout`` is "split:modelx<m>").
+Each rank keeps its slices of the weights as plain tensors
+(``sharding.serve_slices``, which gathers nothing): the query and K/V
+heads where ``HEADS`` and ``KV_HEADS`` bind, the MLP's hidden columns,
+the experts' rows or hidden columns, the vocabulary's rows of the
+embedding and columns of the unembedding, the mamba mixers' channels
+where ``INNER`` binds (mamba1's Di/m, mamba2's H/m heads with the whole
+B and C; a projection that concatenates several tensors is cut part by
+part, ``model_zoo.serve_parts``), zamba2's shared block as the dense
+path's, and whisper's heads and MLP columns in the encoder and decoder.
+The pool is placed with ``CACHE_KV`` on ``model``: each rank's cache
+holds its KV/m heads (all of them where the K/V heads do not divide the
+axis, the query heads then being a range of them,
+``transformer.head_range``), the audio family's cross K/V its KV/m heads
+likewise, and the SSM state its channels on ``INNER``; the DTensor
+views in ``sharded_pool`` are split over ``model`` there. Block ids,
 tables, ``owner``, ``refcount`` and every slot register are the same
 on the ranks of one data shard, which run the same host logic on the
-same rows; only the heads and columns differ. Each sublayer's part is
+same rows; only the heads and channels differ. Each sublayer's part is
 summed over ``model`` (one all-reduce after ``wo``, one after the MLP's
-or the experts' down projection), the embedding lookup is masked to the
-rank's rows and summed likewise, and the logits' columns are gathered,
-so that sampling and the PRNG see whole logits, the same bits on every
-rank, and every rank emits the same streams. The ``ssm``, ``hybrid``
-and ``audio`` families run on whole weights and a replicated pool over
-``model`` (``model_layout`` "replicated"; ``sharding.whole_params``
-gathers a DTensor parameter whole at construction and counts what the
-rules split in ``sharding.COUNTS["whole_gathers"]``).
+or the experts' down projection, before a bias that is whole, one after
+a mixer's ``out_proj`` and one on mamba1's ``x_proj`` product), a norm
+over a split width adds the ranks' sums of squares (mamba2's gated
+RMSNorm), the embedding lookup is masked to the rank's rows and summed
+likewise, and the logits' columns are gathered, so that sampling and the
+PRNG see whole logits, the same bits on every rank, and every rank emits
+the same streams. A one-shot admission splices the rank's slices of the
+fresh SSM state and cross K/V into its pool.
 
 Per-request greedy outputs equal ``engine.generate_batch_sync``'s, and
 are identical between ``kv="dense"`` and ``kv="paged"``, with the prefix
@@ -626,23 +632,20 @@ class DecodeScheduler:
                     "gathered from every shard, which a captured graph "
                     "cannot do): pass loop=None or 'host'")
             loop = "host"
-        # the model axis: each rank's slices of the weights, or whole
-        # weights for the families that run on them (module docstring)
+        # the model axis: each rank's slices of the weights (module
+        # docstring); on a mesh without one, every leaf as a plain tensor
         self._model = (sh.mesh_shape(mesh).get("model", 1)
                        if self._meshed else 1)
-        self._split_model = (self._model > 1
-                             and cfg.family in engine.ATTN_FAMILIES)
         self._split = self._draft_split = sh.WHOLE
-        if self._split_model:
+        if self._meshed:
             params, self._split = sh.serve_slices(
-                params, model_zoo.param_axes(cfg), rules, mesh)
+                params, model_zoo.param_axes(cfg), rules, mesh,
+                model_zoo.serve_parts(cfg))
             if draft_params is not None:
                 draft_params, self._draft_split = sh.serve_slices(
                     draft_params, model_zoo.param_axes(draft_cfg),
-                    model_zoo.make_rules(draft_cfg, mesh), mesh)
-        elif self._meshed:
-            params = sh.whole_params(params, model_zoo.param_axes(cfg),
-                                     rules)
+                    model_zoo.make_rules(draft_cfg, mesh), mesh,
+                    model_zoo.serve_parts(draft_cfg))
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         if loop is None:
@@ -760,18 +763,19 @@ class DecodeScheduler:
         def z(*shape, dtype=torch.int32, fill=0):
             return torch.full(shape, fill, dtype=dtype, device=dev)
 
-        kv_heads = (engine.local_kv_heads(self.params, self.cfg)
-                    if self._split_model else None)
         draft_heads = (engine.local_kv_heads(self._draft_params,
                                              self.draft_cfg)
-                       if self._split_model and self.draft_cfg is not None
-                       else None)
+                       if self.draft_cfg is not None else None)
         return SlotPool(
             cache=engine.make_cache(self.cfg, n, self.max_len,
                                     kv_impl=self.kv, kv_block=self.kv_block,
                                     kv_blocks=self._kv_loc,
                                     kv_sharing=self.prefix_cache,
-                                    kv_heads=kv_heads, device=dev),
+                                    kv_heads=engine.local_kv_heads(
+                                        self.params, self.cfg),
+                                    inner=engine.local_inner(self.params,
+                                                             self.cfg),
+                                    device=dev),
             next_token=z(n), cur_len=z(n, fill=1), n_emitted=z(n),
             budget=z(n), active=z(n, dtype=torch.bool),
             done=z(n, dtype=torch.bool), request_id=z(n, fill=-1),
@@ -813,7 +817,7 @@ class DecodeScheduler:
 
         def keep(i):
             return ((self._shards > 1 and names[i] in self._axes)
-                    or (self._split_model and names[i] == "model"))
+                    or (self._model > 1 and names[i] == "model"))
 
         def view(local, placements):
             pl = [p if keep(i) else Replicate()
@@ -2445,16 +2449,13 @@ class DecodeScheduler:
 
     @property
     def model_layout(self) -> str:
-        """How the weights and K/V heads lie on the mesh's model axis:
-        "single" (no mesh, or no model axis of more than one device),
-        "split:modelx<m>" (each rank its slices of the weights and its
-        K/V heads, module docstring) or "replicated" (every rank whole
-        weights and every head: the ``ssm``, ``hybrid`` and ``audio``
-        families)."""
+        """How the weights and the cache lie on the mesh's model axis:
+        "single" (no mesh, or no model axis of more than one device) or
+        "split:modelx<m>" (each rank its slices of the weights, its K/V
+        heads and its SSM channels, module docstring)."""
         if self._model == 1:
             return "single"
-        return (f"split:modelx{self._model}" if self._split_model
-                else "replicated")
+        return f"split:modelx{self._model}"
 
     @property
     def transfer_impl(self) -> str:
