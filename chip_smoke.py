@@ -87,7 +87,13 @@ Phases, each printing its own lines:
     S=1000 with ragged lengths in [500, 1000]: outputs and final state
     equal the unfused cell's, the kernel launches once per step up to
     max(lens), and the loop's predicate reads and the device idle at
-    them are printed; then dynamic (counted, and with seq_lens) vs static
+    them are printed; then each cell under the graph lowering
+    (``impl="graph"``: a device counter, device-indexed arrays,
+    ``t < max(lens)`` decided on the device), three passes in turns with
+    the host pass: one capture, one graph launch a pass, no predicate
+    read, max(lens) WHILE-node steps (the fused cell's launches inside
+    it), outputs within RNN_TOL of the host lowering's, ms per step both
+    ways; then dynamic (counted, and with seq_lens) vs static
     forward time at B = 8, 32, 128, 512 (the paper's Fig. 14; printed,
     not a gate);
 11. Table 1: training through the loop (gradients of ``mean(y**2)``
@@ -96,9 +102,16 @@ Phases, each printing its own lines:
     gradients equal ``all``'s, and at S=500 the peak device memory above
     the weights is lower under ``offload`` and ``carry`` than under
     ``all``; time per loop iteration, peak memory and host bytes are
-    printed;
+    printed; then the graph lowering (``core.device_grad``: the forward
+    and the §5.1 gradient loop as two WHILE nodes) under ``carry`` and
+    ``carry_offload``: gradients equal to the host lowering's ``all``
+    at rtol 1e-6, one capture and one launch a loop a pass,
+    ``carry_offload``'s host stacks S x the carry's bytes and its peak
+    below ``carry``'s at S=500, and the gradient loop's ms per iteration
+    at S=500 within 1.2x of S=100;
 12. the NMT example (``repro_torch.examples.dynamic_rnn_nmt``) trains
-    250 steps on the card to a loss below 0.5;
+    250 steps on the card to a loss below 0.5, both loops under the
+    graph lowering (two captures, four graph launches a step);
 13. the flash-attention kernel against its plain version on the card at
     the JAX kernel sweep's shapes (MHA, GQA 4:1 and 2:1, MQA; D = 16,
     32, 64, 128; S = 64-256), at D=8 (the smoke llama's head dim) and
@@ -198,12 +211,16 @@ Phases, each printing its own lines:
     halt vector a layer in host-read ones, in turns with the
     non-adaptive graph run: streams 16/16 equal to it, mean depth
     exactly 16, the kernels' launches equal to its (and its equal to
-    phase 4's), one host read a graph segment and no predicate read;
+    phase 4's) less 16 ``paged_attention`` launches for each decode step
+    whose emitting rows all retire, which keeps no layer loop alive
+    (counted on the device, ``idle_layer_loops``), one host read a graph
+    segment and no predicate read;
     (b) exit by construction: ``wo`` and ``w_down`` zeroed from layer 2
     on, threshold -1 and a floor of 2: streams 16/16 equal to the same
     doctored model's non-adaptive run, mean depth exactly 2, and
     ``paged_attention`` launches (counted on the device) exactly 2/16 of
-    that run's with ``flash_prefill`` unchanged (the port of the JAX
+    that run's for the decode steps with a live row (none for those
+    whose emitting rows all retire) with ``flash_prefill`` unchanged (the port of the JAX
     package's ``check_depth_gating``); (c) mixture-of-depths (capacity
     0.5, every 2, zero routers) in fp32 on 8 requests: graph segments,
     host-read segments and ``engine.generate_batch_sync`` give identical
@@ -296,10 +313,12 @@ Phases, each printing its own lines:
     without the prefix cache, graph segments; qwen2-moe at
     ``MOE_SERVE_LAYERS`` layers, internvl2 at its 24): threshold inf
     gives the non-adaptive streams bit for bit (16/16, in turns), mean
-    depth exactly the layer count L and equal launches; exit by
+    depth exactly the layer count L and equal launches but L for each
+    decode step whose emitting rows all retire; exit by
     construction at layer 2 (an identity tail; the MoE's expert and
     shared ``w_down`` zeroed) launches exactly 2/L of the doctored
-    non-adaptive run's ``paged_attention``, streams equal;
+    non-adaptive run's ``paged_attention`` over the decode steps with a
+    live row, streams equal;
     mixture-of-depths (zero routers) runs with depth L; one host read a
     graph segment; tok/s and device
     ms an iteration against the non-adaptive run printed; then at 4
@@ -480,6 +499,7 @@ it also exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -2743,6 +2763,40 @@ def identity_tail(params, e):
     return out
 
 
+@contextlib.contextmanager
+def idle_layer_loops(counter):
+    """Inside the context each early-exit decode step adds one to the 0-d
+    int64 CUDA tensor ``counter`` when its layer loop has no live row
+    (every emitting row retires in that iteration, so the loop runs no
+    layer): an add on the device, so that a graph captured inside the
+    context counts at each replay and an eager run inside it at each
+    call, with no host read."""
+    from repro_torch.serve import engine
+    plain = engine.decode_step
+
+    def counted(*args, **kw):
+        live = kw.get("live")
+        if live is not None:
+            counter.add_((~live.any()).to(counter.dtype))
+        return plain(*args, **kw)
+
+    engine.decode_step = counted
+    try:
+        yield
+    finally:
+        engine.decode_step = plain
+
+
+def counted_run(tag, sched, reqs, counter, driver=None):
+    """``adaptive_run`` with ``counter`` (``idle_layer_loops``) zeroed
+    before it; adds ``idle``, the decode steps whose layer loop ran no
+    layer, which launch no kernel of a layer."""
+    counter.zero_()
+    run = adaptive_run(tag, sched, reqs, driver)
+    run["idle"] = int(counter)
+    return run
+
+
 def ready(sched, reqs, driver=None):
     """Capture (a graph scheduler) and warm up on one request."""
     import torch
@@ -2863,14 +2917,21 @@ def phase_adaptive(plain_launches):
     reqs = serving_requests(cfg)
     inf = dataclasses.replace(cfg, early_exit=True)
 
-    # (a) threshold inf against the non-adaptive graph run, in turns
+    # (a) threshold inf against the non-adaptive graph run, in turns; a
+    # decode step whose emitting rows all retire keeps no layer loop
+    # alive, so the adaptive runs launch L fewer paged_attention calls
+    # for each (``idle``, counted on the device)
+    idle = {k: torch.zeros((), dtype=torch.int64, device="cuda")
+            for k in ("graph", "host")}
     plain = ready(make_scheduler(params, cfg), reqs)
-    ada = ready(make_scheduler(params, inf), reqs)
+    with idle_layer_loops(idle["graph"]):
+        ada = ready(make_scheduler(params, inf), reqs)
     host = ready(make_scheduler(params, inf, "host"), reqs)
     a1 = adaptive_run("adaptive inf plain", plain, reqs)
-    b1 = adaptive_run("adaptive inf graph", ada, reqs)
-    h = adaptive_run("adaptive inf host-read", host, reqs)
-    b2 = adaptive_run("adaptive inf graph", ada, reqs)
+    b1 = counted_run("adaptive inf graph", ada, reqs, idle["graph"])
+    with idle_layer_loops(idle["host"]):
+        h = counted_run("adaptive inf host-read", host, reqs, idle["host"])
+    b2 = counted_run("adaptive inf graph", ada, reqs, idle["graph"])
     a2 = adaptive_run("adaptive inf plain", plain, reqs)
     host.close()
     want = {k: a1["launches"][k] for k in ("paged_attention",
@@ -2882,10 +2943,18 @@ def phase_adaptive(plain_launches):
         same_count(f"adaptive inf {run['depth_impl']}", run["streams"],
                    a1["streams"])
         got = {k: run["launches"][k] for k in want}
-        if run["mean_depth"] != float(L) or got != want:
+        less = {"paged_attention": want["paged_attention"]
+                - L * run["idle"], "flash_prefill": want["flash_prefill"]}
+        if run["mean_depth"] != float(L) or got != less or \
+                run["idle"] != h["idle"]:
             raise AssertionError(
                 f"adaptive inf ({run['depth_impl']}): mean depth "
-                f"{run['mean_depth']}, launches {got} against {want}")
+                f"{run['mean_depth']}, launches {got} against {less} "
+                f"({run['idle']} decode steps with every emitting row "
+                f"retiring; host-read {h['idle']})")
+    log(f"[adaptive] inf: {h['idle']} decode step(s) with every emitting "
+        f"row retiring ran no layer, {L * h['idle']} paged_attention "
+        f"launches fewer than the non-adaptive run's")
     if b1["depth_impl"] != "cuda-graph:if-per-layer" or \
             h["depth_impl"] != "host-read":
         raise AssertionError(f"adaptive: lowerings {b1['depth_impl']}, "
@@ -2900,12 +2969,15 @@ def phase_adaptive(plain_launches):
     ecfg = dataclasses.replace(cfg, early_exit=True, exit_threshold=-1.0,
                                exit_min_layers=EXIT_AT)
     dplain = ready(make_scheduler(doc, cfg), reqs)
-    dexit = ready(make_scheduler(doc, ecfg), reqs)
+    with idle_layer_loops(idle["graph"]):
+        dexit = ready(make_scheduler(doc, ecfg), reqs)
     dhost = ready(make_scheduler(doc, ecfg, "host"), reqs)
     c1 = adaptive_run("adaptive exit plain", dplain, reqs)
-    d1 = adaptive_run("adaptive exit graph", dexit, reqs)
-    dh = adaptive_run("adaptive exit host-read", dhost, reqs)
-    d2 = adaptive_run("adaptive exit graph", dexit, reqs)
+    d1 = counted_run("adaptive exit graph", dexit, reqs, idle["graph"])
+    with idle_layer_loops(idle["host"]):
+        dh = counted_run("adaptive exit host-read", dhost, reqs,
+                         idle["host"])
+    d2 = counted_run("adaptive exit graph", dexit, reqs, idle["graph"])
     c2 = adaptive_run("adaptive exit plain", dplain, reqs)
     for sched in (dplain, dexit, dhost):
         sched.close()
@@ -2914,17 +2986,23 @@ def phase_adaptive(plain_launches):
                    c1["streams"])
         pa, fp = (run["launches"][k] for k in ("paged_attention",
                                                 "flash_prefill"))
+        # EXIT_AT layers a decode step that has a live row
         if run["mean_depth"] != float(EXIT_AT) or \
-                pa * L != c1["launches"]["paged_attention"] * EXIT_AT or \
+                pa * L != (c1["launches"]["paged_attention"]
+                           - L * run["idle"]) * EXIT_AT or \
+                run["idle"] != dh["idle"] or \
                 fp != c1["launches"]["flash_prefill"]:
             raise AssertionError(
                 f"adaptive exit ({run['depth_impl']}): mean depth "
                 f"{run['mean_depth']}, launches pa {pa} fp {fp} against "
-                f"{c1['launches']}")
+                f"{c1['launches']} ({run['idle']} decode steps with every "
+                f"emitting row retiring; host-read {dh['idle']})")
     log(f"[adaptive] exit at {EXIT_AT}: paged_attention "
         f"{d1['launches']['paged_attention']} = {EXIT_AT}/{L} of "
-        f"{c1['launches']['paged_attention']} (device-counted), "
-        f"flash_prefill {d1['launches']['flash_prefill']} unchanged")
+        f"{c1['launches']['paged_attention']} less {L} x {d1['idle']} "
+        f"(device-counted; the decode steps with every emitting row "
+        f"retiring run no layer), flash_prefill "
+        f"{d1['launches']['flash_prefill']} unchanged")
 
     # (d) the margin alone, and the sweep on the undoctored model
     m_ms, m_bound, m_bytes = margin_cost(params, cfg)
@@ -3136,10 +3214,72 @@ def instrument_predicate_reads():
     return finish
 
 
+def rnn_graph_passes(params, x, lens, H, cell, label, ref, host_ms):
+    """Three same-shape ``dynamic_rnn(impl="graph")`` inference passes
+    (the first captures): one capture, one graph launch a pass, no
+    predicate read, the loop's steps = max(lens) (the fused cell's
+    launches inside the WHILE node), outputs within RNN_TOL of the host
+    lowering's ``ref``. Returns the graph's ms per step (passes 2-3)."""
+    import torch
+    from repro_torch import core
+    from repro_torch.core.device_grad import GradLoop
+    from repro_torch.kernels.lstm_cell import kernel as lstm_kernel
+    from repro_torch.models import rnn
+
+    max_len = int(lens.max())
+    cap0, rep0, hr0 = GradLoop.captures, GradLoop.replays, GradLoop.host_reads
+    reads0 = core.while_loop.host_reads
+    py0 = lstm_kernel.lstm_cell.launches
+    secs = []
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rnn.dynamic_rnn(params, x, lens, hidden=H, cell=cell,
+                                  impl="graph")
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    loop = core.while_loop.last_grad_loop
+    steps = loop.iterations()
+    captures = GradLoop.captures - cap0
+    launches = GradLoop.replays - rep0
+    reads = core.while_loop.host_reads - reads0
+    checks = GradLoop.host_reads - hr0
+    py = lstm_kernel.lstm_cell.launches - py0
+    err = max((a - r).abs().max().item() for a, r in zip(
+        (out[0], *out[1]), (ref[0], *ref[1])))
+    ok = all(torch.allclose(a, r, rtol=RNN_TOL, atol=RNN_TOL) for a, r in
+             zip((out[0], *out[1]), (ref[0], *ref[1])))
+    ms = (secs[1] + secs[2]) / 2 / max_len * 1e3
+    log(f"[rnn] graph lowering, {label}: {captures} capture over 3 passes "
+        f"(first pass {secs[0]:.3f} s with the capture), {launches} graph "
+        f"launches ({launches / 3:.0f} a pass), predicate host reads "
+        f"{reads}, double-write checks after the loop {checks}; WHILE-node "
+        f"steps {steps} (max(lens) {max_len}"
+        + (f"; lstm_cell launches inside it {steps}, Python counter "
+           f"+{py} at warm-up and capture" if py else "")
+        + f"); max |graph - host| {err:.3e} (tol {RNN_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms/step graph vs "
+        f"{host_ms:.4f} host (in turns host, graph, graph, host)")
+    if not ok:
+        raise AssertionError(f"dynamic_rnn(impl='graph') {label} disagrees "
+                             f"with the host lowering")
+    if captures != 1 or launches != 3 or reads != 0 or steps != max_len:
+        raise AssertionError(
+            f"dynamic_rnn(impl='graph') {label}: captures {captures} (want "
+            f"1), launches {launches} (want 3), predicate reads {reads} "
+            f"(want 0), steps {steps} (want {max_len})")
+    if out[0][lens.argmin(), max_len - 1].abs().max().item() != 0:
+        raise AssertionError("graph output past a sequence's length is "
+                             "not zero")
+    return ms
+
+
 def phase_dynamic_rnn():
     """dynamic_rnn inference through the fused cell against the unfused
-    cell at B=512, D=H=512, S=1000 (ragged lengths); returns the kernel's
-    launches in the fused pass. Then dynamic vs static (Fig. 14)."""
+    cell at B=512, D=H=512, S=1000 (ragged lengths), under the host
+    lowering and the graph lowering; returns the kernel's launches in the
+    fused host pass. Then dynamic vs static (Fig. 14)."""
     import functools
     import torch
     from repro_torch import bridge, core
@@ -3174,6 +3314,26 @@ def phase_dynamic_rnn():
         out, (c, h) = rnn.dynamic_rnn(params, x, lens, hidden=H)
         torch.cuda.synchronize()
         wall_plain = time.perf_counter() - t0
+    # the graph lowering, each cell in turns with its host pass
+    from repro_torch.core import device_grad
+    graph_ms = {}
+    for label, cell, ref, wall_h in (
+            ("fused cell", fused, (out_k, (c_k, h_k)), wall),
+            ("unfused cell", rnn.lstm_cell, (out, (c, h)), wall_plain)):
+        g_ms = rnn_graph_passes(params, x, lens, H, cell, label, ref,
+                                wall_h / max_len * 1e3)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            rnn.dynamic_rnn(params, x, lens, hidden=H, cell=cell)
+            torch.cuda.synchronize()
+            again = time.perf_counter() - t0
+        host_ms = (wall_h + again) / 2 / max_len * 1e3
+        graph_ms[label] = (g_ms, host_ms)
+        device_grad.release()
+    log("[rnn] graph vs host ms/step (host: mean of the passes before and "
+        "after the graph's): " + ", ".join(
+            f"{k} {g:.4f} vs {h:.4f} ({h / g:.2f}x)"
+            for k, (g, h) in graph_ms.items()))
     if launches != max_len:
         raise AssertionError(f"lstm_cell launched {launches} times for "
                              f"max(lens) = {max_len}")
@@ -3251,7 +3411,8 @@ def profile_pass(fn, label, iters):
 
 def phase_policies():
     """Table 1: gradients through dynamic_rnn (unfused cell) under the
-    four save policies at B=512, D=H=512, S = 100 and 500."""
+    four save policies at B=512, D=H=512, S = 100 and 500, then under
+    the graph lowering for ``carry`` and ``carry_offload``."""
     import torch
     from repro_torch import bridge, core
     from repro_torch.core.while_loop import SAVE_POLICIES
@@ -3259,6 +3420,7 @@ def phase_policies():
 
     B, D, H = 512, 512, 512
     gen = torch.Generator(device="cuda").manual_seed(2)
+    grad_ms = {}
     for S in (100, 500):
         # full-length sequences, as Table 1 and the JAX package's
         # benchmarks/bench_memory_swap.py run them: a counted loop
@@ -3305,16 +3467,116 @@ def phase_policies():
                              and peaks["carry"] < peaks["all"]):
             raise AssertionError(f"peak memory order wrong at S=500: "
                                  f"{peaks}")
+        grad_ms[S] = policies_graph(x, S, grads["all"])
         del x, grads
+    for policy in ("carry", "carry_offload"):
+        ratio = grad_ms[500][policy] / grad_ms[100][policy]
+        log(f"[policy] graph {policy}: gradient loop ms per iteration "
+            f"S=500 / S=100 = {ratio:.3f} (bound 1.2: the duals touch one "
+            f"row an iteration)")
+        if ratio > 1.2:
+            raise AssertionError(f"the gradient loop's work per iteration "
+                                 f"grows with S under {policy}: {ratio:.3f}")
+
+
+def policies_graph(x, S, ref):
+    """Table 1 under the graph lowering (``impl="graph"``): ``carry`` and
+    ``carry_offload`` at this S, each loop captured by its first call
+    (device memory counted from before it, so the stacks show in the
+    peak) and timed on its second, forward and gradient launches apart.
+    The gradients must equal the host lowering's ``all`` (``ref``) at
+    rtol 1e-6, ``carry_offload`` must hold S x the carry's bytes in host
+    memory, and at S=500 peak below ``carry``. Returns the gradient
+    loop's ms per iteration by policy."""
+    import torch
+    from repro_torch import bridge, core
+    from repro_torch.core import device_grad
+    from repro_torch.core.device_grad import GradLoop
+    from repro_torch.models import rnn
+
+    B, D, H = x.shape[0], x.shape[2], 512
+    peaks, out_ms = {}, {}
+    for policy in ("carry", "carry_offload"):
+        device_grad.release()
+        params = bridge.init_lstm_params(D, H, seed=3, device="cuda")
+        for p in params.values():
+            p.requires_grad_()
+
+        def forward():
+            out, _ = rnn.dynamic_rnn(params, x, hidden=H,
+                                     save_policy=policy, impl="graph")
+            return (out ** 2).mean()
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cap0, rep0 = GradLoop.captures, GradLoop.replays
+        torch.autograd.grad(forward(), [params["w"], params["b"]])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = forward()
+        ev[1].record()
+        g = torch.autograd.grad(loss, [params["w"], params["b"]])
+        ev[2].record()
+        torch.cuda.synchronize()
+        peaks[policy] = torch.cuda.max_memory_allocated() - base
+        loop = core.while_loop.last_grad_loop
+        captures, launches = (GradLoop.captures - cap0,
+                              GradLoop.replays - rep0)
+        fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        out_ms[policy] = bwd_ms / S
+        want_host = S * loop.carry_bytes if policy == "carry_offload" else 0
+        err = max((a - r).abs().max().item() for a, r in zip(g, ref))
+        ok = all(torch.allclose(a, r, rtol=1e-6, atol=1e-9)
+                 for a, r in zip(g, ref))
+        log(f"[policy] S={S} graph {policy:13s}: {(fwd_ms + bwd_ms) / S:.4f}"
+            f" ms per loop iteration (forward {fwd_ms / S:.4f} + gradient "
+            f"loop {bwd_ms / S:.4f}; one launch each: {launches} launches "
+            f"in 2 passes, {captures} capture), peak "
+            f"{peaks[policy] / 2**30:.3f} GiB above weights and inputs "
+            f"(static buffers and stacks included), "
+            f"{loop.host_bytes / 2**30:.3f} GiB of host stacks "
+            f"({loop.host_bytes} B = S x {loop.carry_bytes} B), "
+            f"gradients vs host all: max |diff| {err:.3e} (tol rtol 1e-6) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"graph {policy} gradients differ from "
+                                 f"the host lowering's all")
+        if captures != 1 or launches != 4 or loop.host_bytes != want_host:
+            raise AssertionError(
+                f"graph {policy}: captures {captures} (want 1), launches "
+                f"{launches} (want 4), host bytes {loop.host_bytes} (want "
+                f"{want_host})")
+        del params, g, loss
+    device_grad.release()
+    if S == 500 and not peaks["carry_offload"] < peaks["carry"]:
+        raise AssertionError(f"graph carry_offload does not peak below "
+                             f"carry at S=500: {peaks}")
+    return out_ms
 
 
 def phase_nmt():
-    """The NMT example's entry point, 250 steps on the card; it raises if
-    the loss does not fall below 0.5."""
+    """The NMT example's entry point, 250 steps on the card under the
+    graph lowering; it raises if the loss does not fall below 0.5. Both
+    loops are captured once (the first step) and each step launches four
+    graphs (two forwards, two gradient loops)."""
+    from repro_torch.core import device_grad
+    from repro_torch.core.device_grad import GradLoop
     from repro_torch.examples import dynamic_rnn_nmt as nmt
+    cap0, rep0 = GradLoop.captures, GradLoop.replays
+    t0 = time.perf_counter()
     loss = nmt.main(["--steps", str(nmt.STEPS)])
-    log(f"[nmt] {nmt.STEPS} steps on the card: final masked NLL {loss:.4f}"
-        f" (bar {nmt.LOSS_BAR})")
+    secs = time.perf_counter() - t0
+    captures, launches = GradLoop.captures - cap0, GradLoop.replays - rep0
+    device_grad.release()
+    log(f"[nmt] {nmt.STEPS} steps on the card under impl='graph': final "
+        f"masked NLL {loss:.4f} (bar {nmt.LOSS_BAR}); {captures} captures, "
+        f"{launches} graph launches ({launches / nmt.STEPS:.0f} a step); "
+        f"{secs / nmt.STEPS * 1e3:.2f} ms a step")
+    if captures != 2 or launches != 4 * nmt.STEPS:
+        raise AssertionError(f"NMT under the graph lowering: {captures} "
+                             f"captures (want 2), {launches} launches (want "
+                             f"{4 * nmt.STEPS})")
 
 
 def fa_case(seed, B, S, H, KV, D, dtype, T=None):
@@ -4837,11 +5099,13 @@ def adaptive_family(arch):
     """Phase 31 for one family at full width (bf16, ``attn_impl="cuda"``,
     graph segments): threshold inf against the non-adaptive run in turns
     (plain, inf, inf, plain): streams bit for bit, mean depth exactly
-    n_layers, launches equal; exit by construction (identity tail from
-    layer ``EXIT_AT``, threshold -1, floor ``EXIT_AT``) against the
+    n_layers, launches equal but for the decode steps whose emitting
+    rows all retire (no layer runs); exit by construction (identity tail
+    from layer ``EXIT_AT``, threshold -1, floor ``EXIT_AT``) against the
     doctored model's non-adaptive run: streams equal, mean depth exactly
     ``EXIT_AT``, ``paged_attention`` launches exactly ``EXIT_AT``/L of
-    its, ``flash_prefill`` unchanged; mixture-of-depths (capacity 0.5,
+    its over the decode steps with a live row, ``flash_prefill``
+    unchanged; mixture-of-depths (capacity 0.5,
     every 2, zero routers) runs to the end. ``adaptive_run`` gates one
     host read a segment. Then at ``MOE_PARITY_LAYERS`` layers in fp32,
     with early exit at inf and mixture-of-depths on: the kernel path in
@@ -4860,11 +5124,15 @@ def adaptive_family(arch):
     L = cfg.n_layers
     params = bridge.init_params(cfg, seed=0, device="cuda")
     inf = dataclasses.replace(cfg, early_exit=True)
+    # decode steps whose emitting rows all retire run no layer
+    # (``idle_layer_loops``): L fewer paged_attention launches each
+    idle = torch.zeros((), dtype=torch.int64, device="cuda")
     plain = ready(make(params, cfg), reqs, driver)
-    ada = ready(make(params, inf), reqs, driver)
+    with idle_layer_loops(idle):
+        ada = ready(make(params, inf), reqs, driver)
     a1 = adaptive_run(f"{tag} plain", plain, reqs, driver)
-    b1 = adaptive_run(f"{tag} inf", ada, reqs, driver)
-    b2 = adaptive_run(f"{tag} inf", ada, reqs, driver)
+    b1 = counted_run(f"{tag} inf", ada, reqs, idle, driver)
+    b2 = counted_run(f"{tag} inf", ada, reqs, idle, driver)
     a2 = adaptive_run(f"{tag} plain", plain, reqs, driver)
     plain.close()
     ada.close()
@@ -4873,33 +5141,40 @@ def adaptive_family(arch):
     for run in (b1, b2):
         same_count(f"{tag} inf", run["streams"], a1["streams"])
         got = {k: run["launches"][k] for k in want}
-        if run["mean_depth"] != float(L) or got != want or \
+        less = {"paged_attention": want["paged_attention"]
+                - L * run["idle"], "flash_prefill": want["flash_prefill"]}
+        if run["mean_depth"] != float(L) or got != less or \
                 run["depth_impl"] != "cuda-graph:if-per-layer":
             raise AssertionError(
                 f"{tag} inf: mean depth {run['mean_depth']}, launches "
-                f"{got} against {want}, lowering {run['depth_impl']}")
+                f"{got} against {less} ({run['idle']} decode steps with "
+                f"every emitting row retiring), lowering "
+                f"{run['depth_impl']}")
 
     doc = identity_tail(params, EXIT_AT)
     ecfg = dataclasses.replace(cfg, early_exit=True, exit_threshold=-1.0,
                                exit_min_layers=EXIT_AT)
     dplain = ready(make(doc, cfg), reqs, driver)
-    dexit = ready(make(doc, ecfg), reqs, driver)
+    with idle_layer_loops(idle):
+        dexit = ready(make(doc, ecfg), reqs, driver)
     c1 = adaptive_run(f"{tag} exit plain", dplain, reqs, driver)
-    d1 = adaptive_run(f"{tag} exit", dexit, reqs, driver)
+    d1 = counted_run(f"{tag} exit", dexit, reqs, idle, driver)
     dplain.close()
     dexit.close()
     same_count(f"{tag} exit", d1["streams"], c1["streams"])
     pa, fp = (d1["launches"][k] for k in ("paged_attention",
                                           "flash_prefill"))
     if d1["mean_depth"] != float(EXIT_AT) or \
-            pa * L != c1["launches"]["paged_attention"] * EXIT_AT or \
+            pa * L != (c1["launches"]["paged_attention"]
+                       - L * d1["idle"]) * EXIT_AT or \
             fp != c1["launches"]["flash_prefill"]:
         raise AssertionError(f"{tag} exit: mean depth {d1['mean_depth']}, "
                              f"launches pa {pa} fp {fp} against "
-                             f"{c1['launches']}")
+                             f"{c1['launches']} ({d1['idle']} decode steps "
+                             f"with every emitting row retiring)")
     log(f"[{tag}] exit at {EXIT_AT}: paged_attention {pa} = {EXIT_AT}/{L} "
-        f"of {c1['launches']['paged_attention']} (device-counted), "
-        f"flash_prefill {fp} unchanged")
+        f"of {c1['launches']['paged_attention']} less {L} x {d1['idle']} "
+        f"(device-counted), flash_prefill {fp} unchanged")
     del doc
 
     mod = dataclasses.replace(cfg, mod_capacity=0.5, mod_every=2)

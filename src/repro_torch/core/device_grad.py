@@ -1,0 +1,677 @@
+"""§5.1 on the device: a while loop's forward and its gradient loop as two
+CUDA-graph WHILE nodes (the graph lowering of ``while_loop`` under grad).
+
+The JAX package's ``core.while_loop`` is a ``custom_vjp``: the forward
+loop pushes the carry onto bounded contiguous stacks (``save_carry``, the
+``carry`` and ``carry_offload`` policies), and the gradient is a second
+loop that pops them in reverse, re-runs the body's VJP and sums the
+gradients of the constants the body captures (``jax.closure_convert``);
+XLA compiles both into the program and the loops never return to the
+host. Here:
+
+- ``GradLoop`` is one loop for one program (the code of ``body_fn`` and
+  ``cond_fn``, the shapes and dtypes of the carry and of the constants,
+  the policy): its static carry, its constants' static buffers, its
+  ``CarryStack``s and two ``DeviceLoop``s. The forward's body pushes
+  the carry at the device counter ``it`` and runs the body; after the
+  loop ``it`` is the trip count ``n``. The gradient loop runs while
+  ``j < n``: it pops carry ``n-1-j``, re-runs the body under
+  ``enable_grad`` and calls ``torch.autograd.grad`` on it, captured in
+  the graph as ``make_graphed_callables`` captures a backward; the
+  carry's cotangent is its carry, and the constants' gradients are
+  summed into static accumulators. A ``DeviceTensorArray`` in the carry
+  is not pushed (its written rows stay alive); inside the gradient body
+  every array is a dual view whose duals are one-row operations
+  (``tensor_array``).
+- Constants, the counterpart of ``jax.closure_convert``: the tensors and
+  arrays that ``body_fn``/``cond_fn`` close over (closure cells,
+  ``functools.partial`` arguments, default arguments, walked through
+  lists, tuples, dicts and nested functions) are lifted out, and the
+  functions rebuilt to close over the loop's static copies. The eager
+  warm-up iteration of the gradient body must reach no tensor that
+  requires grad outside the carry and those constants (a global, an
+  object's attribute, a result computed before the loop); if it does,
+  the loop refuses with an error that names it, never a silent zero
+  gradient.
+- Reuse, the jit cache's counterpart: a later call with the same
+  program replays the captured pair. Inputs, lengths and weights are
+  copied into the static buffers (an optimizer hands back new tensors
+  every step); returned outputs and gradients are fresh tensors. A call
+  made while a loop's stacks still wait for their backward takes
+  another loop (captured once too).
+- ``_Loop`` is the ``torch.autograd.Function``: forward = one launch of
+  the forward graph, backward = one launch of the gradient graph.
+
+Without grad (or with nothing that requires it) the forward is the
+plain WHILE loop, with no stack. ``plain_driver()`` runs the same
+bodies, stacks and duals under a step-by-step Python loop instead of
+the graphs: the CPU tests' driver; nothing on the card's path uses it.
+
+``GradLoop.captures``, ``.replays`` (graph launches, forward and
+gradient) and ``.host_reads`` (the double-write check after a forward
+over a carry array) count in this process.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import types
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+
+from .stacks import CarryStack
+from .tensor_array import (DeviceTensorArray, TensorArray, WriteOnceError,
+                           _row, deferred_checks)
+
+__all__ = ["GradLoop", "plain_driver", "release", "run", "takes"]
+
+GRAPH_POLICIES = ("carry", "carry_offload")
+_PLAIN = [0]
+
+
+@contextlib.contextmanager
+def plain_driver():
+    """Run graph-lowered loops through the step-by-step driver (CPU
+    tensors allowed): the same bodies, stacks and duals, no graph."""
+    _PLAIN[0] += 1
+    try:
+        yield
+    finally:
+        _PLAIN[0] -= 1
+
+
+def _is_dta(x) -> bool:
+    return isinstance(x, DeviceTensorArray)
+
+
+def _flatten(tree):
+    return pytree.tree_flatten(tree, is_leaf=_is_dta)
+
+
+def _parts(x) -> List[torch.Tensor]:
+    return x.tensors() if _is_dta(x) else [x]
+
+
+def _regroup(flat, is_array) -> List[Any]:
+    """Tensors back into leaves: three for a ``DeviceTensorArray``."""
+    out, at = [], 0
+    for ta in is_array:
+        k = 3 if ta else 1
+        out.append(DeviceTensorArray(*flat[at:at + k]) if ta else flat[at])
+        at += k
+    return out
+
+
+def _sig(x) -> tuple:
+    t = x.data if _is_dta(x) else x
+    return ("TA" if _is_dta(x) else "T", tuple(t.shape), t.dtype,
+            t.device, t.requires_grad)
+
+
+# ------------------------------------------------------- closure convert
+
+class _Lifted:
+    """Functions with their tensors and device arrays lifted out:
+    ``consts`` in first-seen order (one entry per object), ``key`` the
+    structure, ``make(i, values)`` function ``i`` closing over
+    ``values``."""
+
+    def __init__(self, fns):
+        self.consts: List[Any] = []
+        self._index: Dict[int, int] = {}
+        self._active: set = set()
+        lifted = [self._lift(f) for f in fns]
+        self.key = tuple(k for k, _ in lifted)
+        self._make = [r for _, r in lifted]
+
+    def make(self, i: int, values):
+        return self._make[i](values)
+
+    def _lift(self, obj) -> Tuple[Any, Callable]:
+        if torch.is_tensor(obj) or _is_dta(obj):
+            i = self._index.get(id(obj))
+            if i is None:
+                i = self._index[id(obj)] = len(self.consts)
+                self.consts.append(obj)
+            return ("const", i), lambda v, i=i: v[i]
+        if isinstance(obj, TensorArray):
+            raise TypeError("the graph lowering reads a DeviceTensorArray; "
+                            "the body captures a host-indexed TensorArray")
+        if isinstance(obj, functools.partial):
+            (kf, rf), (ka, ra), (kk, rk) = (
+                self._lift(obj.func), self._lift(obj.args),
+                self._lift(obj.keywords))
+            return (("partial", kf, ka, kk),
+                    lambda v: functools.partial(rf(v), *ra(v), **rk(v)))
+        if isinstance(obj, types.FunctionType):
+            return self._lift_fn(obj)
+        if type(obj) in (list, tuple):
+            parts = [self._lift(x) for x in obj]
+            kind = type(obj)
+            return ((kind.__name__, tuple(k for k, _ in parts)),
+                    lambda v: kind(r(v) for _, r in parts))
+        if type(obj) is dict:
+            parts = [(k, self._lift(x)) for k, x in obj.items()]
+            return (("dict", tuple((k, kk) for k, (kk, _) in parts)),
+                    lambda v: {k: r(v) for k, (_, r) in parts})
+        try:
+            key = ("obj", type(obj), hash(obj), obj)
+        except TypeError:
+            key = ("id", id(obj))
+        return key, lambda v: obj
+
+    def _lift_fn(self, fn):
+        cells = fn.__closure__ or ()
+        if id(fn) in self._active or not (cells or fn.__defaults__):
+            return ("fn", fn), lambda v: fn
+        self._active.add(id(fn))
+        try:
+            parts = []
+            for c in cells:
+                try:
+                    parts.append(self._lift(c.cell_contents))
+                except ValueError:                 # an empty cell
+                    parts.append((("empty",), None))
+            dk, dr = self._lift(fn.__defaults__ or ())
+        finally:
+            self._active.discard(id(fn))
+
+        def rebuild(v):
+            new = types.FunctionType(
+                fn.__code__, fn.__globals__, fn.__name__, dr(v) or None,
+                tuple(types.CellType() if r is None else
+                      types.CellType(r(v)) for _, r in parts))
+            new.__kwdefaults__ = fn.__kwdefaults__
+            return new
+        return (("closure", fn.__code__, tuple(k for k, _ in parts), dk),
+                rebuild)
+
+
+# --------------------------------------------------------------- drivers
+
+class _PlainLoop:
+    """``DeviceLoop``'s contract (static carry, outputs copied into its
+    leaves, ``run``/``iterations``/``close``) as a Python loop."""
+
+    def __init__(self, cond_fn, body_fn, carry, *, max_iters, prologue,
+                 name):
+        self.cond_fn, self.body_fn, self.carry = cond_fn, body_fn, carry
+        self.max_iters, self.prologue = max_iters, prologue
+        self.leaves = pytree.tree_leaves(carry)
+        self._n = 0
+
+    def run(self):
+        self.prologue(self.carry)
+        n = 0
+        while n < self.max_iters and (
+                self.cond_fn is None or bool(self.cond_fn(self.carry).any())):
+            out = pytree.tree_leaves(self.body_fn(self.carry))
+            for old, new in zip(self.leaves, out):
+                if new is not old:
+                    old.copy_(new)
+            n += 1
+        self._n = n
+        return self.carry
+
+    def iterations(self) -> int:
+        return self._n
+
+    def close(self):
+        self.carry, self.leaves = None, []
+
+
+class _Token:
+    """Owns a loop from its forward to its backward (weakly held)."""
+
+
+def _static(x, grad: bool):
+    """A loop's static copy of a carry leaf or a constant."""
+    if _is_dta(x):
+        return x.empty_like()
+    s = torch.empty_like(x, memory_format=torch.contiguous_format)
+    return s.requires_grad_() if grad and x.requires_grad else s
+
+
+def _load(static, value) -> None:
+    with torch.no_grad():
+        for s, v in zip(_parts(static), _parts(value)):
+            s.copy_(v)
+
+
+def _uncovered(outputs, allowed, seq0: int, what: str) -> None:
+    """Refuse a gradient body whose graph reaches a tensor that requires
+    grad other than ``allowed`` (its graph's inputs)."""
+    ids = {id(x) for x in allowed}
+    seen, todo = set(), [o.grad_fn for o in outputs]
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen.add(id(node))
+        var = getattr(node, "variable", None)
+        if var is not None:                      # AccumulateGrad: a leaf
+            if id(var) not in ids:
+                raise ValueError(
+                    f"{what}: the body reaches a {tuple(var.shape)} "
+                    f"{var.dtype} tensor that requires grad and lies "
+                    f"outside the carry and the tensors body_fn/cond_fn "
+                    f"close over (a global or an object's attribute); its "
+                    f"gradient would be silently zero. Close over it or "
+                    f"pass it in the carry")
+            continue
+        if node._sequence_nr() < seq0:
+            raise ValueError(
+                f"{what}: the body reaches {node.name()}, a result computed "
+                f"before the loop that requires grad, through a tensor "
+                f"that is neither in the carry nor closed over by "
+                f"body_fn/cond_fn; its gradient would be silently zero. "
+                f"Close over it or pass it in the carry")
+        todo.extend(n for n, _ in node.next_functions)
+
+
+def _sequence_now() -> int:
+    with torch.enable_grad():
+        probe = torch.zeros((), requires_grad=True) * 1
+    return probe.grad_fn._sequence_nr()
+
+
+class GradLoop:
+    """One loop program, captured once (see the module docstring)."""
+
+    captures = 0
+    replays = 0
+    host_reads = 0
+
+    def __init__(self, lifted: _Lifted, has_cond: bool, init_leaves, spec,
+                 *, max_iters: int, policy: Optional[str], grad: bool,
+                 plain: bool, name: str):
+        self.what = f"while_loop({name!r}, impl='graph')"
+        self.spec, self.grad, self.policy = spec, grad, policy
+        self.max_iters = int(max_iters)
+        self.generation = 0
+        self._owner = None
+        consts = lifted.consts
+        self.carry = [_static(x, False) for x in init_leaves]
+        self.consts = [_static(c, grad) for c in consts]
+        self.carry_arrays = [_is_dta(x) for x in init_leaves]
+        self.const_arrays = [_is_dta(c) for c in consts]
+        self._carry_ix = [i for i, x in enumerate(init_leaves)
+                          if not _is_dta(x)]
+        self._ta_ix = [i for i, x in enumerate(init_leaves) if _is_dta(x)]
+        dev = next(t for x in init_leaves for t in _parts(x)).device
+        self.device = dev
+        self.it = torch.zeros((), dtype=torch.long, device=dev)
+        body = lifted.make(0, self.consts)
+        cond = lifted.make(1, self.consts) if has_cond else None
+        tree = pytree.tree_unflatten(self.carry, spec)
+
+        def fwd_body(state):
+            it, carry = state
+            if grad:
+                leaves = _flatten(carry)[0]
+                for st, i in zip(self.stacks, self._carry_ix):
+                    st.push(it, leaves[i])
+            return (it + 1, body(carry))
+
+        fwd_cond = None if cond is None else (lambda s: cond(s[1]))
+        # float carry leaves, differentiated
+        self._diff_ix = [i for i in self._carry_ix
+                         if self.carry[i].is_floating_point()]
+        self.stacks: List[CarryStack] = []
+        if grad:
+            self.stacks = [CarryStack(self.carry[i], self.max_iters,
+                                      policy == "carry_offload")
+                           for i in self._carry_ix]
+            self._setup_grad(lifted, consts)
+        for s, x in zip(self.carry, init_leaves):
+            _load(s, x)
+        for s, c in zip(self.consts, consts):
+            _load(s, c)
+        loop_cls = _PlainLoop if plain else _device_loop_cls()
+        try:
+            with torch.no_grad(), deferred_checks():
+                # eager warm-up (lazy initialisation before capture, and
+                # the gradient body's uncovered-tensor check)
+                self.it.zero_()
+                fwd_body((self.it, tree))
+                if grad:
+                    self.it.fill_(1)             # pops the row just pushed
+                    self.j.zero_()
+                    self._grad_body((self.j, self.g_carry), check=True)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                self.fwd = loop_cls(fwd_cond, fwd_body, (self.it, tree),
+                                    max_iters=self.max_iters,
+                                    prologue=_zero_counter, name=name)
+                self.bwd = None
+                if grad:
+                    self.bwd = loop_cls(
+                        lambda s: s[0] < self.it, self._grad_body,
+                        (self.j, self.g_carry), max_iters=self.max_iters,
+                        prologue=_zero_counter, name=name + ".grad")
+        except BaseException:
+            self.close()
+            raise
+        if not plain:
+            GradLoop.captures += 1
+
+    def _setup_grad(self, lifted: _Lifted, consts) -> None:
+        dev = self.device
+        self.j = torch.zeros((), dtype=torch.long, device=dev)
+        self.g_carry = [torch.zeros_like(self.carry[i])
+                        for i in self._diff_ix]
+        # dual arrays: the carry's float arrays and the captured arrays
+        # whose source requires grad
+        self._views: List[DeviceTensorArray] = []
+        self.carry_duals = {}
+        for i in self._ta_ix:
+            ta = self.carry[i]
+            g = (torch.zeros_like(ta.data) if ta.data.is_floating_point()
+                 else None)
+            self.carry_duals[i] = ta.dual_view(g, carry=True)
+            self._views.append(self.carry_duals[i])
+        values, self._acc_ix = [], []
+        self.accs: List[Optional[torch.Tensor]] = []
+        for k, (s, c) in enumerate(zip(self.consts, consts)):
+            if _is_dta(s):
+                g = (torch.zeros_like(s.data) if c.data.requires_grad
+                     else None)
+                view = s.dual_view(g, carry=False)
+                self._views.append(view)
+                values.append(view)
+                self.accs.append(g)
+            else:
+                values.append(s)
+                rg = s.requires_grad
+                self.accs.append(torch.zeros_like(s) if rg else None)
+                if rg:
+                    self._acc_ix.append(k)
+        self._body_g = lifted.make(0, values)
+        self._const_leaves = [self.consts[k] for k in self._acc_ix]
+
+    def _grad_body(self, state, check: bool = False):
+        """One gradient-loop iteration (carry ``(j, g_carry)``)."""
+        j, gs = state
+        k = self.it - 1 - j
+        popped = [st.pop(k) for st in self.stacks]
+        for v in self._views:
+            v._dual.reads.clear()
+            v._dual.writes.clear()
+        seq0 = _sequence_now() if check else 0
+        with torch.enable_grad():
+            leaves = list(self.carry)
+            xs = []
+            for i, p in zip(self._carry_ix, popped):
+                if self.carry[i].is_floating_point():
+                    p = p.detach().requires_grad_()
+                    xs.append(p)
+                leaves[i] = p
+            for i, view in self.carry_duals.items():
+                leaves[i] = view
+            out = _flatten(self._body_g(pytree.tree_unflatten(
+                leaves, self.spec)))[0]
+            outputs, gouts = [], []
+            for i, g in zip(self._diff_ix, gs):
+                o = out[i]
+                if torch.is_tensor(o) and o.requires_grad:
+                    outputs.append(o)
+                    gouts.append(g)
+            rows = []
+            for v in self._views:
+                d = v._dual
+                for t, y in d.writes:
+                    if d.grad is not None:
+                        r = _row(t, d.grad.device)
+                        rows.append((d.grad, r))
+                        if torch.is_tensor(y) and y.requires_grad:
+                            outputs.append(y)
+                            gouts.append(d.grad.index_select(0, r)[0])
+            reads = [(v._dual.grad, t, leaf) for v in self._views
+                     for t, leaf in v._dual.reads]
+            inputs = xs + self._const_leaves + [leaf for _, _, leaf in reads]
+            if check:
+                _uncovered(outputs, inputs, seq0, self.what)
+            grads = (torch.autograd.grad(outputs, inputs, gouts,
+                                         allow_unused=True)
+                     if outputs and inputs else [None] * len(inputs))
+        n_x, n_c = len(xs), len(self._const_leaves)
+        new_gs = []
+        for x, g in zip(xs, grads[:n_x]):
+            if g is None:
+                g = torch.zeros_like(x)
+            elif any(g is s for s in gs):
+                g = g.clone()
+            new_gs.append(g)
+        for k, g in zip(self._acc_ix, grads[n_x:n_x + n_c]):
+            if g is not None:
+                self.accs[k].add_(g)
+        for dual, r in rows:
+            dual.index_fill_(0, r, 0)
+        for (dual, t, _), g in zip(reads, grads[n_x + n_c:]):
+            if g is not None:
+                dual.index_add_(0, _row(t, dual.device), g.unsqueeze(0))
+        return (j + 1, new_gs)
+
+    # ---------------- use -----------------------------------------------
+
+    def busy(self) -> bool:
+        return self._owner is not None and self._owner() is not None
+
+    def forward(self, init_leaves, const_values, owner=None):
+        """Load the inputs, run the forward loop (one launch), check the
+        double writes; returns the carry's leaves as fresh tensors."""
+        with torch.no_grad():
+            for s, x in zip(self.carry, init_leaves):
+                _load(s, x)
+            for s, c in zip(self.consts, const_values):
+                _load(s, c)
+            with deferred_checks():
+                self.fwd.run()
+        if not isinstance(self.fwd, _PlainLoop):
+            GradLoop.replays += 1
+        self.generation += 1
+        self._owner = None if owner is None else weakref.ref(owner)
+        tas = [self.carry[i] for i in self._ta_ix]
+        if tas:
+            from .device_loop import read_host
+            if isinstance(self.fwd, _PlainLoop):
+                dups = [int(t.double_writes) for t in tas]
+            else:
+                dups = [int(v) for v in read_host(
+                    *[t.double_writes for t in tas])]
+                GradLoop.host_reads += 1
+            if any(dups):
+                raise WriteOnceError(
+                    f"{self.what}: {sum(dups)} TensorArray write(s) to a "
+                    f"written location; the gradient construction of §5.2 "
+                    f"requires write-once")
+        with torch.no_grad():
+            return [x.clone() if not _is_dta(x) else
+                    DeviceTensorArray(*[t.clone() for t in x.tensors()])
+                    for x in self.carry]
+
+    def backward(self, g_leaves, generation: int):
+        """Run the gradient loop (one launch) from the carry's output
+        cotangents; returns (carry cotangents, constant gradients), fresh
+        tensors or None."""
+        if generation != self.generation:
+            raise RuntimeError(f"{self.what}: the loop's stacks were reused "
+                               f"by a later call before this backward")
+        with torch.no_grad():
+            for g, i in zip(self.g_carry, self._diff_ix):
+                g.copy_(g_leaves[i])
+            for i, view in self.carry_duals.items():
+                if view._dual.grad is not None:
+                    view._dual.grad.copy_(g_leaves[i])
+            for a in self.accs:
+                if a is not None:
+                    a.zero_()
+            for v in self._views:
+                if not v._dual.carry and v._dual.grad is not None:
+                    v._dual.grad.zero_()
+            self.bwd.run()
+        if not isinstance(self.bwd, _PlainLoop):
+            GradLoop.replays += 1
+        self._owner = None
+        with torch.no_grad():
+            g_carry = [None] * len(self.carry)
+            for g, i in zip(self.g_carry, self._diff_ix):
+                g_carry[i] = g.clone()
+            for i, view in self.carry_duals.items():
+                if view._dual.grad is not None:
+                    g_carry[i] = view._dual.grad.clone()
+            return g_carry, [None if a is None else a.clone()
+                             for a in self.accs]
+
+    @property
+    def host_bytes(self) -> int:
+        """Pinned host bytes of the stacks (``carry_offload``)."""
+        return sum(st.host_bytes for st in self.stacks)
+
+    @property
+    def carry_bytes(self) -> int:
+        """Bytes one iteration pushes."""
+        return sum(st.nbytes for st in self.stacks)
+
+    def iterations(self) -> int:
+        """The last forward's trip count (one host read)."""
+        return self.fwd.iterations()
+
+    def close(self) -> None:
+        for loop in (getattr(self, "fwd", None), getattr(self, "bwd", None)):
+            if loop is not None:
+                loop.close()
+        self.fwd = self.bwd = None
+        self.stacks = []
+
+
+def _zero_counter(state) -> None:
+    state[0].zero_()
+
+
+def _device_loop_cls():
+    from .device_loop import DeviceLoop
+    return DeviceLoop
+
+
+class _Loop(torch.autograd.Function):
+    """forward: the forward graph; backward: the gradient graph."""
+
+    @staticmethod
+    def forward(ctx, plan: GradLoop, *tensors):
+        n = sum(3 if ta else 1 for ta in plan.carry_arrays)
+        leaves = _regroup(tensors[:n], plan.carry_arrays)
+        consts = _regroup(tensors[n:], plan.const_arrays)
+        token = _Token()
+        outs = plan.forward(leaves, consts, owner=token)
+        ctx.plan, ctx.token, ctx.generation = plan, token, plan.generation
+        flat = [t for x in outs for t in _parts(x)]
+        ctx.mark_non_differentiable(*[t for t in flat
+                                      if not t.is_floating_point()])
+        return tuple(flat)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        # an array's cotangent is its data's
+        g_leaves = [x.data if _is_dta(x) else x
+                    for x in _regroup(grads, plan.carry_arrays)]
+        g_carry, g_consts = plan.backward(g_leaves, ctx.generation)
+        out: List[Optional[torch.Tensor]] = []
+        for ta, g in zip(plan.carry_arrays + plan.const_arrays,
+                         g_carry + g_consts):
+            out += [g, None, None] if ta else [g]
+        return (None, *out)
+
+
+# ---------------------------------------------------------- entry point
+
+_CACHE: Dict[tuple, List[GradLoop]] = {}
+
+
+def takes(init, body_fn, cond_fn) -> Optional[_Lifted]:
+    """Does ``while_loop(impl="graph")`` go through this module: a carry
+    that holds a ``DeviceTensorArray``, or grad mode with a tensor that
+    requires grad in the carry or among the constants? Returns the
+    lifted functions (for ``run``) if it does, else None."""
+    leaves = _flatten(init)[0]
+    arrays = any(_is_dta(x) for x in leaves)
+    if not (arrays or torch.is_grad_enabled()):
+        return None
+    lifted = _Lifted([body_fn] + ([cond_fn] if cond_fn is not None
+                                  else []))
+    if arrays or any(t.requires_grad for x in leaves + lifted.consts
+                     if torch.is_tensor(x) or _is_dta(x)
+                     for t in _parts(x)):
+        return lifted
+    return None
+
+
+def run(lifted: _Lifted, has_cond: bool, init, *,
+        max_iters: Optional[int], save_policy: str,
+        name: str = "while") -> Tuple[Any, GradLoop]:
+    """``while_loop(impl="graph")`` through a ``GradLoop`` (``lifted``
+    from ``takes``): returns the final carry (fresh tensors) and the
+    loop."""
+    what = f"while_loop({name!r}, impl='graph')"
+    if max_iters is None:
+        raise ValueError(f"{what}: the graph lowering of a loop over a "
+                         f"TensorArray or under grad needs max_iters (it "
+                         f"bounds the stacks, paper §5.1)")
+    leaves, spec = _flatten(init)
+    for x in leaves:
+        if isinstance(x, (bool, int, float, complex)):
+            raise TypeError(f"{what}: the carry holds a Python number "
+                            f"({x!r}); a counter must be a 0-d device "
+                            f"tensor")
+        if not (torch.is_tensor(x) or _is_dta(x)):
+            raise TypeError(f"{what}: a carry leaf of type "
+                            f"{type(x).__name__}; the gradient-capable "
+                            f"graph loop takes tensors and "
+                            f"DeviceTensorArrays")
+    plain = bool(_PLAIN[0])
+    tensors = [t for x in leaves + lifted.consts for t in _parts(x)]
+    if not plain and any(t.device.type != "cuda" for t in tensors):
+        bad = next(t for t in tensors if t.device.type != "cuda")
+        raise ValueError(f"{what}: the graph lowering runs on CUDA "
+                         f"tensors; got a {bad.device} tensor (the "
+                         f"host-read lowering, impl='host', runs on the "
+                         f"CPU)")
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors)
+    if grad and save_policy not in GRAPH_POLICIES:
+        raise ValueError(
+            f"{what}: under grad the graph lowering saves the carry "
+            f"(save_policy 'carry' or 'carry_offload'); "
+            f"{save_policy!r} saves the body's residuals, which only "
+            f"impl='host' does")
+    key = (lifted.key, has_cond, spec,
+           tuple(_sig(x) for x in leaves),
+           tuple(_sig(c) for c in lifted.consts), int(max_iters),
+           save_policy if grad else None, grad, plain)
+    plans = _CACHE.setdefault(key, [])
+    plan = next((p for p in plans if not p.busy()), None)
+    if plan is None:
+        plan = GradLoop(lifted, has_cond, leaves, spec,
+                        max_iters=max_iters,
+                        policy=save_policy if grad else None, grad=grad,
+                        plain=plain, name=name)
+        plans.append(plan)
+    if grad:
+        outs = _regroup(_Loop.apply(plan, *tensors), plan.carry_arrays)
+    else:
+        outs = plan.forward(leaves, lifted.consts)
+    return pytree.tree_unflatten(outs, spec), plan
+
+
+def release() -> None:
+    """Close every cached loop (frees their graphs, stacks and static
+    buffers)."""
+    for plans in _CACHE.values():
+        for p in plans:
+            p.close()
+    _CACHE.clear()

@@ -35,9 +35,11 @@ the body each output leaf is copied into its carry leaf, except where
 the body returned the carry's own object (an in-place cache is never
 copied). Non-tensor leaves (a ``PagedKVCache``, updated in place) must
 come back as the same object. Refused, with an error: a CPU tensor, grad
-mode (the graph records no tape: the host lowering is the
-differentiable one), a Python number in the carry (a counter must be a
-device tensor), a predicate that is not a CUDA tensor.
+mode (the graph records no tape; ``while_loop(impl="graph")`` sends a
+loop with a tensor that requires grad to ``core.device_grad``, which
+builds §5.1's gradient loop from two ``DeviceLoop``s), a Python number
+in the carry (a counter must be a device tensor), a predicate that is
+not a CUDA tensor.
 
 Capture runs the Python of the prologue, predicate and body once; a
 host read inside them (``.item()``, ``.cpu()``, ``nonzero``,
@@ -97,8 +99,8 @@ def _refuse_leaf(x, what: str) -> None:
                         f"a counter must be a 0-d device tensor")
     if isinstance(x, TensorArray):
         raise TypeError(f"{what}: a TensorArray indexes its slots on the "
-                        f"host; the graph lowering needs a device-indexed "
-                        f"array (ROADMAP.md)")
+                        f"host; the graph lowering takes the device-indexed "
+                        f"core.DeviceTensorArray")
     if torch.is_tensor(x):
         if x.device.type != "cuda":
             raise ValueError(f"{what}: the graph lowering runs on CUDA "
@@ -106,9 +108,10 @@ def _refuse_leaf(x, what: str) -> None:
                              f"host-read lowering, impl='host', runs on "
                              f"the CPU)")
         if x.requires_grad:
-            raise RuntimeError(f"{what}: a carry tensor requires grad; the "
-                               f"graph lowering records no tape (use "
-                               f"impl='host' to differentiate)")
+            raise RuntimeError(f"{what}: a carry tensor requires grad; a "
+                               f"DeviceLoop records no tape (under grad "
+                               f"mode, while_loop(impl='graph') runs the "
+                               f"gradient loop, core.device_grad)")
 
 
 def _check_on_card(pred, what: str) -> None:
@@ -269,8 +272,8 @@ class DeviceLoop:
             raise ValueError(f"{what}: unroll applies to a counted loop")
         if torch.is_grad_enabled():
             raise RuntimeError(f"{what} records no gradient: call it under "
-                               f"torch.no_grad() (impl='host' is the "
-                               f"differentiable lowering)")
+                               f"torch.no_grad() (a loop with a tensor that "
+                               f"requires grad takes core.device_grad)")
         if cond_fn is None and max_iters is None:
             raise ValueError("counted loop (cond_fn=None) requires max_iters")
         self.carry = carry

@@ -48,10 +48,25 @@ On the CPU, "host memory" is the tensor's own memory: the same code
 copies into plain (unpinned) chunks, with no streams, so the CPU tests
 run the push/pop bookkeeping and the results match the device policies
 exactly.
+
+``CarryStack`` is the contiguous lowering of the JAX package's
+``repro/core/stacks.py``, for the graph lowering's gradient loop
+(``core.device_grad``, policies ``carry`` and ``carry_offload``): per
+saved carry leaf one preallocated ``(max_iters, *shape)`` buffer, pushed
+and popped at a 0-d device index that is never read to the host. Under
+``carry`` the buffer is on the device (``index_copy_``/``index_select``
+of one row). Under ``carry_offload`` it is pinned host memory that the
+device addresses directly (checked with ``cudaPointerGetAttributes``);
+a graph memcpy node cannot take an offset known only on the device, so
+push and pop are the copy kernel of ``kernels/csrc/graph_loop.cu``
+(``stack_copy``), one launch a leaf. On the CPU (the plain driver of
+the CPU tests) the offloaded buffer is a plain CPU tensor, pushed and
+popped as the device one.
 """
 
 from __future__ import annotations
 
+import ctypes
 import sys
 import weakref
 from typing import Dict, List, Optional
@@ -215,3 +230,76 @@ class SaveStack:
             ev = torch.cuda.Event()
             ev.record(self._side)
         self._fetched[it] = ev
+
+
+# ------------------------------------------------ contiguous carry stacks
+
+_P = ctypes.c_void_p
+
+
+class CarryStack:
+    """The stack of one carry leaf shaped like ``like``: ``capacity``
+    rows, on the device, or (``offload`` on a CUDA leaf) in pinned host
+    memory."""
+
+    def __init__(self, like: torch.Tensor, capacity: int, offload: bool):
+        self.shape, self.dtype = tuple(like.shape), like.dtype
+        self.nbytes = like.numel() * like.element_size()
+        self.capacity = int(capacity)
+        self.on_host = bool(offload)
+        rows = (self.capacity, *self.shape)
+        self._mapped = None
+        if offload and like.is_cuda:
+            self.buf = torch.empty(rows, dtype=like.dtype, pin_memory=True)
+            self._mapped = _device_pointer(self.buf)
+            self._out = torch.empty_like(like)       # a pop's destination
+        elif offload:
+            self.buf = torch.empty(rows, dtype=like.dtype)
+        else:
+            self.buf = torch.empty(rows, dtype=like.dtype,
+                                   device=like.device)
+
+    @property
+    def host_bytes(self) -> int:
+        """Bytes of host memory the stack holds."""
+        return self.capacity * self.nbytes if self.on_host else 0
+
+    def push(self, k: torch.Tensor, x: torch.Tensor) -> None:
+        """Row ``k`` (a 0-d int64 tensor on ``x``'s device) := ``x``."""
+        if self._mapped is not None:
+            _copy(x.contiguous(), self._mapped, k, self.nbytes, to_host=True)
+            return
+        self.buf.index_copy_(0, k.reshape(1), x.detach().unsqueeze(0))
+
+    def pop(self, k: torch.Tensor) -> torch.Tensor:
+        """Row ``k``, on the leaf's device (under offload on the card, in
+        the stack's one static destination, overwritten by the next
+        pop)."""
+        if self._mapped is not None:
+            _copy(self._out, self._mapped, k, self.nbytes, to_host=False)
+            return self._out
+        return self.buf.index_select(0, k.reshape(1))[0]
+
+
+def _device_pointer(host: torch.Tensor) -> int:
+    from ..kernels import check, entry
+    dev = _P()
+    fn = entry("graph_loop", "stack_device_pointer",
+               [_P, ctypes.POINTER(_P)])
+    check(fn(_P(host.data_ptr()), ctypes.byref(dev)),
+          "stack_device_pointer: pinned host memory the device cannot "
+          "address")
+    return dev.value
+
+
+def _copy(device: torch.Tensor, mapped: int, k: torch.Tensor, nbytes: int,
+          to_host: bool) -> None:
+    from ..kernels import check, entry, stream_ptr
+    if k.dtype != torch.long or not k.is_cuda:
+        raise TypeError("CarryStack: the index must be a 0-d int64 CUDA "
+                        "tensor")
+    fn = entry("graph_loop", "stack_copy",
+               [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, _P])
+    check(fn(_P(device.data_ptr()), _P(mapped), _P(k.data_ptr()), nbytes,
+             nbytes, int(to_host), stream_ptr()), "stack_copy")

@@ -27,11 +27,24 @@ the slot tensors, or the source), so tree utilities see through it.
 ``core.while_loop`` treats an array in the carry as one opaque value: its
 slots are tensors of earlier iterations, already alive, and are neither
 saved again nor copied per iteration.
+
+``DeviceTensorArray`` is the JAX package's layout, for the graph
+lowering (``while_loop(impl="graph")``, ``core.device_grad``): one
+``(size, *elem)`` buffer and a ``written`` mask, indexed by 0-d device
+integers that are never read to the host. ``write`` is in place
+(``index_copy_``) and returns the same array. Write-once is a device
+counter of double writes while a loop runs (the loop reads it once,
+after its replay, and raises ``WriteOnceError``); an eager write outside
+a loop checks on the host at once. Inside the gradient loop an array is
+a dual view (``dual_view``): §5.2's duals as one-row operations, the
+cotangent of ``write(t, y)`` being row ``t`` of the dual array and the
+cotangent of ``read(t)`` added into row ``t`` of it (``index_add_``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -184,3 +197,156 @@ def _unflatten(children, context) -> TensorArray:
 
 
 pytree.register_pytree_node(TensorArray, _flatten, _unflatten)
+
+
+# ------------------------------------------------- device-indexed array
+
+_DEFERRED = [0]      # > 0 while a loop driver counts double writes
+
+
+@contextlib.contextmanager
+def deferred_checks():
+    """Inside a loop driver: a double write adds to the array's device
+    counter instead of being checked on the host at once."""
+    _DEFERRED[0] += 1
+    try:
+        yield
+    finally:
+        _DEFERRED[0] -= 1
+
+
+def _row(ix, device) -> torch.Tensor:
+    """A (1,) int64 index on ``device`` from a 0-d device tensor (no
+    host read) or a Python int."""
+    if torch.is_tensor(ix):
+        return ix.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), int(ix), dtype=torch.long, device=device)
+
+
+class _Dual:
+    """The dual of an array inside one gradient-loop iteration: the
+    reads (index, leaf) and writes (index, value) its body made."""
+
+    __slots__ = ("grad", "carry", "reads", "writes")
+
+    def __init__(self, grad: Optional[torch.Tensor], carry: bool):
+        self.grad, self.carry = grad, carry
+        self.reads: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.writes: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+
+class DeviceTensorArray:
+    """Fixed-capacity array of one ``(size, *elem)`` buffer, indexed on
+    the device. ``written`` (size,) int32 marks written rows;
+    ``double_writes`` (0-d int32) counts writes to a written row."""
+
+    def __init__(self, data: torch.Tensor, written: torch.Tensor,
+                 double_writes: torch.Tensor, dual: Optional[_Dual] = None):
+        self.data, self.written = data, written
+        self.double_writes = double_writes
+        self._dual = dual
+
+    @staticmethod
+    def create(size: int, elem_shape: Sequence[int], dtype=torch.float32,
+               device=None) -> "DeviceTensorArray":
+        data = torch.zeros((int(size), *elem_shape), dtype=dtype,
+                           device=device)
+        return DeviceTensorArray(
+            data, torch.zeros((int(size),), dtype=torch.int32,
+                              device=data.device),
+            torch.zeros((), dtype=torch.int32, device=data.device))
+
+    @staticmethod
+    def unstack(ts: torch.Tensor) -> "DeviceTensorArray":
+        """Element i := ts[i] (the buffer IS ``ts``); all rows written."""
+        return DeviceTensorArray(
+            ts, torch.ones((ts.shape[0],), dtype=torch.int32,
+                           device=ts.device),
+            torch.zeros((), dtype=torch.int32, device=ts.device))
+
+    def empty_like(self) -> "DeviceTensorArray":
+        """An array of the same shapes with uninitialised storage (a
+        loop's static copy)."""
+        return DeviceTensorArray(torch.empty_like(self.data),
+                                 torch.empty_like(self.written),
+                                 torch.empty_like(self.double_writes))
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.data, self.written, self.double_writes]
+
+    def dual_view(self, grad: Optional[torch.Tensor],
+                  carry: bool) -> "DeviceTensorArray":
+        """This array as the gradient loop's body sees it: reads return
+        leaves whose cotangents go to ``grad`` (None: not differentiated)
+        and writes are recorded, not made (the forward made them)."""
+        return DeviceTensorArray(self.data, self.written,
+                                 self.double_writes, _Dual(grad, carry))
+
+    # -- core ops (paper §2.1) ----------------------------------------------
+    def read(self, ix) -> torch.Tensor:
+        """ta.read(ix): one row (a copy), at a device index."""
+        row = self.data.index_select(0, _row(ix, self.data.device))[0]
+        dual = self._dual
+        if dual is None or dual.grad is None:
+            return row
+        if dual.carry:
+            raise NotImplementedError(
+                "a differentiated graph loop reads a TensorArray of its "
+                "carry; its rows as the forward left them are not those "
+                "the iteration read. Read an array the body captures, or "
+                "keep the value in the carry")
+        leaf = row.detach().requires_grad_()
+        dual.reads.append((ix, leaf))
+        return leaf
+
+    def write(self, ix, t) -> "DeviceTensorArray":
+        """ta.write(ix, t), in place; returns this array."""
+        if self._dual is not None:
+            self._dual.writes.append((ix, t))
+            return self
+        dev = self.data.device
+        i = _row(ix, dev)
+        t = torch.as_tensor(t).to(device=dev, dtype=self.data.dtype)
+        if tuple(t.shape) != tuple(self.data.shape[1:]):
+            raise ValueError(f"TensorArray element shape "
+                             f"{tuple(self.data.shape[1:])}, got "
+                             f"{tuple(t.shape)}")
+        capturing = dev.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing()
+        if not (capturing or _DEFERRED[0]) and \
+                bool(self.written.index_select(0, i)[0]):
+            raise WriteOnceError(
+                f"TensorArray location {int(i[0])} written twice; the "
+                "gradient construction of §5.2 requires write-once")
+        self.double_writes.add_(self.written.index_select(0, i)[0])
+        self.written.index_fill_(0, i, 1)
+        self.data.index_copy_(0, i, t.unsqueeze(0))
+        return self
+
+    def stack(self) -> torch.Tensor:
+        """ta.stack(): the buffer itself."""
+        if self._dual is not None and self._dual.grad is not None:
+            raise NotImplementedError(
+                "stack() inside a differentiated graph loop touches the "
+                "whole array every iteration; read rows instead")
+        return self.data
+
+    def size(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def elem_shape(self) -> Tuple[int, ...]:
+        return tuple(self.data.shape[1:])
+
+    def __repr__(self) -> str:
+        return (f"DeviceTensorArray(size={self.size()}, elem_shape="
+                f"{self.elem_shape}, dtype={self.dtype})")
+
+
+pytree.register_pytree_node(
+    DeviceTensorArray, lambda ta: (ta.tensors(), None),
+    lambda children, _: DeviceTensorArray(*children))

@@ -34,8 +34,8 @@ requiring grad) records nothing and so pushes nothing, as in JAX.
 The predicate, and which lowering decides where. The JAX loop decides
 in-graph. This port has two lowerings, chosen by ``impl``:
 
-- ``impl="host"`` (the default; the only one on the CPU and the only one
-  that records gradients, with the §5.3 policies above): an eager Python
+- ``impl="host"`` (the default; the only one on the CPU, and the one
+  that records gradients under all four §5.3 policies above): an eager Python
   loop that brings the decision to the host once per iteration. The
   iteration counter and ``max_iters`` are Python ints, so the clamp costs
   nothing; a predicate that ``cond_fn`` returns as a tensor (a
@@ -44,7 +44,7 @@ in-graph. This port has two lowerings, chosen by ``impl``:
   ``while_loop.host_reads``. A vector predicate keeps the loop alive
   while ANY element holds, as in JAX. A predicate returned as a Python
   bool costs no read.
-- ``impl="graph"`` (CUDA tensors, no grad mode): ``core.device_loop``
+- ``impl="graph"`` (CUDA tensors): without grad, ``core.device_loop``
   captures the loop once as a CUDA graph whose WHILE node re-evaluates
   the predicate on the device, and replays it: one graph launch per
   call, no host read (``DeviceLoop.replays``). The carry must be static
@@ -54,6 +54,16 @@ in-graph. This port has two lowerings, chosen by ``impl``:
   objects is replayed by every later call with the same ones, while
   those functions live; a caller that replays one loop throughout (the
   serving scheduler) holds its ``device_loop.DeviceLoop`` instead.
+  Under grad with a tensor that requires it (in the carry or among the
+  tensors ``body_fn``/``cond_fn`` close over), and for a carry that
+  holds a ``DeviceTensorArray``, the loop goes through
+  ``core.device_grad``: §5.1's forward and gradient loops as two WHILE
+  nodes, the carry saved on contiguous stacks (``save_policy`` "carry"
+  on the device, "carry_offload" in pinned host memory; "all" and
+  "offload", which save the body's residuals, are refused there with a
+  ``ValueError``: ``impl="host"`` runs them), the closed-over tensors
+  lifted out as constants, the pair captured once per program and
+  replayed by later calls; it returns fresh tensors.
 
 ``parallel_iterations``, the paper's §4.3 knob for how many iterations
 may be in flight, has the JAX package's meaning: on a counted loop
@@ -195,7 +205,9 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
       ``while_loop.last_stack`` is the save-stack of the last call that
       recorded a gradient (its ``saved_bytes`` and ``host_bytes``),
       else None; ``while_loop.last_loop`` is the ``DeviceLoop`` of the
-      last ``impl="graph"`` call.
+      last plain ``impl="graph"`` call and ``while_loop.last_grad_loop``
+      the ``device_grad.GradLoop`` of the last one through
+      ``core.device_grad``.
     """
     if save_policy not in SAVE_POLICIES:
         raise ValueError(f"unknown save_policy {save_policy!r}")
@@ -205,7 +217,13 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
     window = _window(cond_fn, save_policy, parallel_iterations, mesh,
                      max_iters)
     if impl == "graph":
-        from . import device_loop
+        from . import device_grad, device_loop
+        lifted = device_grad.takes(init, body_fn, cond_fn)
+        if lifted is not None:
+            out, while_loop.last_grad_loop = device_grad.run(
+                lifted, cond_fn is not None, init, max_iters=max_iters,
+                save_policy=save_policy, name=name)
+            return out
         while_loop.last_loop = device_loop.run(
             cond_fn, body_fn, init, max_iters=max_iters, prologue=prologue,
             name=name, unroll=window)
@@ -275,6 +293,7 @@ while_loop.host_reads = 0
 while_loop.steps = 0
 while_loop.last_stack = None
 while_loop.last_loop = None
+while_loop.last_grad_loop = None
 
 
 def fori_loop(lower, upper: int, body_fn: Callable, init: Any, *,

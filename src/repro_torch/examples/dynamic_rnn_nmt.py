@@ -9,7 +9,13 @@ end through both loops, trained here on a toy rot-7 "translation".
     PYTHONPATH=src python -m repro_torch.examples.dynamic_rnn_nmt --device cpu
 
 It runs on the card unless ``--device cpu`` is given, and checks the
-reference's bar: masked NLL below 0.5 after 250 steps.
+reference's bar: masked NLL below 0.5 after 250 steps. On the card both
+RNNs run under the graph lowering (``impl="graph"``, save policy
+``carry``), the counterpart of the JAX example's jitted step: each
+loop's forward and gradient are one CUDA-graph launch each
+(``core.device_grad``), captured at the first step and replayed by the
+others. On the CPU they run under the host lowering; the line it prints
+names the lowering.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ def init(gen: torch.Generator) -> Dict:
     }
 
 
-def model_loss(params, src, src_len, tgt, save_policy: str = "all"):
+def model_loss(params, src, src_len, tgt, save_policy: str = "all",
+               impl: str = "host"):
     """Alignment-known toy translation: tgt[i] = rot(src[i]).
 
     The decoder consumes the source embedding stream plus the encoder's
@@ -47,11 +54,11 @@ def model_loss(params, src, src_len, tgt, save_policy: str = "all"):
     lengths, differentiated end to end."""
     emb = params["embed"][src]                          # (B, S, E)
     _, (c, h) = rnn.dynamic_rnn(params["enc"], emb, src_len, hidden=HID,
-                                save_policy=save_policy)
+                                save_policy=save_policy, impl=impl)
     dec_in = torch.cat([emb, h[:, None].expand(-1, tgt.shape[1], -1)],
                        dim=-1)
     outs, _ = rnn.dynamic_rnn(params["dec"], dec_in, src_len, hidden=HID,
-                              save_policy=save_policy)
+                              save_policy=save_policy, impl=impl)
     logp = torch.log_softmax(outs @ params["out"], dim=-1)
     mask = (torch.arange(tgt.shape[1], device=tgt.device)[None]
             < src_len[:, None]).to(logp.dtype)
@@ -71,13 +78,16 @@ def batch(gen: torch.Generator):
 
 
 def train_step(cfg: adamw.AdamWConfig, params, opt, src, lens, tgt,
-               save_policy: str = "all"):
+               save_policy: Optional[str] = None, impl: str = "host"):
     """One step: loss and gradients through both loops, then AdamW.
-    Returns (params, opt, loss)."""
+    The save policy defaults to ``all`` under the host lowering and to
+    ``carry`` under the graph lowering. Returns (params, opt, loss)."""
+    if save_policy is None:
+        save_policy = "carry" if impl == "graph" else "all"
     leaves, spec = pytree.tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in leaves]
     loss = model_loss(pytree.tree_unflatten(leaves, spec), src, lens, tgt,
-                      save_policy)
+                      save_policy, impl)
     grads = torch.autograd.grad(loss, leaves)
     params, opt, _ = adamw.apply(cfg, pytree.tree_unflatten(
         [p.detach() for p in leaves], spec),
@@ -92,6 +102,7 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    impl = "graph" if device.type == "cuda" else "host"
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init(gen)
     cfg = adamw.AdamWConfig(lr=LR, weight_decay=0.0)
@@ -99,12 +110,14 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     loss = None
     for i in range(args.steps):
         src, lens, tgt = batch(gen)
-        params, opt, loss = train_step(cfg, params, opt, src, lens, tgt)
+        params, opt, loss = train_step(cfg, params, opt, src, lens, tgt,
+                                       impl=impl)
         if i % 50 == 0:
             print(f"step {i:4d}  masked-NLL {float(loss):.4f}")
     final = float(loss)
     print(f"final loss {final:.4f} after {args.steps} steps on {device} "
-          "- variable-length NMT loop trained through core.while_loop")
+          f"- variable-length NMT loop trained through core.while_loop "
+          f"(impl={impl!r})")
     if args.steps >= STEPS and not final < LOSS_BAR:
         raise RuntimeError(f"toy translation should be mostly learned: "
                            f"loss {final:.4f} >= {LOSS_BAR}")

@@ -21,9 +21,19 @@
 // cudaGraphLaunch instead of N iterations of eager launches and a
 // predicate read each.
 //
+// The same library holds the push and pop of core.stacks.CarryStack under
+// carry_offload: a copy of one carry leaf between a device tensor and row
+// k of a stack in pinned host memory that the device addresses directly,
+// with k read from device memory. A graph memcpy node has fixed addresses,
+// so the row offset, known only on the device, needs a kernel. It is not a
+// port of a TPU kernel (the JAX package leaves the pinned_host transfer to
+// XLA); it is bound by the PCIe link, and moves 16 bytes a thread where
+// the two addresses and the size allow it.
+//
 // Every entry returns a cudaError_t (0 on success), the API call's own
 // error or cudaGetLastError().
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -32,6 +42,26 @@ __global__ void set_condition(cudaGraphConditionalHandle handle,
                               const int* pred, int negate) {
   unsigned int v = *pred != 0 ? 1u : 0u;
   cudaGraphSetConditional(handle, negate ? 1u - v : v);
+}
+
+// dst[0:nbytes] = src[0:nbytes], with the host side at row *k of a
+// stack of rows `stride` bytes apart (to_host: dst is the stack).
+__global__ void stack_copy_kernel(char* dst, const char* src,
+                                  const long long* k, long long stride,
+                                  long long nbytes, int to_host) {
+  const long long off = *k * stride;
+  char* d = to_host ? dst + off : dst;
+  const char* s = to_host ? src : src + off;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (((reinterpret_cast<uintptr_t>(d) | reinterpret_cast<uintptr_t>(s) |
+        static_cast<uintptr_t>(nbytes)) & 15) == 0) {
+    uint4* dv = reinterpret_cast<uint4*>(d);
+    const uint4* sv = reinterpret_cast<const uint4*>(s);
+    for (long long i = first; i < (nbytes >> 4); i += step) dv[i] = sv[i];
+  } else {
+    for (long long i = first; i < nbytes; i += step) d[i] = s[i];
+  }
 }
 
 #define RETURN_IF(call)                    \
@@ -138,6 +168,36 @@ int graph_loop_launch(cudaGraphExec_t exec, cudaStream_t stream) {
 int graph_loop_destroy(cudaGraph_t graph, cudaGraphExec_t exec) {
   if (exec) RETURN_IF(cudaGraphExecDestroy(exec));
   if (graph) RETURN_IF(cudaGraphDestroy(graph));
+  return cudaGetLastError();
+}
+
+// The device address of pinned host memory at `host` (PyTorch's pinned
+// blocks come from cudaHostAlloc; under unified addressing they are mapped).
+// Fails with cudaErrorInvalidValue where the memory is not mapped host
+// memory.
+int stack_device_pointer(void* host, void** device) {
+  cudaPointerAttributes attr;
+  RETURN_IF(cudaPointerGetAttributes(&attr, host));
+  if (attr.type != cudaMemoryTypeHost || attr.devicePointer == nullptr)
+    return cudaErrorInvalidValue;
+  *device = attr.devicePointer;
+  return cudaGetLastError();
+}
+
+// One push (to_host = 1: host row *k <- device src) or pop (to_host = 0:
+// device dst <- host row *k) of a CarryStack in pinned host memory;
+// `host` is the stack's device address (stack_device_pointer).
+int stack_copy(void* device, void* host, const long long* k,
+               long long stride, long long nbytes, int to_host,
+               cudaStream_t stream) {
+  const int threads = 256;
+  long long work = (nbytes + 15) / 16;
+  int blocks = static_cast<int>((work + threads - 1) / threads);
+  blocks = blocks < 1 ? 1 : (blocks > 1056 ? 1056 : blocks);
+  char* dst = static_cast<char*>(to_host ? host : device);
+  const char* src = static_cast<const char*>(to_host ? device : host);
+  stack_copy_kernel<<<blocks, threads, 0, stream>>>(dst, src, k, stride,
+                                                    nbytes, to_host);
   return cudaGetLastError();
 }
 

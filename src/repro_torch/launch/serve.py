@@ -182,6 +182,26 @@ def make_prompts(args, cfg, n):
     return {i: pool[i % pool_n] for i in range(n)}
 
 
+class _RunSteps:
+    """The scheduler's loop iterations over a whole open-loop run: its
+    run count, plus the counts it had when a submission to a drained
+    pool restarted it."""
+
+    def __init__(self, sched):
+        self.sched, self.base = sched, 0
+
+    def submit(self, *args, **kw):
+        """``sched.submit``, keeping the count across a restart."""
+        before = self.sched.total_steps
+        rid = self.sched.submit(*args, **kw)
+        if self.sched.total_steps < before:
+            self.base += before
+        return rid
+
+    def __call__(self) -> int:
+        return self.base + self.sched.total_steps
+
+
 class TokenClock:
     """When each request's tokens reached the host, on two clocks: wall
     seconds and the scheduler's loop iterations. TTFT runs from arrival
@@ -197,10 +217,11 @@ class TokenClock:
     def arrive(self, rid, t, step=0):
         self.arrival[rid], self.count[rid] = (t, step), 0
 
-    def observe(self, sched, finished, t):
-        """Record the tokens that reached the host by wall time ``t``:
-        the resident requests' (the harvest's mirror) and the finished."""
-        step = sched.total_steps
+    def observe(self, sched, finished, t, step=None):
+        """Record the tokens that reached the host by wall time ``t`` and
+        loop iteration ``step`` (default: the scheduler's run count): the
+        resident requests' (the harvest's mirror) and the finished."""
+        step = sched.total_steps if step is None else step
         seen = {rid: len(toks) for rid, toks in sched.resident().items()}
         seen.update({f.request_id: f.length for f in finished})
         for rid, n in seen.items():
@@ -286,7 +307,11 @@ def serve_arrivals(args, cfg, sched, workload):
     theirs), then each request submitted at its arrival and the
     scheduler stepped until all have finished. Returns wall and busy
     seconds, tokens, tok/s over busy time, latency p50/p99, the streams,
-    each request's mean depth and ``TokenClock.summary()``."""
+    each request's mean depth and ``TokenClock.summary()``. Tokens are
+    counted from the streams collected here, and the clock's step marks
+    from a count kept here: a submission to a drained pool restarts the
+    scheduler's run counters (``reset_stats``), which would otherwise
+    drop the tokens before the drain and send the marks backwards."""
     prompts = make_prompts(args, cfg, len(workload))
     agree = getattr(sched, "agree", lambda v: v)
     sched.submit(np.full((1, args.prompt_len), 2, np.int32), max_new=2,
@@ -299,15 +324,16 @@ def serve_arrivals(args, cfg, sched, workload):
     t0 = time.perf_counter()
     next_req = 0
     idle_s = 0.0          # open-loop arrival gaps: excluded from tok/s
+    steps = _RunSteps(sched)
     while len(finish_wall) < len(workload):
         # a fleet's ranks admit alike: on its first rank's clock
         now = agree(time.perf_counter() - t0)
         while next_req < len(workload) and workload[next_req][0] <= now:
-            rid = sched.submit(prompts[next_req],
+            rid = steps.submit(prompts[next_req],
                                max_new=workload[next_req][1],
                                request_id=next_req)
             arrival_wall[rid] = workload[next_req][0]
-            clock.arrive(rid, workload[next_req][0], sched.total_steps)
+            clock.arrive(rid, workload[next_req][0], steps())
             next_req += 1
         if sched.pending == 0:
             if next_req < len(workload):
@@ -317,7 +343,7 @@ def serve_arrivals(args, cfg, sched, workload):
             continue
         finished = sched.step(expect_arrivals=next_req < len(workload))
         now = agree(time.perf_counter() - t0)
-        clock.observe(sched, finished, now)
+        clock.observe(sched, finished, now, steps())
         for f in finished:
             finish_wall[f.request_id] = now
             streams[f.request_id] = f.tokens
@@ -326,7 +352,7 @@ def serve_arrivals(args, cfg, sched, workload):
     wall = time.perf_counter() - t0
     busy = max(wall - idle_s, 1e-9)
     lat = [finish_wall[r] - arrival_wall[r] for r in finish_wall]
-    toks = sched.tokens_emitted
+    toks = sum(len(s) for s in streams.values())
     return {"wall_s": wall, "busy_s": busy, "tok_s": toks / busy,
             "p50_s": pctl(lat, 50), "p99_s": pctl(lat, 99), "tokens": toks,
             "streams": streams, "req_depth": req_depth, **clock.summary()}

@@ -13,9 +13,19 @@ CUDA version; it is forward-only, as the JAX package's Pallas cell is,
 so training runs the unfused cell (the default) and an inference pass
 may pass ``cell=functools.partial(lstm_cell, kernel=ops.lstm_cell)``.
 
-The trip count is ``max(seq_lens)``, a data-dependent predicate that
-the loop reads to the host once per step (``while_loop.host_reads``);
-without ``seq_lens`` the loop is counted and reads nothing.
+``impl`` picks the loop's lowering. Under ``"host"`` (the default) the
+trip count ``max(seq_lens)`` is a data-dependent predicate that the loop
+reads to the host once per step (``while_loop.host_reads``); without
+``seq_lens`` the loop is counted and reads nothing. Under ``"graph"``
+(CUDA tensors) the step counter is a 0-d device tensor, the arrays are
+``DeviceTensorArray``s and ``t < max(lens)`` is decided on the device:
+a forward pass is one CUDA-graph launch with no host read, and under
+grad (``save_policy`` "carry" or "carry_offload") the gradient is a
+second launch (``core.device_grad``). The fused cell may run inside the
+graph's WHILE node on an inference pass (it launches on the current
+stream); its Python ``launches`` counter counts at capture, so the
+launches of a replay are the loop's iterations
+(``while_loop.last_grad_loop.iterations()``).
 """
 
 from __future__ import annotations
@@ -61,20 +71,28 @@ def dynamic_rnn(cell_params: Dict, inputs: torch.Tensor,
                 seq_lens: Optional[torch.Tensor] = None, *,
                 hidden: int, save_policy: str = "all",
                 parallel_iterations: int = 1,
-                cell=lstm_cell) -> Tuple[torch.Tensor, Tuple]:
+                cell=lstm_cell, impl: str = "host"
+                ) -> Tuple[torch.Tensor, Tuple]:
     """Paper §2.2 dynamic_rnn: while_loop + TensorArrays.
 
-    inputs: (B, S, D); seq_lens: (B,) or None.
+    inputs: (B, S, D); seq_lens: (B,) or None; impl: "host" or "graph"
+    (see the module docstring).
     Returns (outputs (B, S, H), final_state (c, h)).
     """
     B, S, _ = inputs.shape
     dev, dt = inputs.device, inputs.dtype
+    if impl not in ("host", "graph"):
+        raise ValueError(f"unknown dynamic_rnn impl {impl!r}")
+    ta_cls = core.DeviceTensorArray if impl == "graph" else core.TensorArray
     # time-major once (the JAX swapaxes), so each step reads a contiguous
     # (B, D) slice
-    in_ta = core.TensorArray.unstack(inputs.transpose(0, 1).contiguous())
-    out_ta = core.TensorArray.create(S, (B, hidden), dt, dev)
+    in_ta = ta_cls.unstack(inputs.transpose(0, 1).contiguous())
+    out_ta = ta_cls.create(S, (B, hidden), dt, dev)
     c0 = torch.zeros(B, hidden, dtype=dt, device=dev)
     h0 = torch.zeros(B, hidden, dtype=dt, device=dev)
+    # the step counter: a Python int on the host, a 0-d tensor on the card
+    t0 = (torch.zeros((), dtype=torch.long, device=dev) if impl == "graph"
+          else 0)
     if seq_lens is None:
         cond_fn, lens = None, None
     else:
@@ -97,9 +115,9 @@ def dynamic_rnn(cell_params: Dict, inputs: torch.Tensor,
         return (t + 1, c2, h2, ta.write(t, y))
 
     _, c, h, out = core.while_loop(
-        cond_fn, body_fn, (0, c0, h0, out_ta), max_iters=S,
+        cond_fn, body_fn, (t0, c0, h0, out_ta), max_iters=S,
         save_policy=save_policy, parallel_iterations=parallel_iterations,
-        name="dynamic_rnn")
+        name="dynamic_rnn", impl=impl)
     return out.stack().transpose(0, 1), (c, h)
 
 
@@ -124,16 +142,17 @@ def multilayer_lstm_params(gen: torch.Generator, n_layers: int,
 
 def multilayer_dynamic_rnn(params_list, inputs, *, hidden: int,
                            save_policy: str = "all",
-                           stage_fn=None) -> torch.Tensor:
+                           stage_fn=None, impl: str = "host") -> torch.Tensor:
     """Stacked LSTM (paper §6.4 model-parallel workload).
 
     ``stage_fn(layer_idx, fn, x)`` lets a caller place each layer (the
-    JAX package's pipeline stages); identity by default.
+    JAX package's pipeline stages); identity by default. ``impl`` goes to
+    each layer's ``dynamic_rnn``.
     """
     x = inputs
     for i, p in enumerate(params_list):
         run = functools.partial(dynamic_rnn, p, hidden=hidden,
-                                save_policy=save_policy)
+                                save_policy=save_policy, impl=impl)
         if stage_fn is not None:
             x = stage_fn(i, lambda xx, run=run: run(xx)[0], x)
         else:

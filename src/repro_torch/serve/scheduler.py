@@ -74,10 +74,12 @@ budget; a slot that finishes retires and frees its blocks in the same
 iteration. Greedy speculative streams equal the non-speculative ones.
 
 Adaptive depth (``cfg.early_exit``, ``cfg.mod_capacity``;
-``models.adaptive``). The decode passes ``live=emit``, so retired and
-prefilling slots start the early-exit layer loop halted, and adds each
-emitted token's depth to the slot's ``slot_layers``/``slot_decodes``
-(restarted at admission); the harvest's one read brings them, and
+``models.adaptive``). The decode passes ``live`` = the emitting rows that
+do not retire in this iteration, so retired, retiring and prefilling
+slots start the early-exit layer loop halted, and adds the depth of
+each decode whose token will be emitted to the slot's
+``slot_layers``/``slot_decodes`` (restarted at admission; a request of
+n tokens counts n - 1 decodes, the first token being the prefill's); the harvest's one read brings them, and
 ``FinishedRequest.mean_depth``, ``mean_depth`` and ``slot_mean_depth``
 come from it. Inside the captured segment the layer loop is an IF node a
 layer (``transformer.decode_layers``); ``depth_impl`` names the
@@ -1045,9 +1047,12 @@ class DecodeScheduler:
         to emitting rows: a mid-prefill slot's stale ``cur_len`` points
         into its prompt. In one-shot mode idle rows may write garbage:
         admission rewrites a row's cache before it is read again. With
-        early exit only the emitting rows keep the layer loop alive; the
-        depth of each emitted token goes to the slot's counters.
-        Registers are written in place."""
+        early exit only the rows that go on (emitting and not retiring)
+        keep the layer loop alive, and the depth of each decode whose
+        token will be emitted goes to the slot's counters: a retiring
+        row's last decode reads blocks it has just freed, so its depth
+        would depend on the other rows of the pool. Registers are
+        written in place."""
         p, n = self.pool, self._n_loc
         tok, emit = p.next_token, p.active
         rows = torch.arange(n, device=self.device)
@@ -1061,13 +1066,13 @@ class DecodeScheduler:
         logits, depth = engine.decode_step(
             self.params, self.cfg, tok[:, None], p.cache, p.cur_len,
             write_mask=emit if self._chunked else None,
-            live=self._live(emit, self.cfg, warm), with_depth=True,
+            live=self._live(active, self.cfg, warm), with_depth=True,
             split=self._split)
         nxt = sampling_lib.sample_slots(
             logits[:, 0], self._keys_at(p.keys, p.n_emitted), self.sampling)
-        emitted = emit.int()
-        p.slot_layers.add_(emitted * depth)
-        p.slot_decodes.add_(emitted)
+        kept = active.int()
+        p.slot_layers.add_(kept * depth)
+        p.slot_decodes.add_(kept)
         p.next_token.copy_(torch.where(active, nxt, tok))
         p.cur_len.add_(active.int())
         p.active.copy_(active)

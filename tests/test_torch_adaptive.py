@@ -437,7 +437,8 @@ def test_identity_tail_exit_equals_full_and_truncated(kw):
 def test_scheduler_depth_stats_exact_and_reset():
     """Threshold -1 with a floor of 1 halts every row after exactly one
     block: every request's mean depth and the aggregate are exactly 1.0;
-    the per-slot means too; ``reset_stats`` clears them."""
+    the per-slot means too; each request counts one decode a token after
+    its first; ``reset_stats`` clears them."""
     cfg, params = _model("smollm-135m")
     acfg = dataclasses.replace(cfg, early_exit=True, exit_threshold=-1.0,
                                exit_min_layers=1)
@@ -456,7 +457,10 @@ def test_scheduler_depth_stats_exact_and_reset():
     assert all(f.mean_depth == 1.0 for f in done)
     assert sched.mean_depth == 1.0
     np.testing.assert_array_equal(sched.slot_mean_depth(), [1.0, 1.0])
-    assert sched.depth_layers == sched.depth_tokens == len(prompts) * MAX_NEW
+    # a request's first token is its prefill's, and a retiring row's
+    # last decode is not counted: MAX_NEW - 1 decodes a request
+    assert sched.depth_layers == sched.depth_tokens == \
+        len(prompts) * (MAX_NEW - 1)
     sched.reset_stats()
     assert sched.mean_depth == 0.0
     assert not sched.slot_mean_depth().any()

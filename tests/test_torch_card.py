@@ -917,3 +917,87 @@ def test_audio_graph_segment_equals_host_read_on_card(cuda_device):
         for rid in range(len(reqs)):
             np.testing.assert_array_equal(runs[name][0][rid],
                                           runs["graph"][0][rid])
+
+
+# -------------------------------------------------- the graph gradient loop
+#
+# ``dynamic_rnn(impl="graph")``: the forward and §5.1's gradient loop as
+# two CUDA-graph WHILE nodes (``core.device_grad``), held to the host
+# lowering on the card. The graph replays the host's kernels on the same
+# operands (cuBLAS may pick another algorithm under capture), so values
+# and gradients are held to rtol 1e-5, atol 1e-6.
+
+def _rnn_graph_case(device, B=16, S=12, D=24, H=32, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = rnn.lstm_init(gen, D, H)
+    x = torch.randn(B, S, D, generator=gen, device=device)
+    lens = torch.randint(3, S + 1, (B,), generator=gen, device=device)
+    return params, x, lens, H
+
+
+def _rnn_grads(params, x, lens, H, policy, impl):
+    leaves = [params["w"].detach().clone().requires_grad_(),
+              params["b"].detach().clone().requires_grad_(),
+              x.detach().clone().requires_grad_()]
+    out, (c, h) = rnn.dynamic_rnn({"w": leaves[0], "b": leaves[1]},
+                                  leaves[2], lens, hidden=H,
+                                  save_policy=policy, impl=impl)
+    loss = (out ** 2).mean() + (c * h).sum()
+    return (out.detach(), *torch.autograd.grad(loss, leaves))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["carry", "carry_offload"])
+@pytest.mark.parametrize("with_lens", [False, True])
+def test_dynamic_rnn_graph_grads_equal_host_on_card(cuda_device, policy,
+                                                    with_lens):
+    from repro_torch.core import device_grad
+    from repro_torch.core.device_grad import GradLoop
+    params, x, lens, H = _rnn_graph_case(cuda_device)
+    lens = lens if with_lens else None
+    ref = _rnn_grads(params, x, lens, H, policy, "host")
+    cap0, rep0 = GradLoop.captures, GradLoop.replays
+    reads0 = core.while_loop.host_reads
+    for _ in range(2):
+        ours = _rnn_grads(params, x, lens, H, policy, "graph")
+        torch.cuda.synchronize()
+        for a, b in zip(ours, ref):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert GradLoop.captures - cap0 == 1
+    assert GradLoop.replays - rep0 == 4
+    assert core.while_loop.host_reads == reads0
+    loop = core.while_loop.last_grad_loop
+    assert loop.host_bytes == (12 * loop.carry_bytes
+                               if policy == "carry_offload" else 0)
+    device_grad.release()
+
+
+@pytest.mark.cuda
+def test_dynamic_rnn_graph_inference_through_the_fused_cell_on_card(
+        cuda_device):
+    from repro_torch.core import device_grad
+    params, x, lens, H = _rnn_graph_case(cuda_device, B=32, D=72, H=48)
+    fused = functools.partial(rnn.lstm_cell, kernel=lstm_ops.lstm_cell)
+    with torch.no_grad():
+        ref = rnn.dynamic_rnn(params, x, lens, hidden=H, cell=fused)
+        out = rnn.dynamic_rnn(params, x, lens, hidden=H, cell=fused,
+                              impl="graph")
+    assert core.while_loop.last_grad_loop.iterations() == int(lens.max())
+    for a, b in zip((out[0], *out[1]), (ref[0], *ref[1])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    device_grad.release()
+
+
+@pytest.mark.cuda
+def test_carry_stack_in_pinned_memory_on_card(cuda_device):
+    from repro_torch.core.stacks import CarryStack
+    like = torch.zeros(3, 5, device=cuda_device)
+    st = CarryStack(like, 4, offload=True)
+    assert st.buf.is_pinned() and st.host_bytes == 4 * 60
+    for k in range(4):
+        st.push(torch.tensor(k, device=cuda_device),
+                torch.full((3, 5), float(k), device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(st.buf[:, 1, 2], torch.arange(4.0))
+    got = st.pop(torch.tensor(2, device=cuda_device)).clone()
+    assert torch.equal(got, torch.full((3, 5), 2.0, device=cuda_device))

@@ -16,6 +16,20 @@ the port only (the JAX package keeps them), each pinned here.
   the admission after may evict, from host state. The preemption is
   planned, carried out, and the victim's replay equals its
   uninterrupted stream (``replay_mismatches == 0``).
+
+Two faults the port shared with the JAX package's scheduler and
+launcher, repaired in the port only (each test failed before):
+
+- A retiring row's last decode. ``_decode`` freed a finishing row's
+  blocks before the step's decode, whose ``live`` mask still held the
+  row: under early exit it kept the layer loop alive and its depth,
+  computed over freed blocks, went to ``slot_layers``, so a request's
+  mean depth depended on the other requests in the pool. Now only the
+  rows that go on are live and counted.
+- The open-loop launcher's tokens. A submission to a drained pool
+  restarts the scheduler's run counters, so ``serve_arrivals`` counted
+  only the tokens since the last drain, and the ``TokenClock``'s step
+  marks went backwards. It now counts its own streams and steps.
 """
 
 import dataclasses
@@ -23,11 +37,13 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 
 from repro.configs import get_config as jax_get_config
 from repro.models import model_zoo
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.launch import serve as launch_serve
 from repro_torch.serve import scheduler as sched_lib
 from repro_torch.serve import slo as slo_lib
 from repro_torch.serve import speculative as spec_lib
@@ -109,3 +125,71 @@ def test_block_short_preemption_of_a_prefix_cached_victim():
     np.testing.assert_array_equal(got[0].tokens, ref.tokens)
     assert slo.replay_mismatches == 0
     assert inner.prefix_evictions > 0
+
+
+def _depth_run(mod, params, cfg, others, target, **kw):
+    """``target`` (request 0, 6 tokens) served after ``others``; returns
+    every request's (tokens, mean depth)."""
+    sched = mod.DecodeScheduler(params, cfg, **kw)
+    for rid, p in enumerate(others):
+        sched.submit(p[None], max_new=8, request_id=10 + rid)
+    sched.submit(target[None], max_new=6, request_id=0)
+    return {f.request_id: (np.asarray(f.tokens), f.mean_depth)
+            for f in sched.run_until_drained()}
+
+
+@pytest.mark.parametrize("others", [0, 1, 2])
+def test_a_retiring_rows_depth_does_not_depend_on_the_pool(others):
+    """Early exit at a margin threshold that halts some decodes after
+    layer 1 of 2: request 0's mean depth is the same whichever request
+    shared its pool (before the repair 1.67 beside one and 1.83 beside
+    another), and every stream equals the JAX scheduler's."""
+    from repro.serve import scheduler as jsched
+    cfg, tp = _pair()
+    acfg = dataclasses.replace(cfg, early_exit=True, exit_threshold=0.05,
+                               exit_min_layers=1)
+    jcfg = dataclasses.replace(
+        jax_get_config("llama3.2-1b", smoke=True), compute_dtype="float32",
+        early_exit=True, exit_threshold=0.05, exit_min_layers=1)
+    jp = model_zoo.init_params(jcfg, jax.random.PRNGKey(2))
+    prompts = _prompts(cfg, 4)
+    kw = dict(n_slots=2, prompt_len=16, max_new_cap=8, eos_id=-1,
+              kv="paged", kv_block=4, prefill="chunked", chunk_tokens=5)
+    pool = [prompts[others]] if others else []
+    alone = _depth_run(sched_lib, tp, acfg, [], prompts[0], **kw)
+    ours = _depth_run(sched_lib, tp, acfg, pool, prompts[0], **kw)
+    assert ours[0][1] == alone[0][1]
+    assert 1.0 < alone[0][1] < 2.0
+    ref = _depth_run(jsched, jp, jcfg, pool, prompts[0], **kw)
+    assert sorted(ours) == sorted(ref)
+    for rid in ref:
+        np.testing.assert_array_equal(ours[rid][0], ref[rid][0])
+
+
+def test_open_loop_tokens_count_every_request_across_a_drain(
+        tmp_path, capsys, monkeypatch):
+    """Two arrivals a second apart, the pool drained between them: the
+    run reports every token its streams hold (before the repair only the
+    second request's 4), and the clock's step marks never go back."""
+    marks = []
+
+    class Clock(launch_serve.TokenClock):
+        def arrive(self, rid, t, step=0):
+            marks.append(step)
+            super().arrive(rid, t, step)
+
+        def observe(self, sched, finished, t, *step):
+            marks.append(step[0] if step else sched.total_steps)
+            super().observe(sched, finished, t, *step)
+
+    monkeypatch.setattr(launch_serve, "TokenClock", Clock)
+    trace = tmp_path / "trace.csv"
+    trace.write_text("0.0,3\n1.0,4\n")
+    out = launch_serve.main(
+        ["--arch", "llama3.2-1b", "--smoke", "--slots", "2",
+         "--prompt-len", "8", "--device", "cpu", "--eos-id", "-1",
+         "--trace", str(trace)])
+    capsys.readouterr()
+    assert sorted(len(s) for s in out["streams"].values()) == [3, 4]
+    assert out["tokens"] == 3 + 4
+    assert len(marks) >= 4 and marks == sorted(marks)
