@@ -103,15 +103,23 @@ Phases, each printing its own lines:
     the weights is lower under ``offload`` and ``carry`` than under
     ``all``; time per loop iteration, peak memory and host bytes are
     printed; then the graph lowering (``core.device_grad``: the forward
-    and the §5.1 gradient loop as two WHILE nodes) under ``carry`` and
-    ``carry_offload``: gradients equal to the host lowering's ``all``
-    at rtol 1e-6, one capture and one launch a loop a pass,
-    ``carry_offload``'s host stacks S x the carry's bytes and its peak
-    below ``carry``'s at S=500, and the gradient loop's ms per iteration
-    at S=500 within 1.2x of S=100;
+    and the §5.1 gradient loop as two WHILE nodes) under the four
+    policies: gradients equal to the host lowering's ``all`` at rtol
+    1e-6, one capture and one launch a loop a pass, ``offload``'s host
+    stacks S x ``residual_bytes`` (the body's saved tensors) and
+    ``carry_offload``'s S x ``carry_bytes``, at S=500 each offloading
+    policy's peak below its device twin's and ``all``'s gradient loop
+    (no forward re-run) faster an iteration than ``carry``'s (an
+    iteration of each profiled by kernel), and the gradient loop's ms
+    per iteration at S=500 within 1.2x of S=100;
+    then Fig. 2's ``scan`` (forward and reverse) under the graph
+    lowering, ``all`` and ``offload``, equal to the host lowering's
+    results and gradients;
 12. the NMT example (``repro_torch.examples.dynamic_rnn_nmt``) trains
     250 steps on the card to a loss below 0.5, both loops under the
-    graph lowering (two captures, four graph launches a step);
+    graph lowering and its default ``all`` (two captures, four graph
+    launches a step); then warm steps under ``carry`` and ``all`` in
+    turns (ms a step, host and the launches' device time);
 13. the flash-attention kernel against its plain version on the card at
     the JAX kernel sweep's shapes (MHA, GQA 4:1 and 2:1, MQA; D = 16,
     32, 64, 128; S = 64-256), at D=8 (the smoke llama's head dim) and
@@ -3411,8 +3419,9 @@ def profile_pass(fn, label, iters):
 
 def phase_policies():
     """Table 1: gradients through dynamic_rnn (unfused cell) under the
-    four save policies at B=512, D=H=512, S = 100 and 500, then under
-    the graph lowering for ``carry`` and ``carry_offload``."""
+    four save policies at B=512, D=H=512, S = 100 and 500, under the
+    host lowering and then the graph lowering; then Fig. 2's ``scan``
+    in the graph (``fig2_graph``)."""
     import torch
     from repro_torch import bridge, core
     from repro_torch.core.while_loop import SAVE_POLICIES
@@ -3469,34 +3478,40 @@ def phase_policies():
                                  f"{peaks}")
         grad_ms[S] = policies_graph(x, S, grads["all"])
         del x, grads
-    for policy in ("carry", "carry_offload"):
-        ratio = grad_ms[500][policy] / grad_ms[100][policy]
+    for policy in SAVE_POLICIES:
+        ratio = grad_ms[500][policy][1] / grad_ms[100][policy][1]
         log(f"[policy] graph {policy}: gradient loop ms per iteration "
             f"S=500 / S=100 = {ratio:.3f} (bound 1.2: the duals touch one "
             f"row an iteration)")
         if ratio > 1.2:
             raise AssertionError(f"the gradient loop's work per iteration "
                                  f"grows with S under {policy}: {ratio:.3f}")
+    fig2_graph()
 
 
 def policies_graph(x, S, ref):
-    """Table 1 under the graph lowering (``impl="graph"``): ``carry`` and
-    ``carry_offload`` at this S, each loop captured by its first call
-    (device memory counted from before it, so the stacks show in the
-    peak) and timed on its second, forward and gradient launches apart.
-    The gradients must equal the host lowering's ``all`` (``ref``) at
-    rtol 1e-6, ``carry_offload`` must hold S x the carry's bytes in host
-    memory, and at S=500 peak below ``carry``. Returns the gradient
-    loop's ms per iteration by policy."""
+    """Table 1 under the graph lowering (``impl="graph"``): the four
+    policies at this S, each loop captured by its first call (device
+    memory counted from before it, so the stacks show in the peak) and
+    timed on its second, forward and gradient launches apart. The
+    gradients must equal the host lowering's ``all`` (``ref``) at rtol
+    1e-6, one capture and four launches in two passes; ``offload`` must
+    hold S x ``residual_bytes`` in host memory, ``carry_offload`` S x
+    ``carry_bytes``, the others none. At S=500 the offloading policies
+    peak below their device twins, and ``all``'s gradient loop (the
+    recorded body's backward from popped residuals) takes fewer ms an
+    iteration than ``carry``'s (which re-runs the body's forward).
+    Returns (forward, gradient loop) ms per iteration by policy."""
     import torch
     from repro_torch import bridge, core
     from repro_torch.core import device_grad
     from repro_torch.core.device_grad import GradLoop
+    from repro_torch.core.while_loop import SAVE_POLICIES
     from repro_torch.models import rnn
 
     B, D, H = x.shape[0], x.shape[2], 512
     peaks, out_ms = {}, {}
-    for policy in ("carry", "carry_offload"):
+    for policy in SAVE_POLICIES:
         device_grad.release()
         params = bridge.init_lstm_params(D, H, seed=3, device="cuda")
         for p in params.values():
@@ -3524,21 +3539,23 @@ def policies_graph(x, S, ref):
         captures, launches = (GradLoop.captures - cap0,
                               GradLoop.replays - rep0)
         fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
-        out_ms[policy] = bwd_ms / S
-        want_host = S * loop.carry_bytes if policy == "carry_offload" else 0
+        out_ms[policy] = (fwd_ms / S, bwd_ms / S)
+        pushed = loop.residual_bytes or loop.carry_bytes
+        what = "residual_bytes" if loop.residual_bytes else "carry_bytes"
+        want_host = S * pushed if policy.endswith("offload") else 0
         err = max((a - r).abs().max().item() for a, r in zip(g, ref))
         ok = all(torch.allclose(a, r, rtol=1e-6, atol=1e-9)
                  for a, r in zip(g, ref))
         log(f"[policy] S={S} graph {policy:13s}: {(fwd_ms + bwd_ms) / S:.4f}"
             f" ms per loop iteration (forward {fwd_ms / S:.4f} + gradient "
             f"loop {bwd_ms / S:.4f}; one launch each: {launches} launches "
-            f"in 2 passes, {captures} capture), peak "
-            f"{peaks[policy] / 2**30:.3f} GiB above weights and inputs "
-            f"(static buffers and stacks included), "
+            f"in 2 passes, {captures} capture), pushes {pushed} B an "
+            f"iteration ({what}), "
+            f"peak {peaks[policy] / 2**30:.3f} GiB above weights and "
+            f"inputs (static buffers and stacks included), "
             f"{loop.host_bytes / 2**30:.3f} GiB of host stacks "
-            f"({loop.host_bytes} B = S x {loop.carry_bytes} B), "
-            f"gradients vs host all: max |diff| {err:.3e} (tol rtol 1e-6) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"({loop.host_bytes} B), gradients vs host all: max |diff| "
+            f"{err:.3e} (tol rtol 1e-6) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"graph {policy} gradients differ from "
                                  f"the host lowering's all")
@@ -3547,19 +3564,109 @@ def policies_graph(x, S, ref):
                 f"graph {policy}: captures {captures} (want 1), launches "
                 f"{launches} (want 4), host bytes {loop.host_bytes} (want "
                 f"{want_host})")
+        if S == 500 and policy in ("all", "carry"):
+            profile_grad_iteration(loop, f"S={S} graph {policy}",
+                                   bwd_ms / S)
         del params, g, loss
     device_grad.release()
-    if S == 500 and not peaks["carry_offload"] < peaks["carry"]:
-        raise AssertionError(f"graph carry_offload does not peak below "
-                             f"carry at S=500: {peaks}")
+    if S == 500:
+        if not (peaks["carry_offload"] < peaks["carry"]
+                and peaks["offload"] < peaks["all"]):
+            raise AssertionError(f"graph offloading does not peak below "
+                                 f"the device stacks at S=500: {peaks}")
+        if not out_ms["all"][1] < out_ms["carry"][1]:
+            raise AssertionError(
+                f"graph all's gradient loop ({out_ms['all'][1]:.4f} ms an "
+                f"iteration) is not faster than carry's "
+                f"({out_ms['carry'][1]:.4f}), which re-runs the forward")
     return out_ms
+
+
+def profile_grad_iteration(loop, label, graph_ms, iters=20):
+    """Where an iteration of the graph gradient loop goes: its body (the
+    kernels the WHILE node replays) run eagerly ``iters`` times under
+    the profiler, at the last row; device ms an iteration by kernel
+    beside the WHILE node's ms an iteration."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    state = (loop.j, loop.g_carry)
+    with torch.no_grad():
+        loop.j.zero_()
+        loop._grad_body(state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                loop._grad_body(state)
+            torch.cuda.synchronize()
+    rows = [r for r in profile_rows(prof)
+            if r.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(r.self_device_time_total for r in rows) / iters / 1e3
+    rows.sort(key=lambda r: -r.self_device_time_total)
+    log(f"[profile] {label} gradient-loop iteration, run eagerly: "
+        f"{dev:.4f} device ms in {sum(r.count for r in rows) / iters:.1f} "
+        f"kernels (the WHILE node {graph_ms:.4f} ms an iteration); by "
+        f"kernel, ms an iteration: " + "; ".join(
+            f"{r.self_device_time_total / iters / 1e3:.4f} "
+            f"({r.count / iters:.2f} an iteration) {r.key[:60]}"
+            for r in rows[:8]))
+
+
+def fig2_graph():
+    """Fig. 2's functionals in the graph: ``scan`` (forward and reverse)
+    under ``impl="graph"`` on the card at a small size, under ``all``
+    and ``offload``, against ``impl="host"``: results and gradients
+    within rtol 1e-6, one capture and two launches a pass."""
+    import torch
+    from repro_torch import core
+    from repro_torch.core import device_grad
+    from repro_torch.core.device_grad import GradLoop
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xs = torch.randn(64, 32, 128, generator=gen, device="cuda")
+    w0 = torch.randn(128, 128, generator=gen, device="cuda") * 0.05
+    h0 = torch.zeros(32, 128, device="cuda")
+
+    def run(policy, impl, reverse):
+        w = w0.clone().requires_grad_()
+        e = xs.clone().requires_grad_()
+        ys = core.scan(lambda c, x: torch.tanh(c @ w + x), e, h0,
+                       reverse=reverse, save_policy=policy, impl=impl)
+        return (ys.detach(), *torch.autograd.grad((ys ** 2).sum(), [w, e]))
+
+    for policy in ("all", "offload"):
+        for reverse in (False, True):
+            ref = run(policy, "host", reverse)
+            cap0, rep0 = GradLoop.captures, GradLoop.replays
+            for _ in range(2):
+                ours = run(policy, "graph", reverse)
+            torch.cuda.synchronize()
+            loop = core.while_loop.last_grad_loop
+            captures, launches = (GradLoop.captures - cap0,
+                                  GradLoop.replays - rep0)
+            err = max((a - r).abs().max().item() for a, r in zip(ours, ref))
+            ok = all(torch.allclose(a, r, rtol=1e-6, atol=1e-7)
+                     for a, r in zip(ours, ref))
+            log(f"[fig2] scan(impl='graph', save_policy={policy!r}, "
+                f"reverse={reverse}) over 64 x (32, 128): max |graph - "
+                f"host| {err:.3e} (rtol 1e-6) {'ok' if ok else 'FAIL'}; "
+                f"{captures} capture, {launches} launches in 2 passes; "
+                f"residual_bytes {loop.residual_bytes}, host bytes "
+                f"{loop.host_bytes}")
+            if not ok or captures != 1 or launches != 4:
+                raise AssertionError(
+                    f"scan under the graph lowering ({policy}, reverse "
+                    f"{reverse}): agreement {ok}, captures {captures} "
+                    f"(want 1), launches {launches} (want 4)")
+            device_grad.release()
 
 
 def phase_nmt():
     """The NMT example's entry point, 250 steps on the card under the
-    graph lowering; it raises if the loss does not fall below 0.5. Both
-    loops are captured once (the first step) and each step launches four
-    graphs (two forwards, two gradient loops)."""
+    graph lowering and its default save policy (``all``, the body's
+    residuals on device stacks); it raises if the loss does not fall
+    below 0.5. Both loops are captured once (the first step) and each
+    step launches four graphs (two forwards, two gradient loops)."""
+    from repro_torch import core
     from repro_torch.core import device_grad
     from repro_torch.core.device_grad import GradLoop
     from repro_torch.examples import dynamic_rnn_nmt as nmt
@@ -3568,15 +3675,76 @@ def phase_nmt():
     loss = nmt.main(["--steps", str(nmt.STEPS)])
     secs = time.perf_counter() - t0
     captures, launches = GradLoop.captures - cap0, GradLoop.replays - rep0
+    loop = core.while_loop.last_grad_loop
+    policy, pushed = loop.policy, loop.residual_bytes
     device_grad.release()
-    log(f"[nmt] {nmt.STEPS} steps on the card under impl='graph': final "
-        f"masked NLL {loss:.4f} (bar {nmt.LOSS_BAR}); {captures} captures, "
-        f"{launches} graph launches ({launches / nmt.STEPS:.0f} a step); "
+    log(f"[nmt] {nmt.STEPS} steps on the card under impl='graph', "
+        f"save_policy {policy!r} (the decoder pushes {pushed} B of "
+        f"residuals an iteration): final masked NLL {loss:.4f} (bar "
+        f"{nmt.LOSS_BAR}); {captures} captures, {launches} graph launches "
+        f"({launches / nmt.STEPS:.0f} a step); "
         f"{secs / nmt.STEPS * 1e3:.2f} ms a step")
+    if policy != "all" or not pushed:
+        raise AssertionError(f"NMT under the graph lowering ran save_policy "
+                             f"{policy!r}, pushing {pushed} B of residuals; "
+                             f"its default is 'all'")
     if captures != 2 or launches != 4 * nmt.STEPS:
         raise AssertionError(f"NMT under the graph lowering: {captures} "
                              f"captures (want 2), {launches} launches (want "
                              f"{4 * nmt.STEPS})")
+    nmt_policies(nmt)
+
+
+def nmt_policies(nmt, steps=50):
+    """Warm NMT steps under the graph lowering, ``carry`` against
+    ``all`` in turns (carry, all, all, carry; the first step of each run
+    untimed): host ms a step, and device ms a step of the four graph
+    launches (CUDA events around ``DeviceLoop.run``)."""
+    import torch
+    from repro_torch.core import device_grad, device_loop
+
+    run = device_loop.DeviceLoop.run
+    events = []
+
+    def timed(self):
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = run(self)
+        b = torch.cuda.Event(enable_timing=True)
+        b.record()
+        events.append((a, b))
+        return out
+
+    got = {}
+    for policy in ("carry", "all", "all", "carry"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = nmt.init(gen)
+        cfg = nmt.adamw.AdamWConfig(lr=nmt.LR, weight_decay=0.0)
+        opt = nmt.adamw.init(params)
+        data = [nmt.batch(gen) for _ in range(steps + 1)]
+        params, opt, _ = nmt.train_step(cfg, params, opt, *data[0],
+                                        save_policy=policy, impl="graph")
+        torch.cuda.synchronize()
+        events.clear()
+        device_loop.DeviceLoop.run = timed
+        try:
+            t0 = time.perf_counter()
+            for b in data[1:]:
+                params, opt, _ = nmt.train_step(cfg, params, opt, *b,
+                                                save_policy=policy,
+                                                impl="graph")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+        finally:
+            device_loop.DeviceLoop.run = run
+        dev = sum(a.elapsed_time(b) for a, b in events) / steps
+        got.setdefault(policy, []).append((wall, dev))
+        device_grad.release()
+    log("[nmt] warm steps under the graph lowering, in turns carry, all, "
+        "all, carry: " + "; ".join(
+            f"{p} {', '.join(f'{w:.3f}' for w, _ in v)} ms a step (the four "
+            f"launches {', '.join(f'{d:.3f}' for _, d in v)} device ms)"
+            for p, v in got.items()))
 
 
 def fa_case(seed, B, S, H, KV, D, dtype, T=None):

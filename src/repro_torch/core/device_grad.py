@@ -2,37 +2,55 @@
 CUDA-graph WHILE nodes (the graph lowering of ``while_loop`` under grad).
 
 The JAX package's ``core.while_loop`` is a ``custom_vjp``: the forward
-loop pushes the carry onto bounded contiguous stacks (``save_carry``, the
-``carry`` and ``carry_offload`` policies), and the gradient is a second
-loop that pops them in reverse, re-runs the body's VJP and sums the
-gradients of the constants the body captures (``jax.closure_convert``);
-XLA compiles both into the program and the loops never return to the
-host. Here:
+loop pushes onto bounded contiguous stacks either the body's VJP
+residuals (``all``, ``offload``) or the carry (``carry``,
+``carry_offload``), and the gradient is a second loop that pops them in
+reverse, rebuilds the body's VJP from the popped residuals or re-runs
+the body from the popped carry, and sums the gradients of the constants
+the body captures (``jax.closure_convert``); XLA compiles both into the
+program and the loops never return to the host. Here:
 
 - ``GradLoop`` is one loop for one program (the code of ``body_fn`` and
   ``cond_fn``, the shapes and dtypes of the carry and of the constants,
   the policy): its static carry, its constants' static buffers, its
-  ``CarryStack``s and two ``DeviceLoop``s. The forward's body pushes
-  the carry at the device counter ``it`` and runs the body; after the
-  loop ``it`` is the trip count ``n``. The gradient loop runs while
-  ``j < n``: it pops carry ``n-1-j``, re-runs the body under
-  ``enable_grad`` and calls ``torch.autograd.grad`` on it, captured in
-  the graph as ``make_graphed_callables`` captures a backward; the
-  carry's cotangent is its carry, and the constants' gradients are
-  summed into static accumulators. A ``DeviceTensorArray`` in the carry
-  is not pushed (its written rows stay alive); inside the gradient body
-  every array is a dual view whose duals are one-row operations
-  (``tensor_array``).
+  stacks and two ``DeviceLoop``s on one stream. After the forward the
+  device counter ``it`` is the trip count ``n``; the gradient loop runs
+  while ``j < n`` and pops row ``n-1-j``. The carry's cotangent is its
+  carry, and the constants' gradients are summed into static
+  accumulators.
+- ``all`` and ``offload``: the forward body runs ``body_fn`` under
+  ``enable_grad`` and the hooks of ``core.stacks.ResidualStacks``, which
+  push each distinct tensor autograd saves onto its own ``CarryStack``
+  (device memory, or pinned host memory through ``graph_loop.cu``'s
+  ``stack_copy``) at row ``it``, and the array indices the body read
+  and wrote at. The graph recorded while the loop is built (the eager
+  warm-up on the CPU, the capture on the card) is the template, the
+  JAX package's ``res_holder["tree"]``: the gradient body pops every
+  stack and calls ``torch.autograd.grad(..., retain_graph=True)`` on the
+  template, whose unpack hooks return the popped values, captured as
+  ``make_graphed_callables`` captures a backward. It makes no call of
+  ``body_fn``. Views of the constants' static buffers are not pushed
+  but re-viewed; the carry's are pushed, since the next iteration
+  overwrites them. A body must save the same tensors every iteration,
+  and a custom ``autograd.Function`` that keeps a tensor on ``ctx``
+  outside ``save_for_backward`` is refused (the template would replay
+  its one value).
+- ``carry`` and ``carry_offload``: the forward pushes the carry and
+  runs the body; the gradient body pops the carry, re-runs the body
+  under ``enable_grad`` and calls ``torch.autograd.grad`` on it.
+- A ``DeviceTensorArray`` in the carry is not pushed (its written rows
+  stay alive); in the gradient (and, under ``all``/``offload``, the
+  recording forward) body every array is a dual view whose duals are
+  one-row operations (``tensor_array``).
 - Constants, the counterpart of ``jax.closure_convert``: the tensors and
   arrays that ``body_fn``/``cond_fn`` close over (closure cells,
   ``functools.partial`` arguments, default arguments, walked through
   lists, tuples, dicts and nested functions) are lifted out, and the
   functions rebuilt to close over the loop's static copies. The eager
-  warm-up iteration of the gradient body must reach no tensor that
-  requires grad outside the carry and those constants (a global, an
-  object's attribute, a result computed before the loop); if it does,
-  the loop refuses with an error that names it, never a silent zero
-  gradient.
+  warm-up's graph must reach no tensor that requires grad outside the
+  carry and those constants (a global, an object's attribute, a result
+  computed before the loop); if it does, the loop refuses with an error
+  that names it, never a silent zero gradient.
 - Reuse, the jit cache's counterpart: a later call with the same
   program replays the captured pair. Inputs, lengths and weights are
   copied into the static buffers (an optimizer hands back new tensors
@@ -44,12 +62,15 @@ host. Here:
 
 Without grad (or with nothing that requires it) the forward is the
 plain WHILE loop, with no stack. ``plain_driver()`` runs the same
-bodies, stacks and duals under a step-by-step Python loop instead of
-the graphs: the CPU tests' driver; nothing on the card's path uses it.
+bodies, stacks, hooks, template and duals under a step-by-step Python
+loop instead of the graphs: the CPU tests' driver; nothing on the
+card's path uses it.
 
 ``GradLoop.captures``, ``.replays`` (graph launches, forward and
 gradient) and ``.host_reads`` (the double-write check after a forward
-over a carry array) count in this process.
+over a carry array) count in this process; ``.residual_bytes``,
+``.carry_bytes`` and ``.host_bytes`` give what one iteration pushes and
+the pinned host memory of the stacks.
 """
 
 from __future__ import annotations
@@ -63,13 +84,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
-from .stacks import CarryStack
+from .stacks import CarryStack, ResidualStacks
 from .tensor_array import (DeviceTensorArray, TensorArray, WriteOnceError,
                            _row, deferred_checks)
 
 __all__ = ["GradLoop", "plain_driver", "release", "run", "takes"]
 
-GRAPH_POLICIES = ("carry", "carry_offload")
+GRAPH_POLICIES = ("all", "offload", "carry", "carry_offload")
 _PLAIN = [0]
 
 
@@ -242,16 +263,25 @@ def _load(static, value) -> None:
             s.copy_(v)
 
 
-def _uncovered(outputs, allowed, seq0: int, what: str) -> None:
-    """Refuse a gradient body whose graph reaches a tensor that requires
-    grad other than ``allowed`` (its graph's inputs)."""
-    ids = {id(x) for x in allowed}
-    seen, todo = set(), [o.grad_fn for o in outputs]
+def _nodes(outputs):
+    """Each backward node that reaches ``outputs``, once. The walk holds
+    every node it met: a node's Python object lives only while
+    referenced, and a later one could take a freed one's id."""
+    seen, todo = {}, [o.grad_fn for o in outputs]
     while todo:
         node = todo.pop()
         if node is None or id(node) in seen:
             continue
-        seen.add(id(node))
+        seen[id(node)] = node
+        yield node
+        todo.extend(n for n, _ in node.next_functions)
+
+
+def _uncovered(outputs, allowed, seq0: int, what: str) -> None:
+    """Refuse a gradient body whose graph reaches a tensor that requires
+    grad other than ``allowed`` (its graph's inputs)."""
+    ids = {id(x) for x in allowed}
+    for node in _nodes(outputs):
         var = getattr(node, "variable", None)
         if var is not None:                      # AccumulateGrad: a leaf
             if id(var) not in ids:
@@ -262,21 +292,57 @@ def _uncovered(outputs, allowed, seq0: int, what: str) -> None:
                     f"close over (a global or an object's attribute); its "
                     f"gradient would be silently zero. Close over it or "
                     f"pass it in the carry")
-            continue
-        if node._sequence_nr() < seq0:
+        elif node._sequence_nr() < seq0:
             raise ValueError(
                 f"{what}: the body reaches {node.name()}, a result computed "
                 f"before the loop that requires grad, through a tensor "
                 f"that is neither in the carry nor closed over by "
                 f"body_fn/cond_fn; its gradient would be silently zero. "
                 f"Close over it or pass it in the carry")
-        todo.extend(n for n, _ in node.next_functions)
 
 
 def _sequence_now() -> int:
     with torch.enable_grad():
         probe = torch.zeros((), requires_grad=True) * 1
     return probe.grad_fn._sequence_nr()
+
+
+def _hidden(outputs, what: str) -> None:
+    """Refuse a recorded body graph with a node whose state escapes the
+    residual hooks: a custom ``autograd.Function`` that keeps a tensor
+    (or a graph loop) on ``ctx`` instead of ``save_for_backward``. Its
+    backward would read the recording's value in every iteration."""
+    def holds(v) -> bool:
+        if torch.is_tensor(v) or isinstance(v, GradLoop):
+            return True
+        if isinstance(v, (list, tuple)):
+            return any(holds(x) for x in v)
+        return isinstance(v, dict) and any(holds(x) for x in v.values())
+
+    for node in _nodes(outputs):
+        if isinstance(node, torch.autograd.function.BackwardCFunction):
+            bad = [k for k, v in vars(node).items() if holds(v)]
+            if bad:
+                raise ValueError(
+                    f"{what}: {node.name()} keeps ctx.{bad[0]} outside "
+                    f"save_for_backward; save_policy 'all'/'offload' replay "
+                    f"one recorded graph, whose backward would read that "
+                    f"value in every iteration. Save it with "
+                    f"ctx.save_for_backward, or use save_policy 'carry'")
+
+
+class _Template:
+    """The forward body's graph recorded while the loop was built (the
+    JAX package's ``res_holder["tree"]``): its carry inputs, flattened
+    outputs, array reads ``(dual grad, index, leaf)`` and writes ``(dual
+    grad, index, value)``, an index being a Python int or a residual's
+    handle; ``seq0`` the autograd sequence number before it."""
+
+    __slots__ = ("xs", "out", "reads", "writes", "seq0")
+
+    def __init__(self, xs, out, reads, writes, seq0):
+        self.xs, self.out, self.reads, self.writes = xs, out, reads, writes
+        self.seq0 = seq0
 
 
 class GradLoop:
@@ -294,6 +360,10 @@ class GradLoop:
         self.max_iters = int(max_iters)
         self.generation = 0
         self._owner = None
+        self.fwd = self.bwd = None
+        self.res: Optional[ResidualStacks] = None
+        self.template: Optional[_Template] = None
+        self._ops: Optional[tuple] = None    # the recordings' structure
         consts = lifted.consts
         self.carry = [_static(x, False) for x in init_leaves]
         self.consts = [_static(c, grad) for c in consts]
@@ -311,6 +381,8 @@ class GradLoop:
 
         def fwd_body(state):
             it, carry = state
+            if self.res is not None:
+                return (it + 1, self._record(it))
             if grad:
                 leaves = _flatten(carry)[0]
                 for st, i in zip(self.stacks, self._carry_ix):
@@ -322,37 +394,50 @@ class GradLoop:
         self._diff_ix = [i for i in self._carry_ix
                          if self.carry[i].is_floating_point()]
         self.stacks: List[CarryStack] = []
-        if grad:
+        if grad and policy in ("all", "offload"):
+            self.res = ResidualStacks(
+                self.max_iters, policy == "offload",
+                [c for c in self.consts if torch.is_tensor(c)])
+        elif grad:
             self.stacks = [CarryStack(self.carry[i], self.max_iters,
                                       policy == "carry_offload")
                            for i in self._carry_ix]
+        if grad:
             self._setup_grad(lifted, consts)
         for s, x in zip(self.carry, init_leaves):
             _load(s, x)
         for s, c in zip(self.consts, consts):
             _load(s, c)
         loop_cls = _PlainLoop if plain else _device_loop_cls()
+        # one stream: the gradient loop's capture differentiates the
+        # graph that the forward's capture recorded
+        kw = {} if plain else {"stream": torch.cuda.Stream(dev)}
         try:
             with torch.no_grad(), deferred_checks():
-                # eager warm-up (lazy initialisation before capture, and
-                # the gradient body's uncovered-tensor check)
+                # eager warm-up (lazy initialisation before capture, the
+                # residual stacks' shapes, and the gradient body's
+                # uncovered-tensor check)
                 self.it.zero_()
                 fwd_body((self.it, tree))
                 if grad:
                     self.it.fill_(1)             # pops the row just pushed
                     self.j.zero_()
                     self._grad_body((self.j, self.g_carry), check=True)
+                if not plain:
+                    # the capture records the template; alive, this one
+                    # would lend it the constants' AccumulateGrad nodes,
+                    # made on the eager stream
+                    self.template = None
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 self.fwd = loop_cls(fwd_cond, fwd_body, (self.it, tree),
                                     max_iters=self.max_iters,
-                                    prologue=_zero_counter, name=name)
-                self.bwd = None
+                                    prologue=_zero_counter, name=name, **kw)
                 if grad:
                     self.bwd = loop_cls(
                         lambda s: s[0] < self.it, self._grad_body,
                         (self.j, self.g_carry), max_iters=self.max_iters,
-                        prologue=_zero_counter, name=name + ".grad")
+                        prologue=_zero_counter, name=name + ".grad", **kw)
         except BaseException:
             self.close()
             raise
@@ -361,6 +446,7 @@ class GradLoop:
 
     def _setup_grad(self, lifted: _Lifted, consts) -> None:
         dev = self.device
+        make = self.res is not None      # the forward body records
         self.j = torch.zeros((), dtype=torch.long, device=dev)
         self.g_carry = [torch.zeros_like(self.carry[i])
                         for i in self._diff_ix]
@@ -372,7 +458,7 @@ class GradLoop:
             ta = self.carry[i]
             g = (torch.zeros_like(ta.data) if ta.data.is_floating_point()
                  else None)
-            self.carry_duals[i] = ta.dual_view(g, carry=True)
+            self.carry_duals[i] = ta.dual_view(g, carry=True, make=make)
             self._views.append(self.carry_duals[i])
         values, self._acc_ix = [], []
         self.accs: List[Optional[torch.Tensor]] = []
@@ -380,7 +466,7 @@ class GradLoop:
             if _is_dta(s):
                 g = (torch.zeros_like(s.data) if c.data.requires_grad
                      else None)
-                view = s.dual_view(g, carry=False)
+                view = s.dual_view(g, carry=False, make=make)
                 self._views.append(view)
                 values.append(view)
                 self.accs.append(g)
@@ -393,51 +479,118 @@ class GradLoop:
         self._body_g = lifted.make(0, values)
         self._const_leaves = [self.consts[k] for k in self._acc_ix]
 
+    def _dual_leaves(self, leaves) -> None:
+        for i, view in self.carry_duals.items():
+            leaves[i] = view
+        for v in self._views:
+            v._dual.reads.clear()
+            v._dual.writes.clear()
+
+    def _record(self, it):
+        """One forward iteration under ``all``/``offload``: the body runs
+        under grad and the residual hooks, which push what it saves at
+        row ``it``. The graph recorded while the loop is built (the
+        warm-up; on the card, the capture) is the template that the
+        gradient loop differentiates."""
+        leaves, xs = list(self.carry), []
+        for i in self._diff_ix:
+            leaves[i] = self.carry[i].detach().requires_grad_()
+            xs.append(leaves[i])
+        self._dual_leaves(leaves)
+        seq0 = _sequence_now() if self.fwd is None else 0
+        with torch.enable_grad(), self.res.recording(it):
+            out = _flatten(self._body_g(pytree.tree_unflatten(
+                leaves, self.spec)))[0]
+            index = (lambda ix: self.res.save(ix, value=True)
+                     if torch.is_tensor(ix) else int(ix))
+            reads = [(v._dual.grad, index(t), leaf) for v in self._views
+                     for t, leaf in v._dual.reads]
+            writes = [(v._dual.grad, index(t), y) for v in self._views
+                      for t, y in v._dual.writes]
+        ops = tuple(n.name() for n in _nodes(
+            [o for o in out if torch.is_tensor(o)] +
+            [y for _, _, y in writes if torch.is_tensor(y)]))
+        if self._ops is None:
+            self._ops = ops
+        elif ops != self._ops:
+            k = next((k for k, (a, b) in enumerate(zip(ops, self._ops))
+                      if a != b), min(len(ops), len(self._ops)))
+            raise RuntimeError(
+                f"{self.what}: an iteration of the body recorded other ops "
+                f"than the first (backward node {k}: "
+                f"{ops[k] if k < len(ops) else 'none'}, where the first "
+                f"recorded {self._ops[k] if k < len(self._ops) else 'none'}"
+                f"); save_policy {self.policy!r} replays the first "
+                f"recording's graph, so every iteration must record the "
+                f"same ops ('carry' re-runs the body instead)")
+        if self.fwd is None:
+            self.template = _Template(xs, out, reads, writes, seq0)
+        return pytree.tree_unflatten(out, self.spec)
+
+    def _rerun(self, k):
+        """``carry``/``carry_offload``: pop carry ``k`` and re-run the
+        body under grad, its arrays dual views."""
+        popped = [st.pop(k) for st in self.stacks]
+        leaves, xs = list(self.carry), []
+        for i, p in zip(self._carry_ix, popped):
+            if self.carry[i].is_floating_point():
+                p = p.detach().requires_grad_()
+                xs.append(p)
+            leaves[i] = p
+        self._dual_leaves(leaves)
+        with torch.enable_grad():
+            out = _flatten(self._body_g(pytree.tree_unflatten(
+                leaves, self.spec)))[0]
+        reads = [(v._dual.grad, t, leaf) for v in self._views
+                 for t, leaf in v._dual.reads]
+        writes = [(v._dual.grad, t, y) for v in self._views
+                  for t, y in v._dual.writes]
+        return xs, out, reads, writes
+
+    def _index(self, h):
+        """A template's array index at this gradient iteration."""
+        return self.res.load(h) if isinstance(h, tuple) else h
+
     def _grad_body(self, state, check: bool = False):
         """One gradient-loop iteration (carry ``(j, g_carry)``)."""
         j, gs = state
         k = self.it - 1 - j
-        popped = [st.pop(k) for st in self.stacks]
-        for v in self._views:
-            v._dual.reads.clear()
-            v._dual.writes.clear()
-        seq0 = _sequence_now() if check else 0
+        if self.res is None:
+            seq0 = _sequence_now() if check else 0
+            xs, out, reads, writes = self._rerun(k)
+        else:
+            # the template's backward, through the popped residuals
+            self.res.pop_all(k)
+            t = self.template
+            seq0, xs, out = t.seq0, t.xs, t.out
+            reads = [(g, self._index(h), leaf) for g, h, leaf in t.reads]
+            writes = [(g, self._index(h), y) for g, h, y in t.writes]
+        outputs, gouts = [], []
+        for i, g in zip(self._diff_ix, gs):
+            o = out[i]
+            if torch.is_tensor(o) and o.requires_grad:
+                outputs.append(o)
+                gouts.append(g)
+        rows = []
+        for dual, t, y in writes:
+            if dual is not None:
+                r = _row(t, dual.device)
+                rows.append((dual, r))
+                if torch.is_tensor(y) and y.requires_grad:
+                    outputs.append(y)
+                    gouts.append(dual.index_select(0, r)[0])
+        inputs = xs + self._const_leaves + [leaf for _, _, leaf in reads]
+        if check:
+            _uncovered(outputs, inputs, seq0, self.what)
+            if self.res is not None:
+                _hidden(outputs, self.what)
         with torch.enable_grad():
-            leaves = list(self.carry)
-            xs = []
-            for i, p in zip(self._carry_ix, popped):
-                if self.carry[i].is_floating_point():
-                    p = p.detach().requires_grad_()
-                    xs.append(p)
-                leaves[i] = p
-            for i, view in self.carry_duals.items():
-                leaves[i] = view
-            out = _flatten(self._body_g(pytree.tree_unflatten(
-                leaves, self.spec)))[0]
-            outputs, gouts = [], []
-            for i, g in zip(self._diff_ix, gs):
-                o = out[i]
-                if torch.is_tensor(o) and o.requires_grad:
-                    outputs.append(o)
-                    gouts.append(g)
-            rows = []
-            for v in self._views:
-                d = v._dual
-                for t, y in d.writes:
-                    if d.grad is not None:
-                        r = _row(t, d.grad.device)
-                        rows.append((d.grad, r))
-                        if torch.is_tensor(y) and y.requires_grad:
-                            outputs.append(y)
-                            gouts.append(d.grad.index_select(0, r)[0])
-            reads = [(v._dual.grad, t, leaf) for v in self._views
-                     for t, leaf in v._dual.reads]
-            inputs = xs + self._const_leaves + [leaf for _, _, leaf in reads]
-            if check:
-                _uncovered(outputs, inputs, seq0, self.what)
             grads = (torch.autograd.grad(outputs, inputs, gouts,
-                                         allow_unused=True)
+                                         allow_unused=True,
+                                         retain_graph=self.res is not None)
                      if outputs and inputs else [None] * len(inputs))
+        if self.res is not None:
+            self.res.release()
         n_x, n_c = len(xs), len(self._const_leaves)
         new_gs = []
         for x, g in zip(xs, grads[:n_x]):
@@ -529,13 +682,24 @@ class GradLoop:
 
     @property
     def host_bytes(self) -> int:
-        """Pinned host bytes of the stacks (``carry_offload``)."""
-        return sum(st.host_bytes for st in self.stacks)
+        """Pinned host bytes of the stacks (``carry_offload``: max_iters
+        x ``carry_bytes``; ``offload``: max_iters x
+        ``residual_bytes``)."""
+        return sum(st.host_bytes for st in self.stacks) + (
+            0 if self.res is None else self.res.host_bytes)
 
     @property
     def carry_bytes(self) -> int:
-        """Bytes one iteration pushes."""
+        """Bytes of the carry one iteration pushes (``carry``,
+        ``carry_offload``)."""
         return sum(st.nbytes for st in self.stacks)
+
+    @property
+    def residual_bytes(self) -> int:
+        """Bytes of the body's residuals one iteration pushes (``all``,
+        ``offload``): each distinct saved tensor and array index once,
+        the constants' views not at all."""
+        return 0 if self.res is None else self.res.nbytes
 
     def iterations(self) -> int:
         """The last forward's trip count (one host read)."""
@@ -547,6 +711,7 @@ class GradLoop:
                 loop.close()
         self.fwd = self.bwd = None
         self.stacks = []
+        self.template = self.res = None
 
 
 def _zero_counter(state) -> None:
@@ -643,12 +808,8 @@ def run(lifted: _Lifted, has_cond: bool, init, *,
                          f"CPU)")
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in tensors)
-    if grad and save_policy not in GRAPH_POLICIES:
-        raise ValueError(
-            f"{what}: under grad the graph lowering saves the carry "
-            f"(save_policy 'carry' or 'carry_offload'); "
-            f"{save_policy!r} saves the body's residuals, which only "
-            f"impl='host' does")
+    if save_policy not in GRAPH_POLICIES:
+        raise ValueError(f"{what}: unknown save_policy {save_policy!r}")
     key = (lifted.key, has_cond, spec,
            tuple(_sig(x) for x in leaves),
            tuple(_sig(c) for c in lifted.consts), int(max_iters),

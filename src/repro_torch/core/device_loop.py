@@ -65,6 +65,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..kernels import check, entry, stream_ptr
+from .stacks import recording_residuals
 from .tensor_array import TensorArray
 
 __all__ = ["DeviceLoop", "capturing", "graph_cond", "read_host", "release",
@@ -208,6 +209,12 @@ def graph_cond(pred, true_fn: Callable, false_fn: Callable,
         raise RuntimeError(f"{what} runs inside a body that "
                            f"while_loop(impl='graph') captures; outside "
                            f"one, use backend='native'")
+    if recording_residuals():
+        raise NotImplementedError(
+            f"{what} inside a body whose residuals are recorded "
+            f"(save_policy 'all'/'offload' under grad): the gradient loop "
+            f"replays one recorded graph, which would hold both branches; "
+            f"use save_policy 'carry' or 'carry_offload'")
     rec = _Recorder.active[-1]
     p = _predicate(pred, what, any_of=False)
     rec.loop._keep.append(p)
@@ -257,6 +264,9 @@ class DeviceLoop:
         remainder). ``iterations()`` reads the loop steps of the last
         replay, the remainder step included: ``ceil(max_iters /
         unroll)``.
+      stream: the stream the loop is captured on (a new one by
+        default). Two loops whose graphs meet (a forward whose recorded
+        autograd graph the other's capture differentiates) share one.
     """
 
     captures = 0
@@ -266,7 +276,8 @@ class DeviceLoop:
     def __init__(self, cond_fn: Optional[Callable], body_fn: Callable,
                  carry: Any, *, max_iters: Optional[int] = None,
                  prologue: Optional[Callable] = None,
-                 name: str = "while", unroll: int = 1):
+                 name: str = "while", unroll: int = 1,
+                 stream: Optional[torch.cuda.Stream] = None):
         what = f"while_loop({name!r}, impl='graph')"
         if unroll > 1 and cond_fn is not None:
             raise ValueError(f"{what}: unroll applies to a counted loop")
@@ -285,7 +296,8 @@ class DeviceLoop:
             raise ValueError(f"{what}: the carry holds no tensor")
         dev = tensors[0].device
         self._pool = torch.cuda.graph_pool_handle()
-        self._stream = torch.cuda.Stream(dev)
+        self._stream = stream if stream is not None else \
+            torch.cuda.Stream(dev)
         self._graphs: List[torch.cuda.CUDAGraph] = []
         self._keep: List[torch.Tensor] = []    # predicates read by set()
         self._outer = self._exec = None

@@ -51,25 +51,30 @@ exactly.
 
 ``CarryStack`` is the contiguous lowering of the JAX package's
 ``repro/core/stacks.py``, for the graph lowering's gradient loop
-(``core.device_grad``, policies ``carry`` and ``carry_offload``): per
-saved carry leaf one preallocated ``(max_iters, *shape)`` buffer, pushed
-and popped at a 0-d device index that is never read to the host. Under
-``carry`` the buffer is on the device (``index_copy_``/``index_select``
-of one row). Under ``carry_offload`` it is pinned host memory that the
+(``core.device_grad``): one preallocated ``(max_iters, *shape)`` buffer
+per saved value, pushed and popped at a 0-d device index that is never
+read to the host. Under ``carry`` and ``all`` the buffer is on the
+device (``index_copy_``/``index_select`` of one row). Under
+``carry_offload`` and ``offload`` it is pinned host memory that the
 device addresses directly (checked with ``cudaPointerGetAttributes``);
 a graph memcpy node cannot take an offset known only on the device, so
 push and pop are the copy kernel of ``kernels/csrc/graph_loop.cu``
-(``stack_copy``), one launch a leaf. On the CPU (the plain driver of
+(``stack_copy``), one launch a value. On the CPU (the plain driver of
 the CPU tests) the offloaded buffer is a plain CPU tensor, pushed and
 popped as the device one.
+
+``ResidualStacks`` holds the ``CarryStack``s of a body's residuals
+under ``all`` and ``offload``: the tensors autograd saves while the
+body runs, one stack per distinct saved value (see its docstring).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import sys
 import weakref
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -116,6 +121,13 @@ class SaveStack:
 
     # ---------------------------------------------------------------- push
     def _push(self, t: torch.Tensor):
+        if _RECORDING[0]:
+            raise NotImplementedError(
+                "a while_loop(impl='host') saves tensors for its gradient "
+                "inside a body whose residuals the graph lowering records "
+                "(save_policy 'all'/'offload'); the gradient loop would "
+                "replay the recording's values. Give the outer graph "
+                "loop save_policy 'carry', or run both with impl='host'")
         if t.requires_grad and t.is_leaf:
             return t.detach()                     # a loop constant
         if not self.offload:
@@ -279,6 +291,151 @@ class CarryStack:
             _copy(self._out, self._mapped, k, self.nbytes, to_host=False)
             return self._out
         return self.buf.index_select(0, k.reshape(1))[0]
+
+
+_RECORDING = [0]     # > 0 while a body's residuals are being recorded
+
+
+def recording_residuals() -> bool:
+    """Is a body running under ``ResidualStacks.recording``?"""
+    return bool(_RECORDING[0])
+
+
+class ResidualStacks:
+    """The stacks of one loop body's residuals (the graph lowering's
+    ``all`` and ``offload``; the JAX package pushes ``vjp_fn``'s leaves).
+
+    ``recording(it)`` runs the body under ``saved_tensors_hooks``: each
+    tensor autograd saves is pushed onto its stack at row ``it`` (a 0-d
+    device counter) and replaced in the graph by a handle; ``load``
+    turns a handle back into a tensor, the value that ``pop_all(k)``
+    popped from row ``k``. The first recording assigns the stacks (its
+    saves in order: a new value gets a stack, a value saved again in the
+    same iteration is pushed once); every later recording must save the
+    same sequence. Not pushed: a view of one of ``constants`` (the
+    loop's static buffers of the tensors the body closes over, which no
+    iteration changes), which ``load`` re-views. A view of the carry's
+    static buffers is pushed, since the next iteration overwrites it.
+    ``save(t, value=True)`` pushes a tensor that is no saved value (an
+    array index) by value, a constant's view too."""
+
+    def __init__(self, capacity: int, offload: bool,
+                 constants: Sequence[torch.Tensor]):
+        self.capacity, self.offload = int(capacity), bool(offload)
+        self._consts = list(constants)
+        self._const_at = {c.untyped_storage().data_ptr(): k
+                          for k, c in enumerate(self._consts)
+                          if c.numel()}
+        self.stacks: List[CarryStack] = []
+        self._plan: Optional[List[tuple]] = None   # one entry a save
+        self._popped: List[torch.Tensor] = []
+        self._it: Optional[torch.Tensor] = None
+        self._seen: Dict[tuple, int] = {}
+        self._held: List[torch.Tensor] = []
+        self._at = self._new = 0
+        self._first = False
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes one iteration pushes."""
+        return sum(st.nbytes for st in self.stacks)
+
+    @property
+    def host_bytes(self) -> int:
+        return sum(st.host_bytes for st in self.stacks)
+
+    @contextlib.contextmanager
+    def recording(self, it: torch.Tensor):
+        """Push what the body saves at row ``it``."""
+        first = self._first = self._plan is None
+        if first:
+            self._plan = []
+        self._it, self._seen, self._held = it, {}, []
+        self._at = self._new = 0
+        _RECORDING[0] += 1
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self.save,
+                                                          self.load):
+                yield
+            if self._at != len(self._plan):
+                raise RuntimeError(self._differs(
+                    f"{self._at} values where the first saved "
+                    f"{len(self._plan)}"))
+        except BaseException:
+            if first:
+                self._plan, self.stacks = None, []
+            raise
+        finally:
+            _RECORDING[0] -= 1
+            self._first = False
+            self._it, self._seen, self._held = None, {}, []
+
+    @staticmethod
+    def _differs(what: str) -> str:
+        return (f"a recording of the loop body saved {what} for its "
+                f"gradient; save_policy 'all'/'offload' under "
+                f"impl='graph' replay the first recording's graph, so "
+                f"every iteration must save the same tensors ('carry' "
+                f"re-runs the body instead)")
+
+    def save(self, t: torch.Tensor, value: bool = False) -> tuple:
+        """Push ``t`` (unless pushed already this iteration, or, without
+        ``value``, a constant's view); returns its handle."""
+        if self._it is None:
+            raise RuntimeError("ResidualStacks.save outside recording()")
+        ptr = t.untyped_storage().data_ptr()
+        k = self._const_at.get(ptr) if t.numel() and not value else None
+        if k is not None:
+            entry = handle = ("const", k, tuple(t.shape), tuple(t.stride()),
+                              t.storage_offset())
+        else:
+            key = (ptr, t.storage_offset(), tuple(t.shape),
+                   tuple(t.stride()), t.dtype, t.device)
+            s = self._seen.get(key)
+            if s is not None:
+                entry = handle = ("slot", s)
+            else:
+                s = self._seen[key] = self._new
+                self._new += 1
+                self._held.append(t)      # no other value takes its memory
+                entry, handle = ("push", s, key[2], t.dtype), ("slot", s)
+        plan = self._plan
+        if self._first:
+            if entry[0] == "push":
+                if t.device != self._it.device:
+                    raise ValueError(
+                        f"the loop body saves a {t.device} tensor for its "
+                        f"gradient in a loop on {self._it.device}")
+                self.stacks.append(CarryStack(t, self.capacity,
+                                              self.offload))
+            plan.append(entry)
+        elif self._at >= len(plan) or plan[self._at] != entry:
+            first = plan[self._at] if self._at < len(plan) else "nothing"
+            raise RuntimeError(self._differs(
+                f"{entry} as save {self._at} where the first saved "
+                f"{first}"))
+        self._at += 1
+        if entry[0] == "push":
+            self.stacks[entry[1]].push(self._it, t.detach())
+        return handle
+
+    def load(self, handle: tuple) -> torch.Tensor:
+        """The tensor of a handle: a constant's view, or the value popped
+        by the last ``pop_all``."""
+        if handle[0] == "const":
+            _, k, size, stride, offset = handle
+            return self._consts[k].detach().as_strided(size, stride, offset)
+        if not self._popped:
+            raise RuntimeError("a residual was unpacked outside the "
+                               "gradient loop's iteration")
+        return self._popped[handle[1]]
+
+    def pop_all(self, k: torch.Tensor) -> None:
+        """Pop row ``k`` of every stack (until ``release``)."""
+        self._popped = [st.pop(k) for st in self.stacks]
+
+    def release(self) -> None:
+        self._popped = []
 
 
 def _device_pointer(host: torch.Tensor) -> int:

@@ -225,12 +225,15 @@ def _row(ix, device) -> torch.Tensor:
 
 class _Dual:
     """The dual of an array inside one gradient-loop iteration: the
-    reads (index, leaf) and writes (index, value) its body made."""
+    reads (index, leaf) and writes (index, value) its body made. With
+    ``make``, in the forward body that records a loop's residuals, the
+    writes are made too."""
 
-    __slots__ = ("grad", "carry", "reads", "writes")
+    __slots__ = ("grad", "carry", "make", "reads", "writes")
 
-    def __init__(self, grad: Optional[torch.Tensor], carry: bool):
-        self.grad, self.carry = grad, carry
+    def __init__(self, grad: Optional[torch.Tensor], carry: bool,
+                 make: bool = False):
+        self.grad, self.carry, self.make = grad, carry, make
         self.reads: List[Tuple[torch.Tensor, torch.Tensor]] = []
         self.writes: List[Tuple[torch.Tensor, torch.Tensor]] = []
 
@@ -274,13 +277,15 @@ class DeviceTensorArray:
     def tensors(self) -> List[torch.Tensor]:
         return [self.data, self.written, self.double_writes]
 
-    def dual_view(self, grad: Optional[torch.Tensor],
-                  carry: bool) -> "DeviceTensorArray":
+    def dual_view(self, grad: Optional[torch.Tensor], carry: bool,
+                  make: bool = False) -> "DeviceTensorArray":
         """This array as the gradient loop's body sees it: reads return
         leaves whose cotangents go to ``grad`` (None: not differentiated)
-        and writes are recorded, not made (the forward made them)."""
+        and writes are recorded, not made (the forward made them). With
+        ``make`` (the forward body whose graph the gradient loop replays)
+        writes are recorded and made."""
         return DeviceTensorArray(self.data, self.written,
-                                 self.double_writes, _Dual(grad, carry))
+                                 self.double_writes, _Dual(grad, carry, make))
 
     # -- core ops (paper §2.1) ----------------------------------------------
     def read(self, ix) -> torch.Tensor:
@@ -303,7 +308,9 @@ class DeviceTensorArray:
         """ta.write(ix, t), in place; returns this array."""
         if self._dual is not None:
             self._dual.writes.append((ix, t))
-            return self
+            if not self._dual.make:
+                return self
+            t = t.detach() if torch.is_tensor(t) else t
         dev = self.data.device
         i = _row(ix, dev)
         t = torch.as_tensor(t).to(device=dev, dtype=self.data.dtype)

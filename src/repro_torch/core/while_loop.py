@@ -34,9 +34,9 @@ requiring grad) records nothing and so pushes nothing, as in JAX.
 The predicate, and which lowering decides where. The JAX loop decides
 in-graph. This port has two lowerings, chosen by ``impl``:
 
-- ``impl="host"`` (the default; the only one on the CPU, and the one
-  that records gradients under all four §5.3 policies above): an eager Python
-  loop that brings the decision to the host once per iteration. The
+- ``impl="host"`` (the default; the only one on the CPU, where the tape
+  records the four §5.3 policies above): an eager Python loop that
+  brings the decision to the host once per iteration. The
   iteration counter and ``max_iters`` are Python ints, so the clamp costs
   nothing; a predicate that ``cond_fn`` returns as a tensor (a
   data-dependent one, such as ``dynamic_rnn``'s ``t < max(lens)``) is
@@ -58,12 +58,14 @@ in-graph. This port has two lowerings, chosen by ``impl``:
   tensors ``body_fn``/``cond_fn`` close over), and for a carry that
   holds a ``DeviceTensorArray``, the loop goes through
   ``core.device_grad``: §5.1's forward and gradient loops as two WHILE
-  nodes, the carry saved on contiguous stacks (``save_policy`` "carry"
-  on the device, "carry_offload" in pinned host memory; "all" and
-  "offload", which save the body's residuals, are refused there with a
-  ``ValueError``: ``impl="host"`` runs them), the closed-over tensors
-  lifted out as constants, the pair captured once per program and
-  replayed by later calls; it returns fresh tensors.
+  nodes under all four policies, on contiguous stacks: "all" pushes the
+  body's residuals (the tensors autograd saves) on the device and the
+  gradient loop differentiates the recorded body without re-running it,
+  "offload" keeps those stacks in pinned host memory, "carry" pushes the
+  carry and re-runs the body, "carry_offload" keeps the carry in pinned
+  host memory. The closed-over tensors are lifted out as constants, the
+  pair is captured once per program and replayed by later calls, and it
+  returns fresh tensors.
 
 ``parallel_iterations``, the paper's §4.3 knob for how many iterations
 may be in flight, has the JAX package's meaning: on a counted loop
@@ -175,7 +177,7 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
                impl: str = "host",
                prologue: Optional[Callable] = None) -> Any:
     """Run ``body_fn`` while ``cond_fn`` holds; reverse-differentiable
-    under ``impl="host"``.
+    under both lowerings and every save policy.
 
     Args:
       cond_fn: carry -> bool (a Python bool, or a tensor read to the

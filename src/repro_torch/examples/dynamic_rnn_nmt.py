@@ -11,11 +11,11 @@ end through both loops, trained here on a toy rot-7 "translation".
 It runs on the card unless ``--device cpu`` is given, and checks the
 reference's bar: masked NLL below 0.5 after 250 steps. On the card both
 RNNs run under the graph lowering (``impl="graph"``, save policy
-``carry``), the counterpart of the JAX example's jitted step: each
-loop's forward and gradient are one CUDA-graph launch each
-(``core.device_grad``), captured at the first step and replayed by the
-others. On the CPU they run under the host lowering; the line it prints
-names the lowering.
+``all``, as the JAX example), the counterpart of the JAX example's
+jitted step: each loop's forward and gradient are one CUDA-graph launch
+each (``core.device_grad``), captured at the first step and replayed by
+the others. On the CPU they run under the host lowering; the line it
+prints names the lowering.
 """
 
 from __future__ import annotations
@@ -78,12 +78,11 @@ def batch(gen: torch.Generator):
 
 
 def train_step(cfg: adamw.AdamWConfig, params, opt, src, lens, tgt,
-               save_policy: Optional[str] = None, impl: str = "host"):
+               save_policy: str = "all", impl: str = "host"):
     """One step: loss and gradients through both loops, then AdamW.
-    The save policy defaults to ``all`` under the host lowering and to
-    ``carry`` under the graph lowering. Returns (params, opt, loss)."""
-    if save_policy is None:
-        save_policy = "carry" if impl == "graph" else "all"
+    The save policy defaults to ``all`` (the JAX example's) under both
+    lowerings: the loops push the cells' residuals, and the gradient
+    loops re-run no forward. Returns (params, opt, loss)."""
     leaves, spec = pytree.tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in leaves]
     loss = model_loss(pytree.tree_unflatten(leaves, spec), src, lens, tgt,

@@ -20,8 +20,9 @@ reads to the host once per step (``while_loop.host_reads``); without
 (CUDA tensors) the step counter is a 0-d device tensor, the arrays are
 ``DeviceTensorArray``s and ``t < max(lens)`` is decided on the device:
 a forward pass is one CUDA-graph launch with no host read, and under
-grad (``save_policy`` "carry" or "carry_offload") the gradient is a
-second launch (``core.device_grad``). The fused cell may run inside the
+grad, under any save policy (the default ``all`` pushes the cell's
+residuals; ``offload`` keeps them in pinned host memory), the gradient
+is a second launch (``core.device_grad``). The fused cell may run inside the
 graph's WHILE node on an inference pass (it launches on the current
 stream); its Python ``launches`` counter counts at capture, so the
 launches of a replay are the loop's iterations

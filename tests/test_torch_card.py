@@ -947,7 +947,8 @@ def _rnn_grads(params, x, lens, H, policy, impl):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["carry", "carry_offload"])
+@pytest.mark.parametrize("policy", ["all", "offload", "carry",
+                                    "carry_offload"])
 @pytest.mark.parametrize("with_lens", [False, True])
 def test_dynamic_rnn_graph_grads_equal_host_on_card(cuda_device, policy,
                                                     with_lens):
@@ -967,8 +968,11 @@ def test_dynamic_rnn_graph_grads_equal_host_on_card(cuda_device, policy,
     assert GradLoop.replays - rep0 == 4
     assert core.while_loop.host_reads == reads0
     loop = core.while_loop.last_grad_loop
-    assert loop.host_bytes == (12 * loop.carry_bytes
-                               if policy == "carry_offload" else 0)
+    pushed = loop.residual_bytes if policy in ("all", "offload") else \
+        loop.carry_bytes
+    assert pushed > 0
+    assert loop.host_bytes == (12 * pushed if policy.endswith("offload")
+                               else 0)
     device_grad.release()
 
 

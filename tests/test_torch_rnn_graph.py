@@ -13,10 +13,11 @@ nodes, on the CPU.
 - the forward without grad against the host lowering, bit for bit;
 - one loop per program, reused by later calls with new weights;
 - a captured input array's gradient (the dual ``index_add_``), the
-  double-write counter, the stacks, and the refusals (``all`` and
-  ``offload`` under graph grad, a tensor the body reaches outside the
-  carry and its constants, CPU tensors without the plain driver, reads
-  of a carry array under grad).
+  double-write counter, the stacks, and the refusals (a tensor the body
+  reaches outside the carry and its constants, CPU tensors without the
+  plain driver, reads of a carry array under grad); ``all`` and
+  ``offload``, refused until the residual stacks came, run
+  (``test_torch_graph_residuals.py`` holds their parity cases).
 """
 
 import jax
@@ -254,10 +255,15 @@ def test_carry_stack_pushes_and_pops_rows_at_a_device_index(offload):
 
 def test_graph_grad_refusals():
     p, x = _case()
-    with device_grad.plain_driver():
-        for policy in ("all", "offload"):
-            with pytest.raises(ValueError, match="impl='host'"):
-                _port_grads(p, x, LENS, policy, "graph")
+    # all and offload, once refused here, now run (their parity cases:
+    # test_torch_graph_residuals.py)
+    for policy in ("all", "offload"):
+        ref = _port_grads(p, x, LENS, policy, "host")
+        with device_grad.plain_driver():
+            ours = _port_grads(p, x, LENS, policy, "graph")
+        assert core.while_loop.last_grad_loop.residual_bytes > 0
+        for a, b in zip(ours, ref):
+            np.testing.assert_allclose(_np(a), _np(b), rtol=1e-6, atol=1e-7)
     # CPU tensors without the plain driver
     with pytest.raises(ValueError, match="CUDA tensors"):
         _port_grads(p, x, LENS, "carry", "graph")
@@ -293,8 +299,8 @@ def test_graph_grad_refusals():
 
 def test_nmt_step_under_the_graph_lowering_equals_the_host_step():
     """One training step of the NMT example: both RNNs under the graph
-    lowering (``carry``), through the plain driver, give the host
-    lowering's loss and updated parameters."""
+    lowering (its default policy, ``all``), through the plain driver,
+    give the host lowering's loss and updated parameters."""
     gen = torch.Generator().manual_seed(0)
     params = nmt.init(gen)
     src, lens, tgt = nmt.batch(gen)
