@@ -486,6 +486,26 @@ Phases, each printing its own lines:
     no ``PagedView.gather``. Tok/s of both runs, the bytes and the counts
     are printed: two gloo ranks time-sharing one card, not multi-device
     speed.
+45. (run after phase 11) §5.1's gradient of a cond on the device: Table
+    1's LSTM (B=512, D=H=512, S=500, fp32, unfused cell) run only where
+    a seeded flag is set (about 50%), ``cond(flags.read(t) != 0, step,
+    carry through, backend="graph")`` in a counted graph loop, under the
+    four graph policies: w, b and x gradients equal to the host
+    lowering's (``backend="native"``, ``all``) at rtol 1e-5, two graph
+    launches a pass and no host read added by a pass; ms an iteration at
+    50% flags, and under ``all`` and ``carry`` at 100% (the captured
+    loop replayed with the flags reloaded); then the JAX test's program
+    ``cond(i % 2 == 0, y * w, y + 1)`` under ``carry`` against its
+    closed form;
+46. a graph loop in a graph loop: an outer ``while_loop(impl="graph")``
+    over 4 stacked LSTM layers (weights (4, 1024, 2048) read at the outer
+    counter) whose body runs ``dynamic_rnn(impl="graph")`` through the
+    fused cell at B=512, S=1000: bit-equal to
+    ``multilayer_dynamic_rnn(impl="graph")`` (a graph loop a layer), one
+    graph launch a pass, 4,000 ``lstm_cell`` launches counted on the
+    device; then under grad, 2 layers at S=100 with the outer loop under
+    ``carry`` and the layers' loops under each policy: gradients equal
+    to ``impl="host"``'s at rtol 1e-5, two graph launches a pass.
 
 llama3.2-1b's bf16 weights (``attn_impl="cuda"``) are drawn once for
 phases 4, 17, 19, 20, 26 and 39 and freed after 39; phase 40's ranks
@@ -3658,6 +3678,302 @@ def fig2_graph():
                     f"{reverse}): agreement {ok}, captures {captures} "
                     f"(want 1), launches {launches} (want 4)")
             device_grad.release()
+
+
+def flagged_lstm(params, x, flags, impl, policy):
+    """Table 1's LSTM step where ``flags[t]`` is set and the state carried
+    through where not: ``cond(flags.read(t) != 0, step, carry through)``
+    in a counted loop over t, graph (``backend="graph"``, device arrays)
+    or host (``backend="native"``, a host read a step). Returns (c, h)."""
+    import torch
+    from repro_torch import core
+    from repro_torch.models import rnn
+    B, S, _ = x.shape
+    H = params["b"].shape[0] // 4
+    graph = impl == "graph"
+    ta = core.DeviceTensorArray if graph else core.TensorArray
+    xs = ta.unstack(x.transpose(0, 1).contiguous())
+    fl = ta.unstack(flags)
+
+    def step(c, h, xt):
+        _, (c2, h2) = rnn.lstm_cell(params, xt, (c, h))
+        return c2, h2
+
+    def body(s):
+        t, c, h = s
+        c, h = core.cond(fl.read(t) != 0, step, lambda c, h, xt: (c, h), c,
+                         h, xs.read(t),
+                         backend="graph" if graph else "native")
+        return (t + 1, c, h)
+
+    zeros = torch.zeros(B, H, device=x.device)
+    t0 = torch.zeros((), dtype=torch.long, device=x.device) if graph else 0
+    _, c, h = core.while_loop(None, body, (t0, zeros, zeros), max_iters=S,
+                              save_policy=policy, impl=impl)
+    return c, h
+
+
+def parents_program(policy):
+    """The JAX package's ``test_cond_in_while_grad`` program,
+    ``cond(i % 2 == 0, y * w, y + 1)`` four times, under
+    ``while_loop(impl="graph")``: (y, dy/dw, dy/dx) and the reference."""
+    import torch
+    from repro_torch import core
+    w = torch.tensor(1.5, device="cuda", requires_grad=True)
+    x = torch.tensor(2.0, device="cuda", requires_grad=True)
+
+    def b(c):
+        i, y = c
+        return (i + 1, core.cond(i % 2 == 0, lambda v: v * w,
+                                 lambda v: v + 1.0, y, backend="graph"))
+    y = core.while_loop(lambda c: c[0] < 4, b,
+                        (torch.zeros((), dtype=torch.long, device="cuda"),
+                         x), max_iters=4, save_policy=policy,
+                        impl="graph")[1]
+    got = (y.item(), *[g.item() for g in torch.autograd.grad(y, [w, x])])
+    return got, ((2.0 * 1.5 + 1) * 1.5 + 1, 2 * 2.0 * 1.5 + 1, 1.5 ** 2)
+
+
+def phase_graph_cond():
+    """§5.1's gradient of a cond on the device: the flagged LSTM body at
+    B=512, D=H=512, S=500, fp32 (flags ~50% ones), under the four graph
+    policies against the host lowering under ``all``: gradients of w, b
+    and x, two graph launches a pass, no host read added by a pass (the
+    predicates stay on the device), ms an iteration at 50% flags, and
+    under ``all`` and ``carry`` at 100% (the same captured loop, flags
+    reloaded). Then the JAX test's program under ``carry``."""
+    import torch
+    from repro_torch import bridge, core
+    from repro_torch.core import device_grad
+    from repro_torch.core.device_grad import GradLoop
+    from repro_torch.core.device_loop import DeviceLoop
+    from repro_torch.core.while_loop import SAVE_POLICIES
+
+    B, S, D, H = 512, 500, 512, 512
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(B, S, D, generator=gen, device="cuda",
+                    requires_grad=True)
+    half = (torch.rand(S, generator=gen, device="cuda") < 0.5).int()
+    ones = torch.ones(S, dtype=torch.int32, device="cuda")
+    params = bridge.init_lstm_params(D, H, seed=7, device="cuda")
+    for p in params.values():
+        p.requires_grad_()
+    set_ = int(half.sum())
+
+    def grads(impl, policy, flags):
+        c, h = flagged_lstm(params, x, flags, impl, policy)
+        loss = (h ** 2).mean() + (c * h).mean()
+        return torch.autograd.grad(loss, [params["w"], params["b"], x])
+
+    def timed_pass(policy, flags):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        g = grads("graph", policy, flags)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return g, ev[0].elapsed_time(ev[1]) / S
+
+    ref = grads("host", "all", half)
+    torch.cuda.synchronize()
+    ms = {}
+    for policy in SAVE_POLICIES:
+        device_grad.release()
+        grads("graph", policy, half)              # warm-up and captures
+        launches, reads = GradLoop.replays, DeviceLoop.host_reads
+        loop_reads = core.while_loop.host_reads
+        g, ms[policy, 50] = timed_pass(policy, half)
+        added = (GradLoop.replays - launches,
+                 DeviceLoop.host_reads - reads,   # every read_host transfer
+                 core.while_loop.host_reads - loop_reads)
+        if policy in ("all", "carry"):
+            _, ms[policy, 100] = timed_pass(policy, ones)
+        err = [(a - r).abs().max().item() for a, r in zip(g, ref)]
+        ok = all(torch.allclose(a, r, rtol=1e-5, atol=1e-7)
+                 for a, r in zip(g, ref))
+        log(f"[cond-grad] S={S} flags set {set_}/{S}, graph {policy:13s}: "
+            f"max |graph - host all| w {err[0]:.3e} b {err[1]:.3e} x "
+            f"{err[2]:.3e} (rtol 1e-5) {'ok' if ok else 'FAIL'}; "
+            f"{added[0]} graph launches a pass, host reads added by a "
+            f"pass {added[1]} (device loop) {added[2]} (while_loop); "
+            f"{ms[policy, 50]:.4f} ms an iteration at 50% flags"
+            + (f", {ms[policy, 100]:.4f} at 100%" if (policy, 100) in ms
+               else ""))
+        if not ok or added != (2, 0, 0):
+            raise AssertionError(
+                f"cond under grad, {policy}: agreement {ok}, (launches, "
+                f"device-loop reads, while_loop reads) a pass {added}, want "
+                f"(2, 0, 0)")
+        device_grad.release()
+    for policy in ("all", "carry"):
+        log(f"[cond-grad] {policy}: the 50% pass takes "
+            f"{ms[policy, 50] / ms[policy, 100]:.3f} of the 100% pass "
+            f"(flags set {set_}/{S})")
+    got, want = parents_program("carry")
+    device_grad.release()
+    log(f"[cond-grad] the JAX test's program cond(i % 2 == 0, y * w, y + 1) "
+        f"under carry: y {got[0]:.6f} dy/dw {got[1]:.6f} dy/dx "
+        f"{got[2]:.6f} (reference {want[0]:.6f} {want[1]:.6f} "
+        f"{want[2]:.6f})")
+    if max(abs(a - b) for a, b in zip(got, want)) > 1e-5:
+        raise AssertionError(f"cond under grad: {got} for {want}")
+
+
+def stacked_fns(w, b, impl, inner="all", cell=None):
+    """The predicate and body of an outer ``while_loop`` over the layers
+    of a stacked LSTM, weights (L, D+H, 4H) read at its counter, whose
+    body runs one ``dynamic_rnn`` (carry: (layer, inputs))."""
+    import torch
+    from repro_torch.models import rnn
+    H = b.shape[1] // 4
+    cell = rnn.lstm_cell if cell is None else cell
+
+    def cond_fn(s):
+        return s[0] < w.shape[0]
+
+    def body_fn(s):
+        l, y = s
+        ix = l.reshape(1) if torch.is_tensor(l) else l
+        p = {"w": w[ix].reshape(w.shape[1:]), "b": b[ix].reshape(b.shape[1:])}
+        out, _ = rnn.dynamic_rnn(p, y, hidden=H, save_policy=inner,
+                                 impl=impl, cell=cell)
+        return (l + 1, out)
+
+    return cond_fn, body_fn
+
+
+def stacked_lstm(w, b, x, impl, outer="all", inner="all"):
+    """The stacked LSTM's last layer outputs, the outer loop under
+    ``outer`` and each layer's under ``inner``."""
+    import torch
+    from repro_torch import core
+    cond_fn, body_fn = stacked_fns(w, b, impl, inner)
+    l0 = (torch.zeros((), dtype=torch.long, device=x.device)
+          if impl == "graph" else 0)
+    return core.while_loop(cond_fn, body_fn, (l0, x), max_iters=w.shape[0],
+                           save_policy=outer, impl=impl)[1]
+
+
+def phase_graph_nested():
+    """A graph loop in a graph loop. Forward: L=4 stacked layers of
+    Table 1's LSTM (B=512, D=H=512, S=1000, fp32) through the fused
+    ``lstm_cell`` kernel as one outer WHILE node over nested WHILE
+    nodes, bit-equal to ``multilayer_dynamic_rnn(impl="graph")`` (a
+    graph loop a layer), one launch a pass and L x S kernel launches
+    counted on the device. Under grad: L=2, S=100, outer ``carry``, the
+    layers' loops under each policy, against ``impl="host"``."""
+    import functools
+    import torch
+    from repro_torch import bridge, core, kernels
+    from repro_torch.core import device_grad, device_loop
+    from repro_torch.core.device_grad import GradLoop
+    from repro_torch.core.device_loop import DeviceLoop
+    from repro_torch.core.while_loop import SAVE_POLICIES
+    from repro_torch.kernels.lstm_cell import ops as lstm_ops
+    from repro_torch.models import rnn
+
+    def weights(L, D, H, grad=False):
+        ps = [bridge.init_lstm_params(D, H, seed=8 + k, device="cuda")
+              for k in range(L)]
+        w = torch.stack([p["w"] for p in ps]).requires_grad_(grad)
+        b = torch.stack([p["b"] for p in ps]).requires_grad_(grad)
+        return w, b, ps
+
+    L, B, S, D = 4, 512, 1000, 512
+    w, b, ps = weights(L, D, D)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x0 = torch.randn(B, S, D, generator=gen, device="cuda")
+    fused = functools.partial(rnn.lstm_cell, kernel=lstm_ops.lstm_cell)
+    counts = torch.zeros(1, dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = rnn.multilayer_dynamic_rnn(ps, x0, hidden=D, impl="graph",
+                                         cell=fused)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = rnn.multilayer_dynamic_rnn(ps, x0, hidden=D, impl="graph",
+                                         cell=fused)
+        torch.cuda.synchronize()
+        layer_s = time.perf_counter() - t1
+        first_s = t1 - t0
+        # the loop's functions and carry held, so the second pass replays
+        cond_fn, body_fn = stacked_fns(w, b, "graph", cell=fused)
+        carry = (torch.zeros((), dtype=torch.long, device="cuda"),
+                 x0.clone())
+
+        def restart(s):
+            s[0].zero_()
+
+        def nested_pass():
+            core.while_loop(cond_fn, body_fn, carry, max_iters=L,
+                            impl="graph", prologue=restart)
+
+        cap0 = DeviceLoop.captures
+        with kernels.device_launch_counts(counts, ("lstm_cell",)):
+            nested_pass()                                  # captures
+        torch.cuda.synchronize()
+        counts.zero_()
+        x = carry[1]
+        x.copy_(x0)
+        launches, reads = DeviceLoop.replays, DeviceLoop.host_reads
+        t0 = time.perf_counter()
+        nested_pass()
+        torch.cuda.synchronize()
+        nested_s = time.perf_counter() - t0
+    launched = DeviceLoop.replays - launches
+    added = DeviceLoop.host_reads - reads
+    on_device = int(counts.item())
+    same = torch.equal(x, ref)
+    err = (x - ref).abs().max().item()
+    device_loop.release(body_fn)
+    log(f"[nested] forward L={L} B={B} S={S} D=H={D} fp32, fused cell: one "
+        f"outer WHILE over nested WHILE nodes, {DeviceLoop.captures - cap0} "
+        f"capture, {launched} graph launch a pass, {on_device} lstm_cell "
+        f"launches counted on the device (L x S = {L * S}), host reads a "
+        f"pass {added} (the nested arrays' write-once check); bit-equal to "
+        f"a graph loop a layer: {same} (max |diff| {err:.3e}); {nested_s:.3f}"
+        f" s a pass ({nested_s / (L * S) * 1e3:.4f} ms a step) vs "
+        f"{layer_s:.3f} s for {L} launches (first pass with its captures "
+        f"{first_s:.3f} s)")
+    if not same or launched != 1 or on_device != L * S:
+        raise AssertionError(f"nested forward: bit-equal {same}, launches "
+                             f"{launched} (want 1), lstm_cell on the device "
+                             f"{on_device} (want {L * S})")
+    del x, x0, ref
+    device_grad.release()
+
+    L, S = 2, 100
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    xg = torch.randn(B, S, D, generator=gen, device="cuda")
+
+    def grads(impl, inner):
+        w, b, _ = weights(L, D, D, grad=True)
+        xx = xg.clone().requires_grad_()
+        y = stacked_lstm(w, b, xx, impl, outer="carry", inner=inner)
+        return torch.autograd.grad((y ** 2).mean(), [w, b, xx])
+
+    for inner in SAVE_POLICIES:
+        ref = grads("host", inner)
+        grads("graph", inner)                       # captures
+        torch.cuda.synchronize()
+        launches = GradLoop.replays
+        t0 = time.perf_counter()
+        g = grads("graph", inner)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = GradLoop.replays - launches
+        errs = [(a - r).abs().max().item() for a, r in zip(g, ref)]
+        ok = all(torch.allclose(a, r, rtol=1e-5, atol=1e-7)
+                 for a, r in zip(g, ref))
+        log(f"[nested] grad L={L} S={S} outer carry, inner {inner:13s}: "
+            f"max |graph - host| w {errs[0]:.3e} b {errs[1]:.3e} x "
+            f"{errs[2]:.3e} (rtol 1e-5) {'ok' if ok else 'FAIL'}; "
+            f"{launched} graph launches a pass; {secs * 1e3:.1f} ms a pass")
+        if not ok or launched != 2:
+            raise AssertionError(f"nested gradient, inner {inner}: "
+                                 f"agreement {ok}, launches {launched} "
+                                 f"(want 2)")
+        device_grad.release()
 
 
 def phase_nmt():
@@ -7073,6 +7389,8 @@ def main() -> int:
     records.append(timed(phase_lstm_kernel))
     launches["lstm_cell"] = timed(phase_dynamic_rnn)
     timed(phase_policies)
+    timed(phase_graph_cond)
+    timed(phase_graph_nested)
     timed(phase_nmt)
     timed(phase_dqn)
     timed(phase_examples)

@@ -12,7 +12,17 @@ Three lowerings; which one decides where:
   device. The predicate must be a one-element CUDA tensor; leaves that
   both branches return as the same object pass through (in-place
   branches), otherwise the false branch's result is copied into the true
-  branch's. Outside such a capture it raises. Records no gradient.
+  branch's. Under grad, in the body of a differentiated
+  ``while_loop(impl="graph")`` (``core.device_grad``), each branch runs
+  on detached operands into a tape of its own and writes its results
+  into buffers made by the branch that runs first; the gradient is two
+  IF nodes on the same predicate (pushed under ``save_policy``
+  "all"/"offload", recomputed under "carry"/"carry_offload"), each
+  writing the operands' cotangents, zero where the untaken branch would
+  have given some. Refused: under grad outside such a body, and a branch
+  that reads or writes the loop's ``DeviceTensorArray`` or reaches a
+  tensor computed before the cond that is not an operand. Outside a
+  graph loop's body it raises.
 - ``backend="select"``: both branches run and ``torch.where`` keeps the
   taken one, the masked form of the paper's deadness (§4.4) that the
   JAX package uses inside partitioned stages. The predicate stays on

@@ -59,12 +59,34 @@ program and the loops never return to the host. Here:
   another loop (captured once too).
 - ``_Loop`` is the ``torch.autograd.Function``: forward = one launch of
   the forward graph, backward = one launch of the gradient graph.
+- Conds and nested loops (§5.1: "the gradient of a cond is a cond on
+  the same predicate", an inner loop's gradient an inner loop). Under
+  grad a body records a tape of events: a ``cond(backend="graph")``
+  runs each branch on detached operands into a tape of its own and
+  writes its results into buffers that become leaves
+  (``cond_on_tape``); a ``while_loop(impl="graph")`` in the body, when
+  the outer loop re-runs its body (``carry``, ``carry_offload``), is a
+  nested ``GradLoop`` whose forward and gradient loops are WHILE nodes
+  of that body and whose stacks its prologue resets each outer
+  iteration (``nested``). The gradient body walks the events in
+  reverse (``_backprop``), one ``torch.autograd.grad`` call per segment
+  on the capturing thread: a cond's gradient is two IF nodes on its
+  predicate (pushed by value under ``all``/``offload``, each branch's
+  residuals pushed in its own IF node as a group of
+  ``ResidualStacks``; recomputed under ``carry``), writing the operands'
+  cotangents into shared buffers, zero from the untaken branch. An
+  inner loop under grad in an outer ``all``/``offload`` body is refused
+  (its stacks would need rows indexed by both counters).
 
 Without grad (or with nothing that requires it) the forward is the
 plain WHILE loop, with no stack. ``plain_driver()`` runs the same
-bodies, stacks, hooks, template and duals under a step-by-step Python
-loop instead of the graphs: the CPU tests' driver; nothing on the
-card's path uses it.
+bodies, stacks, hooks, template, duals and events under a step-by-step
+Python loop instead of the graphs, each cond decided on the host (it
+takes every ``while_loop(impl="graph")``, CPU tensors too): the CPU
+tests' driver; nothing on the card's path uses it. Before its capture
+a loop runs its bodies once eagerly with both branches of every cond
+(``device_loop.frame("warm")``), so that both initialise, record their
+stacks and are checked.
 
 ``GradLoop.captures``, ``.replays`` (graph launches, forward and
 gradient) and ``.host_reads`` (the double-write check after a forward
@@ -77,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 import types
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -84,11 +107,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
-from .stacks import CarryStack, ResidualStacks
+from . import device_loop
+from .device_loop import drive_mode, frame
+from .stacks import CarryStack, ResidualStacks, recording_residuals
 from .tensor_array import (DeviceTensorArray, TensorArray, WriteOnceError,
                            _row, deferred_checks)
 
-__all__ = ["GradLoop", "plain_driver", "release", "run", "takes"]
+__all__ = ["GradLoop", "active_tape", "cond_on_tape", "nested",
+           "plain_driver", "release", "run", "takes"]
 
 GRAPH_POLICIES = ("all", "offload", "carry", "carry_offload")
 _PLAIN = [0]
@@ -187,8 +213,12 @@ class _Lifted:
 
     def _lift_fn(self, fn):
         cells = fn.__closure__ or ()
-        if id(fn) in self._active or not (cells or fn.__defaults__):
+        if id(fn) in self._active or fn.__kwdefaults__:
             return ("fn", fn), lambda v: fn
+        if not (cells or fn.__defaults__):
+            # keyed by its code: a body's lambda is made anew each call
+            return (("code", fn.__code__, id(fn.__globals__)),
+                    lambda v: fn)
         self._active.add(id(fn))
         try:
             parts = []
@@ -216,33 +246,53 @@ class _Lifted:
 
 class _PlainLoop:
     """``DeviceLoop``'s contract (static carry, outputs copied into its
-    leaves, ``run``/``iterations``/``close``) as a Python loop."""
+    leaves, ``run``/``iterations``/``close``) as a Python loop, its
+    conds decided on the host."""
 
     def __init__(self, cond_fn, body_fn, carry, *, max_iters, prologue,
                  name):
         self.cond_fn, self.body_fn, self.carry = cond_fn, body_fn, carry
-        self.max_iters, self.prologue = max_iters, prologue
-        self.leaves = pytree.tree_leaves(carry)
+        self.max_iters, self.prologue, self.name = max_iters, prologue, name
         self._n = 0
 
     def run(self):
-        self.prologue(self.carry)
-        n = 0
-        while n < self.max_iters and (
-                self.cond_fn is None or bool(self.cond_fn(self.carry).any())):
-            out = pytree.tree_leaves(self.body_fn(self.carry))
-            for old, new in zip(self.leaves, out):
-                if new is not old:
-                    old.copy_(new)
-            n += 1
-        self._n = n
+        with frame("host", on_card=False):
+            self._n = device_loop.eager_loop(
+                self.cond_fn, self.body_fn, self.carry,
+                max_iters=self.max_iters, prologue=self.prologue,
+                name=self.name)
         return self.carry
 
     def iterations(self) -> int:
         return self._n
 
     def close(self):
-        self.carry, self.leaves = None, []
+        self.carry = None
+
+
+class _NestedLoop(_PlainLoop):
+    """A loop of a ``GradLoop`` nested in another loop's body: recorded
+    as a WHILE node of the body being captured, or run step by step as
+    the enclosing body is driven (the warm-up, the plain driver).
+    ``before`` runs first."""
+
+    def __init__(self, *args, before=None, **kw):
+        super().__init__(*args, **kw)
+        self.before = before
+
+    def run(self):
+        if self.before is not None:
+            self.before()
+        if drive_mode() == "capture":
+            device_loop.record_loop(self.cond_fn, self.body_fn, self.carry,
+                                    max_iters=self.max_iters,
+                                    prologue=self.prologue, name=self.name)
+        else:
+            self._n = device_loop.eager_loop(
+                self.cond_fn, self.body_fn, self.carry,
+                max_iters=self.max_iters, prologue=self.prologue,
+                name=self.name)
+        return self.carry
 
 
 class _Token:
@@ -336,13 +386,447 @@ class _Template:
     JAX package's ``res_holder["tree"]``): its carry inputs, flattened
     outputs, array reads ``(dual grad, index, leaf)`` and writes ``(dual
     grad, index, value)``, an index being a Python int or a residual's
-    handle; ``seq0`` the autograd sequence number before it."""
+    handle; ``seq0`` the autograd sequence number before it; ``tape``
+    its events."""
 
-    __slots__ = ("xs", "out", "reads", "writes", "seq0")
+    __slots__ = ("xs", "out", "reads", "writes", "seq0", "tape")
 
-    def __init__(self, xs, out, reads, writes, seq0):
+    def __init__(self, xs, out, reads, writes, seq0, tape):
         self.xs, self.out, self.reads, self.writes = xs, out, reads, writes
-        self.seq0 = seq0
+        self.seq0, self.tape = seq0, tape
+
+
+# ------------------------------------------------------------- the tapes
+#
+# Under grad a loop body is a sequence of autograd segments cut at its
+# conds and at the loops nested in it (the events). Each event's outputs
+# are fresh leaves, so the body's graph stops at them; ``_backprop``
+# walks the events in reverse, each a call of ``torch.autograd.grad`` on
+# the capturing thread (every capture split happens there, none in an
+# autograd-engine callback): ``jax.custom_vjp``'s composition by hand.
+
+_LOCAL = threading.local()     # .tapes: this thread's, innermost last
+
+
+def _tapes() -> List["_Tape"]:
+    if not hasattr(_LOCAL, "tapes"):
+        _LOCAL.tapes = []
+    return _LOCAL.tapes
+
+
+class _Tape:
+    """The events a body, or a branch of a cond in it, records under
+    grad, in order. ``owner`` is the ``GradLoop`` whose body runs (its
+    nested loops are cached on it), ``res`` its residual stacks while
+    its forward records them (None otherwise), ``path`` the tape's place
+    (the residual group of its saves), ``views`` the loop's dual
+    arrays."""
+
+    __slots__ = ("owner", "res", "path", "views", "events", "loops")
+
+    def __init__(self, owner, res, path, views):
+        self.owner, self.res, self.path, self.views = owner, res, path, views
+        self.events: List[Any] = []
+        self.loops = 0              # nested loops met so far
+
+
+def active_tape() -> Optional[_Tape]:
+    """The tape of the differentiated body now running, if any."""
+    tapes = _tapes()
+    return tapes[-1] if tapes else None
+
+
+@contextlib.contextmanager
+def _taping(tape: _Tape):
+    _tapes().append(tape)
+    try:
+        if tape.res is not None:
+            with tape.res.in_group(tape.path):
+                yield tape
+        else:
+            yield tape
+    finally:
+        _tapes().pop()
+
+
+class _Ctx:
+    """What a gradient iteration's events need: the residual stacks (or
+    None: the body was re-run), the popped row ``k``, whether to run the
+    checks of the warm-up, and the loop's name for errors."""
+
+    __slots__ = ("res", "k", "check", "what")
+
+    def __init__(self, res, k, check, what):
+        self.res, self.k, self.check, self.what = res, k, check, what
+
+
+class _Acc:
+    """Cotangents summed by tensor (the tensor held, so its id stays
+    its own)."""
+
+    def __init__(self):
+        self._g: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def add(self, t, g) -> None:
+        if g is None:
+            return
+        have = self._g.get(id(t))
+        self._g[id(t)] = (t, g if have is None else have[1] + g)
+
+    def get(self, t) -> Optional[torch.Tensor]:
+        have = self._g.get(id(t))
+        return None if have is None else have[1]
+
+
+def _differentiable(t) -> bool:
+    return torch.is_tensor(t) and t.requires_grad
+
+
+def _grad_into(acc: _Acc, outputs, gouts, targets, ctx: _Ctx, seq0: int,
+               retain: bool) -> None:
+    """``torch.autograd.grad`` of one segment, summed into ``acc``."""
+    if ctx.check:
+        ids = {id(t) for t in targets}
+        for o in outputs:
+            if o.grad_fn is None and id(o) not in ids:
+                raise ValueError(
+                    f"{ctx.what}: the body reaches a {tuple(o.shape)} "
+                    f"{o.dtype} tensor that requires grad and lies outside "
+                    f"the carry and the tensors body_fn/cond_fn close "
+                    f"over; its gradient would be silently zero. Close "
+                    f"over it or pass it in the carry")
+        _uncovered(outputs, targets, seq0, ctx.what)
+        if ctx.res is not None:
+            _hidden(outputs, ctx.what)
+    if not (outputs and targets):
+        return
+    with torch.enable_grad():
+        grads = torch.autograd.grad(outputs, targets, gouts,
+                                    allow_unused=True, retain_graph=retain)
+    for t, g in zip(targets, grads):
+        acc.add(t, g)
+
+
+def _backprop(tape: _Tape, outputs, gouts, inputs, ctx: _Ctx,
+              seq0: int) -> List[Optional[torch.Tensor]]:
+    """The cotangents of ``inputs`` (leaves) from ``gouts``, those of
+    ``outputs``: the last segment first, then each event in reverse (its
+    gradient, then the segment that made its inputs)."""
+    events = tape.events
+    made = [[o for o in e.outputs if _differentiable(o)] for e in events]
+    retain = ctx.res is not None or bool(events)
+    acc = _Acc()
+    _grad_into(acc, outputs, gouts,
+               list(inputs) + [o for m in made for o in m], ctx, seq0,
+               retain)
+    for i in range(len(events) - 1, -1, -1):
+        e = events[i]
+        g_out = [acc.get(o) if _differentiable(o) else None
+                 for o in e.outputs]
+        if all(g is None for g in g_out):
+            continue
+        before = list(inputs) + [o for m in made[:i] for o in m]
+        g_in, reached = e.backward(g_out, ctx)
+        known = {id(t) for t in before}
+        for leaf, g in reached:
+            if id(leaf) not in known:
+                raise ValueError(
+                    f"{ctx.what}: a branch of cond(backend='graph') reaches "
+                    f"a {tuple(leaf.shape)} {leaf.dtype} tensor that "
+                    f"requires grad and is neither an operand, the carry, "
+                    f"nor a tensor the loop's functions close over; its "
+                    f"gradient would be silently zero. Pass it as an "
+                    f"operand")
+            acc.add(leaf, g)
+        pairs = [(x, g) for x, g in zip(e.inputs, g_in) if g is not None]
+        _grad_into(acc, [x for x, _ in pairs], [g for _, g in pairs],
+                   before, ctx, seq0, retain)
+    return [acc.get(t) for t in inputs]
+
+
+def _leaves(tensors) -> Dict[int, torch.Tensor]:
+    """The leaves that require grad which ``tensors`` reach (themselves
+    included)."""
+    out = {}
+    for t in tensors:
+        if t.grad_fn is None and t.requires_grad:
+            out[id(t)] = t
+    for node in _nodes([t for t in tensors if t.grad_fn is not None]):
+        var = getattr(node, "variable", None)
+        if var is not None:
+            out[id(var)] = var
+    return out
+
+
+class _Branch:
+    """One side of a cond as its forward ran: its tape, its outputs (the
+    branch's own results, before the copy), the autograd sequence number
+    before it."""
+
+    __slots__ = ("tape", "outputs", "seq0")
+
+    def __init__(self, tape, outputs, seq0):
+        self.tape, self.outputs, self.seq0 = tape, outputs, seq0
+
+    def reached(self) -> Dict[int, torch.Tensor]:
+        """The leaves from outside the branch that its gradient reaches:
+        from its outputs, its events' inputs, and what its events'
+        branches reach; not its events' outputs."""
+        ev = self.tape.events
+        out = _leaves([o for o in self.outputs if _differentiable(o)] +
+                      [x for e in ev for x in e.inputs])
+        for e in ev:
+            out.update(e.reached())
+        for e in ev:
+            for o in e.outputs:
+                out.pop(id(o), None)
+        return out
+
+
+class _CondEvent:
+    """A cond under grad: the predicate ``p`` (and, under ``all`` and
+    ``offload``, its pushed handle), the operands that require grad
+    (``inputs``) and the detached leaves both branches run on
+    (``leaves``), its two ``_Branch``es (one, under the plain driver)
+    and its outputs: buffers made by the branch that ran first and
+    written by each, made leaves."""
+
+    def __init__(self, p, handle, inputs, leaves):
+        self.p, self.handle = p, handle
+        self.inputs, self.leaves = inputs, leaves
+        self.sides: List[Optional[_Branch]] = [None, None]
+        self.outputs: List[Any] = []
+        self._reached: Optional[Dict[int, torch.Tensor]] = None
+
+    def reached(self) -> Dict[int, torch.Tensor]:
+        if self._reached is None:
+            out = {}
+            for side in self.sides:
+                if side is not None:
+                    out.update(side.reached())
+            for leaf in self.leaves:
+                out.pop(id(leaf), None)
+            self._reached = out
+        return self._reached
+
+    def backward(self, g_out, ctx: _Ctx):
+        """§5.1: the gradient of a cond is a cond on the same predicate
+        (the forward's, popped under ``all``/``offload``). Each side
+        writes the cotangents of the operands and of the leaves the
+        branches reach into shared buffers, zero where it has none."""
+        reached = list(self.reached().values())
+        ins = self.leaves + reached
+        with torch.no_grad():
+            bufs = [torch.zeros_like(t) for t in ins]
+        p = self.p if self.handle is None else ctx.res.load(self.handle)
+
+        def side(k):
+            def run():
+                br = self.sides[k]
+                if br is None:
+                    raise RuntimeError("cond(backend='graph'): the gradient "
+                                       "takes a branch its forward did not "
+                                       "record")
+                if ctx.res is not None:
+                    ctx.res.pop_group(ctx.k, br.tape.path)
+                pairs = [(o, g) for o, g in zip(br.outputs, g_out)
+                         if g is not None and _differentiable(o)]
+                gs = _backprop(br.tape, [o for o, _ in pairs],
+                               [g for _, g in pairs], ins, ctx, br.seq0)
+                with torch.no_grad():
+                    for b, g in zip(bufs, gs):
+                        if g is not None:
+                            b.copy_(g)
+            return run
+
+        device_loop.branches(p, side(0), side(1))
+        n = len(self.leaves)
+        return bufs[:n], list(zip(reached, bufs[n:]))
+
+
+def _reads(views) -> int:
+    return sum(len(v._dual.reads) + len(v._dual.writes) for v in views)
+
+
+def cond_on_tape(p: torch.Tensor, true_fn: Callable, false_fn: Callable,
+                 operands) -> Any:
+    """``cond(backend="graph")`` under grad in a body of this module's
+    loops: the branches run on detached leaves of the operands, each
+    under ``enable_grad`` into a tape of its own, and write their
+    results into buffers with no autograd link; the outputs are those
+    buffers as leaves. Under ``all``/``offload`` the predicate is pushed
+    (outside the IF nodes) and each branch's residuals are pushed in its
+    own IF node."""
+    what = "cond(backend='graph')"
+    tape = active_tape()
+    flat, spec = pytree.tree_flatten(operands)
+    inputs, leaves, run_on = [], [], []
+    for x in flat:
+        if _differentiable(x):
+            leaf = x.detach().requires_grad_()
+            inputs.append(x)
+            leaves.append(leaf)
+            x = leaf
+        run_on.append(x)
+    ops = pytree.tree_unflatten(run_on, spec)
+    handle = None if tape.res is None else tape.res.save(p, value=True)
+    ev = _CondEvent(p, handle, inputs, leaves)
+    index = len(tape.events)
+    bufs: List[torch.Tensor] = []
+    out_spec: List[Any] = []
+
+    def side(fn, k):
+        def run():
+            sub = _Tape(tape.owner, tape.res, tape.path + ((index, k),),
+                        tape.views)
+            n0 = _reads(tape.views)
+            seq0 = _sequence_now()
+            with _taping(sub), torch.enable_grad():
+                out = fn(*ops)
+            if _reads(tape.views) != n0:
+                raise NotImplementedError(
+                    f"{what} under grad: a branch reads or writes a "
+                    f"TensorArray of the differentiated loop; read the row "
+                    f"before the cond and pass it as an operand")
+            leaves_out, s = pytree.tree_flatten(out)
+            if out_spec and s != out_spec[0]:
+                raise TypeError(f"{what}: the branches return different "
+                                f"structures: {out_spec[0]} vs {s}")
+            for t in leaves_out:
+                if not torch.is_tensor(t):
+                    raise TypeError(f"{what} under grad: a branch returns "
+                                    f"a {type(t).__name__}; return tensors")
+            with torch.no_grad():
+                if not out_spec:
+                    out_spec.append(s)
+                    bufs.extend(torch.empty_like(
+                        t, memory_format=torch.contiguous_format)
+                        for t in leaves_out)
+                for b, t in zip(bufs, leaves_out):
+                    if b.shape != t.shape or b.dtype != t.dtype:
+                        raise TypeError(
+                            f"{what}: the branches return a "
+                            f"{tuple(b.shape)} {b.dtype} and a "
+                            f"{tuple(t.shape)} {t.dtype} tensor at one "
+                            f"place")
+                    b.copy_(t)
+            ev.sides[k] = _Branch(sub, leaves_out, seq0)
+        return run
+
+    device_loop.branches(p, side(true_fn, 0), side(false_fn, 1))
+    outs = []
+    for i, b in enumerate(bufs):
+        grad = b.is_floating_point() and any(
+            br is not None and br.outputs[i].requires_grad
+            for br in ev.sides)
+        outs.append(b.requires_grad_() if grad else b)
+    ev.outputs = outs
+    tape.events.append(ev)
+    return pytree.tree_unflatten(outs, out_spec[0])
+
+
+class _LoopEvent:
+    """A loop nested in a differentiated body: its plan (a nested
+    ``GradLoop``), the tensors its cotangents go to (``inputs``: the
+    initial carry's and the captured constants' that require grad, each
+    with its ``slots`` entry) and its outputs, the final carry's float
+    leaves made leaves (an array by its data)."""
+
+    def __init__(self, plan, inputs, slots, outputs, out_slots):
+        self.plan, self.inputs, self.slots = plan, inputs, slots
+        self.outputs, self.out_slots = outputs, out_slots
+
+    def reached(self) -> Dict[int, torch.Tensor]:
+        return {}
+
+    def backward(self, g_out, ctx: _Ctx):
+        """The nested gradient loop: pops the inner stacks (reset by the
+        inner forward's prologue in this outer iteration) and sums the
+        gradients of the inner loop's constants."""
+        plan = self.plan
+        g_leaves: List[Optional[torch.Tensor]] = [None] * len(plan.carry)
+        with torch.no_grad():
+            for i, o, g in zip(self.out_slots, self.outputs, g_out):
+                g_leaves[i] = torch.zeros_like(o) if g is None else g
+            for i in plan._diff_ix:
+                if g_leaves[i] is None:
+                    g_leaves[i] = torch.zeros_like(plan.carry[i])
+            for i, view in plan.carry_duals.items():
+                if g_leaves[i] is None and view._dual.grad is not None:
+                    g_leaves[i] = torch.zeros_like(view._dual.grad)
+        g_carry, g_consts = plan.backward(g_leaves, plan.generation)
+        return ([g_carry[i] if kind == "carry" else g_consts[i]
+                 for kind, i in self.slots], [])
+
+
+def nested(cond_fn, body_fn, init, *, max_iters, save_policy, prologue,
+           name, unroll) -> Any:
+    """``while_loop(impl="graph")`` called in a loop body that a graph
+    loop drives. Without grad: ``device_loop.nested_loop``. Under grad
+    (in the gradient body of an outer loop under ``carry`` or
+    ``carry_offload``, which re-runs the outer body): a nested
+    ``GradLoop`` whose forward and gradient loops are WHILE nodes of
+    that body, cached on the outer loop; an event of the outer tape."""
+    what = f"while_loop({name!r}, impl='graph') nested in a graph loop"
+    lifted = takes(init, body_fn, cond_fn)
+    leaves, spec = _flatten(init)
+    grad = lifted is not None and torch.is_grad_enabled() and any(
+        t.requires_grad for x in leaves + lifted.consts
+        if torch.is_tensor(x) or _is_dta(x) for t in _parts(x))
+    if not grad:
+        return device_loop.nested_loop(cond_fn, body_fn, init,
+                                       max_iters=max_iters,
+                                       prologue=prologue, name=name,
+                                       unroll=unroll)
+    if prologue is not None:
+        raise NotImplementedError(f"{what}: a prologue under grad; its "
+                                  f"in-place writes to the carry would not "
+                                  f"be differentiated")
+    if recording_residuals():
+        raise NotImplementedError(
+            f"{what}, under grad, in a body whose residuals are recorded "
+            f"(the outer loop's save_policy 'all'/'offload'): its stacks "
+            f"would need rows indexed by the outer and the inner "
+            f"iteration. Give the outer loop save_policy 'carry' or "
+            f"'carry_offload', which re-runs the outer body, and the inner "
+            f"loop's forward and gradient with it")
+    tape = active_tape()
+    if tape is None:
+        raise RuntimeError(f"{what}: under grad it runs only inside the "
+                           f"body of a differentiated while_loop("
+                           f"impl='graph')")
+    if max_iters is None:
+        raise ValueError(f"{what}: the graph lowering under grad needs "
+                         f"max_iters (it bounds the stacks, paper §5.1)")
+    for x in leaves:
+        if not (torch.is_tensor(x) or _is_dta(x)):
+            raise TypeError(f"{what}: a carry leaf of type "
+                            f"{type(x).__name__}; the gradient-capable "
+                            f"graph loop takes tensors and "
+                            f"DeviceTensorArrays")
+    for c in lifted.consts:
+        if _is_dta(c) and c._dual is not None:
+            raise NotImplementedError(
+                f"{what}: its body closes over a TensorArray of the outer "
+                f"differentiated loop; read the rows in the outer body and "
+                f"pass them in the inner carry")
+    if save_policy not in GRAPH_POLICIES:
+        raise ValueError(f"{what}: unknown save_policy {save_policy!r}")
+    key = (tape.path, tape.loops, lifted.key, cond_fn is not None, spec,
+           tuple(_sig(x) for x in leaves),
+           tuple(_sig(c) for c in lifted.consts), int(max_iters),
+           save_policy)
+    tape.loops += 1
+    plan = tape.owner._inner.get(key)
+    if plan is None:
+        if drive_mode() == "capture":
+            raise RuntimeError(f"{what}: first met under capture; the "
+                               f"enclosing loop's warm-up must run it")
+        plan = GradLoop(lifted, cond_fn is not None, leaves, spec,
+                        max_iters=max_iters, policy=save_policy, grad=True,
+                        plain=bool(_PLAIN[0]), name=name, nested=True)
+        tape.owner._inner[key] = plan
+    return plan.nested_run(tape, leaves, lifted.consts)
 
 
 class GradLoop:
@@ -354,12 +838,16 @@ class GradLoop:
 
     def __init__(self, lifted: _Lifted, has_cond: bool, init_leaves, spec,
                  *, max_iters: int, policy: Optional[str], grad: bool,
-                 plain: bool, name: str):
+                 plain: bool, name: str, nested: bool = False,
+                 prologue: Optional[Callable] = None):
         self.what = f"while_loop({name!r}, impl='graph')"
         self.spec, self.grad, self.policy = spec, grad, policy
         self.max_iters = int(max_iters)
         self.generation = 0
+        self.nested = nested
         self._owner = None
+        self._inner: Dict[tuple, GradLoop] = {}   # loops nested in the body
+        self._take_template = True
         self.fwd = self.bwd = None
         self.res: Optional[ResidualStacks] = None
         self.template: Optional[_Template] = None
@@ -408,15 +896,21 @@ class GradLoop:
             _load(s, x)
         for s, c in zip(self.consts, consts):
             _load(s, c)
-        loop_cls = _PlainLoop if plain else _device_loop_cls()
-        # one stream: the gradient loop's capture differentiates the
-        # graph that the forward's capture recorded
-        kw = {} if plain else {"stream": torch.cuda.Stream(dev)}
+        if nested:
+            loop_cls = _NestedLoop
+            kw = {"before": self._before_forward}
+        else:
+            loop_cls = _PlainLoop if plain else device_loop.DeviceLoop
+            # one stream: the gradient loop's capture differentiates the
+            # graph that the forward's capture recorded
+            kw = {} if plain else {"stream": torch.cuda.Stream(dev)}
         try:
-            with torch.no_grad(), deferred_checks():
+            with torch.no_grad(), deferred_checks(), frame(
+                    "warm", on_card=not plain):
                 # eager warm-up (lazy initialisation before capture, the
                 # residual stacks' shapes, and the gradient body's
-                # uncovered-tensor check)
+                # uncovered-tensor check); a cond in the body runs both
+                # branches
                 self.it.zero_()
                 fwd_body((self.it, tree))
                 if grad:
@@ -427,21 +921,24 @@ class GradLoop:
                     # the capture records the template; alive, this one
                     # would lend it the constants' AccumulateGrad nodes,
                     # made on the eager stream
-                    self.template = None
+                    self._drop_templates()
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
+            with torch.no_grad(), deferred_checks():
                 self.fwd = loop_cls(fwd_cond, fwd_body, (self.it, tree),
                                     max_iters=self.max_iters,
-                                    prologue=_zero_counter, name=name, **kw)
+                                    prologue=_enter(prologue), name=name,
+                                    **kw)
                 if grad:
                     self.bwd = loop_cls(
                         lambda s: s[0] < self.it, self._grad_body,
                         (self.j, self.g_carry), max_iters=self.max_iters,
-                        prologue=_zero_counter, name=name + ".grad", **kw)
+                        prologue=_zero_counter, name=name + ".grad",
+                        **({} if nested else kw))
         except BaseException:
             self.close()
             raise
-        if not plain:
+        if not (plain or nested):
             GradLoop.captures += 1
 
     def _setup_grad(self, lifted: _Lifted, consts) -> None:
@@ -479,6 +976,21 @@ class GradLoop:
         self._body_g = lifted.make(0, values)
         self._const_leaves = [self.consts[k] for k in self._acc_ix]
 
+    def _drop_templates(self) -> None:
+        """Forget the recorded templates (this loop's and its nested
+        loops'), so that the next recording, under capture, is taken."""
+        self.template, self._take_template = None, True
+        for plan in self._inner.values():
+            plan._drop_templates()
+
+    def _before_forward(self) -> None:
+        """A nested loop's forward: under capture (and in the warm-up
+        before it) it records its template anew; the plain driver keeps
+        the one its warm-up recorded, which holds both branches of every
+        cond."""
+        if drive_mode() != "host":
+            self.template, self._take_template = None, True
+
     def _dual_leaves(self, leaves) -> None:
         for i, view in self.carry_duals.items():
             leaves[i] = view
@@ -497,8 +1009,10 @@ class GradLoop:
             leaves[i] = self.carry[i].detach().requires_grad_()
             xs.append(leaves[i])
         self._dual_leaves(leaves)
-        seq0 = _sequence_now() if self.fwd is None else 0
-        with torch.enable_grad(), self.res.recording(it):
+        take = self._take_template
+        seq0 = _sequence_now() if take else 0
+        tape = _Tape(self, self.res, (), self._views)
+        with torch.enable_grad(), self.res.recording(it), _taping(tape):
             out = _flatten(self._body_g(pytree.tree_unflatten(
                 leaves, self.spec)))[0]
             index = (lambda ix: self.res.save(ix, value=True)
@@ -523,8 +1037,9 @@ class GradLoop:
                 f"); save_policy {self.policy!r} replays the first "
                 f"recording's graph, so every iteration must record the "
                 f"same ops ('carry' re-runs the body instead)")
-        if self.fwd is None:
-            self.template = _Template(xs, out, reads, writes, seq0)
+        if take:
+            self.template = _Template(xs, out, reads, writes, seq0, tape)
+            self._take_template = False
         return pytree.tree_unflatten(out, self.spec)
 
     def _rerun(self, k):
@@ -538,14 +1053,15 @@ class GradLoop:
                 xs.append(p)
             leaves[i] = p
         self._dual_leaves(leaves)
-        with torch.enable_grad():
+        tape = _Tape(self, None, (), self._views)
+        with torch.enable_grad(), _taping(tape):
             out = _flatten(self._body_g(pytree.tree_unflatten(
                 leaves, self.spec)))[0]
         reads = [(v._dual.grad, t, leaf) for v in self._views
                  for t, leaf in v._dual.reads]
         writes = [(v._dual.grad, t, y) for v in self._views
                   for t, y in v._dual.writes]
-        return xs, out, reads, writes
+        return xs, out, reads, writes, tape
 
     def _index(self, h):
         """A template's array index at this gradient iteration."""
@@ -557,12 +1073,12 @@ class GradLoop:
         k = self.it - 1 - j
         if self.res is None:
             seq0 = _sequence_now() if check else 0
-            xs, out, reads, writes = self._rerun(k)
+            xs, out, reads, writes, tape = self._rerun(k)
         else:
             # the template's backward, through the popped residuals
-            self.res.pop_all(k)
+            self.res.pop_group(k)
             t = self.template
-            seq0, xs, out = t.seq0, t.xs, t.out
+            seq0, xs, out, tape = t.seq0, t.xs, t.out, t.tape
             reads = [(g, self._index(h), leaf) for g, h, leaf in t.reads]
             writes = [(g, self._index(h), y) for g, h, y in t.writes]
         outputs, gouts = [], []
@@ -580,15 +1096,8 @@ class GradLoop:
                     outputs.append(y)
                     gouts.append(dual.index_select(0, r)[0])
         inputs = xs + self._const_leaves + [leaf for _, _, leaf in reads]
-        if check:
-            _uncovered(outputs, inputs, seq0, self.what)
-            if self.res is not None:
-                _hidden(outputs, self.what)
-        with torch.enable_grad():
-            grads = (torch.autograd.grad(outputs, inputs, gouts,
-                                         allow_unused=True,
-                                         retain_graph=self.res is not None)
-                     if outputs and inputs else [None] * len(inputs))
+        grads = _backprop(tape, outputs, gouts, inputs,
+                          _Ctx(self.res, k, check, self.what), seq0)
         if self.res is not None:
             self.res.release()
         n_x, n_c = len(xs), len(self._const_leaves)
@@ -629,13 +1138,21 @@ class GradLoop:
         self.generation += 1
         self._owner = None if owner is None else weakref.ref(owner)
         tas = [self.carry[i] for i in self._ta_ix]
-        if tas:
-            from .device_loop import read_host
+        if self.nested:
+            # the rows the inner forward wrote twice: added to the
+            # enclosing loop's counter under capture
+            device_loop.count_writes(
+                [(t.double_writes, x.double_writes)
+                 for t, x in zip(tas, [init_leaves[i]
+                                       for i in self._ta_ix])], self.what)
+        elif tas or getattr(self.fwd, "counts_writes", False):
+            counters = [t.double_writes for t in tas]
+            if getattr(self.fwd, "counts_writes", False):
+                counters.append(self.fwd.double_writes)  # nested loops'
             if isinstance(self.fwd, _PlainLoop):
-                dups = [int(t.double_writes) for t in tas]
+                dups = [int(t) for t in counters]
             else:
-                dups = [int(v) for v in read_host(
-                    *[t.double_writes for t in tas])]
+                dups = [int(v) for v in device_loop.read_host(*counters)]
                 GradLoop.host_reads += 1
             if any(dups):
                 raise WriteOnceError(
@@ -651,7 +1168,7 @@ class GradLoop:
         """Run the gradient loop (one launch) from the carry's output
         cotangents; returns (carry cotangents, constant gradients), fresh
         tensors or None."""
-        if generation != self.generation:
+        if generation != self.generation and not self.nested:
             raise RuntimeError(f"{self.what}: the loop's stacks were reused "
                                f"by a later call before this backward")
         with torch.no_grad():
@@ -679,6 +1196,37 @@ class GradLoop:
                     g_carry[i] = view._dual.grad.clone()
             return g_carry, [None if a is None else a.clone()
                              for a in self.accs]
+
+    def nested_run(self, tape: _Tape, init_leaves, const_values):
+        """The forward of a loop nested in a differentiated body (a
+        WHILE node of it under capture), recorded on ``tape`` as an
+        event whose gradient is this loop's gradient loop; returns the
+        final carry, its float leaves new leaves."""
+        outs = self.forward(init_leaves, const_values)
+        inputs, slots = [], []
+        for i, x in enumerate(init_leaves):
+            t = x.data if _is_dta(x) else x
+            if (i in self._diff_ix or i in self.carry_duals) and \
+                    t.requires_grad:
+                inputs.append(t)
+                slots.append(("carry", i))
+        for k, c in enumerate(const_values):
+            t = c.data if _is_dta(c) else c
+            if self.accs[k] is not None and t.requires_grad:
+                inputs.append(t)
+                slots.append(("const", k))
+        outputs, out_slots = [], []
+        for i, x in enumerate(outs):
+            t = x.data if _is_dta(x) else x
+            if i in self._diff_ix or (
+                    i in self.carry_duals and
+                    self.carry_duals[i]._dual.grad is not None):
+                t.requires_grad_()
+                outputs.append(t)
+                out_slots.append(i)
+        tape.events.append(_LoopEvent(self, inputs, slots, outputs,
+                                      out_slots))
+        return pytree.tree_unflatten(outs, self.spec)
 
     @property
     def host_bytes(self) -> int:
@@ -709,6 +1257,9 @@ class GradLoop:
         for loop in (getattr(self, "fwd", None), getattr(self, "bwd", None)):
             if loop is not None:
                 loop.close()
+        for plan in getattr(self, "_inner", {}).values():
+            plan.close()
+        self._inner = {}
         self.fwd = self.bwd = None
         self.stacks = []
         self.template = self.res = None
@@ -718,9 +1269,16 @@ def _zero_counter(state) -> None:
     state[0].zero_()
 
 
-def _device_loop_cls():
-    from .device_loop import DeviceLoop
-    return DeviceLoop
+def _enter(prologue: Optional[Callable]) -> Callable:
+    """The forward loop's prologue: the counter reset, then the caller's
+    (on the carry) if given."""
+    if prologue is None:
+        return _zero_counter
+
+    def enter(state):
+        state[0].zero_()
+        prologue(state[1])
+    return enter
 
 
 class _Loop(torch.autograd.Function):
@@ -760,28 +1318,33 @@ _CACHE: Dict[tuple, List[GradLoop]] = {}
 
 def takes(init, body_fn, cond_fn) -> Optional[_Lifted]:
     """Does ``while_loop(impl="graph")`` go through this module: a carry
-    that holds a ``DeviceTensorArray``, or grad mode with a tensor that
-    requires grad in the carry or among the constants? Returns the
-    lifted functions (for ``run``) if it does, else None."""
+    that holds a ``DeviceTensorArray``, grad mode with a tensor that
+    requires grad in the carry or among the constants, or any loop under
+    ``plain_driver()``? Returns the lifted functions (for ``run``) if it
+    does, else None."""
     leaves = _flatten(init)[0]
     arrays = any(_is_dta(x) for x in leaves)
-    if not (arrays or torch.is_grad_enabled()):
+    every = arrays or bool(_PLAIN[0])      # the plain driver takes all
+    if not (every or torch.is_grad_enabled()):
         return None
     lifted = _Lifted([body_fn] + ([cond_fn] if cond_fn is not None
                                   else []))
-    if arrays or any(t.requires_grad for x in leaves + lifted.consts
-                     if torch.is_tensor(x) or _is_dta(x)
-                     for t in _parts(x)):
+    if every or any(t.requires_grad for x in leaves + lifted.consts
+                    if torch.is_tensor(x) or _is_dta(x)
+                    for t in _parts(x)):
         return lifted
     return None
 
 
 def run(lifted: _Lifted, has_cond: bool, init, *,
         max_iters: Optional[int], save_policy: str,
-        name: str = "while") -> Tuple[Any, GradLoop]:
+        name: str = "while",
+        prologue: Optional[Callable] = None) -> Tuple[Any, GradLoop]:
     """``while_loop(impl="graph")`` through a ``GradLoop`` (``lifted``
     from ``takes``): returns the final carry (fresh tensors) and the
-    loop."""
+    loop. A ``prologue`` runs on the carry before the first predicate,
+    without grad only (its in-place writes would not be
+    differentiated)."""
     what = f"while_loop({name!r}, impl='graph')"
     if max_iters is None:
         raise ValueError(f"{what}: the graph lowering of a loop over a "
@@ -810,17 +1373,21 @@ def run(lifted: _Lifted, has_cond: bool, init, *,
         t.requires_grad for t in tensors)
     if save_policy not in GRAPH_POLICIES:
         raise ValueError(f"{what}: unknown save_policy {save_policy!r}")
+    if grad and prologue is not None:
+        raise NotImplementedError(f"{what}: a prologue under grad; its "
+                                  f"in-place writes to the carry would not "
+                                  f"be differentiated")
     key = (lifted.key, has_cond, spec,
            tuple(_sig(x) for x in leaves),
            tuple(_sig(c) for c in lifted.consts), int(max_iters),
-           save_policy if grad else None, grad, plain)
+           save_policy if grad else None, grad, plain, prologue)
     plans = _CACHE.setdefault(key, [])
     plan = next((p for p in plans if not p.busy()), None)
     if plan is None:
         plan = GradLoop(lifted, has_cond, leaves, spec,
                         max_iters=max_iters,
                         policy=save_policy if grad else None, grad=grad,
-                        plain=plain, name=name)
+                        plain=plain, name=name, prologue=prologue)
         plans.append(plan)
     if grad:
         outs = _regroup(_Loop.apply(plan, *tensors), plan.carry_arrays)

@@ -308,16 +308,21 @@ class ResidualStacks:
     ``recording(it)`` runs the body under ``saved_tensors_hooks``: each
     tensor autograd saves is pushed onto its stack at row ``it`` (a 0-d
     device counter) and replaced in the graph by a handle; ``load``
-    turns a handle back into a tensor, the value that ``pop_all(k)``
-    popped from row ``k``. The first recording assigns the stacks (its
-    saves in order: a new value gets a stack, a value saved again in the
-    same iteration is pushed once); every later recording must save the
-    same sequence. Not pushed: a view of one of ``constants`` (the
-    loop's static buffers of the tensors the body closes over, which no
-    iteration changes), which ``load`` re-views. A view of the carry's
-    static buffers is pushed, since the next iteration overwrites it.
-    ``save(t, value=True)`` pushes a tensor that is no saved value (an
-    array index) by value, a constant's view too."""
+    turns a handle back into a tensor, the value that ``pop_group(k,
+    g)`` popped from row ``k``. Saves belong to the ``group`` current
+    when they are made: ``()`` for the body, a branch's path for a
+    cond's branch (``core.device_grad``), whose saves are pushed inside
+    its IF node, so only the taken branch writes its rows, and popped
+    inside the gradient's. The first recording of a group assigns its
+    stacks (its saves in order: a new value gets a stack, a value saved
+    again in the same group and iteration is pushed once); every later
+    recording of the group must save the same sequence. Not pushed: a
+    view of one of ``constants`` (the loop's static buffers of the
+    tensors the body closes over, which no iteration changes), which
+    ``load`` re-views. A view of the carry's static buffers is pushed,
+    since the next iteration overwrites it. ``save(t, value=True)``
+    pushes a tensor that is no saved value (an array index, a cond's
+    predicate) by value, a constant's view too."""
 
     def __init__(self, capacity: int, offload: bool,
                  constants: Sequence[torch.Tensor]):
@@ -327,17 +332,19 @@ class ResidualStacks:
                           for k, c in enumerate(self._consts)
                           if c.numel()}
         self.stacks: List[CarryStack] = []
-        self._plan: Optional[List[tuple]] = None   # one entry a save
-        self._popped: List[torch.Tensor] = []
+        self._of: Dict[tuple, List[int]] = {}      # group -> its stacks
+        self._plans: Dict[tuple, List[tuple]] = {}  # group -> its saves
+        self._popped: Dict[tuple, torch.Tensor] = {}
         self._it: Optional[torch.Tensor] = None
+        self.group: tuple = ()
         self._seen: Dict[tuple, int] = {}
         self._held: List[torch.Tensor] = []
-        self._at = self._new = 0
-        self._first = False
+        self._at: Dict[tuple, int] = {}
+        self._first: set = set()
 
     @property
     def nbytes(self) -> int:
-        """Bytes one iteration pushes."""
+        """Bytes one iteration pushes (every branch's stacks counted)."""
         return sum(st.nbytes for st in self.stacks)
 
     @property
@@ -347,28 +354,35 @@ class ResidualStacks:
     @contextlib.contextmanager
     def recording(self, it: torch.Tensor):
         """Push what the body saves at row ``it``."""
-        first = self._first = self._plan is None
-        if first:
-            self._plan = []
         self._it, self._seen, self._held = it, {}, []
-        self._at = self._new = 0
+        self._at, self._first, self.group = {}, set(), ()
         _RECORDING[0] += 1
         try:
             with torch.autograd.graph.saved_tensors_hooks(self.save,
                                                           self.load):
                 yield
-            if self._at != len(self._plan):
-                raise RuntimeError(self._differs(
-                    f"{self._at} values where the first saved "
-                    f"{len(self._plan)}"))
+            for g, at in self._at.items():
+                if at != len(self._plans[g]):
+                    raise RuntimeError(self._differs(
+                        f"{at} values where the first saved "
+                        f"{len(self._plans[g])}"))
         except BaseException:
-            if first:
-                self._plan, self.stacks = None, []
+            for g in self._first:
+                self._plans.pop(g, None)
             raise
         finally:
             _RECORDING[0] -= 1
-            self._first = False
             self._it, self._seen, self._held = None, {}, []
+            self._first, self.group = set(), ()
+
+    @contextlib.contextmanager
+    def in_group(self, group: tuple):
+        """Make the saves inside belong to ``group``."""
+        outer, self.group = self.group, group
+        try:
+            yield
+        finally:
+            self.group = outer
 
     @staticmethod
     def _differs(what: str) -> str:
@@ -379,63 +393,71 @@ class ResidualStacks:
                 f"re-runs the body instead)")
 
     def save(self, t: torch.Tensor, value: bool = False) -> tuple:
-        """Push ``t`` (unless pushed already this iteration, or, without
-        ``value``, a constant's view); returns its handle."""
+        """Push ``t`` (unless pushed already this iteration in this
+        group, or, without ``value``, a constant's view); returns its
+        handle."""
         if self._it is None:
             raise RuntimeError("ResidualStacks.save outside recording()")
+        g = self.group
         ptr = t.untyped_storage().data_ptr()
         k = self._const_at.get(ptr) if t.numel() and not value else None
         if k is not None:
             entry = handle = ("const", k, tuple(t.shape), tuple(t.stride()),
                               t.storage_offset())
         else:
-            key = (ptr, t.storage_offset(), tuple(t.shape),
+            key = (g, ptr, t.storage_offset(), tuple(t.shape),
                    tuple(t.stride()), t.dtype, t.device)
             s = self._seen.get(key)
             if s is not None:
-                entry = handle = ("slot", s)
+                entry, handle = ("slot", s), ("slot", g, s)
             else:
-                s = self._seen[key] = self._new
-                self._new += 1
+                s = self._seen[key] = sum(1 for q in self._seen
+                                          if q[0] == g)
                 self._held.append(t)      # no other value takes its memory
-                entry, handle = ("push", s, key[2], t.dtype), ("slot", s)
-        plan = self._plan
-        if self._first:
+                entry, handle = ("push", s, key[3], t.dtype), ("slot", g, s)
+        if g not in self._plans:
+            self._plans[g], self._of[g] = [], []
+            self._first.add(g)
+        plan, at = self._plans[g], self._at.get(g, 0)
+        if g in self._first:
             if entry[0] == "push":
                 if t.device != self._it.device:
                     raise ValueError(
                         f"the loop body saves a {t.device} tensor for its "
                         f"gradient in a loop on {self._it.device}")
+                self._of[g].append(len(self.stacks))
                 self.stacks.append(CarryStack(t, self.capacity,
                                               self.offload))
             plan.append(entry)
-        elif self._at >= len(plan) or plan[self._at] != entry:
-            first = plan[self._at] if self._at < len(plan) else "nothing"
+        elif at >= len(plan) or plan[at] != entry:
+            first = plan[at] if at < len(plan) else "nothing"
             raise RuntimeError(self._differs(
-                f"{entry} as save {self._at} where the first saved "
-                f"{first}"))
-        self._at += 1
+                f"{entry} as save {at} where the first saved {first}"))
+        self._at[g] = at + 1
         if entry[0] == "push":
-            self.stacks[entry[1]].push(self._it, t.detach())
+            self.stacks[self._of[g][entry[1]]].push(self._it, t.detach())
         return handle
 
     def load(self, handle: tuple) -> torch.Tensor:
         """The tensor of a handle: a constant's view, or the value popped
-        by the last ``pop_all``."""
+        by the last ``pop_group`` of its group."""
         if handle[0] == "const":
             _, k, size, stride, offset = handle
             return self._consts[k].detach().as_strided(size, stride, offset)
-        if not self._popped:
+        got = self._popped.get(handle[1:])
+        if got is None:
             raise RuntimeError("a residual was unpacked outside the "
                                "gradient loop's iteration")
-        return self._popped[handle[1]]
+        return got
 
-    def pop_all(self, k: torch.Tensor) -> None:
-        """Pop row ``k`` of every stack (until ``release``)."""
-        self._popped = [st.pop(k) for st in self.stacks]
+    def pop_group(self, k: torch.Tensor, group: tuple = ()) -> None:
+        """Pop row ``k`` of every stack of ``group`` (until
+        ``release``)."""
+        for s, i in enumerate(self._of.get(group, ())):
+            self._popped[(group, s)] = self.stacks[i].pop(k)
 
     def release(self) -> None:
-        self._popped = []
+        self._popped = {}
 
 
 def _device_pointer(host: torch.Tensor) -> int:

@@ -49,7 +49,9 @@ in-graph. This port has two lowerings, chosen by ``impl``:
   the predicate on the device, and replays it: one graph launch per
   call, no host read (``DeviceLoop.replays``). The carry must be static
   CUDA tensors (a counter too: no Python numbers), updated in place; a
-  ``cond(..., backend="graph")`` inside the body becomes an IF node.
+  ``cond(..., backend="graph")`` inside the body becomes an IF node, and
+  a ``while_loop(impl="graph")`` inside it a nested WHILE node of the
+  same graph (on a copy of its initial carry, returned).
   The loop captured for a ``(cond_fn, body_fn)`` pair and its carry's
   objects is replayed by every later call with the same ones, while
   those functions live; a caller that replays one loop throughout (the
@@ -65,7 +67,12 @@ in-graph. This port has two lowerings, chosen by ``impl``:
   carry and re-runs the body, "carry_offload" keeps the carry in pinned
   host memory. The closed-over tensors are lifted out as constants, the
   pair is captured once per program and replayed by later calls, and it
-  returns fresh tensors.
+  returns fresh tensors. A ``cond(backend="graph")`` in such a body is
+  differentiated as §5.1 says, by a cond on the same predicate (pushed
+  under "all"/"offload", recomputed under "carry"), and a graph loop
+  nested in it, under grad, is a nested forward and gradient loop when
+  the outer loop's policy is "carry" or "carry_offload" (which re-run
+  the outer body); under an outer "all"/"offload" it is refused.
 
 ``parallel_iterations``, the paper's §4.3 knob for how many iterations
 may be in flight, has the JAX package's meaning: on a counted loop
@@ -220,11 +227,17 @@ def while_loop(cond_fn: Optional[Callable], body_fn: Callable, init: Any, *,
                      max_iters)
     if impl == "graph":
         from . import device_grad, device_loop
+        if device_loop.drive_mode() is not None:
+            # nested in a loop body that a graph loop drives
+            return device_grad.nested(
+                cond_fn, body_fn, init, max_iters=max_iters,
+                save_policy=save_policy, prologue=prologue, name=name,
+                unroll=window)
         lifted = device_grad.takes(init, body_fn, cond_fn)
         if lifted is not None:
             out, while_loop.last_grad_loop = device_grad.run(
                 lifted, cond_fn is not None, init, max_iters=max_iters,
-                save_policy=save_policy, name=name)
+                save_policy=save_policy, name=name, prologue=prologue)
             return out
         while_loop.last_loop = device_loop.run(
             cond_fn, body_fn, init, max_iters=max_iters, prologue=prologue,

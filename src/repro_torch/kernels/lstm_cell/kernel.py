@@ -8,7 +8,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .. import check, dtype_code, entry, ptr, stream_ptr
+from .. import check, count_launch, dtype_code, entry, ptr, stream_ptr
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -89,6 +89,7 @@ def lstm_cell(w, b, x, c, h):
              B, D, H, code, split, stream_ptr())
     check(err, "lstm_cell")
     lstm_cell.launches += 1
+    count_launch("lstm_cell")     # on the device, in a graph being captured
     return c_new, h_new
 
 

@@ -143,17 +143,19 @@ def multilayer_lstm_params(gen: torch.Generator, n_layers: int,
 
 def multilayer_dynamic_rnn(params_list, inputs, *, hidden: int,
                            save_policy: str = "all",
-                           stage_fn=None, impl: str = "host") -> torch.Tensor:
+                           stage_fn=None, impl: str = "host",
+                           cell=lstm_cell) -> torch.Tensor:
     """Stacked LSTM (paper §6.4 model-parallel workload).
 
     ``stage_fn(layer_idx, fn, x)`` lets a caller place each layer (the
-    JAX package's pipeline stages); identity by default. ``impl`` goes to
-    each layer's ``dynamic_rnn``.
+    JAX package's pipeline stages); identity by default. ``impl`` and
+    ``cell`` go to each layer's ``dynamic_rnn``.
     """
     x = inputs
     for i, p in enumerate(params_list):
         run = functools.partial(dynamic_rnn, p, hidden=hidden,
-                                save_policy=save_policy, impl=impl)
+                                save_policy=save_policy, impl=impl,
+                                cell=cell)
         if stage_fn is not None:
             x = stage_fn(i, lambda xx, run=run: run(xx)[0], x)
         else:
